@@ -1,36 +1,45 @@
-"""Cluster Serving engine, generation mode — queue -> token scheduler ->
-result store.
+"""Cluster Serving engine — queue -> model -> result store, in two modes.
 
 Reference parity: `ClusterServing.main` (serving/ClusterServing.scala:34-352)
 reads a stream, batches, runs the model and writes a result table with
 back-pressure.  This is the port of the JAX package's ``serving/engine.py``
-for its generation plane: records carrying prompt token ids are read from
-the queue (coalesced micro-batches, per-record decode and quarantine),
-handed to the paged continuous batcher (``serving/generate.py``), and
-every terminal result, streamed partial, quarantine and deadline shed is
-written back under the queue's lease contract.
+for its two data planes:
+
+- **predict** (``params.generation`` unset): records are decoded into
+  tensors, grouped by shape, dispatched to ``InferenceModel.dispatch``
+  without waiting for the device, and a separate write worker reads each
+  batch back, post-processes every row (top-N classes by default) and
+  writes the results — three supervised workers (``serving-preprocess``,
+  ``serving-predict``, ``serving-write``) with ``inflight_batches`` as the
+  bound between the last two.  A batch whose predict fails is bisected so
+  only the poison row is dead-lettered.  ``params.quantize`` quantizes the
+  model (int8 / int4 weights) at construction.
+- **generation** (``params.generation`` set): records carrying prompt
+  token ids feed the paged continuous batcher (``serving/generate.py``);
+  every terminal result, streamed partial, quarantine and deadline shed is
+  written back under the queue's lease contract.
 
 Kept from the JAX engine, with the same contracts:
 
-- **supervised workers** — ``serving-preprocess`` (read + decode) and
-  ``serving-generate`` (scheduler + result writes) run under
-  ``SupervisedThread`` (crash -> log -> backoff -> restart, capped).
+- **supervised workers** — crash -> log -> backoff -> restart, capped
+  (``SupervisedThread``).
 - **per-record fault isolation** — a malformed or poisoned record gets an
   error RESULT plus a dead-letter entry; its neighbours keep serving.
 - **leases** — reads CLAIM records; the claim is released (``ack``) only
   after the record's terminal state is written, and a periodic RECLAIM
   sweep re-serves records a dead replica left behind (duplicates
   suppressed when a result already exists).
-- **deadlines** — an expired ``deadline_ns`` sheds the record at read or
-  at a step boundary with a ``deadline-exceeded`` marker.
+- **deadlines** — an expired ``deadline_ns`` sheds the record at read, at
+  the predict gate or at a step boundary with a ``deadline-exceeded``
+  marker.
 - **telemetry** — the metrics registry, per-record spans keyed by the
   wire-stamped ``trace_id``, the flight recorder, optional SLO
   attribution, and the ``health()`` / ``metrics()`` documents.
 
-Not in this slice (setting them raises ``NotImplementedError``): the
-predict plane (``generation`` unset), admission control, brownout, usage
-metering, fault injection, profiling, the HTTP gateway, sharding,
-ahead-of-time warm-up and weight quantization.
+Not in this slice (setting them raises ``NotImplementedError``): admission
+control, brownout, usage metering, fault injection, profiling, the HTTP
+gateway, sharding and ahead-of-time warm-up.  Image records (``image``,
+which needs ``cv2``) raise per record.
 """
 
 from __future__ import annotations
@@ -62,6 +71,8 @@ from analytics_zoo_tpu_torch.common.resilience import (CircuitBreaker,
                                                        RetryPolicy,
                                                        SupervisedThread,
                                                        wait_until)
+from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
+from analytics_zoo_tpu_torch.inference.quantize import quantized_bits
 from analytics_zoo_tpu_torch.serving import wire as _wire
 from analytics_zoo_tpu_torch.serving.generate import (ContinuousBatcher,
                                                       GenerationParams,
@@ -111,11 +122,15 @@ def _decode_tensor_record(record: Dict):
 
 
 def default_preprocess(record: Dict):
-    """Record -> prompt tensor: binary frames (``payload``/``shm``), the
-    base64 tensor record (``b64`` + ``dtype``/``shape``, int8 with a
-    ``scale`` kept quantized), or a raw ``data`` list."""
+    """Record -> tensor: binary frames (``payload``/``shm``), the base64
+    tensor record (``b64`` + ``dtype``/``shape``; int8 with a ``scale``
+    stays quantized as a ``QuantizedTensor``), or a raw ``data`` list.
+    Image records need ``cv2`` decoding, which is not ported: they raise
+    (the record is quarantined alone)."""
     if "payload" in record or "shm" in record:
         return _decode_tensor_record(record)
+    if "image" in record:
+        raise ValueError("image records (cv2 decoding) are not ported yet")
     if "b64" in record:
         raw = base64.b64decode(record["b64"])
         _wire.COPY_STATS.record("b64_decode", len(raw))
@@ -123,6 +138,8 @@ def default_preprocess(record: Dict):
         if "shape" in record:
             arr = arr.reshape([int(s) for s in record["shape"]])
         if "scale" in record:
+            # int8 wire: stay int8 until on the device; a float record
+            # carrying a stray scale is dequantized on the host
             if record.get("dtype") == "<i1":
                 out = QuantizedTensor(arr.astype(np.int8),
                                       float(record["scale"]))
@@ -140,9 +157,22 @@ def default_preprocess(record: Dict):
     raise ValueError(f"record has no b64/data/payload: {list(record)}")
 
 
+def default_postprocess(probs: np.ndarray, top_n: int = 5) -> List:
+    """top-N ``[class, prob]`` pairs (PostProcessing.scala:1-117):
+    ``np.argpartition`` pulls the top slice, then only that slice is
+    sorted."""
+    n = probs.shape[-1]
+    if top_n >= n:
+        idx = np.argsort(-probs)
+    else:
+        part = np.argpartition(-probs, top_n)[:top_n]
+        idx = part[np.argsort(-probs[part])]
+    return [[int(i), float(probs[i])] for i in idx]
+
+
 class _Staged(NamedTuple):
     """One same-shape micro-batch staged between preprocess and the
-    generate worker."""
+    predict (or generate) worker."""
 
     ids: List
     tensors: np.ndarray
@@ -150,25 +180,122 @@ class _Staged(NamedTuple):
     deadlines: Optional[List]
     traces: Optional[List]        # per-record trace_id (wire-stamped)
     t_read: Optional[float]       # monotonic: read_batch returned
+    t_ready: Optional[float]      # monotonic: preprocess/grouping done
     metas: Optional[List] = None  # per-record `gen` options + tenant
+
+
+class _InFlight(NamedTuple):
+    """One dispatched batch between the predict and write workers.  Keeps
+    the host tensors so a failure surfacing at readback can still
+    bisect-quarantine the poison row."""
+
+    ids: List
+    tensors: np.ndarray
+    scales: Optional[np.ndarray]
+    handle: object                # .result() -> host outputs, or raises
+    traces: Optional[List]
+    t_read: Optional[float]
+    t_dispatch: float
+
+
+class _LazyResult:
+    """The predict call itself deferred to ``.result()`` (a customized
+    ``do_predict`` without a matching ``dispatch``)."""
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+
+    def result(self):
+        return self._fn()
+
+
+class _FailedDispatch:
+    """A dispatch that raised synchronously: raises at ``.result()`` like
+    any other failure, so the write stage owns the bisect."""
+
+    def __init__(self, exc: BaseException):
+        self._exc = exc
+
+    def result(self):
+        raise self._exc
+
+
+def resolve_quantize_spec(q) -> Optional[Dict]:
+    """Normalize ``ServingParams.quantize`` to ``{"bits", "group_size",
+    "percentile", "calib"}`` (or None = off).  Accepts None/False,
+    "int8"/"int4", 8/4, or a dict with those keys."""
+    if not q:
+        return None
+    if isinstance(q, dict):
+        spec = dict(q)
+    elif q in ("int8", "int4", 8, 4, "8", "4", True):
+        spec = {"bits": 8 if q in ("int8", 8, "8", True) else 4}
+    else:
+        raise ValueError(
+            f"quantize={q!r}: expected int8|int4|8|4 or a spec dict")
+    bits = int(spec.get("bits", 8))
+    if bits not in (8, 4):
+        raise ValueError(f"quantize.bits={bits!r}: expected 8 or 4")
+    return {"bits": bits,
+            "group_size": int(spec.get("group_size", 64)),
+            "percentile": (None if spec.get("percentile") is None
+                           else float(spec["percentile"])),
+            "calib": spec.get("calib")}
+
+
+def apply_quantize(model, spec) -> bool:
+    """Quantize an InferenceModel per a ``quantize`` spec.  Returns True
+    when it quantized here, False when the model already was (its width
+    wins; a different requested width is logged).  int8 on a float model
+    REQUIRES calibration data (``calib``: .npy one batch, or .npz one
+    batch per entry) and fails construction without it."""
+    spec = resolve_quantize_spec(spec)
+    if spec is None:
+        return False
+    have = quantized_bits(getattr(model, "_params", None) or {})
+    if have:
+        if have != spec["bits"]:
+            logger.warning(
+                "serving: model already quantized at %d bits; ignoring "
+                "the quantize=%d config (re-load float weights to "
+                "re-quantize)", have, spec["bits"])
+        return False
+    calib = None
+    if spec["calib"]:
+        loaded = np.load(spec["calib"], allow_pickle=False)
+        calib = [loaded[k] for k in loaded.files] \
+            if hasattr(loaded, "files") else loaded
+    if spec["bits"] == 8 and calib is None:
+        raise ValueError(
+            "quantize: int8 needs activation calibration — provide "
+            "quantize.calib (.npy/.npz batch file) or quantize offline "
+            "with do_quantize(batches, bits=8)")
+    model.do_quantize(calib, force=True, bits=spec["bits"],
+                      group_size=spec["group_size"],
+                      percentile=spec["percentile"])
+    logger.info("serving: model quantized to int%d at construction "
+                "(group_size=%d, percentile=%s, calib=%s)", spec["bits"],
+                spec["group_size"], spec["percentile"], spec["calib"])
+    return True
 
 
 # ServingParams options of the JAX engine that this slice does not serve:
 # name -> the value that means "off".  Any other value raises.
-_NOT_PORTED = {"top_n": 5, "filter_threshold": None, "inflight_batches": 2,
-               "http_port": None, "http_host": "127.0.0.1", "gateway": True,
+_NOT_PORTED = {"http_port": None, "http_host": "127.0.0.1", "gateway": True,
                "sharding": "off", "mesh_shape": None, "warmup": False,
-               "compile_cache_dir": None, "quantize": None,
-               "profiling": False, "faults": None, "admission": None,
-               "brownout": None, "metering": None}
+               "compile_cache_dir": None, "profiling": False,
+               "faults": None, "admission": None, "brownout": None,
+               "metering": None}
 
 
 class ServingParams:
-    """config.yaml ``params:`` surface of the generation plane (the JAX
-    engine's ``ServingParams``, minus the options listed in
-    ``_NOT_PORTED``, which raise when set)."""
+    """config.yaml ``params:`` surface (the JAX engine's
+    ``ServingParams``, minus the options listed in ``_NOT_PORTED``, which
+    raise when set)."""
 
-    def __init__(self, batch_size: int = 4, poll_timeout_s: float = 0.05,
+    def __init__(self, batch_size: int = 4, top_n: int = 5,
+                 poll_timeout_s: float = 0.05,
+                 filter_threshold: Optional[float] = None,
                  stream_max_len: int = 100000, write_retries: int = 5,
                  write_backoff_s: float = 0.05, pipeline_depth: int = 2,
                  max_worker_restarts: int = 5,
@@ -180,6 +307,7 @@ class ServingParams:
                  max_batch: Optional[int] = None,
                  max_wait_ms: float = 5.0,
                  preprocess_workers: int = 1,
+                 inflight_batches: int = 2,
                  trim_interval_s: float = 5.0,
                  tracing: bool = True,
                  replica_id: Optional[str] = None,
@@ -189,6 +317,7 @@ class ServingParams:
                  generation=None,
                  trace_sample: float = 1.0,
                  serving_slo=None,
+                 quantize=None,
                  flight_recorder: bool = True,
                  recorder_ring: Optional[int] = None,
                  model_version: Optional[str] = None,
@@ -199,9 +328,11 @@ class ServingParams:
                                 f"{key!r}")
             if value != _NOT_PORTED[key]:
                 raise NotImplementedError(
-                    f"ServingParams.{key}={value!r}: not ported yet (this "
-                    f"slice serves the generation plane only)")
+                    f"ServingParams.{key}={value!r}: not ported yet")
         self.batch_size = batch_size
+        self.top_n = top_n
+        # kept for config parity; the JAX engine stores it unused too
+        self.filter_threshold = filter_threshold
         self.poll_timeout_s = poll_timeout_s
         self.stream_max_len = stream_max_len
         self.write_retries = write_retries
@@ -220,6 +351,10 @@ class ServingParams:
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
         self.preprocess_workers = preprocess_workers
+        # predict plane: bound on dispatched batches queued between the
+        # predict and write workers (clamped to the model's
+        # supported_concurrent_num at start)
+        self.inflight_batches = inflight_batches
         self.trim_interval_s = trim_interval_s
         self.tracing = bool(tracing)
         # horizontal replicas: identity, lease, reclaim period, poison
@@ -228,8 +363,8 @@ class ServingParams:
         self.lease_s = lease_s
         self.reclaim_interval_s = reclaim_interval_s
         self.max_deliveries = int(max_deliveries)
-        # generation plane: None (the predict plane, not ported) | True
-        # (defaults) | a dict of serving/generate.GenerationParams keys
+        # generation plane: None (the predict plane) | True (defaults) |
+        # a dict of serving/generate.GenerationParams keys
         self.generation = generation if isinstance(generation, dict) \
             else ({} if generation else None)
         try:
@@ -239,6 +374,10 @@ class ServingParams:
         # SLO attribution: {"latency_ms", "window_s", "target"} or None
         self.serving_slo = serving_slo if isinstance(serving_slo, dict) \
             else None
+        # quantized predict: None (float) | "int8"/8 | "int4"/4 | a dict
+        # {"bits", "group_size", "percentile", "calib"}, applied at
+        # ClusterServing construction
+        self.quantize = resolve_quantize_spec(quantize)
         self.flight_recorder = bool(flight_recorder)
         self.recorder_ring = (None if recorder_ring is None
                               else max(16, int(recorder_ring)))
@@ -259,23 +398,26 @@ class ServingParams:
 
 
 class ClusterServing:
-    """The serving engine over one ``InferenceModel`` and one queue, in
-    generation mode (``params.generation`` set)."""
+    """The serving engine over one ``InferenceModel`` and one queue: the
+    predict plane, or generation when ``params.generation`` is set."""
 
     def __init__(self, model, queue: BaseQueue,
                  params: Optional[ServingParams] = None,
                  preprocess: Callable = default_preprocess,
+                 postprocess: Optional[Callable] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None):
         self.model = model
         self.queue = queue
         self.params = params or ServingParams()
         p = self.params
-        if p.generation is None:
-            raise NotImplementedError(
-                "the predict plane is not ported yet: set "
-                "params.generation to serve token generation")
+        # quantize BEFORE any worker can dispatch: a bad spec (int8 with
+        # no calibration) fails construction, not a mid-stream request
+        if p.quantize and isinstance(model, InferenceModel):
+            apply_quantize(model, p.quantize)
         self.preprocess = preprocess
+        self.postprocess = postprocess or (
+            lambda probs: default_postprocess(probs, self.params.top_n))
         self._stop = threading.Event()
         self._draining = threading.Event()   # graceful drain in progress
         # decommission drain: stop CLAIMING, flush what is held, leave the
@@ -329,15 +471,27 @@ class ClusterServing:
             failure_threshold=p.breaker_threshold,
             cooldown_s=p.breaker_cooldown_s, name="dead-letter-write")
         self._pre_sup: Optional[SupervisedThread] = None
-        self._gen_sup: Optional[SupervisedThread] = None
+        self._gen_sup: Optional[SupervisedThread] = None      # generation
+        self._predict_sup: Optional[SupervisedThread] = None  # predict
+        self._write_sup: Optional[SupervisedThread] = None    # predict
         self._staged: Optional[Queue] = None
+        self._writeq: Optional[Queue] = None
         self._pre_pool = None
         self._last_trim = time.monotonic()
         # the token scheduler, built here so a model lacking the paged
         # decode API fails construction, not a mid-stream request
-        self._gen_params = GenerationParams.from_dict(p.generation)
-        self._batcher = ContinuousBatcher(model, self._gen_params)
+        self._batcher = None
+        if p.generation is not None:
+            self._batcher = ContinuousBatcher(
+                model, GenerationParams.from_dict(p.generation))
+        if isinstance(model, InferenceModel):
+            model.bind_registry(self.registry)
         self._init_metrics()
+
+    @property
+    def _sups(self) -> List[SupervisedThread]:
+        return [s for s in (self._pre_sup, self._gen_sup, self._predict_sup,
+                            self._write_sup) if s is not None]
 
     def _init_metrics(self) -> None:
         reg = self.registry
@@ -345,7 +499,8 @@ class ClusterServing:
             "serving_stage_seconds",
             "Per-stage latency of the serving pipeline", labels=("stage",))
         self._stages = {name: stage_hist.labels(stage=name) for name in
-                        ("read", "preprocess", "predict", "write")}
+                        ("read", "preprocess", "stage_wait", "predict",
+                         "write")}
         self._e2e = reg.histogram(
             "serving_e2e_seconds",
             "Per-record latency from read_batch return to result written")
@@ -383,7 +538,34 @@ class ClusterServing:
         self._g_cold = reg.gauge(
             "replica_cold_start_seconds",
             "Engine construction to first result written, this replica")
-        # generation plane
+        # callback gauges, deregistered on shutdown
+        fns = [
+            ("serving_queue_depth", "Records waiting in the stream",
+             self._queue_depth_metric),
+            ("serving_dead_letters", "Dead-letter backlog",
+             self._dead_letter_metric),
+            ("serving_worker_restarts",
+             "Supervised-worker restarts across all stages",
+             self._restarts_metric),
+            ("serving_breaker_trips", "Result-write breaker trips",
+             lambda: float(self._breaker.trip_count)),
+        ]
+        if self._batcher is not None:
+            fns += self._init_generation_metrics()
+        self._gauge_fns = [(reg.gauge(name, help_, fn=fn), fn)
+                           for name, help_, fn in fns]
+        for name, help_, key in (
+                ("process_resident_memory_bytes",
+                 "Resident set size of this serving process", "rss_bytes"),
+                ("process_cpu_seconds_total",
+                 "User+system CPU seconds consumed by this process",
+                 "cpu_seconds")):
+            fn = (lambda k=key: float(process_stats().get(k) or 0))
+            self._gauge_fns.append((reg.gauge(name, help_, fn=fn), fn))
+
+    def _init_generation_metrics(self) -> List:
+        """The token scheduler's counters; returns its callback gauges."""
+        reg = self.registry
         b = self._batcher
         self._m_decode_steps = reg.counter(
             "serving_decode_steps_total",
@@ -404,17 +586,7 @@ class ClusterServing:
         self._last_tokens = 0
         self._tps_window = (time.monotonic(), 0)   # (t0, tokens0)
         pool = b._pool
-        # callback gauges, deregistered on shutdown
         fns = [
-            ("serving_queue_depth", "Records waiting in the stream",
-             self._queue_depth_metric),
-            ("serving_dead_letters", "Dead-letter backlog",
-             self._dead_letter_metric),
-            ("serving_worker_restarts",
-             "Supervised-worker restarts across all stages",
-             self._restarts_metric),
-            ("serving_breaker_trips", "Result-write breaker trips",
-             lambda: float(self._breaker.trip_count)),
             ("serving_active_slots",
              "Decode slots currently serving a request",
              lambda: float(b.active)),
@@ -432,16 +604,7 @@ class ClusterServing:
             fns.append(("serving_kv_prefix_hits_total",
                         "Prefix-cache hits at admission",
                         lambda: float(b._prefix.hits)))
-        self._gauge_fns = [(reg.gauge(name, help_, fn=fn), fn)
-                           for name, help_, fn in fns]
-        for name, help_, key in (
-                ("process_resident_memory_bytes",
-                 "Resident set size of this serving process", "rss_bytes"),
-                ("process_cpu_seconds_total",
-                 "User+system CPU seconds consumed by this process",
-                 "cpu_seconds")):
-            fn = (lambda k=key: float(process_stats().get(k) or 0))
-            self._gauge_fns.append((reg.gauge(name, help_, fn=fn), fn))
+        return fns
 
     # -- callback-gauge samplers (guarded: a dead backend yields NaN) --------
     def _queue_depth_metric(self) -> float:
@@ -457,9 +620,7 @@ class ClusterServing:
             return float("nan")
 
     def _restarts_metric(self) -> float:
-        return float(sum(s.health()["restart_count"]
-                         for s in (self._pre_sup, self._gen_sup)
-                         if s is not None))
+        return float(sum(s.health()["restart_count"] for s in self._sups))
 
     def _heartbeat_age(self) -> float:
         return time.monotonic() - self._hb_ts
@@ -702,20 +863,26 @@ class ClusterServing:
             self._inflight.pop(rid, None)
 
     # -- deadlines ------------------------------------------------------------
-    def _shed_expired(self, rid, rec: Dict) -> bool:
-        """True when the record's ``deadline_ns`` has passed (a
-        ``deadline-exceeded`` marker is written) or is junk (quarantined)."""
-        dl = rec.get("deadline_ns")
+    def _shed_expired(self, rid, rec: Optional[Dict],
+                      deadline_ns=None, stage: str = "read",
+                      trace_id: Optional[str] = None) -> bool:
+        """True when the deadline — the record's ``deadline_ns``, or the
+        one given — has passed (a ``deadline-exceeded`` marker is
+        written) or is junk (quarantined)."""
+        dl = deadline_ns if deadline_ns is not None \
+            else (rec or {}).get("deadline_ns")
         if dl is None:
             return False
+        if trace_id is None and rec is not None:
+            trace_id = rec.get("trace_id")
         try:
             expired = time.time_ns() > int(dl)
         except (TypeError, ValueError, OverflowError) as e:
-            self._quarantine(rid, "read", e, record=rec)
+            self._quarantine(rid, stage, e, record=rec, trace_id=trace_id)
             return True
         if not expired:
             return False
-        self._shed_terminal(rid, stage="read", trace_id=rec.get("trace_id"))
+        self._shed_terminal(rid, stage=stage, trace_id=trace_id)
         return True
 
     def _shed_terminal(self, rid, stage: str = "read",
@@ -766,16 +933,20 @@ class ClusterServing:
 
     @staticmethod
     def _stack_group(ids, items, deadlines, traces, t_read, metas):
-        """Stack one same-shape group into a staged micro-batch."""
+        """Stack one same-shape group into a staged micro-batch: an
+        all-int8 group stays compact with per-row scales (dequantized on
+        the device), a mixed group is dequantized on the host."""
+        t_ready = time.monotonic()
         if all(isinstance(it, QuantizedTensor) for it in items):
             tensors = np.stack([it.data for it in items])
             scales = np.asarray([it.scale for it in items], np.float32)
             return _Staged(ids, tensors, scales, deadlines, traces, t_read,
-                           metas)
+                           t_ready, metas)
         tensors = np.stack([
             it.data.astype(np.float32) * it.scale
             if isinstance(it, QuantizedTensor) else it for it in items])
-        return _Staged(ids, tensors, None, deadlines, traces, t_read, metas)
+        return _Staged(ids, tensors, None, deadlines, traces, t_read,
+                       t_ready, metas)
 
     def _preprocess_pool(self):
         """Thread pool for ``preprocess_workers > 1``; None = inline."""
@@ -871,6 +1042,197 @@ class ClusterServing:
                 return
             self._last_trim = now
         self.queue.trim(self.params.stream_max_len)
+
+    # -- predict plane ----------------------------------------------------------
+    def _predict_isolated(self, ids, tensors, scales, tmap=None):
+        """Predict with graceful degradation: on failure, bisect the batch
+        to isolate the poison input — sane rows still get answers, only the
+        culprit is dead-lettered (log2(n) extra predict calls at worst)."""
+        try:
+            return [(ids, self.model.do_predict(tensors, scales=scales))]
+        except Exception as e:  # noqa: BLE001 — device/input failure
+            return self._bisect_halves(ids, tensors, scales, e, tmap=tmap)
+
+    def _bisect_halves(self, ids, tensors, scales, exc: BaseException,
+                       tmap=None):
+        """The bisect step shared by ``_predict_isolated`` and the write
+        stage's readback-failure path: a single poisoned row is
+        quarantined; a larger batch recurses on its halves."""
+        if len(ids) == 1:
+            self._quarantine(ids[0], "predict", exc,
+                             trace_id=(tmap or {}).get(ids[0]))
+            return []
+        mid = len(ids) // 2
+        lo = self._predict_isolated(
+            ids[:mid], tensors[:mid],
+            None if scales is None else scales[:mid], tmap=tmap)
+        hi = self._predict_isolated(
+            ids[mid:], tensors[mid:],
+            None if scales is None else scales[mid:], tmap=tmap)
+        return lo + hi
+
+    def _dispatch_batch(self, tensors, scales):
+        """Enqueue one batch on the device WITHOUT waiting for it
+        (``InferenceModel.dispatch``); the write worker calls
+        ``.result()``.  A customized ``do_predict`` (instance-patched, or
+        overridden by a subclass that keeps the base ``dispatch``) stays on
+        the path as a lazy synchronous call, as does a model without
+        ``dispatch``."""
+        model = self.model
+        custom_predict = (
+            "do_predict" in vars(model)
+            or getattr(type(model), "do_predict", None)
+            is not InferenceModel.do_predict)
+        custom_dispatch = (
+            "dispatch" in vars(model)
+            or getattr(type(model), "dispatch", None)
+            is not InferenceModel.dispatch)
+        if not hasattr(model, "dispatch") or \
+                (custom_predict and not custom_dispatch):
+            return _LazyResult(
+                lambda: model.do_predict(tensors, scales=scales))
+        try:
+            return model.dispatch(tensors, scales=scales)
+        except Exception as e:  # noqa: BLE001 — shape error at dispatch
+            return _FailedDispatch(e)
+
+    def _predict_stage(self, ids, tensors, scales=None, deadlines=None,
+                       traces=None, t_read=None, t_ready=None,
+                       metas=None) -> Optional[_InFlight]:
+        """Deadline gate 2 + asynchronous dispatch.  Returns the in-flight
+        handle for the write stage, or None when every record was shed."""
+        # a record can expire while staged behind a slow predict: shed it
+        # here so the batch spends no device time on it
+        if deadlines is not None and any(d is not None for d in deadlines):
+            keep = [i for i, (rid, dl) in enumerate(zip(ids, deadlines))
+                    if not self._shed_expired(
+                        rid, None, deadline_ns=dl, stage="stage_wait",
+                        trace_id=traces[i] if traces else None)]
+            if not keep:
+                return None
+            if len(keep) < len(ids):
+                ids = [ids[i] for i in keep]
+                tensors = tensors[keep]
+                if scales is not None:
+                    scales = scales[keep]
+                if traces is not None:
+                    traces = [traces[i] for i in keep]
+        t0 = time.monotonic()
+        if t_ready is not None:
+            self._stages["stage_wait"].record(t0 - t_ready)
+            for rid, tid in zip(ids, traces or [None] * len(ids)):
+                self._span("stage_wait", t_ready, t0, trace_id=tid, uri=rid)
+        handle = self._dispatch_batch(tensors, scales)
+        return _InFlight(ids, tensors, scales, handle, traces, t_read, t0)
+
+    def _write_stage(self, inflight: _InFlight) -> int:
+        """Block on the dispatched batch's host readback, postprocess per
+        record, and flush the micro-batch's results in one batched write.
+        A readback failure goes straight to the bisect halves (the full
+        batch was already tried once)."""
+        ids, tensors, scales = inflight.ids, inflight.tensors, inflight.scales
+        tmap = dict(zip(ids, inflight.traces or []))
+        try:
+            chunks = [(ids, inflight.handle.result())]
+        except Exception as e:  # noqa: BLE001 — device/input failure
+            chunks = self._bisect_halves(ids, tensors, scales, e, tmap=tmap)
+        t_done = time.monotonic()
+        self._stages["predict"].record(t_done - inflight.t_dispatch)
+        pairs: List[Tuple[str, Dict]] = []
+        for chunk_ids, probs in chunks:
+            for rid, row in zip(chunk_ids, probs):
+                self._span("predict", inflight.t_dispatch, t_done,
+                           trace_id=tmap.get(rid), uri=rid)
+                try:
+                    value = {"value": self.postprocess(np.asarray(row))}
+                    if self.model_version is not None:
+                        value["model_version"] = self.model_version
+                    if tmap.get(rid) is not None:
+                        value["trace_id"] = tmap[rid]
+                    deliveries = self._redelivered.pop(rid, None)
+                    if deliveries:
+                        value["deliveries"] = deliveries
+                    pairs.append((rid, value))
+                except Exception as e:  # noqa: BLE001 — per-record isolation
+                    self._quarantine(rid, "postprocess", e,
+                                     trace_id=tmap.get(rid))
+        n = self._flush_results(pairs, tmap=tmap)
+        now = time.monotonic()
+        if pairs:
+            self._stages["write"].record(now - t_done)
+            for rid, _ in pairs:
+                self._span("write", t_done, now, trace_id=tmap.get(rid),
+                           uri=rid)
+        if n and inflight.t_read is not None:
+            self._e2e.record(now - inflight.t_read, n=n)
+            t_read = inflight.t_read
+            for rid, _ in pairs:
+                self._slo_observe(rid, now - t_read, {
+                    "pipeline": max(inflight.t_dispatch - t_read, 0.0),
+                    "predict": max(t_done - inflight.t_dispatch, 0.0),
+                    "write": max(now - t_done, 0.0)})
+        if n and self._cold_start_s is None:
+            self._cold_start_s = now - self._t_construct
+            self._g_cold.set(self._cold_start_s)
+        self.total_records += n
+        self._maybe_trim()
+        return n
+
+    def _predict_and_write(self, ids, tensors, scales=None, deadlines=None,
+                           traces=None, t_read=None, t_ready=None,
+                           metas=None) -> int:
+        """Synchronous predict + write of one staged group (``serve_once``);
+        the pipelined loop runs the same two stages on two workers."""
+        inflight = self._predict_stage(ids, tensors, scales=scales,
+                                       deadlines=deadlines, traces=traces,
+                                       t_read=t_read, t_ready=t_ready,
+                                       metas=metas)
+        if inflight is None:
+            return 0
+        return self._write_stage(inflight)
+
+    def _predict_loop(self):
+        """The serving-predict worker: staged groups -> dispatched handles
+        on the bounded write queue (backpressure when it is full)."""
+        sup = self._predict_sup
+        while not self._stop.is_set():
+            if sup is not None:
+                sup.heartbeat()
+            try:
+                group = self._staged.get(timeout=0.1)
+            except _EMPTY:
+                # drain exit: only once the pre worker is dead AND the
+                # buffer is still empty
+                if self._draining.is_set() and self._pre_sup is not None \
+                        and not self._pre_sup.is_alive() \
+                        and self._staged.empty():
+                    return
+                continue
+            inflight = self._predict_stage(*group)
+            if inflight is None:
+                continue               # the whole group was shed at gate 2
+            while not self._stop.is_set():
+                try:
+                    self._writeq.put(inflight, timeout=0.1)
+                    break
+                except _FULL:
+                    continue           # device pipeline full: backpressure
+
+    def _write_loop(self):
+        """The serving-write worker: readback, postprocess, result writes."""
+        sup = self._write_sup
+        while not self._stop.is_set():
+            if sup is not None:
+                sup.heartbeat()
+            try:
+                inflight = self._writeq.get(timeout=0.1)
+            except _EMPTY:
+                if self._draining.is_set() and self._predict_sup is not None \
+                        and not self._predict_sup.is_alive() \
+                        and self._writeq.empty():
+                    return
+                continue
+            self._write_stage(inflight)
 
     # -- generation -----------------------------------------------------------
     def _submit_group(self, group: _Staged) -> None:
@@ -1024,9 +1386,13 @@ class ClusterServing:
 
     def serve_once(self) -> int:
         """Synchronous drive (tests and embedded callers): read one
-        micro-batch, then step the scheduler until every admitted request
-        reached a terminal state.  Returns results written."""
+        micro-batch and serve it — predict and write each group, or step
+        the scheduler until every admitted request reached a terminal
+        state.  Returns results written."""
         staged = self._read_and_preprocess()
+        if self._batcher is None:
+            return sum(self._predict_and_write(*group)
+                       for group in staged or ())
         with torch.inference_mode():
             for group in staged or ():
                 self._submit_group(group)
@@ -1037,11 +1403,15 @@ class ClusterServing:
 
     # -- lifecycle ------------------------------------------------------------
     def start(self):
-        """Two supervised workers: ``serving-preprocess`` reads and decodes
-        coalesced micro-batches into a bounded staging queue;
-        ``serving-generate`` owns both decode stepping and result writing —
-        results must flush AT step boundaries, so the two stay in one
-        thread."""
+        """Supervised workers.  ``serving-preprocess`` reads and decodes
+        coalesced micro-batches into a bounded staging queue.  Then, on the
+        predict plane, ``serving-predict`` gates deadlines and dispatches
+        batches to the device without waiting (up to ``inflight_batches``
+        queued) and ``serving-write`` reads each back, postprocesses and
+        writes the results, so host preprocess, device compute and result
+        writes overlap.  In generation mode one ``serving-generate`` worker
+        owns both decode stepping and result writing — results must flush
+        AT step boundaries."""
         p = self.params
         self._stop.clear()
         self._draining.clear()
@@ -1057,14 +1427,36 @@ class ClusterServing:
             self._pre_loop, name="serving-preprocess",
             max_restarts=p.max_worker_restarts,
             backoff_s=p.worker_backoff_s, stop_event=self._stop)
-        self._gen_sup = SupervisedThread(
-            self._generate_loop, name="serving-generate",
-            max_restarts=p.max_worker_restarts,
+        loops = {"serving-generate": self._generate_loop} \
+            if self._batcher is not None else \
+            {"serving-predict": self._predict_loop,
+             "serving-write": self._write_loop}
+        sups = {name: SupervisedThread(
+            fn, name=name, max_restarts=p.max_worker_restarts,
             backoff_s=p.worker_backoff_s, stop_event=self._stop)
-        self._pre_sup.start()
-        self._gen_sup.start()
-        self._event("start", mode="generation",
-                    max_batch=p.max_batch or p.batch_size)
+            for name, fn in loops.items()}
+        self._gen_sup = sups.get("serving-generate")
+        self._predict_sup = sups.get("serving-predict")
+        self._write_sup = sups.get("serving-write")
+        if self._batcher is None:
+            # dispatch() takes no semaphore, so the handle queue is what
+            # bounds device-resident batches: clamp it to the model's
+            # supported_concurrent_num
+            inflight = max(1, p.inflight_batches)
+            cap = getattr(self.model, "concurrent_num", None)
+            if cap is not None and inflight > cap:
+                logger.warning(
+                    "serving: inflight_batches=%d exceeds the model's "
+                    "supported_concurrent_num=%d; clamping the handle "
+                    "queue", inflight, cap)
+                inflight = max(1, cap)
+            self._writeq = Queue(maxsize=inflight)
+        for sup in self._sups:
+            sup.start()
+        self._event("start", mode=("generation" if self._batcher is not None
+                                   else "predict"),
+                    max_batch=p.max_batch or p.batch_size,
+                    quantized_bits=self._quantized_bits() or None)
         return self
 
     def _pre_loop(self):
@@ -1134,13 +1526,16 @@ class ClusterServing:
         doc["e2e"] = self._e2e.snapshot()
         return doc
 
+    def _quantized_bits(self) -> int:
+        """0 float, 8 W8A8, 4 W4A16 — what the loaded model serves with."""
+        return quantized_bits(getattr(self.model, "_params", None) or {})
+
     def health(self) -> Dict:
         """Serving health document: worker states, breaker state, record /
         dead-letter / shed counters, per-stage timing, queue health, the
-        generation block and the readiness verdict."""
-        workers = {sup.name: sup.health()
-                   for sup in (self._pre_sup, self._gen_sup)
-                   if sup is not None}
+        quantized width, the generation block (generation mode) and the
+        readiness verdict."""
+        workers = {sup.name: sup.health() for sup in self._sups}
         running = bool(workers) and all(
             w["state"] in (SupervisedThread.STARTING,
                            SupervisedThread.RUNNING,
@@ -1173,14 +1568,16 @@ class ClusterServing:
              "shed": self.shed,
              "cold_start_s": (None if self._cold_start_s is None
                               else round(self._cold_start_s, 3)),
-             "kv_state": self._batcher.state_bytes_doc(),
+             "quantized_bits": self._quantized_bits(),
              "recorder": self.recorder.stats(),
              "breaker": self._breaker.health(),
              "dead_letter_breaker": self._dead_breaker.health(),
              "workers": workers,
              "stages": self.stage_metrics(),
-             "queue": queue_health,
-             "generation": self._batcher.stats()}
+             "queue": queue_health}
+        if self._batcher is not None:
+            h["kv_state"] = self._batcher.state_bytes_doc()
+            h["generation"] = self._batcher.stats()
         if self._slo is not None:
             h["slo"] = self._slo.snapshot()
         h["ready"] = self._readiness(h)
@@ -1243,9 +1640,8 @@ class ClusterServing:
         runs out.  Without it: immediate stop."""
         drain_s = drain_s or 0.0
         self._event("shutdown", drain_s=drain_s, retire=not close_admission)
-        sups = (self._pre_sup, self._gen_sup)
-        started = any(s is not None for s in sups)
-        if drain_s > 0 and started:
+        sups = self._sups
+        if drain_s > 0 and sups:
             self._draining.set()
             if close_admission:
                 try:
@@ -1254,12 +1650,10 @@ class ClusterServing:
                     pass
             else:
                 self._retiring.set()
-            wait_until(lambda: not any(
-                s is not None and s.is_alive() for s in sups), drain_s)
+            wait_until(lambda: not any(s.is_alive() for s in sups), drain_s)
         self._stop.set()
         for sup in sups:
-            if sup is not None:
-                sup.join(timeout=5)
+            sup.join(timeout=5)
         if self._pre_pool is not None:
             self._pre_pool.shutdown(wait=False)
             self._pre_pool = None

@@ -132,15 +132,27 @@ def test_engine_serve_once_synchronous_drive():
     serving.shutdown()
 
 
-@pytest.mark.parametrize("opt", [dict(generation=None),
+@pytest.mark.parametrize("opt", [dict(warmup=True),
                                  dict(http_port=8080, generation=GEN),
                                  dict(admission={"rate": 1.0},
                                       generation=GEN),
-                                 dict(quantize="int8", generation=GEN),
-                                 dict(top_n=3, generation=GEN)])
+                                 dict(sharding="auto"),
+                                 dict(brownout={"enabled": True},
+                                      generation=GEN)])
 def test_engine_unported_options_raise(opt):
     with pytest.raises(NotImplementedError):
         ClusterServing(_im(), InProcQueue(), ServingParams(**opt))
+
+
+def test_engine_predict_plane_options_are_served():
+    """The predict plane and its options (top_n, filter_threshold,
+    inflight_batches, quantize) construct; a generation engine accepts
+    them too, as the JAX engine does."""
+    for opt in (dict(generation=None, top_n=3, inflight_batches=4),
+                dict(top_n=3, filter_threshold=0.5, generation=GEN)):
+        serving = ClusterServing(_im(), InProcQueue(), ServingParams(**opt))
+        assert (serving._batcher is None) == (opt["generation"] is None)
+        serving.shutdown()
 
 
 def test_engine_params_take_the_reference_defaults():

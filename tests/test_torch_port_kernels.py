@@ -10,9 +10,13 @@ Tolerances: the paged op at atol 1e-5 (both sides compute the same f32
 gather + einsum + softmax; only the summation order may differ); the int8
 pack/unpack bitwise (same formula, same half-to-even rounding).
 
-Tests marked ``gpu`` hold the CUDA kernel against the plain version on the
-card; they decide inside a fixture whether a card is present and skip
-here.
+The predict path's kernels (flash forward, ``w8a8``, ``w4a16``) are held
+to the JAX package in ``test_torch_port_quant.py``; here are their
+wrappers' contracts: operands checked before anything is built, and no
+fallback once a kernel is selected.
+
+The card tests (marker ``gpu``) are in ``test_torch_port_card.py``, which
+imports no JAX so that it runs on the card's machine.
 """
 
 import numpy as np
@@ -22,8 +26,13 @@ import torch
 from analytics_zoo_tpu.inference import quantize as jq
 from analytics_zoo_tpu.ops import paged_attention as jpa
 from analytics_zoo_tpu_torch.inference import quantize as tq
+from analytics_zoo_tpu_torch.nn.layers.core import Dense
 from analytics_zoo_tpu_torch.ops import _impl
+from analytics_zoo_tpu_torch.ops import attention as tatt
+from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 from analytics_zoo_tpu_torch.ops import paged_attention as tpa
+from analytics_zoo_tpu_torch.ops import quant_matmul as tqm
+from analytics_zoo_tpu_torch.utils.convert import load_jax_params
 
 torch.set_num_threads(1)
 
@@ -187,31 +196,127 @@ def test_kernel_source_and_build_are_deferred():
         "libpaged_attention-")
 
 
-# -- on the card ---------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (runs on the card: "
-                    "pytest -m gpu tests/test_torch_port_*.py)")
-    return torch.device("cuda", 0)
+@pytest.mark.parametrize("mod,attr", [(tfa, "_fn"), (tqm, "_fns")])
+def test_predict_kernel_sources_ship_and_build_is_deferred(mod, attr):
+    assert (mod._build.CSRC / f"{mod.KERNEL}.cu").exists()
+    assert getattr(mod, attr) is None
+    assert mod._build.library_path(mod.KERNEL).name.startswith(
+        f"lib{mod.KERNEL}-")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("lengths", LENGTHS)
-def test_paged_kernel_matches_plain_on_card(cuda_device, quant, lengths):
-    q, kp, vp, tables, lens = _case(5, lengths)
-    args = [_t(a).to(cuda_device) for a in (q, kp, vp, tables, lens)]
-    kw = {}
-    if quant:
-        qk, ks = tq.kv_pack_int8(args[1])
-        qv, vs = tq.kv_pack_int8(args[2])
-        args[1], args[2] = qk, qv
-        kw = {"k_scale": ks, "v_scale": vs}
-    n0 = tpa.launches
-    got = tpa.paged_attention(*args, impl="cuda", **kw)
-    torch.cuda.synchronize()
-    assert tpa.launches == n0 + 1
-    ref = tpa.paged_attention(*args, impl="torch", **kw)
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=2e-5)
+def _flash_args(bad):
+    """q/k/v (B, H, T, D) views of one projection, with one defect."""
+    d = 48 if bad == "head_dim" else 32
+    qkv = torch.randn(2, 9, 3 * 2 * d)
+    q, k, v = (t.unflatten(-1, (2, d)).transpose(1, 2)
+               for t in qkv.split(2 * d, dim=-1))
+    if bad == "dtype":
+        q, k, v = (t.half() for t in (q, k, v))
+    elif bad == "mixed_dtype":
+        v = v.to(torch.bfloat16)
+    elif bad == "d_stride":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "misaligned":
+        buf = torch.zeros(q.numel() + 1)[1:]
+        q = buf.view(2, 9, 2, d).transpose(1, 2)
+    elif bad == "shape":
+        k = k[:, :, :5]
+    return q, k, v
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "mixed_dtype",
+                                 "d_stride", "misaligned", "shape"])
+def test_flash_wrapper_rejects_what_the_kernel_cannot_take(bad):
+    """Checked before anything is built or launched (on CPU tensors, which
+    ``flash_attention`` itself would give the plain version)."""
+    q, k, v = _flash_args(bad)
+    with pytest.raises((ValueError, TypeError)):
+        tfa._flash_cuda(q, k, v, True, 0.125, False, None)
+    assert tfa._fn is None
+
+
+@pytest.mark.parametrize("bad", ["x_dtype", "scale_dtype", "strided",
+                                 "w4_dtype", "w4_x_dtype", "s_g_dtype"])
+def test_quant_wrappers_reject_what_the_kernels_cannot_take(bad):
+    x8 = torch.zeros(3, 8, dtype=torch.int8)
+    w8 = torch.zeros(8, 5, dtype=torch.int8)
+    x4, w4, sg = torch.zeros(3, 8), torch.zeros(4, 5, dtype=torch.uint8), \
+        torch.ones(2, 5)
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "x_dtype":
+            tqm._w8a8_cuda(x8.float(), w8, torch.ones(5))
+        elif bad == "scale_dtype":
+            tqm._w8a8_cuda(x8, w8, torch.ones(5, dtype=torch.float64))
+        elif bad == "strided":
+            tqm._w8a8_cuda(x8, w8.t().contiguous().t(), torch.ones(5))
+        elif bad == "w4_dtype":
+            tqm._w4a16_cuda(x4, w4.to(torch.int8), sg)
+        elif bad == "w4_x_dtype":
+            tqm._w4a16_cuda(x4.half(), w4, sg)
+        else:
+            tqm._w4a16_cuda(x4, w4, sg.double())
+    assert tqm._fns is None
+
+
+@pytest.mark.parametrize("use_flash,head_dim,dtype,mask,dropping,on_cuda,want",
+                         [(None, 64, torch.float32, None, False, True, True),
+                          (None, 128, torch.bfloat16, None, False, True, True),
+                          (None, 64, torch.float32, None, False, False, False),
+                          (None, 48, torch.float32, None, False, True, False),
+                          (None, 64, torch.float16, None, False, True, False),
+                          (None, 64, torch.float32, "m", False, True, False),
+                          (None, 64, torch.float32, None, True, True, False),
+                          (True, 64, torch.float32, None, False, False, True),
+                          (True, 64, torch.float32, "m", False, True, False),
+                          (False, 64, torch.float32, None, False, True,
+                           False)])
+def test_select_flash_takes_the_kernel_for_every_call_it_can_express(
+        use_flash, head_dim, dtype, mask, dropping, on_cuda, want):
+    """No T threshold (the TPU crossover is not carried over): an unmasked,
+    dropout-free CUDA call at a built head_dim and dtype takes the kernel
+    at any length."""
+    assert tatt._select_flash(use_flash, head_dim, dtype, mask, dropping,
+                              on_cuda) is want
+
+
+class _KernelDown(RuntimeError):
+    pass
+
+
+@pytest.mark.parametrize("front", ["bthd", "bhtd"])
+def test_selected_flash_kernel_failure_propagates(monkeypatch, front):
+    """A selected kernel that fails raises through the attention front-end:
+    nothing catches it and slides onto the plain path.  The CUDA route is
+    stubbed: the resolver answers "cuda" and the launcher raises."""
+    def down(*args, **kwargs):
+        raise _KernelDown("launch failed")
+    monkeypatch.setattr(tfa, "resolve_impl", lambda impl, x: "cuda")
+    monkeypatch.setattr(tfa, "_flash_cuda", down)
+    q, k, v = (torch.randn(2, 16, 2, 32) for _ in range(3))
+    with pytest.raises(_KernelDown):
+        if front == "bthd":
+            tatt.attention_bthd(q, k, v, causal=True, use_flash=True)
+        else:
+            tatt.dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), causal=True,
+                                       use_flash=True)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_selected_quant_kernel_failure_propagates(monkeypatch, bits):
+    """The same for a quantized Dense: its product goes to the kernel and
+    a launch failure reaches the caller."""
+    def down(*args, **kwargs):
+        raise _KernelDown("launch failed")
+    monkeypatch.setattr(tqm, "resolve_impl", lambda impl, x: "cuda")
+    monkeypatch.setattr(tqm, "_w8a8_cuda" if bits == 8 else "_w4a16_cuda",
+                        down)
+    d = Dense(6, input_shape=(8,))
+    leaves = {"W_q": np.ones((8, 6), np.int8), "s_w": np.ones(6, np.float32),
+              "s_x": np.float32(0.1)} if bits == 8 else \
+        {"W_q4": np.zeros((4, 6), np.uint8), "s_g": np.ones((1, 6),
+                                                             np.float32)}
+    leaves["b"] = np.zeros(6, np.float32)
+    load_jax_params(d, leaves)
+    with pytest.raises(_KernelDown):
+        d(torch.randn(3, 8))
