@@ -39,3 +39,11 @@ def cast_compute(*tensors):
     out = tuple(t.to(c) if isinstance(t, torch.Tensor) else t
                 for t in tensors)
     return out if len(out) > 1 else out[0]
+
+
+def matmul(x, w, out_dtype):
+    """``x @ w`` summed and returned in ``out_dtype``, as
+    ``jnp.matmul(x, w, preferred_element_type=out_dtype)`` does: a bf16
+    product is not rounded to bf16.  Widening the operands is exact, so the
+    products and their f32 sums are the reference's."""
+    return torch.matmul(x.to(out_dtype), w.to(out_dtype))

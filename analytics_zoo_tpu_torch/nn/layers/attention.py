@@ -98,7 +98,7 @@ class _Linear(nn.Module):
 
 def _linear(p: _Linear, x):
     xw, W = dtypes.cast_compute(x, p.W)
-    return torch.matmul(xw, W).to(torch.float32) + p.b
+    return dtypes.matmul(xw, W, torch.float32) + p.b
 
 
 class MultiHeadAttention(Layer):

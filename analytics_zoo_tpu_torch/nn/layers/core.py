@@ -107,21 +107,23 @@ class Dense(Layer):
         self.bits = bits
 
     def forward(self, x):
+        if self.bits == 0:
+            xw, W = dtypes.cast_compute(x, self.W)
+            y = dtypes.matmul(xw, W, dtypes.param_dtype())
+            if self.bias:
+                y = y + self.b
+            return self.activation(y)
         if self.bits == 4:
             y = qm.w4a16_dense(x.to(torch.float32), self.W_q4, self.s_g,
                                impl=self.impl)
-        elif self.bits == 8:
+        else:
             xq = torch.clamp(torch.round(x.to(torch.float32) / self.s_x),
                              -127, 127).to(torch.int8)
             y = qm.w8a8_dense(xq, self.W_q, self.s_x * self.s_w,
                               impl=self.impl)
-        else:
-            xw, W = dtypes.cast_compute(x, self.W)
-            y = torch.matmul(xw, W)
-        y = y.to(dtypes.param_dtype())
         if self.bias:
             y = y + self.b
-        return self.activation(y)
+        return self.activation(y.to(dtypes.param_dtype()))
 
 
 class Activation(Layer):

@@ -10,11 +10,13 @@ The counterpart of the JAX package's ``ops/attention.py``:
 
 Differences from the JAX module, on purpose:
 
-- With ``use_flash=None`` a CUDA call takes the kernel whenever the kernel
+- With ``use_flash=None`` a call takes the flash path whenever the kernel
   can express it — no mask, no dropout, a head_dim and dtype it is built
-  for — at any T.  The JAX package's crossover (flash only from T = 1024)
-  is a TPU measurement; the H100's crossover is measured by
-  ``chip_smoke.py`` for a later threshold.
+  for — at any T: the kernel for CUDA tensors, its plain version
+  (``flash_attention_torch``) for CPU ones, so the CPU path and the card's
+  reference are one function.  The JAX package's crossover (flash only
+  from T = 1024) is a TPU measurement; the H100's crossover is measured
+  by ``chip_smoke.py`` for a later threshold.
 - A selected kernel that fails raises: there is no ``try``/``except`` that
   slides onto the plain path.
 - No sequence-parallel (ring) path: the single-GPU port has no mesh, so
@@ -75,13 +77,14 @@ def _attention_torch_bthd(q, k, v, mask=None, causal=False, scale=None,
                            dropout_rng=dropout_rng)
 
 
-def _select_flash(use_flash, head_dim: int, dtype, mask, dropping: bool,
-                  on_cuda: bool) -> bool:
+def _select_flash(use_flash, head_dim: int, dtype, mask,
+                  dropping: bool) -> bool:
     """Flash eligibility, shared by both layout front-ends.  ``None`` takes
-    the kernel for every CUDA call it can express; an explicit True is
-    honoured unless a mask or dropout makes the kernel compute wrongly."""
+    the flash path for every call the kernel can express; an explicit True
+    is honoured unless a mask or dropout makes the kernel compute
+    wrongly."""
     if use_flash is None:
-        return (on_cuda and mask is None and not dropping
+        return (mask is None and not dropping
                 and head_dim in _fa.KERNEL_HEAD_DIMS
                 and dtype in _fa.KERNEL_DTYPES)
     if use_flash and (dropping or mask is not None):
@@ -99,8 +102,7 @@ def attention_bthd(q, k, v, mask=None, causal: bool = False,
     copy) and gets back a (B, T, H, D)-contiguous result.  ``impl`` picks
     the flash kernel or its plain version (``ops/_impl.resolve_impl``)."""
     dropping = dropout_rate > 0.0 and dropout_rng is not None
-    if _select_flash(use_flash, q.shape[-1], q.dtype, mask, dropping,
-                     q.is_cuda):
+    if _select_flash(use_flash, q.shape[-1], q.dtype, mask, dropping):
         out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   scale=scale, impl=impl)
@@ -115,12 +117,11 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
                           use_flash: Optional[bool] = None,
                           dropout_rate: float = 0.0, dropout_rng=None,
                           impl: Optional[str] = None):
-    """Multi-head attention core over (B, H, T, D); the flash kernel for
-    every CUDA call it can express, else the plain path.  Attention dropout
-    always takes the plain path."""
+    """Multi-head attention core over (B, H, T, D); the flash path for
+    every call the kernel can express, else the einsum path.  Attention
+    dropout always takes the einsum path."""
     dropping = dropout_rate > 0.0 and dropout_rng is not None
-    if _select_flash(use_flash, q.shape[-1], q.dtype, mask, dropping,
-                     q.is_cuda):
+    if _select_flash(use_flash, q.shape[-1], q.dtype, mask, dropping):
         return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                    impl=impl)
     return _attention_torch(q, k, v, mask=mask, causal=causal, scale=scale,

@@ -85,7 +85,7 @@ def _flash_case(device, dtype, B, T, H, D):
             for t in qkv.split(H * D, dim=-1)]
 
 
-FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (3e-2, 8e-3)}
+FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (4e-3, 8e-3)}
 
 
 @pytest.mark.gpu

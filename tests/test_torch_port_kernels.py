@@ -258,25 +258,52 @@ def test_quant_wrappers_reject_what_the_kernels_cannot_take(bad):
     assert tqm._fns is None
 
 
-@pytest.mark.parametrize("use_flash,head_dim,dtype,mask,dropping,on_cuda,want",
-                         [(None, 64, torch.float32, None, False, True, True),
-                          (None, 128, torch.bfloat16, None, False, True, True),
-                          (None, 64, torch.float32, None, False, False, False),
-                          (None, 48, torch.float32, None, False, True, False),
-                          (None, 64, torch.float16, None, False, True, False),
-                          (None, 64, torch.float32, "m", False, True, False),
-                          (None, 64, torch.float32, None, True, True, False),
-                          (True, 64, torch.float32, None, False, False, True),
-                          (True, 64, torch.float32, "m", False, True, False),
-                          (False, 64, torch.float32, None, False, True,
-                           False)])
+@pytest.mark.parametrize("use_flash,head_dim,dtype,mask,dropping,want",
+                         [(None, 64, torch.float32, None, False, True),
+                          (None, 128, torch.bfloat16, None, False, True),
+                          (None, 32, torch.float32, None, False, True),
+                          (None, 48, torch.float32, None, False, False),
+                          (None, 64, torch.float16, None, False, False),
+                          (None, 64, torch.float32, "m", False, False),
+                          (None, 64, torch.float32, None, True, False),
+                          (True, 48, torch.float32, None, False, True),
+                          (True, 64, torch.float32, "m", False, False),
+                          (False, 64, torch.float32, None, False, False)])
 def test_select_flash_takes_the_kernel_for_every_call_it_can_express(
-        use_flash, head_dim, dtype, mask, dropping, on_cuda, want):
+        use_flash, head_dim, dtype, mask, dropping, want):
     """No T threshold (the TPU crossover is not carried over): an unmasked,
-    dropout-free CUDA call at a built head_dim and dtype takes the kernel
-    at any length."""
-    assert tatt._select_flash(use_flash, head_dim, dtype, mask, dropping,
-                              on_cuda) is want
+    dropout-free call at a built head_dim and dtype takes the flash path
+    at any length, whatever device its tensors are on."""
+    assert tatt._select_flash(use_flash, head_dim, dtype, mask,
+                              dropping) is want
+
+
+@pytest.mark.parametrize("front", ["bthd", "bhtd"])
+def test_cpu_unmasked_attention_takes_the_plain_flash(monkeypatch, front):
+    """On the CPU an unmasked call reaches ``flash_attention_torch``, the
+    same plain version the card's checks hold the kernel against; the
+    einsum path serves masked and dropout calls only."""
+    seen = []
+    plain = tfa.flash_attention_torch
+
+    def spy(*args, **kwargs):
+        seen.append(args[0].shape)
+        return plain(*args, **kwargs)
+    monkeypatch.setattr(tfa, "flash_attention_torch", spy)
+    q, k, v = (torch.randn(2, 16, 2, 32) for _ in range(3))
+    if front == "bthd":
+        out = tatt.attention_bthd(q, k, v, causal=True)
+        ref = tatt._attention_torch_bthd(q, k, v, causal=True)
+    else:
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        out = tatt.dot_product_attention(qh, kh, vh, causal=True)
+        ref = tatt._attention_torch(qh, kh, vh, causal=True)
+    assert seen == [(2, 2, 16, 32)]
+    # the two plain versions differ only in summation order and mask fill
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=1e-6)
+    seen.clear()
+    tatt.attention_bthd(q, k, v, mask=torch.ones(16, 16), causal=True)
+    assert seen == []
 
 
 class _KernelDown(RuntimeError):

@@ -12,8 +12,9 @@ Tolerances: atol 1e-5 on activations and probabilities — both sides run
 the same f32 math, and XLA's and PyTorch's CPU kernels sum in different
 orders (matmuls, LayerNorm and softmax reductions).  Exact where the math
 is: parameter names, shapes, counts, top-N class lists.  On the CPU the
-attention takes the plain path on both sides (the JAX package picks its
-kernel only on a TPU, the port only for CUDA tensors).
+attention takes a plain path on both sides: the JAX package its einsum
+path (it picks its kernel only on a TPU), the port the flash kernel's
+plain version for unmasked calls and its einsum path for masked ones.
 """
 
 import base64
@@ -33,6 +34,7 @@ from analytics_zoo_tpu.nn.layers import pooling as jpool
 from analytics_zoo_tpu.nn.models import Sequential as JaxSeq
 from analytics_zoo_tpu.serving import engine as jeng
 from analytics_zoo_tpu.serving.queues import InProcQueue as JaxQueue
+from analytics_zoo_tpu_torch.common import dtypes as tdtypes
 from analytics_zoo_tpu_torch.inference.inference_model import (
     InferenceModel, _bucket)
 from analytics_zoo_tpu_torch.nn import activations as tact
@@ -112,6 +114,35 @@ def test_dense_matches_jax(act):
                                np.asarray(jd.call(params, x)), atol=ATOL)
     assert td.param_count() == 5 * 7 + 7
     assert td.compute_output_shape((4, 5)) == (4, 7)
+
+
+@pytest.mark.parametrize("layer", ["dense", "linear"])
+def test_bf16_compute_policy_accumulates_in_f32_like_jax(layer):
+    """Under a bf16 compute policy the operands are rounded to bf16 but the
+    product is summed and returned in f32 (JAX's preferred_element_type):
+    atol 1e-5 is f32 summation order, far below the ~4e-3 that rounding
+    the product to bf16 would cost at |y| ~ 1."""
+    x = np.random.default_rng(5).normal(size=(4, 24)).astype(np.float32)
+    jd = jcore.Dense(9, name="d")
+    params, _ = _init(jd, (24,))
+    params["b"] = params["b"] + 0.5
+    td = tcore.Dense(9, input_shape=(24,), name="d")
+    load_jax_params(td, params)
+    saved = dict(tdtypes._policy)
+    jdtypes.mixed_bf16()
+    tdtypes.mixed_bf16()
+    try:
+        if layer == "dense":
+            want, got = jd.call(params, x), _run(td, x)
+        else:
+            want = jatt._linear(params, x)
+            with torch.inference_mode():
+                got = tatt._linear(td, torch.from_numpy(x)).numpy()
+    finally:
+        jdtypes.set_policy(None)
+        tdtypes._policy.update(saved)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
 
 
 @pytest.mark.parametrize("name", ["relu", "relu6", "tanh", "sigmoid",

@@ -132,7 +132,7 @@ def test_predict_checks_accept_the_served_path_and_reject_faults(
         cs.check_predict("bad", bad, ref, tol, quant)
     rid = run["rids"][3]
     top = [list(p) for p in run["results"][rid]["value"]]
-    top[0][1] *= 1.01
+    top[0][1] *= 1 + 2 * cs.LOGP_TOL
     forged = dict(run, results=dict(run["results"], **{rid: {"value": top}}))
     with pytest.raises(cs.SmokeFailure, match="log-prob error"):
         cs.check_predict("forged", forged, ref, tol, quant)
