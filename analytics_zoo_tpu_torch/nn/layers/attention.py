@@ -15,8 +15,11 @@ every dense is ``{W (d_in, d_out), b}``, every LayerNorm ``{gamma, beta}``.
 
 Token ids out of range behave as ``jnp.take`` does: ids in [-V, 0) wrap,
 any other out-of-range id gives a NaN embedding row (no device-side
-assert, no host sync).  The layers serve predict only: dropout in training
-mode raises until the Estimator is ported.
+assert, no host sync).  In training mode (``train()``, with seeds from
+``Layer.seed_dropout``) ``embedding_drop`` and ``resid_drop`` apply
+inverted dropout, and ``attn_drop`` sends attention through the einsum
+path with the layer's generator; at the JAX defaults (all 0) training
+keeps the flash kernels, forward and backward.
 """
 
 from __future__ import annotations
@@ -28,15 +31,9 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.common import dtypes
 from analytics_zoo_tpu_torch.nn import activations
-from analytics_zoo_tpu_torch.nn.module import Layer, to_shape
+from analytics_zoo_tpu_torch.nn.module import (Layer, dropout, generator,
+                                               to_shape)
 from analytics_zoo_tpu_torch.ops.attention import attention_bthd
-
-
-def _no_training_dropout(layer: Layer, *rates: float) -> None:
-    if layer.training and any(r > 0.0 for r in rates):
-        raise NotImplementedError(
-            f"{layer.name}: dropout in training mode is ported with the "
-            "Estimator (ROADMAP queue 1, item 6)")
 
 
 def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -135,7 +132,6 @@ class MultiHeadAttention(Layer):
         return {"qkv": self.qkv.tree(), "out": self.out.tree()}
 
     def attend(self, x, mask=None):
-        _no_training_dropout(self, self.attn_drop, self.resid_drop)
         B, T, H = x.shape
         nh, hd = self.n_head, H // self.n_head
         qkv = _linear(self.qkv, x)                            # (B, T, 3H)
@@ -143,9 +139,18 @@ class MultiHeadAttention(Layer):
         # reads them through their strides
         q, k, v = (t.unflatten(-1, (nh, hd))
                    for t in qkv.split(H, dim=-1))
+        # the JAX split(rng) into the attention and residual keys
+        attn_seed, resid_seed = self.train_seed(0), self.train_seed(1)
+        attn_gen, rate = None, 0.0
+        if attn_seed is not None and self.attn_drop > 0.0:
+            attn_gen, rate = generator(attn_seed, x.device), self.attn_drop
         y = attention_bthd(q, k, v, mask=mask, causal=self.causal,
+                           dropout_rate=rate, dropout_rng=attn_gen,
                            impl=self.impl)
-        return _linear(self.out, y.reshape(B, T, H))
+        y = _linear(self.out, y.reshape(B, T, H))
+        if resid_seed is not None and self.resid_drop > 0.0:
+            y = dropout(y, self.resid_drop, resid_seed)
+        return y
 
     def forward(self, x):
         return self.attend(x)
@@ -265,13 +270,15 @@ class TransformerLayer(Layer):
         return (self.n_block, T, H) if self.output_all_block else (T, H)
 
     def forward(self, x):
-        _no_training_dropout(self, self.embedding_drop)
         ids = _ids(x).to(self.wte.device)
         T = ids.shape[1]
         if T > self.seq_len:
             raise ValueError(f"{self.name}: {T} tokens exceed seq_len="
                              f"{self.seq_len}")
         h = _take(self.wte, ids) + self.wpe[:T]
+        emb_seed = self.train_seed(999)
+        if emb_seed is not None and self.embedding_drop > 0.0:
+            h = dropout(h, self.embedding_drop, emb_seed)
         outs = []
         for blk in self.blocks:
             h = blk(h)

@@ -1,5 +1,5 @@
-"""Core layers on the predict path: Dense (float, W8A8 and W4A16),
-Activation, Dropout and Flatten — the JAX package's ``nn/layers/core.py``.
+"""Core layers: Dense (float, W8A8 and W4A16), Activation, Dropout and
+Flatten — the JAX package's ``nn/layers/core.py``.
 
 ``Dense`` keeps the JAX layout: ``W`` is (d_in, d_out) and applies as
 ``x @ W + b``.  Quantized, it holds the quantizer's leaves as buffers:
@@ -27,7 +27,8 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.common import dtypes
 from analytics_zoo_tpu_torch.nn import activations
-from analytics_zoo_tpu_torch.nn.module import Layer, initializer, to_shape
+from analytics_zoo_tpu_torch.nn.module import (Layer, dropout, initializer,
+                                               to_shape)
 from analytics_zoo_tpu_torch.ops import quant_matmul as qm
 
 _QUANT_DTYPES = {"W_q": torch.int8, "s_w": torch.float32,
@@ -136,19 +137,18 @@ class Activation(Layer):
 
 
 class Dropout(Layer):
-    """Inverted dropout: the identity in eval mode.  Training mode comes
-    with the Estimator (the port's layers serve predict only so far)."""
+    """Inverted dropout; the identity in eval mode or with no seed
+    (``Layer.seed_dropout``)."""
 
     def __init__(self, p: float, input_shape=None, name=None):
         super().__init__(input_shape=input_shape, name=name)
         self.p = float(p)
 
     def forward(self, x):
-        if self.training and self.p > 0.0:
-            raise NotImplementedError(
-                "Dropout in training mode: ported with the Estimator "
-                "(ROADMAP queue 1, item 6)")
-        return x
+        seed = self.train_seed()
+        if seed is None or self.p <= 0.0:
+            return x
+        return dropout(x, self.p, seed)
 
 
 class Flatten(Layer):

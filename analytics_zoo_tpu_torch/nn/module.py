@@ -20,12 +20,20 @@ its parameters, so the port's ``Layer`` is an ``nn.Module``:
 - ``param_count`` and ``_tree`` — the layer's parameters in the JAX
   package's tree layout (keys as in its ``build``), sub-layers left as
   ``Layer`` objects for ``utils/convert`` to walk.
+- dropout randomness — the JAX ``apply(..., training, rng)`` splits one
+  key per sub-layer (``split_rng``).  Here ``seed_dropout(seed)`` hands
+  every sub-layer its own seed, split the same way, before a training
+  step; each dropout site draws from a ``torch.Generator`` seeded with
+  its layer's seed.  A layer with no seed drops nothing, as a JAX layer
+  given ``rng=None`` does.
 
-``forward`` takes the place of ``call``.
+``forward`` takes the place of ``call``; ``nn.Module.train()`` /
+``eval()`` take the place of the ``training`` flag.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import math
 import zlib
@@ -65,6 +73,7 @@ class Layer(nn.Module):
         # the JAX package's layers run with training=False unless told
         # otherwise; nn.Module starts in training mode
         self.training = False
+        self.dropout_seed: Optional[int] = None
 
     # -- to be overridden ----------------------------------------------------
     def build(self, input_shape) -> None:
@@ -105,11 +114,63 @@ class Layer(nn.Module):
         self.reset_parameters(torch.Generator().manual_seed(int(seed)))
         return self
 
+    def sublayers(self):
+        """Direct sub-layers in registration order (through
+        ``nn.ModuleList``s)."""
+        for child in self.children():
+            if isinstance(child, Layer):
+                yield child
+            elif isinstance(child, nn.ModuleList):
+                yield from (c for c in child if isinstance(c, Layer))
+
+    def train_seed(self, index: Optional[int] = None) -> Optional[int]:
+        """The seed a dropout site of this layer draws from: ``None``
+        outside training mode or with no seed, else the layer's seed (split
+        by ``index`` for a layer with several sites)."""
+        if not self.training or self.dropout_seed is None:
+            return None
+        return self.dropout_seed if index is None \
+            else split_seed(self.dropout_seed, index)
+
+    def seed_dropout(self, seed: Optional[int]) -> None:
+        """Seed this layer's dropout and, split by position, its
+        sub-layers' (sub-layer ``i`` gets ``split_seed(seed, i)``, as the
+        JAX ``split_rng(rng, i)``).  ``None`` turns dropout off."""
+        self.dropout_seed = seed
+        for i, sub in enumerate(self.sublayers()):
+            sub.seed_dropout(split_seed(seed, i))
+
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
     def extra_repr(self) -> str:
         return f"name={self.name!r}"
+
+
+def split_seed(seed: Optional[int], index: int) -> Optional[int]:
+    """A sub-seed derived from ``(seed, index)`` (the JAX ``fold_in``);
+    ``None`` passes through."""
+    if seed is None:
+        return None
+    digest = hashlib.blake2b(f"{seed}/{index}".encode(), digest_size=8)
+    return int.from_bytes(digest.digest(), "little") >> 1
+
+
+def generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout: ``x / keep`` where a uniform draw from a generator
+    seeded with ``seed`` is below ``keep = 1 - rate``, else 0 (the JAX
+    ``where(bernoulli(rng, keep), x / keep, 0)``)."""
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=generator(seed, x.device),
+                      device=x.device)
+    return torch.where(draw < keep, x / keep, 0.0).to(x.dtype)
 
 
 def initializer(init: str, gen: torch.Generator, shape, fan_in=None,

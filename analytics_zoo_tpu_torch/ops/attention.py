@@ -5,8 +5,14 @@ The counterpart of the JAX package's ``ops/attention.py``:
 - ``_attention_torch`` / ``_attention_torch_bthd``: the plain einsum-softmax
   path (the JAX package's ``_attention_xla`` / ``_attention_xla_bthd``),
   which takes masks and attention dropout.
-- the flash kernel (``ops/flash_attention.py``, hand-written CUDA on the
-  card) for every call it can express.
+- the flash kernels (``ops/flash_attention.py``, hand-written CUDA on the
+  card) for every call they can express.
+
+Both routes are differentiable: the einsum path by autograd, the flash
+path through its autograd Function, whose backward runs the dq and dk/dv
+kernels on the card (the plain backward for CPU tensors).  Training keeps
+the flash selection unchanged; attention dropout takes the einsum path,
+drawing from the caller's generator.
 
 Differences from the JAX module, on purpose:
 

@@ -120,7 +120,8 @@ def load_jax_params(module: torch.nn.Module, params: Dict) -> torch.nn.Module:
 
 def export_params(layer: Layer) -> Dict:
     """The layer's parameters as a JAX-layout tree of (detached) tensors —
-    the input ``inference/quantize.quantize_params`` takes."""
+    the input ``inference/quantize.quantize_params`` takes, and what the
+    tests compare leaf by leaf with a JAX param tree after training."""
 
     def walk(own):
         return {k: walk(v._tree()) if isinstance(v, Layer)

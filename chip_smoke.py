@@ -31,12 +31,26 @@ by phase, each phase printing its own lines:
    heads (``ServingParams.quantize``).  Flash launches = 12 x forwards,
    w8a8 / w4a16 launches = forwards; served top-5 probabilities checked
    against the same model with every kernel's plain version.
+5. training — the flash backward's dq and dk/dv kernels against their
+   plain version (f32 and bf16, causal and not, T = 77, 1000 and 1024,
+   head_dim 32/64/128, with and without an LSE cotangent, strided views;
+   the (8, 12, 1024, 64) path shape with a planted fault and a bitwise
+   determinism check) and timed beside the plain backward and SDPA's
+   backward; then ``Estimator.fit`` of ``Sequential([TransformerLayer(GPT-2
+   small, T = 1024), Dense(50257, softmax)])`` (Adam 3e-4, global-norm
+   clip 1.0) over 64 seeded sequences, 8 steps of 8 x 1024 tokens, once
+   through the kernels and once through their plain versions from the same
+   weights: flash forward, dq and dk/dv launches = 12 x 8 each, losses
+   equal within a tolerance at every step, and falling.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 contract line.  Run from the repository root::
 
     python3 chip_smoke.py [--seed 0] [--profile]
+
+``--profile`` adds ``torch.profiler`` readings of a decode step, a predict
+batch and a training step.
 """
 
 from __future__ import annotations
@@ -56,6 +70,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from analytics_zoo_tpu_torch.common.context import ZooConf, ZooContext
+from analytics_zoo_tpu_torch.common.observability import MetricsRegistry
+from analytics_zoo_tpu_torch.estimator.estimator import Estimator
 from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.inference.quantize import (_quantize_w4,
                                                         kv_pack_int8,
@@ -65,6 +82,7 @@ from analytics_zoo_tpu_torch.nn.layers.attention import TransformerLayer
 from analytics_zoo_tpu_torch.nn.layers.core import Dense
 from analytics_zoo_tpu_torch.nn.layers.pooling import GlobalAveragePooling1D
 from analytics_zoo_tpu_torch.nn.models import Sequential
+from analytics_zoo_tpu_torch.nn.optimizers import Adam
 from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
 from analytics_zoo_tpu_torch.ops import paged_attention as pa
@@ -118,6 +136,24 @@ LOGP_TOL = 1e-5
 # shape's parity check must reject
 PLANTED_SCALE_ERR = 1e-3
 
+# the training path: the same GPT-2-small widths at the full context, as
+# a causal LM (a Dense softmax over every position); 64 sequences of
+# 1025 seeded ids give 8 optimizer steps of 8 x 1024 tokens
+TRAIN = dict(vocab=50257, hidden_size=768, n_block=12, n_head=12,
+             seq_len=1024)
+TRAIN_SEQS = 64
+TRAIN_BATCH = 8
+TRAIN_LR = 3e-4
+TRAIN_CLIP = 1.0
+# ids are drawn from a sub-vocabulary, in repeating motifs, so that a few
+# steps visibly lower the loss
+TRAIN_SUBVOCAB = 1024
+# kernel run vs plain run, loss at every step: the runs differ only in the
+# attention's f32 summation order (the kernels equal the plain versions to
+# <= 1e-6 on the card), which Adam's per-element normalisation carries
+# into the weights; on a loss of ~10 nats, 1e-3 is a relative 1e-4
+TRAIN_LOSS_TOL = 1e-3
+
 
 def say(*parts) -> None:
     print(*parts, flush=True)
@@ -142,7 +178,7 @@ def card_line() -> str:
     return out[0].strip()
 
 
-KERNEL_SOURCES = (pa.KERNEL, fa.KERNEL, qm.KERNEL)
+KERNEL_SOURCES = (pa.KERNEL, fa.KERNEL, fa.KERNEL_BWD, qm.KERNEL)
 
 
 def build_kernels() -> dict:
@@ -152,6 +188,7 @@ def build_kernels() -> dict:
     # load + bind now, not inside a timing
     pa._kernel_fns()
     fa._kernel_fn()
+    fa._bwd_kernel_fns()
     qm._kernel_fns()
     return {"wall_s": wall, "nvcc_s": dict(_build.BUILD_SECONDS),
             "ptxas": {k: _build.BUILD_LOG.get(k, "")
@@ -779,6 +816,7 @@ def sync(dev) -> None:
 
 def reset_launches() -> None:
     fa.launches = qm.launches_w8a8 = qm.launches_w4a16 = 0
+    fa.dq_launches = fa.dkv_launches = 0
 
 
 def serve_predict(im, X, params) -> dict:
@@ -1004,6 +1042,315 @@ def profile_decode(im, waves, kv_quant: str, boundaries: int = 4) -> None:
             f"{count // steps:4d} calls/step  {name[:90]}")
 
 
+# -- phase 5: training: the flash backward kernels and Estimator.fit ----------
+
+def flash_bwd_bound(B, H, T, D, causal, part="both", in_bytes=4):
+    """The least time for the backward (``part="both"``: q, k, v, O, dO and
+    the LSE read once, dq, dk, dv written once; 10·D flop per kept pair:
+    recompute s, then dp, dv, dk, dq) or for one kernel's function alone
+    (``"dq"``: q, k, v, dO, LSE and delta in, dq out, 6·D flop a pair;
+    ``"dkv"``: the same inputs, dk and dv out, 8·D flop a pair)."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    tensors = {"both": 8, "dq": 5, "dkv": 6}[part]
+    rows = {"both": 1, "dq": 2, "dkv": 2}[part]     # LSE (and delta)
+    nbytes = B * H * T * (D * in_bytes * tensors + 4 * rows)
+    flop = {"both": 10, "dq": 6, "dkv": 8}[part] * D
+    return bound(nbytes, flop * B * H * pairs, F32_FLOP_PER_S)
+
+
+def bwd_case(g, B, T, H, D, dt, causal, lse_ct, out_dtype=None):
+    """q/k/v as strided views of one projection, their forward through the
+    kernel (output and LSE), and cotangents: dO a (B, H, T, D) view of
+    (B, T, H, D) memory as autograd hands it over, and optionally one for
+    the LSE."""
+    q, k, v = qkv_views(g, B, T, H, D, dt)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                           out_dtype=out_dtype, impl="cuda")
+    o_dt = out_dtype or dt
+    dO = torch.from_numpy(g.standard_normal((B, T, H, D), dtype=np.float32)
+                          ).to("cuda", o_dt).transpose(1, 2)
+    g_lse = torch.from_numpy(g.standard_normal((B, H, T), dtype=np.float32)
+                             ).cuda() if lse_ct else None
+    return q, k, v, out, lse, dO, g_lse
+
+
+def run_bwd(case, causal, impl, scale=None):
+    q, k, v, out, lse, dO, g_lse = case
+    return fa.flash_attention_bwd(q, k, v, out, lse, dO, g_lse, causal,
+                                  scale, impl)
+
+
+def check_grads(tag, got, ref, atol, rtol) -> float:
+    return max(check_close(f"{tag} {name}", a, b, atol, rtol)
+               for name, a, b in zip(("dq", "dk", "dv"), got, ref))
+
+
+def flash_bwd_parity(seed: int) -> dict:
+    """dq, dk, dv from the kernels against the plain backward over dtypes,
+    masks, ragged T, head_dim, the LSE cotangent and bf16 inputs with an
+    f32 output.  Returns the worst abs error per gradient dtype."""
+    g = np.random.default_rng(seed + 60)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [(dt, causal, T, 64, lse_ct, None)
+             for dt in (torch.float32, torch.bfloat16)
+             for causal in (False, True) for T in (77, 1000, 1024)
+             for lse_ct in (False, True)]
+    cases += [(torch.float32, True, 77, 32, True, None),
+              (torch.float32, False, 200, 32, False, None),
+              (torch.float32, True, 1000, 128, True, None),
+              (torch.bfloat16, False, 77, 128, False, None),
+              (torch.bfloat16, True, 1000, 64, True, torch.float32)]
+    for dt, causal, T, D, lse_ct, out_dt in cases:
+        case = bwd_case(g, 2, T, 4, D, dt, causal, lse_ct, out_dt)
+        got = run_bwd(case, causal, "cuda")
+        torch.cuda.synchronize()
+        ref = run_bwd(case, causal, "torch")
+        tag = (f"flash-bwd[{str(dt)[6:]} causal={causal} T={T} D={D} "
+               f"lse_ct={lse_ct}{' out f32' if out_dt else ''}]")
+        worst[dt] = max(worst[dt], check_grads(tag, got, ref,
+                                               *FLASH_TOL[dt]))
+    say(f"flash-bwd parity: {len(cases)} cases, max abs err f32 "
+        f"{worst[torch.float32]:.3e} (atol {FLASH_TOL[torch.float32][0]}, "
+        f"rtol {FLASH_TOL[torch.float32][1]}), bf16 "
+        f"{worst[torch.bfloat16]:.3e} (atol {FLASH_TOL[torch.bfloat16][0]},"
+        f" rtol {FLASH_TOL[torch.bfloat16][1]})")
+    return worst
+
+
+def flash_bwd_path(seed: int, B=8, H=12, T=1024, D=64, iters=20) -> dict:
+    """The path shape: kernels vs plain (dq, dk, dv), a planted fault (the
+    plain backward's scale off by ``PLANTED_SCALE_ERR``) that the check
+    must reject, bitwise-equal gradients from two launches, then the
+    timing of each kernel, both, the plain backward and SDPA's
+    backward."""
+    g = np.random.default_rng(seed + 61)
+    case = bwd_case(g, B, T, H, D, torch.float32, True, False)
+    q, k, v, out, lse, dO, _ = case
+    scale = 1.0 / math.sqrt(D)
+    got = run_bwd(case, True, "cuda")
+    again = run_bwd(case, True, "cuda")
+    torch.cuda.synchronize()
+    ref = run_bwd(case, True, "torch")
+    tag = f"flash-bwd[path {(B, H, T, D)} f32 causal]"
+    err = check_grads(tag, got, ref, *FLASH_TOL[torch.float32])
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{tag}: two launches gave different gradients")
+    bad = run_bwd(case, True, "torch", scale * (1 + PLANTED_SCALE_ERR))
+    try:
+        planted = check_grads("planted", got, bad, *FLASH_TOL[torch.float32])
+    except SmokeFailure:
+        planted = max(float((a - b).abs().max()) for a, b in zip(got, bad))
+    else:
+        raise SmokeFailure(f"{tag}: a scale off by {PLANTED_SCALE_ERR} "
+                           f"passes the parity check (err {planted:.3e})")
+    say(f"{tag} parity: max abs err {err:.3e} (dq, dk, dv; atol "
+        f"{FLASH_TOL[torch.float32][0]}, rtol {FLASH_TOL[torch.float32][1]})"
+        f"; two launches bitwise equal; planted fault (scale x "
+        f"{1 + PLANTED_SCALE_ERR}) err {planted:.3e}, rejected")
+
+    delta = fa._delta(out, dO, None)
+    ms_dq = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, dO, lse, delta, True,
+                                            scale), iters=iters)
+    ms_dkv = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, dO, lse, delta, True,
+                                              scale), iters=iters)
+    ms = cuda_ms(lambda: run_bwd(case, True, "cuda"), iters=iters)
+    plain_ms = cuda_ms(lambda: run_bwd(case, True, "torch"),
+                       iters=iters // 2)
+    # SDPA's backward runs on autograd's streams, which a CUDA graph
+    # capture on a side stream cannot take: timed as back-to-back calls
+    # between CUDA events instead (the host enqueues far faster than the
+    # ~1 ms of device work per call, so the device stays busy)
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                       scale=scale)
+    lib_ms = events_ms(lambda: torch.autograd.grad(
+        o, (qq, kk, vv), dO, retain_graph=True), iters=iters)
+    b = flash_bwd_bound(B, H, T, D, True)
+    say(f"flash-bwd timing (B={B}, H={H}, T={T}, D={D}, f32, causal): "
+        f"kernels {ms:.4f} ms (dq {ms_dq:.4f}, dk/dv {ms_dkv:.4f}; delta "
+        f"in torch included), plain {plain_ms:.4f} ms, SDPA backward "
+        f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+        f"{b['bytes']} B, {b['ops']} flop)")
+    return {"ms_dq": ms_dq, "ms_dkv": ms_dkv, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "max_abs_err": err}
+
+
+def events_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean device time of one call of ``fn``: ``iters`` back-to-back calls
+    between two CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def flash_bwd_phase(seed: int) -> dict:
+    """Parity and timing of the backward kernels; their two records
+    (launches filled by the training phase)."""
+    worst = flash_bwd_parity(seed)
+    t = flash_bwd_path(seed)
+    err = max(worst[torch.float32], t["max_abs_err"])
+    shape = (8, 12, 1024, 64)
+    out = {}
+    for part, line in (("dq", 158), ("dkv", 194)):
+        b = flash_bwd_bound(*shape, True, part)
+        out[part] = {
+            "name": f"flash_attention_bwd_{part}[f32]", "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"analytics_zoo_tpu/ops/flash_attention.py:{line}",
+            "launches": None, "max_abs_err": err, "ms": t[f"ms_{part}"],
+            "plain_ms": t["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": t["library_ms"]}
+    return out
+
+
+def train_data(seed: int):
+    """``TRAIN_SEQS`` sequences of ``seq_len + 1`` ids from a ``TRAIN_SUBVOCAB``-id
+    sub-vocabulary, each a motif of 8..64 ids repeated: ``x = s[:, :-1]``,
+    ``y = s[:, 1:]``."""
+    g = np.random.default_rng(seed + 70)
+    sub = g.choice(TRAIN["vocab"], TRAIN_SUBVOCAB, replace=False)
+    L = TRAIN["seq_len"] + 1
+    seqs = np.stack([np.resize(g.choice(sub, int(g.integers(8, 65))), L)
+                     for _ in range(TRAIN_SEQS)]).astype(np.int64)
+    return seqs[:, :-1], seqs[:, 1:]
+
+
+def build_train_model(seed: int) -> Sequential:
+    T = TRAIN["seq_len"]
+    return Sequential([TransformerLayer(**TRAIN, input_shape=(T,)),
+                       Dense(TRAIN["vocab"], activation="softmax")]
+                      ).init_weights(seed)
+
+
+def train_run(model, x, y, seed: int) -> dict:
+    """``Estimator.fit`` over (x, y), one epoch of ``TRAIN_BATCH``: the
+    per-step losses (kept as device tensors by a step listener, read after
+    the run), the host-clock wall time to the last step's end, the
+    kernels' launch counts over exactly that run, and the peak device
+    memory."""
+    dev = next(model.parameters()).device
+    est = Estimator(model, optimizer=Adam(lr=TRAIN_LR),
+                    loss="sparse_categorical_crossentropy",
+                    clip_norm=TRAIN_CLIP, registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    losses = []
+    est._listeners.append(lambda step, loss: losses.append(loss))
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    est.fit(x, y, batch_size=TRAIN_BATCH, epochs=1, verbose=False)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    return {"losses": [float(v) for v in losses], "wall_s": wall,
+            "flash": fa.launches, "dq": fa.dq_launches,
+            "dkv": fa.dkv_launches, "summary": est.fit_summary(),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else 0, "estimator": est}
+
+
+def check_train(tag: str, run: dict, kernels: bool) -> None:
+    """8 finite losses, a falling loss, fit_summary's 8 steps and 64
+    weighted samples, and launches = 12 blocks x 8 steps for each kernel
+    (0 for the plain run)."""
+    n_steps = TRAIN_SEQS // TRAIN_BATCH
+    ls = run["losses"]
+    check(len(ls) == n_steps and all(math.isfinite(v) for v in ls),
+          f"train[{tag}]: losses {ls}")
+    check(ls[-1] < ls[0], f"train[{tag}]: the loss did not fall ({ls})")
+    summ = run["summary"]
+    check(summ["steps"] == n_steps and summ["samples"] == TRAIN_SEQS,
+          f"train[{tag}]: fit_summary counts {summ['steps']} steps, "
+          f"{summ['samples']} samples")
+    want = TRAIN["n_block"] * n_steps if kernels else 0
+    for key in ("flash", "dq", "dkv"):
+        check(run[key] == want, f"train[{tag}]: {key} launches "
+                                f"{run[key]} != {want}")
+    tokens = TRAIN_SEQS * TRAIN["seq_len"]
+    say(f"train[{tag}]: {n_steps} steps of {TRAIN_BATCH} x "
+        f"{TRAIN['seq_len']} tokens in {run['wall_s']:.3f} s (host clock) ="
+        f" {run['wall_s'] / n_steps * 1e3:.1f} ms/step, "
+        f"{tokens / run['wall_s']:.0f} tokens/s; losses "
+        f"{[round(v, 5) for v in ls]}; flash forward / dq / dk/dv launches "
+        f"{run['flash']} / {run['dq']} / {run['dkv']}; peak device memory "
+        f"{run['peak_bytes'] / 2 ** 30:.2f} GiB")
+
+
+def train_phase(seed: int, records: dict, profile: bool) -> None:
+    """The same seeded weights and data trained through the kernels and
+    through their plain versions; launches fill the records."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    host = build_train_model(seed)
+    x, y = train_data(seed)
+    say(f"model: Sequential[TransformerLayer {TRAIN}, Dense("
+        f"{TRAIN['vocab']}, softmax)] ({host.param_count()} params) built "
+        f"in {time.perf_counter() - t0:.2f} s; data {x.shape[0]} sequences "
+        f"of {x.shape[1] + 1} ids from {TRAIN_SUBVOCAB} ids")
+    # one step through each route first, on throwaway copies, so that
+    # neither timed run pays the first use of the training shapes
+    # (allocator growth, cuBLAS's choice of GEMM) on the host clock
+    for impl in (None, "torch"):
+        model = copy.deepcopy(host).to(dev)
+        set_impl(model, impl)
+        train_run(model, x[:TRAIN_BATCH], y[:TRAIN_BATCH], seed)
+        del model
+    runs = {}
+    for tag, impl in (("kernel", None), ("plain", "torch")):
+        model = copy.deepcopy(host).to(dev)
+        set_impl(model, impl)
+        runs[tag] = train_run(model, x, y, seed)
+        check_train(tag, runs[tag], kernels=impl is None)
+        if profile and impl is None:
+            profile_train(runs[tag]["estimator"], x, y)
+        del model, runs[tag]["estimator"]
+        torch.cuda.empty_cache()
+    diff = [abs(a - b) for a, b in zip(runs["kernel"]["losses"],
+                                       runs["plain"]["losses"])]
+    check(max(diff) <= TRAIN_LOSS_TOL,
+          f"train: kernel and plain losses differ by {max(diff):.3e} > "
+          f"{TRAIN_LOSS_TOL} ({runs['kernel']['losses']} vs "
+          f"{runs['plain']['losses']})")
+    say(f"train: kernel vs plain loss, max abs diff over "
+        f"{len(diff)} steps {max(diff):.3e} (tolerance {TRAIN_LOSS_TOL}); "
+        f"loss {runs['kernel']['losses'][0]:.4f} -> "
+        f"{runs['kernel']['losses'][-1]:.4f}")
+    records["flash_bwd_dq"]["launches"] = runs["kernel"]["dq"]
+    records["flash_bwd_dkv"]["launches"] = runs["kernel"]["dkv"]
+
+
+def profile_train(est, x, y) -> None:
+    """One more optimizer step under ``torch.profiler``: the device's busy
+    share of the wall time and the kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = est.device
+    batch = est._transfer((x[:TRAIN_BATCH], y[:TRAIN_BATCH],
+                           np.ones(TRAIN_BATCH, np.float32)))
+    est.model.train()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est._train_step(*batch[:3])
+        sync(dev)
+        wall = time.perf_counter() - t0
+    est.model.eval()
+    rows, busy = kernel_rows(prof)
+    say(f"profile[train]: one step of {TRAIN_BATCH} x {TRAIN['seq_len']} "
+        f"tokens in {wall * 1e3:.2f} ms under the profiler, kernels "
+        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of the wall)")
+    for name, count, ms in rows[:14]:
+        say(f"profile[train]   {ms:9.3f} ms  {count:4d} calls  {name[:90]}")
+
+
 # -- main ---------------------------------------------------------------------
 
 def ptxas_summary(log: str) -> str:
@@ -1036,8 +1383,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a decode step and a predict batch "
-                         "(torch.profiler)")
+                    help="also profile a decode step, a predict batch and "
+                         "a training step (torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1054,6 +1401,8 @@ def main(argv=None) -> int:
 
     records = kernel_phase(args.seed, GPT2_SMALL["n_layers"])
     records.update(predict_kernel_phase(args.seed))
+    bwd = flash_bwd_phase(args.seed)
+    records.update(flash_bwd_dq=bwd["dq"], flash_bwd_dkv=bwd["dkv"])
 
     t0 = time.perf_counter()
     lm = TransformerLM(**GPT2_SMALL, seed=args.seed, device=dev)
@@ -1090,9 +1439,14 @@ def main(argv=None) -> int:
     if args.profile:
         profile_predict(pim, X[:PREDICT_BATCH])
     predict_phase(args.seed, model, records)
+    del pim, model
+    torch.cuda.empty_cache()
+
+    train_phase(args.seed, records, args.profile)
 
     say(json.dumps({"kernels": [records[k] for k in (
-        "f32", "int8", "flash", "w8a8", "w4a16")]}))
+        "f32", "int8", "flash", "w8a8", "w4a16", "flash_bwd_dq",
+        "flash_bwd_dkv")]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,8 +10,9 @@ repository's ``conftest.py`` (which configures JAX)::
 
 The kernels are built from ``analytics_zoo_tpu_torch/csrc/`` at their first
 launch.  Tolerances: the same f32 math in another summation order (atol
-2e-5, rtol 1e-5) for the paged and flash kernels and the LSE; one bf16
-rounding step for bf16 outputs; bitwise for ``w8a8``; f32 sums of up to
+2e-5, rtol 1e-5) for the paged and flash kernels (forward, LSE and the
+backward's dq, dk, dv); one bf16 rounding step for bf16 outputs; bitwise
+for ``w8a8`` and for two launches of the flash backward; f32 sums of up to
 768 products in another order for ``w4a16`` (atol 1e-4).
 """
 
@@ -105,6 +106,47 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, causal, T,
     atol, rtol = FLASH_TOL[dtype]
     torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(glse, rlse, rtol=1e-5, atol=2e-5)
+
+
+def _flash_grads(q, k, v, causal, impl, seed=0):
+    """dq, dk, dv through autograd: a loss on the output and on the LSE
+    (so both cotangents reach the backward)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal,
+                                            impl=impl)
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    w = torch.randn(out.shape, generator=g, device=q.device)
+    wl = torch.randn(lse.shape, generator=g, device=q.device)
+    ((out.float() * w).sum() + (lse * wl).sum()).backward()
+    return q.grad, k.grad, v.grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,D", [(77, 64), (130, 32), (64, 128)])
+def test_flash_backward_kernels_match_plain_on_card(cuda_device, dtype,
+                                                    causal, T, D):
+    q, k, v = _flash_case(cuda_device, dtype, 2, T, 3, D)
+    n0 = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    got = _flash_grads(q, k, v, causal, "cuda")
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == tuple(
+        n + 1 for n in n0)
+    ref = _flash_grads(q, k, v, causal, "torch")
+    atol, rtol = FLASH_TOL[dtype]
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_flash_backward_is_deterministic_on_card(cuda_device):
+    """No atomics: every gradient element is written by one block."""
+    q, k, v = _flash_case(cuda_device, torch.float32, 2, 200, 4, 64)
+    a = _flash_grads(q, k, v, True, "cuda")
+    b = _flash_grads(q, k, v, True, "cuda")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.gpu

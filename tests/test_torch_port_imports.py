@@ -48,7 +48,9 @@ def test_every_module_imports_with_jax_blocked():
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert doc["foreign"] == []
     for mod in ("serving.engine", "serving.generate", "ops.paged_attention",
-                "models.textmodels", "utils.convert"):
+                "models.textmodels", "utils.convert", "estimator.estimator",
+                "nn.objectives", "nn.metrics", "nn.optimizers",
+                "common.triggers", "feature.dataset"):
         assert f"analytics_zoo_tpu_torch.{mod}" in doc["modules"]
 
 

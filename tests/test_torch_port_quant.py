@@ -156,13 +156,6 @@ def test_flash_bf16_inputs_with_f32_out_dtype_match_jax():
                                atol=FLASH_ATOL, rtol=FLASH_RTOL)
 
 
-def test_flash_backward_is_not_ported():
-    q, k, v = (_t(a).requires_grad_() for a in _qkv(3, Tt=8, D=8))
-    out = tfa.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="flash backward"):
-        out.sum().backward()
-
-
 # -- w8a8 ----------------------------------------------------------------------
 
 # (M, K, N): one row, the Pallas tile edges, and a ragged shape the TPU

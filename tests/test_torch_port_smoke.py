@@ -136,3 +136,65 @@ def test_predict_checks_accept_the_served_path_and_reject_faults(
     forged = dict(run, results=dict(run["results"], **{rid: {"value": top}}))
     with pytest.raises(cs.SmokeFailure, match="log-prob error"):
         cs.check_predict("forged", forged, ref, tol, quant)
+
+
+def test_flash_backward_bounds():
+    """10·D flop per kept pair for the whole backward (0.481 ms at the path
+    shape: 32.2 GFLOP at 67 TFLOP/s), 6·D for dq's function, 8·D for dk/dv's;
+    q, k, v, O, dO read and dq, dk, dv written once."""
+    pairs = 8 * 12 * 1024 * 1025 // 2
+    b = cs.flash_bwd_bound(8, 12, 1024, 64, True)
+    assert b["ops"] == 10 * 64 * pairs == 32_243_712_000
+    assert b["bytes"] == 8 * 12 * 1024 * (64 * 4 * 8 + 4)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(0.48125, abs=1e-5)
+    assert cs.flash_bwd_bound(8, 12, 1024, 64, True, "dq")["ops"] \
+        + cs.flash_bwd_bound(8, 12, 1024, 64, True, "dkv")["ops"] \
+        == 14 * 64 * pairs
+    assert cs.flash_bwd_bound(1, 1, 8, 32, False)["ops"] == 10 * 32 * 64
+
+
+@pytest.fixture
+def tiny_train(monkeypatch):
+    monkeypatch.setattr(cs, "TRAIN", dict(vocab=97, hidden_size=32,
+                                          n_block=2, n_head=2, seq_len=32))
+    monkeypatch.setattr(cs, "TRAIN_SEQS", 16)
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 4)
+    monkeypatch.setattr(cs, "TRAIN_SUBVOCAB", 20)
+    monkeypatch.setattr(cs, "TRAIN_LR", 3e-3)
+    return cs.build_train_model(0), cs.train_data(0)
+
+
+def test_train_data_is_motifs_from_a_sub_vocabulary(tiny_train):
+    _, (x, y) = tiny_train
+    assert x.shape == y.shape == (16, 32)
+    np.testing.assert_array_equal(x[:, 1:], y[:, :-1])
+    assert len(np.unique(np.concatenate([x, y]))) <= cs.TRAIN_SUBVOCAB
+
+
+def test_train_checks_accept_the_path_and_reject_faults(tiny_train):
+    """The training phase's host logic at a tiny width: the kernel-route
+    and plain runs from one set of weights (on the CPU both take the plain
+    versions, so launches stay 0 and the losses are equal); the checks
+    pass once the launch counts the card would give are filled in, and
+    reject a missing launch, a loss that does not fall and a wrong step
+    count."""
+    model, (x, y) = tiny_train
+    runs = {}
+    for tag, impl in (("kernel", None), ("plain", "torch")):
+        m = copy.deepcopy(model)
+        cs.set_impl(m, impl)
+        runs[tag] = cs.train_run(m, x, y, 0)
+        assert runs[tag]["flash"] == runs[tag]["dq"] == runs[tag]["dkv"] == 0
+    assert runs["kernel"]["losses"] == runs["plain"]["losses"]
+    cs.check_train("plain", runs["plain"], kernels=False)
+    run = dict(runs["kernel"], flash=8, dq=8, dkv=8)
+    cs.check_train("kernel", run, kernels=True)
+    with pytest.raises(cs.SmokeFailure, match="dkv launches"):
+        cs.check_train("bad", dict(run, dkv=7), kernels=True)
+    with pytest.raises(cs.SmokeFailure, match="did not fall"):
+        cs.check_train("bad", dict(run, losses=run["losses"][::-1]),
+                       kernels=True)
+    summary = dict(run["summary"], steps=3)
+    with pytest.raises(cs.SmokeFailure, match="fit_summary"):
+        cs.check_train("bad", dict(run, summary=summary), kernels=True)
