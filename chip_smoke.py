@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``analytics_zoo_tpu_torch``).
 
-Runs the port's two serving paths on one NVIDIA GPU and checks them, phase
-by phase, each phase printing its own lines:
+Runs the port's two serving paths and its training path on one NVIDIA GPU
+and checks them, phase by phase, each phase printing its own lines:
 
 1. card — the card's name and power limit (``nvidia-smi``) and the build of
    every CUDA kernel (one ``nvcc`` per source, started together).
