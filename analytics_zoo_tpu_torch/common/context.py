@@ -36,26 +36,22 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 @dataclasses.dataclass
 class ZooConf:
-    """Typed config: the seed, the device and the training loop's knobs.
-    Overridable from environment variables prefixed ``ZOO_TPU_``
-    (``ZOO_TPU_SEED=7``, ``ZOO_TPU_DEVICE=cpu``)."""
+    """Typed config: the seed and the device.  Overridable from environment
+    variables prefixed ``ZOO_TPU_`` (``ZOO_TPU_SEED=7``,
+    ``ZOO_TPU_DEVICE=cpu``)."""
 
     seed: int = 42
     device: Optional[str] = None
-    # Training-loop behaviour (the JAX package's defaults)
-    log_every_n_steps: int = 10
-    prefetch_buffers: int = 2             # double-buffered device infeed
     # a trace of the whole fit; not ported (the Estimator raises)
     profile_dir: str = ""
 
     @classmethod
     def from_env(cls, **overrides) -> "ZooConf":
         conf = cls(**overrides)
-        for f in dataclasses.fields(conf):
-            raw = os.environ.get("ZOO_TPU_" + f.name.upper())
-            if raw and f.name not in overrides:
-                setattr(conf, f.name, int(raw) if isinstance(
-                    getattr(conf, f.name), int) else raw)
+        if "seed" not in overrides and "ZOO_TPU_SEED" in os.environ:
+            conf.seed = int(os.environ["ZOO_TPU_SEED"])
+        if "device" not in overrides and os.environ.get("ZOO_TPU_DEVICE"):
+            conf.device = os.environ["ZOO_TPU_DEVICE"]
         return conf
 
 

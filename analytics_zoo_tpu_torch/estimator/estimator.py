@@ -45,13 +45,15 @@ from analytics_zoo_tpu_torch.nn import objectives as objectives_lib
 from analytics_zoo_tpu_torch.nn import optimizers as optimizers_lib
 from analytics_zoo_tpu_torch.nn.module import Layer, split_seed
 
+# batches the infeed thread keeps ready ahead of the step (double
+# buffering, the JAX package's default)
+_INFEED_DEPTH = 2
 _CHECKPOINT = ("checkpointing, the failure-retry loop and the preemption "
                "guard (orbax in the JAX package): ROADMAP queue 1, item 6")
 
 
 class _DevicePrefetcher:
-    """Background-thread device infeed (``conf.prefetch_buffers``): host
-    batch assembly and the host→device copy of up to ``depth`` upcoming
+    """Background-thread device infeed: host batch assembly and the host→device copy of up to ``depth`` upcoming
     batches run on a worker thread while the main thread's device work
     runs.  Exceptions raised by the iterator or the copy surface on the
     consumer thread; ``close()`` unblocks and joins the worker when the
@@ -268,7 +270,7 @@ class Estimator:
 
     # -- public API -----------------------------------------------------------
     def fit(self, x, y=None, *, batch_size=32, epochs=1, validation_data=None,
-            shuffle=True, verbose=True, log_every: Optional[int] = None,
+            shuffle=True, verbose=True, log_every: int = 10,
             end_trigger: Optional[ZooTrigger] = None, resume: bool = False,
             steps_per_call: int = 1) -> History:
         if self.optimizer is None or self.loss is None:
@@ -288,7 +290,6 @@ class Estimator:
         self._ensure_init()
         hist = History()
         np_rng = np.random.default_rng(self.ctx.conf.seed)
-        log_every = log_every or self.ctx.conf.log_every_n_steps
         tstate = TrainState(epoch=self.epoch, iteration=self.global_step)
         self.model.train()
         try:
@@ -313,9 +314,9 @@ class Estimator:
             t0 = time.time()
             losses, seen = [], 0
             t_step = time.perf_counter()
-            feed = self._feed(data.batches(batch_size, shuffle=shuffle,
-                                           rng=np_rng, pad_final=True),
-                              self._transfer)
+            feed = _DevicePrefetcher(
+                data.batches(batch_size, shuffle=shuffle, rng=np_rng,
+                             pad_final=True), self._transfer, _INFEED_DEPTH)
             try:
                 for sx, sy, sw, wsum in feed:
                     loss = self._train_step(sx, sy, sw)
@@ -340,8 +341,7 @@ class Estimator:
                     if end_trigger is not None and end_trigger(tstate):
                         break
             finally:
-                if isinstance(feed, _DevicePrefetcher):
-                    feed.close()
+                feed.close()
 
             self.epoch += 1
             epoch += 1
@@ -374,14 +374,6 @@ class Estimator:
                 break
         return hist
 
-    def _feed(self, batch_iter, transfer):
-        """Device infeed: ``prefetch_buffers > 0`` moves host assembly and
-        the host→device copy onto a worker thread; 0 keeps them inline."""
-        depth = self.ctx.conf.prefetch_buffers
-        if depth and depth > 0:
-            return _DevicePrefetcher(batch_iter, transfer, depth)
-        return map(transfer, batch_iter)
-
     @staticmethod
     def _val_tuple(validation_data):
         if isinstance(validation_data, FeatureSet):
@@ -404,8 +396,8 @@ class Estimator:
         # accumulate on the device; one readback at the end
         loss_sum = torch.zeros((), device=self.device)
         w_sum = torch.zeros((), device=self.device)
-        feed = self._feed(data.batches(batch_size, pad_final=True),
-                          self._transfer)
+        feed = _DevicePrefetcher(data.batches(batch_size, pad_final=True),
+                                 self._transfer, _INFEED_DEPTH)
         try:
             for sx, sy, sw, _ in feed:
                 y_pred = self.model(sx)
@@ -415,8 +407,7 @@ class Estimator:
                     loss_sum = loss_sum + self._loss_sum(y_pred, sy, sw)
                 w_sum = w_sum + sw.sum()
         finally:
-            if isinstance(feed, _DevicePrefetcher):
-                feed.close()
+            feed.close()
         out = {m.name: m.result(acc) for m, acc in zip(self.metrics, accs)}
         w = float(w_sum)
         if self.loss is not None and w > 0:
@@ -441,9 +432,10 @@ class Estimator:
                 outs.append(yb[:take].cpu().numpy())
             n_left -= take
 
-        feed = self._feed(data.batches(batch_size, pad_final=True),
-                          lambda b: (_to_device(b[0], self.device),
-                                     int(b[2].shape[0])))
+        feed = _DevicePrefetcher(data.batches(batch_size, pad_final=True),
+                                 lambda b: (_to_device(b[0], self.device),
+                                            int(b[2].shape[0])),
+                                 _INFEED_DEPTH)
         pending = None  # one-batch-lag readback: batch k's host copy
         try:            # waits behind batch k+1's device work
             for sx, nb in feed:
@@ -452,8 +444,7 @@ class Estimator:
                     readback(*pending)
                 pending = (yb, nb)
         finally:
-            if isinstance(feed, _DevicePrefetcher):
-                feed.close()
+            feed.close()
         if pending is not None:
             readback(*pending)
         if isinstance(outs[0], list):

@@ -56,6 +56,7 @@ batch and a training step.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -150,9 +151,21 @@ TRAIN_CLIP = 1.0
 TRAIN_SUBVOCAB = 1024
 # kernel run vs plain run, loss at every step: the runs differ only in the
 # attention's f32 summation order (the kernels equal the plain versions to
-# <= 1e-6 on the card), which Adam's per-element normalisation carries
-# into the weights; on a loss of ~10 nats, 1e-3 is a relative 1e-4
-TRAIN_LOSS_TOL = 1e-3
+# <= 1.5e-6 on the card).  On the H100 sound runs read 9.537e-7 apart (one
+# f32 step at a loss of ~10) and the planted dk block below 1.621e-5; the
+# limit sits about 4x from each (PERF.md section 6)
+TRAIN_LOSS_TOL = 4e-6
+# planted backward faults, each trained like train[kernel] and compared
+# with train[plain] as it is: (tag, wrapper spoiled, how it spoils the
+# wrapper's output, whether the loss check must reject it).  Adam divides
+# each gradient by its running RMS, so a uniform scale of dq barely moves
+# the losses; a gradient block that is lost does.
+TRAIN_FAULTS = (
+    (f"dq x {1 + PLANTED_SCALE_ERR}", "flash_bwd_dq",
+     lambda dq: dq.mul_(1 + PLANTED_SCALE_ERR), False),
+    ("dk zeroed in one block (b 0, h 0, keys 0-63)", "flash_bwd_dkv",
+     lambda dkv: dkv[0][0, 0, :64].zero_(), True),
+)
 
 
 def say(*parts) -> None:
@@ -1198,16 +1211,27 @@ def flash_bwd_phase(seed: int) -> dict:
     t = flash_bwd_path(seed)
     err = max(worst[torch.float32], t["max_abs_err"])
     shape = (8, 12, 1024, 64)
+    whole = flash_bwd_bound(*shape, True)
     out = {}
     for part, line in (("dq", 158), ("dkv", 194)):
-        b = flash_bwd_bound(*shape, True, part)
+        own = flash_bwd_bound(*shape, True, part)
+        # no plain or library call computes one kernel's function alone,
+        # so the contract's fields hold the whole backward, and each
+        # kernel's own time and bound stand beside them
         out[part] = {
             "name": f"flash_attention_bwd_{part}[f32]", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"analytics_zoo_tpu/ops/flash_attention.py:{line}",
-            "launches": None, "max_abs_err": err, "ms": t[f"ms_{part}"],
-            "plain_ms": t["plain_ms"], "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "library_ms": t["library_ms"]}
+            "launches": None, "max_abs_err": err,
+            "scope": "ms, plain_ms, bound_ms and library_ms are of the "
+                     "whole backward: the dq and dk/dv kernels with delta, "
+                     "the plain backward, SDPA's backward; kernel_ms and "
+                     "kernel_bound_ms are of this kernel alone",
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": whole["bound_ms"], "bound_by": whole["bound_by"],
+            "library_ms": t["library_ms"], "kernel_ms": t[f"ms_{part}"],
+            "kernel_bound_ms": own["bound_ms"],
+            "kernel_bound_by": own["bound_by"]}
     return out
 
 
@@ -1314,18 +1338,54 @@ def train_phase(seed: int, records: dict, profile: bool) -> None:
             profile_train(runs[tag]["estimator"], x, y)
         del model, runs[tag]["estimator"]
         torch.cuda.empty_cache()
-    diff = [abs(a - b) for a, b in zip(runs["kernel"]["losses"],
-                                       runs["plain"]["losses"])]
-    check(max(diff) <= TRAIN_LOSS_TOL,
-          f"train: kernel and plain losses differ by {max(diff):.3e} > "
+    gap = loss_gap(runs["kernel"], runs["plain"])
+    check(gap <= TRAIN_LOSS_TOL,
+          f"train: kernel and plain losses differ by {gap:.3e} > "
           f"{TRAIN_LOSS_TOL} ({runs['kernel']['losses']} vs "
           f"{runs['plain']['losses']})")
     say(f"train: kernel vs plain loss, max abs diff over "
-        f"{len(diff)} steps {max(diff):.3e} (tolerance {TRAIN_LOSS_TOL}); "
-        f"loss {runs['kernel']['losses'][0]:.4f} -> "
+        f"{len(runs['plain']['losses'])} steps {gap:.3e} (tolerance "
+        f"{TRAIN_LOSS_TOL}); loss {runs['kernel']['losses'][0]:.4f} -> "
         f"{runs['kernel']['losses'][-1]:.4f}")
     records["flash_bwd_dq"]["launches"] = runs["kernel"]["dq"]
     records["flash_bwd_dkv"]["launches"] = runs["kernel"]["dkv"]
+    for tag, name, spoil, must_reject in TRAIN_FAULTS:
+        model = copy.deepcopy(host).to(dev)
+        with planted(name, spoil):
+            bad = train_run(model, x, y, seed)
+        del model, bad["estimator"]
+        gap = loss_gap(bad, runs["plain"])
+        rejected = gap > TRAIN_LOSS_TOL
+        say(f"train[planted {tag}]: max abs loss diff to train[plain] "
+            f"{gap:.3e}, {'rejected' if rejected else 'passes'} at "
+            f"tolerance {TRAIN_LOSS_TOL}")
+        check(rejected or not must_reject,
+              f"train: the planted fault '{tag}' passes the loss check "
+              f"({gap:.3e} <= {TRAIN_LOSS_TOL})")
+    torch.cuda.empty_cache()
+
+
+def loss_gap(run: dict, ref: dict) -> float:
+    return max(abs(a - b) for a, b in zip(run["losses"], ref["losses"]))
+
+
+@contextlib.contextmanager
+def planted(name: str, spoil):
+    """``fa.<name>`` (a backward kernel's wrapper, which the autograd
+    backward looks up at each call) spoils its output with ``spoil``
+    while the block runs."""
+    launch = getattr(fa, name)
+
+    def faulty(*args):
+        out = launch(*args)
+        spoil(out)
+        return out
+
+    setattr(fa, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(fa, name, launch)
 
 
 def profile_train(est, x, y) -> None:

@@ -198,3 +198,49 @@ def test_train_checks_accept_the_path_and_reject_faults(tiny_train):
     summary = dict(run["summary"], steps=3)
     with pytest.raises(cs.SmokeFailure, match="fit_summary"):
         cs.check_train("bad", dict(run, summary=summary), kernels=True)
+
+
+def test_planted_backward_faults_spoil_what_they_name(monkeypatch):
+    """``planted`` wraps a backward kernel's wrapper only while its block
+    runs, also when the block raises; each planted train fault spoils
+    exactly what its tag says, on outputs laid out as the wrappers lay
+    them out ((B, H, T, D) views of (B, T, H, D) memory)."""
+    g = torch.Generator().manual_seed(0)
+
+    def grads():
+        return [torch.randn(2, 80, 3, 8, generator=g).transpose(1, 2)
+                for _ in range(2)]
+
+    monkeypatch.setattr(cs.fa, "flash_bwd_dq", lambda *a: grads()[0])
+    monkeypatch.setattr(cs.fa, "flash_bwd_dkv", lambda *a: tuple(grads()))
+    wrappers = {n: getattr(cs.fa, n) for n in ("flash_bwd_dq",
+                                               "flash_bwd_dkv")}
+    (dq_tag, _, _, dq_reject), (dk_tag, _, _, dk_reject) = cs.TRAIN_FAULTS
+    assert not dq_reject and dk_reject and "dq" in dq_tag and "dk" in dk_tag
+    for tag, name, spoil, _ in cs.TRAIN_FAULTS:
+        g.manual_seed(1)
+        clean = wrappers[name]()
+        g.manual_seed(1)
+        with cs.planted(name, spoil):
+            assert getattr(cs.fa, name) is not wrappers[name]
+            bad = getattr(cs.fa, name)()
+        assert getattr(cs.fa, name) is wrappers[name]
+        if name == "flash_bwd_dq":
+            torch.testing.assert_close(bad, clean * (1 + cs.PLANTED_SCALE_ERR),
+                                       rtol=0, atol=0)
+        else:
+            dk, dv = clean
+            want = dk.clone()
+            want[0, 0, :64] = 0
+            torch.testing.assert_close(bad[0], want, rtol=0, atol=0)
+            torch.testing.assert_close(bad[1], dv, rtol=0, atol=0)
+            assert bool((bad[0][0, 0, 64:] != 0).all())
+    with pytest.raises(KeyError):
+        with cs.planted("flash_bwd_dq", lambda out: None):
+            raise KeyError("inside")
+    assert cs.fa.flash_bwd_dq is wrappers["flash_bwd_dq"]
+
+
+def test_loss_gap_is_the_largest_step_difference():
+    assert cs.loss_gap({"losses": [10.0, 9.5, 9.0]},
+                       {"losses": [10.0, 9.25, 9.125]}) == 0.25
