@@ -31,6 +31,14 @@ def param_dtype():
     return _policy["param"]
 
 
+def conv_out_dtype():
+    """Output dtype of convolutions: the compute dtype under a mixed policy
+    (the JAX package's conv VJP needs operand and cotangent dtypes to
+    match, so its convs emit the compute dtype, summed in f32 inside),
+    else the param dtype."""
+    return _policy["compute"] or _policy["param"]
+
+
 def cast_compute(*tensors):
     """Cast tensors to the compute dtype (no-op when policy is unset)."""
     c = _policy["compute"]

@@ -1,5 +1,6 @@
-"""Core layers: Dense (float, W8A8 and W4A16), Activation, Dropout and
-Flatten — the JAX package's ``nn/layers/core.py``.
+"""Core layers: Dense (float, W8A8 and W4A16), Activation, Dropout,
+Flatten, Merge and BatchNormalization — the JAX package's
+``nn/layers/core.py``.
 
 ``Dense`` keeps the JAX layout: ``W`` is (d_in, d_out) and applies as
 ``x @ W + b``.  Quantized, it holds the quantizer's leaves as buffers:
@@ -157,3 +158,155 @@ class Flatten(Layer):
 
     def compute_output_shape(self, input_shape):
         return (int(np.prod(to_shape(input_shape))),)
+
+
+class Merge(Layer):
+    """Multi-input merge (keras/layers/Merge): modes sum, mul, ave, sub,
+    max, min, concat, dot, cos, over a list of inputs, left to right as the
+    JAX package folds them.  (The JAX ``Merge``'s branch layers, which no
+    graph of the zoo uses, are not ported.)"""
+
+    def __init__(self, mode="sum", concat_axis=-1, input_shape=None,
+                 name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.mode = mode
+        self.concat_axis = int(concat_axis)
+
+    def _axis(self, rank: int) -> int:
+        """``concat_axis`` of a batched tensor of ``rank`` as an index into
+        a shape without the batch axis."""
+        return self.concat_axis - 1 if self.concat_axis > 0 \
+            else rank - 1 + self.concat_axis
+
+    def compute_output_shape(self, input_shape):
+        shapes = [to_shape(s) for s in input_shape]
+        if self.mode == "concat":
+            ax = self._axis(len(shapes[0]) + 1)
+            out = list(shapes[0])
+            out[ax] = None if any(s[ax] is None for s in shapes) \
+                else sum(s[ax] for s in shapes)
+            return tuple(out)
+        if self.mode in ("dot", "cos"):
+            return shapes[0][:-1] + (1,)
+        return shapes[0]
+
+    def _merge(self, xs):
+        m = self.mode
+        if m in ("sum", "ave"):
+            out = xs[0]
+            for x in xs[1:]:
+                out = out + x
+            return out / float(len(xs)) if m == "ave" else out
+        if m == "mul":
+            out = xs[0]
+            for x in xs[1:]:
+                out = out * x
+            return out
+        if m == "sub":
+            if len(xs) != 2:
+                raise ValueError("sub merge requires exactly 2 inputs")
+            return xs[0] - xs[1]
+        if m in ("max", "min"):
+            fn = torch.maximum if m == "max" else torch.minimum
+            out = xs[0]
+            for x in xs[1:]:
+                out = fn(out, x)
+            return out
+        if m == "concat":
+            return torch.cat(xs, dim=self.concat_axis)
+        if m == "dot":
+            return (xs[0] * xs[1]).sum(-1, keepdim=True)
+        if m == "cos":
+            a, b = xs[0], xs[1]
+            na = torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+            nb = torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+            return (a * b).sum(-1, keepdim=True) / (na * nb + 1e-8)
+        raise ValueError(f"unknown merge mode {self.mode!r}")
+
+    def forward(self, xs):
+        return self._merge(list(xs))
+
+
+def merge(inputs, mode="sum", concat_axis=-1, name=None):
+    """Functional-API merge over ``SymTensor``s (keras.layers.merge)."""
+    return Merge(mode=mode, concat_axis=concat_axis, name=name)(list(inputs))
+
+
+class BatchNormalization(Layer):
+    """Batch normalization with the JAX package's semantics
+    (``nn/layers/core.py:285``), not ``F.batch_norm``'s:
+
+    - training: single-pass f32 statistics (f64 for an f64 input, which
+      the JAX package would round to f32) over every axis but ``axis``,
+      ``mean = S / n`` and the BIASED ``var = max(Q / n - mean², 0)`` from
+      ``S = Σx`` and ``Q = Σx²``; the moving statistics (buffers ``mean``,
+      ``var``) become ``momentum · old + (1 - momentum) · batch`` in place,
+      once per forward.  ``forward(x, stats=(S, Q, n))`` takes the sums
+      precomputed — the graph ``Model``'s fused 1×1-conv route
+      (``ops/fused_bn.py``) hands them over from the conv's epilogue —
+      and gradients flow back through them;
+    - eval: the moving statistics;
+    - both: ``(mean, var, gamma, beta)`` folded into a per-channel scale
+      and shift in that dtype, then one multiply and one add in ``x``'s.
+    """
+
+    def __init__(self, epsilon=1e-3, momentum=0.99, axis=-1,
+                 input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.epsilon = float(epsilon)
+        self.momentum = float(momentum)
+        if int(axis) == 0:
+            raise ValueError("BatchNormalization cannot normalise over the "
+                             "batch axis (axis=0)")
+        self.axis = int(axis)
+        self._build_declared()
+
+    def _dim(self, input_shape):
+        shape = to_shape(input_shape)
+        return shape[self.axis] if self.axis < 0 else shape[self.axis - 1]
+
+    def build(self, input_shape):
+        d = self._dim(input_shape)
+        self.gamma = nn.Parameter(torch.ones(d))
+        self.beta = nn.Parameter(torch.zeros(d))
+        self.register_buffer("mean", torch.zeros(d))
+        self.register_buffer("var", torch.ones(d))
+
+    def reset_parameters(self, gen):
+        self.gamma.fill_(1.0)
+        self.beta.zero_()
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def _tree(self) -> Dict:
+        return {"gamma": self.gamma, "beta": self.beta}
+
+    def _state_tree(self) -> Dict:
+        return {"mean": self.mean, "var": self.var}
+
+    def forward(self, x, stats=None):
+        ax = self.axis % x.ndim
+        bshape = [1] * x.ndim
+        bshape[ax] = x.shape[ax]
+        sdt = torch.promote_types(x.dtype, torch.float32)
+        if self.training:
+            if stats is None:
+                red = tuple(i for i in range(x.ndim) if i != ax)
+                xs = x.to(sdt)
+                stats = (xs.sum(red), (xs * xs).sum(red),
+                         x.numel() // x.shape[ax])
+            s, ss, count = stats
+            mean = s / count
+            var = torch.clamp_min(ss / count - mean * mean, 0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.epsilon)
+        gamma = self.gamma.to(sdt)
+        beta = self.beta.to(sdt)
+        scale = (gamma * inv).to(x.dtype)
+        shift = (beta - mean * gamma * inv).to(x.dtype)
+        return x * scale.reshape(bshape) + shift.reshape(bshape)

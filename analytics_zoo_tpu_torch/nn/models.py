@@ -1,23 +1,37 @@
-"""Containers: ``Sequential`` (the JAX package's ``nn/models.py:120``) and
-the Keras-style training façade ``KerasNet`` (``nn/models.py:21``).
+"""Containers: ``Sequential`` (the JAX package's ``nn/models.py:120``),
+the graph ``Model`` (``nn/models.py:179``) and the Keras-style training
+façade ``KerasNet`` (``nn/models.py:21``).
 
-Layers are threaded in order; ``add`` builds each new layer for the
-output shape of the one before it (the first layer must declare
-``input_shape``, as in the JAX package).  The param tree is
-``{layer_name: subtree}``.  ``compile`` / ``fit`` / ``evaluate`` /
-``predict`` go through the ``Estimator``; a port model owns its
-parameters, so ``fit`` trains them in place, and ``get_weights`` /
-``set_weights`` read and write them as a JAX-layout tree.  The graph
-``Model`` comes with a later slice.
+``Sequential`` threads its layers in order; ``add`` builds each new layer
+for the output shape of the one before it (the first layer must declare
+``input_shape``, as in the JAX package).  ``Model`` runs a graph of layers
+called on ``SymTensor``s (``nn/graph.py``) in topological order.  Both
+key their param tree ``{layer_name: subtree}`` and their state tree
+(BatchNorm's moving statistics, buffers updated in place in training
+mode) the same way.  ``compile`` / ``fit`` / ``evaluate`` / ``predict`` go
+through the ``Estimator``; a port model owns its parameters and state, so
+``fit`` trains them in place, and ``get_weights`` / ``set_weights`` read
+and write them as JAX-layout trees.
+
+``Model`` also carries a fusion plan, computed once at construction: each
+(``Convolution2D``, ``BatchNormalization``) node pair in which the conv is
+``fusable_with_bn()`` (1×1, stride 1, no bias, linear, channels last,
+float weights) and its output's only consumer is a BN over the last
+axis.  In training mode such a pair runs through ``ops/fused_bn`` — the
+product and the BN's sums in one kernel — and the BN takes the sums; in
+eval mode the BN reads its moving statistics and nothing is fused.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from torch import nn
 
 from analytics_zoo_tpu_torch.estimator.estimator import Estimator
+from analytics_zoo_tpu_torch.nn.graph import SymTensor, topo_sort
+from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
+from analytics_zoo_tpu_torch.nn.layers.core import BatchNormalization
 from analytics_zoo_tpu_torch.nn.module import Layer
 
 
@@ -59,9 +73,13 @@ class KerasNet(Layer):
         return export_params(self)
 
     def set_weights(self, params, state=None):
-        """Load a JAX-layout tree (numpy or tensor leaves) in place."""
-        from analytics_zoo_tpu_torch.utils.convert import load_jax_params
+        """Load a JAX-layout param tree (numpy or tensor leaves) and,
+        when given, a state tree, in place."""
+        from analytics_zoo_tpu_torch.utils.convert import (load_jax_params,
+                                                           load_jax_state)
         load_jax_params(self, params)
+        if state is not None:
+            load_jax_state(self, state)
 
 
 class Sequential(KerasNet):
@@ -101,7 +119,105 @@ class Sequential(KerasNet):
     def _tree(self) -> Dict:
         return {layer.name: layer for layer in self.layers_list}
 
+    def _state_tree(self) -> Dict:
+        return {layer.name: layer for layer in self.layers_list}
+
     def forward(self, x):
         for layer in self.layers_list:
             x = layer(x)
         return x
+
+
+def _fusion_plan(nodes: List[SymTensor], outputs: List[SymTensor]
+                 ) -> Tuple[Tuple[SymTensor, SymTensor], ...]:
+    """(conv node, BN node) pairs the fused route computes: a fusable
+    ``Convolution2D`` whose output feeds exactly one node, a
+    ``BatchNormalization`` over the last axis, and is not a model
+    output."""
+    consumers: Dict[int, List[SymTensor]] = {n.nid: [] for n in nodes}
+    for n in nodes:
+        for t in n.inputs:
+            consumers[t.nid].append(n)
+    out_ids = {n.nid for n in outputs}
+    plan = []
+    for n in nodes:
+        users = consumers[n.nid]
+        if (isinstance(n.layer, Convolution2D) and n.layer.fusable_with_bn()
+                and n.nid not in out_ids and len(users) == 1
+                and isinstance(users[0].layer, BatchNormalization)
+                and users[0].layer.axis in (-1, len(n.shape))):
+            plan.append((n, users[0]))
+    return tuple(plan)
+
+
+class Model(KerasNet):
+    """Graph model over symbolic tensors (Topology.scala:604-825):
+    ``Model(input=Input(shape=...), output=sym)``.  Shared layers share
+    their parameters.  ``fusion_plan`` lists the (conv, BN) node pairs
+    that run fused in training (module docstring)."""
+
+    def __init__(self, input, output, name=None):
+        super().__init__(name=name)
+        self.input_nodes: List[SymTensor] = (
+            list(input) if isinstance(input, (list, tuple)) else [input])
+        self.output_nodes: List[SymTensor] = (
+            list(output) if isinstance(output, (list, tuple)) else [output])
+        self.multi_output = isinstance(output, (list, tuple))
+        self.nodes = topo_sort(self.output_nodes)
+        layers, seen = [], set()
+        for n in self.nodes:
+            if n.layer is None:
+                if n not in self.input_nodes:
+                    raise ValueError(f"graph references Input node {n.name} "
+                                     "not listed in `input=`")
+            elif id(n.layer) not in seen:
+                if any(n.layer.name == other.name for other in layers):
+                    raise ValueError(f"duplicate layer name "
+                                     f"{n.layer.name!r}")
+                seen.add(id(n.layer))
+                layers.append(n.layer)
+        # unique layers in topological order (shared layers once)
+        self.graph_layers = nn.ModuleList(layers)
+        shapes = [n.shape for n in self.input_nodes]
+        self._declared_input_shape = shapes if len(shapes) > 1 else shapes[0]
+        self.built = True
+        self.fusion_plan = _fusion_plan(self.nodes, self.output_nodes)
+
+    def compute_output_shape(self, input_shape):
+        shapes = [n.shape for n in self.output_nodes]
+        return shapes if self.multi_output else shapes[0]
+
+    def reset_parameters(self, gen):
+        for layer in self.graph_layers:
+            layer.reset_parameters(gen)
+
+    def _tree(self) -> Dict:
+        return {layer.name: layer for layer in self.graph_layers}
+
+    def _state_tree(self) -> Dict:
+        return {layer.name: layer for layer in self.graph_layers}
+
+    def forward(self, *inputs):
+        xs = list(inputs[0]) if len(inputs) == 1 \
+            and isinstance(inputs[0], (list, tuple)) else list(inputs)
+        if len(xs) != len(self.input_nodes):
+            raise ValueError(f"model expects {len(self.input_nodes)} inputs, "
+                             f"got {len(xs)}")
+        env = {n.nid: x for n, x in zip(self.input_nodes, xs)}
+        fused = {conv.nid: bn.nid for conv, bn in self.fusion_plan} \
+            if self.training else {}
+        stats = {}
+        for node in self.nodes:
+            if node.layer is None:
+                continue
+            ins = [env[t.nid] for t in node.inputs]
+            if node.nid in fused:
+                y, stats[fused[node.nid]] = node.layer.fused_bn_forward(
+                    ins[0])
+            elif node.nid in stats:
+                y = node.layer(ins[0], stats=stats.pop(node.nid))
+            else:
+                y = node.layer(ins if len(ins) > 1 else ins[0])
+            env[node.nid] = y
+        outs = [env[n.nid] for n in self.output_nodes]
+        return outs if self.multi_output else outs[0]

@@ -20,6 +20,13 @@ its parameters, so the port's ``Layer`` is an ``nn.Module``:
 - ``param_count`` and ``_tree`` — the layer's parameters in the JAX
   package's tree layout (keys as in its ``build``), sub-layers left as
   ``Layer`` objects for ``utils/convert`` to walk.
+- state — the JAX ``init_state`` / ``apply(params, state, ...)`` pair
+  (BatchNorm's moving statistics).  Here state is registered buffers,
+  updated in place by a forward in training mode; ``_state_tree`` lays
+  them out as the JAX package's state tree, keyed as its
+  ``init_state``.
+- graph tracing — calling a layer on a ``SymTensor`` (``nn/graph.py``)
+  records a node of a graph ``Model`` instead of computing.
 - dropout randomness — the JAX ``apply(..., training, rng)`` splits one
   key per sub-layer (``split_rng``).  Here ``seed_dropout(seed)`` hands
   every sub-layer its own seed, split the same way, before a training
@@ -89,6 +96,19 @@ class Layer(nn.Module):
         """This layer's parameters keyed as in the JAX package's param
         tree; values are tensors, nested dicts or sub-``Layer``s."""
         return {}
+
+    def _state_tree(self) -> Dict:
+        """This layer's state buffers keyed as in the JAX package's state
+        tree (its ``init_state``); values as in ``_tree``."""
+        return {}
+
+    def __call__(self, *args, **kwargs):
+        """A ``SymTensor`` (or a list of them) records a graph node
+        (``nn/graph.trace_call``); tensors run ``forward``."""
+        from analytics_zoo_tpu_torch.nn.graph import is_symbolic, trace_call
+        if len(args) == 1 and not kwargs and is_symbolic(args[0]):
+            return trace_call(self, args[0])
+        return super().__call__(*args, **kwargs)
 
     # -- build + init ----------------------------------------------------------
     def ensure_built(self, input_shape) -> "Layer":

@@ -17,6 +17,12 @@ checked shapes (a missing or extra leaf raises):
   matched by KEY, never by order (JAX flattens dicts in sorted key order,
   so ``dense_10`` comes before ``dense_9``).  A float ``Dense`` given a
   quantized leaf set switches to that form (``Dense.adopt_leaves``).
+  The graph ``Model`` keys its tree ``{layer_name: subtree}`` too,
+  ``Convolution2D`` ``{W (kh, kw, cin, cout), b}``,
+  ``BatchNormalization`` ``{gamma, beta}``.
+- the layer IR's state tree (the JAX ``model._state``): the same layout
+  over ``_state_tree()``, ``BatchNormalization`` ``{mean, var}``
+  (``load_jax_state``, ``export_state``).
 
 Every dense ``W`` is (d_in, d_out) on both sides.  Leaves arrive as numpy
 arrays (or anything ``np.asarray`` takes) or as torch tensors; nothing of
@@ -31,7 +37,6 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.models.textmodels import TransformerLM
-from analytics_zoo_tpu_torch.nn.layers.core import Dense
 from analytics_zoo_tpu_torch.nn.module import Layer
 
 _BLOCK_KEYS = ("ln1", "qkv", "proj", "ln2", "fc1", "fc2")
@@ -76,31 +81,46 @@ def _load_lm(module: TransformerLM, params: Dict) -> None:
         raise KeyError(f"params pytree lacks {missing}")
 
 
-def _load_tree(own: Dict, tree, path: str) -> None:
+def _params_of(layer: Layer) -> Dict:
+    return layer._tree()
+
+
+def _state_of(layer: Layer) -> Dict:
+    return layer._state_tree()
+
+
+def _load_tree(own: Dict, tree, path: str, subtree=_params_of) -> None:
+    """Copy ``tree`` into ``own`` key by key; a sub-``Layer``'s own tree
+    is ``subtree(layer)``."""
     if not isinstance(tree, dict):
         raise TypeError(f"{path or '/'}: expected a dict subtree, got "
                         f"{type(tree).__name__}")
+    kind, noun = ("params", "parameter") if subtree is _params_of \
+        else ("state", "state leaf")
     for key in sorted(set(own) | set(tree)):
         at = f"{path}/{key}"
         if key not in own:
-            raise KeyError(f"module has no parameter {at!r}")
+            raise KeyError(f"module has no {noun} {at!r}")
         val = own[key]
         if key not in tree:
-            if isinstance(val, Layer) and not val._tree():
-                continue                  # a paramless layer
-            raise KeyError(f"params tree lacks {at!r}")
+            if isinstance(val, Layer) and not subtree(val):
+                continue                  # a layer with no leaves here
+            raise KeyError(f"{kind} tree lacks {at!r}")
         if isinstance(val, Layer):
-            _load_layer(val, tree[key], at)
+            _load_layer(val, tree[key], at, subtree)
         elif isinstance(val, dict):
-            _load_tree(val, tree[key], at)
+            _load_tree(val, tree[key], at, subtree)
         else:
             _copy_leaf(val, tree[key], at)
 
 
-def _load_layer(layer: Layer, tree, path: str) -> None:
-    if isinstance(layer, Dense) and isinstance(tree, dict):
+def _load_layer(layer: Layer, tree, path: str, subtree=_params_of) -> None:
+    """A layer given a param leaf set first switches to the form it names
+    (``Dense.adopt_leaves``; a conv refuses a quantized one)."""
+    if subtree is _params_of and isinstance(tree, dict) \
+            and hasattr(layer, "adopt_leaves"):
         layer.adopt_leaves(tree)
-    _load_tree(layer._tree(), tree, path)
+    _load_tree(subtree(layer), tree, path, subtree)
 
 
 def load_jax_params(module: torch.nn.Module, params: Dict) -> torch.nn.Module:
@@ -118,13 +138,33 @@ def load_jax_params(module: torch.nn.Module, params: Dict) -> torch.nn.Module:
     return module
 
 
+def load_jax_state(module: Layer, state: Dict) -> Layer:
+    """Copy a JAX state tree (the JAX ``model._state``: BatchNorm
+    ``{mean, var}`` under each layer's name, ``{}`` for stateless layers)
+    into the layer IR's state buffers, in place."""
+    if not isinstance(module, Layer):
+        raise TypeError(f"cannot load a JAX state tree into "
+                        f"{type(module).__name__}")
+    with torch.no_grad():
+        _load_layer(module, state, "", _state_of)
+    return module
+
+
+def _export(layer: Layer, subtree) -> Dict:
+    def walk(own):
+        return {k: walk(subtree(v)) if isinstance(v, Layer)
+                else walk(v) if isinstance(v, dict) else v.detach()
+                for k, v in own.items()}
+    return walk(subtree(layer))
+
+
 def export_params(layer: Layer) -> Dict:
     """The layer's parameters as a JAX-layout tree of (detached) tensors —
     the input ``inference/quantize.quantize_params`` takes, and what the
     tests compare leaf by leaf with a JAX param tree after training."""
+    return _export(layer, _params_of)
 
-    def walk(own):
-        return {k: walk(v._tree()) if isinstance(v, Layer)
-                else walk(v) if isinstance(v, dict) else v.detach()
-                for k, v in own.items()}
-    return walk(layer._tree())
+
+def export_state(layer: Layer) -> Dict:
+    """The layer's state buffers as a JAX-layout state tree."""
+    return _export(layer, _state_of)

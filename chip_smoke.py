@@ -42,6 +42,24 @@ and checks them, phase by phase, each phase printing its own lines:
    through the kernels and once through their plain versions from the same
    weights: flash forward, dq and dk/dv launches = 12 x 8 each, losses
    equal within a tolerance at every step, and falling.
+6. resnet — the fused 1x1-conv + BN-statistics kernel (``fused_bn``)
+   against its plain version at every distinct (M, K, N) the fusion plan
+   of ResNet-50 gives at batch 128, f32 and bf16, and at ragged shapes; two
+   launches bitwise equal; a planted y-scale fault and a dropped M-tile
+   partial rejected; timed at the probe's shape (401408, 256) @ (256, 64)
+   in bf16 and f32 beside the plain version, ``torch.matmul`` alone and
+   ``torch.matmul`` + a separate stats pass.  Then ``Estimator.fit`` of
+   ``ImageClassifier("resnet50").model`` (224x224x3, 1000 classes, SGD 0.05
+   momentum 0.9, f32, TF32 off, cuDNN deterministic) over seeded synthetic
+   images of 100 classes: one warm-up step and 8 steps of 128 through the
+   kernel and through its plain version from the same weights (fused
+   launches = 33 x 9 and 0, losses falling).  Two free-running f32
+   trainings part within a step (an f32 step's gradients are ~2% from
+   f64 on either route, which the phase reads), so the routes are held
+   together in lockstep: at every step's weights the training forward
+   through the kernel and through the plain version, within a tolerance
+   that a planted lost tile partial exceeds; ``Estimator.evaluate`` on a
+   held-out batch (moving statistics) equal on both routes.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -50,7 +68,7 @@ contract line.  Run from the repository root::
     python3 chip_smoke.py [--seed 0] [--profile]
 
 ``--profile`` adds ``torch.profiler`` readings of a decode step, a predict
-batch and a training step.
+batch, a training step and a ResNet-50 training step.
 """
 
 from __future__ import annotations
@@ -71,21 +89,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from analytics_zoo_tpu_torch.common import dtypes
 from analytics_zoo_tpu_torch.common.context import ZooConf, ZooContext
 from analytics_zoo_tpu_torch.common.observability import MetricsRegistry
 from analytics_zoo_tpu_torch.estimator.estimator import Estimator
+from analytics_zoo_tpu_torch.feature.dataset import ArrayFeatureSet
 from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.inference.quantize import (_quantize_w4,
                                                         kv_pack_int8,
                                                         weight_bytes)
+from analytics_zoo_tpu_torch.models.imageclassification import \
+    ImageClassifier
 from analytics_zoo_tpu_torch.models.textmodels import TransformerLM
 from analytics_zoo_tpu_torch.nn.layers.attention import TransformerLayer
 from analytics_zoo_tpu_torch.nn.layers.core import Dense
 from analytics_zoo_tpu_torch.nn.layers.pooling import GlobalAveragePooling1D
+from analytics_zoo_tpu_torch.nn import objectives
 from analytics_zoo_tpu_torch.nn.models import Sequential
-from analytics_zoo_tpu_torch.nn.optimizers import Adam
+from analytics_zoo_tpu_torch.nn.module import generator
+from analytics_zoo_tpu_torch.nn.optimizers import SGD, Adam
 from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
+from analytics_zoo_tpu_torch.ops import fused_bn as fb
 from analytics_zoo_tpu_torch.ops import paged_attention as pa
 from analytics_zoo_tpu_torch.ops import quant_matmul as qm
 from analytics_zoo_tpu_torch.serving.client import InputQueue, OutputQueue
@@ -167,6 +192,55 @@ TRAIN_FAULTS = (
      lambda dkv: dkv[0][0, 0, :64].zero_(), True),
 )
 
+# the ResNet training path: ImageClassifier("resnet50") as the JAX package
+# builds it (224x224x3, 1000 classes, SAME padding, BN eps 1e-3), trained
+# with SGD at the linear-scaling rule's 0.1 x 128 / 256 and momentum 0.9
+RESNET = dict(model_name="resnet50", num_classes=1000,
+              input_shape=(224, 224, 3))
+RESNET_BATCH = 128
+RESNET_STEPS = 8
+RESNET_LR = 0.05
+RESNET_MOMENTUM = 0.9
+# labels from this many of the 1000 classes, each with its own
+# per-channel offset under unit noise.  At the linear-scaling rule's lr a
+# class's share of the head's gradient grows as fewer classes are used:
+# with 10 the loss overshot (6.98 -> 4.66 -> 8.98 over the 8 steps, on
+# the H100), with 1000 it did not move; with 100 it falls (PERF.md)
+RESNET_CLASSES = 100
+# the probe's own shape (tools/fused_bn_probe.py:33-34): ResNet-50 stage 0's
+# bottleneck reduce at batch 128, (128 * 56 * 56, 256) @ (256, 64)
+PROBE_SHAPE = (128 * 56 * 56, 256, 64)
+BF16_FLOP_PER_S = 989e12
+# fused_bn kernel vs plain, y: f32 sums of the same products in another
+# order, on unit-scale inputs (w ~ N(0, 1/K)); bf16 y rounds the same f32
+# sums once, so one bf16 step (rtol 2**-7).  The sums over the rows: rtol
+# 1e-5 (Σ with atol 1e-5 · Σ|y|, for cancellation); a lost 128-row tile
+# moves Σ² by 128 / M >= 3.2e-4 of it
+FUSED_BN_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-5, 8e-3)}
+STATS_RTOL = 1e-5
+# kernel vs plain in lockstep: at every training step, the training
+# forward's loss through the kernel and through the plain version from the
+# same weights and BN state (two free-running f32 trainings drift apart
+# within a step: an f32 step's gradients are some 2% from f64 on either
+# route, PERF.md)
+RESNET_LOSS_TOL = 1e-4
+# planted fused_bn faults, each run through the lockstep comparison: (tag,
+# how it spoils one launch's y and tile partials (site = the launch's
+# index in the forward), whether the loss check must reject it).  BN
+# divides by the batch's own spread, so a kernel that scales its
+# accumulator (y and the sums alike) barely moves the loss; a lost tile
+# partial does.
+RESNET_FAULTS = (
+    (f"accumulator x {1 + PLANTED_SCALE_ERR} at every site",
+     lambda y, part, site, n: (y.mul_(1 + PLANTED_SCALE_ERR),
+                               part[:, 0].mul_(1 + PLANTED_SCALE_ERR),
+                               part[:, 1].mul_((1 + PLANTED_SCALE_ERR) ** 2)),
+     False),
+    ("tile 0's partials dropped at the last site (M = 6272)",
+     lambda y, part, site, n: part[0].zero_() if site == n - 1 else None,
+     True),
+)
+
 
 def say(*parts) -> None:
     print(*parts, flush=True)
@@ -191,7 +265,7 @@ def card_line() -> str:
     return out[0].strip()
 
 
-KERNEL_SOURCES = (pa.KERNEL, fa.KERNEL, fa.KERNEL_BWD, qm.KERNEL)
+KERNEL_SOURCES = (pa.KERNEL, fa.KERNEL, fa.KERNEL_BWD, qm.KERNEL, fb.KERNEL)
 
 
 def build_kernels() -> dict:
@@ -203,6 +277,7 @@ def build_kernels() -> dict:
     fa._kernel_fn()
     fa._bwd_kernel_fns()
     qm._kernel_fns()
+    fb._kernel_fns()
     return {"wall_s": wall, "nvcc_s": dict(_build.BUILD_SECONDS),
             "ptxas": {k: _build.BUILD_LOG.get(k, "")
                       for k in KERNEL_SOURCES}}
@@ -830,6 +905,7 @@ def sync(dev) -> None:
 def reset_launches() -> None:
     fa.launches = qm.launches_w8a8 = qm.launches_w4a16 = 0
     fa.dq_launches = fa.dkv_launches = 0
+    fb.launches = 0
 
 
 def serve_predict(im, X, params) -> dict:
@@ -1411,6 +1487,489 @@ def profile_train(est, x, y) -> None:
         say(f"profile[train]   {ms:9.3f} ms  {count:4d} calls  {name[:90]}")
 
 
+# -- phase 6: ResNet-50 training: the fused_bn kernel and Estimator.fit --------
+
+def fused_bn_bound(M, K, N, dtype) -> dict:
+    """x, w read once, y (input dtype) and the sums (f32) written once;
+    2·K flop per output at the input dtype's rate (f32 SIMT, or bf16
+    tensor cores) plus 3 f32 flop per output for the sums."""
+    eb = torch.finfo(dtype).bits // 8
+    nbytes = (M * K + K * N + M * N) * eb + 2 * N * 4
+    rate = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * M * K * N / rate + 3 * M * N / F32_FLOP_PER_S) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(2 * M * K * N + 3 * M * N)}
+
+
+def fused_bn_shapes(model, batch: int):
+    """The distinct (M, K, N) of the model's fusion plan at ``batch``, in
+    plan order, with how many pairs give each."""
+    count = {}
+    for conv, _ in model.fusion_plan:
+        m = batch * math.prod(conv.shape[:-1])
+        key = (m, conv.inputs[0].shape[-1], conv.shape[-1])
+        count[key] = count.get(key, 0) + 1
+    return count
+
+
+def fused_bn_case(g, M, K, N, dtype, row_pad=0, device="cuda"):
+    """Unit-scale x (M, K), read through a row stride of K + row_pad (drawn
+    on the device from a seed taken from ``g``), and w ~ N(0, 1/K)
+    (K, N)."""
+    x = torch.empty(M, K + row_pad, device=device)
+    x.normal_(generator=generator(int(g.integers(2 ** 31)), device))
+    x = x.to(dtype)[:, :K]
+    w = torch.from_numpy((g.standard_normal((K, N)) / math.sqrt(K)).astype(
+        np.float32)).to(device, dtype)
+    return x, w
+
+
+def check_fused_bn(tag, got, ref):
+    """y within FUSED_BN_TOL, Σ² within STATS_RTOL of itself, Σ within
+    STATS_RTOL of itself plus 1e-5 · Σ|y|.  Returns y's max abs error and
+    the sums' max error relative to Σ|y| and Σy² (the scales their f32
+    rounding goes with)."""
+    (y, s), (y_ref, s_ref) = got, ref
+    atol, rtol = FUSED_BN_TOL[y.dtype]
+    y_err = check_close(f"{tag} y", y, y_ref, atol, rtol)
+    scale = (y_ref.float().abs().sum(0), s_ref[1].abs())
+    s_err = 0.0
+    for i, name, floor in ((0, "sum", 1e-5 * scale[0]), (1, "sumsq", 0.0)):
+        err = (s[i] - s_ref[i]).abs()
+        ok = bool((err <= floor + STATS_RTOL * s_ref[i].abs()).all())
+        s_err = max(s_err, float((err / scale[i].clamp_min(1e-30)).max()))
+        check(bool(torch.isfinite(s[i]).all()) and ok,
+              f"{tag} {name}: max abs err {float(err.max()):.3e} outside "
+              f"rtol {STATS_RTOL}")
+    return y_err, s_err
+
+
+@contextlib.contextmanager
+def planted_partials(spoil, sites: int):
+    """``fb._launch_partials`` (which ``fused_bn`` looks up at each launch)
+    hands its y and tile partials to ``spoil(y, part, site, sites)`` while
+    the block runs; ``site`` counts the launches modulo ``sites`` (a
+    forward launches the plan's pairs in order)."""
+    launch = fb._launch_partials
+    calls = [0]
+
+    def faulty(x, w):
+        y, part = launch(x, w)
+        spoil(y, part, calls[0] % sites, sites)
+        calls[0] += 1
+        return y, part
+
+    fb._launch_partials = faulty
+    try:
+        yield
+    finally:
+        fb._launch_partials = launch
+
+
+def fused_bn_parity(seed: int, shapes) -> dict:
+    """Kernel vs plain at every path shape (f32, the training dtype, and
+    bf16, the probe's), at ragged shapes, a bitwise repeat, and the two
+    planted faults.  Returns the worst (y abs error, sums relative error)
+    per dtype."""
+    g = np.random.default_rng(seed + 80)
+    worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    cases = [(m, k, n, dt, 0) for (m, k, n) in shapes
+             for dt in (torch.float32, torch.bfloat16)]
+    # ragged: M off the 128-row tile, K odd, N = 10 (off the 64-column
+    # tile), row strides past K
+    cases += [(m, k, n, dt, pad) for m, k, n, pad in
+              ((1000, 33, 10, 3), (6271, 255, 70, 1), (129, 1, 10, 0))
+              for dt in (torch.float32, torch.bfloat16)]
+    for m, k, n, dt, pad in cases:
+        x, w = fused_bn_case(g, m, k, n, dt, pad)
+        got = fb.fused_bn(x, w, impl="cuda")
+        torch.cuda.synchronize()
+        ref = fb.fused_bn(x, w, impl="torch")
+        err = check_fused_bn(
+            f"fused_bn[{str(dt)[6:]} ({m}, {k}, {n}) stride {k + pad}]",
+            got, ref)
+        worst[dt] = tuple(max(a, b) for a, b in zip(worst[dt], err))
+        del x, w, got, ref
+    say(f"fused_bn parity: {len(cases)} cases ({len(shapes)} path shapes "
+        f"of ResNet-50 at batch {RESNET_BATCH} and 3 ragged, f32 and "
+        f"bf16); y max abs err f32 {worst[torch.float32][0]:.3e} (atol, "
+        f"rtol {FUSED_BN_TOL[torch.float32]}), bf16 "
+        f"{worst[torch.bfloat16][0]:.3e} ({FUSED_BN_TOL[torch.bfloat16]}); "
+        f"sums max err relative to Σ|y|, Σy² f32 "
+        f"{worst[torch.float32][1]:.3e}, bf16 {worst[torch.bfloat16][1]:.3e}"
+        f" (rtol {STATS_RTOL})")
+    # the probe shape in f32: a repeat and the planted faults
+    m, k, n = PROBE_SHAPE
+    x, w = fused_bn_case(g, m, k, n, torch.float32)
+    got = fb.fused_bn(x, w, impl="cuda")
+    again = fb.fused_bn(x, w, impl="cuda")
+    ref = fb.fused_bn(x, w, impl="torch")
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          "fused_bn: two launches gave different results")
+    planted = []
+    with planted_partials(lambda y, part, site, sites: part[7].zero_(), 1):
+        dropped = fb.fused_bn(x, w, impl="cuda")
+    for tag, bad in (("y x 1.001", (got[0] * (1 + PLANTED_SCALE_ERR),
+                                    got[1])),
+                     ("tile 7's partials dropped", dropped)):
+        try:
+            check_fused_bn("planted", bad, ref)
+        except SmokeFailure as e:
+            planted.append(f"{tag} rejected ({str(e).split(': ', 1)[0]})")
+        else:
+            raise SmokeFailure(f"fused_bn: the planted fault '{tag}' passes "
+                               "the parity check")
+    say(f"fused_bn[probe {PROBE_SHAPE} f32]: two launches bitwise equal; "
+        f"planted faults: {'; '.join(planted)}")
+    return worst
+
+
+def fused_bn_timing(seed: int, dtype, iters=50) -> dict:
+    """At the probe shape: the kernel, the plain version, torch.matmul
+    alone (the probe's xla_matmul: y only) and torch.matmul + a separate
+    stats pass over y (its xla_matmul_stats)."""
+    g = np.random.default_rng(seed + 81)
+    m, k, n = PROBE_SHAPE
+    x, w = fused_bn_case(g, m, k, n, dtype)
+
+    def matmul_stats():
+        y = torch.matmul(x, w).float()
+        return torch.stack([y.sum(0), (y * y).sum(0)])
+    ms = cuda_ms(lambda: fb.fused_bn(x, w, impl="cuda"), iters=iters)
+    plain_ms = cuda_ms(lambda: fb.fused_bn(x, w, impl="torch"), iters=iters)
+    mm_ms = cuda_ms(lambda: torch.matmul(x, w), iters=iters)
+    mms_ms = cuda_ms(matmul_stats, iters=iters)
+    b = fused_bn_bound(m, k, n, dtype)
+    say(f"fused_bn timing ({m}, {k}) @ ({k}, {n}) {str(dtype)[6:]}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul alone "
+        f"{mm_ms:.4f} ms, torch.matmul + stats pass {mms_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
+        f"{b['ops']} flop)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": mms_ms,
+            "library_matmul_ms": mm_ms, **b}
+
+
+def fused_bn_phase(seed: int, model) -> dict:
+    """Parity and timing of fused_bn; its record (launches filled by the
+    training phase)."""
+    shapes = fused_bn_shapes(model, RESNET_BATCH)
+    say(f"fused_bn path shapes (M, K, N): pairs = "
+        + ", ".join(f"{s}: {c}" for s, c in shapes.items()))
+    worst = fused_bn_parity(seed, list(shapes))
+    t = fused_bn_timing(seed, torch.float32)
+    tb = fused_bn_timing(seed, torch.bfloat16)
+    torch.cuda.empty_cache()
+    lib = ("torch.matmul + y.sum(0), (y*y).sum(0) (the probe's "
+           "xla_matmul_stats)")
+    return {"name": "fused_bn[f32]", "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/csrc/fused_bn.cu",
+            "replaces": "tools/fused_bn_probe.py:37", "launches": None,
+            "max_abs_err": worst[torch.float32][0],
+            "sums_max_rel_err": worst[torch.float32][1],
+            "shape": list(PROBE_SHAPE),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library_call": lib,
+            "library_matmul_ms": t["library_matmul_ms"],
+            "library_matmul_call": "torch.matmul alone, y only (the "
+                                   "probe's xla_matmul)",
+            "bf16": dict({k: tb[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "library_matmul_ms")},
+                         max_abs_err=worst[torch.bfloat16][0],
+                         sums_max_rel_err=worst[torch.bfloat16][1])}
+
+
+def resnet_data(seed: int):
+    """``RESNET_STEPS + 2`` batches of 224x224x3 f32 images (the last batch
+    held out) of ``RESNET_CLASSES`` classes drawn from the 1000: each class
+    a per-channel offset ~ N(0, 1) under unit noise."""
+    g = np.random.default_rng(seed + 90)
+    n = (RESNET_STEPS + 1) * RESNET_BATCH
+    classes = g.choice(RESNET["num_classes"], RESNET_CLASSES, replace=False)
+    offsets = g.standard_normal((RESNET_CLASSES, 3)).astype(np.float32)
+    pick = g.integers(0, RESNET_CLASSES, n)
+    x = g.standard_normal((n,) + RESNET["input_shape"], dtype=np.float32)
+    x += offsets[pick][:, None, None, :]
+    y = classes[pick].astype(np.int64)
+    b = RESNET_STEPS * RESNET_BATCH
+    return x[:b], y[:b], x[b:], y[b:]
+
+
+def resnet_run(model, x, y, x_eval, y_eval, seed: int) -> dict:
+    """One warm-up step (the first batch), then ``Estimator.fit`` over (x,
+    y): losses of every step (the warm-up's first), the host-clock time of
+    the 8 steps, fused launches over all 9, peak device memory, and
+    ``evaluate`` on the held-out batch."""
+    dev = next(model.parameters()).device
+    est = Estimator(model, optimizer=SGD(lr=RESNET_LR,
+                                         momentum=RESNET_MOMENTUM),
+                    loss="sparse_categorical_crossentropy",
+                    metrics=["accuracy"], registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    losses = []
+    est._listeners.append(lambda step, loss: losses.append(loss))
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    est.fit(x[:RESNET_BATCH], y[:RESNET_BATCH], batch_size=RESNET_BATCH,
+            epochs=1, verbose=False)
+    sync(dev)
+    t0 = time.perf_counter()
+    est.fit(x, y, batch_size=RESNET_BATCH, epochs=1, verbose=False)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = fb.launches
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    ev = est.evaluate(x_eval, y_eval, batch_size=RESNET_BATCH)
+    return {"losses": [float(v) for v in losses], "wall_s": wall,
+            "fused": launches, "peak_bytes": peak, "eval": ev,
+            "estimator": est}
+
+
+def check_resnet(tag: str, run: dict, plan_len: int, kernels: bool) -> None:
+    """1 + 8 finite losses, the 8 steps' loss falling, fused launches =
+    plan x 9 (0 for the plain run), a finite eval loss."""
+    ls = run["losses"]
+    check(len(ls) == RESNET_STEPS + 1 and all(math.isfinite(v) for v in ls),
+          f"resnet[{tag}]: losses {ls}")
+    check(ls[-1] < ls[1], f"resnet[{tag}]: the loss did not fall ({ls})")
+    want = plan_len * (RESNET_STEPS + 1) if kernels else 0
+    check(run["fused"] == want,
+          f"resnet[{tag}]: fused_bn launches {run['fused']} != {want}")
+    check(math.isfinite(run["eval"]["loss"]),
+          f"resnet[{tag}]: eval {run['eval']}")
+    n_img = RESNET_STEPS * RESNET_BATCH
+    say(f"resnet[{tag}]: warm-up + {RESNET_STEPS} steps of {RESNET_BATCH} "
+        f"images; the {RESNET_STEPS} in {run['wall_s']:.3f} s (host clock) "
+        f"= {run['wall_s'] / RESNET_STEPS * 1e3:.1f} ms/step, "
+        f"{n_img / run['wall_s']:.1f} images/s; losses "
+        f"{[round(v, 5) for v in ls]}; fused_bn launches {run['fused']}"
+        f"{f' (= {plan_len} x {RESNET_STEPS + 1})' if kernels else ''}; "
+        f"peak device memory {run['peak_bytes'] / 2 ** 30:.2f} GiB; eval "
+        f"loss {run['eval']['loss']:.6f}, accuracy "
+        f"{run['eval']['accuracy']:.4f}")
+
+
+def resnet_phase(seed: int, records: dict, profile: bool) -> None:
+    """ImageClassifier("resnet50") trained through the kernel and through
+    its plain version from the same weights; the free-running routes'
+    drift against f32's own gradient error; the lockstep comparison and
+    its planted faults."""
+    t0 = time.perf_counter()
+    ic = ImageClassifier(**RESNET)
+    host = ic.model.init_weights(seed)
+    plan_len = len(host.fusion_plan)
+    x, y, x_eval, y_eval = resnet_data(seed)
+    say(f"model: ImageClassifier({RESNET}).model, resnet(50) "
+        f"({host.param_count()} params, {plan_len} fused conv+BN pairs) "
+        f"built in {time.perf_counter() - t0:.2f} s; data {len(x)} + "
+        f"{len(x_eval)} held-out images of {RESNET_CLASSES} classes")
+    check(plan_len == 33, f"resnet: fusion plan of {plan_len} pairs, not 33")
+    records["fused_bn"] = fused_bn_phase(seed, host)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for tag, impl in (("kernel", None), ("plain", "torch")):
+            model = copy.deepcopy(host)
+            set_impl(model, impl)
+            runs[tag] = resnet_run(model, x, y, x_eval, y_eval, seed)
+            check_resnet(tag, runs[tag], plan_len, kernels=impl is None)
+            if profile and impl is None:
+                profile_resnet(runs[tag]["estimator"], x, y)
+            del model, runs[tag]["estimator"]
+            torch.cuda.empty_cache()
+        records["fused_bn"]["launches"] = runs["kernel"]["fused"]
+        ev = [runs[t]["eval"]["loss"] for t in ("kernel", "plain")]
+        say("resnet: free-running kernel vs plain loss (reported, not "
+            "checked), per step " + ", ".join(
+                f"{abs(a - b):.1e}" for a, b in zip(
+                    runs["kernel"]["losses"], runs["plain"]["losses"]))
+            + f"; eval loss {abs(ev[0] - ev[1]):.3e}")
+        resnet_f64_reading(host, x, y)
+        sound = resnet_lockstep(host, x, y, x_eval, y_eval, seed)
+        check_lockstep("lockstep", sound, None)
+        check([b for _, b in sound["pairs"]] == runs["plain"]["losses"],
+              "resnet[lockstep]: its plain losses differ from "
+              "resnet[plain]'s")
+        for tag, spoil, must_reject in RESNET_FAULTS:
+            with planted_partials(spoil, plan_len):
+                bad = resnet_lockstep(host, x, y, x_eval, y_eval, seed)
+            check_lockstep(f"planted {tag}", bad, must_reject)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del host, ic
+    torch.cuda.empty_cache()
+
+
+def resnet_lockstep(host, x, y, x_eval, y_eval, seed: int) -> dict:
+    """The plain route's training over the warm-up batch and the 8 batches
+    in ``fit``'s order (the Estimator's own step); before each step, the
+    training forward's loss through the kernel from the same weights and
+    BN state (the state restored after it).  Then ``evaluate`` of the
+    trained model on the held-out batch through each route."""
+    model = copy.deepcopy(host)
+    dev = next(model.parameters()).device
+    est = Estimator(model, optimizer=SGD(lr=RESNET_LR,
+                                         momentum=RESNET_MOMENTUM),
+                    loss="sparse_categorical_crossentropy",
+                    metrics=["accuracy"], registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    est._ensure_init()
+    batches = []
+    for xs, ys in ((x[:RESNET_BATCH], y[:RESNET_BATCH]), (x, y)):
+        batches += list(ArrayFeatureSet(xs, ys).batches(
+            RESNET_BATCH, shuffle=True, rng=np.random.default_rng(seed),
+            pad_final=True))
+    pairs = []
+    model.train()
+    for batch in batches:
+        sx, sy, sw, _ = est._transfer(batch)
+        state = [b.clone() for b in model.buffers()]
+        set_impl(model, None)
+        with torch.no_grad():
+            lk = est._loss_sum(model(sx), sy, sw) / sw.sum()
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), state):
+                b.copy_(s)
+        set_impl(model, "torch")
+        lp = est._train_step(sx, sy, sw)
+        est.global_step += 1
+        pairs.append((float(lk), float(lp)))
+    evals = {}
+    for tag, impl in (("kernel", None), ("plain", "torch")):
+        set_impl(model, impl)
+        reset_launches()
+        evals[tag] = est.evaluate(x_eval, y_eval, batch_size=RESNET_BATCH)
+        evals[tag + "_fused"] = fb.launches
+    del model, est
+    torch.cuda.empty_cache()
+    return {"pairs": pairs, "eval": evals}
+
+
+def check_lockstep(tag: str, run: dict, must_reject) -> None:
+    """Sound run (``must_reject`` None): kernel and plain losses within
+    ``RESNET_LOSS_TOL`` at every step, and ``evaluate`` (moving statistics,
+    nothing fused) equal on both routes with no fused launch.  Planted
+    fault: reported, and rejected by the same tolerance where it must
+    be."""
+    gaps = [abs(a - b) for a, b in run["pairs"]]
+    ev = run["eval"]
+    say(f"resnet[{tag}]: kernel vs plain training-forward loss at the same "
+        f"weights, per step " + ", ".join(f"{g:.2e}" for g in gaps)
+        + f" (max {max(gaps):.3e}, tolerance {RESNET_LOSS_TOL}); plain "
+        f"losses {[round(b, 5) for _, b in run['pairs']]}; evaluate: kernel "
+        f"route {ev['kernel']}, plain {ev['plain']}, fused launches "
+        f"{ev['kernel_fused']} / {ev['plain_fused']}")
+    check(all(math.isfinite(a) and math.isfinite(b)
+              for a, b in run["pairs"]), f"resnet[{tag}]: {run['pairs']}")
+    if must_reject is None:
+        check(max(gaps) <= RESNET_LOSS_TOL,
+              f"resnet[{tag}]: kernel and plain losses differ by "
+              f"{max(gaps):.3e} > {RESNET_LOSS_TOL}")
+        check(ev["kernel"] == ev["plain"] and ev["kernel_fused"] == 0
+              and ev["plain_fused"] == 0,
+              f"resnet[{tag}]: evaluate differs between the routes or "
+              f"launched fused_bn ({ev})")
+    elif must_reject:
+        check(max(gaps) > RESNET_LOSS_TOL,
+              f"resnet: the planted fault '{tag}' passes the loss check "
+              f"({max(gaps):.3e} <= {RESNET_LOSS_TOL})")
+
+
+def resnet_f64_reading(host, x, y) -> None:
+    """How far one f32 training step's gradients are from float64 on each
+    route: the first batch's loss and gradients through the kernel and
+    through the plain version in f32, and through the plain (unfused)
+    graph in float64; per parameter tensor, |g - g64| / |g64|."""
+    dev = next(host.parameters()).device
+    xb = torch.from_numpy(x[:RESNET_BATCH]).to(dev)
+    yb = torch.from_numpy(y[:RESNET_BATCH]).to(dev)
+    loss_fn = objectives.get("sparse_categorical_crossentropy")
+
+    def grads(model, dt):
+        model.train()
+        loss = loss_fn(model(xb.to(dt)), yb).mean()
+        loss.backward()
+        return float(loss.detach()), [p.grad.double()
+                                      for p in model.parameters()]
+    out = {}
+    for tag, impl in (("kernel", None), ("plain", "torch")):
+        model = copy.deepcopy(host)
+        set_impl(model, impl)
+        out[tag] = grads(model, torch.float32)
+        del model
+    model = copy.deepcopy(host).double()
+    model.fusion_plan = ()
+    dtypes.set_policy(None, torch.float64)
+    try:
+        loss64, g64 = grads(model, torch.float64)
+    finally:
+        dtypes.set_policy(None)
+    del model
+    torch.cuda.empty_cache()
+    for tag, (loss, g) in out.items():
+        rel = sorted(float((a - b).norm() / b.norm()) for a, b in zip(g, g64))
+        say(f"resnet[f32 vs f64, {tag} route]: first-batch loss {loss:.9f} "
+            f"vs {loss64:.9f}; gradient error per parameter tensor median "
+            f"{rel[len(rel) // 2]:.3e}, max {rel[-1]:.3e}")
+
+
+def kernel_family(name: str) -> str:
+    """The profile share a ResNet step's kernel counts toward."""
+    low = name.lower()
+    if "fused_bn" in low:
+        return "fused_bn"
+    if any(t in low for t in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                              "winograd", "implicit", "xmma")):
+        return "cuDNN conv"
+    if "gemm" in low:
+        return "GEMM (fused_bn backward, fc)"
+    if "foreach" in low or "multi_tensor" in low:
+        return "SGD (foreach)"
+    if "pool" in low:
+        return "pooling"
+    if any(t in low for t in ("elementwise", "reduce", "vectorized",
+                              "unrolled")):
+        return "BN and other elementwise / reductions"
+    return "other"
+
+
+def profile_resnet(est, x, y) -> None:
+    """One more optimizer step under ``torch.profiler``: busy share and the
+    shares of cuDNN convs, fused_bn, BN elementwise and SGD."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = est.device
+    batch = est._transfer((x[:RESNET_BATCH], y[:RESNET_BATCH],
+                           np.ones(RESNET_BATCH, np.float32)))
+    est.model.train()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est._train_step(*batch[:3])
+        sync(dev)
+        wall = time.perf_counter() - t0
+    est.model.eval()
+    rows, busy = kernel_rows(prof)
+    say(f"profile[resnet]: one step of {RESNET_BATCH} images in "
+        f"{wall * 1e3:.2f} ms under the profiler, kernels "
+        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of the wall)")
+    shares = {}
+    for name, count, ms in rows:
+        fam = kernel_family(name)
+        shares[fam] = shares.get(fam, 0.0) + ms
+    for fam, ms in sorted(shares.items(), key=lambda kv: -kv[1]):
+        say(f"profile[resnet]   {ms:9.3f} ms  {100 * ms / (busy * 1e3):5.1f}%"
+            f"  {fam}")
+    for name, count, ms in rows[:14]:
+        say(f"profile[resnet]   {ms:9.3f} ms  {count:4d} calls  "
+            f"{name[:90]}")
+
+
 # -- main ---------------------------------------------------------------------
 
 def ptxas_summary(log: str) -> str:
@@ -1443,8 +2002,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a decode step, a predict batch and "
-                         "a training step (torch.profiler)")
+                    help="also profile a decode step, a predict batch, "
+                         "a training step and a ResNet-50 training step "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1503,10 +2063,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     train_phase(args.seed, records, args.profile)
+    resnet_phase(args.seed, records, args.profile)
 
     say(json.dumps({"kernels": [records[k] for k in (
         "f32", "int8", "flash", "w8a8", "w4a16", "flash_bwd_dq",
-        "flash_bwd_dkv")]}))
+        "flash_bwd_dkv", "fused_bn")]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

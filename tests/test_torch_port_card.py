@@ -13,7 +13,11 @@ launch.  Tolerances: the same f32 math in another summation order (atol
 2e-5, rtol 1e-5) for the paged and flash kernels (forward, LSE and the
 backward's dq, dk, dv); one bf16 rounding step for bf16 outputs; bitwise
 for ``w8a8`` and for two launches of the flash backward; f32 sums of up to
-768 products in another order for ``w4a16`` (atol 1e-4).
+768 products in another order for ``w4a16`` (atol 1e-4); for ``fused_bn``,
+y as f32 sums of up to 300 products of unit-scale values in another order
+(atol 2e-5, rtol 1e-5; bf16 y one rounding step, rtol 8e-3) and the sums
+over the rows to rtol 1e-5 (Σ with atol 1e-5·Σ|y|), two launches bitwise
+equal.
 """
 
 import numpy as np
@@ -22,6 +26,7 @@ import torch
 
 from analytics_zoo_tpu_torch.inference import quantize as tq
 from analytics_zoo_tpu_torch.ops import attention as tatt
+from analytics_zoo_tpu_torch.ops import fused_bn as tfb
 from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 from analytics_zoo_tpu_torch.ops import paged_attention as tpa
 from analytics_zoo_tpu_torch.ops import quant_matmul as tqm
@@ -196,3 +201,45 @@ def test_w4a16_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n,
     torch.testing.assert_close(got, tqm.w4a16_matmul(x, wq, sg,
                                                      impl="torch"),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(300, 33, 10), (128, 64, 64),
+                                   (1000, 256, 70), (7, 1, 3)])
+def test_fused_bn_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
+    """Ragged shapes: M not a multiple of the 128-row tile, K odd or 1, N
+    not a multiple of the 64-column tile; x read through a row stride."""
+    g = np.random.default_rng(m + k + n)
+    wide = torch.from_numpy(np.asarray(g.normal(size=(m, k + 3)),
+                                       np.float32)).to(cuda_device, dtype)
+    x = wide[:, 1:k + 1]
+    w = torch.from_numpy(np.asarray(g.normal(size=(k, n)) / np.sqrt(k),
+                                    np.float32)).to(cuda_device, dtype)
+    n0 = tfb.launches
+    y, stats = tfb.fused_bn(x, w)
+    torch.cuda.synchronize()
+    assert tfb.launches == n0 + 1
+    y_ref, s_ref = tfb.fused_bn(x, w, impl="torch")
+    rtol = 1e-5 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=rtol,
+                               atol=2e-5 if dtype == torch.float32 else 1e-5)
+    torch.testing.assert_close(stats[1], s_ref[1], rtol=1e-5, atol=1e-6)
+    abs_sum = float(y_ref.float().abs().sum(0).max())
+    torch.testing.assert_close(stats[0], s_ref[0], rtol=1e-5,
+                               atol=1e-5 * abs_sum)
+
+
+@pytest.mark.gpu
+def test_fused_bn_kernel_is_deterministic_on_card(cuda_device):
+    """No atomics: per-tile partials summed in a fixed order, so two
+    launches give bitwise-equal y and sums."""
+    g = np.random.default_rng(9)
+    x = torch.from_numpy(np.asarray(g.normal(size=(5000, 256)),
+                                    np.float32)).to(cuda_device)
+    w = torch.from_numpy(np.asarray(g.normal(size=(256, 64)) / 16,
+                                    np.float32)).to(cuda_device)
+    a = tfb.fused_bn(x, w)
+    b = tfb.fused_bn(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

@@ -4,8 +4,10 @@ The script itself needs a CUDA card; its request mix, its bound
 arithmetic, its cross-check (token sequences against the plain-attention
 batcher, divergence accepted only at a near tie) and its predict-path
 checks (every record answered, top-5 log-probabilities against the plain
-path, launches = forwards x blocks) are plain Python and run here at a
-tiny width.
+path, launches = forwards x blocks), its training checks and its ResNet
+phase's (fused_bn bounds, path shapes, parity checks and planted faults;
+``Estimator.fit`` of a ResNet-50 through both routes) are plain Python and
+run here at a tiny width.
 """
 
 import copy
@@ -244,3 +246,143 @@ def test_planted_backward_faults_spoil_what_they_name(monkeypatch):
 def test_loss_gap_is_the_largest_step_difference():
     assert cs.loss_gap({"losses": [10.0, 9.5, 9.0]},
                        {"losses": [10.0, 9.25, 9.125]}) == 0.25
+
+
+# -- phase 6: ResNet-50 and fused_bn ---------------------------------------------
+
+def test_fused_bn_bounds():
+    """At the probe shape: f32 is operations-bound (13.15 GFLOP of products
+    at 67 TFLOP/s plus the sums' 3 flop an output, 0.1975 ms); bf16 is
+    bytes-bound (205.5 MB of x, 51.4 MB of y, 0.0767 ms)."""
+    m, k, n = cs.PROBE_SHAPE
+    b = cs.fused_bn_bound(m, k, n, torch.float32)
+    assert b["bound_by"] == "operations"
+    assert b["ops"] == 2 * m * k * n + 3 * m * n
+    assert b["bound_ms"] == pytest.approx(0.19747, abs=1e-5)
+    b = cs.fused_bn_bound(m, k, n, torch.bfloat16)
+    assert b["bound_by"] == "bytes"
+    assert b["bytes"] == 2 * (m * k + k * n + m * n) + 8 * n
+    assert b["bound_ms"] == pytest.approx(0.07670, abs=1e-5)
+
+
+def test_fused_bn_path_shapes_of_resnet50():
+    """The fusion plan of ResNet-50 at batch 128: 33 pairs over 12 distinct
+    (M, K, N), M from 6272 to 401408, the probe's shape twice (stage 0
+    blocks 1 and 2)."""
+    from analytics_zoo_tpu_torch.models.imageclassification import resnet
+    shapes = cs.fused_bn_shapes(resnet(50), 128)
+    assert sum(shapes.values()) == 33 and len(shapes) == 12
+    assert shapes[cs.PROBE_SHAPE] == 2
+    assert {m for m, _, _ in shapes} == {401408, 100352, 25088, 6272}
+
+
+def test_fused_bn_checks_accept_the_plain_result_and_reject_faults():
+    """The parity check passes the plain version against itself and
+    rejects y x 1.001 and a lost 128-row tile of the sums."""
+    g = np.random.default_rng(0)
+    x, w = cs.fused_bn_case(g, 1000, 33, 10, torch.float32, 3, device="cpu")
+    assert x.stride() == (36, 1)
+    ref = cs.fb.fused_bn(x, w, impl="torch")
+    assert cs.check_fused_bn("ok", ref, ref) == (0.0, 0.0)
+    with pytest.raises(cs.SmokeFailure, match="bad y"):
+        cs.check_fused_bn("bad", (ref[0] * 1.001, ref[1]), ref)
+    y = ref[0][128:256]
+    lost = ref[1] - torch.stack([y.sum(0), (y * y).sum(0)])
+    with pytest.raises(cs.SmokeFailure, match="bad sum"):
+        cs.check_fused_bn("bad", (ref[0], lost), ref)
+
+
+def test_planted_partials_spoil_their_sites(monkeypatch):
+    """``planted_partials`` wraps ``fb._launch_partials`` only while its
+    block runs (also when the block raises) and hands each launch's site
+    (launch index modulo the plan's length) to the fault: the lost-tile
+    fault zeroes tile 0 at the last site only; the accumulator fault
+    scales y and Σ by 1.001 and Σ² by its square everywhere."""
+    def fake(x, w):
+        return torch.ones(4, 3), torch.ones(2, 2, 3)
+    monkeypatch.setattr(cs.fb, "_launch_partials", fake)
+    (acc_tag, acc, acc_reject), (tile_tag, tile, tile_reject) = \
+        cs.RESNET_FAULTS
+    assert tile_reject and not acc_reject
+    with cs.planted_partials(tile, 3):
+        outs = [cs.fb._launch_partials(None, None) for _ in range(6)]
+    assert cs.fb._launch_partials is fake
+    for i, (y, part) in enumerate(outs):
+        want = torch.ones(2, 2, 3)
+        if i % 3 == 2:
+            want[0] = 0
+        assert torch.equal(part, want) and torch.equal(y, torch.ones(4, 3))
+    with cs.planted_partials(acc, 3):
+        y, part = cs.fb._launch_partials(None, None)
+    scale = 1 + cs.PLANTED_SCALE_ERR
+    torch.testing.assert_close(y, torch.full((4, 3), scale))
+    torch.testing.assert_close(part[:, 0], torch.full((2, 3), scale))
+    torch.testing.assert_close(part[:, 1], torch.full((2, 3), scale ** 2))
+    with pytest.raises(KeyError):
+        with cs.planted_partials(tile, 3):
+            raise KeyError("inside")
+    assert cs.fb._launch_partials is fake
+
+
+@pytest.fixture
+def tiny_resnet(monkeypatch):
+    # the CIFAR stem keeps 4x4 in the last stage at 32x32, so its BNs see
+    # enough values a channel for finite eval-mode statistics
+    monkeypatch.setattr(cs, "RESNET", dict(model_name="resnet50",
+                                           num_classes=20, stem="cifar",
+                                           input_shape=(32, 32, 3)))
+    monkeypatch.setattr(cs, "RESNET_BATCH", 4)
+    monkeypatch.setattr(cs, "RESNET_STEPS", 2)
+    monkeypatch.setattr(cs, "RESNET_CLASSES", 3)
+    model = cs.ImageClassifier(**cs.RESNET, device="cpu").model
+    return model.init_weights(0), cs.resnet_data(0)
+
+
+def test_resnet_data_is_offset_classes(tiny_resnet):
+    _, (x, y, xe, ye) = tiny_resnet
+    assert x.shape == (8, 32, 32, 3) and xe.shape == (4, 32, 32, 3)
+    assert x.dtype == np.float32 and y.dtype == np.int64
+    assert len(np.unique(np.concatenate([y, ye]))) <= cs.RESNET_CLASSES
+    assert int(max(y.max(), ye.max())) < 20
+
+
+def test_resnet_checks_accept_the_path_and_reject_faults(tiny_resnet):
+    """The ResNet phase's host logic at a tiny size: the kernel-route and
+    plain runs from one set of weights (on the CPU both take the plain
+    version, so launches stay 0 and the losses are equal); the checks pass
+    once the launch count the card would give is filled in, and reject a
+    missing launch and a loss that does not fall."""
+    model, (x, y, xe, ye) = tiny_resnet
+    runs = {}
+    for tag, impl in (("kernel", None), ("plain", "torch")):
+        m = copy.deepcopy(model)
+        cs.set_impl(m, impl)
+        runs[tag] = cs.resnet_run(m, x, y, xe, ye, 0)
+        assert runs[tag]["fused"] == 0
+        assert len(runs[tag]["losses"]) == 3
+        assert set(runs[tag]["eval"]) == {"loss", "accuracy"}
+    assert runs["kernel"]["losses"] == runs["plain"]["losses"]
+    assert cs.loss_gap(runs["kernel"], runs["plain"]) == 0.0
+    falling = [3.0, 2.5, 2.0]
+    cs.check_resnet("plain", dict(runs["plain"], losses=falling), 33,
+                    kernels=False)
+    run = dict(runs["kernel"], losses=falling, fused=99)
+    cs.check_resnet("kernel", run, 33, kernels=True)
+    with pytest.raises(cs.SmokeFailure, match="launches"):
+        cs.check_resnet("bad", dict(run, fused=98), 33, kernels=True)
+    with pytest.raises(cs.SmokeFailure, match="did not fall"):
+        cs.check_resnet("bad", dict(run, losses=[2.0, 2.5, 3.0]), 33,
+                        kernels=True)
+
+
+def test_resnet_profile_families():
+    for name, fam in (("void fused_bn_kernel<float>(float const*)",
+                       "fused_bn"),
+                      ("sm90_xmma_fprop_implicit_gemm_f32f32", "cuDNN conv"),
+                      ("cutlass_80_simt_sgemm_128x64", "GEMM (fused_bn "
+                                                       "backward, fc)"),
+                      ("void at::native::multi_tensor_apply_kernel<>",
+                       "SGD (foreach)"),
+                      ("void at::native::vectorized_elementwise_kernel<4>",
+                       "BN and other elementwise / reductions")):
+        assert cs.kernel_family(name) == fam
