@@ -1,53 +1,76 @@
-// Flash attention backward for NVIDIA Hopper (sm_90a): two kernels.
+// Flash attention backward for NVIDIA Hopper (sm_90a): two kernels on the
+// tensor cores.
 //
-// Replaces analytics_zoo_tpu/ops/flash_attention.py::_bwd_dq_kernel and
-// ::_bwd_dkv_kernel, the Pallas TPU kernels that _flash_bwd hands to
-// pl.pallas_call.  With s = q·kᵀ·scale, p = exp(s − lse) (the forward's
-// per-row log-sum-exp, so p is the softmax recomputed without a second
-// reduction), the causal mask key ≤ query, and the per-row
-// δ = rowsum(dO·O) − g_lse computed by the caller:
+// Replaces analytics_zoo_tpu/ops/flash_attention.py::_bwd_dq_kernel (:158)
+// and ::_bwd_dkv_kernel (:194), the Pallas TPU kernels that _flash_bwd
+// (:240) hands to pl.pallas_call (:272, :290).  With s = q·kᵀ·scale,
+// p = exp(s − lse) (the forward's per-row log-sum-exp, so p is the softmax
+// recomputed without a second reduction), the causal mask key ≤ query, and
+// the per-row δ = rowsum(dO·O) − g_lse computed by the caller:
 //   ds = p·(dO·vᵀ − δ)
 //   dq = ds·k·scale              (flash_bwd_dq_kernel)
 //   dk = dsᵀ·q·scale, dv = pᵀ·dO  (flash_bwd_dkv_kernel)
-// q/k/v/dO are f32 or bf16; all arithmetic is f32; dq/dk/dv are written
-// in the input dtype.
+// q/k/v/dO are f32 or bf16; dq/dk/dv are written in the input dtype.
 //
 // What bounds it on the card: operations.  At the training path's shape
 // (B·H = 96, T = 1024, D = 64, causal) the function needs 10·D flop per
 // kept (query, key) pair (recompute s, then dp, dv, dk, dq), 32.2 GFLOP,
-// against ~0.2 GB of q, k, v, O, dO, dq, dk and dv: at the f32 FMA rate
-// (67 TFLOP/s; f32 has no tensor-core path that keeps f32 accuracy) about
-// 0.48 ms.  This design recomputes s and dp in both kernels (14·D flop a
-// pair), so it can reach at most ~71% of that bound.  It is the simple,
-// correct first design:
+// against ~0.2 GB of q, k, v, O, dO, dq, dk and dv.  An f32-accurate
+// product on the tensor cores costs three TF32 products, so the bound is
+// 32.2 GFLOP at a third of the dense TF32 rate (495 / 3 = 165 TFLOP/s),
+// about 0.195 ms.  Both kernels recompute s and dp (14·D flop a pair), so
+// they can reach at most ~71% of it.  The design:
+//  - every product (s, dp, dq in one kernel; sᵀ, dpᵀ, dv, dk in the other)
+//    is mma.sync.m16n8k8 with TF32 operands in 3xTF32: each f32 operand x
+//    is split into big = rna(x) and small = rna(x − big), rna being
+//    cvt.rna.tf32.f32, and big·small + small·big is accumulated before
+//    big·big.  One TF32 product alone would be ~1e-3 off.  The tensor core
+//    truncates each mma's sum to 24 bits, so a running sum must not be its
+//    C operand: products over the head dimension sum two k-steps (6 mmas)
+//    into a zeroed partial, products over tokens one k-step (3 mmas), and
+//    an f32 add puts the partial into the sum.  A widened bf16 value is
+//    exact in TF32, so for bf16 inputs its small part is zero and those
+//    products are skipped; p and ds are f32 and keep their split.  mma.sync
+//    rather than wgmma: wgmma takes TF32 operands only K-major, and
+//    dq = ds·k, dk = dsᵀ·q and dv = pᵀ·dO contract over tokens.
+//  - four warps a block, each owning 16 rows: dq has queries as rows (64
+//    a block) and walks 32-key tiles; dk/dv has keys as rows (64 a block,
+//    it computes sᵀ = k·qᵀ) and walks 32-query tiles.  A warp's s and dp
+//    are m16n8 accumulators in registers, p and ds are formed there, and
+//    they feed the second product as its A operand with no move at all:
+//    the contraction of that product takes the accumulator's columns 2t
+//    and 2t + 1 as its slots t and t + 4, and reads its B operand from
+//    shared memory in the same order.
+//  - every operand is split once, when its tile arrives in shared memory,
+//    into (big, small) pairs, so no warp splits what another has split: a
+//    block's own 64 rows (q and dO in dq; k and v in dk/dv) in the A
+//    layout, each lane's fragment one 16-byte load per part; the streamed
+//    tiles in the row layout, a 16-byte chunk holding two neighbouring
+//    elements' parts.
+//  - the streamed tiles (k and v in dq; q, dO, lse and δ in dk/dv) have
+//    two shared-memory stages: the next tile's raw cp.async copies (16
+//    bytes a copy for f32, 8 for bf16) are issued into the raw stage before
+//    the current tile's products, which read the split stage; then
+//    cp.async.wait_group, __syncthreads() and the split.  Rows at or past T
+//    are zero-filled by cp.async's src-size operand (0 bytes read), so no
+//    padded copies are made in HBM; padded query rows get p = 0, keys at or
+//    past T are masked in dq and their dk/dv rows are never written.
+//  - the row layout stores chunk c of row r at c ^ sw(r), sw(r) =
+//    (r & 1)·4 + (r >> 1 & 3): the 16-byte loads of both products, along d
+//    (rows g, chunks 4m + t) and along tokens (rows 2t and 2t + 1, chunks
+//    g·D/16 + i), hit eight distinct bank quads a quarter-warp at D = 64
+//    (two-way at 32 and 128 along tokens).  The A layout is contiguous.
+//  - exp is ex2.approx of an FMA in the log2 domain, and tiles the mask
+//    keeps whole skip it.
 //  - two kernels, as the TPU package has, so every gradient element is
-//    written by exactly one thread block: no atomics, and two backward
-//    calls give bitwise-equal gradients.  The TPU grid walks tiles in
-//    order on one core; here tiles run in parallel, and the loop inside a
-//    block replaces the sequential fori_loop.
-//  - dq: one block (256 threads, a 16 x 16 grid) per (b·h, 64-query
-//    tile).  The q tile (pre-scaled), the dO tile, lse and δ stay in
-//    shared memory / registers; 64-key K and V tiles are staged in shared
-//    memory; each thread computes a 4 x 4 block of s and dp, writes ds to
-//    shared memory, and accumulates a 4 x D/16 block of dq in registers.
-//    Under the causal mask the loop stops at the diagonal key tile.
-//  - dk/dv: one block per (b·h, key tile).  The key tile is 64 keys at
-//    head_dim 32 and 64, and 32 keys at head_dim 128, so that the two f32
-//    accumulators (keys x D each) stay at 32 registers a thread instead
-//    of 64.  The loop over 64-query tiles starts at the diagonal tile when
-//    causal.  Query rows at or past T are masked here (their q, dO, lse
-//    and δ are staged as zeros and their p is forced to 0): the TPU kernel
-//    relies on padded rows of dO and δ being 0 in HBM, and this kernel
-//    makes no padded copies.
-//  - keys at or past T are masked in dq, and their dk/dv rows are never
-//    written.  Tiles are staged with 16-byte (f32) / 8-byte (bf16) loads
-//    into rows padded by 4 floats so the float4 reads of 8 lanes hit 32
-//    distinct banks.
+//    written by exactly one block: no atomics, and two backward calls give
+//    bitwise-equal gradients.  Under the causal mask dq stops at the
+//    diagonal key tile and dk/dv starts at the diagonal query tile; the
+//    heavy tiles are issued first.
 //  - every tensor is read through its (b, h, t) strides: q/k/v are views
 //    of the fused qkv projection and dO arrives from autograd as a strided
 //    view; dq/dk/dv are written through theirs, in (B, T, H, D) memory.
-// bf16 or f32 tensor-core tiles (wgmma), cp.async/TMA double buffering and
-// one fused kernel with a second reduction pass are later work.
+//  Shared memory, at D = 64 f32: 112 KiB a block (two blocks an SM).
 //
 // C interface, loaded with ctypes (analytics_zoo_tpu_torch/ops/_build.py):
 // each entry launches on the given stream, allocates nothing and returns
@@ -63,69 +86,416 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per tile
-constexpr int kThreads = 256;    // 16 (tx) x 16 (ty)
-constexpr int kPadP = 16;        // P / dS rows padded so odd/even ty use other banks
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // a block's own rows: queries (dq), keys (dk/dv)
+constexpr int kStream = 32;          // rows of each streamed tile
+
+template <typename T>
+struct Elt;
+template <>
+struct Elt<float> {
+  static constexpr bool exact = false;   // needs a small part in TF32
+  static constexpr int copy = 16;        // bytes a cp.async
+};
+template <>
+struct Elt<__nv_bfloat16> {
+  static constexpr bool exact = true;
+  static constexpr int copy = 8;
+};
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = in ? BYTES : 0;   // 0 bytes read: the chunk is zero-filled
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(s), "l"(src), "n"(BYTES), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy rows [t0, t0 + ROWS) of one (b, h) slice into a raw row-major tile
+// (pitch D); rows at or past T are zero-filled.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_raw(T* raw, const T* src, long long st,
+                                         int t0, int T_) {
+  constexpr int E = Elt<T>::copy / (int)sizeof(T);   // elements a copy
+  constexpr int PER_ROW = D / E;
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += kThreads) {
+    const int r = i / PER_ROW;
+    const int c = (i % PER_ROW) * E;
+    const bool in = t0 + r < T_;
+    cp_async<Elt<T>::copy>(raw + r * D + c,
+                           in ? src + (long long)(t0 + r) * st + c : src, in);
+  }
+}
+
+// Copy n floats of a contiguous (B, H, T) row vector from t0 (zeros past T).
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int t0,
+                                         int T, int n) {
+  const int i = threadIdx.x;
+  if (i < n) cp_async<4>(dst + i, src + (t0 + i < T ? t0 + i : 0), t0 + i < T);
+}
+
+// cvt.rna.tf32.f32 of a finite x (round to nearest, ties away from zero:
+// add half a TF32 unit to the magnitude's bits and clear the 13 low bits)
+// in two integer instructions; the conversion instruction itself costs
+// several on sm_90
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small in TF32 (x − big is exact in f32); an exact operand
+// (widened bf16) has no small part
+template <bool EXACT>
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (EXACT) {
+    big = __float_as_uint(x);
+    small = 0u;
+  } else {
+    big = tf32(x);
+    small = tf32(x - __uint_as_float(big));
+  }
+}
+
+// Split tiles hold every element as its (big, small) pair, in one of two
+// layouts.  Row layout (tiles read as B operands): elements c and c + 1 of
+// row r form the 16-byte chunk (big c, big c + 1, small c, small c + 1),
+// stored at chunk (c / 2) ^ sw(r) of the row; the swizzle keeps every
+// 16-byte fragment load free of bank conflicts at D = 64 (see the header).
+// The A layout is described at split_frags.
+template <int D>
+__device__ __forceinline__ int sw(int r) {
+  return (((r & 1) << 2) | ((r >> 1) & 3)) & (D / 2 - 1);
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);   // round to nearest even, as .to(bfloat16)
-}
-
-// Stage rows [t0, t0 + ROWS) of one (b, h) slice into smem (row pitch
-// D + 4), times mul; rows at or past T become zeros.
-template <typename TI, int D, int ROWS>
-__device__ __forceinline__ void stage(float* dst, const TI* src, long long st,
-                                      int t0, int T, float mul) {
-  constexpr int V4 = D / 4;
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * V4; i += kThreads) {
-    const int r = i / V4;
-    const int c = (i % V4) * 4;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t0 + r < T) f = load4(src + (long long)(t0 + r) * st + c);
-    float* d = dst + r * (D + 4) + c;
-    d[0] = f.x * mul; d[1] = f.y * mul; d[2] = f.z * mul; d[3] = f.w * mul;
+// Split every element of a raw ROWS x D tile, once, so that the fragments
+// of every warp and every product load it ready-made: the row layout.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void split_rows(uint32_t* tile, const T* raw) {
+  constexpr bool X = Elt<T>::exact;
+  for (int i = threadIdx.x; i < ROWS * D / 4; i += kThreads) {
+    const int r = i / (D / 4);
+    const int c = (i % (D / 4)) * 4;
+    const float4 f = load4(raw + r * D + c);
+    uint4 lo, hi;
+    split<X>(f.x, lo.x, lo.z);
+    split<X>(f.y, lo.y, lo.w);
+    split<X>(f.z, hi.x, hi.z);
+    split<X>(f.w, hi.y, hi.w);
+    uint32_t* row = tile + r * 2 * D;
+    *reinterpret_cast<uint4*>(row + (((c >> 1) ^ sw<D>(r)) << 2)) = lo;
+    *reinterpret_cast<uint4*>(row + ((((c >> 1) + 1) ^ sw<D>(r)) << 2)) = hi;
   }
 }
 
-// acc[i][j] += Σ_d A[ra + 16i][d] · B[rb + 16j][d] for I rows of A and 4 of
-// B (both row-major in smem with pitch D + 4): one 4-wide block of a tile
-// product over the head dimension.
-template <int D, int I>
-__device__ __forceinline__ void dot_rows(float (&acc)[I][4], const float* A,
-                                         int ra, const float* B, int rb) {
-  constexpr int PITCH = D + 4;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[I], b[4];
+// The A layout (tiles read as A operands, ROWS a multiple of 16): for each
+// 16-row group and k-step m, 32 lanes' big quads, then their small quads;
+// lane (g, t) holds rows g, g + 8 at slot t, then rows g, g + 8 at slot
+// t + 4, which is the mma's A register order, slot t being column
+// 8m + 2t and slot t + 4 column 8m + 2t + 1 (the order of frag_b_rows).
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void split_frags(uint32_t* tile, const T* raw) {
+  constexpr bool X = Elt<T>::exact;
+  for (int i = threadIdx.x; i < ROWS * D / 4; i += kThreads) {
+    const int r = i / (D / 4);
+    const int c = (i % (D / 4)) * 4;
+    const float4 f = load4(raw + r * D + c);
+    const float x[4] = {f.x, f.y, f.z, f.w};
+    uint32_t* q = tile + ((r >> 4) * (D / 8) + (c >> 3)) * 256 +
+                  ((r & 7) * 4 + ((c & 7) >> 1)) * 4 + ((r >> 3) & 1);
 #pragma unroll
-    for (int i = 0; i < I; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ra + 16 * i) * PITCH + d);
+    for (int e = 0; e < 4; ++e) {   // column c + e: slot t + (e >> 1), half e & 1
+      uint32_t big, small;
+      split<X>(x[e], big, small);
+      q[(e >> 1) * 4 + 2 * (e & 1)] = big;
+      q[(e >> 1) * 4 + 2 * (e & 1) + 128] = small;
+    }
+  }
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// p += a·b in 3xTF32: the two correction products first, then big·big
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma3_into(float (&p)[4], const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4],
+                                          const uint32_t (&bb)[2],
+                                          const uint32_t (&bs)[2]) {
+  if constexpr (!BX) mma(p, ab, bs);
+  if constexpr (!AX) mma(p, as, bb);
+  mma(p, ab, bb);
+}
+
+// c += a·b through a zeroed partial that one f32 add (round to nearest)
+// puts into c.  The tensor core aligns the terms of an mma to the largest
+// one and truncates the sum to 24 bits (mma_probe.py), so a running sum fed
+// back as the C operand loses up to an ulp of itself at every step, which
+// took dv past the f32 tolerance at T = 1000; a partial loses ulps of
+// itself only.
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3_into<AX, BX>(p, ab, as, bb, bs);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (rb + 16 * j) * PITCH + d);
+  for (int i = 0; i < 4; ++i) c[i] += p[i];
+}
+
+// A lane's word offsets into split tiles, computed once.  Products over the
+// head dimension take its 8 columns c0 .. c0 + 7 in the order slot t =
+// column c0 + 2t, slot t + 4 = column c0 + 2t + 1 (the same for A and B,
+// so the sum is unchanged), so a lane's two slots are one chunk: k-step
+// m = 2u + e reads chunk (4m + t) ^ sw(row) = 8u + ((4e + t) ^ sw(g)) of
+// rows g and g + 8 (mod 8), i.e. word 32u + row[e].  Products over tokens
+// read rows 2t + r of 8-row groups: col[r][i] is the word offset (row
+// included) of chunk (g·D/16 + i) ^ sw(2t + r), the B values of n-tiles 2i
+// and 2i + 1 (see product_over_tokens).
+template <int D>
+struct Lane {
+  int g, t;
+  int row[2];
+  int col[2][D / 16];
+  __device__ __forceinline__ Lane() {
+    g = (threadIdx.x & 31) >> 2;
+    t = threadIdx.x & 3;
 #pragma unroll
-    for (int i = 0; i < I; ++i)
+    for (int e = 0; e < 2; ++e) row[e] = 4 * ((4 * e + t) ^ sw<D>(g));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i)
+        col[r][i] = (2 * t + r) * 2 * D +
+                    4 * ((g * (D / 16) + i) ^ sw<D>(2 * t + r));
+  }
+};
+
+__device__ __forceinline__ uint4 ld16(const uint32_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// A fragment of a product over the head dimension from an A-layout tile
+// (`frags`: the warp's 16-row group, this lane's quad, k-step 0)
+__device__ __forceinline__ void frag_a(const uint32_t* frags, int m,
+                                       uint32_t (&big)[4], uint32_t (&small)[4]) {
+  const uint4 x = ld16(frags + m * 256);
+  const uint4 y = ld16(frags + m * 256 + 128);
+  big[0] = x.x; big[1] = x.y; big[2] = x.z; big[3] = x.w;
+  small[0] = y.x; small[1] = y.y; small[2] = y.z; small[3] = y.w;
+}
+
+// B fragment of such a product from a row-layout tile: B[k][n] =
+// tile[r0 + n][k], the tile's rows being the output's columns (`row` is the
+// tile's row r0 + g)
+__device__ __forceinline__ void frag_b_rows(const uint32_t* row, int off,
+                                            uint32_t (&big)[2], uint32_t (&small)[2]) {
+  const uint4 x = ld16(row + off);
+  big[0] = x.x; big[1] = x.y; small[0] = x.z; small[1] = x.w;
+}
+
+// An m16n8 accumulator (c0, c1 at row g, columns 2t, 2t + 1; c2, c3 at row
+// g + 8) split into the A fragment of a product over its columns, taken in
+// the order slot t = column 2t, slot t + 4 = column 2t + 1: no data moves
+// between lanes
+__device__ __forceinline__ void frag_acc(const float (&c)[4], uint32_t (&big)[4],
+                                         uint32_t (&small)[4]) {
+  split<false>(c[0], big[0], small[0]);
+  split<false>(c[2], big[1], small[1]);
+  split<false>(c[1], big[2], small[2]);
+  split<false>(c[3], big[3], small[3]);
+}
+
+// acc += A·rows[0 .. 7][:] over those 8 token rows (in frag_acc's order)
+// for all D output columns.  The output column of n-tile nn at mma column
+// n is n·(D/8) + nn, so a lane's B values for all n-tiles are one
+// contiguous run of a row: D/16 16-byte loads a row.
+template <int D, bool BX>
+__device__ __forceinline__ void product_over_tokens(
+    float (&acc)[D / 8][4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+    const uint32_t* rows, const Lane<D>& L) {
+#pragma unroll
+  for (int i = 0; i < D / 16; ++i) {
+    const uint4 x = ld16(rows + L.col[0][i]);
+    const uint4 y = ld16(rows + L.col[1][i]);
+    const uint32_t b0[2] = {x.x, y.x}, s0[2] = {x.z, y.z};
+    const uint32_t b1[2] = {x.y, y.y}, s1[2] = {x.w, y.w};
+    mma3<false, BX>(acc[2 * i], ab, as, b0, s0);
+    mma3<false, BX>(acc[2 * i + 1], ab, as, b1, s1);
+  }
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  // round to nearest even, as .to(bfloat16)
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<const uint32_t*>(&lo),
+      *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// Write rows g and g + 8 of a warp's product_over_tokens accumulator:
+// row i's columns 2t·(D/8) .. 2t·(D/8) + D/4 − 1 are this lane's.
+template <typename TO, int D>
+__device__ __forceinline__ void store_rows(TO* out, long long st, int row0,
+                                           int T, const float (&acc)[D / 8][4],
+                                           float mul) {
+  constexpr int NT = D / 8;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    if (r >= T) continue;
+    TO* o = out + (long long)r * st + 2 * t * NT;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nn = 0; nn < NT; nn += 4)
+        store4(o + h * NT + nn, acc[nn][2 * i + h] * mul,
+               acc[nn + 1][2 * i + h] * mul, acc[nn + 2][2 * i + h] * mul,
+               acc[nn + 3][2 * i + h] * mul);
+  }
+}
+
+// s = A·Bᵀ over the head dimension for a warp's 16 rows of an A-layout
+// tile (a: as frag_a takes it) against NJ·8 rows of a row-layout tile (bt:
+// its row g).  Each pair of k-steps sums into a zeroed partial that one f32
+// add puts into s (see mma3): a chain of 6 mmas, 16 of the 64 products.
+template <int D, int NJ, bool AX, bool BX>
+__device__ __forceinline__ void product_over_d(float (&s)[NJ][4],
+                                               const uint32_t* a,
+                                               const uint32_t* bt,
+                                               const Lane<D>& L) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 1
+  for (int u = 0; u < D / 16; ++u) {
+    float p[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      uint32_t ab[4], as[4], bb[2], bs[2];
+      frag_a(a, 2 * u + e, ab, as);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        frag_b_rows(bt + j * 16 * D, 32 * u + L.row[e], bb, bs);
+        mma3_into<AX, BX>(p[j], ab, as, bb, bs);
       }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += p[j][e];
   }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dq: p = exp(s·scale − lse) and ds = p·(dp − δ) in place of dp, rows are
+// queries (q_g: this lane's row g, lse2 = lse·log2 e), columns keys (k_t:
+// this lane's column 2t); MASK applies the causal mask and keys past T
+template <int NJ, bool MASK>
+__device__ __forceinline__ void ds_rows(const float (&s)[NJ][4],
+                                        float (&dp)[NJ][4],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2], float sl,
+                                        int q_g, int k_t, int T, int causal) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float p = exp2_approx(fmaf(s[j][e], sl, -lse2[i]));
+      if constexpr (MASK) {
+        const int kpos = k_t + 8 * j + (e & 1);
+        if (kpos >= T || (causal && kpos > q_g + 8 * i)) p = 0.f;
+      }
+      dp[j][e] = p * (dp[j][e] - dl[i]);
+    }
+}
+
+// dk/dv: the same with keys as rows (k_g) and queries as columns (q_t),
+// lse and δ of the query tile in shared memory; p replaces s
+template <int NJ, bool MASK>
+__device__ __forceinline__ void ds_cols(float (&s)[NJ][4], float (&dp)[NJ][4],
+                                        const float* L, const float* Dl,
+                                        float sl, int k_g, int q_t, int t,
+                                        int T, int causal) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float2 lq = *reinterpret_cast<const float2*>(L + 8 * j + 2 * t);
+    const float2 dq = *reinterpret_cast<const float2*>(Dl + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float l = (e & 1) ? lq.y : lq.x;
+      float p = exp2_approx(fmaf(s[j][e], sl, -l * kLog2e));
+      if constexpr (MASK) {
+        const int qpos = q_t + 8 * j + (e & 1);
+        if (qpos >= T || (causal && k_g + 8 * (e >> 1) > qpos)) p = 0.f;
+      }
+      s[j][e] = p;
+      dp[j][e] = p * (dp[j][e] - ((e & 1) ? dq.y : dq.x));
+    }
+  }
+}
+
+// raw staging: the larger of a block's own rows in either input type
+template <typename TI, typename TG, int D>
+__host__ __device__ constexpr int raw_bytes() {
+  return kRows * D * (int)(sizeof(TI) > sizeof(TG) ? sizeof(TI) : sizeof(TG));
+}
+
+template <typename TI, typename TG, int D>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return 4 * 2 * D * 2 * (kRows + kStream) + raw_bytes<TI, TG, D>();
+}
+
+template <typename TI, typename TG, int D>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return 4 * 2 * D * 2 * (kRows + kStream) + raw_bytes<TI, TG, D>() +
+         4 * 2 * 2 * kStream;
 }
 
 template <typename TI, typename TG, int D>
@@ -141,105 +511,97 @@ flash_bwd_dq_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
                     long long sgb, long long sgh, long long sgt,
                     long long sdb, long long sdh, long long sdt,
                     float scale, int causal) {
-  constexpr int BK = 64;          // keys per tile
-  constexpr int DJ = D / 16;      // dq columns per thread
-  constexpr int PITCH = D + 4;
-  constexpr int PP = BK + kPadP;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // kBQ x PITCH, q·scale
-  float* Gs = Qs + kBQ * PITCH;                  // kBQ x PITCH, dO
-  float* Ks = Gs + kBQ * PITCH;                  // BK x PITCH
-  float* Vs = Ks + BK * PITCH;                   // BK x PITCH
-  float* Ss = Vs + BK * PITCH;                   // kBQ x PP, ds
+  constexpr int BQ = kRows, BK = kStream, NJ = BK / 8, NT = D / 8;
+  constexpr bool XI = Elt<TI>::exact, XG = Elt<TG>::exact;
+  extern __shared__ uint4 smem4[];
+  uint32_t* Qs = reinterpret_cast<uint32_t*>(smem4);   // split, A layout
+  uint32_t* Gs = Qs + BQ * 2 * D;                      // dO
+  // Ks, Vs: split, row layout
+  uint32_t* Ks = Gs + BQ * 2 * D;
+  uint32_t* Vs = Ks + BK * 2 * D;
+  void* raw = Vs + BK * 2 * D;                         // cp.async staging
+  TI* rk = reinterpret_cast<TI*>(raw);
+  TI* rv = rk + BK * D;
 
   const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;   // heavy tiles first
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = qt * kBQ;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
+  const int q0 = qt * BQ;
+  const int r0 = 16 * (threadIdx.x >> 5);   // the warp's rows in the tile
+  const Lane<D> L;
+  const int afrag = (r0 >> 4) * (D / 8) * 256 + (threadIdx.x & 31) * 4;
   const TI* kp = k + b * skb + h * skh;
   const TI* vp = v + b * svb + h * svh;
-  stage<TI, D, kBQ>(Qs, q + b * sqb + h * sqh, sqt, q0, T, scale);
-  stage<TG, D, kBQ>(Gs, dout + b * sgb + h * sgh, sgt, q0, T, 1.f);
 
-  float lr[4], dr[4], acc[4][DJ];
+  // q and dO stay for the whole loop: staged raw and split once
+  load_raw<TI, D, BQ>(reinterpret_cast<TI*>(raw), q + b * sqb + h * sqh, sqt, q0, T);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  split_frags<TI, D, BQ>(Qs, reinterpret_cast<const TI*>(raw));
+  __syncthreads();
+  load_raw<TG, D, BQ>(reinterpret_cast<TG*>(raw), dout + b * sgb + h * sgh, sgt, q0, T);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  split_frags<TG, D, BQ>(Gs, reinterpret_cast<const TG*>(raw));
+  __syncthreads();
+  load_raw<TI, D, BK>(rk, kp, skt, 0, T);
+  load_raw<TI, D, BK>(rv, vp, svt, 0, T);
+  cp_commit();
+
+  float lr[2], dr[2];   // lse·log2 e and δ of rows g and g + 8
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    lr[i] = t < T ? lse[(long long)bh * T + t] : 0.f;
-    dr[i] = t < T ? delta[(long long)bh * T + t] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int tq = q0 + r0 + L.g + 8 * i;
+    lr[i] = tq < T ? lse[(long long)bh * T + tq] * kLog2e : 0.f;
+    dr[i] = tq < T ? delta[(long long)bh * T + tq] : 0.f;
   }
+  const float sl = scale * kLog2e;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   int n_kt = (T + BK - 1) / BK;
-  if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / BK + 1);
+  if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);
 
   for (int kt = 0; kt < n_kt; ++kt) {
+    cp_wait_all();
+    __syncthreads();   // tile kt has landed; the last tile's readers are done
+    split_rows<TI, D, BK>(Ks, rk);
+    split_rows<TI, D, BK>(Vs, rv);
+    __syncthreads();
+    if (kt + 1 < n_kt) {   // the next tile flies while this one is used
+      load_raw<TI, D, BK>(rk, kp, skt, (kt + 1) * BK, T);
+      load_raw<TI, D, BK>(rv, vp, svt, (kt + 1) * BK, T);
+    }
+    cp_commit();
+
+    float s[NJ][4], dp[NJ][4];
+    product_over_d<D, NJ, XI, XI>(s, Qs + afrag, Ks + L.g * 2 * D, L);   // q·kᵀ
+    product_over_d<D, NJ, XG, XI>(dp, Gs + afrag, Vs + L.g * 2 * D, L);  // dO·vᵀ
+
     const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's readers are done
-    stage<TI, D, BK>(Ks, kp, skt, k0, T, 1.f);
-    stage<TI, D, BK>(Vs, vp, svt, k0, T, 1.f);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    dot_rows<D, 4>(s, Qs, ty, Ks, tx);    // (q·scale)·kᵀ
-    dot_rows<D, 4>(dp, Gs, ty, Vs, tx);   // dO·vᵀ
+    const int q_g = q0 + r0 + L.g, k_t = k0 + 2 * L.t;
+    if (k0 + BK <= T && (!causal || k0 + BK - 1 <= q0 + r0))
+      ds_rows<NJ, false>(s, dp, lr, dr, sl, q_g, k_t, T, causal);
+    else
+      ds_rows<NJ, true>(s, dp, lr, dr, sl, q_g, k_t, T, causal);
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool keep = qpos < T && kpos < T && (!causal || kpos <= qpos);
-        const float p = keep ? expf(s[i][j] - lr[i]) : 0.f;
-        Ss[(ty + 16 * i) * PP + tx + 16 * j] = p * (dp[i][j] - dr[i]);
-      }
-    }
-    __syncthreads();
-
-    // dq += ds·k
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 sa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sa[i] = *reinterpret_cast<const float4*>(Ss + (ty + 16 * i) * PP + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float kk[DJ];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) kk[j] = Ks[(c + cc) * PITCH + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float ds = cc == 0 ? sa[i].x : cc == 1 ? sa[i].y
-                         : cc == 2 ? sa[i].z : sa[i].w;
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(ds, kk[j], acc[i][j]);
-        }
-      }
+    for (int j = 0; j < NJ; ++j) {   // dq += ds·k
+      uint32_t ab[4], as[4];
+      frag_acc(dp[j], ab, as);
+      product_over_tokens<D, XI>(acc, ab, as, Ks + j * 16 * D, L);
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= T) continue;
-    TI* op = dq + b * sdb + h * sdh + (long long)t * sdt;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) store1(op + tx + 16 * j, acc[i][j] * scale);
-  }
+  store_rows<TI, D>(dq + b * sdb + h * sdh, sdt, q0 + r0, T, acc, scale);
 }
 
-template <typename TI, typename TG, int D, int BK>
+template <typename TI, typename TG, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
                      const TI* __restrict__ v, const TG* __restrict__ dout,
@@ -253,121 +615,102 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
                      long long skob, long long skoh, long long skot,
                      long long svob, long long svoh, long long svot,
                      float scale, int causal) {
-  constexpr int RI = BK / 16;     // key rows per thread
-  constexpr int DJ = D / 16;      // dk/dv columns per thread
-  constexpr int PITCH = D + 4;
-  constexpr int PP = kBQ + kPadP;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);   // BK x PITCH, k·scale
-  float* Vs = Ks + BK * PITCH;                   // BK x PITCH
-  float* Qs = Vs + BK * PITCH;                   // kBQ x PITCH
-  float* Gs = Qs + kBQ * PITCH;                  // kBQ x PITCH, dO
-  float* Ps = Gs + kBQ * PITCH;                  // BK x PP, p (keys x queries)
-  float* Ds = Ps + BK * PP;                      // BK x PP, ds
-  float* Ls = Ds + BK * PP;                      // kBQ, lse
-  float* Dl = Ls + kBQ;                          // kBQ, δ
+  constexpr int BK = kRows, BQ = kStream, NJ = BQ / 8, NT = D / 8;
+  constexpr bool XI = Elt<TI>::exact, XG = Elt<TG>::exact;
+  extern __shared__ uint4 smem4[];
+  uint32_t* Ks = reinterpret_cast<uint32_t*>(smem4);   // split, A layout
+  uint32_t* Vs = Ks + BK * 2 * D;
+  // Qs, Gs (dO): split, row layout
+  uint32_t* Qs = Vs + BK * 2 * D;
+  uint32_t* Gs = Qs + BQ * 2 * D;                      // dO
+  char* raw = reinterpret_cast<char*>(Gs + BQ * 2 * D);   // cp.async staging
+  TI* rq = reinterpret_cast<TI*>(raw);
+  TG* rg = reinterpret_cast<TG*>(raw + BQ * D * sizeof(TI));
+  float* Ls = reinterpret_cast<float*>(raw + raw_bytes<TI, TG, D>());   // 2 x BQ
+  float* Dl = Ls + 2 * BQ;                                              // 2 x BQ, δ
 
   const int kt = blockIdx.x;     // low key tiles carry the most causal work
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int k0 = kt * BK;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
+  const int r0 = 16 * (threadIdx.x >> 5);   // the warp's keys in the tile
+  const Lane<D> L;
+  const int afrag = (r0 >> 4) * (D / 8) * 256 + (threadIdx.x & 31) * 4;
+  const float sl = scale * kLog2e;
   const TI* qp = q + b * sqb + h * sqh;
   const TG* gp = dout + b * sgb + h * sgh;
-  stage<TI, D, BK>(Ks, k + b * skb + h * skh, skt, k0, T, scale);
-  stage<TI, D, BK>(Vs, v + b * svb + h * svh, svt, k0, T, 1.f);
+  const float* lp = lse + (long long)bh * T;
+  const float* dlp = delta + (long long)bh * T;
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
 
-  float ak[RI][DJ], av[RI][DJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) ak[i][j] = av[i][j] = 0.f;
+  // k and v stay for the whole loop: staged raw and split once
+  load_raw<TI, D, BK>(reinterpret_cast<TI*>(raw), k + b * skb + h * skh, skt, k0, T);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  split_frags<TI, D, BK>(Ks, reinterpret_cast<const TI*>(raw));
+  __syncthreads();
+  load_raw<TI, D, BK>(reinterpret_cast<TI*>(raw), v + b * svb + h * svh, svt, k0, T);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  split_frags<TI, D, BK>(Vs, reinterpret_cast<const TI*>(raw));
+  __syncthreads();
+  load_raw<TI, D, BQ>(rq, qp, sqt, qt0 * BQ, T);
+  load_raw<TG, D, BQ>(rg, gp, sgt, qt0 * BQ, T);
+  load_vec(Ls, lp, qt0 * BQ, T, BQ);
+  load_vec(Dl, dlp, qt0 * BQ, T, BQ);
+  cp_commit();
 
-  const int n_qt = (T + kBQ - 1) / kBQ;
-  for (int qt = causal ? k0 / kBQ : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kBQ;
-    __syncthreads();   // the previous tile's readers are done
-    stage<TI, D, kBQ>(Qs, qp, sqt, q0, T, 1.f);
-    stage<TG, D, kBQ>(Gs, gp, sgt, q0, T, 1.f);
-    if (threadIdx.x < kBQ) {
-      const int t = q0 + threadIdx.x;
-      Ls[threadIdx.x] = t < T ? lse[(long long)bh * T + t] : 0.f;
-      Dl[threadIdx.x] = t < T ? delta[(long long)bh * T + t] : 0.f;
-    }
+  float ak[NT][4], av[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int stage = (qt - qt0) & 1;
+    cp_wait_all();
+    __syncthreads();   // tile qt has landed; the last tile's readers are done
+    split_rows<TI, D, BQ>(Qs, rq);
+    split_rows<TG, D, BQ>(Gs, rg);
     __syncthreads();
+    if (qt + 1 < n_qt) {   // the next tile flies while this one is used
+      const int nq = (qt + 1) * BQ;
+      load_raw<TI, D, BQ>(rq, qp, sqt, nq, T);
+      load_raw<TG, D, BQ>(rg, gp, sgt, nq, T);
+      load_vec(Ls + (stage ^ 1) * BQ, lp, nq, T, BQ);
+      load_vec(Dl + (stage ^ 1) * BQ, dlp, nq, T, BQ);
+    }
+    cp_commit();
+    const float* Lt = Ls + stage * BQ;
+    const float* Dt = Dl + stage * BQ;
 
     // scores transposed: rows are this block's keys, columns the queries
-    float s[RI][4], dp[RI][4];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    dot_rows<D, RI>(s, Ks, ty, Qs, tx);    // (k·scale)·qᵀ
-    dot_rows<D, RI>(dp, Vs, ty, Gs, tx);   // v·dOᵀ
+    float s[NJ][4], dp[NJ][4];
+    product_over_d<D, NJ, XI, XI>(s, Ks + afrag, Qs + L.g * 2 * D, L);   // k·qᵀ
+    product_over_d<D, NJ, XI, XG>(dp, Vs + afrag, Gs + L.g * 2 * D, L);  // v·dOᵀ
+
+    const int q0 = qt * BQ;
+    const int k_g = k0 + r0 + L.g, q_t = q0 + 2 * L.t;
+    if (q0 + BQ <= T && (!causal || k0 + r0 + 15 <= q0))
+      ds_cols<NJ, false>(s, dp, Lt, Dt, sl, k_g, q_t, L.t, T, causal);
+    else
+      ds_cols<NJ, true>(s, dp, Lt, Dt, sl, k_g, q_t, L.t, T, causal);
 
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int kpos = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int qpos = q0 + c;
-        const bool keep = qpos < T && (!causal || kpos <= qpos);
-        const float p = keep ? expf(s[i][j] - Ls[c]) : 0.f;
-        Ps[(ty + 16 * i) * PP + c] = p;
-        Ds[(ty + 16 * i) * PP + c] = p * (dp[i][j] - Dl[c]);
-      }
-    }
-    __syncthreads();
-
-    // dv += pᵀ·dO, dk += dsᵀ·q
-#pragma unroll 2
-    for (int c = 0; c < kBQ; c += 4) {
-      float4 pa[RI], da[RI];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        pa[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * PP + c);
-        da[i] = *reinterpret_cast<const float4*>(Ds + (ty + 16 * i) * PP + c);
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float gg[DJ], qq[DJ];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          gg[j] = Gs[(c + cc) * PITCH + tx + 16 * j];
-          qq[j] = Qs[(c + cc) * PITCH + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y
-                        : cc == 2 ? pa[i].z : pa[i].w;
-          const float ds = cc == 0 ? da[i].x : cc == 1 ? da[i].y
-                         : cc == 2 ? da[i].z : da[i].w;
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) {
-            av[i][j] = fmaf(p, gg[j], av[i][j]);
-            ak[i][j] = fmaf(ds, qq[j], ak[i][j]);
-          }
-        }
-      }
+    for (int j = 0; j < NJ; ++j) {   // dv += pᵀ·dO, dk += dsᵀ·q
+      uint32_t ab[4], as[4];
+      frag_acc(s[j], ab, as);
+      product_over_tokens<D, XG>(av, ab, as, Gs + j * 16 * D, L);
+      frag_acc(dp[j], ab, as);
+      product_over_tokens<D, XI>(ak, ab, as, Qs + j * 16 * D, L);
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int t = k0 + ty + 16 * i;
-    if (t >= T) continue;
-    TI* kop = dk + b * skob + h * skoh + (long long)t * skot;
-    TI* vop = dv + b * svob + h * svoh + (long long)t * svot;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      store1(kop + tx + 16 * j, ak[i][j] * scale);
-      store1(vop + tx + 16 * j, av[i][j]);
-    }
-  }
+  store_rows<TI, D>(dk + b * skob + h * skoh, skot, k0 + r0, T, ak, scale);
+  store_rows<TI, D>(dv + b * svob + h * svoh, svot, k0 + r0, T, av, 1.f);
 }
 
 // once per instantiation, on the first (uncaptured) call: later calls may
@@ -387,13 +730,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g,
               const float* lse, const float* delta, void* dq, int B, int H,
               int T, const long long* st, float scale, int causal,
               cudaStream_t s) {
-  constexpr int BK = 64;
   auto kern = flash_bwd_dq_kernel<TI, TG, D>;
-  const int smem = (int)sizeof(float) *
-      (2 * (kBQ + BK) * (D + 4) + kBQ * (BK + kPadP));
+  constexpr int smem = dq_smem_bytes<TI, TG, D>();
   static bool configured = false;
   if (const int e = allow_smem(kern, smem, configured)) return e;
-  const dim3 grid((T + kBQ - 1) / kBQ, B * H);
+  const dim3 grid((T + kRows - 1) / kRows, B * H);
   kern<<<grid, kThreads, smem, s>>>(
       (const TI*)q, (const TI*)k, (const TI*)v, (const TG*)g, lse, delta,
       (TI*)dq, H, T, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
@@ -406,13 +747,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
                const float* lse, const float* delta, void* dk, void* dv,
                int B, int H, int T, const long long* st, float scale,
                int causal, cudaStream_t s) {
-  constexpr int BK = D == 128 ? 32 : 64;
-  auto kern = flash_bwd_dkv_kernel<TI, TG, D, BK>;
-  const int smem = (int)sizeof(float) *
-      (2 * (BK + kBQ) * (D + 4) + 2 * BK * (kBQ + kPadP) + 2 * kBQ);
+  auto kern = flash_bwd_dkv_kernel<TI, TG, D>;
+  constexpr int smem = dkv_smem_bytes<TI, TG, D>();
   static bool configured = false;
   if (const int e = allow_smem(kern, smem, configured)) return e;
-  const dim3 grid((T + BK - 1) / BK, B * H);
+  const dim3 grid((T + kRows - 1) / kRows, B * H);
   kern<<<grid, kThreads, smem, s>>>(
       (const TI*)q, (const TI*)k, (const TI*)v, (const TG*)g, lse, delta,
       (TI*)dk, (TI*)dv, H, T, st[0], st[1], st[2], st[3], st[4], st[5],
@@ -451,6 +790,29 @@ bool bad_shape(int B, int H, int T) {
 }
 
 }  // namespace
+
+// Dynamic shared memory of one block of the dq (dkv = 0) or dk/dv (dkv = 1)
+// kernel, in bytes; 0 for a head_dim the kernels do not take.
+extern "C" int flash_attention_bwd_smem(int in_bf16, int g_bf16, int D,
+                                        int dkv) {
+  using bf = __nv_bfloat16;
+  const int i = (D == 32 ? 0 : D == 64 ? 1 : D == 128 ? 2 : -1);
+  if (i < 0) return 0;
+  const int sizes[2][3][3] = {
+      {{dq_smem_bytes<float, float, 32>(), dq_smem_bytes<float, float, 64>(),
+        dq_smem_bytes<float, float, 128>()},
+       {dq_smem_bytes<bf, bf, 32>(), dq_smem_bytes<bf, bf, 64>(),
+        dq_smem_bytes<bf, bf, 128>()},
+       {dq_smem_bytes<bf, float, 32>(), dq_smem_bytes<bf, float, 64>(),
+        dq_smem_bytes<bf, float, 128>()}},
+      {{dkv_smem_bytes<float, float, 32>(), dkv_smem_bytes<float, float, 64>(),
+        dkv_smem_bytes<float, float, 128>()},
+       {dkv_smem_bytes<bf, bf, 32>(), dkv_smem_bytes<bf, bf, 64>(),
+        dkv_smem_bytes<bf, bf, 128>()},
+       {dkv_smem_bytes<bf, float, 32>(), dkv_smem_bytes<bf, float, 64>(),
+        dkv_smem_bytes<bf, float, 128>()}}};
+  return sizes[dkv ? 1 : 0][!in_bf16 ? 0 : g_bf16 ? 1 : 2][i];
+}
 
 // in_bf16: q/k/v (and dq/dk/dv) are bfloat16, else float32; g_bf16: dO is
 // bfloat16, else float32 (bf16 dO needs bf16 inputs).  strides (15, in

@@ -76,6 +76,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import json
 import math
 import os
@@ -139,6 +140,11 @@ TIE_MARGIN = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
+# f32-accurate products on the tensor cores: 3xTF32 (big·small + small·big
+# + big·big) at a third of the dense TF32 rate, 495 / 3 TFLOP/s.  Every f32
+# bound counts its products at this rate, and its elementwise work at
+# F32_FLOP_PER_S
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 # the predict path: OpenAI's 124M ``gpt2`` widths at the full context
 PREDICT = dict(vocab=50257, hidden_size=768, n_block=12, n_head=12,
@@ -620,14 +626,15 @@ def cross_check(im, waves, served: dict, kv_quant: str) -> None:
 
 # -- phase 2b: flash attention, w8a8 and w4a16 against their plain versions ---
 
-def bound(nbytes: int, ops: int, op_rate: float) -> dict:
-    """The least time for the work: bytes at the HBM rate against
-    operations at ``op_rate``; the larger of the two bounds it."""
+def bound(nbytes: int, *terms) -> dict:
+    """The least time for the work: bytes at the HBM rate against the
+    operations, each ``(ops, rate)`` term at its own rate; the larger of
+    the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / op_rate * 1e3
+    t_ops = sum(ops / rate for ops, rate in terms) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(nbytes), "ops": int(ops)}
+            "bytes": int(nbytes), "ops": int(sum(o for o, _ in terms))}
 
 
 def flash_bound(B, H, T, D, causal, in_bytes=4, out_bytes=4, lse=False):
@@ -636,19 +643,20 @@ def flash_bound(B, H, T, D, causal, in_bytes=4, out_bytes=4, lse=False):
     pairs = T * (T + 1) // 2 if causal else T * T
     nbytes = B * H * T * D * (3 * in_bytes + out_bytes) \
         + (B * H * T * 4 if lse else 0)
-    return bound(nbytes, 4 * B * H * pairs * D, F32_FLOP_PER_S)
+    return bound(nbytes, (4 * B * H * pairs * D, TF32X3_FLOP_PER_S))
 
 
 def w8a8_bound(M, K, N):
-    return bound(M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N,
-                 INT8_OP_PER_S)
+    return bound(M * K + K * N + 4 * N + 4 * M * N,
+                 (2 * M * K * N, INT8_OP_PER_S))
 
 
 def w4a16_bound(M, K, N, G, x_bytes=4):
     """x, the packed weight, its group scales and the output once; 2 flop
-    per product plus one dequantizing multiply per weight."""
+    per product (f32-accurate, on the tensor cores) plus one dequantizing
+    multiply per weight (elementwise f32)."""
     return bound(M * K * x_bytes + (K + 1) // 2 * N + 4 * G * N + 4 * M * N,
-                 2 * M * K * N + K * N, F32_FLOP_PER_S)
+                 (2 * M * K * N, TF32X3_FLOP_PER_S), (K * N, F32_FLOP_PER_S))
 
 
 def qkv_views(g, B, T, H, D, dtype, device="cuda"):
@@ -1144,7 +1152,7 @@ def flash_bwd_bound(B, H, T, D, causal, part="both", in_bytes=4):
     rows = {"both": 1, "dq": 2, "dkv": 2}[part]     # LSE (and delta)
     nbytes = B * H * T * (D * in_bytes * tensors + 4 * rows)
     flop = {"both": 10, "dq": 6, "dkv": 8}[part] * D
-    return bound(nbytes, flop * B * H * pairs, F32_FLOP_PER_S)
+    return bound(nbytes, (flop * B * H * pairs, TF32X3_FLOP_PER_S))
 
 
 def bwd_case(g, B, T, H, D, dt, causal, lse_ct, out_dtype=None):
@@ -1280,9 +1288,24 @@ def events_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def flash_bwd_smem() -> str:
+    """The backward kernels' dynamic shared memory a block, per input type
+    and head_dim, as the library reports it (ptxas -v shows only static
+    shared memory)."""
+    fn = _build.load(fa.KERNEL_BWD).flash_attention_bwd_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return ", ".join(
+        f"{kern}[{tag} D={d}] {fn(ib, gb, d, dkv)} B"
+        for kern, dkv in (("dq", 0), ("dkv", 1))
+        for tag, ib, gb in (("f32", 0, 0), ("bf16", 1, 1), ("bf16 dO f32", 1, 0))
+        for d in fa.KERNEL_HEAD_DIMS)
+
+
 def flash_bwd_phase(seed: int) -> dict:
     """Parity and timing of the backward kernels; their two records
     (launches filled by the training phase)."""
+    say(f"flash-bwd smem: {flash_bwd_smem()}")
     worst = flash_bwd_parity(seed)
     t = flash_bwd_path(seed)
     err = max(worst[torch.float32], t["max_abs_err"])
@@ -1491,16 +1514,12 @@ def profile_train(est, x, y) -> None:
 
 def fused_bn_bound(M, K, N, dtype) -> dict:
     """x, w read once, y (input dtype) and the sums (f32) written once;
-    2·K flop per output at the input dtype's rate (f32 SIMT, or bf16
-    tensor cores) plus 3 f32 flop per output for the sums."""
+    2·K flop per output on the tensor cores (f32-accurate 3xTF32, or
+    bf16) plus 3 elementwise f32 flop per output for the sums."""
     eb = torch.finfo(dtype).bits // 8
     nbytes = (M * K + K * N + M * N) * eb + 2 * N * 4
-    rate = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (2 * M * K * N / rate + 3 * M * N / F32_FLOP_PER_S) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(nbytes), "ops": int(2 * M * K * N + 3 * M * N)}
+    rate = TF32X3_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    return bound(nbytes, (2 * M * K * N, rate), (3 * M * N, F32_FLOP_PER_S))
 
 
 def fused_bn_shapes(model, batch: int):

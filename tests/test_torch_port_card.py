@@ -113,32 +113,51 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, causal, T,
     torch.testing.assert_close(glse, rlse, rtol=1e-5, atol=2e-5)
 
 
-def _flash_grads(q, k, v, causal, impl, seed=0):
-    """dq, dk, dv through autograd: a loss on the output and on the LSE
-    (so both cotangents reach the backward)."""
+def _flash_grads(q, k, v, causal, impl, seed=0, lse_loss=True,
+                 out_dtype=None):
+    """dq, dk, dv through autograd: a loss on the output and, with
+    ``lse_loss``, on the LSE (so both cotangents reach the backward).
+    ``out_dtype`` float32 for bf16 inputs hands the backward an f32 dO."""
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal,
-                                            impl=impl)
+                                            out_dtype=out_dtype, impl=impl)
     g = torch.Generator(device=q.device).manual_seed(seed)
     w = torch.randn(out.shape, generator=g, device=q.device)
     wl = torch.randn(lse.shape, generator=g, device=q.device)
-    ((out.float() * w).sum() + (lse * wl).sum()).backward()
+    loss = (out.float() * w).sum()
+    if lse_loss:
+        loss = loss + (lse * wl).sum()
+    loss.backward()
     return q.grad, k.grad, v.grad
 
 
+# the backward kernels' tiles are 64 rows of their own and 32 streamed rows:
+# T from one position through ragged tiles (15, 77, 130, 1000) to whole ones
+# (1024), at every head_dim, with both cotangents; then one case without the
+# LSE cotangent and one with bf16 inputs and an f32 dO
+_BWD_CASES = [(dt, causal, T, D, True, None)
+              for dt in (torch.float32, torch.bfloat16)
+              for causal in (False, True)
+              for T in (1, 15, 77, 130, 1000, 1024)
+              for D in (32, 64, 128)] + [
+    (torch.float32, True, 1000, 64, False, None),
+    (torch.bfloat16, True, 130, 64, True, torch.float32)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("T,D", [(77, 64), (130, 32), (64, 128)])
+@pytest.mark.parametrize("dtype,causal,T,D,lse_loss,out_dtype", _BWD_CASES)
 def test_flash_backward_kernels_match_plain_on_card(cuda_device, dtype,
-                                                    causal, T, D):
+                                                    causal, T, D, lse_loss,
+                                                    out_dtype):
     q, k, v = _flash_case(cuda_device, dtype, 2, T, 3, D)
     n0 = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
-    got = _flash_grads(q, k, v, causal, "cuda")
+    got = _flash_grads(q, k, v, causal, "cuda", lse_loss=lse_loss,
+                       out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == tuple(
         n + 1 for n in n0)
-    ref = _flash_grads(q, k, v, causal, "torch")
+    ref = _flash_grads(q, k, v, causal, "torch", lse_loss=lse_loss,
+                       out_dtype=out_dtype)
     atol, rtol = FLASH_TOL[dtype]
     for a, b in zip(got, ref):
         assert a.dtype == dtype
@@ -146,9 +165,11 @@ def test_flash_backward_kernels_match_plain_on_card(cuda_device, dtype,
 
 
 @pytest.mark.gpu
-def test_flash_backward_is_deterministic_on_card(cuda_device):
-    """No atomics: every gradient element is written by one block."""
-    q, k, v = _flash_case(cuda_device, torch.float32, 2, 200, 4, 64)
+@pytest.mark.parametrize("B,H,T", [(2, 4, 200), (8, 12, 1024)])
+def test_flash_backward_is_deterministic_on_card(cuda_device, B, H, T):
+    """No atomics: every gradient element is written by one block (also at
+    the training path's shape)."""
+    q, k, v = _flash_case(cuda_device, torch.float32, B, T, H, 64)
     a = _flash_grads(q, k, v, True, "cuda")
     b = _flash_grads(q, k, v, True, "cuda")
     assert all(torch.equal(x, y) for x, y in zip(a, b))

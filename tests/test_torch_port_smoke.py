@@ -141,15 +141,16 @@ def test_predict_checks_accept_the_served_path_and_reject_faults(
 
 
 def test_flash_backward_bounds():
-    """10·D flop per kept pair for the whole backward (0.481 ms at the path
-    shape: 32.2 GFLOP at 67 TFLOP/s), 6·D for dq's function, 8·D for dk/dv's;
-    q, k, v, O, dO read and dq, dk, dv written once."""
+    """10·D flop per kept pair for the whole backward (0.195 ms at the path
+    shape: 32.2 GFLOP of f32-accurate products at 3xTF32's 165 TFLOP/s),
+    6·D for dq's function, 8·D for dk/dv's; q, k, v, O, dO read and dq,
+    dk, dv written once."""
     pairs = 8 * 12 * 1024 * 1025 // 2
     b = cs.flash_bwd_bound(8, 12, 1024, 64, True)
     assert b["ops"] == 10 * 64 * pairs == 32_243_712_000
     assert b["bytes"] == 8 * 12 * 1024 * (64 * 4 * 8 + 4)
     assert b["bound_by"] == "operations"
-    assert b["bound_ms"] == pytest.approx(0.48125, abs=1e-5)
+    assert b["bound_ms"] == pytest.approx(0.19542, abs=1e-5)
     assert cs.flash_bwd_bound(8, 12, 1024, 64, True, "dq")["ops"] \
         + cs.flash_bwd_bound(8, 12, 1024, 64, True, "dkv")["ops"] \
         == 14 * 64 * pairs
@@ -251,14 +252,16 @@ def test_loss_gap_is_the_largest_step_difference():
 # -- phase 6: ResNet-50 and fused_bn ---------------------------------------------
 
 def test_fused_bn_bounds():
-    """At the probe shape: f32 is operations-bound (13.15 GFLOP of products
-    at 67 TFLOP/s plus the sums' 3 flop an output, 0.1975 ms); bf16 is
-    bytes-bound (205.5 MB of x, 51.4 MB of y, 0.0767 ms)."""
+    """At the probe shape: f32 is bytes-bound (411.0 MB of x, 102.8 MB of
+    y, 0.1534 ms; its 13.15 GFLOP of products at 3xTF32's 165 TFLOP/s plus
+    the sums' 3 flop an output take 0.081 ms); bf16 is bytes-bound too
+    (205.5 MB of x, 51.4 MB of y, 0.0767 ms)."""
     m, k, n = cs.PROBE_SHAPE
     b = cs.fused_bn_bound(m, k, n, torch.float32)
-    assert b["bound_by"] == "operations"
+    assert b["bound_by"] == "bytes"
     assert b["ops"] == 2 * m * k * n + 3 * m * n
-    assert b["bound_ms"] == pytest.approx(0.19747, abs=1e-5)
+    assert b["bytes"] == 4 * (m * k + k * n + m * n) + 8 * n
+    assert b["bound_ms"] == pytest.approx(0.15339, abs=1e-5)
     b = cs.fused_bn_bound(m, k, n, torch.bfloat16)
     assert b["bound_by"] == "bytes"
     assert b["bytes"] == 2 * (m * k + k * n + m * n) + 8 * n
