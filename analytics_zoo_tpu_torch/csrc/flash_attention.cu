@@ -1,41 +1,51 @@
-// Flash attention forward for NVIDIA Hopper (sm_90a).
+// Flash attention forward for NVIDIA Hopper (sm_90a), on the tensor cores.
 //
-// Replaces analytics_zoo_tpu/ops/flash_attention.py::_fwd_kernel, the
-// Pallas TPU kernel that _flash_fwd hands to pl.pallas_call:
+// Replaces analytics_zoo_tpu/ops/flash_attention.py::_fwd_kernel (:52), the
+// Pallas TPU kernel that _flash_fwd (:107) hands to pl.pallas_call (:137):
 // out = softmax(q·kᵀ·scale)·v per (batch, head), with the online softmax
 // over key tiles, an optional causal mask (key ≤ query), and optionally the
 // per-row log-sum-exp m + log(l) (scaled-logits domain, stored (B, H, T)).
-// q/k/v are f32 or bf16; all arithmetic is f32.  scale is applied to q in
-// f32 before the dot, as the TPU kernel does.
+// q/k/v are f32 or bf16 and the output f32 or bf16; all arithmetic keeps
+// f32 accuracy.  scale is applied to q in f32 before the dot, as the TPU
+// kernel does.
 //
-// What bounds it on the card: operations.  At the predict path's shape
-// (B·H = 96, T = 1024, D = 64, causal) it does 4·B·H·T²·D/2 ≈ 12.9 GFLOP
-// on 0.1 GB of inputs; f32 has no tensor-core path that keeps f32
-// accuracy (TF32 keeps ~3 digits), so the f32 FMA rate (67 TFLOP/s) is the
-// roof, about 0.19 ms.  The design is the simple, correct first one:
-//  - one thread block (256 threads, a 16 x 16 grid) per (b·h, 64-query
-//    tile).  The TPU grid walks query tiles in order on one core; here the
-//    tiles run in parallel, and the inner loop over key tiles replaces the
-//    sequential fori_loop.  Query tiles near the diagonal do the most work
-//    under the causal mask, so they are scheduled first.
-//  - per key tile, K and V (64 x D) are staged in shared memory (16-byte
-//    loads, rows padded by 4 floats so the float4 reads of 8 lanes hit 32
-//    distinct banks).  Each thread computes a 4 x 4 block of scores
-//    (rows ty + 16i, keys tx + 16j), keeps the running max / sum of its 4
-//    rows in registers (reduced over the 16 lanes of a row with shuffles),
-//    writes the probabilities to shared memory, and accumulates a 4 x D/16
-//    block of the output.
-//  - masks: keys at or past T (the ragged last tile; nothing is padded in
-//    device memory — out-of-range rows are staged as zeros), and with
-//    causal the keys past the query.  The causal loop stops at the
-//    diagonal tile: the TPU kernel walks every key block and relies on
-//    masked blocks adding exact zeros, so stopping changes only the bytes
-//    read.
+// What bounds it on the card: operations.  At the paths' shape (B·H = 96,
+// T = 1024, D = 64, causal) it does 4·D flop per kept (query, key) pair,
+// 12.9 GFLOP, on 0.1 GB of q, k, v and out; an f32-accurate product on the
+// tensor cores costs three TF32 products, so the bound is 12.9 GFLOP at
+// 495 / 3 TFLOP/s, about 0.078 ms.  The design is the backward's
+// (flash_attention_bwd.cu, whose building blocks are in mma_tf32.cuh):
+//  - one block of four warps per (b·h, 64-query tile), each warp owning 16
+//    query rows; the query tiles nearest the causal diagonal carry the most
+//    keys and are issued first.  q·scale is split once into the A layout in
+//    shared memory, its fragments one 16-byte load per part and lane.
+//  - k and v stream in 32-row tiles: the next tile's raw cp.async copies
+//    (zero-filled past T by src-size) fly into a raw stage while the
+//    products read the split stage; a landed tile is split once into the
+//    swizzled row layout.
+//  - s = q·kᵀ is 3xTF32 mma.sync.m16n8k8 with two k-steps over d summed
+//    into a zeroed partial (the tensor core truncates an mma's sum against
+//    its C operand); the loop over d is unrolled, so the D/16 partials'
+//    chains of 6 dependent mmas run side by side.  The online softmax runs
+//    on the accumulator registers: a row's values lie in one lane quad, so
+//    its max takes two shuffles; exp is ex2.approx of an FMA; the row sums
+//    stay per lane until the end.
+//    p feeds p·v from the registers (accumulator columns 2t and 2t + 1 are
+//    the contraction slots t and t + 4), split in place, and v's B
+//    fragments are read along tokens, one k-step (3 mmas) per partial.
+//  - masks: keys at or past T and, causal, keys past the query; tiles the
+//    mask keeps whole skip it, and the causal loop stops at the diagonal
+//    tile.  The TPU kernel walks every key block and relies on masked
+//    blocks adding exact zeros, so stopping changes only the bytes read.
+//  - bf16 k and v are exact TF32 values, so their small parts and the
+//    products with them are skipped; q·scale is split in full.
 //  - q/k/v are read through their strides, so the projection layout
-//    (B, T, heads, D) is read in place, with no transpose materialized; the
-//    output is written through its own strides.
-// bf16 or f32 tensor-core tiles (wgmma), cp.async/TMA double buffering and
-// a persistent schedule are later work.
+//    (B, T, heads, D) is read in place; the output is written through its
+//    own strides.
+//  Shared memory at D = 64: 80 KiB a block in f32 (two blocks an SM),
+//  72 KiB in bf16.  Registers (ptxas -v, sm_90a), with no spill in any
+//  instantiation, at D = 32 / 64 / 128: f32 q/k/v 91 / 146 / 193-200, bf16
+//  q/k/v 91 / 140 / 194-196.  chip_smoke.py prints the report on every run.
 //
 // C interface, loaded with ctypes (analytics_zoo_tpu_torch/ops/_build.py):
 // launches on the given stream, allocates nothing, returns the CUDA error
@@ -48,45 +58,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 256;    // 16 (tx: keys / head_dim) x 16 (ty: rows)
-constexpr int kPadP = 16;        // P rows padded so odd/even ty use other banks
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;   // query rows a block
+constexpr int kBK = 32;            // keys a streamed tile
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);   // round to nearest even, as .to(bfloat16)
-}
-
-// Stage rows [t0, t0 + 64) of one (b, h) slice into smem (row pitch D + 4),
-// times mul; rows at or past T become zeros.
 template <typename TI, int D>
-__device__ __forceinline__ void stage(float* dst, const TI* src, long long st,
-                                      int t0, int T, float mul) {
-  constexpr int V4 = D / 4;
-#pragma unroll
-  for (int i = threadIdx.x; i < kBK * V4; i += kThreads) {
-    const int r = i / V4;
-    const int c = (i % V4) * 4;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t0 + r < T) f = load4(src + (long long)(t0 + r) * st + c);
-    float* d = dst + r * (D + 4) + c;
-    d[0] = f.x * mul; d[1] = f.y * mul; d[2] = f.z * mul; d[3] = f.w * mul;
-  }
+__host__ __device__ constexpr int smem_bytes() {
+  // q split (A layout), k and v split (row layout), raw staging: q's 64
+  // rows or k's and v's 32 each
+  return 4 * 2 * D * (kBQ + 2 * kBK) + kBQ * D * (int)sizeof(TI);
 }
 
 template <typename TI, typename TO, int D>
@@ -99,139 +85,132 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
                  long long svb, long long svh, long long svt,
                  long long sob, long long soh, long long sot,
                  float scale, int causal) {
-  constexpr int DJ = D / 16;     // output columns per thread
-  constexpr int PITCH = D + 4;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * PITCH;
-  float* Vs = Ks + kBK * PITCH;
-  float* Ps = Vs + kBK * PITCH;   // kBQ x (kBK + kPadP)
+  constexpr int NJ = kBK / 8, NT = D / 8;
+  constexpr bool XI = Elt<TI>::exact;
+  extern __shared__ uint4 smem4[];
+  uint32_t* Qs = reinterpret_cast<uint32_t*>(smem4);   // split, A layout
+  uint32_t* Ks = Qs + kBQ * 2 * D;                     // split, row layout
+  uint32_t* Vs = Ks + kBK * 2 * D;
+  TI* raw = reinterpret_cast<TI*>(Vs + kBK * 2 * D);   // cp.async staging
+  TI* rk = raw;
+  TI* rv = raw + kBK * D;
 
   const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;   // heavy tiles first
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int q0 = qt * kBQ;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  const TI* qp = q + b * sqb + h * sqh;
+  const int r0 = 16 * (threadIdx.x >> 5);   // the warp's rows in the tile
+  const Lane<D> L;
+  const int afrag = (r0 >> 4) * (D / 8) * 256 + (threadIdx.x & 31) * 4;
   const TI* kp = k + b * skb + h * skh;
   const TI* vp = v + b * svb + h * svh;
 
-  stage<TI, D>(Qs, qp, sqt, q0, T, scale);
+  // q·scale stays for the whole loop: staged raw and split once
+  load_raw<kThreads, TI, D, kBQ>(raw, q + b * sqb + h * sqh, sqt, q0, T);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  split_frags<kThreads, TI, D, kBQ, false>(Qs, raw, scale);   // q·scale is not exact
+  __syncthreads();
+  load_raw<kThreads, TI, D, kBK>(rk, kp, skt, 0, T);
+  load_raw<kThreads, TI, D, kBK>(rv, vp, svt, 0, T);
+  cp_commit();
 
-  float m[4], l[4], acc[4][DJ];
+  // rows g and g + 8 of the warp: running max (scaled logits), this lane's
+  // share of the running sum, the output accumulator
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   int n_kt = (T + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
+  const int q_g = q0 + r0 + L.g;
 
   for (int kt = 0; kt < n_kt; ++kt) {
+    cp_wait_all();
+    __syncthreads();   // tile kt has landed; the last tile's readers are done
+    split_rows<kThreads, TI, D, kBK>(Ks, rk);
+    split_rows<kThreads, TI, D, kBK>(Vs, rv);
+    __syncthreads();
+    if (kt + 1 < n_kt) {   // the next tile flies while this one is used
+      load_raw<kThreads, TI, D, kBK>(rk, kp, skt, (kt + 1) * kBK, T);
+      load_raw<kThreads, TI, D, kBK>(rv, vp, svt, (kt + 1) * kBK, T);
+    }
+    cp_commit();
+
+    float s[NJ][4];
+    product_over_d<D, NJ, false, XI, D / 16>(s, Qs + afrag, Ks + L.g * 2 * D,
+                                             L);
+
     const int k0 = kt * kBK;
-    __syncthreads();   // the previous tile's readers are done
-    stage<TI, D>(Ks, kp, skt, k0, T, 1.f);
-    stage<TI, D>(Vs, vp, svt, k0, T, 1.f);
-    __syncthreads();
-
-    float s[4][4];
+    if (!(k0 + kBK <= T && (!causal || k0 + kBK - 1 <= q0 + r0))) {
+      const int k_t = k0 + 2 * L.t;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * PITCH + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * PITCH + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k_t + 8 * j + (e & 1);
+          if (kpos >= T || (causal && kpos > q_g + 8 * (e >> 1)))
+            s[j][e] = -INFINITY;
         }
     }
 
-    // masks and the online softmax, row by row
+    // online softmax: a row's 32 keys lie in one lane quad
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        if (kpos >= T || (causal && kpos > qpos)) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float mb[2], alpha[2], ls[2] = {0.f, 0.f};
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      // a row with nothing valid so far keeps (m, l, acc) = (-inf, 0, 0)
-      const bool none = m_new == -INFINITY;
-      const float alpha = none ? 1.f : expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = none ? 0.f : expf(s[i][j] - m_new);
-        ps += p;
-        Ps[(ty + 16 * i) * (kBK + kPadP) + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) ps += __shfl_xor_sync(kFull, ps, o);
-      l[i] = l[i] * alpha + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+      // a row with no valid key yet keeps (m, l, acc) = (-inf, 0, 0)
+      mb[i] = (mx[i] == -INFINITY ? 0.f : mx[i]) * kLog2e;
+      alpha[i] = exp2_approx(fmaf(m[i], kLog2e, -mb[i]));
+      m[i] = mx[i];
     }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int c = 0; c < kBK; c += 4) {
-      float4 pa[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * (kBK + kPadP) + c);
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float vv[DJ];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) vv[j] = Vs[(c + cc) * PITCH + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y
-                        : cc == 2 ? pa[i].z : pa[i].w;
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_approx(fmaf(s[j][e], kLog2e, -mb[e >> 1]));
+        ls[e >> 1] += s[j][e];
       }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = fmaf(l[i], alpha[i], ls[i]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {   // acc += p·v
+      uint32_t ab[4], as[4];
+      frag_acc(s[j], ab, as);
+      product_over_tokens<D, XI>(acc, ab, as, Vs + j * 16 * D, L);
     }
   }
 
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= T) continue;
-    const float ls = fmaxf(l[i], 1e-30f);
-    const float inv = 1.f / ls;
-    TO* op = out + b * sob + h * soh + (long long)t * sot;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / l[i];
+  }
+  store_rows<TO, D>(out + b * sob + h * soh, sot, q0 + r0, T, acc, inv);
+  if (lse != nullptr && L.t == 0) {
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) store1(op + tx + 16 * j, acc[i][j] * inv);
-    if (lse != nullptr && tx == 0)
-      lse[((long long)b * H + h) * T + t] = m[i] + logf(ls);
+    for (int i = 0; i < 2; ++i)
+      if (q_g + 8 * i < T)
+        lse[(long long)bh * T + q_g + 8 * i] = m[i] + logf(l[i]);
   }
 }
 
@@ -240,8 +219,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
              float* lse, int B, int H, int T, const long long* st,
              float scale, int causal, cudaStream_t s) {
   auto kern = flash_fwd_kernel<TI, TO, D>;
-  const int smem = (int)sizeof(float) *
-      ((kBQ + 2 * kBK) * (D + 4) + kBQ * (kBK + kPadP));
+  constexpr int smem = smem_bytes<TI, D>();
   // once per instantiation, on the first (uncaptured) call: later calls
   // may be captured into a CUDA graph
   static bool configured = false;
@@ -272,6 +250,17 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }
 
 }  // namespace
+
+// Dynamic shared memory of one block, in bytes (0 for another head_dim).
+extern "C" int flash_attention_fwd_smem(int in_bf16, int D) {
+  using bf = __nv_bfloat16;
+  switch (D) {
+    case 32: return in_bf16 ? smem_bytes<bf, 32>() : smem_bytes<float, 32>();
+    case 64: return in_bf16 ? smem_bytes<bf, 64>() : smem_bytes<float, 64>();
+    case 128: return in_bf16 ? smem_bytes<bf, 128>() : smem_bytes<float, 128>();
+    default: return 0;
+  }
+}
 
 // in_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  strides (12, in
 // elements): q (b, h, t), k (b, h, t), v (b, h, t), out (b, h, t); the

@@ -157,16 +157,22 @@ class InferenceModel:
         else:
             self._params = dict(model.named_parameters())
 
-    def do_load_model(self, model: torch.nn.Module, params=None):
+    def do_load_model(self, model: torch.nn.Module, params=None,
+                      state=None):
         """Load an in-memory module: moved to this model's device and put
         in eval mode.  ``params`` — a JAX-layout param pytree of numpy
         arrays (``utils/convert.load_jax_params``) — replaces the module's
-        own weights when given."""
+        own weights when given; ``state`` — a JAX-layout state tree (the
+        BatchNormalization moving statistics,
+        ``utils/convert.load_jax_state``) — replaces its state buffers."""
+        from analytics_zoo_tpu_torch.utils.convert import (load_jax_params,
+                                                           load_jax_state)
         t0 = time.perf_counter()
         model = model.to(self.device).eval()
         if params is not None:
-            from analytics_zoo_tpu_torch.utils.convert import load_jax_params
             load_jax_params(model, params)
+        if state is not None:
+            load_jax_state(model, state)
         self._model = model
         self._refresh_params()
         self.load_seconds = time.perf_counter() - t0

@@ -3,10 +3,11 @@ plain C interface -> ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``build/analytics_zoo_tpu_torch/lib<name>-<hash>.so`` beside the package
-(the hash covers the source and the flags, so an edited source never loads
-a stale library).  No PyTorch headers are involved, which keeps a build to
-seconds.  Nothing is compiled at import: the CPU tests import every module
-on machines with no ``nvcc``.
+(the hash covers the source, every header ``csrc/*.cuh`` and the flags,
+so an edited source or header never loads a stale library).  No
+PyTorch headers are involved, which keeps a build to seconds.  Nothing is
+compiled at import: the CPU tests import every module on machines with no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -46,8 +47,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of every header ``csrc/*.cuh`` (whether or not this source
+    includes it, so an edited header rebuilds every kernel) and of the
+    flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

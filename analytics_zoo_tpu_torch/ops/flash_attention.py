@@ -25,11 +25,11 @@ also emits the LSE and saves ``(q, k, v, out, lse)`` (the JAX
 computes ``delta = rowsum(dO·O) − g_lse`` in torch, as the JAX package does
 outside Pallas, then runs the dq and dk/dv kernels (CUDA tensors) or the
 plain version (CPU tensors); the LSE output's cotangent enters only
-through delta.  The two backward kernels run every product on the tensor
-cores in 3xTF32 (each f32 operand split into two TF32 parts, three
-products summed in f32), which keeps the plain version's f32 accuracy;
-each gradient element is written by one block, so the gradients repeat
-bitwise.  Any T works; the kernels mask ragged tiles themselves, with no
+through delta.  The forward and both backward kernels run every product
+on the tensor cores in 3xTF32 (each f32 operand split into two TF32
+parts, three products summed in f32; ``csrc/mma_tf32.cuh``), which keeps
+the plain version's f32 accuracy; each gradient element is written by one
+block, so the gradients repeat bitwise.  Any T works; the kernels mask ragged tiles themselves, with no
 padded copies.
 """
 

@@ -14,10 +14,11 @@ fusion plan, ``nn/models.py``).
   widened to f32 (the products of the input dtype, as
   ``common/dtypes.matmul``), then ``y.sum(0)`` and ``(y*y).sum(0)``; what a
   CPU tensor gets, and the oracle the kernel is held to.
-- the CUDA kernel of ``csrc/fused_bn.cu``, launched for CUDA tensors:
-  per-(128-row tile, 64-column tile) partial sums, then a fixed-order
-  reduce (``_launch_partials``, ``_launch_reduce``); ``launches`` counts
-  its launches.
+- the CUDA kernel of ``csrc/fused_bn.cu``, launched for CUDA tensors: the
+  product on the tensor cores (3xTF32 for f32, bf16 mma for bf16) with
+  per-(128-row tile, column tile) partial sums, then a fixed-order reduce
+  (``_launch_partials``, ``_launch_reduce``); ``launches`` counts its
+  launches.
 - ``fused_bn`` — the entry point; under autograd a ``torch.autograd.Function``
   whose backward is torch code (the probe has no backward kernel): with
   ``dY = gy + gΣ + 2·y·gΣ²`` broadcast over the rows, ``dx = dY @ wᵀ`` and

@@ -5,7 +5,11 @@ Runs the port's two serving paths and its training path on one NVIDIA GPU
 and checks them, phase by phase, each phase printing its own lines:
 
 1. card — the card's name and power limit (``nvidia-smi``) and the build of
-   every CUDA kernel (one ``nvcc`` per source, started together).
+   every CUDA kernel (one ``nvcc`` per source, started together): ptxas's
+   registers and spills, the forward kernels' dynamic shared memory, and
+   their SASS (``cuobjdump``), which must hold the tensor-core products
+   (TF32 HMMA in the flash kernels and f32 ``fused_bn``, BF16 HMMA in bf16
+   ``fused_bn``).
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, then timed on the device (CUDA graph
    replay between CUDA events) beside its plain version and, where one
@@ -14,9 +18,9 @@ and checks them, phase by phase, each phase printing its own lines:
      blocks, 16-entry tables; f32 and int8 pools);
    - flash attention forward (f32 and bf16, causal and not, T = 77, 1000
      and 1024, with and without LSE, q/k/v read in place from a fused
-     (B, T, 3·H·D) projection); timed at (8, 12, 1024, 64) f32 causal and
-     at T = 128 and 512 (the H100's crossover against the plain path and
-     SDPA);
+     (B, T, 3·H·D) projection); timed at (8, 12, 1024, 64) f32 causal,
+     without the LSE (predict) and with it (training), and at T = 128 and
+     512 (the H100's crossover against the plain path and SDPA);
    - w8a8 (bitwise) and w4a16 at the predict head (M = 8, K = 768,
      N = 50257) and at ragged shapes.
 3. generation — ``TransformerLM`` at GPT-2-small geometry served by
@@ -46,9 +50,11 @@ and checks them, phase by phase, each phase printing its own lines:
    against its plain version at every distinct (M, K, N) the fusion plan
    of ResNet-50 gives at batch 128, f32 and bf16, and at ragged shapes; two
    launches bitwise equal; a planted y-scale fault and a dropped M-tile
-   partial rejected; timed at the probe's shape (401408, 256) @ (256, 64)
-   in bf16 and f32 beside the plain version, ``torch.matmul`` alone and
-   ``torch.matmul`` + a separate stats pass.  Then ``Estimator.fit`` of
+   partial rejected; timed in f32 at every path shape beside
+   ``torch.matmul`` alone, ``torch.matmul`` + a separate stats pass and the
+   bound, summed over a step's 33 launches, and at the probe's shape
+   (401408, 256) @ (256, 64) in bf16, with the plain version at the probe
+   shape in both.  Then ``Estimator.fit`` of
    ``ImageClassifier("resnet50").model`` (224x224x3, 1000 classes, SGD 0.05
    momentum 0.9, f32, TF32 off, cuDNN deterministic) over seeded synthetic
    images of 100 classes: one warm-up step and 8 steps of 128 through the
@@ -81,6 +87,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -287,6 +294,67 @@ def build_kernels() -> dict:
     return {"wall_s": wall, "nvcc_s": dict(_build.BUILD_SECONDS),
             "ptxas": {k: _build.BUILD_LOG.get(k, "")
                       for k in KERNEL_SOURCES}}
+
+
+# the kernels that must run on the tensor cores, by the SASS instruction of
+# their products: f32 as 3xTF32, bf16 fused_bn as bf16 mma
+SASS_TF32, SASS_BF16 = "HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16"
+SASS_KERNELS = {
+    fb.KERNEL: (("fused_bn_kernelIf", SASS_TF32),
+                ("fused_bn_kernelI13__nv_bfloat16", SASS_BF16)),
+    fa.KERNEL: (("flash_fwd_kernel", SASS_TF32),),
+    fa.KERNEL_BWD: (("flash_bwd_dq_kernel", SASS_TF32),
+                    ("flash_bwd_dkv_kernel", SASS_TF32)),
+}
+
+
+def sass_check() -> dict:
+    """Count, in each built library's SASS (``cuobjdump -sass``), the
+    tensor-core instructions and FFMAs of every kernel function; fail if a
+    kernel named in SASS_KERNELS lacks its HMMA."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name, rules in SASS_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts, fn = {}, None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = m.group(1)
+                counts[fn] = {SASS_TF32: 0, SASS_BF16: 0, "FFMA": 0}
+            elif fn:
+                for op in counts[fn]:
+                    if op in ln:
+                        counts[fn][op] += 1
+        for key, op in rules:
+            fns = [f for f in counts if key in f]
+            check(fns, f"sass[{name}]: no function matching {key}")
+            for f in fns:
+                check(counts[f][op] > 0, f"sass[{name}]: {f} has no {op}")
+        out[name] = counts
+        say(f"sass[{name}]: " + "; ".join(
+            f"{f}: " + ", ".join(f"{n} {op}" for op, n in c.items() if n)
+            for f, c in counts.items()))
+    return out
+
+
+def smem_line() -> str:
+    """Dynamic shared memory a block of the forward kernels, as their
+    libraries report it (ptxas -v shows only static shared memory)."""
+    flash = _build.load(fa.KERNEL).flash_attention_fwd_smem
+    bn = _build.load(fb.KERNEL).fused_bn_smem
+    for fn in (flash, bn):
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
+    return ", ".join(
+        [f"flash[{t} D={d}] {flash(b, d)} B" for t, b in (("f32", 0),
+                                                           ("bf16", 1))
+         for d in fa.KERNEL_HEAD_DIMS]
+        + [f"fused_bn[{t} BN={n}] {bn(b, n)} B" for t, b in (("f32", 0),
+                                                              ("bf16", 1))
+           for n in (64, 128)])
 
 
 # -- phase 2: kernel vs plain -------------------------------------------------
@@ -765,17 +833,23 @@ def flash_timing(seed: int, B=8, H=12, T=1024, D=64, iters=40,
     scale = 1.0 / math.sqrt(D)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True, impl="cuda"),
                  iters=iters)
+    # the training call: the same forward that also writes the LSE
+    lse_ms = cuda_ms(lambda: fa.flash_attention_with_lse(
+        q, k, v, True, impl="cuda"), iters=iters)
     plain_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True,
                                                   impl="torch"), iters=iters)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, scale=scale), iters=iters)
     b = flash_bound(B, H, T, D, True)
+    b_lse = flash_bound(B, H, T, D, True, lse=True)
     say(f"flash timing (B={B}, H={H}, T={T}, D={D}, f32, causal): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+        f"{ms:.4f} ms, with LSE (training) {lse_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
-        f"{b['ops']} flop)")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "max_abs_err": err, **b}
+        f"{b['ops']} flop; with LSE {b_lse['bound_ms']:.4f} ms)")
+    return {"ms": ms, "lse_ms": lse_ms, "lse_bound_ms": b_lse["bound_ms"],
+            "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err,
+            **b}
 
 
 def w8a8_case(g, M, K, N):
@@ -876,7 +950,8 @@ def predict_kernel_phase(seed: int) -> dict:
              "max_abs_err": max(worst[torch.float32], t["max_abs_err"]),
              "ms": t["ms"], "plain_ms": t["plain_ms"],
              "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-             "library_ms": t["library_ms"]}
+             "library_ms": t["library_ms"], "lse_ms": t["lse_ms"],
+             "lse_bound_ms": t["lse_bound_ms"]}
     return {"flash": flash, "w8a8": w8a8_phase(seed),
             "w4a16": w4a16_phase(seed)}
 
@@ -1645,29 +1720,68 @@ def fused_bn_parity(seed: int, shapes) -> dict:
     return worst
 
 
-def fused_bn_timing(seed: int, dtype, iters=50) -> dict:
-    """At the probe shape: the kernel, the plain version, torch.matmul
-    alone (the probe's xla_matmul: y only) and torch.matmul + a separate
-    stats pass over y (its xla_matmul_stats)."""
-    g = np.random.default_rng(seed + 81)
-    m, k, n = PROBE_SHAPE
-    x, w = fused_bn_case(g, m, k, n, dtype)
-
+def fused_bn_time(x, w, iters: int) -> dict:
+    """The kernel, torch.matmul alone (the probe's xla_matmul: y only) and
+    torch.matmul + a separate stats pass over y (its xla_matmul_stats) on
+    the same operands."""
     def matmul_stats():
         y = torch.matmul(x, w).float()
         return torch.stack([y.sum(0), (y * y).sum(0)])
-    ms = cuda_ms(lambda: fb.fused_bn(x, w, impl="cuda"), iters=iters)
-    plain_ms = cuda_ms(lambda: fb.fused_bn(x, w, impl="torch"), iters=iters)
-    mm_ms = cuda_ms(lambda: torch.matmul(x, w), iters=iters)
-    mms_ms = cuda_ms(matmul_stats, iters=iters)
-    b = fused_bn_bound(m, k, n, dtype)
-    say(f"fused_bn timing ({m}, {k}) @ ({k}, {n}) {str(dtype)[6:]}: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul alone "
-        f"{mm_ms:.4f} ms, torch.matmul + stats pass {mms_ms:.4f} ms, bound "
-        f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
-        f"{b['ops']} flop)")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": mms_ms,
-            "library_matmul_ms": mm_ms, **b}
+    return {"ms": cuda_ms(lambda: fb.fused_bn(x, w, impl="cuda"),
+                          iters=iters),
+            "library_matmul_ms": cuda_ms(lambda: torch.matmul(x, w),
+                                         iters=iters),
+            "library_ms": cuda_ms(matmul_stats, iters=iters)}
+
+
+def fused_bn_timing(seed: int, shapes: dict, iters=20,
+                    probe_iters=50) -> dict:
+    """f32 at every path shape (``shapes``: (M, K, N) -> pairs a step) and
+    the sum over a step's launches beside the sum of their bounds; then
+    the probe shape in bf16; the plain version at the probe shape in
+    both.  The probe shape, the one the kernels line reports, takes
+    ``probe_iters`` graph iterations, the other shapes ``iters``."""
+    g = np.random.default_rng(seed + 81)
+    rows = []
+    for (m, k, n), pairs in shapes.items():
+        x, w = fused_bn_case(g, m, k, n, torch.float32)
+        if (m, k, n) == PROBE_SHAPE:
+            t = fused_bn_time(x, w, probe_iters)
+            t["plain_ms"] = cuda_ms(lambda: fb.fused_bn(x, w, impl="torch"),
+                                    iters=probe_iters)
+        else:
+            t = fused_bn_time(x, w, iters)
+        b = fused_bn_bound(m, k, n, torch.float32)
+        rows.append(dict(shape=[m, k, n], pairs=pairs, **t,
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
+        say(f"fused_bn timing ({m}, {k}) @ ({k}, {n}) float32 x {pairs}: "
+            f"kernel {t['ms']:.4f} ms, torch.matmul alone "
+            f"{t['library_matmul_ms']:.4f} ms, torch.matmul + stats pass "
+            f"{t['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}: {b['bytes']} B, {b['ops']} flop)")
+        del x, w
+    step = {key: sum(r[key] * r["pairs"] for r in rows)
+            for key in ("ms", "library_matmul_ms", "library_ms", "bound_ms")}
+    say(f"fused_bn timing, a ResNet-50 step's {sum(shapes.values())} "
+        f"launches in f32: kernel {step['ms']:.3f} ms, torch.matmul alone "
+        f"{step['library_matmul_ms']:.3f} ms, torch.matmul + stats "
+        f"{step['library_ms']:.3f} ms, bounds {step['bound_ms']:.3f} ms "
+        f"({100 * step['bound_ms'] / step['ms']:.1f}% of the kernel's)")
+    probe = next(r for r in rows if tuple(r["shape"]) == PROBE_SHAPE)
+    m, k, n = PROBE_SHAPE
+    x, w = fused_bn_case(g, m, k, n, torch.bfloat16)
+    tb = fused_bn_time(x, w, probe_iters)
+    tb["plain_ms"] = cuda_ms(lambda: fb.fused_bn(x, w, impl="torch"),
+                             iters=probe_iters)
+    b = fused_bn_bound(m, k, n, torch.bfloat16)
+    tb.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+    say(f"fused_bn timing ({m}, {k}) @ ({k}, {n}) bfloat16: kernel "
+        f"{tb['ms']:.4f} ms, plain {tb['plain_ms']:.4f} ms, torch.matmul "
+        f"alone {tb['library_matmul_ms']:.4f} ms, torch.matmul + stats pass "
+        f"{tb['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}: {b['bytes']} B, {b['ops']} flop); f32 plain "
+        f"{probe['plain_ms']:.4f} ms")
+    return {"f32": probe, "shapes": rows, "step": step, "bf16": tb}
 
 
 def fused_bn_phase(seed: int, model) -> dict:
@@ -1677,23 +1791,28 @@ def fused_bn_phase(seed: int, model) -> dict:
     say(f"fused_bn path shapes (M, K, N): pairs = "
         + ", ".join(f"{s}: {c}" for s, c in shapes.items()))
     worst = fused_bn_parity(seed, list(shapes))
-    t = fused_bn_timing(seed, torch.float32)
-    tb = fused_bn_timing(seed, torch.bfloat16)
+    t = fused_bn_timing(seed, shapes)
     torch.cuda.empty_cache()
     lib = ("torch.matmul + y.sum(0), (y*y).sum(0) (the probe's "
            "xla_matmul_stats)")
+    p, tb = t["f32"], t["bf16"]
     return {"name": "fused_bn[f32]", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/fused_bn.cu",
             "replaces": "tools/fused_bn_probe.py:37", "launches": None,
             "max_abs_err": worst[torch.float32][0],
             "sums_max_rel_err": worst[torch.float32][1],
             "shape": list(PROBE_SHAPE),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "library_call": lib,
-            "library_matmul_ms": t["library_matmul_ms"],
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": p["library_ms"], "library_call": lib,
+            "library_matmul_ms": p["library_matmul_ms"],
             "library_matmul_call": "torch.matmul alone, y only (the "
                                    "probe's xla_matmul)",
+            "shapes": [{k: r[k] for k in ("shape", "pairs", "ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "library_matmul_ms")}
+                       for r in t["shapes"]],
+            "step": t["step"],
             "bf16": dict({k: tb[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms",
                                              "library_matmul_ms")},
@@ -2037,6 +2156,8 @@ def main(argv=None) -> int:
     say(f"build: {b['wall_s']:.2f} s (nvcc {b['nvcc_s']})")
     for name, log in b["ptxas"].items():
         say(f"ptxas[{name}]: {ptxas_summary(log)}")
+    say(f"smem: {smem_line()}")
+    sass_check()
 
     records = kernel_phase(args.seed, GPT2_SMALL["n_layers"])
     records.update(predict_kernel_phase(args.seed))

@@ -1,0 +1,64 @@
+"""PyTorch port: ``ops/_build.library_path``, on the CPU (no ``nvcc``).
+
+A kernel's library is named by a hash of its source, of every header
+``csrc/*.cuh`` and of the compiler flags, so that an edited source or
+header never loads a library built from the old one.  The tests point the
+module's ``CSRC`` at a copy of ``csrc`` in a temporary directory; the
+repository's sources stay as they are.
+"""
+
+import shutil
+
+import pytest
+
+from analytics_zoo_tpu_torch.ops import _build
+
+KERNELS = ("flash_attention", "flash_attention_bwd", "fused_bn",
+           "paged_attention", "quant_matmul")
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    dst = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, dst)
+    monkeypatch.setattr(_build, "CSRC", dst)
+    return dst
+
+
+def test_the_shared_header_ships_and_its_users_include_it():
+    assert (_build.CSRC / "mma_tf32.cuh").exists()
+    for name in ("flash_attention", "flash_attention_bwd", "fused_bn"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "mma_tf32.cuh"' in src, name
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_library_path_is_stable_and_follows_the_package_copy(
+        tmp_path, monkeypatch, name):
+    packaged = _build.library_path(name)
+    dst = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, dst)
+    monkeypatch.setattr(_build, "CSRC", dst)
+    assert _build.library_path(name) == packaged
+    assert _build.library_path(name) == _build.library_path(name)
+    assert packaged.parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_an_edited_header_changes_the_library_path(csrc, name):
+    before = _build.library_path(name)
+    header = csrc / "mma_tf32.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _build.library_path(name)
+    assert after != before
+    assert after.name.startswith(f"lib{name}-")
+
+
+def test_a_new_header_and_an_edited_source_change_the_path(csrc):
+    before = _build.library_path("fused_bn")
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    added = _build.library_path("fused_bn")
+    assert added != before
+    src = csrc / "fused_bn.cu"
+    src.write_text(src.read_text() + "\n")
+    assert _build.library_path("fused_bn") not in (before, added)

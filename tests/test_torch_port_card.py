@@ -264,3 +264,27 @@ def test_fused_bn_kernel_is_deterministic_on_card(cuda_device):
     b = tfb.fused_bn(x, w)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(300, 2048, 130), (129, 600, 64)])
+def test_fused_bn_kernel_deep_k_on_card(cuda_device, dtype, m, k, n):
+    """K deep enough to wrap the cp.async ring many times (f32 k-tiles of
+    32, bf16 of 64), N past one column tile: y and the sums against the
+    plain version at the tolerances above."""
+    g = np.random.default_rng(m + k)
+    x = torch.from_numpy(np.asarray(g.normal(size=(m, k)),
+                                    np.float32)).to(cuda_device, dtype)
+    w = torch.from_numpy(np.asarray(g.normal(size=(k, n)) / np.sqrt(k),
+                                    np.float32)).to(cuda_device, dtype)
+    y, stats = tfb.fused_bn(x, w)
+    torch.cuda.synchronize()
+    y_ref, s_ref = tfb.fused_bn(x, w, impl="torch")
+    rtol = 1e-5 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=rtol,
+                               atol=2e-5 if dtype == torch.float32 else 1e-5)
+    torch.testing.assert_close(stats[1], s_ref[1], rtol=1e-5, atol=1e-6)
+    abs_sum = float(y_ref.float().abs().sum(0).max())
+    torch.testing.assert_close(stats[0], s_ref[0], rtol=1e-5,
+                               atol=1e-5 * abs_sum)

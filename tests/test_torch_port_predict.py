@@ -330,6 +330,37 @@ def test_inference_model_constructor_matches_jax():
     assert InferenceModel(device="cpu").concurrent_num == 2
 
 
+def test_do_load_model_loads_bn_state_like_jax():
+    """``do_load_model(model, params, state)`` in both packages: a Dense →
+    BatchNormalization model whose params and moving statistics (from
+    numpy, far from BN's defaults) are loaded through the call, then
+    ``do_predict`` in eval mode agrees within the layers' 1e-5.  Without
+    the state the port's output would use mean 0, var 1."""
+    def layers(m):
+        return [m.Dense(5, input_shape=(6,), name="fc"),
+                m.BatchNormalization(name="bn")]
+    jm = JaxSeq(layers(jcore))
+    _init(jm, (6,))
+    g = np.random.default_rng(7)
+    params = {"fc": {"W": g.normal(size=(6, 5)).astype(np.float32),
+                     "b": g.normal(size=5).astype(np.float32)},
+              "bn": {"gamma": g.uniform(0.5, 2, 5).astype(np.float32),
+                     "beta": g.normal(size=5).astype(np.float32)}}
+    state = {"fc": {},
+             "bn": {"mean": g.normal(0, 2, 5).astype(np.float32),
+                    "var": g.uniform(0.2, 4, 5).astype(np.float32)}}
+    x = g.normal(size=(9, 6)).astype(np.float32)
+    want = JaxIM(2, 8).do_load_model(jm, params, state).do_predict(x)
+    tim = InferenceModel(2, 8, device="cpu").do_load_model(
+        Sequential(layers(tcore)), params, state)
+    got = tim.do_predict(x)
+    assert got.shape == want.shape == (9, 5)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    bare = InferenceModel(2, 8, device="cpu").do_load_model(
+        Sequential(layers(tcore)), params).do_predict(x)
+    assert np.abs(bare - want).max() > 100 * ATOL
+
+
 @pytest.mark.parametrize("n,max_batch,bucket", [(1, 8, 1), (3, 8, 4),
                                                 (5, 8, 8), (9, 8, 8),
                                                 (300, 1024, 512)])

@@ -389,3 +389,13 @@ def test_resnet_profile_families():
                       ("void at::native::vectorized_elementwise_kernel<4>",
                        "BN and other elementwise / reductions")):
         assert cs.kernel_family(name) == fam
+
+
+def test_sass_check_holds_kernels_of_their_sources():
+    """Every kernel that ``sass_check`` holds to a tensor-core instruction
+    is defined in its source, and each rule names one of the two."""
+    for name, rules in cs.SASS_KERNELS.items():
+        src = (cs._build.CSRC / f"{name}.cu").read_text()
+        for key, op in rules:
+            assert key.split("I")[0] + "(" in src, key
+            assert op in (cs.SASS_TF32, cs.SASS_BF16)
