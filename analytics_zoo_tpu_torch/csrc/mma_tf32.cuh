@@ -1,9 +1,10 @@
 // The tensor-core building blocks shared by the port's Hopper (sm_90a)
 // kernels: 3xTF32 mma.sync products with f32 partial sums, cp.async copies
-// with zero-fill, the split operand layouts and their fragment loaders.
-// Included by flash_attention_bwd.cu, flash_attention.cu and fused_bn.cu;
-// everything here has internal linkage (ops/_build.py hashes every
-// csrc/*.cuh into each library's name, so an edited header rebuilds them).
+// with zero-fill, the split operand layouts and their fragment loaders, and
+// the bf16 mma.  Included by flash_attention_bwd.cu, flash_attention.cu,
+// fused_bn.cu and quant_matmul.cu; everything here has internal linkage
+// (ops/_build.py hashes every csrc/*.cuh into each library's name, so an
+// edited header rebuilds them).
 //
 // 3xTF32: an f32 operand x is split into big = rna(x) and small =
 // rna(x − big) (rna: cvt.rna.tf32.f32), and a·b is accumulated as
@@ -183,6 +184,15 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a·b for bf16 operands: m16n8k16, f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // p += a·b in 3xTF32: the two correction products first, then big·big

@@ -9,28 +9,63 @@
 //  - w4a16: x (M, K) f32 or bf16 x split-nibble packed (ceil(K/2), N) u8
 //    (byte row j holds weight row j in the low nibble and row
 //    j + ceil(K/2) in the high nibble, value (b & 0xF ^ 8) - 8) with group
-//    scales (G, N) f32, effective group size ceil(K/G) -> (M, N) f32, f32
-//    accumulation of x * (q * s).  Every shape the quantizer emits: odd K,
-//    a ragged last group.
+//    scales (G, N) f32, effective group size ceil(K/G) -> (M, N) f32.
+//    Every shape the quantizer emits: odd K, a ragged last group, any M.
 //
 // What bounds them on the card: device-memory bytes.  The predict head is
 // 768 x 50257 at a batch of 8: the weight (38.6 MB int8, 19.3 MB packed
 // int4 + 2.4 MB scales) is read once while each weight byte feeds only
-// 2·M operations.  The design keeps the weight read once and coalesced:
-//  - one thread per output column n, 128 columns a block, BM rows a block
-//    (8, or 32 when M > 8).  A warp reads 32 consecutive bytes of a weight
-//    row per load — whole 32-byte sectors, with no alignment demands on N,
-//    which is odd at the head's width — and each thread issues the loads of
-//    a whole K chunk before it uses any, to keep bytes in flight.
-//  - the activations of the block's BM rows are staged per K chunk in
-//    shared memory and read as broadcasts.
-//  - w8a8 packs 4 consecutive K bytes of its column into one register and
-//    accumulates with __dp4a (s8 x s8 -> s32); ragged K is zero-padded in
-//    registers, so the sum stays exact.
-//  - w4a16 dequantizes each nibble in registers with the scale of its
-//    group, reloaded only when the group changes, so the weight is read at
-//    half a byte an element.
-// Tensor-core tiles (mma.sync s8 / wgmma) for large M are later work.
+// 2·M operations.
+//
+// w8a8 keeps the weight read once and coalesced: one thread per output
+// column n, 128 columns a block, BM rows a block (8, or 32 when M > 8); a
+// warp reads 32 consecutive bytes of a weight row per load, and each
+// thread issues a whole K chunk's loads before it uses any; the
+// activations are staged per K chunk in shared memory; 4 K bytes of a
+// column go into one register for __dp4a (s8 x s8 -> s32), ragged K
+// zero-padded in registers, so the sum stays exact.
+//
+// w4a16 runs its products on the tensor cores, where the f32 rate outside
+// them (2·8·768·50257 flop at 67 TFLOP/s = 9.2 µs) is above the 7.0 µs
+// byte bound of the head:
+//  - out^T = W^T·x^T: the mma's 16-row side runs over 16 output columns
+//    and its 8-wide side over 8 rows of x, which fits M = 8 (MT = 1 m-tile
+//    a block; MT = 4, 32 rows, above).  128 columns a block, 32 a warp.
+//  - the int4 codes are exact in TF32 and bf16, so the group scale comes
+//    out of each group's sum: acc[n] += s[g, n]·Σ_{k∈g} x[k]·q[k, n].  f32
+//    x takes two TF32 products a k-step (x's big and small halves against
+//    the codes: m16n8k8, HMMA.1688.F32.TF32), bf16 x one bf16 product
+//    (m16n8k16, HMMA.16816.F32.BF16).  The products of a chunk (at most 64
+//    packed rows, inside one group in each half: the head's groups are 64
+//    rows) sum into a zeroed partial, so the tensor core's truncating sum
+//    (mma_probe.py) stays inside a group, and the scale's multiply-add puts
+//    it into an f32 accumulator.  The rounding order therefore differs from
+//    the plain x @ (q·s): s·Σ(x·q) a chunk, partials summed in f32.
+//  - chunks end at every group boundary of either half (ragged groups,
+//    odd K, a group straddling the two halves), so a chunk never mixes
+//    groups; x is zero past K and past a chunk's rows, which masks the
+//    codes of rows outside it.
+//  - the weight streams through shared memory in a kW4Stages-deep
+//    cp.async ring of 64-row chunks (8 KB of weight a chunk: scattered
+//    144-byte row pieces need many bytes in flight, and each chunk costs a
+//    barrier).  TMA cannot take it (a tensor map's row stride must be a
+//    multiple of 16 bytes; the head's is 50257), so each packed row's 128
+//    bytes are copied as the 16-byte aligned superset (144 bytes) and read
+//    at the row's offset (a funnel shift of two words).  The chunk's two
+//    scale rows ride in the same ring, the same way.  x is staged raw, once
+//    a segment (all of K at the head: 24 KB at M = 8), with the first
+//    chunk, and split into TF32 halves (Veltkamp's split: floating-point
+//    instructions, not integer ones) as its fragments are read.
+//  - codes are dequantized in registers with one LOP3 and one FADD each:
+//    the nibble at bit p (p <= 16) or of the word shifted right by 12 is
+//    or-ed into the mantissa of 2^23, so the FADD gives code·2^p exactly;
+//    every product of a column carries the same 2^p, which the epilogue of
+//    the chunk's partial takes out (exact).  Full chunks run unmasked and
+//    fully unrolled.
+// What holds it back (PERF.md): the dequantizing and fragment
+// instructions at 12 warps an SM (the integer pipe issues half as many a
+// clock as the floating-point one), every block staging all of x, and
+// the scattered row pieces, which the ring alone reads at ~1.6 TB/s.
 //
 // C interface, loaded with ctypes (analytics_zoo_tpu_torch/ops/_build.py):
 // each entry point launches on the given stream, allocates nothing, and
@@ -41,11 +76,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;    // output columns per block
 constexpr int kKC8 = 64;         // w8a8: K bytes per chunk
-constexpr int kKC4 = 32;         // w4a16: packed byte rows per chunk
 
 template <int BM>
 __global__ void __launch_bounds__(kThreads)
@@ -110,84 +148,465 @@ w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     if (m0 + r < M) out[(size_t)(m0 + r) * N + n] = (float)acc[r] * s;
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// -- w4a16 ---------------------------------------------------------------------
 
-template <typename TX, int BM>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kW4Threads = 128;            // 4 warps
+constexpr int kW4BN = 128;                 // output columns a block, 32 a warp
+constexpr int kW4KT = 64;                  // packed rows a chunk, at most
+constexpr int kW4Stages = 3;               // the weight ring
+constexpr int kW4Pitch = 160;              // bytes a staged row (8 mod 32 words)
+constexpr int kW4Copies = (kW4BN + 16) / 16;       // 16-byte copies a row
+constexpr int kW4SCopies = (4 * kW4BN + 16) / 16;  // ... a scale row
+constexpr int kW4SPitch = 16 * kW4SCopies;         // bytes a staged scale row
+
+// Shared memory of one instantiation: x of a segment, raw ([half][row]
+// rows of XPW words: KSEG values, the kW4KT a chunk's masked tail may
+// read past them, 8 mod 32 words apart), the weight ring and the scale
+// ring (two rows a stage).
+template <typename TX, int MT>
+struct W4Geom {
+  static constexpr int MR = 8 * MT;                      // rows of x a block
+  static constexpr int EW = 4 / (int)sizeof(TX);         // x values a word
+  static constexpr int KSEG = 384 * EW / MT;             // packed rows a segment
+  static constexpr int XPW = ((KSEG + kW4KT) / EW + 31) / 32 * 32 + 8;
+  static constexpr int X_BYTES = 2 * MR * XPW * 4;
+  static constexpr int W_BYTES = kW4Stages * kW4KT * kW4Pitch;
+  static constexpr int S_BYTES = kW4Stages * 2 * kW4SPitch;
+  static constexpr int SMEM = X_BYTES + W_BYTES + S_BYTES;
+};
+
+// A chunk: packed rows [r0, r1), inside one x segment, one group of the
+// low rows (k = r) and one of the high rows (k = kh + r; ghi = -1 when the
+// chunk has no high row below K).
+struct W4Chunk {
+  int r0, r1, glo, ghi;
+};
+
+__device__ __forceinline__ W4Chunk w4_chunk(int r0, int kh, int K, int gs,
+                                            int kseg) {
+  W4Chunk c;
+  c.r0 = r0;
+  c.glo = r0 / gs;
+  int r1 = min(min(r0 + kW4KT, kh), (r0 / kseg + 1) * kseg);
+  r1 = min(r1, (c.glo + 1) * gs);
+  c.ghi = -1;
+  if (kh + r0 < K) {
+    c.ghi = (kh + r0) / gs;
+    r1 = min(r1, (c.ghi + 1) * gs - kh);
+  }
+  c.r1 = r1;
+  return c;
+}
+
+// Copy the 16-byte aligned chunk at address a, of which only the bytes in
+// [lo, hi) are read; the others are left as they are (callers never use
+// them) or zero-filled
+__device__ __forceinline__ void copy16(uint8_t* d, uintptr_t a, uintptr_t lo,
+                                       uintptr_t hi) {
+  if (a >= lo && a + 16 <= hi) {
+    cp_async<16>(d, (const void*)a, true);
+  } else if (a < lo && a + 16 > lo) {
+    // the buffer's first bytes, when it does not start on 16 bytes
+    for (int b = 0; b < 16; ++b)
+      if (a + b >= lo && a + b < hi) d[b] = *(const uint8_t*)(a + b);
+  } else if (a < hi && a + 16 > hi) {
+    cp_async_n<16>(d, (const void*)a, (int)(hi - a));
+  }
+}
+
+// code·2^P of the nibble at bits P..P+3 of v (P <= 16): the nibble, its
+// sign bit flipped, in the mantissa of 2^23, less 2^23 + 8·2^P; exact
+template <int P>
+__device__ __forceinline__ uint32_t code_x(uint32_t v) {
+  return __float_as_uint(
+      __uint_as_float((v & (0xFu << P)) ^ (0x4B000000u | (8u << P)))
+      - (8388608.f + 8.f * (float)(1u << P)));
+}
+
+// The codes of bytes 0..3 of w (a lane's columns cw .. cw + 3) in half HF
+// (0: low nibbles, 1: high), byte b scaled by 2^w4_exp(HF, b)
+__host__ __device__ constexpr int w4_exp(int hf, int b) {
+  return hf ? (b == 0 ? 4 : b == 1 ? 12 : b == 2 ? 8 : 16)
+            : (b == 0 ? 0 : b == 1 ? 8 : b == 2 ? 16 : 12);
+}
+
+template <int HF>
+__device__ __forceinline__ void codes4(uint32_t w, uint32_t (&c)[4]) {
+  const uint32_t w12 = w >> 12;
+  if constexpr (HF == 0) {
+    c[0] = code_x<0>(w);
+    c[1] = code_x<8>(w);
+    c[2] = code_x<16>(w);
+    c[3] = code_x<12>(w12);
+  } else {
+    c[0] = code_x<4>(w);
+    c[1] = code_x<12>(w);
+    c[2] = code_x<8>(w12);
+    c[3] = code_x<16>(w12);
+  }
+}
+
+// bf16x2 (code of x's byte B, code of y's byte B) in half HF: the nibbles
+// in the mantissas of 128 (bf16 0x4300), less 136
+template <int HF, int B>
+__device__ __forceinline__ uint32_t code_pair(uint32_t x, uint32_t y) {
+  const uint32_t p = __byte_perm(x, y, B | ((B + 4) << 8));
+  uint32_t bits = ((p >> (4 * HF)) & 0x000F000Fu) ^ 0x43084308u;
+  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&bits);
+  v = __hsub2(v, __float2bfloat162_rn(136.f));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x = big + small with big x to TF32's 11 significant bits (Veltkamp's
+// split, 2^13 + 1: floating-point operations only, where rounding the bits
+// takes integer ones, half as many of which an SM issues a clock) and small
+// = x - big exact in f32; the mma reads small to 11 bits, which leaves an
+// error of at most 2^-22·|x|
+__device__ __forceinline__ void split_fp(float x, uint32_t& big, uint32_t& small) {
+  const float c = __fmul_rn(x, 8193.f);
+  const float b = __fsub_rn(c, __fsub_rn(c, x));
+  big = __float_as_uint(b);
+  small = __float_as_uint(__fsub_rn(x, b));
+}
+
+// The 4 bytes at columns col .. col + 3 of a staged row whose data starts
+// at byte (lo & 15) (lo: the low bits of the row's device address)
+__device__ __forceinline__ uint32_t row_word(const uint8_t* row, uint32_t lo,
+                                             int col) {
+  const int bo = (int)(lo & 15u) + col;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row);
+  return __funnelshift_r(w[bo >> 2], w[(bo >> 2) + 1], (bo & 3) * 8);
+}
+
+// grid (ceil(N / kW4BN), ceil(M / (8·MT))), block kW4Threads, dynamic
+// shared memory W4Geom<TX, MT>::SMEM.
+template <typename TX, int MT>
+__global__ void __launch_bounds__(kW4Threads, MT == 1 ? 3 : 2)
 w4a16_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ wq,
              const float* __restrict__ sg, float* __restrict__ out,
              int M, int N, int K, int G) {
-  // x columns of the chunk's low-nibble rows and of its high-nibble rows
-  __shared__ float xlo[BM][kKC4];
-  __shared__ float xhi[BM][kKC4];
+  using Gm = W4Geom<TX, MT>;
+  constexpr bool F32 = sizeof(TX) == 4;
+  constexpr int MR = Gm::MR, KSEG = Gm::KSEG;
+  constexpr int XPB = Gm::XPW * 4;                 // bytes a row of x
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* xs = smem;
+  uint8_t* ws = smem + Gm::X_BYTES;
+  uint8_t* ss = ws + Gm::W_BYTES;
+
   const int kh = (K + 1) / 2;
   const int gs = (K + G - 1) / G;
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  float acc[BM];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) acc[r] = 0.f;
-  // current group of the low and high rows: [start, end) and its scale
-  int lo_end = 0, hi_end = 0;
-  float s_lo = 0.f, s_hi = 0.f;
+  const int n0 = blockIdx.x * kW4BN;
+  const int m0 = blockIdx.y * MR;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // mma rows g and g + 8 of tile i are this lane's columns cw + 2i and
+  // cw + 2i + 1: a lane's four columns are one word of a staged row
+  const int cw = warp * 32 + 4 * g;
+  const uintptr_t wbase = (uintptr_t)wq;
+  const uintptr_t wend = wbase + (uintptr_t)kh * N;
+  const uintptr_t sbase = (uintptr_t)sg;
+  const uintptr_t send = sbase + (uintptr_t)G * N * 4;
+  const uintptr_t xbase = (uintptr_t)x;
+  const uintptr_t xend = xbase + (uintptr_t)M * K * sizeof(TX);
 
-  for (int kb0 = 0; kb0 < kh; kb0 += kKC4) {
-    const int jend = min(kKC4, kh - kb0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * kKC4; i += kThreads) {
-      const int r = i / kKC4;
-      const int j = i % kKC4;
-      const int m = m0 + r;
-      const int klo = kb0 + j;
-      const int khi = kh + kb0 + j;
-      float a = 0.f, b = 0.f;
-      if (m < M && j < jend) {
-        a = to_f(x[(size_t)m * K + klo]);
-        if (khi < K) b = to_f(x[(size_t)m * K + khi]);
-      }
-      xlo[r][j] = a;
-      xhi[r][j] = b;
+  // Stage chunk c's weight rows and its two scale rows into ring slot st:
+  // each row as the 16-byte aligned superset of its block's columns
+  auto stage = [&](const W4Chunk& c, int st) {
+    uint8_t* dst = ws + st * kW4KT * kW4Pitch;
+    const int nr = c.r1 - c.r0;
+    for (int i = threadIdx.x; i < nr * kW4Copies; i += kW4Threads) {
+      const int r = i / kW4Copies;
+      const int q16 = i - r * kW4Copies;
+      const uintptr_t a =
+          ((wbase + (uintptr_t)(c.r0 + r) * N + n0) & ~(uintptr_t)15) + 16 * q16;
+      copy16(dst + r * kW4Pitch + 16 * q16, a, wbase, wend);
     }
-    __syncthreads();
-    if (n >= N) continue;
-    const uint8_t* wc = wq + (size_t)kb0 * N + n;
-    uint8_t bytes[kKC4];
-#pragma unroll
-    for (int j = 0; j < kKC4; ++j) bytes[j] = j < jend ? wc[(size_t)j * N] : 0;
-#pragma unroll
-    for (int j = 0; j < kKC4; ++j) {
-      if (j >= jend) break;
-      const int klo = kb0 + j;
-      const int khi = kh + kb0 + j;
-      if (klo >= lo_end) {           // uniform across the block
-        const int g = klo / gs;
-        lo_end = (g + 1) * gs;
-        s_lo = sg[(size_t)g * N + n];
+    uint8_t* sd = ss + st * 2 * kW4SPitch;
+    for (int i = threadIdx.x; i < 2 * kW4SCopies; i += kW4Threads) {
+      const int hf = i / kW4SCopies;
+      const int q16 = i - hf * kW4SCopies;
+      const int grp = hf ? c.ghi : c.glo;
+      if (grp < 0) continue;
+      const uintptr_t a =
+          ((sbase + ((uintptr_t)grp * N + n0) * 4) & ~(uintptr_t)15) + 16 * q16;
+      copy16(sd + hf * kW4SPitch + 16 * q16, a, sbase, send);
+    }
+  };
+
+  // x's packed rows [R0, R0 + KSEG) of both halves, each row of x as the
+  // 16-byte aligned superset of its values; rows past M are not read.
+  // Where every row of each half starts on 16 bytes, plain copies that
+  // zero-fill past K
+  const bool x_aligned =
+      ((xbase | (uintptr_t)K * sizeof(TX) | (uintptr_t)kh * sizeof(TX)) & 15) == 0;
+  auto stage_x = [&](int R0) {
+    if (x_aligned) {
+      constexpr int PER_ROW = KSEG * (int)sizeof(TX) / 16;
+      constexpr int E = 16 / (int)sizeof(TX);      // values a copy
+      for (int i = threadIdx.x; i < 2 * MR * PER_ROW; i += kW4Threads) {
+        const int rm = i / PER_ROW;
+        const int q16 = i - rm * PER_ROW;
+        const int hf = rm / MR;
+        const int m = m0 + rm - hf * MR;
+        const int k = hf * kh + R0 + q16 * E;
+        const bool in = m < M && k < K;
+        cp_async<16>(xs + rm * XPB + 16 * q16,
+                     in ? x + (size_t)m * K + k : x, in);
       }
-      const float w_lo = (float)(((bytes[j] & 0xF) ^ 8) - 8) * s_lo;
+      return;
+    }
+    constexpr int PER_ROW = (15 + KSEG * (int)sizeof(TX) + 15) / 16;
+    for (int i = threadIdx.x; i < 2 * MR * PER_ROW; i += kW4Threads) {
+      const int rm = i / PER_ROW;                  // half * MR + row
+      const int q16 = i - rm * PER_ROW;
+      const int hf = rm / MR;
+      const int m = m0 + rm - hf * MR;
+      if (m >= M) continue;
+      const uintptr_t start =
+          xbase + ((uintptr_t)m * K + hf * kh + R0) * sizeof(TX);
+      copy16(xs + rm * XPB + 16 * q16, (start & ~(uintptr_t)15) + 16 * q16,
+             xbase, xend);
+    }
+  };
+
+  float acc[2][MT][4];
 #pragma unroll
-      for (int r = 0; r < BM; ++r) acc[r] = fmaf(xlo[r][j], w_lo, acc[r]);
-      if (khi < K) {
-        if (khi >= hi_end) {
-          const int g = khi / gs;
-          hi_end = (g + 1) * gs;
-          s_hi = sg[(size_t)g * N + n];
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // this lane's rows of x (8j + g of each half): where the segment's
+  // values start in them (the superset's offset, in values)
+  const TX* xrow[2][MT];
+  auto point_x = [&](int R0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        const int m = m0 + 8 * j + g;
+        const uintptr_t start =
+            xbase + ((uintptr_t)m * K + hf * kh + R0) * sizeof(TX);
+        xrow[hf][j] = reinterpret_cast<const TX*>(
+                          xs + (hf * MR + 8 * j + g) * XPB)
+                      + (start & 15) / sizeof(TX);
+      }
+  };
+
+  // One chunk from ring slot st: both halves' products into zeroed
+  // partials, then acc += s·partial (the codes' 2^p taken out first).
+  // Rows past the chunk's own (nr, or nh high rows below K) have x zero.
+  auto compute = [&](const W4Chunk& c, int st, int R0) {
+    const uint8_t* wt = ws + st * kW4KT * kW4Pitch;
+    const int nr = c.r1 - c.r0;
+    const bool hi = c.ghi >= 0;
+    const int nh = hi ? min(nr, K - kh - c.r0) : 0;
+    const int xk = c.r0 - R0;
+    // low bits of row r0's device address; row r adds r·N
+    const uint32_t lo0 = (uint32_t)(wbase + (uintptr_t)c.r0 * N + n0);
+    float p[2][2][MT][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < MT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[hf][i][j][e] = 0.f;
+
+    if constexpr (F32) {
+      // one k-step of 8 rows: rows ks + t and ks + t + 4; MASKED: rows past
+      // the chunk's own (nr, or nh high rows below K) read as x = 0
+      auto kstep = [&](int ks, auto masked) {
+        const int ra = ks + t;
+        const int rb = ks + t + 4;
+        const uint32_t wa = row_word(wt + ra * kW4Pitch, lo0 + (uint32_t)ra * N, cw);
+        const uint32_t wb = row_word(wt + rb * kW4Pitch, lo0 + (uint32_t)rb * N, cw);
+        uint32_t ca[2][4], cb[2][4];
+        codes4<0>(wa, ca[0]);
+        codes4<0>(wb, cb[0]);
+        if (hi) {
+          codes4<1>(wa, ca[1]);
+          codes4<1>(wb, cb[1]);
         }
-        const float w_hi = (float)(((bytes[j] >> 4) ^ 8) - 8) * s_hi;
 #pragma unroll
-        for (int r = 0; r < BM; ++r) acc[r] = fmaf(xhi[r][j], w_hi, acc[r]);
+        for (int hf = 0; hf < 2; ++hf) {
+          if (hf == 1 && !hi) break;
+#pragma unroll
+          for (int j = 0; j < MT; ++j) {
+            const float* xr = reinterpret_cast<const float*>(xrow[hf][j]) + xk;
+            float va = xr[ra];
+            float vb = xr[rb];
+            if constexpr (decltype(masked)::value) {
+              const int lim = hf ? nh : nr;
+              va = ra < lim ? va : 0.f;
+              vb = rb < lim ? vb : 0.f;
+            }
+            uint32_t bb[2], bs[2];
+            split_fp(va, bb[0], bs[0]);
+            split_fp(vb, bb[1], bs[1]);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const uint32_t a[4] = {ca[hf][2 * i], ca[hf][2 * i + 1],
+                                     cb[hf][2 * i], cb[hf][2 * i + 1]};
+              mma(p[hf][i][j], a, bs);
+              mma(p[hf][i][j], a, bb);
+            }
+          }
+        }
+      };
+      if (nr == kW4KT && (!hi || nh == nr)) {
+#pragma unroll
+        for (int ks = 0; ks < kW4KT; ks += 8) kstep(ks, std::false_type{});
+      } else {
+        for (int ks = 0; ks < nr; ks += 8) kstep(ks, std::true_type{});
+      }
+    } else {
+      for (int ks = 0; ks < nr; ks += 16) {
+        // rows ks + 2t, 2t + 1, 2t + 8, 2t + 9
+        uint32_t w4[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = ks + 2 * t + (q & 1) + 8 * (q >> 1);
+          w4[q] = row_word(wt + r * kW4Pitch, lo0 + (uint32_t)r * N, cw);
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          if (hf == 1 && !hi) break;
+          const int lim = hf ? nh : nr;
+          uint32_t a[2][4];
+#define AZ_W4_PAIRS(HF)                                                      \
+          a[0][0] = code_pair<HF, 0>(w4[0], w4[1]);                          \
+          a[0][1] = code_pair<HF, 1>(w4[0], w4[1]);                          \
+          a[0][2] = code_pair<HF, 0>(w4[2], w4[3]);                          \
+          a[0][3] = code_pair<HF, 1>(w4[2], w4[3]);                          \
+          a[1][0] = code_pair<HF, 2>(w4[0], w4[1]);                          \
+          a[1][1] = code_pair<HF, 3>(w4[0], w4[1]);                          \
+          a[1][2] = code_pair<HF, 2>(w4[2], w4[3]);                          \
+          a[1][3] = code_pair<HF, 3>(w4[2], w4[3])
+          if (hf == 0) {
+            AZ_W4_PAIRS(0);
+          } else {
+            AZ_W4_PAIRS(1);
+          }
+#undef AZ_W4_PAIRS
+#pragma unroll
+          for (int j = 0; j < MT; ++j) {
+            const uint16_t* xr =
+                reinterpret_cast<const uint16_t*>(xrow[hf][j]) + xk + ks;
+            uint32_t v[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int r = 2 * t + (q & 1) + 8 * (q >> 1);
+              v[q] = ks + r < lim ? xr[r] : 0u;
+            }
+            const uint32_t b0 = v[0] | v[1] << 16;
+            const uint32_t b1 = v[2] | v[3] << 16;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_bf16(p[hf][i][j], a[i], b0, b1);
+          }
+        }
+      }
+    }
+
+    // acc += s·partial: c0, c1 are column cw + 2i, c2, c3 column cw + 2i + 1
+    const uint8_t* sd = ss + st * 2 * kW4SPitch;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (hf == 1 && !hi) break;
+      const int grp = hf ? c.ghi : c.glo;
+      const uintptr_t sa = sbase + ((uintptr_t)grp * N + n0) * 4;
+      const float* srow =
+          reinterpret_cast<const float*>(sd + hf * kW4SPitch + (sa & 15)) + cw;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = 2 * i + (e >> 1);
+          const float unit = F32 ? 1.f / (float)(1u << w4_exp(hf, b)) : 1.f;
+          const float s = srow[b];
+#pragma unroll
+          for (int j = 0; j < MT; ++j)
+            acc[i][j][e] = fmaf(s, p[hf][i][j][e] * unit, acc[i][j][e]);
+        }
+      }
+    }
+  };
+
+  // the ring: kW4Stages - 1 chunks staged ahead of the one computed; x's
+  // first segment rides in the first group
+  stage_x(0);
+  point_x(0);
+  int pr = 0;
+#pragma unroll
+  for (int st = 0; st < kW4Stages - 1; ++st) {
+    if (pr < kh) {
+      const W4Chunk c = w4_chunk(pr, kh, K, gs, KSEG);
+      stage(c, st);
+      pr = c.r1;
+    }
+    cp_commit();
+  }
+  int seg = 0;
+  int cr = 0;
+  for (int ci = 0; cr < kh; ++ci) {
+    const W4Chunk c = w4_chunk(cr, kh, K, gs, KSEG);
+    if (cr / KSEG != seg) {
+      // a later segment of x: every warp is done with the old one
+      seg = cr / KSEG;
+      __syncthreads();
+      stage_x(seg * KSEG);
+      point_x(seg * KSEG);
+      cp_commit();
+      cp_wait_all();
+    }
+    cp_wait<kW4Stages - 2>();
+    __syncthreads();
+    if (pr < kh) {
+      const W4Chunk nc = w4_chunk(pr, kh, K, gs, KSEG);
+      stage(nc, (ci + kW4Stages - 1) % kW4Stages);
+      pr = nc.r1;
+    }
+    cp_commit();
+    compute(c, ci % kW4Stages, seg * KSEG);
+    cr = c.r1;
+  }
+  cp_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + cw + 2 * i + (e >> 1);
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        const int m = m0 + 8 * j + 2 * t + (e & 1);
+        if (n < N && m < M) out[(size_t)m * N + n] = acc[i][j][e];
       }
     }
   }
-  if (n >= N) return;
-#pragma unroll
-  for (int r = 0; r < BM; ++r)
-    if (m0 + r < M) out[(size_t)(m0 + r) * N + n] = acc[r];
 }
 
 bool bad_dims(int M, int N, int K) {
   return M < 1 || N < 1 || K < 1 || (M + 31) / 32 > 65535;
+}
+
+template <typename TX, int MT>
+cudaError_t launch_w4_mt(const TX* x, const uint8_t* wq, const float* sg,
+                         float* out, int M, int N, int K, int G,
+                         cudaStream_t s) {
+  constexpr int smem = W4Geom<TX, MT>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      w4a16_kernel<TX, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((N + kW4BN - 1) / kW4BN, (M + 8 * MT - 1) / (8 * MT));
+  w4a16_kernel<TX, MT><<<grid, kW4Threads, smem, s>>>(x, wq, sg, out, M, N,
+                                                     K, G);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -212,15 +631,8 @@ static int launch_w4(const TX* x, const uint8_t* wq, const float* sg,
                      float* out, int M, int N, int K, int G, void* stream) {
   if (bad_dims(M, N, K) || G < 1 || G > K) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int gx = (N + kThreads - 1) / kThreads;
-  if (M <= 8) {
-    w4a16_kernel<TX, 8><<<dim3(gx, 1), kThreads, 0, s>>>(
-        x, wq, sg, out, M, N, K, G);
-  } else {
-    w4a16_kernel<TX, 32><<<dim3(gx, (M + 31) / 32), kThreads, 0, s>>>(
-        x, wq, sg, out, M, N, K, G);
-  }
-  return (int)cudaGetLastError();
+  return (int)(M <= 8 ? launch_w4_mt<TX, 1>(x, wq, sg, out, M, N, K, G, s)
+                      : launch_w4_mt<TX, 4>(x, wq, sg, out, M, N, K, G, s));
 }
 
 extern "C" int w4a16_matmul_f32(const float* x, const uint8_t* wq,
@@ -233,4 +645,12 @@ extern "C" int w4a16_matmul_bf16(const __nv_bfloat16* x, const uint8_t* wq,
                                  const float* sg, float* out, int M, int N,
                                  int K, int G, void* stream) {
   return launch_w4<__nv_bfloat16>(x, wq, sg, out, M, N, K, G, stream);
+}
+
+// Dynamic shared memory a block of the w4a16 kernel: bf16 = 0|1 (x's
+// type), mt = 1|4 (m-tiles a block)
+extern "C" int w4a16_smem(int bf16, int mt) {
+  if (bf16) return mt == 1 ? W4Geom<__nv_bfloat16, 1>::SMEM
+                           : W4Geom<__nv_bfloat16, 4>::SMEM;
+  return mt == 1 ? W4Geom<float, 1>::SMEM : W4Geom<float, 4>::SMEM;
 }

@@ -9,10 +9,12 @@ Two data paths, like the JAX package's ``ops/paged_attention.py``:
   monolithic cache.  It mirrors the JAX package's ``paged_attention_xla``
   and is what a CPU tensor gets.
 - the CUDA kernel ``csrc/paged_attention.cu`` (replacing the Pallas
-  ``_paged_kernel``), launched for CUDA tensors: each (row, head) block
-  walks only the row's valid table entries, its warps splitting them, with
-  an online softmax in registers and int8 pools dequantized in registers.
-  ``launches`` counts its launches.
+  ``_paged_kernel``), launched for CUDA tensors: the walk over a row's
+  valid positions is split into ``partitions(n_table)`` partitions, each a
+  block of one thread-block cluster per (row, head); its warps take chunks
+  of positions with an online softmax in registers (int8 pools
+  dequantized in registers), and the partitions' partials merge through
+  the cluster's shared memory.  ``launches`` counts its launches.
 
 Quantization contract: ``inference/quantize.kv_pack_int8`` /
 ``kv_unpack_int8`` (symmetric, scale = per-(block, head) absmax / 127).
@@ -21,6 +23,7 @@ Quantization contract: ``inference/quantize.kv_pack_int8`` /
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -33,6 +36,14 @@ from analytics_zoo_tpu_torch.ops._impl import resolve_impl
 NEG_INF = -1e30
 KERNEL = "paged_attention"
 KERNEL_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
+# the kernel's split of a row's table: partitions of at least this many
+# entries (two a warp of the block), at most MAX_PARTS of them (a portable
+# thread-block cluster), and no more blocks than the card runs at once
+# (BLOCKS_PER_SM a streaming multiprocessor: __launch_bounds__(256, 2))
+PART_ENTRIES = 16
+MAX_PARTS = 8
+BLOCKS_PER_SM = 2
+H100_SMS = 132
 
 # launches of the CUDA kernel (one per call that took the kernel route)
 launches = 0
@@ -91,22 +102,50 @@ def paged_attention_torch(q, k_pool, v_pool, block_tables, lengths,
     return torch.einsum("bhk,bkhd->bhd", att, vc)
 
 
+def partitions(n_table: int, parts: Optional[int] = None, pairs: int = 1,
+               sms: int = H100_SMS):
+    """``(parts, per_part)``: the kernel walks a row's table in ``parts``
+    partitions of ``per_part`` entries (the last may hold fewer).  The rule:
+    one partition a PART_ENTRIES entries, so decode-time tables of up to 16
+    entries take a plain launch, at most MAX_PARTS, and at most as many as
+    keep the blocks of the call's ``pairs`` (row, head) pairs within one
+    wave of BLOCKS_PER_SM on each of ``sms`` multiprocessors (a second,
+    partial wave costs more than the split saves).  ``parts`` forces a count
+    (clamped to 1..min(MAX_PARTS, n_table); the count returned is the one
+    that covers the table)."""
+    n_table = int(n_table)
+    if parts is None:
+        parts = min(-(-n_table // PART_ENTRIES),
+                    BLOCKS_PER_SM * int(sms) // max(1, int(pairs)))
+    parts = max(1, min(int(parts), MAX_PARTS, n_table))
+    per_part = -(-n_table // parts)
+    return -(-n_table // per_part), per_part
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _kernel_fns():
     global _fns
     if _fns is None:
         lib = _build.load(KERNEL)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         f32 = lib.paged_attention_f32
-        f32.argtypes = [ptr] * 6 + [i32] * 5 + [ctypes.c_float, ptr]
+        f32.argtypes = [ptr] * 6 + [i32] * 7 + [ctypes.c_float, ptr]
         f32.restype = i32
         i8 = lib.paged_attention_int8
-        i8.argtypes = [ptr] * 8 + [i32] * 5 + [ctypes.c_float, ptr]
+        i8.argtypes = [ptr] * 8 + [i32] * 7 + [ctypes.c_float, ptr]
         i8.restype = i32
         _fns = (f32, i8)
     return _fns
 
 
-def _paged_cuda(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale):
+def _paged_cuda(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale,
+                parts: Optional[int] = None):
+    """The kernel's launch; ``parts`` forces the partition count (tests and
+    ``chip_smoke.py``), else ``partitions``' rule picks it."""
     global launches
     dev = q.device
     quant = k_scale is not None
@@ -139,15 +178,18 @@ def _paged_cuda(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale):
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
-    # the kernel reads 4 head_dim elements per load (16 bytes for f32)
+    # a lane reads 16 bytes of a head vector at a time (all of it when it
+    # is shorter): q as float4, int8 pools up to 16 elements
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{name} must be {4 * t.element_size()}-byte "
-                             "aligned")
+        align = 16 if t is q else min(16, hd * t.element_size())
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
     out = torch.empty_like(q)
     f32_fn, i8_fn = _kernel_fns()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    dims = (A, nh, hd, bl, int(block_tables.shape[1]),
+    n_table = int(block_tables.shape[1])
+    dims = (A, nh, hd, bl, n_table,
+            *partitions(n_table, parts, A * nh, _sm_count(dev.index or 0)),
             1.0 / math.sqrt(hd), stream)
     if quant:
         err = i8_fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

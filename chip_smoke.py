@@ -6,23 +6,33 @@ and checks them, phase by phase, each phase printing its own lines:
 
 1. card — the card's name and power limit (``nvidia-smi``) and the build of
    every CUDA kernel (one ``nvcc`` per source, started together): ptxas's
-   registers and spills, the forward kernels' dynamic shared memory, and
-   their SASS (``cuobjdump``), which must hold the tensor-core products
-   (TF32 HMMA in the flash kernels and f32 ``fused_bn``, BF16 HMMA in bf16
-   ``fused_bn``).
+   registers, spills and static shared memory, the dynamic shared memory
+   of the forward, ``fused_bn``, ``w4a16`` and paged kernels, and their
+   SASS (``cuobjdump``), which must hold the tensor-core products (TF32
+   HMMA in the flash kernels, f32 ``fused_bn`` and f32-x ``w4a16``, BF16
+   HMMA in bf16 ``fused_bn`` and bf16-x ``w4a16``).
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, then timed on the device (CUDA graph
    replay between CUDA events) beside its plain version and, where one
-   PyTorch call computes the same function, that call:
+   PyTorch call computes the same function, that call.  The paged, w8a8
+   and w4a16 timings cycle through enough input sets that one pass reads
+   more than 100 MB (twice the L2), so no call finds its inputs in L2:
    - paged decode attention (8 rows, 12 heads, head_dim 64, 16-token
-     blocks, 16-entry tables; f32 and int8 pools);
+     blocks; f32 and int8 pools): parity at decode-time tables (16
+     entries, one partition), a long cache's (64 entries, two partitions
+     by the rule and four forced) at lengths 0, 1, a partition's edge +-1
+     and past the table, 8 forced partitions, and every head_dim; timed
+     at the main path's shape (16-entry tables, lengths 17-192) and at
+     GPT-2's full context (64-entry tables, lengths 769-1024);
    - flash attention forward (f32 and bf16, causal and not, T = 77, 1000
      and 1024, with and without LSE, q/k/v read in place from a fused
      (B, T, 3·H·D) projection); timed at (8, 12, 1024, 64) f32 causal,
      without the LSE (predict) and with it (training), and at T = 128 and
      512 (the H100's crossover against the plain path and SDPA);
-   - w8a8 (bitwise) and w4a16 at the predict head (M = 8, K = 768,
-     N = 50257) and at ragged shapes.
+   - w8a8 (bitwise) and w4a16 (f32 and bf16 x) at the predict head
+     (M = 8, K = 768, N = 50257) and at ragged shapes: groups straddling
+     a chunk and the two halves, odd K, M = 1, 17, 33, several x
+     segments, a packed weight not on 16 bytes.
 3. generation — ``TransformerLM`` at GPT-2-small geometry served by
    ``ClusterServing`` in generation mode (16 prompts, two waves, f32 and
    int8 KV); paged-kernel launches = decode steps x 12; token sequences
@@ -74,7 +84,13 @@ contract line.  Run from the repository root::
     python3 chip_smoke.py [--seed 0] [--profile]
 
 ``--profile`` adds ``torch.profiler`` readings of a decode step, a predict
-batch, a training step and a ResNet-50 training step.
+batch, a training step and a ResNet-50 training step.  ``--kernel-timing``
+runs only the paged, w8a8 and w4a16 timings (``kernel_timing``); a copy of
+this script run from the root of an earlier tree of the port times that
+tree's kernels the same way::
+
+    cp chip_smoke.py parent/chip_smoke_now.py
+    (cd parent && python3 chip_smoke_now.py --kernel-timing)
 """
 
 from __future__ import annotations
@@ -147,6 +163,9 @@ TIE_MARGIN = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
+# a kernel timing cycles through input sets that together hold more than
+# twice the H100's 50 MB L2, so that no call finds its inputs in L2
+L2_FLUSH_BYTES = 100e6
 # f32-accurate products on the tensor cores: 3xTF32 (big·small + small·big
 # + big·big) at a third of the dense TF32 rate, 495 / 3 TFLOP/s.  Every f32
 # bound counts its products at this rate, and its elementwise work at
@@ -305,6 +324,8 @@ SASS_KERNELS = {
     fa.KERNEL: (("flash_fwd_kernel", SASS_TF32),),
     fa.KERNEL_BWD: (("flash_bwd_dq_kernel", SASS_TF32),
                     ("flash_bwd_dkv_kernel", SASS_TF32)),
+    qm.KERNEL: (("w4a16_kernelIf", SASS_TF32),
+                ("w4a16_kernelI13__nv_bfloat16", SASS_BF16)),
 }
 
 
@@ -341,11 +362,13 @@ def sass_check() -> dict:
 
 
 def smem_line() -> str:
-    """Dynamic shared memory a block of the forward kernels, as their
-    libraries report it (ptxas -v shows only static shared memory)."""
+    """Dynamic shared memory a block of the forward, fused_bn and w4a16
+    kernels, as their libraries report it, and the paged kernel's table
+    (ptxas -v shows only static shared memory)."""
     flash = _build.load(fa.KERNEL).flash_attention_fwd_smem
     bn = _build.load(fb.KERNEL).fused_bn_smem
-    for fn in (flash, bn):
+    w4 = _build.load(qm.KERNEL).w4a16_smem
+    for fn in (flash, bn, w4):
         fn.argtypes = [ctypes.c_int] * 2
         fn.restype = ctypes.c_int
     return ", ".join(
@@ -354,7 +377,12 @@ def smem_line() -> str:
          for d in fa.KERNEL_HEAD_DIMS]
         + [f"fused_bn[{t} BN={n}] {bn(b, n)} B" for t, b in (("f32", 0),
                                                               ("bf16", 1))
-           for n in (64, 128)])
+           for n in (64, 128)]
+        + [f"w4a16[{t} x, {8 * mt} rows] {w4(b, mt)} B"
+           for t, b in (("f32", 0), ("bf16", 1)) for mt in (1, 4)]
+        + [f"paged[table of {n} entries, 96 (row, head) pairs] "
+           f"{4 * pa.partitions(n, None, 96, pa._sm_count(0))[1]} B"
+           for n in (16, 64)])
 
 
 # -- phase 2: kernel vs plain -------------------------------------------------
@@ -363,8 +391,8 @@ def paged_case(seed: int, lengths, *, rows=8, heads=12, head_dim=64,
                block_len=16, n_table=16, device="cuda"):
     """One paged-attention input set: a random pool with garbage in the
     trash block and every unreferenced block, tables whose entries past a
-    row's length point at block 0, and rows 6 and 7 sharing their first
-    two blocks."""
+    row's length point at block 0, and the last two rows sharing their
+    first two blocks."""
     g = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int32)
     n_blocks = 1 + rows * n_table
@@ -373,7 +401,7 @@ def paged_case(seed: int, lengths, *, rows=8, heads=12, head_dim=64,
     for a in range(rows):
         used = -(-int(lengths[a]) // block_len)
         tables[a, :used] = perm[a, :used]
-    tables[7, :2] = tables[6, :2]
+    tables[rows - 1, :2] = tables[rows - 2, :2]
     shape = (n_blocks, block_len, heads, head_dim)
     t = {"q": g.normal(size=(rows, heads, head_dim)),
          "k": g.normal(size=shape), "v": g.normal(size=shape)}
@@ -390,7 +418,11 @@ def quantize_case(case):
     return dict(case, k=qk, v=qv, ks=ks, vs=vs)
 
 
-def run_paged(case, impl):
+def run_paged(case, impl, parts=None):
+    if parts is not None:
+        return pa._paged_cuda(case["q"], case["k"], case["v"],
+                              case["tables"], case["lengths"],
+                              case.get("ks"), case.get("vs"), parts=parts)
     return pa.paged_attention(case["q"], case["k"], case["v"],
                               case["tables"], case["lengths"],
                               case.get("ks"), case.get("vs"), impl=impl)
@@ -425,7 +457,7 @@ def cuda_ms(fn, iters: int = 240, warmup: int = 3) -> float:
 
 
 def cycled(fns):
-    """One callable that calls ``fns`` in turn (one per layer)."""
+    """One callable that calls ``fns`` in turn (one per input set)."""
     state = {"i": 0}
 
     def call():
@@ -433,6 +465,14 @@ def cycled(fns):
         state["i"] += 1
         return fn()
     return call
+
+
+def n_sets(nbytes: int) -> int:
+    """Distinct input sets a timing cycles through so that the bytes one
+    pass over them reads exceed L2_FLUSH_BYTES: each call then finds its
+    inputs in device memory, as the served paths do, where the model's
+    other weights pass through L2 between two calls of a kernel."""
+    return int(L2_FLUSH_BYTES // max(1, int(nbytes))) + 1
 
 
 def paged_bound(case) -> dict:
@@ -475,61 +515,126 @@ def sdpa_yardstick(case):
     return lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)
 
 
-def kernel_phase(seed: int, n_layers: int) -> dict:
-    """Parity on the card for both pool types, then timing.  Returns the
-    per-variant record (without launches, which the main path fills)."""
-    parity_lengths = {
-        "ragged": [1, 16, 17, 256, 100, 33, 255, 64],
-        "edges": [16, 32, 48, 256, 1, 2, 128, 240],
-    }
+def paged_timing_lengths(seed: int) -> dict:
+    """The two timed shapes' lengths (8 rows, 12 heads, head_dim 64,
+    16-token blocks): the main path's decode-time lengths (prompt 16..128
+    + 1..64 tokens) over 16-entry tables, and GPT-2's full context, 769 to
+    1024, over 64-entry tables."""
     g = np.random.default_rng(seed + 1)
-    # decode-time lengths of the main path: prompt 16..128 + 1..64 tokens
-    timing_lengths = g.integers(17, 193, 8)
+    return {"main": (g.integers(17, 193, 8), 16),
+            "long": (g.integers(769, 1025, 8), 64)}
+
+
+def paged_sets(seed: int, lengths, n_table: int, quant: bool):
+    """Input sets for one paged timing: ``paged_case``'s, then sets with
+    the same tables and pools of their own drawn on the card, as many as
+    ``n_sets`` asks for the bytes a call reads."""
+    first = paged_case(seed, lengths, n_table=n_table)
+    first = quantize_case(first) if quant else first
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sets = [first]
+    for _ in range(1, n_sets(paged_bound(first)["bytes"])):
+        c = dict(first)
+        for name in ("k", "v"):
+            c[name] = torch.randn(first["k"].shape, generator=gen,
+                                  device="cuda")
+        sets.append(quantize_case(c) if quant else c)
+    return sets
+
+
+def paged_timing(seed: int, variant: str, shape: str, lengths,
+                 n_table: int) -> dict:
+    """Kernel, plain version and the SDPA yardstick at one shape, each
+    cycling over the same input sets; the kernel's output on the first set
+    held against the plain version's."""
+    sets = paged_sets(seed, lengths, n_table, variant == "int8")
+    got = run_paged(sets[0], "cuda")
+    torch.cuda.synchronize()
+    err = check_close(f"kernel[{variant}/{shape} timing set]", got,
+                      run_paged(sets[0], "torch"), ATOL, RTOL)
+    ms = cuda_ms(cycled([lambda c=c: run_paged(c, "cuda") for c in sets]))
+    plain_ms = cuda_ms(cycled([lambda c=c: run_paged(c, "torch")
+                               for c in sets]))
+    lib_ms = cuda_ms(cycled([sdpa_yardstick(c) for c in sets]))
+    b = paged_bound(sets[0])
+    say(f"kernel[{variant}] timing {shape} lengths={list(map(int, lengths))} "
+        f"n_table={n_table} ({len(sets)} input sets): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, SDPA over pre-gathered cache "
+        f"(yardstick) {lib_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
+        f"({b['bound_by']}: {b['bytes']} B, {b['flops']} flop), "
+        f"{100 * b['bound_ms'] / ms:.1f}% of bound")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "max_abs_err": err, **b}
+
+
+def paged_parity_cases(seed: int):
+    """(tag, case, forced partitions) for the kernel-vs-plain checks: the
+    decode path's table (16 entries, one partition), the long cache's (64
+    entries: two partitions by the rule, four forced) at lengths 0
+    (uniform over the whole table, trash included), 1, a partition's edge
+    and +-1, the full table and past it, the decode table forced into 8
+    partitions (most of them with no valid position), and every head_dim
+    with and without partitions."""
+    out = [("ragged", paged_case(seed, [1, 16, 17, 256, 100, 33, 255, 64]),
+            None),
+           ("edges", paged_case(seed + 10, [16, 32, 48, 256, 1, 2, 128,
+                                            240]), None),
+           ("long", paged_case(seed + 20, [0, 1, 511, 512, 513, 1024, 1100,
+                                           700], n_table=64), None),
+           ("long, 4 parts", paged_case(seed + 25, [0, 1, 255, 256, 257, 767,
+                                                    768, 769], n_table=64), 4),
+           ("8 parts", paged_case(seed + 30, [1, 16, 17, 256, 100, 33, 0,
+                                              64]), 8)]
+    for hd in pa.KERNEL_HEAD_DIMS:
+        case = paged_case(seed + 40 + hd, [0, 1, 79, 80, 81, 160], rows=6,
+                          heads=3, head_dim=hd, block_len=8, n_table=20)
+        out += [(f"head_dim {hd}", case, None),
+                (f"head_dim {hd}, 5 parts", case, 5)]
+    return out
+
+
+def kernel_phase(seed: int) -> dict:
+    """Parity on the card for both pool types, then timing at the two
+    shapes.  Returns the per-variant record (without launches, which the
+    main path fills)."""
+    cases = paged_parity_cases(seed)
+    timing = paged_timing_lengths(seed)
     out = {}
     for variant in ("f32", "int8"):
         worst = 0.0
-        for i, (tag, lens) in enumerate(parity_lengths.items()):
-            case = paged_case(seed + 10 * i, lens)
+        for tag, case, parts in cases:
             if variant == "int8":
                 case = quantize_case(case)
-            got = run_paged(case, "cuda")
+            got = run_paged(case, "cuda", parts)
             torch.cuda.synchronize()
-            ref = run_paged(case, "torch")
-            err = (got - ref).abs()
-            worst = max(worst, float(err.max()))
-            ok = bool((err <= ATOL + RTOL * ref.abs()).all())
-            check(bool(torch.isfinite(got).all()),
-                  f"kernel[{variant}/{tag}]: non-finite output")
-            check(ok, f"kernel[{variant}/{tag}]: max abs err "
-                      f"{float(err.max()):.3e} outside atol {ATOL} rtol "
-                      f"{RTOL}")
-            say(f"kernel[{variant}] parity {tag} lengths={lens}: max abs "
-                f"err {float(err.max()):.3e} (atol {ATOL}, rtol {RTOL})")
-        # timing: one pool set per layer, cycled like a decode step does,
-        # so the caches are not all resident in L2
-        cases = [paged_case(seed + 100 + li, timing_lengths)
-                 for li in range(n_layers)]
-        if variant == "int8":
-            cases = [quantize_case(c) for c in cases]
-        sdpa = [sdpa_yardstick(c) for c in cases]
-        ms = cuda_ms(cycled([lambda c=c: run_paged(c, "cuda")
-                             for c in cases]))
-        plain_ms = cuda_ms(cycled([lambda c=c: run_paged(c, "torch")
-                                   for c in cases]))
-        lib_ms = cuda_ms(cycled(sdpa))
-        b = paged_bound(cases[0])
-        say(f"kernel[{variant}] timing lengths={timing_lengths.tolist()}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA over "
-            f"pre-gathered cache (yardstick) {lib_ms:.4f} ms, bound "
-            f"{b['bound_ms']:.5f} ms ({b['bound_by']}: {b['bytes']} B, "
-            f"{b['flops']} flop)")
+            lens = case["lengths"].tolist()
+            err = check_close(f"kernel[{variant}/{tag}] lengths={lens}", got,
+                              run_paged(case, "torch"), ATOL, RTOL)
+            worst = max(worst, err)
+            rows, heads, _ = case["q"].shape
+            n_table = case["tables"].shape[1]
+            n_parts = pa.partitions(n_table, parts, rows * heads,
+                                    pa._sm_count(0))[0]
+            say(f"kernel[{variant}] parity {tag} lengths={lens}: "
+                f"{n_parts} partition(s) of {n_table} entries, max abs err "
+                f"{err:.3e} (atol {ATOL}, rtol {RTOL})")
+        t = {shape: paged_timing(seed + 100, variant, shape, lens, n_table)
+             for shape, (lens, n_table) in timing.items()}
+        main, long = t["main"], t["long"]
         out[variant] = {
             "name": f"paged_attention[{variant}]", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "analytics_zoo_tpu/ops/paged_attention.py:105",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "library_ms": lib_ms}
+            "launches": None,
+            "max_abs_err": max(worst, main["max_abs_err"],
+                               long["max_abs_err"]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "long_ms": long["ms"], "long_plain_ms": long["plain_ms"],
+            "long_bound_ms": long["bound_ms"],
+            "long_bound_by": long["bound_by"],
+            "long_library_ms": long["library_ms"]}
     return out
 
 
@@ -721,10 +826,11 @@ def w8a8_bound(M, K, N):
 
 def w4a16_bound(M, K, N, G, x_bytes=4):
     """x, the packed weight, its group scales and the output once; 2 flop
-    per product (f32-accurate, on the tensor cores) plus one dequantizing
-    multiply per weight (elementwise f32)."""
+    per product on the tensor cores (f32-accurate for f32 x, bf16 for bf16
+    x) plus one dequantizing multiply per weight (elementwise f32)."""
+    rate = TF32X3_FLOP_PER_S if x_bytes == 4 else BF16_FLOP_PER_S
     return bound(M * K * x_bytes + (K + 1) // 2 * N + 4 * G * N + 4 * M * N,
-                 (2 * M * K * N, TF32X3_FLOP_PER_S), (K * N, F32_FLOP_PER_S))
+                 (2 * M * K * N, rate), (K * N, F32_FLOP_PER_S))
 
 
 def qkv_views(g, B, T, H, D, dtype, device="cuda"):
@@ -872,20 +978,35 @@ def w8a8_phase(seed: int, M=8, K=768, N=50257) -> dict:
     say("w8a8 parity: bitwise equal at (M, K, N) = (1|8|33, 768, 50257) "
         "and (37, 100, 61)")
     x, w, s = w8a8_case(g, M, K, N)
+    b = w8a8_bound(M, K, N)
+    # one weight and scale a set, as many as n_sets asks for, on the card
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    sets = [(x, w, s)] + [
+        (x, torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8),
+         torch.rand(N, generator=gen, device="cuda") * 1e-2 + 1e-4)
+        for _ in range(1, n_sets(b["bytes"]))]
     # _int_mm needs M > 16 and K, N multiples of 8: pad M to 32, N to 8
     n8 = -(-N // 8) * 8
     xp = torch.zeros(32, K, dtype=torch.int8, device="cuda")
     xp[:M] = x
-    wp = torch.zeros(K, n8, dtype=torch.int8, device="cuda")
-    wp[:, :N] = w
-    ms = cuda_ms(lambda: qm.w8a8_matmul(x, w, s, impl="cuda"))
-    plain_ms = cuda_ms(lambda: qm.w8a8_matmul(x, w, s, impl="torch"))
-    lib_ms = cuda_ms(lambda: torch._int_mm(xp, wp)[:M, :N].float() * s)
-    b = w8a8_bound(M, K, N)
-    say(f"w8a8 timing (M={M}, K={K}, N={N}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch._int_mm (M padded to 32, N to {n8}) + "
-        f"scale {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}: {b['bytes']} B)")
+    padded = []
+    for _, ws, ss in sets:
+        wp = torch.zeros(K, n8, dtype=torch.int8, device="cuda")
+        wp[:, :N] = ws
+        padded.append((wp, ss))
+    ms = cuda_ms(cycled([lambda c=c: qm.w8a8_matmul(*c, impl="cuda")
+                         for c in sets]))
+    plain_ms = cuda_ms(cycled([lambda c=c: qm.w8a8_matmul(*c, impl="torch")
+                               for c in sets]))
+    lib_ms = cuda_ms(cycled([
+        lambda wp=wp, ss=ss: torch._int_mm(xp, wp)[:M, :N].float() * ss
+        for wp, ss in padded]))
+    say(f"w8a8 timing (M={M}, K={K}, N={N}, {len(sets)} input sets): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm (M padded to "
+        f"32, N to {n8}) + scale {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} "
+        f"ms ({b['bound_by']}: {b['bytes']} B), "
+        f"{100 * b['bound_ms'] / ms:.1f}% of bound")
     return {"name": "w8a8_matmul", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/quant_matmul.cu",
             "replaces": "analytics_zoo_tpu/ops/quant_matmul.py:144",
@@ -894,46 +1015,99 @@ def w8a8_phase(seed: int, M=8, K=768, N=50257) -> dict:
             "bound_by": b["bound_by"], "library_ms": lib_ms}
 
 
-def w4a16_case(g, M, K, N, group, dtype=torch.float32):
+def w4a16_case(g, M, K, N, group, dtype=torch.float32, w_offset=0):
+    """x, the packed weight and its scales from ``_quantize_w4`` of a
+    seeded N(0, 0.05^2) weight; ``w_offset`` puts the packed weight that
+    many bytes into its buffer (not 16-byte aligned)."""
     W = (g.standard_normal((K, N)) * 0.05).astype(np.float32)
     leaves = _quantize_w4(W, group)
     x = torch.from_numpy(g.standard_normal((M, K), dtype=np.float32))
-    return (x.to("cuda", dtype), torch.from_numpy(leaves["W_q4"]).cuda(),
-            torch.from_numpy(leaves["s_g"]).cuda())
+    wq = torch.from_numpy(leaves["W_q4"]).cuda()
+    if w_offset:
+        buf = torch.zeros(wq.numel() + w_offset, dtype=torch.uint8,
+                          device="cuda")
+        buf[w_offset:] = wq.flatten()
+        wq = buf[w_offset:].view(wq.shape)
+    return (x.to("cuda", dtype), wq, torch.from_numpy(leaves["s_g"]).cuda())
+
+
+# (M, K, N, group size, x dtype, weight offset): the head in f32 and bf16
+# and at M = 1; M = 17 and 33 (four m-tiles a block); ragged groups whose
+# boundaries fall inside a 16-row chunk and one group straddling the low
+# and high halves (K = 100, group 34); odd K (101, 26); groups of 5 rows;
+# one group over all of K; K = 2000 (several x segments); a packed weight
+# that does not start on 16 bytes
+W4_CASES = ((8, 768, 50257, 64, torch.float32, 0),
+            (8, 768, 50257, 64, torch.bfloat16, 0),
+            (1, 768, 50257, 64, torch.float32, 0),
+            (33, 768, 1000, 64, torch.float32, 0),
+            (17, 768, 1000, 64, torch.bfloat16, 0),
+            (5, 100, 61, 34, torch.float32, 0),
+            (5, 100, 61, 34, torch.bfloat16, 0),
+            (3, 101, 61, 26, torch.float32, 0),
+            (3, 101, 61, 26, torch.bfloat16, 0),
+            (8, 64, 40, 5, torch.float32, 0),
+            (8, 96, 70, 96, torch.bfloat16, 0),
+            (8, 2000, 130, 64, torch.float32, 0),
+            (8, 2000, 130, 64, torch.bfloat16, 0),
+            (8, 100, 61, 34, torch.float32, 3))
+
+
+def w4a16_timing(seed: int, M, K, N, group, dtype) -> dict:
+    """Kernel and plain version at one shape, cycling over input sets: the
+    quantized case first (held against the plain version), then packed
+    weights and scales drawn on the card."""
+    g = np.random.default_rng(seed + 41)
+    x, wq, sg = w4a16_case(g, M, K, N, group, dtype)
+    x_bytes = 4 if dtype == torch.float32 else 2
+    b = w4a16_bound(M, K, N, sg.shape[0], x_bytes)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    sets = [(x, wq, sg)] + [
+        (x, torch.randint(0, 256, wq.shape, generator=gen, device="cuda",
+                          dtype=torch.uint8),
+         torch.rand(sg.shape, generator=gen, device="cuda") * 0.01 + 1e-3)
+        for _ in range(1, n_sets(b["bytes"]))]
+    got = qm.w4a16_matmul(x, wq, sg, impl="cuda")
+    torch.cuda.synchronize()
+    tag = f"w4a16 (M={M}, K={K}, N={N}, G={sg.shape[0]}, {str(dtype)[6:]})"
+    err = check_close(tag + " timing set", got,
+                      qm.w4a16_matmul(x, wq, sg, impl="torch"), *W4_TOL)
+    ms = cuda_ms(cycled([lambda c=c: qm.w4a16_matmul(*c, impl="cuda")
+                         for c in sets]))
+    plain_ms = cuda_ms(cycled([lambda c=c: qm.w4a16_matmul(*c, impl="torch")
+                               for c in sets]))
+    say(f"{tag} timing ({len(sets)} input sets): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, no single PyTorch call, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
+        f"{b['ops']} flop), {100 * b['bound_ms'] / ms:.1f}% of bound")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b}
 
 
 def w4a16_phase(seed: int, M=8, K=768, N=50257) -> dict:
     g = np.random.default_rng(seed + 40)
     worst = 0.0
-    cases = [(M, K, N, 64, torch.float32), (M, K, N, 64, torch.bfloat16),
-             (33, K, 1000, 64, torch.float32),
-             (5, 100, 61, 34, torch.float32),     # G = 3, last group 32
-             (3, 101, 61, 26, torch.float32)]     # odd K, G = 4
-    for m, k, n, group, dt in cases:
-        x, wq, sg = w4a16_case(g, m, k, n, group, dt)
+    for m, k, n, group, dt, off in W4_CASES:
+        x, wq, sg = w4a16_case(g, m, k, n, group, dt, off)
         got = qm.w4a16_matmul(x, wq, sg, impl="cuda")
         torch.cuda.synchronize()
         ref = qm.w4a16_matmul(x, wq, sg, impl="torch")
         worst = max(worst, check_close(
-            f"w4a16 ({m}, {k}, {n}, G={sg.shape[0]}, {str(dt)[6:]})",
-            got, ref, *W4_TOL))
-    say(f"w4a16 parity: {len(cases)} cases (head shape f32 and bf16, M=33,"
-        f" ragged K=100 G=3, odd K=101 G=4), max abs err {worst:.3e} "
-        f"(atol {W4_TOL[0]}, rtol {W4_TOL[1]})")
-    x, wq, sg = w4a16_case(g, M, K, N, 64)
-    ms = cuda_ms(lambda: qm.w4a16_matmul(x, wq, sg, impl="cuda"))
-    plain_ms = cuda_ms(lambda: qm.w4a16_matmul(x, wq, sg, impl="torch"))
-    b = w4a16_bound(M, K, N, sg.shape[0])
-    say(f"w4a16 timing (M={M}, K={K}, N={N}, G={sg.shape[0]}): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no single PyTorch call, "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
-        f"{b['ops']} flop)")
+            f"w4a16 ({m}, {k}, {n}, G={sg.shape[0]}, {str(dt)[6:]}, weight "
+            f"offset {off})", got, ref, *W4_TOL))
+    say(f"w4a16 parity: {len(W4_CASES)} cases (M, K, N, group, x, weight "
+        f"offset) {[(c[0], c[1], c[2], c[3], str(c[4])[6:], c[5]) for c in W4_CASES]}, "
+        f"max abs err {worst:.3e} (atol {W4_TOL[0]}, rtol {W4_TOL[1]})")
+    t = w4a16_timing(seed, M, K, N, 64, torch.float32)
+    tb = w4a16_timing(seed + 1, M, K, N, 64, torch.bfloat16)
     return {"name": "w4a16_matmul", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/quant_matmul.cu",
             "replaces": "analytics_zoo_tpu/ops/quant_matmul.py:187",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "library_ms": None}
+            "launches": None,
+            "max_abs_err": max(worst, t["max_abs_err"], tb["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "bf16_ms": tb["ms"],
+            "bf16_plain_ms": tb["plain_ms"], "bf16_bound_ms": tb["bound_ms"]}
 
 
 def predict_kernel_phase(seed: int) -> dict:
@@ -2130,10 +2304,32 @@ def ptxas_summary(log: str) -> str:
                     break
         elif "Used" in ln and "registers" in ln:
             regs = ln.split("Used")[1].split("registers")[0].strip()
-            out.append(f"{entry}: {regs} regs")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{entry}: {regs} regs"
+                       + (f", {smem.group(1)} B static smem" if smem else ""))
         elif "spill" in ln and not re.search(r"\b0 bytes spill stores", ln):
             out.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
     return "; ".join(out)
+
+
+def kernel_timing(seed: int) -> None:
+    """The timings of the paged, w8a8 and w4a16 kernels alone, with their
+    parity at the timed shapes, through the entry points that earlier
+    trees of the port share: a copy of this script run from the root of
+    such a tree times that tree's kernels the same way."""
+    t0 = time.perf_counter()
+    _build.build_all((pa.KERNEL, qm.KERNEL))
+    say(f"build: {time.perf_counter() - t0:.2f} s")
+    ms = {}
+    for variant in ("f32", "int8"):
+        for shape, (lens, n_table) in paged_timing_lengths(seed).items():
+            ms[f"paged[{variant}/{shape}]"] = paged_timing(
+                seed + 100, variant, shape, lens, n_table)["ms"]
+    ms["w8a8"] = w8a8_phase(seed)["ms"]
+    for name, dt, s in (("f32", torch.float32, seed),
+                        ("bf16", torch.bfloat16, seed + 1)):
+        ms[f"w4a16[{name}]"] = w4a16_timing(s, 8, 768, 50257, 64, dt)["ms"]
+    say(json.dumps({"kernel_ms": ms}))
 
 
 def main(argv=None) -> int:
@@ -2143,6 +2339,9 @@ def main(argv=None) -> int:
                     help="also profile a decode step, a predict batch, "
                          "a training step and a ResNet-50 training step "
                          "(torch.profiler)")
+    ap.add_argument("--kernel-timing", action="store_true",
+                    help="only time the paged, w8a8 and w4a16 kernels "
+                         "(see kernel_timing)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2152,6 +2351,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     say(f"card: {card_line()}")
+    if args.kernel_timing:
+        kernel_timing(args.seed)
+        return 0
     b = build_kernels()
     say(f"build: {b['wall_s']:.2f} s (nvcc {b['nvcc_s']})")
     for name, log in b["ptxas"].items():
@@ -2159,7 +2361,7 @@ def main(argv=None) -> int:
     say(f"smem: {smem_line()}")
     sass_check()
 
-    records = kernel_phase(args.seed, GPT2_SMALL["n_layers"])
+    records = kernel_phase(args.seed)
     records.update(predict_kernel_phase(args.seed))
     bwd = flash_bwd_phase(args.seed)
     records.update(flash_bwd_dq=bwd["dq"], flash_bwd_dkv=bwd["dkv"])

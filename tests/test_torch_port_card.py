@@ -82,6 +82,29 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, quant, lengths):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=2e-5)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("parts", [None, 3, 8])
+@pytest.mark.parametrize("hd", tpa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernel_partitions_match_plain_on_card(cuda_device, quant, hd,
+                                                     parts):
+    """A 36-entry table: the rule's 3 partitions of 96 positions, or 3 / 8
+    forced, at lengths 0 (uniform over the table), 1, 96 +- 1 and past the
+    table, for every head_dim."""
+    args = [a.to(cuda_device) for a in _paged_case(
+        hd, (0, 1, 95, 96, 97, 300), rows=6, n_table=36, nh=3, hd=hd)]
+    ks = vs = None
+    if quant:
+        args[1], ks = tq.kv_pack_int8(args[1])
+        args[2], vs = tq.kv_pack_int8(args[2])
+    n0 = tpa.launches
+    got = tpa._paged_cuda(*args, ks, vs, parts=parts)
+    torch.cuda.synchronize()
+    assert tpa.launches == n0 + 1
+    ref = tpa.paged_attention(*args, ks, vs, impl="torch")
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=2e-5)
+
+
 def _flash_case(device, dtype, B, T, H, D):
     """q, k, v as (B, H, T, D) views of one (B, T, 3·H·D) projection."""
     g = np.random.default_rng(T + D)
@@ -205,15 +228,27 @@ def test_w8a8_kernel_bitwise_on_card(cuda_device, m, k, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n,group", [(8, 768, 1000, 64),
-                                         (5, 100, 61, 34), (33, 101, 7, 26)])
+                                         (5, 100, 61, 34), (33, 101, 7, 26),
+                                         (1, 768, 1000, 64),
+                                         (17, 768, 300, 64), (8, 64, 40, 5),
+                                         (8, 96, 70, 96), (8, 2000, 130, 64),
+                                         (33, 2000, 130, 64)])
+@pytest.mark.parametrize("offset", [0, 3])
 def test_w4a16_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n,
-                                            group):
+                                            group, offset):
+    """Groups straddling a chunk and the two halves (100, 34), odd K, small
+    and whole-K groups, several x segments; ``offset``: the packed weight
+    that many bytes into its buffer."""
     g = np.random.default_rng(m + k + n)
     leaves = tq._quantize_w4(
         np.asarray(g.normal(size=(k, n)) * 0.05, np.float32), group)
     x = torch.from_numpy(np.asarray(g.normal(size=(m, k)), np.float32))
     x = x.to(cuda_device, dtype)
-    wq = torch.from_numpy(leaves["W_q4"]).to(cuda_device)
+    packed = torch.from_numpy(leaves["W_q4"]).to(cuda_device)
+    buf = torch.zeros(packed.numel() + offset, dtype=torch.uint8,
+                      device=cuda_device)
+    buf[offset:] = packed.flatten()
+    wq = buf[offset:].view(packed.shape)
     sg = torch.from_numpy(leaves["s_g"]).to(cuda_device)
     n0 = tqm.launches_w4a16
     got = tqm.w4a16_matmul(x, wq, sg)

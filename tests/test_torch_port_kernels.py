@@ -166,14 +166,24 @@ def test_paged_attention_argument_checks(bad):
 
 @pytest.mark.parametrize("bad", ["head_dim", "tables_dtype",
                                  "pool_without_scales", "misaligned_q",
-                                 "strided_q"])
+                                 "strided_q", "misaligned_int8_pool"])
 def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(bad):
     """The CUDA wrapper checks dtype, layout, alignment and head_dim before
     it builds or launches anything (run here on CPU tensors, which
-    ``paged_attention`` itself would hand to the plain version)."""
+    ``paged_attention`` itself would hand to the plain version).  An int8
+    pool is read a head vector (up to 16 bytes) a lane load, so it must be
+    aligned to that."""
     hd = 12 if bad == "head_dim" else 8
     q, kp, vp, tables, lens = _case(6, (32, 17, 9, 1), hd=hd)
     q, kp, vp, tables, lens = map(_t, (q, kp, vp, tables, lens))
+    if bad == "misaligned_int8_pool":
+        qk, ks = tq.kv_pack_int8(kp)
+        qv, vs = tq.kv_pack_int8(vp)
+        qk = torch.zeros(qk.numel() + 4, dtype=torch.int8)[4:].view(qk.shape)
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            tpa._paged_cuda(q, qk, qv, tables, lens, ks, vs)
+        assert tpa._fns is None
+        return
     if bad == "tables_dtype":
         tables = tables.long()
     elif bad == "pool_without_scales":

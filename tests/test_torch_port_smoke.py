@@ -399,3 +399,56 @@ def test_sass_check_holds_kernels_of_their_sources():
         for key, op in rules:
             assert key.split("I")[0] + "(" in src, key
             assert op in (cs.SASS_TF32, cs.SASS_BF16)
+
+
+@pytest.mark.parametrize("nbytes", [1, 1_300_000, 5_200_000, 21_700_000,
+                                    38_900_000, 44_000_000, 150_000_000])
+def test_timings_cycle_more_than_twice_l2(nbytes):
+    """A timing cycles through the fewest input sets whose bytes exceed
+    L2_FLUSH_BYTES (100 MB, twice the H100's L2)."""
+    n = cs.n_sets(nbytes)
+    assert n * nbytes > cs.L2_FLUSH_BYTES >= (n - 1) * nbytes
+    assert cs.L2_FLUSH_BYTES >= 2 * 50e6
+
+
+def test_paged_timing_shapes_and_long_cache_bound():
+    """The main path's lengths (17-192, drawn as before) over 16-entry
+    tables, and GPT-2's full context (769-1024) over 64-entry ones, whose
+    bytes bound is ~0.013 ms f32 and ~0.0033 ms int8."""
+    t = cs.paged_timing_lengths(0)
+    main, n_main = t["main"]
+    long, n_long = t["long"]
+    assert (n_main, n_long) == (16, 64)
+    assert np.array_equal(main, np.random.default_rng(1).integers(17, 193,
+                                                                  8))
+    assert main.min() >= 17 and main.max() <= 192
+    assert long.min() >= 769 and long.max() <= 1024
+    case = cs.paged_case(0, long, n_table=64, device="cpu")
+    f32 = cs.paged_bound(case)
+    i8 = cs.paged_bound(cs.quantize_case(case))
+    assert f32["bound_by"] == i8["bound_by"] == "bytes"
+    assert 0.011 < f32["bound_ms"] < 0.0135
+    assert 0.0028 < i8["bound_ms"] < 0.0035
+    assert cs.n_sets(f32["bytes"]) == 3
+
+
+def test_w4a16_parity_cases_cover_the_kernels_edges():
+    """The card's w4a16 cases: both x types, one and four m-tiles, groups
+    straddling a 16-row chunk and the two halves, odd K, several x
+    segments (K > 768), a weight not on 16 bytes."""
+    cases = cs.W4_CASES
+    assert {c[4] for c in cases} == {torch.float32, torch.bfloat16}
+    assert {1, 8} <= {c[0] for c in cases} and max(c[0] for c in cases) > 8
+
+    def group_size(k, group):        # the quantizer's effective size
+        return -(-k // -(-k // group))
+
+    def straddles_halves(k, group):  # one group holds k = kh - 1 and kh
+        kh, gs = (k + 1) // 2, group_size(k, group)
+        return (kh - 1) // gs == kh // gs
+
+    assert any(straddles_halves(c[1], c[3]) for c in cases)
+    assert any(group_size(c[1], c[3]) % 16 for c in cases)
+    assert any(c[1] % 2 for c in cases)
+    assert any((c[1] + 1) // 2 > 384 for c in cases)
+    assert any(c[5] % 16 for c in cases)
