@@ -17,13 +17,41 @@
 // int4 + 2.4 MB scales) is read once while each weight byte feeds only
 // 2·M operations.
 //
-// w8a8 keeps the weight read once and coalesced: one thread per output
-// column n, 128 columns a block, BM rows a block (8, or 32 when M > 8); a
-// warp reads 32 consecutive bytes of a weight row per load, and each
-// thread issues a whole K chunk's loads before it uses any; the
-// activations are staged per K chunk in shared memory; 4 K bytes of a
-// column go into one register for __dp4a (s8 x s8 -> s32), ragged K
-// zero-padded in registers, so the sum stays exact.
+// w8a8 runs its products on the tensor cores (s8 mma.sync m16n8k32 with s32
+// accumulation: IMMA.16832.S8.S8), operands swapped as in w4a16:
+//  - out^T = W^T·x^T: the mma's 16-row side runs over output columns, its
+//    8-wide side over rows of x (MT = ceil(M / 8) m-tiles of 8 rows a
+//    block, at most 8).  A lane's four columns are one word of a weight row: mma rows g
+//    and g + 8 of tile i are its columns cw + 2i and cw + 2i + 1.
+//  - the k order inside a 64-row chunk is free (the same for both
+//    operands): lane group t (lane & 3) takes rows 16t .. 16t + 15 of the
+//    chunk, k-step a and register half h rows 16t + 8a + 4h + j.  So x's
+//    B fragments of both k-steps are one 16-byte load of 16 consecutive x
+//    bytes, and the 4 words a lane reads for one register group (rows
+//    16t + 4v .. +3, its 4 columns) transpose into 4 A registers with 8
+//    PRMTs (__byte_perm).  Rows 16 apart start on the same byte mod 16
+//    (16·N ≡ 0), so the four row groups of one load are staged 8 banks
+//    apart and every shared-memory load is free of bank conflicts.
+//  - the weight streams through a kW8Stages-deep cp.async ring of 64-row
+//    chunks, each row the 16-byte aligned superset of the block's 192
+//    columns (208 bytes; N = 50257 leaves rows off 16 bytes, which no TMA
+//    tensor map takes), read at the row's offset with a funnel shift of
+//    two words; a weight base not on 16 bytes gets byte copies at its
+//    start.  192 columns a block (6 warps of 32) and two blocks an SM make
+//    the head's 262 blocks one wave on 132 SMs, each SM with ~80 KB of
+//    weight in flight.
+//  - x is staged once a segment of 768 k (zero past K and past M, so rows
+//    of a ragged last chunk add nothing whatever the ring holds there),
+//    by cp.async where its rows start on 16 bytes (the first segment in
+//    the ring's first group).
+//  - the s32 sum is exact in any order, and the output is one cvt.rn and
+//    one f32 multiply, so the result is bitwise that of the plain version.
+//    The output tile goes through shared memory and out a row at a time
+//    (a warp's stores 128 contiguous bytes, not 8 columns of 4 rows).
+// What holds it back (PERF.md, kernel_variants.py): the ring.  The weight
+// copies alone take about the kernel's time, the products hide under
+// them, and what is left is a fixed cost of launch, the first round trip
+// and the stores.
 //
 // w4a16 runs its products on the tensor cores, where the f32 rate outside
 // them (2·8·768·50257 flop at 67 TFLOP/s = 9.2 µs) is above the 7.0 µs
@@ -82,70 +110,244 @@
 
 namespace {
 
-constexpr int kThreads = 128;    // output columns per block
-constexpr int kKC8 = 64;         // w8a8: K bytes per chunk
+// Copy the 16-byte aligned chunk at address a, of which only the bytes in
+// [lo, hi) are read; the others are left as they are (callers never use
+// them) or zero-filled
+__device__ __forceinline__ void copy16(uint8_t* d, uintptr_t a, uintptr_t lo,
+                                       uintptr_t hi) {
+  if (a >= lo && a + 16 <= hi) {
+    cp_async<16>(d, (const void*)a, true);
+  } else if (a < lo && a + 16 > lo) {
+    // the buffer's first bytes, when it does not start on 16 bytes
+    for (int b = 0; b < 16; ++b)
+      if (a + b >= lo && a + b < hi) d[b] = *(const uint8_t*)(a + b);
+  } else if (a < hi && a + 16 > hi) {
+    cp_async_n<16>(d, (const void*)a, (int)(hi - a));
+  }
+}
 
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
+// -- w8a8 ----------------------------------------------------------------------
+
+constexpr int kW8Threads = 192;                 // 6 warps
+constexpr int kW8BN = 192;                      // output columns a block, 32 a warp
+constexpr int kW8KC = 64;                       // weight rows a chunk: two k-steps
+constexpr int kW8Stages = 4;                    // the weight ring
+constexpr int kW8Copies = (kW8BN + 16) / 16;    // 16-byte copies a row
+constexpr int kW8Pitch = 16 * kW8Copies;        // bytes a staged row
+constexpr int kW8Group = 16 * kW8Pitch + 32;    // bytes a group of 16 rows
+constexpr int kW8Stage = 4 * kW8Group;          // bytes a chunk
+constexpr int kW8XSeg = 768;                    // k of x staged at once
+constexpr int kW8XPitch = kW8XSeg + 64;         // bytes a row of x (64 mod 128)
+constexpr int kW8OPitch = kW8BN + 1;            // floats a row of the output tile
+static_assert(kW8Group / 4 % 16 == 8, "row groups must lie 8 banks apart");
+static_assert(kW8XSeg % kW8KC == 0, "a chunk lies inside one x segment");
+static_assert(64 * kW8OPitch * 4 <= kW8Stages * kW8Stage,
+              "the ring holds the output tile of 8 m-tiles");
+
+// Shared memory of a block at MT m-tiles: x of a segment (8·MT rows), then
+// the weight ring (which holds the output tile at the end)
+constexpr int w8_smem(int mt) {
+  return 8 * mt * kW8XPitch + kW8Stages * kW8Stage;
+}
+
+// c += a·b: s8 x s8 -> s32, exact
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Byte c of r[j] to byte j of o[c]: 4 words of 4 rows x 4 columns to 4
+// words of one column x 4 rows each
+__device__ __forceinline__ void transpose4(const uint32_t* r, uint32_t* o) {
+  const uint32_t s0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t s1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t s2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t s3 = __byte_perm(r[2], r[3], 0x7362);
+  o[0] = __byte_perm(s0, s2, 0x5410);
+  o[1] = __byte_perm(s0, s2, 0x7632);
+  o[2] = __byte_perm(s1, s3, 0x5410);
+  o[3] = __byte_perm(s1, s3, 0x7632);
+}
+
+// grid (ceil(N / kW8BN), ceil(M / (8·MT))), block kW8Threads, dynamic
+// shared memory w8_smem(MT).
+template <int MT>
+__global__ void __launch_bounds__(kW8Threads, 2)
 w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ scale, float* __restrict__ out,
             int M, int N, int K) {
-  __shared__ int xs[BM][kKC8 / 4];   // x chunk, 4 bytes of K per int
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  int acc[BM];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) acc[r] = 0;
+  constexpr int MR = 8 * MT;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* xs = smem;
+  uint8_t* ring = smem + MR * kW8XPitch;
 
-  for (int k0 = 0; k0 < K; k0 += kKC8) {
-    const int kend = min(kKC8, K - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * (kKC8 / 4); i += kThreads) {
-      const int r = i / (kKC8 / 4);
-      const int c = (i % (kKC8 / 4)) * 4;
-      unsigned packed = 0;
+  const int n0 = blockIdx.x * kW8BN;
+  const int m0 = blockIdx.y * MR;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int cw = (threadIdx.x >> 5) * 32 + 4 * g;   // this lane's 4 columns
+  const uintptr_t wbase = (uintptr_t)w;
+  const uintptr_t wend = wbase + (uintptr_t)K * N;
+  const int nchunks = (K + kW8KC - 1) / kW8KC;
+
+  // Stage chunk c's rows below K into ring slot st: row r of the chunk in
+  // group r / 16 at line r % 16, as the aligned superset of the block's
+  // columns
+  auto stage = [&](int c, int st) {
+    uint8_t* dst = ring + st * kW8Stage;
+    const int k0 = c * kW8KC;
+    const int nr = min(kW8KC, K - k0);
+    for (int i = threadIdx.x; i < nr * kW8Copies; i += kW8Threads) {
+      const int r = i / kW8Copies;
+      const int q16 = i - r * kW8Copies;
+      const uintptr_t a =
+          ((wbase + (uintptr_t)(k0 + r) * N + n0) & ~(uintptr_t)15) + 16 * q16;
+      copy16(dst + (r >> 4) * kW8Group + (r & 15) * kW8Pitch + 16 * q16, a,
+             wbase, wend);
+    }
+  };
+
+  // x's k in [k0, k0 + kW8XSeg) of the block's rows, k-contiguous, zero
+  // past K and past M: by cp.async (in the caller's next group) where
+  // every row starts on 16 bytes, else by byte loads
+  const bool x16 = (((uintptr_t)x | (uintptr_t)K) & 15) == 0;
+  auto stage_x = [&](int k0) {
+    if (x16) {
+      constexpr int PER_ROW = kW8XSeg / 16;
+      for (int i = threadIdx.x; i < MR * PER_ROW; i += kW8Threads) {
+        const int r = i / PER_ROW;
+        const int k = k0 + 16 * (i - r * PER_ROW);
+        const bool in = m0 + r < M && k < K;
+        cp_async<16>(xs + r * kW8XPitch + (k - k0),
+                     in ? x + (size_t)(m0 + r) * K + k : x, in);
+      }
+      return;
+    }
+    constexpr int PER_ROW = kW8XSeg / 4;
+    for (int i = threadIdx.x; i < MR * PER_ROW; i += kW8Threads) {
+      const int r = i / PER_ROW;
+      const int k = k0 + 4 * (i - r * PER_ROW);
+      uint32_t v = 0u;
       if (m0 + r < M) {
-        const int8_t* xr = x + (size_t)(m0 + r) * K + k0;
+        const int8_t* xr = x + (size_t)(m0 + r) * K;
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (c + e < kend) packed |= (unsigned)(uint8_t)xr[c + e] << (8 * e);
+          if (k + e < K) v |= (uint32_t)(uint8_t)xr[k + e] << (8 * e);
       }
-      xs[r][c / 4] = (int)packed;
+      *reinterpret_cast<uint32_t*>(xs + r * kW8XPitch + (k - k0)) = v;
     }
-    __syncthreads();
-    if (n >= N) continue;
-    const int8_t* wc = w + (size_t)k0 * N + n;
-    int wq[kKC8 / 4];
-    if (kend == kKC8) {
-      uint8_t bytes[kKC8];
+  };
+
+  // Where this lane's word of line u (rows 16t + u of every chunk) lies
+  // in a slot: the lane's part, and the word and funnel shift of the line
+  // (the same for the whole warp): row k starts at byte (w + k·N + n0) mod
+  // 16 of its superset, which is the same for every chunk
+  const int lane_off = t * kW8Group + cw;
+  int uoff[16];
+  uint32_t sh[16];
 #pragma unroll
-      for (int j = 0; j < kKC8; ++j) bytes[j] = (uint8_t)wc[(size_t)j * N];
-#pragma unroll
-      for (int c = 0; c < kKC8 / 4; ++c)
-        wq[c] = (int)((unsigned)bytes[4 * c] | (unsigned)bytes[4 * c + 1] << 8
-                      | (unsigned)bytes[4 * c + 2] << 16
-                      | (unsigned)bytes[4 * c + 3] << 24);
-    } else {
-#pragma unroll
-      for (int c = 0; c < kKC8 / 4; ++c) {
-        unsigned packed = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (4 * c + e < kend)
-            packed |= (unsigned)(uint8_t)wc[(size_t)(4 * c + e) * N] << (8 * e);
-        wq[c] = (int)packed;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kKC8 / 4; ++c)
-#pragma unroll
-      for (int r = 0; r < BM; ++r) acc[r] = __dp4a(xs[r][c], wq[c], acc[r]);
+  for (int u = 0; u < 16; ++u) {
+    const uint32_t lo = (uint32_t)(wbase + (uintptr_t)u * N + n0) & 15u;
+    uoff[u] = u * kW8Pitch + (int)(lo & ~3u);
+    sh[u] = 8u * (lo & 3u);
   }
-  if (n >= N) return;
-  const float s = scale[n];
+
+  int acc[2][MT][4];
 #pragma unroll
-  for (int r = 0; r < BM; ++r)
-    if (m0 + r < M) out[(size_t)(m0 + r) * N + n] = (float)acc[r] * s;
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  // One chunk from ring slot st, whose first row is k = xk of the staged
+  // x segment: 2 k-steps x 2 column tiles x MT m-tiles
+  auto compute = [&](int st, int xk) {
+    const uint8_t* slot = ring + st * kW8Stage + lane_off;
+    uint32_t wv[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const uint32_t* p = reinterpret_cast<const uint32_t*>(slot + uoff[u]);
+      wv[u] = __funnelshift_r(p[0], p[1], sh[u]);
+    }
+    // a[v][c]: column cw + c at rows 16t + 4v .. 16t + 4v + 3 (v = 2a + h)
+    uint32_t a[4][4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) transpose4(wv + 4 * v, a[v]);
+#pragma unroll
+    for (int j = 0; j < MT; ++j) {
+      // x row 8j + g at rows 16t .. 16t + 15: (k-step 0: h = 0, 1; k-step 1)
+      const uint4 b = *reinterpret_cast<const uint4*>(
+          xs + (8 * j + g) * kW8XPitch + xk + 16 * t);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_s8(acc[i][j], a[0][2 * i], a[0][2 * i + 1], a[1][2 * i],
+               a[1][2 * i + 1], b.x, b.y);
+        mma_s8(acc[i][j], a[2][2 * i], a[2][2 * i + 1], a[3][2 * i],
+               a[3][2 * i + 1], b.z, b.w);
+      }
+    }
+  };
+
+  // the ring: kW8Stages - 1 chunks staged ahead of the one computed; x's
+  // first segment rides in the first group
+  stage_x(0);
+#pragma unroll
+  for (int s = 0; s < kW8Stages - 1; ++s) {
+    if (s < nchunks) stage(s, s);
+    cp_commit();
+  }
+  int seg = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    const int k0 = c * kW8KC;
+    if (k0 / kW8XSeg != seg) {
+      // a later segment of x: every warp is done with the old one
+      seg = k0 / kW8XSeg;
+      __syncthreads();
+      stage_x(seg * kW8XSeg);
+      cp_commit();
+      cp_wait_all();
+    }
+    cp_wait<kW8Stages - 2>();
+    __syncthreads();
+    if (c + kW8Stages - 1 < nchunks) {
+      stage(c + kW8Stages - 1, (c + kW8Stages - 1) % kW8Stages);
+    }
+    cp_commit();
+    compute(c % kW8Stages, k0 - seg * kW8XSeg);
+  }
+  cp_wait_all();
+  __syncthreads();
+
+  // The output tile through shared memory (the ring's), then stored a row
+  // at a time: c0, c1 are column cw + 2i, rows 2t, 2t + 1 of each m-tile;
+  // c2, c3 column cw + 2i + 1.  One conversion and one multiply, nothing
+  // fused
+  float* ot = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = cw + 2 * i + (e >> 1);
+      const float s = n0 + c < N ? scale[n0 + c] : 0.f;
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+        ot[(8 * j + 2 * t + (e & 1)) * kW8OPitch + c] =
+            __fmul_rn(__int2float_rn(acc[i][j][e]), s);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < MR * kW8BN; i += kW8Threads) {
+    const int r = i / kW8BN;
+    const int c = i - r * kW8BN;
+    if (m0 + r < M && n0 + c < N)
+      out[(size_t)(m0 + r) * N + n0 + c] = ot[r * kW8OPitch + c];
+  }
 }
 
 // -- w4a16 ---------------------------------------------------------------------
@@ -196,22 +398,6 @@ __device__ __forceinline__ W4Chunk w4_chunk(int r0, int kh, int K, int gs,
   }
   c.r1 = r1;
   return c;
-}
-
-// Copy the 16-byte aligned chunk at address a, of which only the bytes in
-// [lo, hi) are read; the others are left as they are (callers never use
-// them) or zero-filled
-__device__ __forceinline__ void copy16(uint8_t* d, uintptr_t a, uintptr_t lo,
-                                       uintptr_t hi) {
-  if (a >= lo && a + 16 <= hi) {
-    cp_async<16>(d, (const void*)a, true);
-  } else if (a < lo && a + 16 > lo) {
-    // the buffer's first bytes, when it does not start on 16 bytes
-    for (int b = 0; b < 16; ++b)
-      if (a + b >= lo && a + b < hi) d[b] = *(const uint8_t*)(a + b);
-  } else if (a < hi && a + 16 > hi) {
-    cp_async_n<16>(d, (const void*)a, (int)(hi - a));
-  }
 }
 
 // code·2^P of the nibble at bits P..P+3 of v (P <= 16): the nibble, its
@@ -609,6 +795,26 @@ cudaError_t launch_w4_mt(const TX* x, const uint8_t* wq, const float* sg,
   return cudaGetLastError();
 }
 
+template <int MT>
+cudaError_t launch_w8_mt(const int8_t* x, const int8_t* w, const float* scale,
+                         float* out, int M, int N, int K, cudaStream_t s) {
+  constexpr int smem = w8_smem(MT);
+  // two blocks an SM need the largest shared-memory carveout at MT = 8
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        w8a8_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(w8a8_kernel<MT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((N + kW8BN - 1) / kW8BN, (M + 8 * MT - 1) / (8 * MT));
+  w8a8_kernel<MT><<<grid, kW8Threads, smem, s>>>(x, w, scale, out, M, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int w8a8_matmul(const int8_t* x, const int8_t* w,
@@ -616,15 +822,22 @@ extern "C" int w8a8_matmul(const int8_t* x, const int8_t* w,
                            int K, void* stream) {
   if (bad_dims(M, N, K)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int gx = (N + kThreads - 1) / kThreads;
-  if (M <= 8) {
-    w8a8_kernel<8><<<dim3(gx, 1), kThreads, 0, s>>>(x, w, scale, out, M, N, K);
-  } else {
-    w8a8_kernel<32><<<dim3(gx, (M + 31) / 32), kThreads, 0, s>>>(
-        x, w, scale, out, M, N, K);
+  // ceil(M / 8) m-tiles a block, at most 8 (64 rows; more rows, more
+  // blocks over them)
+  switch (min((M + 7) / 8, 8)) {
+    case 1: return (int)launch_w8_mt<1>(x, w, scale, out, M, N, K, s);
+    case 2: return (int)launch_w8_mt<2>(x, w, scale, out, M, N, K, s);
+    case 3: return (int)launch_w8_mt<3>(x, w, scale, out, M, N, K, s);
+    case 4: return (int)launch_w8_mt<4>(x, w, scale, out, M, N, K, s);
+    case 5: return (int)launch_w8_mt<5>(x, w, scale, out, M, N, K, s);
+    case 6: return (int)launch_w8_mt<6>(x, w, scale, out, M, N, K, s);
+    case 7: return (int)launch_w8_mt<7>(x, w, scale, out, M, N, K, s);
+    default: return (int)launch_w8_mt<8>(x, w, scale, out, M, N, K, s);
   }
-  return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory a block of the w8a8 kernel at mt (1..8) m-tiles
+extern "C" int w8a8_smem(int mt) { return w8_smem(mt); }
 
 template <typename TX>
 static int launch_w4(const TX* x, const uint8_t* wq, const float* sg,

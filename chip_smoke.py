@@ -7,10 +7,11 @@ and checks them, phase by phase, each phase printing its own lines:
 1. card — the card's name and power limit (``nvidia-smi``) and the build of
    every CUDA kernel (one ``nvcc`` per source, started together): ptxas's
    registers, spills and static shared memory, the dynamic shared memory
-   of the forward, ``fused_bn``, ``w4a16`` and paged kernels, and their
-   SASS (``cuobjdump``), which must hold the tensor-core products (TF32
-   HMMA in the flash kernels, f32 ``fused_bn`` and f32-x ``w4a16``, BF16
-   HMMA in bf16 ``fused_bn`` and bf16-x ``w4a16``).
+   of the forward, ``fused_bn``, ``w8a8``, ``w4a16`` and paged kernels,
+   and their SASS (``cuobjdump``), which must hold the tensor-core
+   products (TF32 HMMA in the flash kernels, f32 ``fused_bn`` and f32-x
+   ``w4a16``, BF16 HMMA in bf16 ``fused_bn`` and bf16-x ``w4a16``, s8
+   IMMA in ``w8a8``).
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, then timed on the device (CUDA graph
    replay between CUDA events) beside its plain version and, where one
@@ -29,10 +30,14 @@ and checks them, phase by phase, each phase printing its own lines:
      (B, T, 3·H·D) projection); timed at (8, 12, 1024, 64) f32 causal,
      without the LSE (predict) and with it (training), and at T = 128 and
      512 (the H100's crossover against the plain path and SDPA);
-   - w8a8 (bitwise) and w4a16 (f32 and bf16 x) at the predict head
-     (M = 8, K = 768, N = 50257) and at ragged shapes: groups straddling
-     a chunk and the two halves, odd K, M = 1, 17, 33, several x
-     segments, a packed weight not on 16 bytes.
+   - w8a8, bitwise in every ``W8_CASES`` case (M = 1 to 64, K below one
+     k-step, ragged, odd and past one x segment, N = 1, 15, 61, 50257, a
+     weight one byte into its buffer, all -128 / 127), timed at the
+     predict head (M = 8, K = 768, N = 50257) and at M = 1 and 33 beside
+     ``torch._int_mm`` + scale;
+   - w4a16 (f32 and bf16 x) at the predict head and at ragged shapes:
+     groups straddling a chunk and the two halves, odd K, M = 1, 17, 33,
+     several x segments, a packed weight not on 16 bytes.
 3. generation — ``TransformerLM`` at GPT-2-small geometry served by
    ``ClusterServing`` in generation mode (16 prompts, two waves, f32 and
    int8 KV); paged-kernel launches = decode steps x 12; token sequences
@@ -316,15 +321,17 @@ def build_kernels() -> dict:
 
 
 # the kernels that must run on the tensor cores, by the SASS instruction of
-# their products: f32 as 3xTF32, bf16 fused_bn as bf16 mma
+# their products: f32 as 3xTF32, bf16 as bf16 mma, s8 as s8 mma (m16n8k32)
 SASS_TF32, SASS_BF16 = "HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16"
+SASS_S8 = "IMMA.16832.S8.S8"
 SASS_KERNELS = {
     fb.KERNEL: (("fused_bn_kernelIf", SASS_TF32),
                 ("fused_bn_kernelI13__nv_bfloat16", SASS_BF16)),
     fa.KERNEL: (("flash_fwd_kernel", SASS_TF32),),
     fa.KERNEL_BWD: (("flash_bwd_dq_kernel", SASS_TF32),
                     ("flash_bwd_dkv_kernel", SASS_TF32)),
-    qm.KERNEL: (("w4a16_kernelIf", SASS_TF32),
+    qm.KERNEL: (("w8a8_kernel", SASS_S8),
+                ("w4a16_kernelIf", SASS_TF32),
                 ("w4a16_kernelI13__nv_bfloat16", SASS_BF16)),
 }
 
@@ -332,7 +339,7 @@ SASS_KERNELS = {
 def sass_check() -> dict:
     """Count, in each built library's SASS (``cuobjdump -sass``), the
     tensor-core instructions and FFMAs of every kernel function; fail if a
-    kernel named in SASS_KERNELS lacks its HMMA."""
+    kernel named in SASS_KERNELS lacks its HMMA or IMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
     for name, rules in SASS_KERNELS.items():
@@ -344,7 +351,8 @@ def sass_check() -> dict:
             m = re.search(r"Function : (\S+)", ln)
             if m:
                 fn = m.group(1)
-                counts[fn] = {SASS_TF32: 0, SASS_BF16: 0, "FFMA": 0}
+                counts[fn] = {SASS_TF32: 0, SASS_BF16: 0, SASS_S8: 0,
+                              "FFMA": 0}
             elif fn:
                 for op in counts[fn]:
                     if op in ln:
@@ -362,14 +370,15 @@ def sass_check() -> dict:
 
 
 def smem_line() -> str:
-    """Dynamic shared memory a block of the forward, fused_bn and w4a16
-    kernels, as their libraries report it, and the paged kernel's table
-    (ptxas -v shows only static shared memory)."""
+    """Dynamic shared memory a block of the forward, fused_bn, w8a8 and
+    w4a16 kernels, as their libraries report it, and the paged kernel's
+    table (ptxas -v shows only static shared memory)."""
     flash = _build.load(fa.KERNEL).flash_attention_fwd_smem
     bn = _build.load(fb.KERNEL).fused_bn_smem
+    w8 = _build.load(qm.KERNEL).w8a8_smem
     w4 = _build.load(qm.KERNEL).w4a16_smem
-    for fn in (flash, bn, w4):
-        fn.argtypes = [ctypes.c_int] * 2
+    for fn in (flash, bn, w8, w4):
+        fn.argtypes = [ctypes.c_int] * (1 if fn is w8 else 2)
         fn.restype = ctypes.c_int
     return ", ".join(
         [f"flash[{t} D={d}] {flash(b, d)} B" for t, b in (("f32", 0),
@@ -378,6 +387,7 @@ def smem_line() -> str:
         + [f"fused_bn[{t} BN={n}] {bn(b, n)} B" for t, b in (("f32", 0),
                                                               ("bf16", 1))
            for n in (64, 128)]
+        + [f"w8a8[{8 * mt} rows] {w8(mt)} B" for mt in (1, 5, 8)]
         + [f"w4a16[{t} x, {8 * mt} rows] {w4(b, mt)} B"
            for t, b in (("f32", 0), ("bf16", 1)) for mt in (1, 4)]
         + [f"paged[table of {n} entries, 96 (row, head) pairs] "
@@ -958,37 +968,72 @@ def flash_timing(seed: int, B=8, H=12, T=1024, D=64, iters=40,
             **b}
 
 
-def w8a8_case(g, M, K, N):
-    x = torch.from_numpy(g.integers(-127, 128, (M, K), dtype=np.int8))
-    w = torch.from_numpy(g.integers(-127, 128, (K, N), dtype=np.int8))
+def w8a8_case(g, M, K, N, w_offset=0, extremes=False):
+    """x, w and scale on the card: s8 values over all of [-128, 127], or
+    (``extremes``) only -128 and 127; ``w_offset`` puts w that many bytes
+    into its buffer (a contiguous view whose base is off 16 bytes)."""
+    if extremes:
+        ends = np.array([-128, 127], np.int8)
+        x, w = g.choice(ends, (M, K)), g.choice(ends, (K, N))
+    else:
+        x = g.integers(-128, 128, (M, K), dtype=np.int8)
+        w = g.integers(-128, 128, (K, N), dtype=np.int8)
     s = torch.from_numpy(g.uniform(1e-4, 1e-2, N).astype(np.float32))
-    return x.cuda(), w.cuda(), s.cuda()
+    wt = torch.from_numpy(w).cuda()
+    if w_offset:
+        buf = torch.zeros(K * N + w_offset, dtype=torch.int8, device="cuda")
+        buf[w_offset:] = wt.flatten()
+        wt = buf[w_offset:].view(K, N)
+    return torch.from_numpy(x).cuda(), wt, s.cuda()
 
 
-def w8a8_phase(seed: int, M=8, K=768, N=50257) -> dict:
-    g = np.random.default_rng(seed + 30)
-    for m, k, n in ((1, K, N), (M, K, N), (33, K, N), (37, 100, 61)):
-        x, w, s = w8a8_case(g, m, k, n)
-        got = qm.w8a8_matmul(x, w, s, impl="cuda")
-        torch.cuda.synchronize()
-        ref = qm.w8a8_matmul(x, w, s, impl="torch")
-        check(torch.equal(got, ref),
-              f"w8a8 ({m}, {k}, {n}): not bitwise equal to the plain "
-              f"version (max abs err {float((got - ref).abs().max()):.3e})")
-    say("w8a8 parity: bitwise equal at (M, K, N) = (1|8|33, 768, 50257) "
-        "and (37, 100, 61)")
+# (M, K, N, weight offset, extremes): the head at M = 1, 8 (one m-tile a
+# block), 9 (two) and 33 (five), and M = 20 (three), 64 (eight) and 65 (two
+# blocks of rows); K below one k-step (20), ragged (100), odd and past one
+# x segment (777); N = 1, below one mma tile (15), odd (61); a weight one
+# byte into its buffer; all -128 / 127 (the largest sums)
+W8_CASES = ((1, 768, 50257, 0, False),
+            (8, 768, 50257, 0, False),
+            (9, 768, 50257, 0, False),
+            (33, 768, 50257, 0, False),
+            (64, 777, 1000, 0, False),
+            (8, 20, 15, 0, False),
+            (33, 100, 61, 0, False),
+            (1, 777, 1, 0, False),
+            (20, 20, 1, 0, False),
+            (65, 100, 61, 0, False),
+            (8, 768, 50257, 1, False),
+            (9, 777, 61, 1, False),
+            (64, 768, 1000, 0, True),
+            (8, 777, 50257, 0, True))
+# rows of x timed at the head: one request, the served batch, and a batch
+# of five m-tiles
+W8_TIMED_M = (1, 8, 33)
+
+
+def w8a8_timing(seed: int, M: int, K=768, N=50257, plain=False) -> dict:
+    """The kernel at one shape, cycling over input sets (the first held
+    against the plain version, then weights and scales drawn on the card),
+    beside ``torch._int_mm`` + scale and, with ``plain``, the plain
+    version."""
+    g = np.random.default_rng(seed + 31 + M)
     x, w, s = w8a8_case(g, M, K, N)
     b = w8a8_bound(M, K, N)
-    # one weight and scale a set, as many as n_sets asks for, on the card
-    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30 + M)
     sets = [(x, w, s)] + [
-        (x, torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+        (x, torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
                           dtype=torch.int8),
          torch.rand(N, generator=gen, device="cuda") * 1e-2 + 1e-4)
         for _ in range(1, n_sets(b["bytes"]))]
-    # _int_mm needs M > 16 and K, N multiples of 8: pad M to 32, N to 8
-    n8 = -(-N // 8) * 8
-    xp = torch.zeros(32, K, dtype=torch.int8, device="cuda")
+    got = qm.w8a8_matmul(x, w, s, impl="cuda")
+    torch.cuda.synchronize()
+    check(torch.equal(got, qm.w8a8_matmul(x, w, s, impl="torch")),
+          f"w8a8 ({M}, {K}, {N}) timing set: not bitwise equal to the plain "
+          f"version")
+    # _int_mm needs M > 16 and K, N multiples of 8: M padded to 32 (above,
+    # to a multiple of 8), N to a multiple of 8
+    mp, n8 = max(32, -(-M // 8) * 8), -(-N // 8) * 8
+    xp = torch.zeros(mp, K, dtype=torch.int8, device="cuda")
     xp[:M] = x
     padded = []
     for _, ws, ss in sets:
@@ -998,21 +1043,42 @@ def w8a8_phase(seed: int, M=8, K=768, N=50257) -> dict:
     ms = cuda_ms(cycled([lambda c=c: qm.w8a8_matmul(*c, impl="cuda")
                          for c in sets]))
     plain_ms = cuda_ms(cycled([lambda c=c: qm.w8a8_matmul(*c, impl="torch")
-                               for c in sets]))
+                               for c in sets])) if plain else None
     lib_ms = cuda_ms(cycled([
         lambda wp=wp, ss=ss: torch._int_mm(xp, wp)[:M, :N].float() * ss
         for wp, ss in padded]))
     say(f"w8a8 timing (M={M}, K={K}, N={N}, {len(sets)} input sets): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm (M padded to "
-        f"32, N to {n8}) + scale {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} "
-        f"ms ({b['bound_by']}: {b['bytes']} B), "
-        f"{100 * b['bound_ms'] / ms:.1f}% of bound")
+        f"{ms:.4f} ms, "
+        + (f"plain {plain_ms:.4f} ms, " if plain else "")
+        + f"torch._int_mm (M padded to {mp}, N to {n8}) + scale "
+        f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+        f"{b['bytes']} B), {100 * b['bound_ms'] / ms:.1f}% of bound")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b}
+
+
+def w8a8_phase(seed: int) -> dict:
+    g = np.random.default_rng(seed + 30)
+    for m, k, n, off, ext in W8_CASES:
+        x, w, s = w8a8_case(g, m, k, n, off, ext)
+        got = qm.w8a8_matmul(x, w, s, impl="cuda")
+        torch.cuda.synchronize()
+        ref = qm.w8a8_matmul(x, w, s, impl="torch")
+        check(torch.equal(got, ref),
+              f"w8a8 ({m}, {k}, {n}, weight offset {off}, extremes {ext}): "
+              f"not bitwise equal to the plain version (max abs err "
+              f"{float((got - ref).abs().max()):.3e})")
+    say(f"w8a8 parity: bitwise equal in {len(W8_CASES)} cases (M, K, N, "
+        f"weight offset, extremes) {list(W8_CASES)}")
+    t = {m: w8a8_timing(seed, m, plain=m == 8) for m in W8_TIMED_M}
+    main = t[8]
     return {"name": "w8a8_matmul", "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/quant_matmul.cu",
             "replaces": "analytics_zoo_tpu/ops/quant_matmul.py:144",
-            "launches": None, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "library_ms": lib_ms}
+            "launches": None, "max_abs_err": 0.0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            **{f"m{m}_{key}": t[m][key] for m in W8_TIMED_M if m != 8
+               for key in ("ms", "bound_ms", "library_ms")}}
 
 
 def w4a16_case(g, M, K, N, group, dtype=torch.float32, w_offset=0):
@@ -2325,7 +2391,9 @@ def kernel_timing(seed: int) -> None:
         for shape, (lens, n_table) in paged_timing_lengths(seed).items():
             ms[f"paged[{variant}/{shape}]"] = paged_timing(
                 seed + 100, variant, shape, lens, n_table)["ms"]
-    ms["w8a8"] = w8a8_phase(seed)["ms"]
+    w8 = w8a8_phase(seed)
+    ms["w8a8"] = w8["ms"]
+    ms.update({f"w8a8[M={m}]": w8[f"m{m}_ms"] for m in W8_TIMED_M if m != 8})
     for name, dt, s in (("f32", torch.float32, seed),
                         ("bf16", torch.bfloat16, seed + 1)):
         ms[f"w4a16[{name}]"] = w4a16_timing(s, 8, 768, 50257, 64, dt)["ms"]

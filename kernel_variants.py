@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the w4a16 and paged-decode kernels goes, on the card.
+"""Where the time of the w8a8, w4a16 and paged-decode kernels goes, on the
+card.
 
 Builds text variants of ``analytics_zoo_tpu_torch/csrc/quant_matmul.cu``
-with one part of the ``w4a16`` kernel cut out, and times each at the
-predict head (8, 768, 50257, G = 12) with ``chip_smoke.py``'s timing
-(CUDA-graph replay, input sets of more than 100 MB in turn):
+with one part of the ``w8a8`` and ``w4a16`` kernels cut out, and times
+each kernel of each at the predict head ((8, 768, 50257); w4a16 with
+G = 12) with ``chip_smoke.py``'s timing (CUDA-graph replay, input sets of
+more than 100 MB in turn):
 
 - ``as built``: the kernel;
-- ``ring only``: no products (the weight and scale ring, x, the loop);
+- ``ring only``: no products (the weight ring, and w4a16's scale ring, x,
+  the loop);
 - ``products only``: no weight or scale copies (x, the loop, the
   products on stale shared memory);
 - ``skeleton``: neither (x, the chunk loop and its barriers, the stores).
@@ -35,11 +38,15 @@ from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops import paged_attention as pa
 from analytics_zoo_tpu_torch.ops import quant_matmul as qm
 
-COMPUTE = ("    compute(c, ci % kW4Stages, seg * KSEG);", "")
+COMPUTE = [("    compute(c, ci % kW4Stages, seg * KSEG);", ""),
+           ("    compute(c % kW8Stages, k0 - seg * kW8XSeg);", "")]
 STAGE = [("      stage(nc, (ci + kW4Stages - 1) % kW4Stages);", ""),
-         ("      stage(c, st);", "")]
-W4_VARIANTS = {"as built": [], "ring only": [COMPUTE],
-               "products only": STAGE, "skeleton": [COMPUTE] + STAGE}
+         ("      stage(c, st);", ""),
+         ("      stage(c + kW8Stages - 1, (c + kW8Stages - 1) % kW8Stages);",
+          ""),
+         ("    if (s < nchunks) stage(s, s);", "")]
+VARIANTS = {"as built": [], "ring only": COMPUTE, "products only": STAGE,
+            "skeleton": COMPUTE + STAGE}
 
 
 # the variants' sources and libraries, beside the kernels' build
@@ -78,6 +85,36 @@ def w4_call(lib, bf16: bool):
     return call
 
 
+def w8_call(lib):
+    fn = lib.w8a8_matmul
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, w, s):
+        out = torch.empty(x.shape[0], w.shape[1], device="cuda")
+        err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
+                 x.shape[0], w.shape[1], x.shape[1],
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+        return out
+    return call
+
+
+def w8_sets(seed: int):
+    """The head's x and weight, then weights and scales drawn on the card:
+    more than 100 MB in all, as chip_smoke.w8a8_timing."""
+    x, w, s = cs.w8a8_case(np.random.default_rng(seed), 8, 768, 50257)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = cs.n_sets(cs.w8a8_bound(8, 768, 50257)["bytes"])
+    return [(x, w, s)] + [
+        (x, torch.randint(-128, 128, w.shape, generator=gen, device="cuda",
+                          dtype=torch.int8),
+         torch.rand(s.shape, generator=gen, device="cuda") * 1e-2 + 1e-4)
+        for _ in range(n - 1)]
+
+
 def w4_sets(seed: int, dtype):
     """The quantized head, then packed weights and scales drawn on the
     card: more than 100 MB in all, as chip_smoke.w4a16_timing."""
@@ -98,9 +135,19 @@ def main() -> int:
         return 1
     print(f"card: {cs.card_line()}", flush=True)
     OUT.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(W4_VARIANTS)) as ex:
-        libs = dict(zip(W4_VARIANTS, ex.map(lambda kv: build_variant(*kv),
-                                            W4_VARIANTS.items())))
+    with ThreadPoolExecutor(len(VARIANTS)) as ex:
+        libs = dict(zip(VARIANTS, ex.map(lambda kv: build_variant(*kv),
+                                         VARIANTS.items())))
+    sets = w8_sets(0)
+    ref = qm.w8a8_matmul(*sets[0], impl="torch")
+    for variant, lib in libs.items():
+        call = w8_call(lib)
+        if variant == "as built":
+            cs.check(torch.equal(call(*sets[0]), ref),
+                     "w8a8: not bitwise equal to the plain version")
+        ms = [cs.cuda_ms(cs.cycled([lambda c=c: call(*c) for c in sets]))
+              for _ in range(2)]
+        print(f"w8a8 {variant}: {ms[0]:.4f} {ms[1]:.4f} ms", flush=True)
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         sets = w4_sets(0, dtype)
         ref = qm.w4a16_matmul(*sets[0], impl="torch")

@@ -211,13 +211,33 @@ def test_attention_bthd_takes_the_kernel_on_card(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 768, 1000), (8, 100, 61),
-                                   (33, 64, 129)])
-def test_w8a8_kernel_bitwise_on_card(cuda_device, m, k, n):
+                                   (33, 64, 129), (1, 768, 50257),
+                                   (8, 768, 50257), (9, 777, 61),
+                                   (64, 20, 15), (20, 777, 1),
+                                   (33, 100, 1000), (65, 777, 61)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("extremes", [False, True])
+def test_w8a8_kernel_bitwise_on_card(cuda_device, m, k, n, offset,
+                                     extremes):
+    """One, two, three, five and eight m-tiles a block, and two blocks of
+    rows; K below one k-step, ragged, odd and past one x segment; N = 1,
+    15, odd and the head's; ``offset``: the weight that many bytes into its
+    buffer; ``extremes``: values -128 and 127 only."""
     g = np.random.default_rng(m + k + n)
-    x = torch.from_numpy(g.integers(-127, 128, (m, k)).astype(np.int8))
-    w = torch.from_numpy(g.integers(-127, 128, (k, n)).astype(np.int8))
+    if extremes:
+        ends = np.array([-128, 127], np.int8)
+        x, w = g.choice(ends, (m, k)), g.choice(ends, (k, n))
+    else:
+        x = g.integers(-128, 128, (m, k)).astype(np.int8)
+        w = g.integers(-128, 128, (k, n)).astype(np.int8)
     s = torch.from_numpy(g.uniform(1e-4, 1e-2, n).astype(np.float32))
-    x, w, s = (t.to(cuda_device) for t in (x, w, s))
+    x, s = torch.from_numpy(x).to(cuda_device), s.to(cuda_device)
+    w = torch.from_numpy(w).to(cuda_device)
+    if offset:
+        buf = torch.zeros(k * n + offset, dtype=torch.int8,
+                          device=cuda_device)
+        buf[offset:] = w.flatten()
+        w = buf[offset:].view(k, n)
     n0 = tqm.launches_w8a8
     got = tqm.w8a8_matmul(x, w, s)
     torch.cuda.synchronize()

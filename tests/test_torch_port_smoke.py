@@ -393,12 +393,18 @@ def test_resnet_profile_families():
 
 def test_sass_check_holds_kernels_of_their_sources():
     """Every kernel that ``sass_check`` holds to a tensor-core instruction
-    is defined in its source, and each rule names one of the two."""
+    is defined in its source, and each rule names one of the three: TF32
+    and BF16 HMMA, s8 IMMA (``w8a8``, whose source issues the s8 m16n8k32
+    mma)."""
     for name, rules in cs.SASS_KERNELS.items():
         src = (cs._build.CSRC / f"{name}.cu").read_text()
         for key, op in rules:
             assert key.split("I")[0] + "(" in src, key
-            assert op in (cs.SASS_TF32, cs.SASS_BF16)
+            assert op in (cs.SASS_TF32, cs.SASS_BF16, cs.SASS_S8)
+    rules = dict(cs.SASS_KERNELS[cs.qm.KERNEL])
+    assert rules["w8a8_kernel"] == cs.SASS_S8 == "IMMA.16832.S8.S8"
+    src = (cs._build.CSRC / f"{cs.qm.KERNEL}.cu").read_text()
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
 
 
 @pytest.mark.parametrize("nbytes", [1, 1_300_000, 5_200_000, 21_700_000,
@@ -452,3 +458,25 @@ def test_w4a16_parity_cases_cover_the_kernels_edges():
     assert any(c[1] % 2 for c in cases)
     assert any((c[1] + 1) // 2 > 384 for c in cases)
     assert any(c[5] % 16 for c in cases)
+
+
+def test_w8a8_parity_cases_cover_the_kernels_edges():
+    """The card's bitwise w8a8 cases: one m-tile a block, several, the
+    most (8, ``w8a8_matmul`` takes ceil(M / 8)) and more rows than one
+    block holds, the head at every timed M; K below one k-step of 32,
+    ragged, odd and past one x segment of 768; N = 1, below one mma tile
+    of 16, odd; a weight base off 16 bytes; all -128 / 127."""
+    cases = cs.W8_CASES
+    assert {1, 8, 9, 33, 64} <= {c[0] for c in cases}
+    assert {20, 100, 768, 777} <= {c[1] for c in cases}
+    assert {1, 15, 61, 50257} <= {c[2] for c in cases}
+    assert {1, 2, 3, 5, 8} <= {min(-(-c[0] // 8), 8) for c in cases}
+    assert any(c[0] > 64 for c in cases)
+    assert {(m, 768, 50257) for m in cs.W8_TIMED_M} <= {c[:3] for c in cases}
+    assert cs.W8_TIMED_M == (1, 8, 33)
+    assert any(c[1] < 32 for c in cases) and any(c[1] % 2 for c in cases)
+    assert any(c[1] > 768 and c[1] % 64 for c in cases)
+    assert any(c[2] < 16 for c in cases) and any(c[2] % 2 for c in cases)
+    assert any(c[3] % 16 for c in cases)
+    assert any(c[4] for c in cases)
+    assert any(c[3] % 16 and c[2] == 50257 for c in cases)
