@@ -18,9 +18,16 @@ JAX package's ``inference/inference_model.py``.
   (``inference/quantize.py``), served through the hand-written
   ``w8a8`` / ``w4a16`` CUDA kernels.
 
+- ``warm``: ahead-of-time warm-up of one bucket (``inference/aot.py``
+  walks the manifest): the bucket's padded forward runs once, so its
+  first-call setup is done before traffic.  It is not captured as a CUDA
+  graph: on the card a replayed bucket moved records/s by -4% to +7% and
+  raised the median latency by 30-53% (``predict_graph_probe.py``,
+  PERF.md).
+
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
-Ahead-of-time warm-up, sharding, the weight store and the framework
-bridges are not ported yet and raise ``NotImplementedError``.
+Sharding, the weight store and the framework bridges are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import logging
 import threading
 import time
 import warnings
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Set
 
 import numpy as np
 import torch
@@ -118,6 +125,15 @@ class InferenceModel:
         self._obs_registry = registry
         self._obs_registry_explicit = registry is not None
         self._obs = None
+        # warmed signatures and the calls that found theirs warm (hits);
+        # cleared whenever the program changes (re-load, quantize), which
+        # bumps the epoch
+        self._warmed: Set[tuple] = set()
+        self._hits = 0
+        self._warm_lock = threading.Lock()
+        self._epoch = 0
+        # manifest-style program label -> executions
+        self._execs: Dict[str, int] = {}
 
     # -- telemetry -------------------------------------------------------------
     def bind_registry(self, registry) -> bool:
@@ -175,6 +191,7 @@ class InferenceModel:
             load_jax_state(model, state)
         self._model = model
         self._refresh_params()
+        self._reset_warm()
         self.load_seconds = time.perf_counter() - t0
         return self
 
@@ -184,7 +201,6 @@ class InferenceModel:
     do_load_onnx = _not_ported("the ONNX bridge")
     do_load_pytorch = _not_ported("the TorchScript bridge")
     shard = _not_ported("sharded predict (multi-GPU)")
-    warm = _not_ported("ahead-of-time warm-up")
 
     # -- quantization -------------------------------------------------------------
     def do_quantize(self, calib_inputs, force: bool = False, bits: int = 8,
@@ -217,6 +233,7 @@ class InferenceModel:
         quantize(self._model, calib_inputs, bits=bits,
                  group_size=group_size, percentile=percentile)
         self._refresh_params()
+        self._reset_warm()               # the quantized model is a new program
         return self
 
     # -- predict ----------------------------------------------------------------
@@ -228,18 +245,92 @@ class InferenceModel:
         # already in flight; from pinned memory it queues behind them
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _padded_call(self, xs: List[np.ndarray], sc, multi: bool):
-        """Enqueue ONE padded bucket batch: the arrays go to the device in
-        their own dtype; a compact batch with per-row scales is
-        dequantized there.  Returns device output(s) without waiting."""
-        ts = [self._to_device(a) for a in xs]
+    def _forward(self, ts: List[torch.Tensor], s, multi: bool):
+        """The padded forward on device tensors: a compact batch with
+        per-row scales ``s`` is dequantized first."""
         with torch.inference_mode():
-            if sc is not None:
-                s = self._to_device(sc)
+            if s is not None:
                 x = ts[0]
                 ts = [x.to(torch.float32)
                       * s.reshape(s.shape + (1,) * (x.ndim - 1))]
             return self._model(ts if multi else ts[0])
+
+    @staticmethod
+    def _signature(xs: List[np.ndarray], sc, multi: bool) -> tuple:
+        return (multi, sc is not None,
+                tuple((tuple(a.shape), np.dtype(a.dtype).str) for a in xs))
+
+    @staticmethod
+    def program_label(xs: List[np.ndarray], scales=None) -> str:
+        """Program name matching the warm-up manifest's entries:
+        ``b<bucket>x<tail shape>/<dtype>[+scales]``."""
+        a = xs[0]
+        tail = "x".join(str(int(s)) for s in a.shape[1:]) or "scalar"
+        label = f"b{int(a.shape[0])}x{tail}/{np.dtype(a.dtype).str}"
+        return label + "+scales" if scales is not None else label
+
+    def _count_call(self, xs: List[np.ndarray], sc, multi: bool) -> None:
+        """One execution of a padded batch: counted under its program
+        label, and as a hit when its signature was warmed."""
+        label = self.program_label(xs, sc)
+        with self._warm_lock:
+            self._execs[label] = self._execs.get(label, 0) + 1
+            self._hits += self._signature(xs, sc, multi) in self._warmed
+
+    def _padded_call(self, xs: List[np.ndarray], sc, multi: bool):
+        """Enqueue ONE padded bucket batch: the arrays go to the device in
+        their own dtype; a compact batch with per-row scales is
+        dequantized there.  Returns device output(s) without waiting."""
+        self._count_call(xs, sc, multi)
+        ts = [self._to_device(a) for a in xs]
+        s = None if sc is None else self._to_device(sc)
+        return self._forward(ts, s, multi)
+
+    # -- ahead-of-time warm-up --------------------------------------------------
+    def _reset_warm(self) -> None:
+        with self._warm_lock:
+            self._epoch += 1
+            self._warmed.clear()
+            self._hits = 0
+            self._execs.clear()
+
+    def warm(self, bucket: int, shape, dtype: str = "<f4",
+             scales: bool = False) -> bool:
+        """Warm the program of one warm-up entry: the padded forward of a
+        ``(bucket,) + shape`` batch of ``dtype`` (optionally the
+        per-row-scales variant) runs once, so that its first-call setup
+        (kernel attributes, cuBLAS heuristics and workspaces, the caching
+        allocator's growth) is done before traffic.  Returns True when
+        this call warmed the signature, False when it was warm already."""
+        if self._model is None:
+            raise RuntimeError("load a model first")
+        x = np.zeros((int(bucket),) + tuple(int(s) for s in shape),
+                     np.dtype(dtype))
+        sc = np.ones((int(bucket),), np.float32) if scales else None
+        key = self._signature([x], sc, False)
+        with self._warm_lock:
+            if key in self._warmed:
+                return False
+            epoch = self._epoch
+        self._forward([self._to_device(x)],
+                      None if sc is None else self._to_device(sc), False)
+        with self._warm_lock:
+            if self._epoch != epoch:
+                return False           # re-loaded meanwhile: stale program
+            self._warmed.add(key)
+        return True
+
+    def aot_stats(self) -> Dict:
+        """Warm-up evidence since the last (re-)load: the epoch, the
+        signatures warmed (``cached_programs``; ``compiles``, each warmed
+        once), the calls that found theirs warm (``hits``) and executions
+        per program label."""
+        with self._warm_lock:
+            return {"epoch": self._epoch,
+                    "cached_programs": len(self._warmed),
+                    "hits": self._hits,
+                    "compiles": len(self._warmed),
+                    "programs": dict(self._execs)}
 
     class _Pending:
         """Handle for one dispatched batch: the device work is already

@@ -10,6 +10,7 @@ version for CPU tensors — and for no other reason.  A CUDA tensor under
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -29,3 +30,48 @@ def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
         raise ValueError("impl='cuda' needs CUDA tensors, got a tensor on "
                          f"{x.device}")
     return "cuda" if x.is_cuda else "torch"
+
+
+def launched() -> int:
+    """What a wrapper adds to its launch counter where it launches its
+    kernel: 1, or 0 while the calling thread's stream is capturing a CUDA
+    graph (the call records the launch into the graph and runs nothing).
+    So a counter holds the launches issued eagerly; a graph's replays are
+    counted on the card (``card_launches``)."""
+    capturing = (torch.cuda.is_available()
+                 and torch.cuda.is_current_stream_capturing())
+    return 0 if capturing else 1
+
+
+# each hand-written kernel's entry point as the card's trace names it
+# (a substring of the demangled name)
+KERNEL_NAMES = {"paged": "paged_attention_kernel",
+                "flash_fwd": "flash_fwd_kernel",
+                "w8a8": "w8a8_kernel",
+                "w4a16": "w4a16_kernel"}
+
+
+@contextlib.contextmanager
+def card_launches(kernels=tuple(KERNEL_NAMES)):
+    """Count the launches the card runs inside the block, by kernel:
+    the kernel records of a ``torch.profiler`` trace of the device
+    (``ProfilerActivity.CUDA``), whatever issued them: a wrapper, or the
+    replay of a CUDA graph that a wrapper was captured into.  Yields a
+    dict ``{kernel: launches}`` over ``kernels`` (keys of
+    ``KERNEL_NAMES``), filled when the block ends; without a CUDA device
+    nothing runs on a card and every count stays 0."""
+    counts = {k: 0 for k in kernels}
+    if not torch.cuda.is_available():
+        yield counts
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield counts
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in kernels:
+            if KERNEL_NAMES[k] in e.key:
+                counts[k] += int(e.count)

@@ -42,7 +42,7 @@ from typing import Optional
 import torch
 
 from analytics_zoo_tpu_torch.ops import _build
-from analytics_zoo_tpu_torch.ops._impl import resolve_impl
+from analytics_zoo_tpu_torch.ops._impl import launched, resolve_impl
 
 NEG_INF = -1e30
 KERNEL = "flash_attention"
@@ -50,7 +50,8 @@ KERNEL_BWD = "flash_attention_bwd"
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-# launches of the CUDA kernels (one per call that took the kernel route):
+# launches of the CUDA kernels issued eagerly (one per call that took the
+# kernel route; a call under CUDA-graph capture adds 0: ``_impl.launched``):
 # the forward, and the backward's dq and dk/dv kernels
 launches = 0
 dq_launches = 0
@@ -145,7 +146,7 @@ def _flash_cuda(q, k, v, causal: bool, scale: float, with_lse: bool,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} (q={tuple(q.shape)}, {q.dtype})")
-    launches += 1
+    launches += launched()
     return out, lse
 
 
@@ -279,7 +280,7 @@ def flash_bwd_dq(q, k, v, dO, lse, delta, causal: bool, scale: float):
     if err != 0:
         raise RuntimeError(f"flash backward dq kernel launch failed: CUDA "
                            f"error {err} (q={tuple(q.shape)}, {q.dtype})")
-    dq_launches += 1
+    dq_launches += launched()
     return dq
 
 
@@ -302,7 +303,7 @@ def flash_bwd_dkv(q, k, v, dO, lse, delta, causal: bool, scale: float):
         raise RuntimeError(f"flash backward dk/dv kernel launch failed: "
                            f"CUDA error {err} (q={tuple(q.shape)}, "
                            f"{q.dtype})")
-    dkv_launches += 1
+    dkv_launches += launched()
     return dk, dv
 
 

@@ -38,13 +38,14 @@ import torch
 
 from analytics_zoo_tpu_torch.common import dtypes
 from analytics_zoo_tpu_torch.ops import _build
-from analytics_zoo_tpu_torch.ops._impl import resolve_impl
+from analytics_zoo_tpu_torch.ops._impl import launched, resolve_impl
 
 KERNEL = "fused_bn"
 # rows of x per block of the kernel: one partial-sum row per tile
 TILE_M = 128
 
-# launches of the CUDA kernel (one per fused_bn call that took it)
+# launches of the CUDA kernel issued eagerly (one per fused_bn call that
+# took it; a call under CUDA-graph capture adds 0: ``_impl.launched``)
 launches = 0
 
 _fns = None
@@ -130,7 +131,7 @@ def _fused_bn_cuda(x, w):
                 torch.zeros(2, n, dtype=torch.float32, device=dev))
     y, part = _launch_partials(x, w)
     stats = _launch_reduce(part)
-    launches += 1
+    launches += launched()
     return y, stats
 
 

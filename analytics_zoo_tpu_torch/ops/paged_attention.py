@@ -31,7 +31,7 @@ import torch
 
 from analytics_zoo_tpu_torch.inference.quantize import kv_unpack_int8
 from analytics_zoo_tpu_torch.ops import _build
-from analytics_zoo_tpu_torch.ops._impl import resolve_impl
+from analytics_zoo_tpu_torch.ops._impl import launched, resolve_impl
 
 NEG_INF = -1e30
 KERNEL = "paged_attention"
@@ -45,7 +45,8 @@ MAX_PARTS = 8
 BLOCKS_PER_SM = 2
 H100_SMS = 132
 
-# launches of the CUDA kernel (one per call that took the kernel route)
+# launches of the CUDA kernel issued eagerly (one per call that took the
+# kernel route; a call under CUDA-graph capture adds 0: ``_impl.launched``)
 launches = 0
 
 _fns = None
@@ -204,7 +205,7 @@ def _paged_cuda(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale,
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err} (shapes q={tuple(q.shape)}, "
                            f"pool={tuple(k_pool.shape)})")
-    launches += 1
+    launches += launched()
     return out
 
 

@@ -38,11 +38,12 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.ops import _build
-from analytics_zoo_tpu_torch.ops._impl import resolve_impl
+from analytics_zoo_tpu_torch.ops._impl import launched, resolve_impl
 
 KERNEL = "quant_matmul"
 
-# launches of the CUDA kernels (one per call that took the kernel route)
+# launches of the CUDA kernels issued eagerly (one per call that took the
+# kernel route; a call under CUDA-graph capture adds 0: ``_impl.launched``)
 launches_w8a8 = 0
 launches_w4a16 = 0
 
@@ -151,7 +152,7 @@ def _w8a8_cuda(x_q, w_q, scale):
     if err != 0:
         raise RuntimeError(f"w8a8 kernel launch failed: CUDA error {err} "
                            f"(M={m}, K={k}, N={n})")
-    launches_w8a8 += 1
+    launches_w8a8 += launched()
     return out
 
 
@@ -177,7 +178,7 @@ def _w4a16_cuda(x, w_q4, s_g):
     if err != 0:
         raise RuntimeError(f"w4a16 kernel launch failed: CUDA error {err} "
                            f"(M={m}, K={k}, N={n}, G={groups})")
-    launches_w4a16 += 1
+    launches_w4a16 += launched()
     return out
 
 

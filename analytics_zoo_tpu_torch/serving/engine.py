@@ -15,9 +15,13 @@ for its two data planes:
   only the poison row is dead-lettered.  ``params.quantize`` quantizes the
   model (int8 / int4 weights) at construction.
 - **generation** (``params.generation`` set): records carrying prompt
-  token ids feed the paged continuous batcher (``serving/generate.py``);
-  every terminal result, streamed partial, quarantine and deadline shed is
-  written back under the queue's lease contract.
+  token ids feed the continuous batcher (``serving/generate.py``, paged or
+  monolithic lanes); every terminal result, streamed partial, quarantine
+  and deadline shed is written back under the queue's lease contract.
+- **warm-up** (``params.warmup``): at ``start`` a daemon thread warms the
+  batcher's program set (its decode quanta captured as CUDA graphs), or
+  the predict model's buckets (``inference/aot.warm_up``); ``health()``
+  and ``ready()`` report its progress, and readiness waits for it.
 
 Kept from the JAX engine, with the same contracts:
 
@@ -38,8 +42,10 @@ Kept from the JAX engine, with the same contracts:
 
 Not in this slice (setting them raises ``NotImplementedError``): admission
 control, brownout, usage metering, fault injection, profiling, the HTTP
-gateway, sharding and ahead-of-time warm-up.  Image records (``image``,
-which needs ``cv2``) raise per record.
+gateway, sharding and XLA's persistent compilation cache
+(``compile_cache_dir``: the kernel libraries are cached under ``build/``
+already, and nothing else is compiled).  Image records (``image``, which
+needs ``cv2``) raise per record.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from analytics_zoo_tpu_torch.common.resilience import (CircuitBreaker,
                                                        RetryPolicy,
                                                        SupervisedThread,
                                                        wait_until)
+from analytics_zoo_tpu_torch.inference import aot
 from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.inference.quantize import quantized_bits
 from analytics_zoo_tpu_torch.serving import wire as _wire
@@ -282,7 +289,7 @@ def apply_quantize(model, spec) -> bool:
 # ServingParams options of the JAX engine that this slice does not serve:
 # name -> the value that means "off".  Any other value raises.
 _NOT_PORTED = {"http_port": None, "http_host": "127.0.0.1", "gateway": True,
-               "sharding": "off", "mesh_shape": None, "warmup": False,
+               "sharding": "off", "mesh_shape": None,
                "compile_cache_dir": None, "profiling": False,
                "faults": None, "admission": None, "brownout": None,
                "metering": None}
@@ -321,6 +328,7 @@ class ServingParams:
                  flight_recorder: bool = True,
                  recorder_ring: Optional[int] = None,
                  model_version: Optional[str] = None,
+                 warmup=False,
                  **not_ported):
         for key, value in not_ported.items():
             if key not in _NOT_PORTED:
@@ -383,6 +391,10 @@ class ServingParams:
                               else max(16, int(recorder_ring)))
         self.model_version = (None if model_version is None
                               else str(model_version))
+        # ahead-of-time warm-up at start: False | True (derive the set) |
+        # a predict spec {"shape", "dtype", "scales", "max_batch",
+        # "scale_dtypes"} (inference/aot.resolve_manifest)
+        self.warmup = warmup if isinstance(warmup, dict) else bool(warmup)
 
     @classmethod
     def from_dict(cls, p: Dict) -> "ServingParams":
@@ -440,6 +452,10 @@ class ClusterServing:
         self._t_construct = time.monotonic()
         self._t_start = time.monotonic()
         self._cold_start_s: Optional[float] = None
+        self._warm_state: Dict = {"state": "off", "total": 0,
+                                  "compiled": 0, "failed": 0,
+                                  "seconds": None}
+        self._warm_thread: Optional[threading.Thread] = None
         self._snapshot_seq = itertools.count(1)
         try:
             self.queue.consumer = self.replica_id
@@ -538,6 +554,14 @@ class ClusterServing:
         self._g_cold = reg.gauge(
             "replica_cold_start_seconds",
             "Engine construction to first result written, this replica")
+        # the warm-up's phases: `load` the model's load wall, `compile`
+        # the warm-up pass (graph captures and dry runs)
+        self._g_warm = reg.gauge(
+            "serving_warmup_seconds",
+            "Replica warm-up wall seconds, by phase", labels=("phase",))
+        load_s = getattr(self.model, "load_seconds", None)
+        if load_s is not None:
+            self._g_warm.labels(phase="load").set(float(load_s))
         # callback gauges, deregistered on shutdown
         fns = [
             ("serving_queue_depth", "Records waiting in the stream",
@@ -590,16 +614,18 @@ class ClusterServing:
             ("serving_active_slots",
              "Decode slots currently serving a request",
              lambda: float(b.active)),
-            ("serving_kv_pool_free_blocks",
-             "Free blocks in the paged KV pool",
-             lambda: float(pool.free_blocks)),
-            ("serving_kv_pool_occupancy",
-             "Used fraction of the paged KV pool",
-             lambda: float(pool.used_blocks) / max(1, pool.n_blocks)),
             ("serving_kv_state_bytes",
-             "Bytes pinned by decode state (pool, scales, staging, "
+             "Bytes pinned by decode state (lanes, pool, scales, staging, "
              "host tables)", lambda: float(b.state_bytes())),
         ]
+        if pool is not None:
+            fns += [
+                ("serving_kv_pool_free_blocks",
+                 "Free blocks in the paged KV pool",
+                 lambda: float(pool.free_blocks)),
+                ("serving_kv_pool_occupancy",
+                 "Used fraction of the paged KV pool",
+                 lambda: float(pool.used_blocks) / max(1, pool.n_blocks))]
         if b._prefix is not None:
             fns.append(("serving_kv_prefix_hits_total",
                         "Prefix-cache hits at admission",
@@ -1451,6 +1477,8 @@ class ClusterServing:
                     "queue", inflight, cap)
                 inflight = max(1, cap)
             self._writeq = Queue(maxsize=inflight)
+        if p.warmup and isinstance(self.model, InferenceModel):
+            self._start_warmup()
         for sup in self._sups:
             sup.start()
         self._event("start", mode=("generation" if self._batcher is not None
@@ -1458,6 +1486,80 @@ class ClusterServing:
                     max_batch=p.max_batch or p.batch_size,
                     quantized_bits=self._quantized_bits() or None)
         return self
+
+    # -- ahead-of-time warm-up -------------------------------------------------
+    def _start_warmup(self) -> None:
+        """Derive the warm-up manifest and warm it on a daemon thread.  An
+        underivable manifest (no declared input shape and no spec) is a
+        warning, not a failed start: the deployment serves eagerly."""
+        try:
+            if self._batcher is not None:
+                manifest = self._batcher.warmup_manifest()
+            else:
+                manifest = aot.resolve_manifest(self.model,
+                                                self.params.warmup)
+        except Exception as e:  # noqa: BLE001 — stay on the eager path
+            logger.warning(
+                "serving: warm-up disabled — manifest underivable (%s: "
+                "%s); pass warmup={'shape': [...]} in params",
+                type(e).__name__, e)
+            self._warm_state.update(state="off", error=str(e))
+            return
+        # `pending` BEFORE the thread runs: a readiness probe between
+        # start() and the first entry must already say warming
+        self._warm_state.update(state="pending", total=len(manifest),
+                                compiled=0, failed=0, seconds=None)
+        self._event("warmup", state="pending", total=len(manifest))
+        self._warm_thread = threading.Thread(
+            target=self._warmup_loop, args=(manifest,),
+            name="serving-warmup", daemon=True)
+        self._warm_thread.start()
+
+    def _warmup_loop(self, manifest) -> None:
+        self._warm_state["state"] = "warming"
+        self._event("warmup", state="warming",
+                    total=self._warm_state.get("total"))
+
+        def progress(done, total, entry):
+            self._warm_state["compiled"] = done
+
+        try:
+            if self._batcher is not None:
+                stats = self._batcher.warm(manifest, progress=progress,
+                                           stop=self._stop.is_set)
+            else:
+                stats = aot.warm_up(self.model, manifest, progress=progress,
+                                    stop=self._stop.is_set)
+        except Exception as e:  # noqa: BLE001 — a warm-up crash must not
+            # hold readiness forever; the eager path still serves
+            logger.exception("serving: warm-up pass failed")
+            self._warm_state.update(state="failed", error=str(e))
+            self._event("warmup", state="failed", error=str(e)[:200])
+            return
+        if stats.get("stopped"):
+            self._warm_state.update(state="cancelled")
+            return
+        state = "ready" if not stats["failed"] else "degraded"
+        self._warm_state.update(
+            state=state, failed=stats["failed"], seconds=stats["seconds"],
+            compile_stats=stats["compile_stats"])
+        self._event("warmup", state=state, programs=stats["programs"],
+                    failed=stats["failed"], seconds=stats["seconds"])
+        self._g_warm.labels(phase="compile").set(float(stats["seconds"]))
+        if self._cold_start_s is None:
+            # serving-capable without having seen traffic yet: the clock
+            # stops at warm-up completion, not at the first record
+            self._cold_start_s = time.monotonic() - self._t_construct
+            self._g_cold.set(self._cold_start_s)
+        logger.info(
+            "serving: replica %s warm — %d/%d program(s) in %.2fs (%s "
+            "graph capture(s))", self.replica_id,
+            stats["programs"] - stats["failed"], stats["programs"],
+            stats["seconds"], stats["compile_stats"]["captures"])
+
+    def warmup_state(self) -> Dict:
+        """Warm-up progress document (health and readiness)."""
+        return dict(self._warm_state)
 
     def _pre_loop(self):
         sup = self._pre_sup
@@ -1566,6 +1668,7 @@ class ClusterServing:
              "total_records": self.total_records,
              "dead_lettered": self.dead_lettered,
              "shed": self.shed,
+             "warmup": self.warmup_state(),
              "cold_start_s": (None if self._cold_start_s is None
                               else round(self._cold_start_s, 3)),
              "quantized_bits": self._quantized_bits(),
@@ -1589,6 +1692,13 @@ class ClusterServing:
             reasons.append("draining")
         if not h["running"]:
             reasons.append("workers-not-running")
+        w = h.get("warmup") or {}
+        if w.get("state") in ("pending", "warming"):
+            # a replica still warming serves eagerly meanwhile; `failed` and
+            # `degraded` do not hold readiness
+            reasons.append(
+                f"warming ({w.get('compiled', 0)}/{w.get('total', 0)} "
+                f"programs)")
         if h["breaker"]["state"] == CircuitBreaker.OPEN:
             reasons.append("result-write-breaker-open")
         q = h["queue"]
@@ -1606,7 +1716,14 @@ class ClusterServing:
         return {"ready": not reasons, "reasons": reasons}
 
     def ready(self) -> Dict:
-        return dict(self.health()["ready"])
+        """Readiness document; while a warm-up runs it carries its
+        progress block."""
+        doc = dict(self.health()["ready"])
+        if self._warm_state.get("state") != "off":
+            doc["warmup"] = {k: self._warm_state.get(k)
+                             for k in ("state", "compiled", "total",
+                                       "seconds")}
+        return doc
 
     @staticmethod
     def metrics_from_health(h: Dict) -> Dict:
@@ -1654,6 +1771,9 @@ class ClusterServing:
         self._stop.set()
         for sup in sups:
             sup.join(timeout=5)
+        if self._warm_thread is not None:
+            # the pass checks the stop flag between entries
+            self._warm_thread.join(timeout=30)
         if self._pre_pool is not None:
             self._pre_pool.shutdown(wait=False)
             self._pre_pool = None

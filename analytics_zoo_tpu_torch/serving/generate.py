@@ -1,24 +1,34 @@
-"""Continuous batching for autoregressive serving, paged-KV mode.
+"""Continuous batching for autoregressive serving.
 
 The token-level scheduler of the JAX package's ``serving/generate.py``
-(the Orca / vLLM continuous-batching shape) over a paged KV cache:
+(the Orca / vLLM continuous-batching shape), in its two KV modes:
 
-- **slot map** — decode runs over ``max_active_slots`` rows.  Requests
-  claim a free slot at a decode-step boundary, generate, and free it the
-  moment they hit EOS, their token budget or their deadline; the freed
-  slot refills at the next boundary, so one slow request never gates its
-  neighbours.
-- **block pool** — KV lives in a fixed pool of ``block_len``-token blocks
-  (``serving/kvpool.BlockPool``); each slot holds a block table.
-  Admission is bounded by free blocks as well as free slots, and prompts
-  that share a registered full-block prefix share its resident pages
-  (``PrefixIndex``): a prefix hit prefills only the suffix.
-- **device work** — three plain PyTorch functions per boundary, run
-  eagerly: the prefill + commit of an admission group (``pprefill`` /
-  ``pshared``: prompt forward, then the K/V scattered into the group's
-  pool blocks), and ``decode_quantum`` decode steps through
-  ``TransformerLM.decode_paged`` — whose attention is the hand-written
-  CUDA kernel on the card — with ONE host sync per quantum.
+- **slot map** — decode runs over ``max_active_slots`` rows a lane.
+  Requests claim a free slot at a decode-step boundary, generate, and free
+  it the moment they hit EOS, their token budget or their deadline; the
+  freed slot refills at the next boundary, so one slow request never gates
+  its neighbours.
+- **monolithic lanes** (``paged=False``, the default) — one lane per
+  usable capacity bucket, each holding fixed ``(max_active, bucket)``
+  per-slot caches; a request lands in the smallest lane that holds prompt
+  + budget, is prefilled through ``init_decode`` and copied into its slot,
+  and decodes through ``decode_step``.
+- **paged lane** (``paged=True``) — KV lives in a fixed pool of
+  ``block_len``-token blocks (``serving/kvpool.BlockPool``); each slot
+  holds a block table.  Admission is bounded by free blocks as well as
+  free slots, and prompts that share a registered full-block prefix share
+  its resident pages (``PrefixIndex``): a prefix hit prefills only the
+  suffix.  Decode goes through ``TransformerLM.decode_paged``, whose
+  attention is the hand-written CUDA kernel on the card.
+- **decode quanta as CUDA graphs** — a boundary runs ``decode_quantum``
+  greedy steps with ONE host sync.  The quantum reads static device
+  buffers (tokens, and in paged mode block tables and positions), filled
+  from pinned host arrays at the boundary, and writes a static (K, A)
+  token block.  ``warm()`` captures each lane's quantum as a CUDA graph
+  (``inference/aot.capture``), the counterpart of the JAX package's
+  compiled ``lax.scan`` program; a lane without one runs the same quantum
+  eagerly (``eager_quanta``).  Admission prefills run eagerly: their
+  commit indexes by a boolean mask, which syncs the host.
 - **events, not policy** — ``step()`` returns ``GenEvent``s
   (first_token / partial / finish / shed / quarantine); the engine turns
   them into result writes, acks, quarantines and metrics.  A poisoned
@@ -29,23 +39,25 @@ the device: an out-of-range embedding index on CUDA is a device-side
 assert, which ends the process.
 
 Not in this slice (asking for them raises ``NotImplementedError``):
-monolithic per-slot lanes (``paged=False``), bare-state models,
-checkpoint/resume, and the ahead-of-time warm-up manifest.
+bare-state models (ROADMAP queue 1, items 4 and 10) and checkpoint/resume
+(item 1).
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.observability import get_recorder
+from analytics_zoo_tpu_torch.inference import aot
 from analytics_zoo_tpu_torch.inference.quantize import (kv_pack_int8,
                                                         kv_unpack_int8)
 from analytics_zoo_tpu_torch.serving.kvpool import BlockPool, PrefixIndex
@@ -78,10 +90,10 @@ class GenerationParams:
       it via ``{"gen": {"max_tokens": n}}``, never raise it).
     - ``eos_id`` — stop token (None = budget-only stopping).
     - ``max_prompt_len`` — longest accepted prompt; longer quarantines.
-    - ``bucket_lens`` — capacity ladder; paged mode serves one lane at its
-      largest usable value (default ``pow2(max_prompt_len +
-      max_tokens)``), so a slot's block table has ``bucket / block_len``
-      entries.
+    - ``bucket_lens`` — capacity ladder (default ``pow2(max_prompt_len +
+      max_tokens)``): one monolithic lane per usable value; paged mode
+      serves one lane at the largest, so a slot's block table has
+      ``bucket / block_len`` entries.
     - ``prefill_buckets`` — pow-2 prompt padding ladder (default 8 ..
       pow2(max_prompt_len)).
     - ``stream_interval`` — tokens between partial-result flushes
@@ -90,7 +102,8 @@ class GenerationParams:
       sync per quantum.  Requests join/leave at boundaries; a request
       finishing mid-quantum wastes at most ``decode_quantum - 1``
       row-steps.
-    - ``paged`` — paged KV mode; the only mode of this slice.
+    - ``paged`` — paged KV mode (block pool); False = monolithic
+      per-slot lanes.
     - ``block_len`` — tokens per pool block (pow-2).
     - ``pool_blocks`` — usable pool blocks (default: every slot at full
       lane capacity).
@@ -99,7 +112,7 @@ class GenerationParams:
     - ``prefix_cache`` — share resident full-block prompt prefixes.
     - ``start_id``, ``checkpoint_interval``, ``resume`` — accepted for
       config compatibility with the JAX package; bare-state models and
-      checkpoint/resume are not ported yet.
+      checkpoint/resume are not ported yet (ROADMAP queue 1).
     """
 
     max_active_slots: int = 8
@@ -215,19 +228,62 @@ class _Slot:
         self.budget = budget
 
 
-class _PagedLane:
+class _QuantumBuffers:
+    """Static tensors of one lane's decode quantum: the int32 inputs it
+    reads (``dev``), the pinned host tensors they are filled from at each
+    boundary (``host``), and the (quantum, max_active) token block it
+    writes (``out``).  The eager quantum and its CUDA graph run on the same
+    tensors."""
+
+    def __init__(self, shapes: Dict[str, tuple], quantum: int, rows: int,
+                 device: torch.device):
+        pin = device.type == "cuda"
+        with torch.inference_mode():
+            self.host = {n: torch.zeros(sh, dtype=torch.int32,
+                                        pin_memory=pin)
+                         for n, sh in shapes.items()}
+            self.dev = {n: torch.zeros(sh, dtype=torch.int32, device=device)
+                        for n, sh in shapes.items()}
+            self.out = torch.zeros((quantum, rows), dtype=torch.int32,
+                                   device=device)
+
+    def load(self, **arrays: np.ndarray) -> None:
+        """Host arrays -> static inputs, one asynchronous copy each (every
+        quantum ends with a read of ``out`` that syncs, before the host
+        arrays are written again)."""
+        for name, a in arrays.items():
+            self.host[name].numpy()[...] = a
+            self.dev[name].copy_(self.host[name], non_blocking=True)
+
+
+class _Lane:
+    """One capacity bucket: fixed (max_active, bucket) per-slot state, the
+    host-side slot map, the quantum's static buffers and, once warmed on
+    the card, the quantum's CUDA graph."""
+
+    def __init__(self, bucket: int, max_active: int):
+        self.bucket = int(bucket)
+        self.max_active = int(max_active)
+        self.slots: List[Optional[_Slot]] = [None] * self.max_active
+        self.free: deque = deque(range(self.max_active))
+        self.state = None
+        self.tokens = np.zeros((self.max_active,), np.int32)
+        self.buf: Optional[_QuantumBuffers] = None
+        self.program: Optional[aot.CapturedProgram] = None
+
+    @property
+    def active(self) -> int:
+        return self.max_active - len(self.free)
+
+
+class _PagedLane(_Lane):
     """The paged lane: ``state`` holds the POOL dict (device tensors), and
     the per-slot cache geometry lives in host-side block tables.  Inactive
     slots keep their table row zeroed (every entry -> the trash block), so
     their decode writes land harmlessly."""
 
     def __init__(self, bucket: int, max_active: int, block_len: int):
-        self.bucket = int(bucket)
-        self.max_active = int(max_active)
-        self.slots: List[Optional[_Slot]] = [None] * self.max_active
-        self.free: deque = deque(range(self.max_active))
-        self.state: Optional[Dict[str, List[torch.Tensor]]] = None
-        self.tokens = np.zeros((self.max_active,), np.int32)
+        super().__init__(bucket, max_active)
         self.ntab = bucket // block_len
         self.tables = np.zeros((max_active, self.ntab), np.int32)
         self.pos = np.zeros((max_active,), np.int32)
@@ -235,9 +291,50 @@ class _PagedLane:
         # release on free
         self.blocks: List[Optional[List[int]]] = [None] * max_active
 
-    @property
-    def active(self) -> int:
-        return self.max_active - len(self.free)
+
+def _copy_into(dst, src) -> None:
+    """Copy every tensor of the state tree ``src`` into the same place of
+    ``dst``, in place, where the two are not the same tensor already."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
+    elif dst is not src:
+        dst.copy_(src)
+
+
+def _insert(state, sub, row: int, slot: int) -> None:
+    """One admitted request: row ``row`` of the prefilled batch state
+    ``sub`` copied into slot ``slot`` of the lane state, in place."""
+    if isinstance(state, dict):
+        for k in state:
+            _insert(state[k], sub[k], row, slot)
+    elif isinstance(state, (list, tuple)):
+        for d, s in zip(state, sub):
+            _insert(d, s, row, slot)
+    else:
+        state[slot].copy_(sub[row])
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _zeros_like_rows(sub, rows: int):
+    """Zeroed state tree with ``rows`` rows, each leaf shaped as one row of
+    ``sub``'s."""
+    if isinstance(sub, dict):
+        return {k: _zeros_like_rows(v, rows) for k, v in sub.items()}
+    if isinstance(sub, (list, tuple)):
+        return [_zeros_like_rows(v, rows) for v in sub]
+    return torch.zeros((rows,) + tuple(sub.shape[1:]), dtype=sub.dtype,
+                       device=sub.device)
 
 
 def commit(pools, ks, vs, lengths, dest, slots, *, block_len: int,
@@ -303,16 +400,19 @@ def gather_prefix(pools, ptab, *, block_len: int, kv_quant: str):
 
 
 class ContinuousBatcher:
-    """Token-level paged decode scheduler over an ``InferenceModel`` whose
-    module exposes the paged decode API (``TransformerLM``).
+    """Token-level decode scheduler over an ``InferenceModel`` whose
+    module exposes ``init_decode``/``decode_step`` (monolithic lanes) and,
+    for ``paged=True``, the paged decode API (``TransformerLM``).
 
     ``impl`` selects the attention route handed to ``decode_paged``
     (``None``/``"auto"`` = the CUDA kernel for CUDA tensors; ``"torch"`` =
     the plain version, for cross-checks).
 
     Thread contract: ``submit`` may be called from any thread (bounded
-    waiting deque); ``step`` must run on ONE thread (the engine's
-    ``serving-generate`` worker)."""
+    waiting deque); ``step`` runs on ONE thread (the engine's
+    ``serving-generate`` worker); ``warm`` may run on another: each of its
+    entries holds the lock ``step`` holds, so a warm-up never runs device
+    work beside a boundary."""
 
     MAX_WAITING = 1024
     PAGED_API = ("prefill_kv", "prefill_shared", "decode_paged",
@@ -323,19 +423,22 @@ class ContinuousBatcher:
         inner = getattr(model, "_model", None)
         if inner is None:
             raise ValueError("generation needs a loaded InferenceModel")
-        if not gen.paged:
-            raise NotImplementedError(
-                "monolithic per-slot lanes are not ported yet: set "
-                "generation.paged=true")
         if gen.checkpoint_interval or gen.resume:
             raise NotImplementedError(
-                "generation checkpoint/resume is not ported yet")
-        missing = [m for m in self.PAGED_API if not hasattr(inner, m)]
-        if missing:
+                "generation checkpoint/resume is not ported yet (ROADMAP "
+                "queue 1, item 1)")
+        init = getattr(inner, "init_decode", None)
+        if init is None or not hasattr(inner, "decode_step") \
+                or "cache_len" not in inspect.signature(init).parameters:
             raise NotImplementedError(
-                "only models with the paged decode API "
-                "(models/textmodels.TransformerLM) are ported; bare-state "
-                f"models are not yet (missing: {missing})")
+                "only cache models (models/textmodels.TransformerLM) are "
+                "ported; bare-state models (recurrent stacks, Seq2seq) "
+                "wait for ROADMAP queue 1, items 4 and 10")
+        missing = [m for m in self.PAGED_API if not hasattr(inner, m)]
+        if gen.paged and missing:
+            raise NotImplementedError(
+                "generation.paged=true needs the paged decode API "
+                f"(models/textmodels.TransformerLM); missing: {missing}")
         self.model = model
         self.inner = inner
         self.gen = gen
@@ -354,39 +457,84 @@ class ContinuousBatcher:
                 f"all exceed the model's max_len={model_cap} or fall "
                 f"below the smallest prefill bucket "
                 f"{gen.prefill_buckets[0]}")
-        bucket = max(usable)
-        if gen.block_len > bucket:
-            raise ValueError(
-                f"block_len={gen.block_len} > lane capacity {bucket}")
-        # ONE paged lane at the largest capacity: block tables make
-        # per-request capacity a table-width concern, not a lane concern
-        lane = _PagedLane(bucket, gen.max_active_slots, gen.block_len)
-        self._lane = lane
-        n_pool = gen.pool_blocks if gen.pool_blocks is not None \
-            else gen.max_active_slots * lane.ntab
-        self._pool = BlockPool(n_pool, gen.block_len)
-        self._prefix = PrefixIndex(self._pool) if gen.prefix_cache else None
+        if len(usable) < len(gen.bucket_lens):
+            logger.warning(
+                "generate: dropped %d unusable decode lane(s) from "
+                "bucket_lens=%s (model max_len=%s, smallest prefill "
+                "bucket %d)", len(gen.bucket_lens) - len(usable),
+                gen.bucket_lens, model_cap or "n/a",
+                gen.prefill_buckets[0])
+        self._pool = None
+        self._prefix = None
         self.pool_exhausted = 0
         self._exhausted_boundary = False
+        if gen.paged:
+            bucket = max(usable)
+            if gen.block_len > bucket:
+                raise ValueError(
+                    f"block_len={gen.block_len} > lane capacity {bucket}")
+            # ONE paged lane at the largest capacity: block tables make
+            # per-request capacity a table-width concern, not a lane
+            # concern
+            lane = _PagedLane(bucket, gen.max_active_slots, gen.block_len)
+            self._lanes: List[_Lane] = [lane]
+            n_pool = gen.pool_blocks if gen.pool_blocks is not None \
+                else gen.max_active_slots * lane.ntab
+            self._pool = BlockPool(n_pool, gen.block_len)
+            if gen.prefix_cache:
+                self._prefix = PrefixIndex(self._pool)
+        else:
+            self._lanes = [_Lane(b, gen.max_active_slots) for b in usable]
         self._waiting: deque = deque()
         self._waiting_lock = threading.Lock()
+        # held by step() and by each warm-up entry: device work of the
+        # two never interleaves
+        self._device_lock = threading.Lock()
         # per-boundary decode accounting: after each step(), (rid,
         # trace_id, tokens_emitted_this_boundary, tenant) for every slot
         # that ran a decode step
         self.last_boundary: List[Tuple] = []
         self.last_admitted = 0
+        # warmed programs, keyed as the JAX package keys its compiled
+        # ones: decode keys hold the lane's CUDA graph (None on the CPU),
+        # prefill and insert keys None (they run eagerly)
+        self._programs: Dict[tuple, Optional[aot.CapturedProgram]] = {}
+        self._exec_counts: Dict[str, int] = {}
+        self.eager_quanta = 0
         self.decode_steps = 0
         self.generated_tokens = 0
         self.admitted = 0
         self.finished = 0
         self.quarantined = 0
         self.shed = 0
-        # pool tensors: +1 block for the reserved trash row
-        lane.state = inner.init_paged_pools(
-            self._pool.n_blocks + 1, gen.block_len, lane.max_active,
-            gen.kv_quant)
+        for lane in self._lanes:
+            self._ensure_lane_state(lane)
 
-    # -- device work ----------------------------------------------------------
+    # -- device state ---------------------------------------------------------
+    def _ensure_lane_state(self, lane: _Lane) -> None:
+        """Lane state and the quantum's static buffers, allocated eagerly:
+        the warm-up thread and the generate worker both touch them."""
+        gen = self.gen
+        A = lane.max_active
+        shapes = {"tokens": (A,)}
+        with torch.inference_mode():
+            if isinstance(lane, _PagedLane):
+                # pool tensors: +1 block for the reserved trash row
+                lane.state = self.inner.init_paged_pools(
+                    self._pool.n_blocks + 1, gen.block_len, A,
+                    gen.kv_quant)
+                shapes.update(tables=(A, lane.ntab), pos=(A,))
+            else:
+                # the state tree of one prefilled row, zeroed at A rows
+                pb = gen.prefill_buckets[0]
+                sub, _ = self.inner.init_decode(
+                    self._dev(np.zeros((1, pb), np.int32)),
+                    self._dev(np.ones((1,), np.int32)),
+                    cache_len=lane.bucket)
+                lane.state = _zeros_like_rows(sub, A)
+        lane.buf = _QuantumBuffers(shapes, gen.decode_quantum, A,
+                                   self.device)
+
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
@@ -395,7 +543,7 @@ class ContinuousBatcher:
         first-token logits."""
         lengths = self._dev(lengths)
         ks, vs, logits0 = self.inner.prefill_kv(self._dev(prompt), lengths)
-        commit(self._lane.state, ks, vs, lengths, self._dev(dest),
+        commit(self._lanes[0].state, ks, vs, lengths, self._dev(dest),
                self._dev(slots), block_len=self.gen.block_len,
                kv_quant=self.gen.kv_quant)
         return logits0
@@ -405,37 +553,68 @@ class ContinuousBatcher:
         """Suffix-only prefill of a prefix-hit group over its pool-resident
         prefix blocks + commit; returns the first-token logits."""
         gen = self.gen
-        pk, pv = gather_prefix(self._lane.state, self._dev(ptab),
+        pools = self._lanes[0].state
+        pk, pv = gather_prefix(pools, self._dev(ptab),
                                block_len=gen.block_len,
                                kv_quant=gen.kv_quant)
         slens = self._dev(slens)
         ks, vs, logits0 = self.inner.prefill_shared(
             self._dev(suffix), slens, self._dev(prefix_len), pk, pv)
-        commit(self._lane.state, ks, vs, slens, self._dev(dest),
-               self._dev(slots), block_len=gen.block_len,
-               kv_quant=gen.kv_quant)
+        commit(pools, ks, vs, slens, self._dev(dest), self._dev(slots),
+               block_len=gen.block_len, kv_quant=gen.kv_quant)
         return logits0
 
-    def _pdecode(self, lane: _PagedLane) -> np.ndarray:
-        """``decode_quantum`` paged decode steps, greedy, with one host
-        sync at the end: returns the (quantum, max_active) tokens."""
-        gen = self.gen
-        tables = self._dev(lane.tables)
-        pos = self._dev(lane.pos)
-        tok = self._dev(lane.tokens)
-        out = []
-        for _ in range(gen.decode_quantum):
-            logits, _ = self.inner.decode_paged(
-                lane.state, tables, pos, tok, block_len=gen.block_len,
-                kv_quant=gen.kv_quant, impl=self.impl)
-            tok = logits.argmax(dim=-1)
-            out.append(tok)
-            pos = pos + 1
-        return torch.stack(out).cpu().numpy().astype(np.int32)
+    def _prefill(self, lane: _Lane, prompt, lengths):
+        """Monolithic prefill of an admission group into lane-capacity
+        caches: ``(state tree, first-token logits)``."""
+        return self.inner.init_decode(self._dev(prompt), self._dev(lengths),
+                                      cache_len=lane.bucket)
 
-    def warm(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the ahead-of-time warm-up manifest is not ported yet")
+    def _quantum(self, lane: _Lane) -> torch.Tensor:
+        """``decode_quantum`` greedy steps over the lane's static buffers,
+        writing the (quantum, max_active) token block ``buf.out``.  Only
+        device work on tensors that outlive the call, so the same function
+        runs eagerly and under CUDA-graph capture: positions advance as
+        temporaries inside the quantum (paged) or are copied back into the
+        lane state in place (monolithic)."""
+        gen = self.gen
+        buf = lane.buf
+        tok = buf.dev["tokens"]
+        if isinstance(lane, _PagedLane):
+            pos = buf.dev["pos"]
+            for k in range(gen.decode_quantum):
+                logits, _ = self.inner.decode_paged(
+                    lane.state, buf.dev["tables"], pos, tok,
+                    block_len=gen.block_len, kv_quant=gen.kv_quant,
+                    impl=self.impl)
+                buf.out[k].copy_(logits.argmax(dim=-1))
+                tok = buf.out[k]
+                pos = pos + 1
+            return buf.out
+        state = lane.state
+        for k in range(gen.decode_quantum):
+            logits, state = self.inner.decode_step(state, tok)
+            buf.out[k].copy_(logits.argmax(dim=-1))
+            tok = buf.out[k]
+        _copy_into(lane.state, state)
+        return buf.out
+
+    def _decode(self, lane: _Lane, dry_run: bool = False) -> np.ndarray:
+        """One boundary's quantum: the host cursors into the static
+        buffers, the lane's graph replayed (or the quantum run eagerly
+        when it has none), and one device-to-host copy of the token block:
+        the quantum's one host sync."""
+        if isinstance(lane, _PagedLane):
+            lane.buf.load(tables=lane.tables, pos=lane.pos,
+                          tokens=lane.tokens)
+        else:
+            lane.buf.load(tokens=lane.tokens)
+        if lane.program is not None and not dry_run:
+            out = lane.program.replay()
+        else:
+            out = self._quantum(lane)
+            self.eager_quanta += not dry_run
+        return out.cpu().numpy()
 
     # -- admission ------------------------------------------------------------
     def submit(self, req: GenRequest) -> bool:
@@ -454,11 +633,11 @@ class ContinuousBatcher:
 
     @property
     def active(self) -> int:
-        return self._lane.active
+        return sum(lane.active for lane in self._lanes)
 
     @property
     def slots_total(self) -> int:
-        return self._lane.max_active
+        return sum(lane.max_active for lane in self._lanes)
 
     @property
     def idle(self) -> bool:
@@ -472,18 +651,22 @@ class ContinuousBatcher:
             budget = max(1, min(int(req.max_tokens), budget))
         return budget
 
-    def _budget_for(self, req: GenRequest) -> int:
+    def _budget_for(self, req: GenRequest, lane: _Lane) -> int:
         return max(1, min(self._req_budget(req),
-                          self._lane.bucket - len(req.prompt)))
+                          lane.bucket - len(req.prompt)))
 
-    def _fits(self, req: GenRequest) -> bool:
-        """The lane holds prompt + budget and the prompt's prefill
-        bucket."""
+    def _pick_lane(self, req: GenRequest) -> Optional[_Lane]:
+        """Smallest lane whose capacity holds prompt + budget AND the
+        prompt's prefill bucket (prefill allocates the cache at the lane
+        capacity)."""
         want = len(req.prompt) + self._req_budget(req)
         pb = self._prefill_bucket(len(req.prompt))
         if pb is not None:
             want = max(want, pb)
-        return self._lane.bucket >= want
+        for lane in self._lanes:
+            if lane.bucket >= want:
+                return lane
+        return None
 
     @staticmethod
     def _prompt(req: GenRequest) -> np.ndarray:
@@ -522,18 +705,143 @@ class ContinuousBatcher:
                                error=error, t_read=req.t_read,
                                tenant=req.tenant))
 
-    def _reserve(self, req: GenRequest):
+    def _first_token(self, lane: _Lane, slot: int, info: _Slot, tok: int,
+                     events: List[GenEvent]) -> None:
+        """The first token comes from the prefill: TTFT stops here, and the
+        token feeds the slot's first decode step."""
+        info.t_first = time.monotonic()
+        events.append(GenEvent(
+            "first_token", info.req.rid, trace_id=info.req.trace_id,
+            ttft_s=info.t_first - info.req.t_submit, t_read=info.req.t_read,
+            tenant=info.req.tenant))
+        lane.tokens[slot] = tok
+        self._account_token(lane, slot, info, tok, events)
+
+    def _count_exec(self, key: tuple) -> None:
+        label = self._program_name(key)
+        self._exec_counts[label] = self._exec_counts.get(label, 0) + 1
+
+    @staticmethod
+    def _program_name(key: tuple) -> str:
+        """Manifest-style label of one scheduler program."""
+        if key[0] == "prefill":
+            return f"prefill:b{key[1]}xp{key[2]}@{key[3]}"
+        if key[0] == "insert":
+            return f"insert:b{key[1]}@{key[2]}"
+        if key[0] == "decode_step":
+            return f"decode_step@{key[1]}"
+        if key[0] == "pprefill":
+            return f"paged_prefill:b{key[1]}xp{key[2]}"
+        if key[0] == "pshared":
+            return f"paged_shared:b{key[1]}xs{key[2]}xn{key[3]}"
+        if key[0] == "pdecode":
+            return f"paged_decode@{key[1]}"
+        return ":".join(str(k) for k in key)
+
+    def _admit(self, events: List[GenEvent]) -> int:
+        """Claim free slots for waiting requests and admit them in batched
+        prefill groups, one per (lane, prompt bucket).  Stops at the first
+        head-of-line request whose lane is full (FIFO; retried next
+        boundary)."""
+        if self._pool is not None:
+            return self._admit_paged(events)
+        grabbed: List[tuple] = []        # (req, lane, slot)
+        while True:
+            with self._waiting_lock:
+                req = self._waiting.popleft() if self._waiting else None
+            if req is None:
+                break
+            if self._expired(req.deadline_ns):
+                self.shed += 1
+                events.append(GenEvent(
+                    "shed", req.rid, trace_id=req.trace_id,
+                    t_read=req.t_read, tenant=req.tenant))
+                continue
+            err = self._validate(req)
+            if err is not None:
+                self._quarantine(req, f"ValueError: {err}", events)
+                continue
+            lane = self._pick_lane(req)
+            if lane is None:
+                self._quarantine(
+                    req, "ValueError: no decode lane holds prompt + "
+                         f"max_tokens (buckets {self.gen.bucket_lens})",
+                    events)
+                continue
+            if not lane.free:
+                with self._waiting_lock:
+                    self._waiting.appendleft(req)
+                break
+            grabbed.append((req, lane, lane.free.popleft()))
+        groups: Dict[tuple, tuple] = {}
+        for req, lane, slot in grabbed:
+            # _validate bounds the prompt by max_prompt_len, which the
+            # prefill ladder always covers
+            pb = self._prefill_bucket(len(req.prompt))
+            groups.setdefault((lane.bucket, pb), (lane, pb, []))[2] \
+                .append((req, slot))
+        return sum(self._admit_batch(lane, pb, members, events)
+                   for lane, pb, members in groups.values())
+
+    def _admit_batch(self, lane: _Lane, pb: int, members, events) -> int:
+        """Prefill a same-(lane, prompt-bucket) admission group in one
+        pass, then copy each member's row into its slot.  Padding rows
+        replicate row 0's prompt; their rows are never inserted.  A failing
+        group falls back to singleton admission, so a poisoned request
+        that slipped past validation quarantines alone."""
+        n = len(members)
+        bb = self._batch_bucket(n)
+        padded = np.zeros((bb, pb), np.int32)
+        lengths = np.ones((bb,), np.int32)
+        for j, (req, _) in enumerate(members):
+            prompt = self._prompt(req)
+            padded[j, :prompt.size] = prompt
+            lengths[j] = prompt.size
+        for j in range(n, bb):
+            padded[j] = padded[0]
+            lengths[j] = lengths[0]
+        try:
+            with torch.inference_mode():
+                sub, logits0 = self._prefill(lane, padded, lengths)
+                toks0 = logits0.argmax(dim=-1).cpu().numpy()
+            self._count_exec(("prefill", bb, pb, lane.bucket))
+        except Exception as e:  # noqa: BLE001 — group-level failure
+            if n == 1:
+                req, slot = members[0]
+                self._quarantine(req, f"{type(e).__name__}: {e}", events)
+                lane.free.append(slot)
+                return 0
+            return sum(self._admit_batch(lane, pb, [m], events)
+                       for m in members)
+        admitted = 0
+        for j, (req, slot) in enumerate(members):
+            try:
+                with torch.inference_mode():
+                    _insert(lane.state, sub, j, slot)
+                self._count_exec(("insert", bb, lane.bucket))
+            except Exception as e:  # noqa: BLE001 — per-row failure
+                self._quarantine(req, f"{type(e).__name__}: {e}", events)
+                lane.free.append(slot)
+                continue
+            info = _Slot(req, budget=self._budget_for(req, lane))
+            lane.slots[slot] = info
+            self.admitted += 1
+            admitted += 1
+            self._first_token(lane, slot, info, int(toks0[j]), events)
+        return admitted
+
+    def _reserve(self, lane: _PagedLane, req: GenRequest):
         """Claim pool blocks for one request: the longest registered prompt
         prefix rides shared (referenced) pages, the rest allocates private
         blocks — evicting LRU prefix-cache entries if the pool runs dry.
         Returns ``(k_shared, shared_ids, private_ids, plen)`` or None (pool
         exhausted: the caller requeues, and a typed ``kv_pool_exhausted``
         flight-recorder event explains the stall)."""
-        lane = self._lane
         prompt = self._prompt(req)
         plen = int(prompt.size)
         bl = self.gen.block_len
-        need = min((plen + self._budget_for(req) + bl - 1) // bl, lane.ntab)
+        need = min((plen + self._budget_for(req, lane) + bl - 1) // bl,
+                   lane.ntab)
         ksh, shared = 0, []
         if self._prefix is not None:
             # cap leaves >= 1 suffix token: first-token logits need at
@@ -571,7 +879,7 @@ class ContinuousBatcher:
         prefix-MISS batches (full prefill, one group per prompt bucket) and
         prefix-HIT batches (suffix-only prefill, one group per (suffix
         bucket, prefix-table bucket))."""
-        lane = self._lane
+        lane = self._lanes[0]
         bl = self.gen.block_len
         grabbed: List[tuple] = []        # (req, slot, resv)
         while True:
@@ -589,7 +897,7 @@ class ContinuousBatcher:
             if err is not None:
                 self._quarantine(req, f"ValueError: {err}", events)
                 continue
-            if not self._fits(req):
+            if self._pick_lane(req) is None:
                 self._quarantine(
                     req, "ValueError: no decode lane holds prompt + "
                          f"max_tokens (buckets {self.gen.bucket_lens})",
@@ -599,7 +907,7 @@ class ContinuousBatcher:
                 with self._waiting_lock:
                     self._waiting.appendleft(req)
                 break
-            resv = self._reserve(req)
+            resv = self._reserve(lane, req)
             if resv is None:
                 with self._waiting_lock:
                     self._waiting.appendleft(req)
@@ -617,18 +925,18 @@ class ContinuousBatcher:
                     (req, slot, resv))
             else:
                 miss.setdefault(pb, []).append((req, slot, resv))
-        return sum(self._admit_paged_batch(pb, members, events)
+        return sum(self._admit_paged_batch(lane, pb, members, events)
                    for pb, members in miss.items()) \
-            + sum(self._admit_paged_batch(sb, members, events, shared=npb)
+            + sum(self._admit_paged_batch(lane, sb, members, events,
+                                          shared=npb)
                   for (sb, npb), members in hit.items())
 
-    def _admit_paged_batch(self, pb: int, members, events,
+    def _admit_paged_batch(self, lane: _PagedLane, pb: int, members, events,
                            shared: Optional[int] = None) -> int:
         """Prefill + commit one same-bucket admission group in one pass.
         ``shared`` = prefix-table bucket for prefix-HIT groups (None = full
         prefill).  A failing group falls back to singleton admission, so a
         poisoned request that slipped past validation quarantines alone."""
-        lane = self._lane
         bl = self.gen.block_len
         n = len(members)
         bb = self._batch_bucket(n)
@@ -671,10 +979,13 @@ class ContinuousBatcher:
                 if shared is None:
                     logits0 = self._pprefill(padded, lengths, dest,
                                              slots_arr)
+                    key = ("pprefill", bb, pb)
                 else:
                     logits0 = self._pshared(padded, lengths, plens, ptab,
                                             dest, slots_arr)
+                    key = ("pshared", bb, pb, shared)
                 toks0 = logits0.argmax(dim=-1).cpu().numpy()
+            self._count_exec(key)
         except Exception as e:  # noqa: BLE001 — group-level failure
             if n == 1:
                 req, slot, resv = members[0]
@@ -682,7 +993,7 @@ class ContinuousBatcher:
                 self._quarantine(req, f"{type(e).__name__}: {e}", events)
                 lane.free.append(slot)
                 return 0
-            return sum(self._admit_paged_batch(pb, [m], events,
+            return sum(self._admit_paged_batch(lane, pb, [m], events,
                                                shared=shared)
                        for m in members)
         for j, (req, slot, resv) in enumerate(members):
@@ -692,7 +1003,7 @@ class ContinuousBatcher:
             lane.tables[slot, :len(table)] = table
             lane.pos[slot] = plen
             lane.blocks[slot] = table
-            info = _Slot(req, budget=self._budget_for(req))
+            info = _Slot(req, budget=self._budget_for(req, lane))
             lane.slots[slot] = info
             self.admitted += 1
             if self._prefix is not None and ksh == 0:
@@ -703,14 +1014,7 @@ class ContinuousBatcher:
                 if full:
                     self._prefix.register(self._prompt(req)[:full * bl],
                                           table[:full])
-            # the first token comes from the prefill: TTFT stops here
-            info.t_first = time.monotonic()
-            events.append(GenEvent(
-                "first_token", req.rid, trace_id=req.trace_id,
-                ttft_s=info.t_first - req.t_submit, t_read=req.t_read,
-                tenant=req.tenant))
-            lane.tokens[slot] = int(toks0[j])
-            self._account_token(slot, info, int(toks0[j]), events)
+            self._first_token(lane, slot, info, int(toks0[j]), events)
         return n
 
     # -- step boundary --------------------------------------------------------
@@ -723,19 +1027,19 @@ class ContinuousBatcher:
         except (TypeError, ValueError, OverflowError):
             return False      # the engine validated upstream
 
-    def _free(self, slot: int) -> None:
-        lane = self._lane
-        if lane.blocks[slot]:
-            self._pool.release(lane.blocks[slot])
-            lane.blocks[slot] = None
-        # zero the table row: the freed slot's decode writes land in the
-        # trash block until the next admission
-        lane.tables[slot, :] = 0
-        lane.pos[slot] = 0
+    def _free(self, lane: _Lane, slot: int) -> None:
+        if isinstance(lane, _PagedLane):
+            if lane.blocks[slot]:
+                self._pool.release(lane.blocks[slot])
+                lane.blocks[slot] = None
+            # zero the table row: the freed slot's decode writes land in
+            # the trash block until the next admission
+            lane.tables[slot, :] = 0
+            lane.pos[slot] = 0
         lane.slots[slot] = None
         lane.free.append(slot)
 
-    def _finish(self, slot: int, info: _Slot, reason: str,
+    def _finish(self, lane: _Lane, slot: int, info: _Slot, reason: str,
                 events: List[GenEvent]) -> None:
         self.finished += 1
         now = time.monotonic()
@@ -746,21 +1050,21 @@ class ContinuousBatcher:
                     if info.t_first is not None else None),
             t_read=info.req.t_read, wall_s=now - info.req.t_submit,
             tenant=info.req.tenant))
-        self._free(slot)
+        self._free(lane, slot)
 
-    def _account_token(self, slot: int, info: _Slot, tok: int,
+    def _account_token(self, lane: _Lane, slot: int, info: _Slot, tok: int,
                        events: List[GenEvent]) -> None:
         """Fold one emitted token into the slot: EOS / budget finish the
         request immediately (slot freed THIS boundary), stream_interval
         flushes partials."""
         eos = self.gen.eos_id
         if eos is not None and tok == eos:
-            self._finish(slot, info, "eos", events)
+            self._finish(lane, slot, info, "eos", events)
             return
         info.generated.append(int(tok))
         self.generated_tokens += 1
         if len(info.generated) >= info.budget:
-            self._finish(slot, info, "length", events)
+            self._finish(lane, slot, info, "length", events)
             return
         si = self.gen.stream_interval
         if si and len(info.generated) - info.last_stream >= si:
@@ -771,102 +1075,260 @@ class ContinuousBatcher:
                 tenant=info.req.tenant))
 
     def _shed_active(self, events: List[GenEvent]) -> None:
-        for slot, info in enumerate(self._lane.slots):
-            if info is None or not self._expired(info.req.deadline_ns):
-                continue
-            self.shed += 1
-            events.append(GenEvent(
-                "shed", info.req.rid, trace_id=info.req.trace_id,
-                tokens=list(info.generated), t_read=info.req.t_read,
-                tenant=info.req.tenant))
-            self._free(slot)
+        for lane in self._lanes:
+            for slot, info in enumerate(lane.slots):
+                if info is None or not self._expired(info.req.deadline_ns):
+                    continue
+                self.shed += 1
+                events.append(GenEvent(
+                    "shed", info.req.rid, trace_id=info.req.trace_id,
+                    tokens=list(info.generated), t_read=info.req.t_read,
+                    tenant=info.req.tenant))
+                self._free(lane, slot)
 
     def step(self) -> List[GenEvent]:
         """One decode-step boundary: shed expired, admit into free slots,
-        run ``decode_quantum`` token steps, fold the emitted tokens.
-        Returns the events the engine must act on; an idle scheduler
-        returns [] without touching the device."""
-        events: List[GenEvent] = []
-        self.last_boundary = []
-        self._exhausted_boundary = False
-        self._shed_active(events)
-        self.last_admitted = self._admit_paged(events)
-        lane = self._lane
-        if lane.active == 0:
+        run ``decode_quantum`` token steps per non-empty lane, fold the
+        emitted tokens.  Returns the events the engine must act on; an
+        idle scheduler returns [] without touching the device."""
+        with self._device_lock:
+            events: List[GenEvent] = []
+            self.last_boundary = []
+            self._exhausted_boundary = False
+            self._shed_active(events)
+            self.last_admitted = self._admit(events)
+            for lane in self._lanes:
+                if lane.active:
+                    self._step_lane(lane, events)
             return events
+
+    def _step_lane(self, lane: _Lane, events: List[GenEvent]) -> None:
         with torch.inference_mode():
-            block = self._pdecode(lane)
-        # host cursors advance with the decode loop; idle rows clamp at
-        # lane capacity (their writes target the trash block regardless).
-        # MUST run before the token fold — _free zeroes a finishing row's
-        # cursor.
-        lane.pos = np.minimum(lane.pos + np.int32(block.shape[0]),
-                              np.int32(lane.bucket)).astype(np.int32)
+            block = self._decode(lane)
+        self._count_exec(self._decode_key(lane))
+        if isinstance(lane, _PagedLane):
+            # host cursors advance with the decode loop; idle rows clamp at
+            # lane capacity (their writes target the trash block
+            # regardless).  MUST run before the token fold — _free zeroes a
+            # finishing row's cursor.
+            lane.pos = np.minimum(lane.pos + np.int32(block.shape[0]),
+                                  np.int32(lane.bucket)).astype(np.int32)
         self.decode_steps += int(block.shape[0])
         for slot, info in enumerate(lane.slots):
             if info is None:
                 continue
             n0 = len(info.generated)
             for k in range(block.shape[0]):
-                self._account_token(slot, info, int(block[k, slot]), events)
+                self._account_token(lane, slot, info, int(block[k, slot]),
+                                    events)
                 if lane.slots[slot] is not info:
                     break      # finished mid-quantum: discard the rest
             self.last_boundary.append(
                 (info.req.rid, info.req.trace_id,
                  len(info.generated) - n0, info.req.tenant))
         lane.tokens = np.array(block[-1])
-        return events
+
+    # -- warm-up --------------------------------------------------------------
+    @staticmethod
+    def _decode_key(lane: _Lane) -> tuple:
+        return ("pdecode" if isinstance(lane, _PagedLane)
+                else "decode_step", lane.bucket)
+
+    def warmup_manifest(self):
+        """The program set of this deployment, from
+        ``aot.generation_manifest`` as in the JAX package (the prefix-block
+        ladder included)."""
+        prefix_blocks: Sequence[int] = ()
+        if self._prefix is not None:
+            max_sh = (self.gen.max_prompt_len - 1) // self.gen.block_len
+            if max_sh >= 1:
+                prefix_blocks = _pow2_ladder(1, max_sh)
+        return aot.generation_manifest(
+            self.gen.prefill_buckets,
+            [lane.bucket for lane in self._lanes],
+            prefill_batches=_pow2_ladder(1, self.gen.max_active_slots),
+            cache_model=True,
+            paged=self._pool is not None,
+            prefix_blocks=prefix_blocks)
+
+    def warm(self, manifest=None, progress: Optional[Callable] = None,
+             stop: Optional[Callable[[], bool]] = None) -> Dict:
+        """Warm every scheduler program ahead of traffic: a decode entry
+        captures its lane's quantum as a CUDA graph on the card (on the
+        CPU, where there is none, it runs the quantum once); prefill,
+        shared-prefill and insert entries run once eagerly, to the trash
+        block, the drop sentinel or a free slot.  The entries are walked
+        by ``aot.warm_up``, whose stats document this returns."""
+        if manifest is None:
+            manifest = self.warmup_manifest()
+        lanes = {lane.bucket: lane for lane in self._lanes}
+
+        def warm_entry(entry) -> bool:
+            with self._device_lock, torch.inference_mode():
+                return self._warm_entry(entry, lanes)
+        return aot.warm_up(None, manifest, progress=progress, stop=stop,
+                           warm_entry=warm_entry)
+
+    def _warm_entry(self, entry, lanes: Dict[int, _Lane]) -> bool:
+        lane = lanes.get(entry.lane_bucket)
+        if lane is None:
+            raise ValueError(f"no lane with bucket {entry.lane_bucket}")
+        if entry.kind in ("paged_decode", "decode_step"):
+            if (entry.kind == "paged_decode") != isinstance(lane,
+                                                            _PagedLane):
+                raise ValueError(f"entry kind {entry.kind!r} does not "
+                                 "match the lane")
+            return self._warm_decode(lane)
+        bb = int(entry.prefill_batch or 1)
+        if entry.kind == "insert":
+            key = ("insert", bb, lane.bucket)
+        else:
+            pb = int(entry.prefill_bucket)
+            key = {"prefill": ("prefill", bb, pb, lane.bucket),
+                   "paged_prefill": ("pprefill", bb, pb),
+                   "paged_shared": ("pshared", bb, pb,
+                                    int(entry.prefix_blocks or 1))
+                   }.get(entry.kind)
+        if key is None:
+            raise ValueError(f"unknown warm-up entry kind {entry.kind!r}")
+        if key in self._programs:
+            return False
+        self._dry_run(lane, key)
+        self._programs[key] = None
+        return True
+
+    def _dry_run(self, lane: _Lane, key: tuple) -> None:
+        """One eager run of a prefill-side program at its shapes, with
+        effects that no active slot can see: paged prefills commit to the
+        trash block and the drop sentinel; a monolithic insert copies into
+        a free slot, which admission overwrites whole."""
+        kind, bb = key[0], key[1]
+        if kind == "insert":
+            pb = self.gen.prefill_buckets[0]
+        else:
+            pb = key[2]
+        prompt = np.zeros((bb, pb), np.int32)
+        lengths = np.ones((bb,), np.int32)
+        if kind in ("prefill", "insert"):
+            sub, logits0 = self._prefill(lane, prompt, lengths)
+            if kind == "insert" and lane.free:
+                _insert(lane.state, sub, 0, lane.free[0])
+        else:
+            bl = self.gen.block_len
+            dest = np.zeros((bb, (pb + bl - 1) // bl), np.int32)
+            slots = np.full((bb,), lane.max_active, np.int32)
+            if kind == "pprefill":
+                logits0 = self._pprefill(prompt, lengths, dest, slots)
+            else:
+                logits0 = self._pshared(
+                    prompt, lengths, np.zeros((bb,), np.int32),
+                    np.zeros((bb, key[3]), np.int32), dest, slots)
+        logits0.argmax(dim=-1).cpu()
+
+    def _warm_decode(self, lane: _Lane) -> bool:
+        """Capture the lane's quantum.  An idle lane first runs it once
+        eagerly (first-call setup; every row's writes land in the trash
+        block or a free slot).  A lane with active slots ran its quantum
+        eagerly at the last boundary, and a dry run would write ahead of
+        its slots' cursors, so it is captured as it stands (a capture
+        records and does not execute), after one prefill of a padding row
+        that commits nowhere: the calling thread may not have run the
+        quantum, and a capture cannot create the per-thread library
+        handles (cuBLAS) that a thread's first call creates."""
+        key = self._decode_key(lane)
+        if key in self._programs:
+            return False
+        if lane.active == 0:
+            self._decode(lane, dry_run=True)
+        else:
+            pb = self.gen.prefill_buckets[0]
+            self._dry_run(lane, ("pprefill", 1, pb)
+                          if isinstance(lane, _PagedLane)
+                          else ("prefill", 1, pb, lane.bucket))
+        if self.device.type == "cuda":
+            lane.program = aot.capture(lambda *_: self._quantum(lane),
+                                       tuple(lane.buf.dev.values()),
+                                       self.device)
+        self._programs[key] = lane.program
+        return True
 
     # -- observability --------------------------------------------------------
+    @property
+    def captures(self) -> int:
+        """Decode lanes holding a captured graph."""
+        return sum(lane.program is not None for lane in self._lanes)
+
+    @property
+    def replays(self) -> int:
+        """Decode quanta replayed from the lanes' graphs."""
+        return sum(lane.program.replays for lane in self._lanes
+                   if lane.program is not None)
+
     def state_bytes_doc(self) -> Dict:
-        """Bytes pinned by decode state, decomposed: ``paged_pool`` (the
-        shared KV block pool), ``scales`` (int8 per-block scale planes),
-        ``lanes`` (int8 per-slot staging buffers) and ``aux`` (host-side
-        token cursors, block tables and position cursors)."""
-        lane = self._lane
-        pool_b = scales_b = lanes_b = 0
-        for part, tensors in (lane.state or {}).items():
-            nb = sum(t.numel() * t.element_size() for t in tensors)
-            if part in ("k", "v"):
-                pool_b += nb
-            elif part in ("ks", "vs"):
-                scales_b += nb
+        """Bytes pinned by decode state, decomposed: ``lanes`` (monolithic
+        per-slot caches and int8 per-slot staging buffers), ``paged_pool``
+        (the shared KV block pool), ``scales`` (int8 per-block scale
+        planes) and ``aux`` (host-side token cursors, block tables and
+        position cursors)."""
+        lanes_b = pool_b = scales_b = aux_b = 0
+        for lane in self._lanes:
+            aux_b += int(lane.tokens.nbytes)
+            if isinstance(lane, _PagedLane):
+                aux_b += int(lane.tables.nbytes + lane.pos.nbytes)
+                for part, tensors in lane.state.items():
+                    nb = sum(t.numel() * t.element_size() for t in tensors)
+                    if part in ("k", "v"):
+                        pool_b += nb
+                    elif part in ("ks", "vs"):
+                        scales_b += nb
+                    else:
+                        lanes_b += nb
             else:
-                lanes_b += nb
-        aux_b = int(lane.tokens.nbytes + lane.tables.nbytes
-                    + lane.pos.nbytes)
+                lanes_b += _tree_bytes(lane.state)
         return {"lanes": lanes_b, "paged_pool": pool_b, "scales": scales_b,
                 "aux": aux_b, "total": lanes_b + pool_b + scales_b + aux_b}
 
     def state_bytes(self) -> int:
         return int(self.state_bytes_doc()["total"])
 
+    def program_stats(self) -> Dict:
+        """Warmed scheduler programs and per-program execution counts,
+        keyed like the ``aot.generation_manifest`` entries
+        (``prefill:b<batch>xp<bucket>@<lane>`` etc.)."""
+        return {"count": len(self._programs),
+                "programs": dict(self._exec_counts)}
+
     def stats(self) -> Dict:
-        lane = self._lane
-        pool = {"blocks": self._pool.n_blocks,
-                "block_len": self._pool.block_len,
-                "free_blocks": self._pool.free_blocks,
-                "used_blocks": self._pool.used_blocks,
-                "occupancy": round(self._pool.used_blocks
-                                   / max(1, self._pool.n_blocks), 4),
-                "kv_quant": self.gen.kv_quant,
-                "exhausted": self.pool_exhausted}
-        if self._prefix is not None:
-            ps = self._prefix.stats()
-            pool.update({"prefix_entries": ps["entries"],
-                         "prefix_hits": ps["hits"],
-                         "prefix_misses": ps["misses"],
-                         "prefix_evictions": ps["evictions"]})
-        return {"slots_total": self.slots_total,
-                "active_slots": self.active,
-                "waiting": self.waiting,
-                "decode_steps": self.decode_steps,
-                "generated_tokens": self.generated_tokens,
-                "admitted": self.admitted,
-                "finished": self.finished,
-                "quarantined": self.quarantined,
-                "shed": self.shed,
-                "lanes": [{"bucket": lane.bucket,
-                           "max_active": lane.max_active,
-                           "active": lane.active}],
-                "pool": pool}
+        d = {"slots_total": self.slots_total,
+             "active_slots": self.active,
+             "waiting": self.waiting,
+             "decode_steps": self.decode_steps,
+             "generated_tokens": self.generated_tokens,
+             "admitted": self.admitted,
+             "finished": self.finished,
+             "quarantined": self.quarantined,
+             "shed": self.shed,
+             "captures": self.captures,
+             "replays": self.replays,
+             "eager_quanta": self.eager_quanta,
+             "lanes": [{"bucket": lane.bucket,
+                        "max_active": lane.max_active,
+                        "active": lane.active}
+                       for lane in self._lanes]}
+        if self._pool is not None:
+            pool = {"blocks": self._pool.n_blocks,
+                    "block_len": self._pool.block_len,
+                    "free_blocks": self._pool.free_blocks,
+                    "used_blocks": self._pool.used_blocks,
+                    "occupancy": round(self._pool.used_blocks
+                                       / max(1, self._pool.n_blocks), 4),
+                    "kv_quant": self.gen.kv_quant,
+                    "exhausted": self.pool_exhausted}
+            if self._prefix is not None:
+                ps = self._prefix.stats()
+                pool.update({"prefix_entries": ps["entries"],
+                             "prefix_hits": ps["hits"],
+                             "prefix_misses": ps["misses"],
+                             "prefix_evictions": ps["evictions"]})
+            d["pool"] = pool
+        return d

@@ -39,17 +39,30 @@ and checks them, phase by phase, each phase printing its own lines:
      groups straddling a chunk and the two halves, odd K, M = 1, 17, 33,
      several x segments, a packed weight not on 16 bytes.
 3. generation — ``TransformerLM`` at GPT-2-small geometry served by
-   ``ClusterServing`` in generation mode (16 prompts, two waves, f32 and
-   int8 KV); paged-kernel launches = decode steps x 12; token sequences
-   cross-checked against the plain-attention batcher.
+   ``ClusterServing`` in generation mode with ``warmup`` (16 prompts, two
+   waves sent once the warm-up reports ``ready``): paged lanes with f32
+   and int8 KV, then monolithic per-slot lanes (``paged=false``, two
+   capacity buckets).  The warm-up captures one CUDA graph a decode lane
+   and fails no entry; the waves run every decode quantum as a graph
+   replay (no capture, no eager quantum, so no paged launch counted by
+   the wrapper, which a replay does not run).  Each paged variant serves
+   twice: a timed run, then the same waves under a profiler trace of the
+   card (``ops/_impl.card_launches``), which must show the paged kernel
+   run decode steps x 12 times.  Token sequences cross-checked against
+   the plain-attention batcher (the traced run's against the timed
+   run's), and the monolithic lanes' against the paged f32 lane's
+   (equal, or parting only at a near tie).
 4. predict — ``Sequential([TransformerLayer(GPT-2 small, T = 1024),
    GlobalAveragePooling1D, Dense(50257, softmax)])`` from ``--seed``,
    loaded by ``InferenceModel.do_load_model`` and served by
    ``ClusterServing`` in predict mode over ``InProcQueue`` (32 records of
    1024 token ids, batch 8, pipelined workers): f32, then int8 and int4
-   heads (``ServingParams.quantize``).  Flash launches = 12 x forwards,
-   w8a8 / w4a16 launches = forwards; served top-5 probabilities checked
-   against the same model with every kernel's plain version.
+   heads (``ServingParams.quantize``).  Each engine warms its buckets (1,
+   2, 4, 8) first (one eager run each), and every forward then finds its
+   bucket warm.  Served under a profiler trace of the card: flash
+   launches on the card = by the wrapper = 12 x forwards, w8a8 / w4a16
+   launches = forwards; served top-5 probabilities checked against the
+   same model with every kernel's plain version.
 5. training — the flash backward's dq and dk/dv kernels against their
    plain version (f32 and bf16, causal and not, T = 77, 1000 and 1024,
    head_dim 32/64/128, with and without an LSE cotangent, strided views;
@@ -88,8 +101,9 @@ contract line.  Run from the repository root::
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
-``--profile`` adds ``torch.profiler`` readings of a decode step, a predict
-batch, a training step and a ResNet-50 training step.  ``--kernel-timing``
+``--profile`` adds ``torch.profiler`` readings of a decode step (eager,
+then replayed from its CUDA graph), a predict batch, a training step and
+a ResNet-50 training step.  ``--kernel-timing``
 runs only the paged, w8a8 and w4a16 timings (``kernel_timing``); a copy of
 this script run from the root of an earlier tree of the port times that
 tree's kernels the same way::
@@ -137,7 +151,7 @@ from analytics_zoo_tpu_torch.nn import objectives
 from analytics_zoo_tpu_torch.nn.models import Sequential
 from analytics_zoo_tpu_torch.nn.module import generator
 from analytics_zoo_tpu_torch.nn.optimizers import SGD, Adam
-from analytics_zoo_tpu_torch.ops import _build
+from analytics_zoo_tpu_torch.ops import _build, _impl
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
 from analytics_zoo_tpu_torch.ops import fused_bn as fb
 from analytics_zoo_tpu_torch.ops import paged_attention as pa
@@ -155,6 +169,10 @@ GPT2_SMALL = dict(vocab_size=50257, hidden=768, n_head=12, n_layers=12,
 GENERATION = dict(paged=True, block_len=16, max_active_slots=8,
                   max_prompt_len=128, max_tokens=64, decode_quantum=4,
                   prefix_cache=True, stream_interval=8)
+# the same deployment on monolithic per-slot lanes (generation.paged=false,
+# the default): two capacity buckets, so requests of up to 64 prompt tokens
+# take the 128-token lane and the rest the 256-token one
+MONOLITHIC = dict(GENERATION, paged=False, bucket_lens=[128, 256])
 N_REQUESTS = 16
 PREFIX_LEN = 32
 # the paged lane's capacity: pow2(max_prompt_len + max_tokens) tokens
@@ -182,6 +200,9 @@ PREDICT = dict(vocab=50257, hidden_size=768, n_block=12, n_head=12,
                seq_len=1024)
 N_RECORDS = 32
 PREDICT_BATCH = 8
+# the predict warm-up: every bucket a batch of up to PREDICT_BATCH records
+# pads to (1, 2, 4, 8), f32 records only
+PREDICT_WARMUP = {"max_batch": PREDICT_BATCH, "scales": "off"}
 # flash kernel vs plain: the same f32 math in another summation order
 # (f32 out); bf16 outputs round the same f32 values once, so they may
 # differ by one bf16 step: at most 2**-7 of |x| (rtol), with atol one
@@ -670,70 +691,135 @@ def make_requests(seed: int, vocab: int):
             [r for i, r in enumerate(reqs) if i not in first]]
 
 
-def serve(im, waves, kv_quant: str, timeout_s: float = 600.0) -> dict:
-    """Drive ClusterServing over InProcQueue; returns the terminal results
-    and the run's counters."""
+def wait_warm(serving, timeout_s: float = 600.0) -> dict:
+    """Block until the engine's warm-up pass ends; it must end ``ready``
+    with no failed entry, and the engine must then report ready."""
+    t0 = time.perf_counter()
+    while True:
+        w = serving.health()["warmup"]
+        if w["state"] not in ("pending", "warming"):
+            break
+        check(time.perf_counter() - t0 < timeout_s,
+              f"warm-up still {w['state']} after {timeout_s} s ({w})")
+        time.sleep(0.05)
+    check(w["state"] == "ready" and w["failed"] == 0, f"warm-up {w}")
+    check(serving.ready()["ready"], f"not ready after warm-up: "
+                                    f"{serving.ready()}")
+    return w
+
+
+def serve(im, waves, gen: dict, trace: bool = False,
+          timeout_s: float = 600.0) -> dict:
+    """Drive ClusterServing over InProcQueue: started with ``warmup``, the
+    waves sent once the warm-up is ``ready``; returns the terminal results
+    and the counters of the waves alone: the batcher's before and after,
+    the paged-kernel launches its wrapper counted (eager ones) and, with
+    ``trace``, the launches the card ran, read from a profiler trace of
+    the waves (``_impl.card_launches``; a graph replay runs no wrapper).
+    The trace slows the host, so a timed run is not traced."""
     q = InProcQueue()
     params = ServingParams(max_batch=N_REQUESTS, max_wait_ms=2.0,
-                           generation=dict(GENERATION, kv_quant=kv_quant))
+                           generation=gen, warmup=True)
     serving = ClusterServing(im, q, params)
+    b = serving._batcher
+    n_decode = sum(e.kind in ("paged_decode", "decode_step")
+                   for e in b.warmup_manifest())
     iq, oq = InputQueue(q), OutputQueue(q)
     results = {}
-    pa.launches = 0
     try:
         serving.start()
-        t0 = time.perf_counter()
-        for wave in waves:
-            for rid, prompt in wave:
-                iq.enqueue_tensor(rid, prompt.astype(np.float32))
-            got = oq.query_many([rid for rid, _ in wave],
-                                timeout_s=timeout_s)
-            results.update(got)
-        wall = time.perf_counter() - t0
+        warm = wait_warm(serving)
+        torch.cuda.synchronize()
+        before = b.stats()
+        pa.launches = 0
+        with (_impl.card_launches(("paged",)) if trace
+              else contextlib.nullcontext({"paged": None})) as card:
+            t0 = time.perf_counter()
+            for wave in waves:
+                for rid, prompt in wave:
+                    iq.enqueue_tensor(rid, prompt.astype(np.float32))
+                got = oq.query_many([rid for rid, _ in wave],
+                                    timeout_s=timeout_s)
+                results.update(got)
+            wall = time.perf_counter() - t0
     finally:
         serving.shutdown(drain_s=5.0)
     torch.cuda.synchronize()
-    launches = pa.launches
-    b = serving._batcher
     stats = b.stats()
     ttft = serving._m_ttft.percentiles((50,))["p50"]
-    return {"results": results, "wall_s": wall, "launches": launches,
-            "stats": stats, "ttft_p50_s": ttft,
+    return {"results": results, "wall_s": wall, "traced": trace,
+            "launches": card["paged"], "eager_launches": pa.launches,
+            "stats": stats, "before": before, "warm": warm,
+            "n_decode": n_decode, "ttft_p50_s": ttft,
             "layers": im._model.n_layers}
 
 
-def check_served(run: dict, waves, vocab: int, kv_quant: str) -> dict:
+def check_served(run: dict, waves, vocab: int, tag: str,
+                 paged: bool = True) -> dict:
+    """Every request answered with its full budget of in-range tokens;
+    the warm-up captured one graph a decode lane and the waves ran every
+    quantum from it (no capture, no eager quantum, no paged launch by the
+    wrapper); in a traced run the card ran the paged kernel decode steps x
+    layers times (none for monolithic lanes, whose attention is
+    plain)."""
     tokens = {}
     for wave in waves:
         for rid, prompt in wave:
             r = run["results"].get(rid)
             check(r is not None and "value" in r
                   and not OutputQueue.is_partial(r),
-                  f"[{kv_quant}] {rid}: no terminal result ({r})")
+                  f"[{tag}] {rid}: no terminal result ({r})")
             toks = r["value"]["tokens"]
             want = min(GENERATION["max_tokens"], LANE - len(prompt))
             check(len(toks) == want and r["value"]["length"] == want,
-                  f"[{kv_quant}] {rid}: {len(toks)} tokens, want {want}")
+                  f"[{tag}] {rid}: {len(toks)} tokens, want {want}")
             check(all(0 <= t < vocab for t in toks),
-                  f"[{kv_quant}] {rid}: token out of range")
+                  f"[{tag}] {rid}: token out of range")
             tokens[rid] = list(toks)
-    st = run["stats"]
-    steps = st["decode_steps"]
+    st, st0, warm = run["stats"], run["before"], run["warm"]
+    steps = st["decode_steps"] - st0["decode_steps"]
     check(st["finished"] == N_REQUESTS and st["quarantined"] == 0
-          and st["shed"] == 0, f"[{kv_quant}] scheduler stats {st}")
-    check(st["pool"]["prefix_hits"] > 0,
-          f"[{kv_quant}] no prefix hit: pshared never ran ({st['pool']})")
-    check(run["launches"] > 0
-          and run["launches"] == steps * run["layers"],
-          f"[{kv_quant}] paged kernel launches {run['launches']} != decode "
-          f"steps {steps} x {run['layers']} layers")
+          and st["shed"] == 0, f"[{tag}] scheduler stats {st}")
+    check(warm["compile_stats"]["captures"] == run["n_decode"]
+          == st0["captures"] == st["captures"],
+          f"[{tag}] captures: warm-up {warm['compile_stats']}, batcher "
+          f"{st0['captures']} -> {st['captures']}, decode entries "
+          f"{run['n_decode']}")
+    eager = st["eager_quanta"] - st0["eager_quanta"]
+    replays = st["replays"] - st0["replays"]
+    check(eager == 0 and replays > 0
+          and replays * GENERATION["decode_quantum"] == steps,
+          f"[{tag}] {eager} eager quanta, {replays} replays for {steps} "
+          f"decode steps")
+    layers = run["layers"] if paged else 0
+    check(run["eager_launches"] == 0,
+          f"[{tag}] {run['eager_launches']} paged launches by the wrapper "
+          f"while every quantum was a replay")
+    if run["traced"]:
+        check(run["launches"] == steps * layers
+              and (run["launches"] > 0 or not paged),
+              f"[{tag}] paged kernel launches on the card "
+              f"{run['launches']} != decode steps {steps} x {layers} "
+              f"layers")
+    if paged:
+        check(st["pool"]["prefix_hits"] > 0,
+              f"[{tag}] no prefix hit: pshared never ran ({st['pool']})")
     n_tok = sum(len(t) for t in tokens.values())
-    say(f"main[{kv_quant}]: {len(tokens)}/{N_REQUESTS} terminal results, "
-        f"{n_tok} tokens in {run['wall_s']:.3f} s = "
-        f"{n_tok / run['wall_s']:.1f} tokens/s, TTFT p50 "
-        f"{run['ttft_p50_s'] * 1e3:.2f} ms, decode steps {steps}, paged "
-        f"kernel launches {run['launches']} (= {steps} x "
-        f"{run['layers']}), prefix hits {st['pool']['prefix_hits']}")
+    traced = (f", paged kernel launches on the card {run['launches']} (= "
+              f"{steps} x {layers}, from the trace)" if run["traced"]
+              else "")
+    say(f"main[{tag}{'/traced' if run['traced'] else ''}]: warm-up "
+        f"{warm['total']} entries in "
+        f"{warm['seconds']:.3f} s, {warm['compile_stats']['captures']} "
+        f"graph capture(s) (= decode lanes) in "
+        f"{warm['compile_stats']['capture_seconds']:.3f} s; "
+        f"{len(tokens)}/{N_REQUESTS} terminal results, {n_tok} tokens in "
+        f"{run['wall_s']:.3f} s = {n_tok / run['wall_s']:.1f} tokens/s, "
+        f"TTFT p50 {run['ttft_p50_s'] * 1e3:.2f} ms, decode steps {steps} "
+        f"in {replays} graph replays, eager quanta {eager}, captures after "
+        f"the waves {st['captures']}, paged launches by the wrapper "
+        f"{run['eager_launches']}" + traced
+        + (f", prefix hits {st['pool']['prefix_hits']}" if paged else ""))
     return tokens
 
 
@@ -782,29 +868,38 @@ def replay_margin(lm, prompt, tokens, d: int, kv_quant: str):
     return float(top.values[0] - top.values[1]), int(top.indices[0])
 
 
-def cross_check(im, waves, served: dict, kv_quant: str) -> None:
-    plain = batcher_tokens(im, waves, kv_quant, "torch")
+def compare_tokens(im, waves, got: dict, ref: dict, kv_quant: str,
+                   tag: str, what: str) -> None:
+    """Every token sequence of ``got`` equal to ``ref``'s, or parting from
+    it only at a near tie: at the first divergence the replayed logits'
+    top-2 margin is below ``TIE_MARGIN`` and their argmax is one of the
+    two tokens."""
     prompts = {rid: p for wave in waves for rid, p in wave}
     diverged = 0
-    for rid, toks in served.items():
-        ref = plain[rid]
-        if ref == toks:
+    for rid, toks in got.items():
+        want = ref[rid]
+        if want == toks:
             continue
-        d = next(i for i, (a, b) in enumerate(zip(toks, ref)) if a != b)
+        d = next(i for i, (a, b) in enumerate(zip(toks, want)) if a != b)
         margin, top = replay_margin(im._model, prompts[rid], toks, d,
                                     kv_quant)
-        say(f"cross[{kv_quant}] {rid}: diverges at token {d} "
-            f"(kernel {toks[d]}, plain {ref[d]}, replay {top}), top-2 "
-            f"logit margin {margin:.3e}")
-        check(top in (toks[d], ref[d]),
-              f"cross[{kv_quant}] {rid}: the replay picks neither token")
+        say(f"{tag} {rid}: diverges at token {d} (got {toks[d]}, "
+            f"{what} {want[d]}, replay {top}), top-2 logit margin "
+            f"{margin:.3e}")
+        check(top in (toks[d], want[d]),
+              f"{tag} {rid}: the replay picks neither token")
         check(margin < TIE_MARGIN,
-              f"cross[{kv_quant}] {rid}: divergence at token {d} is not a "
-              f"near tie (margin {margin:.3e} >= {TIE_MARGIN})")
+              f"{tag} {rid}: divergence at token {d} is not a near tie "
+              f"(margin {margin:.3e} >= {TIE_MARGIN})")
         diverged += 1
-    say(f"cross[{kv_quant}]: {len(served) - diverged}/{len(served)} token "
-        f"sequences identical to the plain-attention batcher, {diverged} "
-        f"diverged at a near tie")
+    say(f"{tag}: {len(got) - diverged}/{len(got)} token sequences "
+        f"identical to the {what}, {diverged} diverged at a near tie")
+
+
+def cross_check(im, waves, served: dict, kv_quant: str) -> None:
+    compare_tokens(im, waves, served,
+                   batcher_tokens(im, waves, kv_quant, "torch"), kv_quant,
+                   f"cross[{kv_quant}]", "plain-attention batcher")
 
 
 # -- phase 2b: flash attention, w8a8 and w4a16 against their plain versions ---
@@ -1232,32 +1327,40 @@ def reset_launches() -> None:
 
 
 def serve_predict(im, X, params) -> dict:
-    """ClusterServing in predict mode over InProcQueue: all records
-    enqueued, then the pipelined workers started; counts and forwards are
-    read over exactly that run."""
+    """ClusterServing in predict mode over InProcQueue, started with its
+    ``warmup`` spec; once the warm-up is ``ready`` the counts are set to 0
+    and every record is enqueued, under a profiler trace of the card
+    (``_impl.card_launches``).  Forwards are the model's executions of a
+    padded batch over exactly that run, ``warm_hits`` the ones whose
+    bucket the warm-up had run; ``card`` the kernel launches the card ran,
+    ``wrapper`` those the wrappers counted."""
     q = InProcQueue()
     serving = ClusterServing(im, q, params)     # quantizes here
     iq, oq = InputQueue(q), OutputQueue(q)
     rids = [f"rec-{i:02d}" for i in range(len(X))]
-    for rid, x in zip(rids, X):
-        iq.enqueue_tensor(rid, x)
-    forwards = [0]
-    hook = im._model.layers_list[0].register_forward_hook(
-        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
-    sync(im.device)
-    reset_launches()
     try:
-        t0 = time.perf_counter()
         serving.start()
-        results = oq.query_many(rids, timeout_s=600.0)
-        wall = time.perf_counter() - t0
+        warm = wait_warm(serving)
+        sync(im.device)
+        st0 = im.aot_stats()
+        reset_launches()
+        with _impl.card_launches(("flash_fwd", "w8a8", "w4a16")) as card:
+            t0 = time.perf_counter()
+            for rid, x in zip(rids, X):
+                iq.enqueue_tensor(rid, x)
+            results = oq.query_many(rids, timeout_s=600.0)
+            wall = time.perf_counter() - t0
     finally:
         serving.shutdown(drain_s=5.0)
-        hook.remove()
     sync(im.device)
+    st = im.aot_stats()
     return {"rids": rids, "results": results, "wall_s": wall,
-            "forwards": forwards[0], "flash": fa.launches,
-            "w8a8": qm.launches_w8a8, "w4a16": qm.launches_w4a16,
+            "forwards": sum(st["programs"].values())
+            - sum(st0["programs"].values()),
+            "warm_hits": st["hits"] - st0["hits"], "warm": warm,
+            "card": card, "wrapper": {"flash_fwd": fa.launches,
+                                      "w8a8": qm.launches_w8a8,
+                                      "w4a16": qm.launches_w4a16},
             "e2e_p50_s": serving._e2e.percentiles((50,))["p50"],
             "dead_lettered": serving.dead_lettered}
 
@@ -1272,7 +1375,8 @@ def head_inputs(im, X, impl):
         lambda _m, args: seen.append(args[0].clone()))
     set_impl(im._model, impl)
     try:
-        probs = im.do_predict(X, batch_size=PREDICT_BATCH)
+        probs = InferenceModel(device=im.device).do_load_model(
+            im._model).do_predict(X, batch_size=PREDICT_BATCH)
     finally:
         set_impl(im._model, None)
         hook.remove()
@@ -1298,7 +1402,9 @@ def logp_tolerance(im, x_kernel, x_plain) -> np.ndarray:
 def check_predict(tag: str, run: dict, ref_probs, tol, quant) -> dict:
     """Every record answered with a top-5 whose probabilities match the
     plain path's; top-1 equal where the plain top-2 margin exceeds the
-    tolerance; launches = 12 x forwards (flash) and = forwards (quant)."""
+    tolerance; every forward's bucket warmed; the card ran the flash
+    kernel 12 x forwards and the quantized head's kernel once a forward,
+    and the wrappers counted each of those launches."""
     n = len(run["rids"])
     check(run["dead_lettered"] == 0, f"predict[{tag}]: records quarantined")
     ref_logp = np.log(ref_probs.astype(np.float64))
@@ -1326,17 +1432,24 @@ def check_predict(tag: str, run: dict, ref_probs, tol, quant) -> dict:
                   f"{int(np.argmax(ref_logp[i]))}")
         top1.append(cls[0])
     fw = run["forwards"]
-    check(fw > 0 and run["flash"] == fw * PREDICT["n_block"],
-          f"predict[{tag}]: flash launches {run['flash']} != {fw} forwards "
-          f"x {PREDICT['n_block']} blocks")
+    check(run["warm_hits"] == fw > 0,
+          f"predict[{tag}]: {run['warm_hits']} of {fw} forwards found "
+          f"their bucket warm")
+    per = {"flash_fwd": PREDICT["n_block"]}
     if quant:
-        check(run[quant] == fw, f"predict[{tag}]: {quant} launches "
-                                f"{run[quant]} != {fw} forwards")
-    say(f"predict[{tag}]: {len(run['results'])}/{n} records served in "
-        f"{run['wall_s']:.3f} s = {n / run['wall_s']:.2f} records/s, e2e "
-        f"p50 {run['e2e_p50_s'] * 1e3:.1f} ms; {fw} forwards, flash "
-        f"launches {run['flash']}" + (f", {quant} launches {run[quant]}"
-                                      if quant else "")
+        per[quant] = 1
+    for k, n_per in per.items():
+        check(run["card"][k] == run["wrapper"][k] == fw * n_per,
+              f"predict[{tag}]: {k} launches on the card {run['card'][k]}, "
+              f"by the wrapper {run['wrapper'][k]}, != {fw} forwards x "
+              f"{n_per}")
+    w = run["warm"]
+    say(f"predict[{tag}]: warm-up {w['total']} buckets in "
+        f"{w['seconds']:.3f} s; {len(run['results'])}/{n} records served "
+        f"in {run['wall_s']:.3f} s = {n / run['wall_s']:.2f} records/s, "
+        f"e2e p50 {run['e2e_p50_s'] * 1e3:.1f} ms (under the trace); {fw} "
+        f"forwards, each of a warmed bucket; launches on the card = by the "
+        f"wrappers: " + ", ".join(f"{k} {run['card'][k]}" for k in per)
         + f"; top-5 log-prob max err vs plain {worst:.3e}, top-1 checked "
         f"on {compared}/{n} (plain top-2 margin > 2 x tolerance)")
     return {"top1": top1, "run": run}
@@ -1347,7 +1460,8 @@ def predict_phase(seed: int, float_model, records: dict) -> None:
     of the float model); fills the kernels' launch counts."""
     dev = next(float_model.parameters()).device
     X = predict_records(seed)
-    params = dict(batch_size=PREDICT_BATCH, max_wait_ms=2.0)
+    params = dict(batch_size=PREDICT_BATCH, max_wait_ms=2.0,
+                  warmup=PREDICT_WARMUP)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         calib = os.path.join(tmp, "calib.npy")
@@ -1375,9 +1489,9 @@ def predict_phase(seed: int, float_model, records: dict) -> None:
                     f"smaller), head {im._model.layers_list[-1].bits}-bit; "
                     f"top-1 agreement with the f32 path {agree:.3f}")
             del im, model
-    records["flash"]["launches"] = out["f32"]["run"]["flash"]
-    records["w8a8"]["launches"] = out["int8"]["run"]["w8a8"]
-    records["w4a16"]["launches"] = out["int4"]["run"]["w4a16"]
+    records["flash"]["launches"] = out["f32"]["run"]["card"]["flash_fwd"]
+    records["w8a8"]["launches"] = out["int8"]["run"]["card"]["w8a8"]
+    records["w4a16"]["launches"] = out["int4"]["run"]["card"]["w4a16"]
 
 
 # -- optional: where the decode time goes -------------------------------------
@@ -1396,9 +1510,12 @@ def kernel_rows(prof):
 
 
 def profile_predict(im, X) -> None:
-    """One predict batch under ``torch.profiler``: the device's busy share
-    of the wall time and the kernels that take the most time."""
+    """One predict batch of a warmed bucket under ``torch.profiler``: the
+    device's busy share of the wall time and the kernels that take the
+    most time."""
     from torch.profiler import ProfilerActivity, profile
+    im.warm(len(X), X.shape[1:], dtype=X.dtype.str)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1407,25 +1524,19 @@ def profile_predict(im, X) -> None:
         wall = time.perf_counter() - t0
     rows, busy = kernel_rows(prof)
     say(f"profile[predict]: one batch of {len(X)} x {X.shape[1]} tokens in "
-        f"{wall * 1e3:.2f} ms under the profiler, kernels {busy * 1e3:.2f} "
-        f"ms ({100 * busy / wall:.1f}% of the wall)")
+        f"{wall * 1e3:.2f} ms under the profiler, kernels "
+        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of the wall)")
     for name, count, ms in rows[:12]:
         say(f"profile[predict]   {ms:9.3f} ms  {count:4d} calls  "
             f"{name[:90]}")
 
 
-def profile_decode(im, waves, kv_quant: str, boundaries: int = 4) -> None:
-    """Wall time per decode step over ``boundaries`` decode boundaries of
-    a full batch (8 active rows, no admissions), then ``torch.profiler``
-    over as many more: the device's busy share (summed kernel time over
-    the profiled wall time) and the kernels that take the most time."""
+def profile_steps(b, kv_quant: str, route: str, boundaries: int) -> None:
+    """Wall time per decode step over ``boundaries`` boundaries of a full
+    batch, then ``torch.profiler`` over as many more: the device's busy
+    share (summed kernel time over the profiled wall) and the kernels that
+    take the most time."""
     from torch.profiler import ProfilerActivity, profile
-    b = ContinuousBatcher(im, GenerationParams(**dict(GENERATION,
-                                                      kv_quant=kv_quant)))
-    for rid, prompt in waves[0]:
-        b.submit(GenRequest(rid, prompt))
-    b.step()                              # admission + first quantum
-    b.step()
     torch.cuda.synchronize()
     steps0 = b.decode_steps
     t0 = time.perf_counter()
@@ -1443,15 +1554,39 @@ def profile_decode(im, waves, kv_quant: str, boundaries: int = 4) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = b.decode_steps - steps0
+    check(b.active == GENERATION["max_active_slots"],
+          f"profile[{kv_quant}/{route}]: {b.active} active rows")
     rows, busy = kernel_rows(prof)
-    say(f"profile[{kv_quant}]: {plain_steps} decode steps (8 rows) in "
-        f"{plain_wall * 1e3:.2f} ms = {plain_wall * 1e3 / plain_steps:.3f} "
-        f"ms/step; under the profiler {wall * 1e3 / steps:.3f} ms/step, "
+    say(f"profile[{kv_quant}/{route}]: {plain_steps} decode steps (8 rows) "
+        f"in {plain_wall * 1e3:.2f} ms = {plain_wall * 1e3 / plain_steps:.3f}"
+        f" ms/step; under the profiler {wall * 1e3 / steps:.3f} ms/step, "
         f"kernels {busy * 1e3 / steps:.3f} ms/step ({100 * busy / wall:.1f}% "
         f"of the profiled wall)")
     for name, count, ms in rows[:10]:
-        say(f"profile[{kv_quant}]   {ms / steps:8.4f} ms/step  "
+        say(f"profile[{kv_quant}/{route}]   {ms / steps:8.4f} ms/step  "
             f"{count // steps:4d} calls/step  {name[:90]}")
+
+
+def profile_decode(im, waves, kv_quant: str, boundaries: int = 4) -> None:
+    """The decode step of a full batch (8 active rows, no admissions) read
+    on both routes in one run: each quantum run eagerly, then, after
+    ``warm()`` captured the lane's graph between two boundaries, each
+    quantum replayed.  Budgets of 128 tokens keep all 8 rows active
+    through both readings."""
+    b = ContinuousBatcher(im, GenerationParams(**dict(
+        GENERATION, kv_quant=kv_quant, max_tokens=128)))
+    for rid, prompt in waves[0]:
+        b.submit(GenRequest(rid, prompt))
+    b.step()                              # admission + first quantum
+    b.step()
+    profile_steps(b, kv_quant, "eager", boundaries)
+    doc = b.warm()
+    check(doc["failed"] == 0 and b.captures == 1,
+          f"profile[{kv_quant}]: warm-up {doc}")
+    b.step()
+    profile_steps(b, kv_quant, "graph", boundaries)
+    check(b.stats()["replays"] == 2 * boundaries + 1,
+          f"profile[{kv_quant}]: replays {b.stats()['replays']}")
 
 
 # -- phase 5: training: the flash backward kernels and Estimator.fit ----------
@@ -2444,12 +2579,23 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     served = {}
     for kv_quant, variant in (("off", "f32"), ("int8", "int8")):
-        run = serve(im, waves, kv_quant)
-        served[kv_quant] = check_served(run, waves, GPT2_SMALL["vocab_size"],
-                                        kv_quant)
+        # a timed run, then the main path's counted run under the trace
+        for tag in ("timed", "traced"):
+            run = serve(im, waves, dict(GENERATION, kv_quant=kv_quant),
+                        trace=tag == "traced")
+            served.setdefault(kv_quant, {})[tag] = check_served(
+                run, waves, GPT2_SMALL["vocab_size"], kv_quant)
         records[variant]["launches"] = run["launches"]
     for kv_quant in ("off", "int8"):
-        cross_check(im, waves, served[kv_quant], kv_quant)
+        cross_check(im, waves, served[kv_quant]["timed"], kv_quant)
+        compare_tokens(im, waves, served[kv_quant]["traced"],
+                       served[kv_quant]["timed"], kv_quant,
+                       f"traced[{kv_quant}]", "timed run")
+    run = serve(im, waves, MONOLITHIC)
+    mono = check_served(run, waves, GPT2_SMALL["vocab_size"], "mono",
+                        paged=False)
+    compare_tokens(im, waves, mono, served["off"]["timed"], "off", "mono",
+                   "paged f32 lane")
     if args.profile:
         for kv_quant in ("off", "int8"):
             profile_decode(im, waves, kv_quant)

@@ -139,8 +139,7 @@ def test_prompts_validated_before_the_device(models):
     assert b.quarantined == len(bad)
 
 
-@pytest.mark.parametrize("gen", [dict(paged=False),
-                                 dict(paged=True, checkpoint_interval=4),
+@pytest.mark.parametrize("gen", [dict(paged=True, checkpoint_interval=4),
                                  dict(paged=True, resume=True)])
 def test_unported_generation_modes_raise(models, gen):
     _, tim = models
@@ -149,10 +148,6 @@ def test_unported_generation_modes_raise(models, gen):
 
 
 def test_unported_models_and_warmup_raise(models):
-    _, tim = models
     bare = InferenceModel(device="cpu").do_load_model(torch.nn.Linear(2, 2))
     with pytest.raises(NotImplementedError):
         tgen.ContinuousBatcher(bare, tgen.GenerationParams(paged=True))
-    b = tgen.ContinuousBatcher(tim, tgen.GenerationParams(**GEN))
-    with pytest.raises(NotImplementedError):
-        b.warm()

@@ -17,19 +17,34 @@ for ``w8a8`` and for two launches of the flash backward; f32 sums of up to
 y as f32 sums of up to 300 products of unit-scale values in another order
 (atol 2e-5, rtol 1e-5; bf16 y one rounding step, rtol 8e-3) and the sums
 over the rows to rtol 1e-5 (Σ with atol 1e-5·Σ|y|), two launches bitwise
-equal.
+equal.  CUDA graphs (``inference/aot.capture``): decode quanta replayed
+give the eager route's tokens (the same kernels in the same order);
+their kernel launches are counted on the card (``ops/_impl.
+card_launches``, a profiler trace), and the wrappers' counters, which
+count eager launches, count none for a capture or a replay.
 """
+
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from analytics_zoo_tpu_torch.inference import aot
 from analytics_zoo_tpu_torch.inference import quantize as tq
+from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
+from analytics_zoo_tpu_torch.models.textmodels import TransformerLM
+from analytics_zoo_tpu_torch.nn.layers.attention import TransformerLayer
+from analytics_zoo_tpu_torch.nn.layers.core import Dense
+from analytics_zoo_tpu_torch.nn.layers.pooling import GlobalAveragePooling1D
+from analytics_zoo_tpu_torch.nn.models import Sequential
+from analytics_zoo_tpu_torch.ops import _impl
 from analytics_zoo_tpu_torch.ops import attention as tatt
 from analytics_zoo_tpu_torch.ops import fused_bn as tfb
 from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 from analytics_zoo_tpu_torch.ops import paged_attention as tpa
 from analytics_zoo_tpu_torch.ops import quant_matmul as tqm
+from analytics_zoo_tpu_torch.serving import generate as tgen
 
 
 @pytest.fixture
@@ -343,3 +358,177 @@ def test_fused_bn_kernel_deep_k_on_card(cuda_device, dtype, m, k, n):
     abs_sum = float(y_ref.float().abs().sum(0).max())
     torch.testing.assert_close(stats[0], s_ref[0], rtol=1e-5,
                                atol=1e-5 * abs_sum)
+
+
+# -- CUDA graphs: decode quanta, predict buckets, the paged kernel ------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_cluster_launch_replays_in_a_graph_on_card(cuda_device, quant):
+    """The paged kernel split over a thread-block cluster (three forced
+    partitions, launched through ``cudaLaunchKernelEx``) captured once and
+    replayed over fresh inputs copied into the graph's static tensors."""
+    def case(seed):
+        args = [a.to(cuda_device) for a in _paged_case(
+            seed, (0, 1, 95, 96, 97, 300), rows=6, n_table=36, nh=3,
+            hd=64)]
+        if quant:
+            args[1], ks = tq.kv_pack_int8(args[1])
+            args[2], vs = tq.kv_pack_int8(args[2])
+            return args + [ks, vs]
+        return args + [None, None]
+
+    args = case(11)
+    static = [a for a in args if a is not None]
+
+    def run(*ts):
+        it = iter(ts)
+        full = [next(it) if a is not None else None for a in args]
+        return tpa._paged_cuda(*full, parts=3)
+    run(*static)
+    torch.cuda.synchronize()
+    n0 = tpa.launches
+    prog = aot.capture(run, static, cuda_device)
+    with _impl.card_launches(("paged",)) as card:
+        for seed in (12, 13):
+            fresh = [a for a in case(seed) if a is not None]
+            for dst, src in zip(prog.inputs, fresh):
+                dst.copy_(src)
+            got = prog.replay()
+            torch.cuda.synchronize()
+            ref = tpa.paged_attention(
+                *(fresh if quant else fresh + [None] * 2), impl="torch")
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=2e-5)
+    assert card["paged"] == 2 and prog.replays == 2
+    assert tpa.launches == n0          # no wrapper ran for either
+
+
+def _gen_model(device):
+    lm = TransformerLM(vocab_size=97, hidden=64, n_head=4, n_layers=12,
+                       max_len=128, seed=3, device=device)
+    return InferenceModel(device=device).do_load_model(lm)
+
+
+GEN_CARD = dict(paged=True, block_len=8, max_active_slots=4, max_tokens=10,
+                max_prompt_len=24, decode_quantum=3, stream_interval=0)
+
+
+def _gen_reqs(seed, n=10, tag=""):
+    g = np.random.default_rng(seed)
+    return [(f"{tag}r{i}", g.integers(0, 97, int(g.integers(2, 25)))
+             .astype(np.int32), int(g.integers(3, 11))) for i in range(n)]
+
+
+def _serve(batcher, reqs, on_step=None):
+    for rid, prompt, budget in reqs:
+        assert batcher.submit(tgen.GenRequest(rid, prompt,
+                                              max_tokens=budget))
+    done = {}
+    for _ in range(1000):
+        for ev in batcher.step():
+            assert ev.kind not in ("shed", "quarantine"), (ev.kind,
+                                                           ev.error)
+            if ev.kind == "finish":
+                done[ev.rid] = list(ev.tokens)
+        if on_step is not None:
+            on_step(batcher)
+        if len(done) == len(reqs):
+            return done
+    raise AssertionError(f"stalled: {len(done)}/{len(reqs)} finished")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gen", [
+    GEN_CARD, dict(GEN_CARD, kv_quant="int8"),
+    dict(GEN_CARD, paged=False, bucket_lens=[32, 64])],
+    ids=["paged-f32", "paged-int8", "monolithic"])
+def test_decode_graphs_serve_the_eager_tokens_on_card(cuda_device, gen):
+    """After ``warm()`` every decode quantum replays its lane's graph: the
+    tokens equal an eager batcher's, two waves of churn capture nothing
+    and run no quantum eagerly, and the card runs the paged kernel decode
+    steps x 12 layers times, none of them through a wrapper.  On the eager
+    batcher the card's count equals the wrapper's."""
+    im = _gen_model(cuda_device)
+    layers = 12 if gen["paged"] else 0
+    reqs = _gen_reqs(1)
+    eager = tgen.ContinuousBatcher(im, tgen.GenerationParams(**gen))
+    n0 = tpa.launches
+    with _impl.card_launches(("paged",)) as card:
+        want = _serve(eager, reqs)
+    assert card["paged"] == tpa.launches - n0 \
+        == eager.decode_steps * layers
+    want2 = _serve(eager, _gen_reqs(2, tag="b"))
+    assert eager.stats()["replays"] == 0 and eager.stats()["captures"] == 0
+    b = tgen.ContinuousBatcher(im, tgen.GenerationParams(**gen))
+    n_decode = sum(e.kind in ("paged_decode", "decode_step")
+                   for e in b.warmup_manifest())
+    doc = b.warm()
+    assert doc["failed"] == 0, doc
+    assert doc["compile_stats"]["captures"] == n_decode == b.captures
+    n0, steps0 = tpa.launches, b.decode_steps
+    with _impl.card_launches(("paged",)) as card:
+        assert _serve(b, reqs) == want
+        assert _serve(b, _gen_reqs(2, tag="b")) == want2
+    st = b.stats()
+    assert st["captures"] == n_decode and st["eager_quanta"] == 0
+    assert st["replays"] * gen["decode_quantum"] == st["decode_steps"] > 0
+    assert card["paged"] == (st["decode_steps"] - steps0) * layers
+    assert tpa.launches == n0
+
+
+@pytest.mark.gpu
+def test_warm_beside_an_active_int8_slot_on_card(cuda_device):
+    """``warm()`` on another thread while the lane serves int8 slots: the
+    decode graph is captured between two boundaries, without a dry run
+    over the active rows, and every token equals an unwarmed batcher's."""
+    im = _gen_model(cuda_device)
+    gen = dict(GEN_CARD, kv_quant="int8")
+    reqs = _gen_reqs(3, n=12)
+    want = _serve(tgen.ContinuousBatcher(im, tgen.GenerationParams(**gen)),
+                  reqs)
+    b = tgen.ContinuousBatcher(im, tgen.GenerationParams(**gen))
+    docs = []
+    warmer = threading.Thread(target=lambda: docs.append(b.warm()))
+
+    def start_warm(batcher):
+        if batcher.active and batcher.decode_steps and not docs \
+                and not warmer.is_alive() and warmer.ident is None:
+            warmer.start()
+    assert _serve(b, reqs, on_step=start_warm) == want
+    warmer.join(timeout=120)
+    assert not warmer.is_alive() and docs and docs[0]["failed"] == 0
+    assert b.captures == 1
+
+
+def _predict_model(device, T=64):
+    model = Sequential([
+        TransformerLayer(vocab=97, hidden_size=64, n_block=2, n_head=2,
+                         seq_len=T, input_shape=(T,)),
+        GlobalAveragePooling1D(),
+        Dense(97, activation="softmax")]).init_weights(0)
+    return InferenceModel(4, 4, device=device).do_load_model(model)
+
+
+@pytest.mark.gpu
+def test_predict_warm_then_dispatch_on_card(cuda_device):
+    """``warm()`` runs a bucket once; three dispatches of different
+    inputs to it, left in flight together, each equal their
+    ``do_predict`` outputs, find their bucket warm, and launch the flash
+    kernel twice each (2 blocks) on the card, every launch counted by the
+    wrapper."""
+    T = 64
+    im = _predict_model(cuda_device, T)
+    g = np.random.default_rng(5)
+    xs = [g.integers(0, 97, (4, T)).astype(np.float32) for _ in range(3)]
+    want = [im.do_predict(x) for x in xs]
+    assert im.warm(4, (T,)) and not im.warm(4, (T,))
+    torch.cuda.synchronize()
+    st0, f0 = im.aot_stats(), tfa.launches
+    with _impl.card_launches(("flash_fwd",)) as card:
+        handles = [im.dispatch(x) for x in xs]
+        got = [h.result() for h in handles]
+    st = im.aot_stats()
+    assert st["hits"] - st0["hits"] == 3 and st["compiles"] == 1
+    assert card["flash_fwd"] == tfa.launches - f0 == 3 * 2
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=2e-5)

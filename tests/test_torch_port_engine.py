@@ -132,8 +132,7 @@ def test_engine_serve_once_synchronous_drive():
     serving.shutdown()
 
 
-@pytest.mark.parametrize("opt", [dict(warmup=True),
-                                 dict(http_port=8080, generation=GEN),
+@pytest.mark.parametrize("opt", [dict(http_port=8080, generation=GEN),
                                  dict(admission={"rate": 1.0},
                                       generation=GEN),
                                  dict(sharding="auto"),
@@ -165,3 +164,66 @@ def test_engine_params_take_the_reference_defaults():
     assert p.generation == GEN
     with pytest.raises(TypeError):
         ServingParams(no_such_option=1)
+
+
+MONO = dict(paged=False, bucket_lens=[32, 64], max_active_slots=2,
+            max_tokens=12, max_prompt_len=16, stream_interval=0,
+            decode_quantum=2)
+
+
+def _wait_warm(serving, timeout_s=60.0):
+    t0 = time.monotonic()
+    while serving.health()["warmup"]["state"] in ("pending", "warming"):
+        assert time.monotonic() - t0 < timeout_s, serving.health()["warmup"]
+        time.sleep(0.01)
+    return serving.health()
+
+
+@pytest.mark.parametrize("gen", [MONO, GEN])
+def test_engine_warms_then_serves(gen):
+    """``warmup=True``: the batcher's manifest is warmed on the warm-up
+    thread, readiness waits for it, and the engine then serves the same
+    tokens as a direct run of an unwarmed batcher; ``paged=False`` serves
+    through monolithic lanes."""
+    im = _im()
+    q = InProcQueue()
+    serving = ClusterServing(im, q, ServingParams(
+        max_batch=8, max_wait_ms=2.0, generation=gen, warmup=True))
+    manifest = serving._batcher.warmup_manifest()
+    assert serving.health()["warmup"]["state"] == "off"
+    serving.start()
+    try:
+        first = serving.ready()
+        h = _wait_warm(serving)
+        w = h["warmup"]
+        assert w["state"] == "ready" and w["failed"] == 0
+        assert w["total"] == w["compiled"] == len(manifest)
+        assert w["compile_stats"]["captures"] == 0     # no graphs on a CPU
+        assert h["ready"]["ready"], h["ready"]
+        assert serving.ready()["warmup"]["state"] == "ready"
+        if first["warmup"]["state"] in ("pending", "warming"):
+            assert any(r.startswith("warming") for r in first["reasons"])
+        iq, oq = InputQueue(q), OutputQueue(q)
+        for rid, p in PROMPTS.items():
+            iq.enqueue_tensor(rid, np.asarray(p, np.float32))
+        res = oq.query_many(list(PROMPTS), timeout_s=60.0)
+        snap = serving.registry.snapshot()
+    finally:
+        serving.shutdown(drain_s=2.0)
+    assert serving._warm_thread is not None \
+        and not serving._warm_thread.is_alive()
+    assert snap["serving_warmup_seconds"]["values"]
+    ref = tgen.ContinuousBatcher(im, tgen.GenerationParams(**gen))
+    for rid, p in PROMPTS.items():
+        ref.submit(tgen.GenRequest(rid, np.asarray(p, np.float32)))
+    want = {}
+    while not ref.idle:
+        for ev in ref.step():
+            if ev.kind == "finish":
+                want[ev.rid] = ev.tokens
+    for rid in PROMPTS:
+        assert res[rid]["value"]["tokens"] == want[rid], rid
+    st = serving._batcher.stats()
+    assert st["finished"] == len(PROMPTS) and st["captures"] == 0
+    assert ("pool" in st) == gen["paged"]
+    assert len(st["lanes"]) == (1 if gen["paged"] else 2)

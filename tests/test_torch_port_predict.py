@@ -18,6 +18,7 @@ plain version for unmasked calls and its einsum path for masked ones.
 """
 
 import base64
+import time
 
 import jax
 import numpy as np
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from analytics_zoo_tpu.common import dtypes as jdtypes
+from analytics_zoo_tpu.inference import aot as jaot
 from analytics_zoo_tpu.inference.inference_model import \
     InferenceModel as JaxIM
 from analytics_zoo_tpu.nn import activations as jact
@@ -35,6 +37,7 @@ from analytics_zoo_tpu.nn.models import Sequential as JaxSeq
 from analytics_zoo_tpu.serving import engine as jeng
 from analytics_zoo_tpu.serving.queues import InProcQueue as JaxQueue
 from analytics_zoo_tpu_torch.common import dtypes as tdtypes
+from analytics_zoo_tpu_torch.inference import aot as taot
 from analytics_zoo_tpu_torch.inference.inference_model import (
     InferenceModel, _bucket)
 from analytics_zoo_tpu_torch.nn import activations as tact
@@ -440,11 +443,106 @@ def test_multi_input_predict_matches_jax():
 def test_unported_inference_model_entries_raise():
     tim = InferenceModel(device="cpu")
     for name in ("do_load", "do_load_store", "do_load_tensorflow",
-                 "do_load_onnx", "do_load_pytorch", "shard", "warm"):
+                 "do_load_onnx", "do_load_pytorch", "shard"):
         with pytest.raises(NotImplementedError):
             getattr(tim, name)("x")
     with pytest.raises(RuntimeError, match="load a model"):
         tim.do_predict(np.zeros((1, 4), np.float32))
+
+
+# -- ahead-of-time warm-up ---------------------------------------------------------
+
+@pytest.mark.parametrize("max_batch,cap", [(8, None), (5, 8), (8, 4),
+                                           (1, None), (100, 64)])
+def test_bucket_ladder_matches_jax(max_batch, cap):
+    assert taot.bucket_ladder(max_batch, model_cap=cap) == \
+        jaot.bucket_ladder(max_batch, model_cap=cap)
+
+
+@pytest.mark.parametrize("max_batch,spec,bits", [
+    (8, True, None), (8, {"max_batch": 5}, None),
+    (16, {"scales": "off"}, None),
+    (4, {"scales": "both", "scale_dtypes": ["|i1", "|u1"], "max_batch": 3},
+     None),
+    (8, {"shape": [T], "dtype": "<f4", "scales": "on"}, None),
+    (8, {"scales": "off"}, 4)])
+def test_warmup_manifest_matches_jax(max_batch, spec, bits):
+    jm, params, state, tm = _pair()
+    jim = JaxIM(2, max_batch).do_load_model(jm, params, state)
+    tim = InferenceModel(2, max_batch, device="cpu").do_load_model(tm)
+    if bits:
+        jim.do_quantize(None, force=True, bits=bits)
+        tim.do_quantize(None, force=True, bits=bits)
+    want = jaot.resolve_manifest(jim, spec)
+    got = taot.resolve_manifest(tim, spec)
+    assert got == want and len(got) > 1
+    assert {e.variant for e in got} == {"w4" if bits else "float"}
+
+
+def test_warm_then_predict_matches_jax():
+    """``aot.warm_up`` over the bucket ladder, then ``do_predict`` and
+    ``dispatch`` at odd sizes: within 1e-5 of the JAX package; the stats
+    documents carry the JAX package's keys.  A warm entry runs its bucket
+    once and captures nothing; every later call finds its bucket warm."""
+    jm, params, state, tm = _pair()
+    jim = JaxIM(2, 8).do_load_model(jm, params, state)
+    tim = InferenceModel(2, 8, device="cpu").do_load_model(tm)
+    spec = {"scales": "off"}
+    doc = taot.warm_up(tim, taot.resolve_manifest(tim, spec))
+    jdoc = jaot.warm_up(jim, jaot.resolve_manifest(jim, spec))
+    assert set(doc) == set(jdoc)
+    assert doc["programs"] == doc["compiled"] == 4 and doc["failed"] == 0
+    assert doc["compile_stats"]["captures"] == 0
+    assert not tim.warm(8, (T,))
+    for n in (3, 8, 13):
+        ids = _ids(60 + n, n)
+        np.testing.assert_allclose(tim.do_predict(ids, batch_size=4),
+                                   jim.do_predict(ids, batch_size=4),
+                                   atol=ATOL)
+    ids = _ids(70, 5)
+    np.testing.assert_allclose(tim.dispatch(ids).result(),
+                               jim.dispatch(ids).result(), atol=ATOL)
+    st = tim.aot_stats()
+    assert set(st) == set(jim.aot_stats())
+    assert st["compiles"] == st["cached_programs"] == 4 and st["hits"] == 8
+    # chunks of 4 rows: 3 -> one, 8 -> two, 13 -> three and a 1-row one;
+    # the dispatch of 5 rows pads to 8
+    assert st["programs"] == {f"b4x{T}/<f4": 6, f"b1x{T}/<f4": 1,
+                              f"b8x{T}/<f4": 1}
+    epoch = st["epoch"]
+    tim.do_load_model(tm)                   # a new program: warm again
+    assert tim.aot_stats()["epoch"] == epoch + 1
+    assert tim.aot_stats()["programs"] == {}
+    assert tim.warm(8, (T,))
+
+
+def test_engine_predict_warms_its_buckets():
+    _, _, _, tm = _pair()
+    tim = InferenceModel(2, 8, device="cpu").do_load_model(tm)
+    q = InProcQueue()
+    spec = {"max_batch": 4, "scales": "off"}
+    serving = teng.ClusterServing(tim, q, teng.ServingParams(
+        batch_size=4, max_wait_ms=2.0, warmup=spec))
+    iq, oq = InputQueue(q), OutputQueue(q)
+    ids = _ids(80, 6)
+    serving.start()
+    try:
+        for _ in range(600):
+            w = serving.health()["warmup"]
+            if w["state"] not in ("pending", "warming"):
+                break
+            time.sleep(0.01)
+        for i, row in enumerate(ids):
+            iq.enqueue_tensor(f"w{i}", row)
+        res = oq.query_many([f"w{i}" for i in range(6)], timeout_s=60.0)
+    finally:
+        serving.shutdown(drain_s=2.0)
+    assert w["state"] == "ready" and w["failed"] == 0
+    assert w["total"] == len(taot.resolve_manifest(tim, spec)) == 3
+    want = tim.do_predict(ids)
+    for i in range(6):
+        top = res[f"w{i}"]["value"]
+        assert top[0][0] == int(np.argmax(want[i]))
 
 
 # -- the serving engine's predict plane -------------------------------------------

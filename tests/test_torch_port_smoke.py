@@ -116,28 +116,50 @@ def test_predict_checks_accept_the_served_path_and_reject_faults(
         spec = {"bits": 8, "calib": str(tmp_path / "calib.npy")}
     im = InferenceModel(device="cpu").do_load_model(copy.deepcopy(model))
     run = cs.serve_predict(im, X, cs.ServingParams(
-        batch_size=4, max_wait_ms=2.0, quantize=spec))
+        batch_size=4, max_wait_ms=2.0, quantize=spec,
+        warmup={"max_batch": 4, "scales": "off"}))
     assert len(run["results"]) == len(X) and run["forwards"] >= 3
+    assert run["warm"]["total"] == 3 and run["warm"]["failed"] == 0
     # CPU tensors take the plain versions: no launches to count here
-    assert run["flash"] == run["w8a8"] == run["w4a16"] == 0
+    assert set(run["card"].values()) == set(run["wrapper"].values()) == {0}
+    assert run["warm_hits"] == run["forwards"]
     ref, x_plain = cs.head_inputs(im, X, "torch")
     _, x_kernel = cs.head_inputs(im, X, None)
     tol = cs.logp_tolerance(im, x_kernel, x_plain)
     assert tol.shape == (len(X),) and (tol >= cs.LOGP_TOL).all()
-    run["flash"] = run["forwards"] * cs.PREDICT["n_block"]
+    # what the card reads: 2 flash launches and 1 of the quantized head a
+    # forward, on the card and by the wrappers alike
+    fw = run["forwards"]
+    card = dict(run["card"], flash_fwd=fw * cs.PREDICT["n_block"])
     if quant:
-        run[quant] = run["forwards"]
+        card[quant] = fw
+    run = dict(run, card=card, wrapper=dict(card))
     out = cs.check_predict(str(spec), run, ref, tol, quant)
     assert len(out["top1"]) == len(X)
-    bad = dict(run, flash=run["flash"] - 1)
-    with pytest.raises(cs.SmokeFailure, match="flash launches"):
+    bad = dict(run, card=dict(card, flash_fwd=card["flash_fwd"] - 1))
+    with pytest.raises(cs.SmokeFailure, match="flash_fwd launches on the"):
         cs.check_predict("bad", bad, ref, tol, quant)
+    uncounted = dict(run, wrapper=dict(card, flash_fwd=0))
+    with pytest.raises(cs.SmokeFailure, match="flash_fwd launches on the"):
+        cs.check_predict("uncounted", uncounted, ref, tol, quant)
+    cold = dict(run, warm_hits=fw - 1)
+    with pytest.raises(cs.SmokeFailure, match="found their bucket warm"):
+        cs.check_predict("cold", cold, ref, tol, quant)
     rid = run["rids"][3]
     top = [list(p) for p in run["results"][rid]["value"]]
     top[0][1] *= 1 + 2 * cs.LOGP_TOL
     forged = dict(run, results=dict(run["results"], **{rid: {"value": top}}))
     with pytest.raises(cs.SmokeFailure, match="log-prob error"):
         cs.check_predict("forged", forged, ref, tol, quant)
+
+
+
+def test_predict_graph_probe_needs_a_card():
+    import predict_graph_probe as pgp
+    if torch.cuda.is_available():
+        pytest.skip("the probe runs on the card here")
+    assert pgp.main([]) == 1
+    assert set(pgp.ROUTES) == {"eager", "graph"}
 
 
 def test_flash_backward_bounds():
