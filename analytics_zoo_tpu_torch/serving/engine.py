@@ -22,6 +22,18 @@ for its two data planes:
   batcher's program set (its decode quanta captured as CUDA graphs), or
   the predict model's buckets (``inference/aot.warm_up``); ``health()``
   and ``ready()`` report its progress, and readiness waits for it.
+- **generation continuity** (``generation.checkpoint_interval``,
+  ``generation.resume``): at each step boundary the engine spools the
+  batcher's checkpoints to ``snapshot_path`` (``serving/tracecollect.py``;
+  the engine's owner sets the path) with an integrity checksum, and a
+  generation request carries a lease annotation pointing the next owner at
+  that spool.  A reclaimed generation record whose dead owner left a
+  valid checkpoint of the matching epoch resumes from it; any other
+  reclaim restarts from token 0, and the tokens recomputed are counted.
+- **fault injection** (``params.faults``, ``serving/faults.py``): predict
+  errors and delays, a warm-up crash, held readiness, claim stalls, a
+  crash after n generated tokens and corrupt checkpoints, each gated on
+  ``model_version``.
 
 Kept from the JAX engine, with the same contracts:
 
@@ -41,8 +53,9 @@ Kept from the JAX engine, with the same contracts:
   attribution, and the ``health()`` / ``metrics()`` documents.
 
 Not in this slice (setting them raises ``NotImplementedError``): admission
-control, brownout, usage metering, fault injection, profiling, the HTTP
-gateway, sharding and XLA's persistent compilation cache
+control (and with it the ``admission_reject`` fault point), brownout,
+usage metering, profiling, TensorBoard summaries (``tensorboard_dir``),
+the HTTP gateway, sharding and XLA's persistent compilation cache
 (``compile_cache_dir``: the kernel libraries are cached under ``build/``
 already, and nothing else is compiled).  Image records (``image``, which
 needs ``cv2``) raise per record.
@@ -80,7 +93,9 @@ from analytics_zoo_tpu_torch.common.resilience import (CircuitBreaker,
 from analytics_zoo_tpu_torch.inference import aot
 from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.inference.quantize import quantized_bits
+from analytics_zoo_tpu_torch.serving import tracecollect
 from analytics_zoo_tpu_torch.serving import wire as _wire
+from analytics_zoo_tpu_torch.serving.faults import FaultInjector
 from analytics_zoo_tpu_torch.serving.generate import (ContinuousBatcher,
                                                       GenerationParams,
                                                       GenRequest)
@@ -291,24 +306,25 @@ def apply_quantize(model, spec) -> bool:
 _NOT_PORTED = {"http_port": None, "http_host": "127.0.0.1", "gateway": True,
                "sharding": "off", "mesh_shape": None,
                "compile_cache_dir": None, "profiling": False,
-               "faults": None, "admission": None, "brownout": None,
-               "metering": None}
+               "admission": None, "brownout": None, "metering": None}
 
 
 class ServingParams:
-    """config.yaml ``params:`` surface (the JAX engine's
-    ``ServingParams``, minus the options listed in ``_NOT_PORTED``, which
-    raise when set)."""
+    """config.yaml ``params:`` surface: the JAX engine's ``ServingParams``,
+    with its parameters in the same positional order.  The options listed
+    in ``_NOT_PORTED`` raise when set to anything but their "off" value."""
 
     def __init__(self, batch_size: int = 4, top_n: int = 5,
-                 poll_timeout_s: float = 0.05,
+                 poll_timeout_s: float = 0.05, stream_max_len: int = 100000,
                  filter_threshold: Optional[float] = None,
-                 stream_max_len: int = 100000, write_retries: int = 5,
-                 write_backoff_s: float = 0.05, pipeline_depth: int = 2,
+                 write_retries: int = 5, write_backoff_s: float = 0.05,
+                 pipeline_depth: int = 2,
                  max_worker_restarts: int = 5,
                  worker_backoff_s: float = 0.05,
                  breaker_threshold: int = 5,
                  breaker_cooldown_s: float = 0.5,
+                 http_port: Optional[int] = None,
+                 http_host: str = "127.0.0.1",
                  drain_s: Optional[float] = None,
                  ready_queue_depth: Optional[int] = None,
                  max_batch: Optional[int] = None,
@@ -321,22 +337,28 @@ class ServingParams:
                  lease_s: float = 30.0,
                  reclaim_interval_s: Optional[float] = None,
                  max_deliveries: int = 5,
+                 mesh_shape=None,
+                 sharding: str = "off",
+                 gateway: bool = True,
+                 warmup=False,
+                 compile_cache_dir: Optional[str] = None,
                  generation=None,
                  trace_sample: float = 1.0,
                  serving_slo=None,
                  quantize=None,
                  flight_recorder: bool = True,
                  recorder_ring: Optional[int] = None,
+                 profiling: bool = False,
                  model_version: Optional[str] = None,
-                 warmup=False,
-                 **not_ported):
-        for key, value in not_ported.items():
-            if key not in _NOT_PORTED:
-                raise TypeError(f"ServingParams got an unexpected option "
-                                f"{key!r}")
-            if value != _NOT_PORTED[key]:
+                 faults=None,
+                 admission=None,
+                 brownout=None,
+                 metering=None):
+        given = locals()
+        for key, off in _NOT_PORTED.items():
+            if given[key] != off:
                 raise NotImplementedError(
-                    f"ServingParams.{key}={value!r}: not ported yet")
+                    f"ServingParams.{key}={given[key]!r}: not ported yet")
         self.batch_size = batch_size
         self.top_n = top_n
         # kept for config parity; the JAX engine stores it unused too
@@ -395,6 +417,9 @@ class ServingParams:
         # a predict spec {"shape", "dtype", "scales", "max_batch",
         # "scale_dtypes"} (inference/aot.resolve_manifest)
         self.warmup = warmup if isinstance(warmup, dict) else bool(warmup)
+        # fault injection (serving/faults.py): strictly opt-in chaos, each
+        # point gated on model_version
+        self.faults = faults if isinstance(faults, dict) else None
 
     @classmethod
     def from_dict(cls, p: Dict) -> "ServingParams":
@@ -417,12 +442,27 @@ class ClusterServing:
                  params: Optional[ServingParams] = None,
                  preprocess: Callable = default_preprocess,
                  postprocess: Optional[Callable] = None,
+                 tensorboard_dir: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None):
+        if tensorboard_dir is not None:
+            raise NotImplementedError(
+                "ClusterServing(tensorboard_dir=...): TensorBoard summaries "
+                "(utils/tbwriter.py) are not ported yet (ROADMAP queue 1, "
+                "item 6)")
         self.model = model
         self.queue = queue
         self.params = params or ServingParams()
         p = self.params
+        # fault injection: built even when inert (describe() rides the
+        # health document); a point is wired in only when armed for this
+        # replica's version.  An armed point that nothing would fire is
+        # refused rather than kept as a silent no-op.
+        self._faults = FaultInjector(p.faults, p.model_version)
+        if self._faults.admission_active:
+            raise NotImplementedError(
+                "faults.admission_reject needs the admission gate, which "
+                "is not ported yet (ROADMAP queue 1, item 2)")
         # quantize BEFORE any worker can dispatch: a bad spec (int8 with
         # no calibration) fails construction, not a mid-stream request
         if p.quantize and isinstance(model, InferenceModel):
@@ -497,11 +537,21 @@ class ClusterServing:
         # the token scheduler, built here so a model lacking the paged
         # decode API fails construction, not a mid-stream request
         self._batcher = None
+        self._gen_params = None
+        # where checkpoints spool: set after construction by the engine's
+        # owner (None disables checkpointing even with an interval set)
+        self.snapshot_path: Optional[str] = None
         if p.generation is not None:
-            self._batcher = ContinuousBatcher(
-                model, GenerationParams.from_dict(p.generation))
+            self._gen_params = GenerationParams.from_dict(p.generation)
+            self._batcher = ContinuousBatcher(model, self._gen_params)
         if isinstance(model, InferenceModel):
             model.bind_registry(self.registry)
+            if self._faults.predict_active:
+                # instance-patched: the dispatch keeps a patched
+                # do_predict on the path, so the injected failure flows
+                # through the real quarantine / bisect machinery
+                model.do_predict = self._faults.wrap_predict(
+                    model.do_predict)
         self._init_metrics()
 
     @property
@@ -609,6 +659,17 @@ class ClusterServing:
         self._last_steps = 0
         self._last_tokens = 0
         self._tps_window = (time.monotonic(), 0)   # (t0, tokens0)
+        # continuity counters, made at zero so deltas are exact
+        self._last_resumed = 0
+        self._m_resumed = reg.counter(
+            "serving_generations_resumed_total",
+            "Generations resumed from a dead owner's checkpoint")
+        self._m_resumed.inc(0)
+        self._m_resume_wasted = reg.counter(
+            "serving_resume_wasted_tokens_total",
+            "Generated tokens re-computed because a generation restarted "
+            "without (or beyond) a usable checkpoint")
+        self._m_resume_wasted.inc(0)
         pool = b._pool
         fns = [
             ("serving_active_slots",
@@ -783,7 +844,15 @@ class ClusterServing:
             tid = rec.get("trace_id") if isinstance(rec, dict) else None
             self._span("reclaim", t, t, trace_id=tid, uri=rid)
             prior = existing.get(rid)
+            partial_n = 0
             if isinstance(prior, dict) and prior.get("partial"):
+                # a streamed PARTIAL is not terminal: the owner died
+                # mid-generation, so the record is re-served; its token
+                # count is the waste a resume tries to recover
+                try:
+                    partial_n = int(prior.get("n") or 0)
+                except (TypeError, ValueError):
+                    partial_n = 0
                 prior = None
             if prior is not None:
                 self.duplicates += 1
@@ -804,6 +873,12 @@ class ClusterServing:
                     trace_id=tid)
                 continue
             self._redelivered[rid] = deliveries
+            if self._batcher is not None and isinstance(rec, dict):
+                # attach the dead owner's checkpointed resume state, or
+                # count the restart's waste
+                resume = self._load_resume(rid, rec, partial_n)
+                if resume is not None:
+                    rec["_resume"] = resume
             out.append((rid, rec))
         if len(self._redelivered) > 4096:
             for rid in list(self._redelivered):
@@ -817,6 +892,74 @@ class ClusterServing:
             self._event("reclaim", count=len(out),
                         suppressed=len(entries) - len(out))
         return out
+
+    # -- generation continuity -------------------------------------------------
+    def _load_resume(self, rid: str, rec: Dict,
+                     partial_n: int) -> Optional[Dict]:
+        """Recover the dead owner's checkpointed decode state for one
+        reclaimed generation record: follow the lease annotation to its
+        snapshot spool, pick the deepest checkpoint of the matching epoch,
+        and verify its integrity stamp.  Any failure falls back LOUDLY to
+        restart-from-0 (a ``gen_resume_failed`` event) and counts the
+        streamed progress the restart throws away; a success records
+        ``gen_resume`` and counts only the partial's tail past the
+        checkpoint."""
+        if not self._gen_params.resume:
+            # resume off: the restart recomputes every token the dead
+            # owner already streamed
+            if partial_n > 0:
+                self._m_resume_wasted.inc(partial_n)
+            return None
+        try:
+            ann = self.queue.annotation(rid)
+        except Exception:  # noqa: BLE001 — backend hiccup: restart
+            ann = None
+        if not isinstance(ann, dict) or not ann.get("spool"):
+            if partial_n > 0:
+                self._m_resume_wasted.inc(partial_n)
+                self._event("gen_resume_failed", rid=rid,
+                            reason="no-annotation", wasted=partial_n)
+            return None
+        spool = str(ann["spool"])
+        epoch = int(ann.get("epoch") or 0)
+        best = None
+        try:
+            paths = [path for path in (spool, spool + ".1")
+                     if os.path.exists(path)]
+            for snap in tracecollect.load_snapshots(paths):
+                if snap.get("rid") != rid \
+                        or int(snap.get("epoch") or 0) != epoch:
+                    continue
+                if best is None \
+                        or int(snap.get("n") or 0) > int(best["n"] or 0):
+                    best = snap
+        except Exception:  # noqa: BLE001 — unreadable spool: restart
+            best = None
+        reason = None
+        if best is None:
+            reason = "no-snapshot"
+        else:
+            try:
+                crc = int(best.get("crc"))
+            except (TypeError, ValueError):
+                crc = None
+            if crc != tracecollect.snapshot_checksum(best):
+                reason = "checksum-mismatch"
+        tid = rec.get("trace_id")
+        if reason is not None:
+            self._m_resume_wasted.inc(partial_n)
+            self._event("gen_resume_failed", rid=rid, trace_id=tid,
+                        reason=reason, wasted=partial_n)
+            return None
+        n = int(best.get("n") or 0)
+        wasted = max(0, partial_n - n)
+        if wasted:
+            self._m_resume_wasted.inc(wasted)
+        self._event("gen_resume", rid=rid, trace_id=tid, epoch=epoch,
+                    resumed_tokens=n, wasted=wasted,
+                    from_replica=ann.get("replica"))
+        return {"tokens": [int(t) for t in best.get("tokens") or []],
+                "epoch": epoch + 1}
 
     # -- result writes --------------------------------------------------------
     def _put_result(self, rid, value):
@@ -992,6 +1135,13 @@ class ClusterServing:
         was empty; [] = records were read but all shed or quarantined."""
         t0 = time.monotonic()
         self._hb_ts = t0
+        if self._faults.claim_active:
+            # claim_stall: a deterministic backlog builder — the read loop
+            # stalls BEFORE claiming
+            stall = self._faults.take_claim_stall()
+            if stall > 0.0:
+                self._event("claim_stall", state=f"{stall:g}s")
+                self._stop.wait(stall)
         if self._retiring.is_set():
             return None
         batch = self._maybe_reclaim()
@@ -1041,6 +1191,10 @@ class ClusterServing:
                 ten = rec.get("tenant")
                 meta["_tenant"] = ten if isinstance(ten, str) and ten \
                     else None
+                if isinstance(rec.get("_resume"), dict):
+                    # resume state stapled on at reclaim must reach
+                    # _submit_group, like the identity
+                    meta["_resume"] = rec["_resume"]
                 items.append((rid, item, rec.get("deadline_ns"),
                               rec.get("trace_id"), meta))
             except Exception as e:  # noqa: BLE001 — malformed record
@@ -1281,10 +1435,30 @@ class ClusterServing:
                 mt = None if mt is None else int(mt)
             except (TypeError, ValueError):
                 mt = None
+            resume = meta.get("_resume")
+            rtoks, epoch = None, 0
+            if isinstance(resume, dict):
+                rtoks = resume.get("tokens") or None
+                try:
+                    epoch = int(resume.get("epoch") or 0)
+                except (TypeError, ValueError):
+                    epoch = 0
             req = GenRequest(rid, np.asarray(tensors[i]),
                              deadline_ns=deadlines[i], trace_id=traces[i],
                              t_read=group.t_read, max_tokens=mt,
-                             tenant=meta.get("_tenant"))
+                             tenant=meta.get("_tenant"),
+                             resume_tokens=rtoks, epoch=epoch)
+            if self.snapshot_path is not None \
+                    and self._gen_params.checkpoint_interval > 0:
+                # ownership and resume state travel together: the lease
+                # annotation points the NEXT owner at this replica's spool
+                # under this epoch
+                try:
+                    self.queue.annotate(rid, {"spool": self.snapshot_path,
+                                              "epoch": epoch,
+                                              "replica": self.replica_id})
+                except Exception:  # noqa: BLE001 — best-effort: a lost
+                    pass           # annotation degrades to a restart
             while not self._batcher.submit(req):
                 if self._stop.is_set():
                     return
@@ -1312,6 +1486,19 @@ class ClusterServing:
             self._m_tokens.inc(b.generated_tokens - self._last_tokens)
             self._last_tokens = b.generated_tokens
         self._update_tps(now)
+        # spool this boundary's checkpoints BEFORE the crash fault below,
+        # so an injected mid-decode kill dies with its resume state
+        # already durable — the ordering a real preemption depends on
+        self._maybe_checkpoint()
+        if b.resumed > self._last_resumed:
+            self._m_resumed.inc(b.resumed - self._last_resumed)
+            self._last_resumed = b.resumed
+        if self._faults.decode_crash_active \
+                and self._faults.take_decode_crash(b.generated_tokens):
+            logger.error(
+                "faults: injected decode_crash_after_n_tokens (%d "
+                "generated) — exiting", b.generated_tokens)
+            os._exit(3)
         kinds = [ev.kind for ev in events]
         if any(k in ("finish", "shed", "quarantine") for k in kinds) or \
                 b.last_admitted:
@@ -1321,6 +1508,44 @@ class ClusterServing:
                         shed=kinds.count("shed"),
                         quarantined=kinds.count("quarantine"))
         self._handle_gen_events(events)
+
+    def _maybe_checkpoint(self) -> None:
+        """Drain the scheduler's queued snapshots into the replica's
+        snapshot spool, stamping each with its integrity checksum (which
+        the armed ``snapshot_corrupt`` fault breaks on purpose).  Runs on
+        the generate worker, as in the JAX package: JSON and one append a
+        boundary.  Without a ``snapshot_path`` the drained batch is
+        discarded: checkpointing is durable or off, never buffered."""
+        b = self._batcher
+        if not b.pending_checkpoints:
+            return
+        snaps = b.drain_checkpoints()
+        if self.snapshot_path is None:
+            return
+        corrupt = self._faults.snapshot_corrupt_active
+        for rec in snaps:
+            crc = tracecollect.snapshot_checksum(rec)
+            if corrupt:
+                crc ^= 0x5A5A5A5A
+            rec["crc"] = crc
+        try:
+            tracecollect.append_snapshots(self.snapshot_path, snaps,
+                                          source=self.replica_id)
+            size = 0
+            for path in (self.snapshot_path, self.snapshot_path + ".1"):
+                try:
+                    size += os.path.getsize(path)
+                except OSError:
+                    pass
+            b.snapshot_bytes = size
+            self._event("gen_checkpoint", count=len(snaps),
+                        tokens=sum(int(r.get("n") or 0) for r in snaps),
+                        spool_bytes=size)
+        except Exception as e:  # noqa: BLE001 — a full or read-only disk
+            # must not take decode down; a resume degrades to older
+            # snapshots or a restart, both loud on the other side
+            logger.warning("serving: checkpoint spool write failed "
+                           "(%s: %s)", type(e).__name__, e)
 
     def _update_tps(self, now: float) -> None:
         """Roll the tokens/s window; idle iterations call it too, so the
@@ -1389,6 +1614,16 @@ class ClusterServing:
                                  RuntimeError(ev.error
                                               or "generation failed"),
                                  trace_id=ev.trace_id)
+            elif ev.kind == "resume_failed":
+                # the batcher could not replay the resume prefix (malformed,
+                # out of vocab, capacity): the request restarts from 0 and
+                # its prefix is recomputed work
+                wasted = len(ev.tokens or ())
+                if wasted:
+                    self._m_resume_wasted.inc(wasted)
+                self._event("gen_resume_failed", rid=ev.rid,
+                            trace_id=ev.trace_id, reason=ev.error,
+                            wasted=wasted)
         if not pairs:
             return
         t_w = time.monotonic()
@@ -1519,6 +1754,9 @@ class ClusterServing:
         self._warm_state["state"] = "warming"
         self._event("warmup", state="warming",
                     total=self._warm_state.get("total"))
+        # an armed warmup_crash kills the PROCESS here: a real crash
+        # mid-warm-up, not the exception handler below
+        self._faults.check_warmup()
 
         def progress(done, total, entry):
             self._warm_state["compiled"] = done
@@ -1683,6 +1921,9 @@ class ClusterServing:
             h["generation"] = self._batcher.stats()
         if self._slo is not None:
             h["slo"] = self._slo.snapshot()
+        if self._faults.any_active:
+            # an armed replica is visible from the outside
+            h["faults"] = self._faults.describe()
         h["ready"] = self._readiness(h)
         return h
 
@@ -1713,6 +1954,11 @@ class ClusterServing:
         depth = q.get("depth", -1)
         if cap is not None and depth >= 0 and depth >= cap:
             reasons.append(f"queue-depth {depth} >= {cap}")
+        if self._faults.readyz_active:
+            # hold readiness for the configured uptime
+            fr = self._faults.readyz_block_reason(h["uptime_s"])
+            if fr:
+                reasons.append(fr)
         return {"ready": not reasons, "reasons": reasons}
 
     def ready(self) -> Dict:

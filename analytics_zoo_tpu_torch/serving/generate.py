@@ -30,17 +30,32 @@ The token-level scheduler of the JAX package's ``serving/generate.py``
   eagerly (``eager_quanta``).  Admission prefills run eagerly: their
   commit indexes by a boolean mask, which syncs the host.
 - **events, not policy** — ``step()`` returns ``GenEvent``s
-  (first_token / partial / finish / shed / quarantine); the engine turns
-  them into result writes, acks, quarantines and metrics.  A poisoned
-  request quarantines ITS SLOT only.
+  (first_token / partial / finish / shed / quarantine / resume_failed);
+  the engine turns them into result writes, acks, quarantines and
+  metrics.  A poisoned request quarantines ITS SLOT only.
+- **continuity** — with ``checkpoint_interval`` set, every active slot is
+  snapshotted (prompt and tokens so far, from the host lists the boundary
+  already holds: no device sync) each time it accrues that many tokens;
+  the engine drains and spools the snapshots.  With ``resume`` set, a
+  request carrying ``resume_tokens`` (a dead owner's checkpoint) is
+  prefilled over prompt + those tokens and decodes on from that exact
+  position: greedy decode makes the continuation the uninterrupted one's,
+  and its streamed partials stay prefixes of the terminal.  In int8
+  lanes the KV a run leaves depends on its path (decode attends over int8
+  K/V, prefill over exact K/V), so there a resume prefills its prompt and
+  replays the prefix through the decode quanta, each output forced to the
+  prefix's next token (the ``force`` buffer), and leaves the uninterrupted
+  run's codes and scales; its first token comes after the replay.  The
+  JAX package prefills over the prefix in int8 lanes too.  A prefix that
+  cannot be replayed restarts the request from token 0, loudly
+  (``resume_failed``).
 
 Every prompt is validated on the host before any of its tokens reaches
 the device: an out-of-range embedding index on CUDA is a device-side
 assert, which ends the process.
 
 Not in this slice (asking for them raises ``NotImplementedError``):
-bare-state models (ROADMAP queue 1, items 4 and 10) and checkpoint/resume
-(item 1).
+bare-state models (ROADMAP queue 1, items 4 and 10).
 """
 
 from __future__ import annotations
@@ -110,9 +125,16 @@ class GenerationParams:
     - ``kv_quant`` — ``off`` | ``int8``: int8 pool blocks with
       per-(block, head) scales, dequantized in the kernel at decode.
     - ``prefix_cache`` — share resident full-block prompt prefixes.
-    - ``start_id``, ``checkpoint_interval``, ``resume`` — accepted for
-      config compatibility with the JAX package; bare-state models and
-      checkpoint/resume are not ported yet (ROADMAP queue 1).
+    - ``checkpoint_interval`` — snapshot every active slot's resume state
+      each time it accrues this many new tokens (0 = off); collected at
+      step boundaries, spooled by the engine.
+    - ``resume`` — admit reclaimed records carrying a valid snapshot as
+      RESUMES: prefill over prompt + generated-so-far (int8 lanes: over
+      the prompt, then a replay of the rest through decode), then decode
+      on at the exact token position.  The prefill ladder extends to
+      ``pow2(max_prompt_len + max_tokens)`` so that prefill has a bucket.
+    - ``start_id`` — accepted for config compatibility with the JAX
+      package; bare-state models are not ported yet (ROADMAP queue 1).
     """
 
     max_active_slots: int = 8
@@ -165,6 +187,16 @@ class GenerationParams:
             self.prefill_buckets.append(cap)
         self.checkpoint_interval = max(0, int(self.checkpoint_interval))
         self.resume = bool(self.resume)
+        if self.resume:
+            # a resume prefills over prompt + generated-so-far, which can
+            # reach max_prompt_len + max_tokens: extend the ladder so the
+            # resume prefill has a warmed bucket (the manifest drops the
+            # buckets a lane cannot hold)
+            rcap = _pow2_ceil(self.max_prompt_len + self.max_tokens)
+            last = self.prefill_buckets[-1]
+            while last < rcap:
+                last *= 2
+                self.prefill_buckets.append(last)
 
     @classmethod
     def from_dict(cls, d: Optional[Dict]) -> "GenerationParams":
@@ -178,21 +210,29 @@ class GenRequest:
     """One admitted generation request (engine-internal)."""
 
     __slots__ = ("rid", "prompt", "deadline_ns", "trace_id", "t_read",
-                 "max_tokens", "t_submit", "tenant")
+                 "max_tokens", "t_submit", "tenant", "resume_tokens",
+                 "epoch")
 
     def __init__(self, rid: str, prompt: np.ndarray,
                  deadline_ns: Optional[int] = None,
                  trace_id: Optional[str] = None,
                  t_read: Optional[float] = None,
                  max_tokens: Optional[int] = None,
-                 tenant: Optional[str] = None):
+                 tenant: Optional[str] = None,
+                 resume_tokens: Optional[List[int]] = None,
+                 epoch: int = 0):
         self.rid = rid
-        self.prompt = prompt
+        self.prompt = prompt            # ORIGINAL prompt, resume or not
         self.deadline_ns = deadline_ns
         self.trace_id = trace_id
         self.t_read = t_read
         self.max_tokens = max_tokens
         self.tenant = tenant
+        # tokens a dead owner already produced: admission pre-seeds the
+        # slot with them and rebuilds their KV; epoch counts ownership
+        # handoffs
+        self.resume_tokens = resume_tokens
+        self.epoch = int(epoch)
         self.t_submit = time.monotonic()
 
 
@@ -203,7 +243,9 @@ class GenEvent:
     ``kind``: ``first_token`` (TTFT stamp), ``partial`` (stream
     tokens-so-far), ``finish`` (terminal result), ``shed``
     (deadline-exceeded at a step boundary), ``quarantine`` (poisoned
-    request isolated)."""
+    request isolated), ``resume_failed`` (a resume prefix could not be
+    replayed: the request restarts from token 0; ``tokens`` carries the
+    wasted prefix, ``error`` the reason)."""
 
     kind: str
     rid: str
@@ -218,7 +260,8 @@ class GenEvent:
 
 
 class _Slot:
-    __slots__ = ("req", "generated", "t_first", "last_stream", "budget")
+    __slots__ = ("req", "generated", "t_first", "last_stream", "budget",
+                 "ckpt_mark", "forced")
 
     def __init__(self, req: GenRequest, budget: int):
         self.req = req
@@ -226,6 +269,11 @@ class _Slot:
         self.t_first: Optional[float] = None
         self.last_stream = 0
         self.budget = budget
+        # tokens-generated count at the last checkpoint
+        self.ckpt_mark = 0
+        # an int8 resume replaying its prefix through decode: the decode
+        # outputs still to be forced to the prefix's tokens
+        self.forced: List[int] = []
 
 
 class _QuantumBuffers:
@@ -270,6 +318,10 @@ class _Lane:
         self.tokens = np.zeros((self.max_active,), np.int32)
         self.buf: Optional[_QuantumBuffers] = None
         self.program: Optional[aot.CapturedProgram] = None
+        # paged int8 lanes: the (quantum, max_active) tokens a quantum
+        # feeds on instead of its argmax (-1 = the argmax), for resumes
+        # that replay their prefix through decode
+        self.force: Optional[np.ndarray] = None
 
     @property
     def active(self) -> int:
@@ -423,10 +475,6 @@ class ContinuousBatcher:
         inner = getattr(model, "_model", None)
         if inner is None:
             raise ValueError("generation needs a loaded InferenceModel")
-        if gen.checkpoint_interval or gen.resume:
-            raise NotImplementedError(
-                "generation checkpoint/resume is not ported yet (ROADMAP "
-                "queue 1, item 1)")
         init = getattr(inner, "init_decode", None)
         if init is None or not hasattr(inner, "decode_step") \
                 or "cache_len" not in inspect.signature(init).parameters:
@@ -466,6 +514,10 @@ class ContinuousBatcher:
                 gen.prefill_buckets[0])
         self._pool = None
         self._prefix = None
+        # int8 KV is path-dependent: decode attends over int8 K/V, prefill
+        # over exact K/V, so an int8 resume replays its prefix through
+        # decode (forced tokens) instead of prefilling over it
+        self._replay = gen.paged and gen.kv_quant == "int8"
         self.pool_exhausted = 0
         self._exhausted_boundary = False
         if gen.paged:
@@ -507,6 +559,14 @@ class ContinuousBatcher:
         self.finished = 0
         self.quarantined = 0
         self.shed = 0
+        # continuity: resume admissions, loud downgrades to restart-from-0,
+        # and checkpoints collected at step boundaries (the engine drains
+        # and spools them); snapshot_bytes mirrors the spool's size
+        self.resumed = 0
+        self.resume_failed = 0
+        self.checkpoints = 0
+        self.snapshot_bytes = 0
+        self.pending_checkpoints: List[Dict] = []
         for lane in self._lanes:
             self._ensure_lane_state(lane)
 
@@ -524,6 +584,9 @@ class ContinuousBatcher:
                     self._pool.n_blocks + 1, gen.block_len, A,
                     gen.kv_quant)
                 shapes.update(tables=(A, lane.ntab), pos=(A,))
+                if self._replay:
+                    shapes["force"] = (gen.decode_quantum, A)
+                    lane.force = np.full(shapes["force"], -1, np.int32)
             else:
                 # the state tree of one prefilled row, zeroed at A rows
                 pb = gen.prefill_buckets[0]
@@ -582,12 +645,16 @@ class ContinuousBatcher:
         tok = buf.dev["tokens"]
         if isinstance(lane, _PagedLane):
             pos = buf.dev["pos"]
+            force = buf.dev.get("force")
             for k in range(gen.decode_quantum):
                 logits, _ = self.inner.decode_paged(
                     lane.state, buf.dev["tables"], pos, tok,
                     block_len=gen.block_len, kv_quant=gen.kv_quant,
                     impl=self.impl)
-                buf.out[k].copy_(logits.argmax(dim=-1))
+                nxt = logits.argmax(dim=-1)
+                if force is not None:
+                    nxt = torch.where(force[k] >= 0, force[k], nxt)
+                buf.out[k].copy_(nxt)
                 tok = buf.out[k]
                 pos = pos + 1
             return buf.out
@@ -604,11 +671,12 @@ class ContinuousBatcher:
         buffers, the lane's graph replayed (or the quantum run eagerly
         when it has none), and one device-to-host copy of the token block:
         the quantum's one host sync."""
+        arrays = {"tokens": lane.tokens}
         if isinstance(lane, _PagedLane):
-            lane.buf.load(tables=lane.tables, pos=lane.pos,
-                          tokens=lane.tokens)
-        else:
-            lane.buf.load(tokens=lane.tokens)
+            arrays.update(tables=lane.tables, pos=lane.pos)
+        if lane.force is not None:
+            arrays["force"] = lane.force
+        lane.buf.load(**arrays)
         if lane.program is not None and not dry_run:
             out = lane.program.replay()
         else:
@@ -657,10 +725,13 @@ class ContinuousBatcher:
 
     def _pick_lane(self, req: GenRequest) -> Optional[_Lane]:
         """Smallest lane whose capacity holds prompt + budget AND the
-        prompt's prefill bucket (prefill allocates the cache at the lane
-        capacity)."""
+        prefill bucket (prefill allocates the cache at the lane capacity).
+        A resume prefills over prompt + resume prefix (except where it
+        replays), so its prefill bucket is the concatenation's; its
+        occupancy is still prompt + budget (the prefix counts against the
+        budget)."""
         want = len(req.prompt) + self._req_budget(req)
-        pb = self._prefill_bucket(len(req.prompt))
+        pb = self._prefill_bucket(len(self._prefill_prompt(req)))
         if pb is not None:
             want = max(want, pb)
         for lane in self._lanes:
@@ -668,9 +739,78 @@ class ContinuousBatcher:
                 return lane
         return None
 
+    # -- resume admission -----------------------------------------------------
     @staticmethod
-    def _prompt(req: GenRequest) -> np.ndarray:
-        return np.asarray(req.prompt).astype(np.int32).reshape(-1)
+    def _concat_prompt(req: GenRequest) -> np.ndarray:
+        """Prefill input: the original prompt, plus, for a resume, the
+        tokens the dead owner already produced (replaying them through
+        prefill rebuilds the cache a continuous decode would hold)."""
+        p = np.asarray(req.prompt).astype(np.int32).reshape(-1)
+        if not req.resume_tokens:
+            return p
+        return np.concatenate([p, np.asarray(req.resume_tokens, np.int32)])
+
+    def _prefill_prompt(self, req: GenRequest) -> np.ndarray:
+        """What admission prefills: the concatenation, or, in a lane that
+        replays resumes through decode, the original prompt."""
+        p = self._concat_prompt(req)
+        return p[:np.size(req.prompt)] if self._replay else p
+
+    def _downgrade_resume(self, req: GenRequest, reason: str,
+                          events: List[GenEvent]) -> None:
+        """Fall back LOUDLY to restart-from-0: the wasted prefix rides the
+        event so the engine can meter it."""
+        toks = [int(t) for t in req.resume_tokens or ()
+                if isinstance(t, (int, float, np.integer))]
+        req.resume_tokens = None
+        self.resume_failed += 1
+        events.append(GenEvent(
+            "resume_failed", req.rid, trace_id=req.trace_id, tokens=toks,
+            error=reason, t_read=req.t_read, tenant=req.tenant))
+
+    def _take_resume(self, req: GenRequest,
+                     events: List[GenEvent]) -> None:
+        """Normalize a reclaimed request's resume prefix, downgrading to
+        restart-from-0 when it cannot be replayed: a malformed or
+        out-of-vocab prefix would poison the decode state (and an
+        out-of-range id is a device-side assert on CUDA)."""
+        rt = req.resume_tokens
+        if not rt:
+            req.resume_tokens = None
+            return
+        try:
+            toks = [int(t) for t in rt]
+        except (TypeError, ValueError):
+            self._downgrade_resume(req, "malformed resume prefix", events)
+            return
+        if self._vocab and toks and (min(toks) < 0
+                                     or max(toks) >= self._vocab):
+            self._downgrade_resume(
+                req, "resume token id out of vocab range", events)
+            return
+        cap = self._req_budget(req) - 1
+        if cap < 1:
+            self._downgrade_resume(req, "token budget already consumed",
+                                   events)
+            return
+        # a prefix at or over budget should have finished at the old
+        # owner; keep budget - 1 so the resumed slot still decodes a token
+        req.resume_tokens = toks[:cap]
+
+    def _seed_resume(self, info: _Slot) -> None:
+        """Pre-seed a just-admitted slot with its resume prefix: the
+        terminal token list stays the full generation (partials remain a
+        prefix of it), while ``last_stream`` / ``ckpt_mark`` start past the
+        prefix, so the streaming and checkpoint cadences resume where the
+        dead owner left off.  The boundary accounting reports only the
+        tokens decoded after admission."""
+        rt = info.req.resume_tokens
+        if not rt:
+            return
+        info.generated = [int(t) for t in rt]
+        info.last_stream = len(info.generated)
+        info.ckpt_mark = len(info.generated)
+        self.resumed += 1
 
     def _validate(self, req: GenRequest) -> Optional[str]:
         p = np.asarray(req.prompt)
@@ -709,13 +849,17 @@ class ContinuousBatcher:
                      events: List[GenEvent]) -> None:
         """The first token comes from the prefill: TTFT stops here, and the
         token feeds the slot's first decode step."""
+        self._stamp_first(info, events)
+        lane.tokens[slot] = tok
+        self._account_token(lane, slot, info, tok, events)
+
+    @staticmethod
+    def _stamp_first(info: _Slot, events: List[GenEvent]) -> None:
         info.t_first = time.monotonic()
         events.append(GenEvent(
             "first_token", info.req.rid, trace_id=info.req.trace_id,
             ttft_s=info.t_first - info.req.t_submit, t_read=info.req.t_read,
             tenant=info.req.tenant))
-        lane.tokens[slot] = tok
-        self._account_token(lane, slot, info, tok, events)
 
     def _count_exec(self, key: tuple) -> None:
         label = self._program_name(key)
@@ -761,7 +905,15 @@ class ContinuousBatcher:
             if err is not None:
                 self._quarantine(req, f"ValueError: {err}", events)
                 continue
+            if req.resume_tokens:
+                self._take_resume(req, events)
             lane = self._pick_lane(req)
+            if lane is None and req.resume_tokens:
+                # the concatenation pushed the prefill bucket past every
+                # lane: a VALID request must not quarantine — restart it
+                self._downgrade_resume(
+                    req, "resume prefix exceeds lane capacity", events)
+                lane = self._pick_lane(req)
             if lane is None:
                 self._quarantine(
                     req, "ValueError: no decode lane holds prompt + "
@@ -775,9 +927,14 @@ class ContinuousBatcher:
             grabbed.append((req, lane, lane.free.popleft()))
         groups: Dict[tuple, tuple] = {}
         for req, lane, slot in grabbed:
+            pb = self._prefill_bucket(len(req.prompt)
+                                      + len(req.resume_tokens or ()))
+            if pb is None and req.resume_tokens:
+                self._downgrade_resume(
+                    req, "no prefill bucket holds resume prefix", events)
+                pb = self._prefill_bucket(len(req.prompt))
             # _validate bounds the prompt by max_prompt_len, which the
             # prefill ladder always covers
-            pb = self._prefill_bucket(len(req.prompt))
             groups.setdefault((lane.bucket, pb), (lane, pb, []))[2] \
                 .append((req, slot))
         return sum(self._admit_batch(lane, pb, members, events)
@@ -794,7 +951,7 @@ class ContinuousBatcher:
         padded = np.zeros((bb, pb), np.int32)
         lengths = np.ones((bb,), np.int32)
         for j, (req, _) in enumerate(members):
-            prompt = self._prompt(req)
+            prompt = self._concat_prompt(req)
             padded[j, :prompt.size] = prompt
             lengths[j] = prompt.size
         for j in range(n, bb):
@@ -824,6 +981,7 @@ class ContinuousBatcher:
                 lane.free.append(slot)
                 continue
             info = _Slot(req, budget=self._budget_for(req, lane))
+            self._seed_resume(info)
             lane.slots[slot] = info
             self.admitted += 1
             admitted += 1
@@ -837,11 +995,13 @@ class ContinuousBatcher:
         Returns ``(k_shared, shared_ids, private_ids, plen)`` or None (pool
         exhausted: the caller requeues, and a typed ``kv_pool_exhausted``
         flight-recorder event explains the stall)."""
-        prompt = self._prompt(req)
+        prompt = self._prefill_prompt(req)
         plen = int(prompt.size)
         bl = self.gen.block_len
-        need = min((plen + self._budget_for(req, lane) + bl - 1) // bl,
-                   lane.ntab)
+        # a resume's prefix counts against the budget: blocks for the
+        # original prompt + budget
+        need = min((len(req.prompt) + self._budget_for(req, lane)
+                    + bl - 1) // bl, lane.ntab)
         ksh, shared = 0, []
         if self._prefix is not None:
             # cap leaves >= 1 suffix token: first-token logits need at
@@ -897,6 +1057,11 @@ class ContinuousBatcher:
             if err is not None:
                 self._quarantine(req, f"ValueError: {err}", events)
                 continue
+            if req.resume_tokens:
+                self._take_resume(req, events)
+            if self._pick_lane(req) is None and req.resume_tokens:
+                self._downgrade_resume(
+                    req, "resume prefix exceeds lane capacity", events)
             if self._pick_lane(req) is None:
                 self._quarantine(
                     req, "ValueError: no decode lane holds prompt + "
@@ -920,6 +1085,17 @@ class ContinuousBatcher:
         for req, slot, resv in grabbed:
             ksh, _, _, plen = resv
             pb = self._prefill_bucket(plen - ksh * bl)
+            if pb is None:
+                # a resume prefix past the ladder (a ladder not extended
+                # for resume): the request quarantines with its claim
+                # released, as in the JAX package
+                self._release_resv(resv)
+                self._quarantine(
+                    req, f"ValueError: no prefill bucket holds prompt "
+                         f"length {plen} (buckets "
+                         f"{self.gen.prefill_buckets})", events)
+                lane.free.append(slot)
+                continue
             if ksh:
                 hit.setdefault((pb, _pow2_ceil(ksh)), []).append(
                     (req, slot, resv))
@@ -949,7 +1125,7 @@ class ContinuousBatcher:
             plens = np.zeros((bb,), np.int32)
         for j, (req, slot, resv) in enumerate(members):
             ksh, shared_ids, priv, plen = resv
-            prompt = self._prompt(req)
+            prompt = self._prefill_prompt(req)
             table = list(shared_ids) + list(priv)
             if shared is not None:
                 suffix = prompt[ksh * bl:]
@@ -1004,17 +1180,25 @@ class ContinuousBatcher:
             lane.pos[slot] = plen
             lane.blocks[slot] = table
             info = _Slot(req, budget=self._budget_for(req, lane))
+            self._seed_resume(info)
             lane.slots[slot] = info
             self.admitted += 1
             if self._prefix is not None and ksh == 0:
                 # park the prompt's FULL blocks for future sharers (the
                 # partial tail block keeps being written by decode, so it
-                # can never be shared)
+                # can never be shared); a resume registers what it
+                # prefilled, which is what its blocks hold
                 full = plen // bl
                 if full:
-                    self._prefix.register(self._prompt(req)[:full * bl],
-                                          table[:full])
-            self._first_token(lane, slot, info, int(toks0[j]), events)
+                    self._prefix.register(
+                        self._prefill_prompt(req)[:full * bl], table[:full])
+            if self._replay and req.resume_tokens:
+                # replay: decode feeds on the prefix from the prompt's end;
+                # the first token comes once the replay is through
+                lane.tokens[slot] = req.resume_tokens[0]
+                info.forced = list(req.resume_tokens[1:])
+            else:
+                self._first_token(lane, slot, info, int(toks0[j]), events)
         return n
 
     # -- step boundary --------------------------------------------------------
@@ -1100,9 +1284,57 @@ class ContinuousBatcher:
             for lane in self._lanes:
                 if lane.active:
                     self._step_lane(lane, events)
+            if self.gen.checkpoint_interval > 0:
+                self._collect_checkpoints()
             return events
 
+    def _collect_checkpoints(self) -> None:
+        """Queue resume-state snapshots for the slots that crossed the
+        checkpoint interval since their last mark.  Host-side list work
+        only (the tokens are the host lists the boundary already folded):
+        the engine drains ``pending_checkpoints`` and spools them."""
+        interval = self.gen.checkpoint_interval
+        now = time.monotonic()
+        for lane in self._lanes:
+            for info in lane.slots:
+                if info is None:
+                    continue
+                n = len(info.generated)
+                if n - info.ckpt_mark < interval:
+                    continue
+                req = info.req
+                prompt = np.asarray(req.prompt).reshape(-1)
+                self.pending_checkpoints.append({
+                    "rid": req.rid,
+                    "epoch": req.epoch,
+                    "prompt": [int(t) for t in prompt],
+                    "tokens": list(info.generated),
+                    "n": n,
+                    "tenant": req.tenant,
+                    "trace_id": req.trace_id,
+                    "deadline_ns": req.deadline_ns,
+                    "max_tokens": req.max_tokens,
+                    # greedy argmax decode: recorded so a future sampling
+                    # decode can refuse to resume across a sampler change
+                    "sampler": "greedy",
+                    "ts": now,
+                })
+                info.ckpt_mark = n
+                self.checkpoints += 1
+
+    def drain_checkpoints(self) -> List[Dict]:
+        """Hand the queued snapshots to the engine (scheduler thread only,
+        like ``step``)."""
+        out, self.pending_checkpoints = self.pending_checkpoints, []
+        return out
+
     def _step_lane(self, lane: _Lane, events: List[GenEvent]) -> None:
+        K = self.gen.decode_quantum
+        if lane.force is not None:
+            lane.force.fill(-1)
+            for slot, info in enumerate(lane.slots):
+                forced = info.forced[:K] if info is not None else ()
+                lane.force[:len(forced), slot] = forced
         with torch.inference_mode():
             block = self._decode(lane)
         self._count_exec(self._decode_key(lane))
@@ -1118,7 +1350,13 @@ class ContinuousBatcher:
             if info is None:
                 continue
             n0 = len(info.generated)
-            for k in range(block.shape[0]):
+            # a replaying resume's forced outputs are its prefix, which
+            # `generated` already holds
+            skip = min(len(info.forced), K)
+            del info.forced[:skip]
+            for k in range(skip, K):
+                if info.t_first is None:
+                    self._stamp_first(info, events)
                 self._account_token(lane, slot, info, int(block[k, slot]),
                                     events)
                 if lane.slots[slot] is not info:
@@ -1268,8 +1506,8 @@ class ContinuousBatcher:
         """Bytes pinned by decode state, decomposed: ``lanes`` (monolithic
         per-slot caches and int8 per-slot staging buffers), ``paged_pool``
         (the shared KV block pool), ``scales`` (int8 per-block scale
-        planes) and ``aux`` (host-side token cursors, block tables and
-        position cursors)."""
+        planes) and ``aux`` (host-side token cursors, block tables,
+        position cursors and the snapshot spool's bytes)."""
         lanes_b = pool_b = scales_b = aux_b = 0
         for lane in self._lanes:
             aux_b += int(lane.tokens.nbytes)
@@ -1285,6 +1523,9 @@ class ContinuousBatcher:
                         lanes_b += nb
             else:
                 lanes_b += _tree_bytes(lane.state)
+        # the snapshot spool's bytes (host and disk side, but pinned by the
+        # generation plane; the engine mirrors the spool's size here)
+        aux_b += int(self.snapshot_bytes)
         return {"lanes": lanes_b, "paged_pool": pool_b, "scales": scales_b,
                 "aux": aux_b, "total": lanes_b + pool_b + scales_b + aux_b}
 
@@ -1308,6 +1549,11 @@ class ContinuousBatcher:
              "finished": self.finished,
              "quarantined": self.quarantined,
              "shed": self.shed,
+             "resumed": self.resumed,
+             "resume_failed": self.resume_failed,
+             "checkpoints": self.checkpoints,
+             "snapshot_bytes": self.snapshot_bytes,
+             "can_resume": True,
              "captures": self.captures,
              "replays": self.replays,
              "eager_quanta": self.eager_quanta,

@@ -52,6 +52,25 @@ and checks them, phase by phase, each phase printing its own lines:
    the plain-attention batcher (the traced run's against the timed
    run's), and the monolithic lanes' against the paged f32 lane's
    (equal, or parting only at a near tie).
+   Then continuity (checkpoints every 8 tokens, resume on): (a) four
+   served requests, two sharing the 32-token prefix, resumed on a bare
+   batcher at depths 1, 8, 17 and 63 of their served tokens, epoch 1, in
+   paged f32, paged int8 and monolithic lanes through the kernels (eager
+   quanta: the wrapper counts decode steps x 12 paged launches): every
+   request resumed, partials past their depth, checkpoints of epoch 1,
+   tokens equal to the served ones or parting at a near tie; (b) a victim
+   process (this script with ``--resume-victim DIR``, a fresh interpreter
+   holding the same seeded weights, checked by a parameter checksum)
+   serves both waves over a ``FileQueue`` with checkpoints spooled and is
+   killed by its ``decode_crash_after_n_tokens`` fault after 512 tokens
+   (exit code 3); this process then serves as the survivor over the same
+   directory and must answer all 16 records: resumes and wasted tokens as
+   the queue and the spool say, tokens equal to the paged f32 run's or
+   parting at a near tie, no failed warm-up entry, no extra capture, no
+   eager quantum, and paged launches on the card (profiler trace) =
+   decode steps x 12.  Prints the victim's checkpoint time a boundary,
+   the spool's bytes, the survivor's wall time and the resumed records'
+   TTFT.
 4. predict — ``Sequential([TransformerLayer(GPT-2 small, T = 1024),
    GlobalAveragePooling1D, Dense(50257, softmax)])`` from ``--seed``,
    loaded by ``InferenceModel.do_load_model`` and served by
@@ -101,6 +120,9 @@ contract line.  Run from the repository root::
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
+``--resume-victim DIR`` is the continuity phase's victim process, which
+the phase starts itself.
+
 ``--profile`` adds ``torch.profiler`` readings of a decode step (eager,
 then replayed from its CUDA graph), a predict batch, a training step and
 a ResNet-50 training step.  ``--kernel-timing``
@@ -118,6 +140,7 @@ import argparse
 import contextlib
 import copy
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -161,7 +184,8 @@ from analytics_zoo_tpu_torch.serving.engine import ClusterServing, ServingParams
 from analytics_zoo_tpu_torch.serving.generate import (ContinuousBatcher,
                                                       GenerationParams,
                                                       GenRequest, commit)
-from analytics_zoo_tpu_torch.serving.queues import InProcQueue
+from analytics_zoo_tpu_torch.serving import tracecollect
+from analytics_zoo_tpu_torch.serving.queues import FileQueue, InProcQueue
 
 # OpenAI's 124M ``gpt2`` config
 GPT2_SMALL = dict(vocab_size=50257, hidden=768, n_head=12, n_layers=12,
@@ -175,6 +199,15 @@ GENERATION = dict(paged=True, block_len=16, max_active_slots=8,
 MONOLITHIC = dict(GENERATION, paged=False, bucket_lens=[128, 256])
 N_REQUESTS = 16
 PREFIX_LEN = 32
+# continuity: checkpoints every 8 tokens, resume on; the depth check
+# resumes four served requests at depths 1, 8, 17 (past a 16-token block
+# edge) and 63 (the cap: budget - 1); the crash phase's victim dies once
+# it has generated 512 tokens, half the 16 x 64 its queue holds
+RESUME = dict(checkpoint_interval=8, resume=True)
+RESUME_DEPTHS = (1, 8, 17, 63)
+RESUME_PICKS = ("req-00", "req-02", "req-01", "req-03")
+CRASH_AFTER = 512
+RESUME_LEASE_S = 2.0
 # the paged lane's capacity: pow2(max_prompt_len + max_tokens) tokens
 LANE = 256
 # kernel vs plain: both compute the same f32 convex combination of the
@@ -900,6 +933,422 @@ def cross_check(im, waves, served: dict, kv_quant: str) -> None:
     compare_tokens(im, waves, served,
                    batcher_tokens(im, waves, kv_quant, "torch"), kv_quant,
                    f"cross[{kv_quant}]", "plain-attention batcher")
+
+
+# -- phase 3b: continuity: resume at depth, crash and resume across processes --
+
+def resume_gen(base: dict) -> dict:
+    return dict(base, **RESUME)
+
+
+def resume_run(im, waves, golden: dict, gen: dict) -> dict:
+    """A bare batcher (eager quanta, ``impl`` left at auto) given each of
+    ``RESUME_PICKS`` at every depth of ``RESUME_DEPTHS`` as a resume of
+    its uninterrupted tokens ``golden[rid]``, epoch 1, all submitted at
+    once; drained to the end.  The paged wrapper's launch counter is set to
+    0 just before the drive and read just after."""
+    prompts = {rid: p for wave in waves for rid, p in wave}
+    b = ContinuousBatcher(im, GenerationParams(**gen))
+    subs = [(f"{rid}@{k}", rid, k) for rid in RESUME_PICKS
+            for k in RESUME_DEPTHS]
+    for sid, rid, k in subs:
+        check(b.submit(GenRequest(sid, prompts[rid],
+                                  resume_tokens=list(golden[rid][:k]),
+                                  epoch=1)), "waiting room full")
+    pa.launches = 0
+    events, snaps = [], []
+    t0 = time.perf_counter()
+    while not b.idle:
+        events.extend(b.step())
+        snaps.extend(b.drain_checkpoints())
+    sync(im.device)
+    return {"events": events, "snaps": snaps, "stats": b.stats(),
+            "launches": pa.launches, "wall_s": time.perf_counter() - t0,
+            "subs": subs, "prompts": prompts}
+
+
+def check_resume_run(im, run: dict, golden: dict, kv_quant: str, tag: str,
+                     layers: int) -> None:
+    """Every submission resumed, finished with its budget, and equal to
+    its uninterrupted tokens or parting at a near tie; every partial after
+    the resume longer than its depth; every checkpoint of epoch 1; the
+    paged wrapper launched decode steps x ``layers`` times (0 for
+    monolithic lanes, whose attention is plain)."""
+    st = run["stats"]
+    depth = {sid: k for sid, _, k in run["subs"]}
+    fin, bad = {}, []
+    for ev in run["events"]:
+        if ev.kind in ("shed", "quarantine", "resume_failed"):
+            bad.append((ev.kind, ev.rid, ev.error))
+        elif ev.kind == "partial" and len(ev.tokens) <= depth[ev.rid]:
+            bad.append(("partial", ev.rid, len(ev.tokens)))
+        elif ev.kind == "finish":
+            fin[ev.rid] = list(ev.tokens)
+    check(not bad, f"resume[{tag}]: {bad[:4]}")
+    n = len(run["subs"])
+    check(st["resumed"] == n and st["resume_failed"] == 0
+          and len(fin) == n, f"resume[{tag}]: resumed {st['resumed']}, "
+                             f"failed {st['resume_failed']}, finished "
+                             f"{len(fin)} of {n}")
+    check(run["snaps"] and all(s["epoch"] == 1 for s in run["snaps"]),
+          f"resume[{tag}]: checkpoints {len(run['snaps'])}, epochs "
+          f"{sorted({s['epoch'] for s in run['snaps']})}")
+    steps = st["decode_steps"]
+    check(run["launches"] == steps * layers,
+          f"resume[{tag}]: paged launches by the wrapper {run['launches']}"
+          f" != decode steps {steps} x {layers}")
+    waves = [[(sid, run["prompts"][rid]) for sid, rid, _ in run["subs"]]]
+    ref = {sid: golden[rid] for sid, rid, _ in run["subs"]}
+    for sid, toks in fin.items():
+        check(len(toks) == len(ref[sid]),
+              f"resume[{tag}] {sid}: {len(toks)} tokens, want "
+              f"{len(ref[sid])}")
+    say(f"resume[{tag}]: {n} resumes ({len(RESUME_PICKS)} requests at "
+        f"depths {'/'.join(map(str, RESUME_DEPTHS))}) in "
+        f"{run['wall_s']:.3f} s, decode steps {steps} in "
+        f"{st['eager_quanta']} eager quanta, paged launches by the wrapper "
+        f"{run['launches']} (= {steps} x {layers}), checkpoints "
+        f"{len(run['snaps'])} (epoch 1)")
+    compare_tokens(im, waves, fin, ref, kv_quant, f"resume[{tag}]",
+                   "uninterrupted run")
+
+
+def params_checksum(module: torch.nn.Module) -> str:
+    """sha256 over every parameter and buffer (name, then raw bytes) in
+    name order: the victim and the survivor hold the same weights iff
+    their checksums agree."""
+    h = hashlib.sha256()
+    for name, t in sorted(module.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().reshape(-1).contiguous().cpu()
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def resume_victim(tmp: str, seed: int, device=None,
+                  timeout_s: float = 300.0) -> int:
+    """``--resume-victim DIR``: serve ``DIR/q`` (paged f32 lanes with
+    checkpoints and resume, warm-up, a 2 s lease) until the fault armed at
+    ``CRASH_AFTER`` generated tokens kills the process (exit code 3).
+    Prints the parameters' checksum, writes ``DIR/ready.json`` once warm,
+    and prints the wall time of every step boundary that spooled
+    checkpoints (``ckpt_s``).  Exits 1 if no crash came within
+    ``timeout_s``."""
+    dev = device or torch.device("cuda", 0)
+    lm = TransformerLM(**GPT2_SMALL, seed=seed, device=dev)
+    checksum = params_checksum(lm)
+    say(f"victim: params checksum {checksum}")
+    im = InferenceModel(device=dev).do_load_model(lm)
+    serving = ClusterServing(im, FileQueue(os.path.join(tmp, "q")),
+                             ServingParams(
+                                 max_batch=N_REQUESTS, max_wait_ms=2.0,
+                                 generation=resume_gen(GENERATION),
+                                 warmup=True, lease_s=RESUME_LEASE_S,
+                                 replica_id=f"victim-{seed}",
+                                 faults={"decode_crash_after_n_tokens": {
+                                     "version": "*", "n": CRASH_AFTER,
+                                     "once": os.path.join(tmp,
+                                                          "crash.marker")}}))
+    serving.snapshot_path = os.path.join(tmp, "victim.gensnap.jsonl")
+    b = serving._batcher
+    spool = serving._maybe_checkpoint
+
+    def timed_checkpoint():
+        n = len(b.pending_checkpoints)
+        t0 = time.perf_counter()
+        spool()
+        if n:
+            say(json.dumps({"ckpt_s": time.perf_counter() - t0,
+                            "snapshots": n}))
+    serving._maybe_checkpoint = timed_checkpoint
+    serving.start()
+    try:
+        warm = wait_warm(serving)
+        ready = os.path.join(tmp, "ready.json")
+        with open(ready + ".tmp", "w") as f:
+            json.dump({"checksum": checksum, "warm": warm}, f)
+        os.replace(ready + ".tmp", ready)
+        say(f"victim: warm ({warm['total']} entries, "
+            f"{warm['compile_stats']['captures']} capture(s)), serving")
+        time.sleep(timeout_s)
+        say(f"victim: no crash within {timeout_s} s")
+        return 1
+    finally:
+        serving.shutdown()
+
+
+def expected_resume(queue, rids, spool: str) -> dict:
+    """What a survivor must do with the records a dead owner left, worked
+    out from the queue and the owner's spool as the engine's reclaim rule
+    reads them: a record with a terminal result is ``done``; one whose
+    annotation points at ``spool`` and which has a checkpoint there of the
+    annotated epoch with a valid checksum is ``resumed`` from its deepest
+    one, wasting what its streamed partial holds past it; any other is
+    ``restarted`` and wastes its whole partial.  ``waste`` = sum of
+    max(0, partial_n - n), n = 0 for a restart."""
+    results = queue.get_results(list(rids))
+    snaps = tracecollect.load_snapshots([spool])
+    out = {"done": [], "resumed": {}, "restarted": [], "waste": 0}
+    for rid in rids:
+        r = results.get(rid)
+        if isinstance(r, dict) and not r.get("partial"):
+            out["done"].append(rid)
+            continue
+        partial_n = int((r or {}).get("n") or 0)
+        ann = queue.annotation(rid) or {}
+        best = None
+        if ann.get("spool") == spool:
+            for snap in snaps:
+                if snap.get("rid") == rid and int(snap.get("epoch") or 0) \
+                        == int(ann.get("epoch") or 0) and (
+                        best is None or snap["n"] > best["n"]):
+                    best = snap
+        if best is not None \
+                and int(best["crc"]) == tracecollect.snapshot_checksum(best):
+            out["resumed"][rid] = int(best["n"])
+            out["waste"] += max(0, partial_n - int(best["n"]))
+        else:
+            out["restarted"].append(rid)
+            out["waste"] += partial_n
+    return out
+
+
+def victim_readings(log: str) -> dict:
+    """The victim's checksum and per-boundary checkpoint times, from its
+    output."""
+    out = {"checksum": None, "ckpt_s": [], "snapshots": 0}
+    for line in log.splitlines():
+        if line.startswith("victim: params checksum "):
+            out["checksum"] = line.split()[-1]
+        elif line.startswith('{"ckpt_s"'):
+            doc = json.loads(line)
+            out["ckpt_s"].append(doc["ckpt_s"])
+            out["snapshots"] += doc["snapshots"]
+    return out
+
+
+def run_victim(tmp: str, seed: int, waves, victim_cmd=None,
+               timeout_s: float = 300.0) -> dict:
+    """Start the victim in a fresh interpreter (``subprocess``, never a
+    fork of this process, which holds a CUDA context), enqueue both waves
+    once it is warm, and wait for it to die; stops it if it does not."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = victim_cmd or [sys.executable, os.path.join(here, "chip_smoke.py"),
+                         "--resume-victim", tmp, "--seed", str(seed)]
+    ready = os.path.join(tmp, "ready.json")
+    log_path = os.path.join(tmp, "victim.log")
+    q = FileQueue(os.path.join(tmp, "q"))
+    iq = InputQueue(q)
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=here, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while not os.path.exists(ready):
+                check(proc.poll() is None,
+                      f"victim exited {proc.returncode} before it was warm")
+                check(time.perf_counter() - t0 < timeout_s,
+                      f"victim not warm after {timeout_s} s")
+                time.sleep(0.05)
+            t_start = time.perf_counter() - t0
+            t_enqueue = time.monotonic()
+            for wave in waves:
+                for rid, prompt in wave:
+                    iq.enqueue_tensor(rid, prompt.astype(np.float32))
+            rc = proc.wait(timeout=timeout_s)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        text = f.read()
+    with open(ready) as f:
+        doc = json.load(f)
+    return {"rc": rc, "log": text, "ready": doc, "t_enqueue": t_enqueue,
+            "start_s": t_start, **victim_readings(text)}
+
+
+def resume_crash_phase(im, waves, golden: dict, seed: int,
+                       victim_cmd=None) -> dict:
+    """Part (b) of the continuity phase: the victim serves both waves over
+    a ``FileQueue`` and is killed by its fault after ``CRASH_AFTER``
+    tokens; this process then serves as the survivor over the same
+    directory (paged f32 lanes, resume on, warmed before it starts, as a
+    replica already up when its peer died) under a profiler trace of the
+    card, and must answer every record: resumes counted, waste as the
+    queue and the spool say, tokens equal to ``golden`` or parting at a
+    near tie, no eager quantum and no extra capture."""
+    rids = [rid for wave in waves for rid, _ in wave]
+    tmp = tempfile.mkdtemp(prefix="zoo-resume-")
+    try:
+        v = run_victim(tmp, seed, waves, victim_cmd)
+        mine = params_checksum(im._model)
+        check(v["checksum"] == v["ready"]["checksum"] == mine,
+              f"victim params {v['checksum']} != survivor's {mine}")
+        marker = os.path.join(tmp, "crash.marker")
+        spool = os.path.join(tmp, "victim.gensnap.jsonl")
+        check(v["rc"] == 3 and os.path.exists(marker),
+              f"victim exit code {v['rc']} (want 3), marker "
+              f"{os.path.exists(marker)}; its output ends "
+              f"{v['log'][-2000:]}")
+        q = FileQueue(os.path.join(tmp, "q"))
+        n_snaps = len(tracecollect.load_snapshots([spool]))
+        check(n_snaps > 0 and v["snapshots"] == n_snaps,
+              f"victim spool holds {n_snaps} checkpoints, the victim "
+              f"wrote {v['snapshots']}")
+        want = expected_resume(q, rids, spool)
+        spool_bytes = os.path.getsize(spool)
+        # the claims must be a lease old before the survivor's first sweep
+        time.sleep(max(0.0, v["t_enqueue"] + RESUME_LEASE_S + 0.2
+                       - time.monotonic()))
+        run = survive(im, tmp, rids)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"victim": v, "want": want, "run": run, "spool_bytes": spool_bytes,
+            "n_snaps": n_snaps}
+
+
+def survive(im, tmp: str, rids) -> dict:
+    """The survivor: warmed, then started over the dead victim's queue,
+    served to the last result under a profiler trace of the card."""
+    gen = resume_gen(GENERATION)
+    serving = ClusterServing(im, FileQueue(os.path.join(tmp, "q")),
+                             ServingParams(
+                                 max_batch=N_REQUESTS, max_wait_ms=2.0,
+                                 generation=gen, warmup=True,
+                                 lease_s=RESUME_LEASE_S,
+                                 reclaim_interval_s=0.1,
+                                 replica_id="survivor"))
+    serving.snapshot_path = os.path.join(tmp, "survivor.gensnap.jsonl")
+    b = serving._batcher
+    prewarm = b.warm()
+    sync(im.device)
+    before = b.stats()
+    pa.launches = 0
+    oq = OutputQueue(FileQueue(os.path.join(tmp, "q")))
+    try:
+        with _impl.card_launches(("paged",)) as card:
+            t0 = time.perf_counter()
+            serving.start()
+            warm = wait_warm(serving)
+            results = oq.query_many(list(rids), timeout_s=300.0)
+            wall = time.perf_counter() - t0
+    finally:
+        serving.shutdown(drain_s=5.0)
+    sync(im.device)
+    reg = serving.registry.snapshot()
+    events = [e for e in serving.recorder.events()
+              if e.get("replica") == serving.replica_id]
+    ttft = {s["uri"]: s["dur_s"] for s in serving.tracer.spans()
+            if s["stage"] == "prefill"}
+    snap_path = serving.snapshot_path
+    return {"results": results, "wall_s": wall, "prewarm": prewarm,
+            "warm": warm, "before": before, "stats": b.stats(),
+            "card": card["paged"], "eager_launches": pa.launches,
+            "resumed_total": reg["serving_generations_resumed_total"][
+                "values"][0]["value"],
+            "wasted_total": reg["serving_resume_wasted_tokens_total"][
+                "values"][0]["value"],
+            "resumes": [e for e in events if e.get("event") == "gen_resume"],
+            "failed": [e for e in events
+                       if e.get("event") == "gen_resume_failed"],
+            "ttft": ttft, "layers": im._model.n_layers,
+            "survivor_spool_bytes": (os.path.getsize(snap_path)
+                                     if os.path.exists(snap_path) else 0)}
+
+
+def check_crash_phase(im, waves, golden: dict, out: dict, vocab: int,
+                      layers: int) -> None:
+    """Every record answered with its budget of in-range tokens, equal to
+    ``golden`` or parting at a near tie; resumes and waste as
+    ``expected_resume`` worked out; one ``gen_resume`` event a resumed
+    record; no failed warm-up entry, no capture after the pre-warm, no
+    eager quantum; paged launches on the card = decode steps x
+    ``layers``."""
+    v, want, run = out["victim"], out["want"], out["run"]
+    tokens = {}
+    for wave in waves:
+        for rid, prompt in wave:
+            r = run["results"].get(rid)
+            check(r is not None and "value" in r
+                  and not OutputQueue.is_partial(r),
+                  f"[survivor] {rid}: no terminal result ({r})")
+            toks = r["value"]["tokens"]
+            n = min(GENERATION["max_tokens"], LANE - len(prompt))
+            check(len(toks) == n and all(0 <= t < vocab for t in toks),
+                  f"[survivor] {rid}: {len(toks)} tokens (want {n}) or "
+                  f"out of range")
+            tokens[rid] = list(toks)
+    resumed = sorted(want["resumed"])
+    check(run["resumed_total"] == len(resumed)
+          and sorted(e["rid"] for e in run["resumes"]) == resumed
+          and run["stats"]["resumed"] - run["before"]["resumed"]
+          == len(resumed),
+          f"[survivor] resumed {run['resumed_total']} "
+          f"(events {sorted(e['rid'] for e in run['resumes'])}), want "
+          f"{resumed}")
+    check(all(e["resumed_tokens"] == want["resumed"][e["rid"]]
+              for e in run["resumes"]),
+          f"[survivor] resume depths {run['resumes']} != {want['resumed']}")
+    check(run["wasted_total"] == want["waste"],
+          f"[survivor] wasted tokens {run['wasted_total']} != "
+          f"{want['waste']}")
+    st, st0, pre, warm = (run["stats"], run["before"], run["prewarm"],
+                          run["warm"])
+    check(pre["failed"] == 0 and warm["failed"] == 0
+          and pre["compile_stats"]["captures"] == st0["captures"]
+          == st["captures"] and warm["compile_stats"]["captures"] == 0,
+          f"[survivor] warm-up {pre} / {warm}, captures "
+          f"{st0['captures']} -> {st['captures']}")
+    steps = st["decode_steps"] - st0["decode_steps"]
+    eager = st["eager_quanta"] - st0["eager_quanta"]
+    replays = st["replays"] - st0["replays"]
+    check(eager == 0 and run["eager_launches"] == 0 and replays > 0
+          and replays * GENERATION["decode_quantum"] == steps,
+          f"[survivor] {eager} eager quanta, {run['eager_launches']} "
+          f"wrapper launches, {replays} replays for {steps} decode steps")
+    check(run["card"] == steps * layers,
+          f"[survivor] paged launches on the card {run['card']} != decode "
+          f"steps {steps} x {layers}")
+    ttft = sorted(run["ttft"][rid] for rid in resumed if rid in run["ttft"])
+    ttft_p50 = ttft[len(ttft) // 2] if ttft else float("nan")
+    ck = sorted(v["ckpt_s"])
+    say(f"resume[crash]: victim exit code {v['rc']} (fault after "
+        f"{CRASH_AFTER} tokens, warm {v['start_s']:.2f} s after its start),"
+        f" params checksum {v['checksum']} = the survivor's; spool "
+        f"{out['n_snaps']} checkpoints, {out['spool_bytes']} bytes")
+    say(f"resume[crash]: checkpoint time a boundary (victim, "
+        f"{len(ck)} boundaries, {v['snapshots']} snapshots): median "
+        f"{ck[len(ck) // 2] * 1e3:.3f} ms, max {ck[-1] * 1e3:.3f} ms")
+    say(f"resume[crash]: survivor answered {len(tokens)}/{len(tokens)}: "
+        f"{len(resumed)} resumed, {len(want['restarted'])} restarted, "
+        f"{len(want['done'])} done by the victim; wasted tokens "
+        f"{int(run['wasted_total'])}; wall {run['wall_s']:.3f} s from "
+        f"start to last result (traced, a lease after the claims); TTFT "
+        f"p50 of the resumed {ttft_p50 * 1e3:.2f} ms; decode steps {steps}"
+        f" in {replays} graph replays, paged launches on the card "
+        f"{run['card']} (= {steps} x {layers}); survivor spool "
+        f"{run['survivor_spool_bytes']} bytes")
+    compare_tokens(im, waves, tokens, golden, "off", "resume[crash]",
+                   "paged f32 served run")
+
+
+def resume_phase(im, waves, served: dict, mono: dict, seed: int) -> None:
+    """Phase 3b: (a) resumes at depth through the kernels, in paged f32,
+    paged int8 and monolithic lanes; (b) a crash and its resume across
+    processes."""
+    layers = im._model.n_layers
+    for tag, base, kv_quant, golden, paged in (
+            ("off", GENERATION, "off", served["off"]["timed"], True),
+            ("int8", dict(GENERATION, kv_quant="int8"), "int8",
+             served["int8"]["timed"], True),
+            ("mono", MONOLITHIC, "off", mono, False)):
+        run = resume_run(im, waves, golden, resume_gen(base))
+        check_resume_run(im, run, golden, kv_quant, tag,
+                         layers if paged else 0)
+    out = resume_crash_phase(im, waves, served["off"]["timed"], seed)
+    check_crash_phase(im, waves, served["off"]["timed"], out,
+                      GPT2_SMALL["vocab_size"], layers)
 
 
 # -- phase 2b: flash attention, w8a8 and w4a16 against their plain versions ---
@@ -2535,7 +2984,7 @@ def kernel_timing(seed: int) -> None:
     say(json.dumps({"kernel_ms": ms}))
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -2545,13 +2994,24 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel-timing", action="store_true",
                     help="only time the paged, w8a8 and w4a16 kernels "
                          "(see kernel_timing)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--resume-victim", metavar="DIR",
+                    help="serve DIR/q as the continuity phase's victim "
+                         "until its armed fault kills the process (see "
+                         "resume_victim)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    t_main = time.perf_counter()
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.resume_victim:
+        return resume_victim(args.resume_victim, args.seed)
 
     say(f"card: {card_line()}")
     if args.kernel_timing:
@@ -2596,6 +3056,9 @@ def main(argv=None) -> int:
                         paged=False)
     compare_tokens(im, waves, mono, served["off"]["timed"], "off", "mono",
                    "paged f32 lane")
+    t0 = time.perf_counter()
+    resume_phase(im, waves, served, mono, args.seed)
+    say(f"resume: phase wall {time.perf_counter() - t0:.2f} s")
     if args.profile:
         for kv_quant in ("off", "int8"):
             profile_decode(im, waves, kv_quant)
@@ -2620,6 +3083,7 @@ def main(argv=None) -> int:
 
     train_phase(args.seed, records, args.profile)
     resnet_phase(args.seed, records, args.profile)
+    say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (
         "f32", "int8", "flash", "w8a8", "w4a16", "flash_bwd_dq",

@@ -141,10 +141,22 @@ def test_prompts_validated_before_the_device(models):
 
 @pytest.mark.parametrize("gen", [dict(paged=True, checkpoint_interval=4),
                                  dict(paged=True, resume=True)])
-def test_unported_generation_modes_raise(models, gen):
-    _, tim = models
-    with pytest.raises(NotImplementedError):
-        tgen.ContinuousBatcher(tim, tgen.GenerationParams(**gen))
+def test_checkpoint_and_resume_modes_construct(models, gen):
+    """Checkpointing and resume construct like the JAX batcher: the same
+    prefill ladder (``resume`` extends it to pow2(max_prompt_len +
+    max_tokens)), zeroed continuity counters, and nothing pending."""
+    jim, tim = models
+    gen = dict(GEN, max_tokens=12, **gen)
+    tb = tgen.ContinuousBatcher(tim, tgen.GenerationParams(**gen))
+    jb = jgen.ContinuousBatcher(jim, jgen.GenerationParams(**gen))
+    assert tb.gen.prefill_buckets == jb.gen.prefill_buckets \
+        == ([8, 16, 32, 64] if gen.get("resume") else [8, 16, 32])
+    assert tb.gen.checkpoint_interval == jb.gen.checkpoint_interval
+    keys = ("resumed", "resume_failed", "checkpoints", "snapshot_bytes",
+            "can_resume")
+    assert {k: tb.stats()[k] for k in keys} == \
+        {k: jb.stats()[k] for k in keys}
+    assert tb.drain_checkpoints() == [] == jb.drain_checkpoints()
 
 
 def test_unported_models_and_warmup_raise(models):

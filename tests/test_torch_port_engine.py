@@ -227,3 +227,36 @@ def test_engine_warms_then_serves(gen):
     assert st["finished"] == len(PROMPTS) and st["captures"] == 0
     assert ("pool" in st) == gen["paged"]
     assert len(st["lanes"]) == (1 if gen["paged"] else 2)
+
+
+def test_serving_params_positional_order_matches_jax():
+    """Positional arguments mean the same thing in both packages: every
+    positional slot the two ``ServingParams`` and the two
+    ``ClusterServing`` constructors share carries the same name, and
+    ``ServingParams(4, 5, 0.05, 1000)`` trims the stream at 1000 in both.
+    A ``tensorboard_dir`` that is set raises until TensorBoard summaries
+    are ported."""
+    import inspect
+
+    from analytics_zoo_tpu.serving import engine as jeng
+
+    def slots(fn):
+        return [n for n, p in inspect.signature(fn).parameters.items()
+                if n != "self" and p.kind in (p.POSITIONAL_ONLY,
+                                              p.POSITIONAL_OR_KEYWORD)]
+
+    for jfn, tfn in ((jeng.ServingParams.__init__, ServingParams.__init__),
+                     (jeng.ClusterServing.__init__,
+                      ClusterServing.__init__)):
+        js, ts = slots(jfn), slots(tfn)
+        shared = min(len(js), len(ts))
+        assert shared == len(js) and ts[:shared] == js[:shared], (js, ts)
+    args = (4, 5, 0.05, 1000, 0.25)
+    j, t = jeng.ServingParams(*args), ServingParams(*args)
+    for name in ("batch_size", "top_n", "poll_timeout_s", "stream_max_len",
+                 "filter_threshold"):
+        assert getattr(t, name) == getattr(j, name), name
+    assert t.stream_max_len == 1000
+    with pytest.raises(NotImplementedError, match="tensorboard"):
+        ClusterServing(_im(), InProcQueue(), ServingParams(), None, None,
+                       "tb-logs")

@@ -47,7 +47,8 @@ def test_every_module_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert doc["foreign"] == []
-    for mod in ("serving.engine", "serving.generate", "ops.paged_attention",
+    for mod in ("serving.engine", "serving.generate", "serving.faults",
+                "serving.tracecollect", "ops.paged_attention",
                 "models.textmodels", "utils.convert", "estimator.estimator",
                 "nn.objectives", "nn.metrics", "nn.optimizers",
                 "common.triggers", "feature.dataset"):

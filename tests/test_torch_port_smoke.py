@@ -11,6 +11,7 @@ run here at a tiny width.
 """
 
 import copy
+import time
 
 import numpy as np
 import pytest
@@ -502,3 +503,101 @@ def test_w8a8_parity_cases_cover_the_kernels_edges():
     assert any(c[3] % 16 for c in cases)
     assert any(c[4] for c in cases)
     assert any(c[3] % 16 and c[2] == 50257 for c in cases)
+
+
+# -- the continuity phase -------------------------------------------------------
+
+def test_resume_victim_arguments():
+    args = cs.parse_args(["--resume-victim", "spool-dir", "--seed", "3"])
+    assert (args.resume_victim, args.seed) == ("spool-dir", 3)
+    args = cs.parse_args([])
+    assert args.resume_victim is None and args.seed == 0
+    assert not args.profile and not args.kernel_timing
+
+
+def test_params_checksum_names_the_weights():
+    geo = dict(vocab_size=VOCAB, hidden=32, n_head=2, n_layers=1,
+               max_len=cs.LANE, device="cpu")
+    a = cs.params_checksum(TransformerLM(**geo, seed=4))
+    assert a == cs.params_checksum(TransformerLM(**geo, seed=4))
+    assert a != cs.params_checksum(TransformerLM(**geo, seed=5))
+    lm = TransformerLM(**geo, seed=4)
+    with torch.no_grad():
+        lm.embed.view(-1)[17] += 1e-7
+    assert cs.params_checksum(lm) != a
+
+
+def test_victim_readings_parse_its_output():
+    log = "\n".join(["victim: params checksum 0123abcd",
+                     '{"ckpt_s": 0.002, "snapshots": 8}',
+                     "victim: warm (121 entries, 1 capture(s)), serving",
+                     '{"ckpt_s": 0.001, "snapshots": 3}'])
+    assert cs.victim_readings(log) == {"checksum": "0123abcd",
+                                       "ckpt_s": [0.002, 0.001],
+                                       "snapshots": 11}
+
+
+def test_expected_resume_from_a_crafted_queue_and_spool(tmp_path):
+    """The survivor's expected resumes and waste, worked out from a queue
+    and a spool crafted as a dead owner leaves them: a record done by the
+    owner, resumes whose partial runs past (waste) or stops at their
+    checkpoint, and restarts for a missing, corrupt, other-epoch or
+    unannotated checkpoint, each wasting its whole partial."""
+    from analytics_zoo_tpu_torch.serving.queues import FileQueue
+    from analytics_zoo_tpu_torch.serving import tracecollect as tc
+
+    q = FileQueue(str(tmp_path / "q"))
+    spool = str(tmp_path / "dead.gensnap.jsonl")
+    rids = ["done", "ahead", "even", "nosnap", "corrupt", "epoch", "noann"]
+    partial = {"ahead": 17, "even": 9, "nosnap": 5, "corrupt": 13,
+               "epoch": 4, "noann": 3}
+    q.put_result("done", {"value": {"tokens": [1, 2]}})
+    for rid, n in partial.items():
+        assert q.put_partial(rid, {"partial": True, "tokens": [1] * n,
+                                   "n": n})
+
+    def snap(rid, n, epoch=0, bad=False):
+        s = {"rid": rid, "epoch": epoch, "prompt": [3, 4],
+             "tokens": list(range(n)), "n": n, "ts": time.monotonic()}
+        s["crc"] = tc.snapshot_checksum(s) ^ (1 if bad else 0)
+        return s
+
+    tc.append_snapshots(spool, [snap("ahead", 1), snap("ahead", 9),
+                                snap("even", 9), snap("corrupt", 9,
+                                                      bad=True),
+                                snap("epoch", 2, epoch=1),
+                                snap("noann", 2)])
+    for rid in ("ahead", "even", "nosnap", "corrupt", "epoch"):
+        q.annotate(rid, {"spool": spool, "epoch": 0, "replica": "dead"})
+    want = cs.expected_resume(q, rids, spool)
+    assert want == {"done": ["done"], "resumed": {"ahead": 9, "even": 9},
+                    "restarted": ["nosnap", "corrupt", "epoch", "noann"],
+                    "waste": 8 + 5 + 13 + 4 + 3}
+
+
+def test_resume_depth_checks_accept_the_path_and_reject_faults(tiny):
+    """Resumes of served requests at every depth through the batcher (the
+    plain attention on the CPU, so no launch): accepted; a partial that
+    re-streams the past, a resume that parts from its uninterrupted
+    tokens at a real margin, or launches that do not match are
+    rejected."""
+    waves = cs.make_requests(0, VOCAB)
+    golden = cs.batcher_tokens(tiny, waves, "off", "torch")
+    run = cs.resume_run(tiny, waves, golden, cs.resume_gen(cs.GENERATION))
+    assert len(run["subs"]) == len(cs.RESUME_PICKS) * len(cs.RESUME_DEPTHS)
+    assert max(k for _, _, k in run["subs"]) \
+        == cs.GENERATION["max_tokens"] - 1
+    cs.check_resume_run(tiny, run, golden, "off", "off", 0)
+    with pytest.raises(cs.SmokeFailure, match="paged launches"):
+        cs.check_resume_run(tiny, dict(run, launches=1), golden, "off",
+                            "off", 0)
+    stale = copy.copy(run["events"][0])
+    stale.kind, stale.rid, stale.tokens = "partial", "req-00@17", [1] * 17
+    with pytest.raises(cs.SmokeFailure, match="partial"):
+        cs.check_resume_run(tiny, dict(run, events=run["events"] + [stale]),
+                            golden, "off", "off", 0)
+    forged = dict(golden)
+    toks = golden["req-01"]
+    forged["req-01"] = toks[:40] + [(toks[40] + 1) % VOCAB] + toks[41:]
+    with pytest.raises(cs.SmokeFailure, match="not a near tie"):
+        cs.check_resume_run(tiny, run, forged, "off", "off", 0)

@@ -111,14 +111,22 @@ def test_generation_manifest_matches_jax(paged, cache_model, prefix_blocks,
 @pytest.mark.parametrize("gen", [
     dict(PAGED, prefix_cache=True), dict(PAGED, prefix_cache=False),
     dict(PAGED, kv_quant="int8", max_active_slots=3),
-    MONO, dict(MONO, prefix_cache=False, max_active_slots=8)])
+    MONO, dict(MONO, prefix_cache=False, max_active_slots=8),
+    # resume extends the prefill ladder past max_prompt_len; the manifest
+    # drops the buckets a lane cannot hold
+    dict(PAGED, max_prompt_len=12, max_tokens=20, resume=True),
+    dict(MONO, max_prompt_len=12, max_tokens=20, bucket_lens=[16, 32],
+         resume=True)])
 def test_batcher_warmup_manifest_matches_jax(models, gen):
     jim, tim = models
-    want = jgen.ContinuousBatcher(
-        jim, jgen.GenerationParams(**gen)).warmup_manifest()
-    got = tgen.ContinuousBatcher(
-        tim, tgen.GenerationParams(**gen)).warmup_manifest()
+    jb = jgen.ContinuousBatcher(jim, jgen.GenerationParams(**gen))
+    tb = tgen.ContinuousBatcher(tim, tgen.GenerationParams(**gen))
+    assert tb.gen.prefill_buckets == jb.gen.prefill_buckets
+    got, want = tb.warmup_manifest(), jb.warmup_manifest()
     assert got == want
+    if gen.get("resume"):
+        assert tb.gen.prefill_buckets == [8, 16, 32]
+        assert max(e.prefill_bucket or 0 for e in got) == 32
 
 
 # -- warm() -------------------------------------------------------------------
