@@ -150,29 +150,6 @@ constexpr int w8_smem(int mt) {
   return 8 * mt * kW8XPitch + kW8Stages * kW8Stage;
 }
 
-// c += a·b: s8 x s8 -> s32, exact
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Byte c of r[j] to byte j of o[c]: 4 words of 4 rows x 4 columns to 4
-// words of one column x 4 rows each
-__device__ __forceinline__ void transpose4(const uint32_t* r, uint32_t* o) {
-  const uint32_t s0 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t s1 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t s2 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t s3 = __byte_perm(r[2], r[3], 0x7362);
-  o[0] = __byte_perm(s0, s2, 0x5410);
-  o[1] = __byte_perm(s0, s2, 0x7632);
-  o[2] = __byte_perm(s1, s3, 0x5410);
-  o[3] = __byte_perm(s1, s3, 0x7632);
-}
-
 // grid (ceil(N / kW8BN), ceil(M / (8·MT))), block kW8Threads, dynamic
 // shared memory w8_smem(MT).
 template <int MT>

@@ -15,8 +15,9 @@ JAX package's ``inference/inference_model.py``.
   batch — rows travel to the device in their wire dtype and are
   dequantized there.
 - ``do_quantize``: post-training int8 / int4 weight quantization
-  (``inference/quantize.py``), served through the hand-written
-  ``w8a8`` / ``w4a16`` CUDA kernels.
+  (``inference/quantize.py``) of Dense layers and convolutions, served
+  through the hand-written ``w8a8`` / ``w4a16`` CUDA kernels and, for a
+  spatial int8 convolution, ``w8a8_conv2d``.
 
 - ``warm``: ahead-of-time warm-up of one bucket (``inference/aot.py``
   walks the manifest): the bucket's padded forward runs once, so its
@@ -208,10 +209,11 @@ class InferenceModel:
                     percentile: Optional[float] = None):
         """Post-training weight quantization of the loaded model.
 
-        ``bits=8`` (W8A8): ``calib_inputs`` — one batch or a list of
-        batches — calibrates the per-layer activation scales
-        (``percentile`` clips at that percentile of |x| instead of the
-        absmax); Dense weights become int8 with per-output-channel scales.
+        ``bits=8`` (W8A8): ``calib_inputs`` — one batch, a list of
+        batches, or a ``FeatureSet`` (its first batches) — calibrates the
+        per-layer activation scales (``percentile`` clips at that
+        percentile of |x| instead of the absmax); Dense and convolution
+        weights become int8 with per-output-channel scales.
         ``bits=4`` (W4A16): weight-only int4 with group-wise scales
         (``group_size`` rows per scale); ``calib_inputs`` may be None.
 

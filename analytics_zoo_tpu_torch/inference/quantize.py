@@ -11,15 +11,18 @@
   along K (``group_size`` rows per scale, normalized to
   ``ceil(K / ceil(K / group_size))``), nibble-packed two per byte.
 
-Calibration (``calibrate``) runs batches through the model with forward
-pre-hooks on every ``Dense`` and records each one's input absmax — or,
-with ``percentile=p``, the p-th percentile of |x| — keyed by the layer's
-PATH in the param tree (``outer/inner``), so two same-named layers in
-different containers calibrate independently.  ``quantize_params`` works
-on a JAX-layout param tree (``utils/convert.export_params``) and returns
-one with quantized leaves, which ``utils/convert.load_jax_params`` loads
-back (switching each ``Dense`` to its quantized form).  Only ``Dense`` is
-quantized here; the conv entries come with the Conv slice.
+Calibration (``calibrate``, or ``calibrate_featureset`` over the first
+batches of a ``FeatureSet``) runs batches through the model with forward
+pre-hooks on every ``Dense`` and convolution and records each one's input
+absmax — or, with ``percentile=p``, the p-th percentile of |x| — keyed by
+the layer's PATH in the param tree (``outer/inner``), so two same-named
+layers in different containers calibrate independently.
+``quantize_params`` works on a JAX-layout param tree
+(``utils/convert.export_params``) and returns one with quantized leaves,
+which ``utils/convert.load_jax_params`` loads back (switching each
+``Dense`` and convolution to its quantized form).  A convolution's
+(kh, kw, cin/g, cout) weight is scaled per output channel over its other
+axes (int8), or flattened to (K = kh·kw·cin/g, cout) for the int4 groups.
 
 **KV cache.**  int8 KV packing — the one pack/unpack contract shared by
 the paged attention kernel (``ops/paged_attention.py``), the decode append
@@ -39,9 +42,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+from analytics_zoo_tpu_torch.nn.layers.conv import _ConvND
 from analytics_zoo_tpu_torch.nn.layers.core import Dense
 
-QUANTIZABLE = (Dense,)
+QUANTIZABLE = (Dense, _ConvND)
 
 # leaves the quantizer emits; weight-byte accounting and "already
 # quantized" detection key off these
@@ -53,8 +58,9 @@ _PCTL_SAMPLE = 8192
 
 def _target_layers(model, params) -> List[Tuple[object, dict, str]]:
     """(layer, its params, path) for every quantizable layer, recursing
-    into containers (``Sequential.layers_list``).  ``path`` is the
-    slash-joined key chain inside ``params``."""
+    into containers (``Sequential.layers_list``, the graph ``Model``'s
+    ``graph_layers``).  ``path`` is the slash-joined key chain inside
+    ``params``."""
     out = []
 
     def walk(layer, p, path):
@@ -62,7 +68,8 @@ def _target_layers(model, params) -> List[Tuple[object, dict, str]]:
                 and ("W" in p or "W_q" in p or "W_q4" in p):
             out.append((layer, p, path or layer.name))
             return
-        subs = getattr(layer, "layers_list", None)
+        subs = getattr(layer, "graph_layers", None) or \
+            getattr(layer, "layers_list", None)
         if subs:
             for sub in subs:
                 if isinstance(p, dict) and sub.name in p:
@@ -124,6 +131,25 @@ def calibrate(model, calib_inputs,
             if clip > 0.0:
                 records[path] = min(records[path], clip)
     return records
+
+
+def calibrate_featureset(model, fs, n_batches: int = 8,
+                         batch_size: int = 32,
+                         percentile: Optional[float] = None
+                         ) -> Dict[str, float]:
+    """Calibrate on the first ``n_batches`` batches of
+    ``fs.batches(batch_size)`` (labels and pad weights dropped), as
+    :func:`calibrate` does on arrays."""
+    batches = []
+    for item in fs.batches(int(batch_size)):
+        x = item[0] if isinstance(item, tuple) else item
+        batches.append(list(x) if isinstance(x, (list, tuple)) else x)
+        if len(batches) >= int(n_batches):
+            break
+    if not batches:
+        raise ValueError("calibrate_featureset: the FeatureSet yielded no "
+                         "batches")
+    return calibrate(model, batches, percentile=percentile)
 
 
 def _locate_holder(tree: dict, path: str):
@@ -213,20 +239,21 @@ def quantize_params(model, params, absmax: Dict[str, float], bits: int = 8,
 def quantize(model, calib_inputs, bits: int = 8, group_size: int = 64,
              percentile: Optional[float] = None):
     """calibrate + quantize_params on ``model``'s own weights, loaded back
-    into it (quantized ``Dense`` layers).  ``calib_inputs``: a batch or a
-    list of batches, or None for the weight-only ``bits=4`` mode.  Returns
-    the quantized param tree."""
+    into it (quantized ``Dense`` and convolution layers).
+    ``calib_inputs``: a ``FeatureSet`` (sampled by
+    :func:`calibrate_featureset`), a batch or a list of batches, or None
+    for the weight-only ``bits=4`` mode.  Returns the quantized param
+    tree."""
     from analytics_zoo_tpu_torch.utils.convert import (export_params,
                                                        load_jax_params)
-    if hasattr(calib_inputs, "batches"):
-        raise NotImplementedError(
-            "calibration from a FeatureSet comes with feature/ (ROADMAP "
-            "queue 1, item 6); pass a batch or a list of batches")
     if calib_inputs is None:
         if bits == 8:
             raise ValueError("int8 quantization needs calibration inputs "
                              "(activation scales); bits=4 is weight-only")
         absmax: Dict[str, float] = {}
+    elif isinstance(calib_inputs, FeatureSet):
+        absmax = calibrate_featureset(model, calib_inputs,
+                                      percentile=percentile)
     else:
         absmax = calibrate(model, calib_inputs, percentile=percentile)
     qp = quantize_params(model, export_params(model), absmax, bits=bits,

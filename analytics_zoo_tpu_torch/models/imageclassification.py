@@ -1,5 +1,6 @@
-"""Image classification zoo: the ResNet family and the ``ImageClassifier``
-façade — the JAX package's ``models/imageclassification.py``.
+"""Image classification zoo: the ResNet family, the per-model
+preprocessing registry and the ``ImageClassifier`` façade — the JAX
+package's ``models/imageclassification.py``.
 
 The graphs are the JAX package's ResNet-v1.5, node for node and name for
 name (``<name>_s<stage>b<block>_<1|2|3|down>_{conv,bn,act}``), so its
@@ -12,18 +13,25 @@ exact import of torchvision weights (``load_torch_resnet``).
 In training, each bottleneck's ``_1`` and ``_3`` 1×1 convs and a
 stride-1 downsample run with their BatchNorm through the fused
 conv + BN-statistics kernel (the graph ``Model``'s fusion plan): 33 pairs
-in ResNet-50.
+in ResNet-50.  ``ImageClassifier.predict_image_set`` runs an ``ImageSet``
+through the model's preprocessing (``feature/image``; by default resize
+256 → center crop 224 → subtract the BGR means) and returns the top-k
+classes.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.context import DeviceLike
+from analytics_zoo_tpu_torch.feature.common import ChainedPreprocessing
+from analytics_zoo_tpu_torch.feature.image import (ImageCenterCrop,
+                                                   ImageChannelNormalize,
+                                                   ImageResize)
 from analytics_zoo_tpu_torch.models.common import ZooModel
 from analytics_zoo_tpu_torch.nn.graph import Input, SymTensor
 from analytics_zoo_tpu_torch.nn.layers.conv import (Convolution2D,
@@ -35,9 +43,6 @@ from analytics_zoo_tpu_torch.nn.layers.core import (Activation,
 from analytics_zoo_tpu_torch.nn.layers.pooling import (GlobalAveragePooling2D,
                                                        MaxPooling2D)
 from analytics_zoo_tpu_torch.nn.models import Model
-
-_IMAGE_FEATURES = ("image preprocessing and ImageSet prediction "
-                   "(feature/image): ROADMAP queue 1, item 8")
 
 
 def _conv_bn(x: SymTensor, filters: int, kernel: int, stride: int, name: str,
@@ -156,12 +161,22 @@ def _resnet_depth(model_name: str) -> int:
 
 
 class ImageClassificationConfig:
-    """Per-model preprocessing registry (ImageClassificationConfig.scala);
-    the image transforms it returns are not ported yet."""
+    """Per-model preprocessing registry (ImageClassificationConfig.scala)."""
+
+    _REGISTRY: Dict[str, ChainedPreprocessing] = {}
+
+    @classmethod
+    def register(cls, model_name: str, preprocessing):
+        cls._REGISTRY[model_name] = preprocessing
 
     @classmethod
     def preprocessing(cls, model_name: str):
-        raise NotImplementedError(_IMAGE_FEATURES)
+        if model_name in cls._REGISTRY:
+            return cls._REGISTRY[model_name]
+        # imagenet default: resize-256 -> center-crop-224 -> mean-subtract
+        return (ImageResize(256, 256)
+                >> ImageCenterCrop(224, 224)
+                >> ImageChannelNormalize(103.939, 116.779, 123.68))
 
 
 def _as_tensor(v) -> torch.Tensor:
@@ -231,7 +246,8 @@ def load_torch_resnet(model: Model, state_dict, *, name: str = "resnet50",
 
 
 class ImageClassifier(ZooModel):
-    """Façade over a ResNet graph (ImageClassifier.scala:28):
+    """Façade over a ResNet graph, its preprocessing and predict over
+    ImageSets (ImageClassifier.scala:28, ImageModel.doPredictImage):
     ``ImageClassifier("resnet50").model`` is ``resnet(50, 1000, (224, 224,
     3))`` on ``device`` (``cuda:0`` unless told otherwise)."""
 
@@ -245,6 +261,8 @@ class ImageClassifier(ZooModel):
         self.stem = stem
         self.padding = padding
         super().__init__(device)
+        self.preprocessor = ImageClassificationConfig.preprocessing(
+            model_name)
 
     def build_model(self) -> Model:
         depth = _resnet_depth(self.model_name)
@@ -271,4 +289,10 @@ class ImageClassifier(ZooModel):
 
     def predict_image_set(self, image_set, batch_size: int = 32,
                           top_k: int = 5):
-        raise NotImplementedError(_IMAGE_FEATURES)
+        """Preprocess + forward an ImageSet; returns (top-k class ids,
+        probs)."""
+        processed = image_set.transform(self.preprocessor)
+        fs = processed.to_feature_set()
+        probs = self.predict(fs.xs[0], batch_size=batch_size)
+        idx = np.argsort(-probs, axis=-1)[:, :top_k]
+        return idx, np.take_along_axis(probs, idx, axis=-1)

@@ -19,25 +19,36 @@ own ``"same"`` refuses strides and its integer padding is symmetric.
 A 1×1, stride-1 conv whose only consumer is a ``BatchNormalization`` runs,
 in training, through ``fused_bn_forward``: the product and the BN
 statistics in one kernel (``ops/fused_bn.py``), chosen by the graph
-``Model``'s fusion plan.  Quantized (W8A8 / W4A16) convolutions are not
-ported yet.
+``Model``'s fusion plan.
+
+Quantized, a conv holds the quantizer's leaves as buffers, as ``Dense``
+does: int8 (W8A8) ``W_q`` (kh, kw, cin/groups, cout) int8, ``s_w`` (cout,)
+f32, ``s_x`` () f32, optional ``b``; int4 (W4A16) ``W_q4`` (ceil(K/2),
+cout) uint8 nibble-packed over K = kh·kw·cin/groups, ``s_g`` (G, cout)
+f32, optional ``b``.  int8 quantizes the activation as
+``clamp(round(x / s_x), -127, 127)`` and runs ``ops/quant_matmul.w8a8_conv``
+with the scale ``s_x · s_w`` (a pointwise conv on the ``w8a8`` matmul
+kernel, a spatial one on the ``w8a8_conv2d`` kernel); int4 runs
+``w4a16_conv``.  The bias is added after, then the activation, as in the
+JAX package's ``_ConvND.call``.  A float conv becomes quantized when
+``utils/convert.load_jax_params`` loads a quantized leaf set into it.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.common import dtypes
 from analytics_zoo_tpu_torch.nn import activations
+from analytics_zoo_tpu_torch.nn.layers.core import QUANT_KEYS, adopt_quantized
 from analytics_zoo_tpu_torch.nn.module import Layer, initializer, to_shape
 from analytics_zoo_tpu_torch.ops import fused_bn as fb
-
-_QUANT_CONV = ("quantized convolutions (w8a8_conv / w4a16_conv of the "
-               "JAX package's ops/quant_matmul.py): ROADMAP queue 1, item 3")
+from analytics_zoo_tpu_torch.ops import quant_matmul as qm
 
 
 def _pair(v, n=2):
@@ -123,8 +134,9 @@ class _ConvND(Layer):
             raise ValueError(f"groups must be a positive integer, got "
                              f"{groups}")
         self.groups = int(groups)
-        # the fused 1x1-conv + BN-statistics route: the kernel or its plain
-        # version (ops/_impl)
+        self.bits = 0            # 0 float, 8 W8A8, 4 W4A16
+        # the fused 1x1-conv + BN-statistics route and the quantized convs:
+        # the kernels or their plain versions (ops/_impl)
         self.impl: Optional[str] = None
         self._build_declared()
 
@@ -141,8 +153,9 @@ class _ConvND(Layer):
             raise ValueError(
                 f"groups={self.groups} must divide both in-channels ({cin}) "
                 f"and nb_filter ({self.nb_filter})")
-        self.W = nn.Parameter(torch.empty(
-            self.kernel_size + (cin // self.groups, self.nb_filter)))
+        # (kh, kw, cin/groups, cout): W's shape, and W_q's when quantized
+        self.kshape = self.kernel_size + (cin // self.groups, self.nb_filter)
+        self.W = nn.Parameter(torch.empty(self.kshape))
         if self.bias:
             self.b = nn.Parameter(torch.zeros(self.nb_filter))
 
@@ -150,22 +163,26 @@ class _ConvND(Layer):
         ksize = 1
         for k in self.kernel_size:
             ksize *= k
-        self.W.copy_(initializer(self.init_name, gen, self.W.shape,
-                                 fan_in=ksize * self.W.shape[-2],
-                                 fan_out=ksize * self.nb_filter))
+        if self.bits == 0:
+            self.W.copy_(initializer(self.init_name, gen, self.W.shape,
+                                     fan_in=ksize * self.W.shape[-2],
+                                     fan_out=ksize * self.nb_filter))
         if self.bias:
             self.b.zero_()
 
     def _tree(self) -> Dict:
-        tree = {"W": self.W}
+        tree = {k: getattr(self, k) for k in QUANT_KEYS[self.bits]}
         if self.bias:
             tree["b"] = self.b
         return tree
 
     def adopt_leaves(self, leaves: Dict) -> None:
-        """A quantized leaf set (``W_q`` / ``W_q4``) is not taken yet."""
-        if "W_q" in leaves or "W_q4" in leaves:
-            raise NotImplementedError(f"{self.name}: {_QUANT_CONV}")
+        """Switch to the form a param tree's leaf set names: float ``{W}``,
+        int8 ``{W_q, s_w, s_x}`` (``W_q`` shaped as ``W``) or int4
+        ``{W_q4, s_g}`` over K = kh·kw·cin/groups
+        (``core.adopt_quantized``)."""
+        adopt_quantized(self, leaves, self.kshape,
+                        int(np.prod(self.kshape[:-1])), self.nb_filter)
 
     def _pads(self, sizes):
         return conv_pads(self.border_mode, sizes, self.kernel_size,
@@ -183,11 +200,11 @@ class _ConvND(Layer):
     def fusable_with_bn(self) -> bool:
         """A pointwise conv the fused route computes exactly: 1×1, stride
         1, dilation 1, one group, no padding, no bias, linear activation,
-        channels last (and float weights, the only kind a port conv
-        holds)."""
+        channels last, float weights."""
         ones = (1,) * self.ndim
         pads = self._pads((1,) * self.ndim)
-        return (self.kernel_size == ones and self.subsample == ones
+        return (self.bits == 0 and self.kernel_size == ones
+                and self.subsample == ones
                 and self.dilation == ones and self.groups == 1
                 and not any(lo or hi for lo, hi in pads)
                 and not self.bias and self.linear
@@ -206,9 +223,30 @@ class _ConvND(Layer):
         return (y.reshape(x.shape[:-1] + (self.nb_filter,)),
                 (stats[0], stats[1], y.shape[0]))
 
+    def _quantized(self, x):
+        """The W8A8 / W4A16 conv of NHWC ``x`` through the fused-dequant
+        entry points of ``ops/quant_matmul.py``."""
+        kw = dict(window_strides=self.subsample,
+                  padding=self._pads(x.shape[1:-1]),
+                  rhs_dilation=self.dilation,
+                  feature_group_count=self.groups, impl=self.impl)
+        if self.bits == 4:
+            y = qm.w4a16_conv(x.to(torch.float32), self.W_q4, self.s_g,
+                              self.kshape, **kw)
+        else:
+            xq = torch.clamp(torch.round(x.to(torch.float32) / self.s_x),
+                             -127, 127).to(torch.int8)
+            y = qm.w8a8_conv(xq, self.W_q, self.s_x * self.s_w, **kw)
+        if self.bias:
+            y = y + self.b
+        return self.activation(y.to(dtypes.param_dtype()))
+
     def forward(self, x):
         if self.dim_ordering == "th":
             x = nchw_to_nhwc(x)
+        if self.bits:
+            y = self._quantized(x)
+            return nhwc_to_nchw(y) if self.dim_ordering == "th" else y
         xw, W = dtypes.cast_compute(x, self.W)
         out_dt = dtypes.conv_out_dtype()
         xw = pad_spatial(xw.to(out_dt), self._pads(x.shape[1:-1]))

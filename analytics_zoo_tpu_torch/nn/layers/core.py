@@ -35,6 +35,44 @@ from analytics_zoo_tpu_torch.ops import quant_matmul as qm
 _QUANT_DTYPES = {"W_q": torch.int8, "s_w": torch.float32,
                  "s_x": torch.float32, "W_q4": torch.uint8,
                  "s_g": torch.float32}
+# a layer's weight leaves by its form: float, int8 (W8A8), int4 (W4A16)
+QUANT_KEYS = {0: ("W",), 8: ("W_q", "s_w", "s_x"), 4: ("W_q4", "s_g")}
+
+
+def adopt_quantized(layer: Layer, leaves: Dict, w_shape, k: int,
+                    n: int) -> None:
+    """Switch ``layer`` (a ``Dense`` or a convolution: float ``W`` of
+    ``w_shape``, contraction K = ``k``, ``n`` outputs, its form in
+    ``layer.bits``) to the form a param tree's leaf set names — float
+    ``{W}``, int8 ``{W_q, s_w, s_x}`` or int4 ``{W_q4, s_g}`` (with ``b``
+    when the layer has a bias) — creating empty buffers of the right
+    shapes for the loader to fill."""
+    bits = 4 if "W_q4" in leaves else 8 if "W_q" in leaves else 0
+    if bits == layer.bits:
+        return
+    if bits == 0:
+        raise ValueError(f"{layer.name}: a quantized {type(layer).__name__}"
+                         " cannot take float weights back; rebuild the "
+                         "model")
+    want = {"W_q": tuple(w_shape), "s_w": (n,), "s_x": ()} if bits == 8 \
+        else {"W_q4": ((k + 1) // 2, n), "s_g": None}
+    dev = layer.W.device
+    for key, shape in want.items():
+        if key not in leaves:
+            raise KeyError(f"{layer.name}: int{bits} leaves lack {key!r}")
+        got = tuple(np.shape(leaves[key]))
+        if key == "s_g":
+            if len(got) != 2 or got[1] != n or not 1 <= got[0] <= k:
+                raise ValueError(f"{layer.name}: s_g must be (G, {n}) "
+                                 f"with 1 <= G <= {k}, got {got}")
+            shape = got
+        elif got != shape:
+            raise ValueError(f"{layer.name}: {key} must be {shape}, got "
+                             f"{got}")
+        layer.register_buffer(key, torch.empty(
+            shape, dtype=_QUANT_DTYPES[key], device=dev))
+    del layer.W
+    layer.bits = bits
 
 
 class Dense(Layer):
@@ -69,44 +107,16 @@ class Dense(Layer):
         return to_shape(input_shape)[:-1] + (self.output_dim,)
 
     def _tree(self) -> Dict:
-        keys = {0: ("W",), 8: ("W_q", "s_w", "s_x"),
-                4: ("W_q4", "s_g")}[self.bits]
-        tree = {k: getattr(self, k) for k in keys}
+        tree = {k: getattr(self, k) for k in QUANT_KEYS[self.bits]}
         if self.bias:
             tree["b"] = self.b
         return tree
 
     def adopt_leaves(self, leaves: Dict) -> None:
-        """Switch to the form a param tree's leaf set names — float
-        ``{W}``, int8 ``{W_q, s_w, s_x}`` or int4 ``{W_q4, s_g}`` (with
-        ``b`` when the layer has a bias) — creating empty buffers of the
-        right shapes for the loader to fill."""
-        bits = 4 if "W_q4" in leaves else 8 if "W_q" in leaves else 0
-        if bits == self.bits:
-            return
-        if bits == 0:
-            raise ValueError(f"{self.name}: a quantized Dense cannot take "
-                             "float weights back; rebuild the model")
-        k, n = self.input_dim, self.output_dim
-        want = {"W_q": (k, n), "s_w": (n,), "s_x": ()} if bits == 8 else \
-            {"W_q4": ((k + 1) // 2, n), "s_g": None}
-        dev = self.W.device
-        for key, shape in want.items():
-            if key not in leaves:
-                raise KeyError(f"{self.name}: int{bits} leaves lack {key!r}")
-            got = tuple(np.shape(leaves[key]))
-            if key == "s_g":
-                if len(got) != 2 or got[1] != n or not 1 <= got[0] <= k:
-                    raise ValueError(f"{self.name}: s_g must be (G, {n}) "
-                                     f"with 1 <= G <= {k}, got {got}")
-                shape = got
-            elif got != shape:
-                raise ValueError(f"{self.name}: {key} must be {shape}, "
-                                 f"got {got}")
-            self.register_buffer(key, torch.empty(
-                shape, dtype=_QUANT_DTYPES[key], device=dev))
-        del self.W
-        self.bits = bits
+        """Switch to the form a param tree's leaf set names
+        (:func:`adopt_quantized`)."""
+        adopt_quantized(self, leaves, (self.input_dim, self.output_dim),
+                        self.input_dim, self.output_dim)
 
     def forward(self, x):
         if self.bits == 0:

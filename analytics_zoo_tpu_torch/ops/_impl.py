@@ -11,6 +11,7 @@ version for CPU tensors — and for no other reason.  A CUDA tensor under
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Optional
 
 import torch
@@ -48,7 +49,13 @@ def launched() -> int:
 KERNEL_NAMES = {"paged": "paged_attention_kernel",
                 "flash_fwd": "flash_fwd_kernel",
                 "w8a8": "w8a8_kernel",
-                "w4a16": "w4a16_kernel"}
+                "w4a16": "w4a16_kernel",
+                "w8a8_conv": "w8a8_conv2d_kernel"}
+
+
+# the profiler's warm-up before the counted block: launches and a wait
+WARMUP_LAUNCHES = 64
+WARMUP_S = 0.1
 
 
 @contextlib.contextmanager
@@ -59,14 +66,28 @@ def card_launches(kernels=tuple(KERNEL_NAMES)):
     replay of a CUDA graph that a wrapper was captured into.  Yields a
     dict ``{kernel: launches}`` over ``kernels`` (keys of
     ``KERNEL_NAMES``), filled when the block ends; without a CUDA device
-    nothing runs on a card and every count stays 0."""
+    nothing runs on a card and every count stays 0.
+
+    A trace started and recording at once can lose the records of its
+    first kernels: on the H100 traces lacked their first 8 kernel records
+    (and once a decode replay's 12), though the launches ran and their
+    results were right.  So the profiler warms up first (its schedule's
+    warm-up step, whose records are dropped, running WARMUP_LAUNCHES small
+    launches and waiting WARMUP_S) and records only the block."""
     counts = {k: 0 for k in kernels}
     if not torch.cuda.is_available():
         yield counts
         return
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(WARMUP_LAUNCHES):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(WARMUP_S)
+        prof.step()                      # warm-up -> recording
         yield counts
         torch.cuda.synchronize()
     for e in prof.key_averages():

@@ -27,27 +27,42 @@ on the card.  It runs its products on the tensor cores (TF32 for f32 x,
 bf16 for bf16 x) with each group's scale factored out of a chunk's partial
 sum, so its rounding order differs from the plain ``x @ (q·s)``: the two
 agree within atol 1e-4, rtol 1e-5 (``chip_smoke.W4_TOL``).
+
+The quantized convolutions (the JAX package's ``w8a8_conv`` /
+``w4a16_conv``) take NHWC activations, (kh, kw, cin/groups, cout)
+weights and explicit per-side pads ``[(top, bottom), (left, right)]``
+(``nn/layers/conv.conv_pads``: SAME pads a strided conv (0, 1) on even
+sizes).  A pointwise conv (``_is_pointwise``) is a channel matmul and
+flattens onto the two kernels above.  A spatial ``w8a8_conv`` launches
+``w8a8_conv2d``, the s8 implicit-GEMM kernel of ``csrc/quant_conv.cu``
+(``launches_conv`` counts it); its plain version ``w8a8_conv_torch`` is a
+float64 convolution of the codes, exact below 2**53, rounded to f32 once,
+so the two agree BITWISE.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops._impl import launched, resolve_impl
 
 KERNEL = "quant_matmul"
+KERNEL_CONV = "quant_conv"
 
 # launches of the CUDA kernels issued eagerly (one per call that took the
 # kernel route; a call under CUDA-graph capture adds 0: ``_impl.launched``)
 launches_w8a8 = 0
 launches_w4a16 = 0
+launches_conv = 0
 
 _fns = None
+_conv_fn = None
 
 
 # -- int4 packing (two weights per byte, split layout) -------------------------
@@ -231,3 +246,171 @@ def w8a8_dense(x_q, w_q, scale, impl: Optional[str] = None):
 def w4a16_dense(x, w_q4, s_g, impl: Optional[str] = None):
     x2, unflat = _flatten_batch(x)
     return unflat(w4a16_matmul(x2.contiguous(), w_q4, s_g, impl=impl))
+
+
+# -- quantized convolutions ----------------------------------------------------
+
+def _is_pointwise(kshape: Sequence[int], strides, dilation, groups: int,
+                  padding) -> bool:
+    """A conv is a pure channel matmul only when its spatial geometry is
+    the identity: 1x1 kernel, stride and dilation 1, dense groups and no
+    spatial padding.  ``padding``: "SAME" / "VALID" (zero pads for a 1x1
+    kernel at stride 1) or per-axis (lo, hi) pads; caffe-style explicit
+    padding grows the output and stays on the spatial path."""
+    spatial = tuple(int(s) for s in kshape[:-2])
+    if isinstance(padding, str):
+        pad_free = padding.upper() in ("SAME", "VALID")
+    else:
+        pad_free = all(int(lo) == 0 and int(hi) == 0 for lo, hi in padding)
+    return (pad_free
+            and all(s == 1 for s in spatial)
+            and all(int(s) == 1 for s in strides)
+            and all(int(d) == 1 for d in dilation)
+            and int(groups) == 1)
+
+
+def _conv_geometry(x, kshape, strides, pads, dilation, groups):
+    """Checked (B, H, W, C), (KH, KW, cin/g, cout) and the output's
+    (Ho, Wo) of an NHWC conv with explicit pads."""
+    if x.ndim != 4 or len(kshape) != 4:
+        raise ValueError(f"a 2-D conv takes NHWC x and (kh, kw, cin/g, "
+                         f"cout) weights, got {tuple(x.shape)} and "
+                         f"{tuple(kshape)}")
+    sh, sw = (int(v) for v in strides)
+    dh, dw = (int(v) for v in dilation)
+    (pt, pb), (pl, pr) = ((int(lo), int(hi)) for lo, hi in pads)
+    b, h, w, c = (int(v) for v in x.shape)
+    kh, kw, cg, cout = (int(v) for v in kshape)
+    g = int(groups)
+    if g < 1 or c != cg * g or cout % g:
+        raise ValueError(f"groups={g} does not fit cin={c}, weight "
+                         f"{tuple(kshape)}")
+    if min(sh, sw, dh, dw) < 1 or min(pt, pb, pl, pr) < 0:
+        raise ValueError(f"strides {tuple(strides)}, dilation "
+                         f"{tuple(dilation)} and pads {pads} must be "
+                         f"positive / non-negative")
+    ho = (h + pt + pb - (kh - 1) * dh - 1) // sh + 1
+    wo = (w + pl + pr - (kw - 1) * dw - 1) // sw + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"conv of {tuple(x.shape)} by {tuple(kshape)} "
+                         f"with pads {pads} has no output")
+    return (b, h, w, c), (kh, kw, cg, cout), (ho, wo)
+
+
+def _pad_nhwc(x, pads):
+    (pt, pb), (pl, pr) = pads
+    return F.pad(x, (0, 0, int(pl), int(pr), int(pt), int(pb)))
+
+
+def w8a8_conv_torch(x_q, w_q, scale, strides, pads, dilation=(1, 1),
+                    groups: int = 1):
+    """Plain version of ``w8a8_conv2d``: a float64 convolution of the int8
+    codes (every partial sum an integer below 2**53, so exact in any
+    order), as int32, rounded to f32 once and multiplied by ``scale``."""
+    _conv_geometry(x_q, w_q.shape, strides, pads, dilation, groups)
+    xd = _pad_nhwc(x_q.to(torch.float64), pads).permute(0, 3, 1, 2)
+    wd = w_q.to(torch.float64).permute(3, 2, 0, 1)
+    acc = F.conv2d(xd, wd, stride=tuple(int(s) for s in strides),
+                   dilation=tuple(int(d) for d in dilation),
+                   groups=int(groups))
+    return acc.permute(0, 2, 3, 1).to(torch.int32).to(torch.float32) \
+        * scale.to(torch.float32)
+
+
+def _conv_kernel_fn():
+    global _conv_fn
+    if _conv_fn is None:
+        fn = _build.load(KERNEL_CONV).w8a8_conv2d
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _conv_fn = fn
+    return _conv_fn
+
+
+def _w8a8_conv_cuda(x_q, w_q, scale, strides, pads, dilation, groups):
+    global launches_conv
+    dev = x_q.device
+    _check_cuda((("x_q", x_q), ("w_q", w_q), ("scale", scale)), dev)
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"w8a8_conv2d takes int8 operands, got {x_q.dtype} "
+                        f"/ {w_q.dtype}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"scale must be float32, got {scale.dtype}")
+    (b, h, w, c), (kh, kw, _, cout), (ho, wo) = _conv_geometry(
+        x_q, w_q.shape, strides, pads, dilation, groups)
+    out = torch.empty(b, ho, wo, cout, dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    err = _conv_kernel_fn()(
+        x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        b, h, w, c, kh, kw, cout, ho, wo, int(strides[0]), int(strides[1]),
+        int(pads[0][0]), int(pads[1][0]), int(dilation[0]),
+        int(dilation[1]), int(groups),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"w8a8_conv2d kernel launch failed: CUDA error {err} (x "
+            f"{tuple(x_q.shape)}, w {tuple(w_q.shape)}, strides "
+            f"{tuple(strides)}, pads {pads}, dilation {tuple(dilation)}, "
+            f"groups {groups})")
+    launches_conv += launched()
+    return out
+
+
+def w8a8_conv2d(x_q, w_q, scale, *, strides, pads, dilation=(1, 1),
+                groups: int = 1, impl: Optional[str] = None):
+    """s8 x s8 -> s32 convolution, dequantized by ``scale`` (cout,) f32:
+    ``x_q`` (B, H, W, cin) int8, ``w_q`` (kh, kw, cin/groups, cout) int8,
+    ``pads`` [(top, bottom), (left, right)] -> (B, Ho, Wo, cout) f32.
+    ``impl``: auto | torch | cuda (the kernel of ``csrc/quant_conv.cu``)."""
+    if tuple(scale.shape) != (w_q.shape[-1],):
+        raise ValueError(f"scale must be (cout,) = ({w_q.shape[-1]},), got "
+                         f"{tuple(scale.shape)}")
+    if resolve_impl(impl, x_q) == "torch":
+        return w8a8_conv_torch(x_q, w_q, scale, strides, pads, dilation,
+                               groups)
+    return _w8a8_conv_cuda(x_q, w_q, scale, strides, pads, dilation, groups)
+
+
+def w8a8_conv(x_q, w_q, scale, *, window_strides, padding, rhs_dilation,
+              feature_group_count: int = 1, impl: Optional[str] = None):
+    """Fused-dequant int8 convolution, NHWC x (kh, kw, cin/g, cout):
+    a pointwise conv is a channel matmul (``w8a8_matmul``), a spatial one
+    runs ``w8a8_conv2d``; ``padding`` is the explicit per-side pads."""
+    kshape = tuple(int(s) for s in w_q.shape)
+    if _is_pointwise(kshape, window_strides, rhs_dilation,
+                     feature_group_count, padding):
+        x2, unflat = _flatten_batch(x_q.contiguous())
+        return unflat(w8a8_matmul(x2, w_q.reshape(kshape[-2], kshape[-1]),
+                                  scale, impl=impl))
+    return w8a8_conv2d(x_q.contiguous(), w_q, scale, strides=window_strides,
+                       pads=padding, dilation=rhs_dilation,
+                       groups=feature_group_count, impl=impl)
+
+
+def w4a16_conv(x, w_q4, s_g, kshape: Sequence[int], *, window_strides,
+               padding, rhs_dilation, feature_group_count: int = 1,
+               impl: Optional[str] = None):
+    """Weight-only int4 convolution: the kernel tensor lives nibble-packed
+    as (ceil(K/2), cout) with K = kh·kw·cin/g.  A pointwise conv runs the
+    ``w4a16_matmul`` kernel.  A spatial one unpacks and dequantizes the
+    weight group-wise and convolves in f32 with ``F.conv2d`` (cuDNN, TF32
+    off), on purpose: the JAX package also computes it outside any Pallas
+    kernel, as an XLA convolution of the dequantized weight."""
+    kshape = tuple(int(s) for s in kshape)
+    k = int(np.prod(kshape[:-1]))
+    if _is_pointwise(kshape, window_strides, rhs_dilation,
+                     feature_group_count, padding):
+        x2, unflat = _flatten_batch(x.contiguous())
+        return unflat(w4a16_matmul(x2, w_q4, s_g, impl=impl))
+    _conv_geometry(x, kshape, window_strides, padding, rhs_dilation,
+                   feature_group_count)
+    w = unpack_int4(w_q4, k).to(torch.float32) \
+        * expand_group_scales(s_g.to(torch.float32), k)
+    xp = _pad_nhwc(x.to(torch.float32), padding).permute(0, 3, 1, 2)
+    y = F.conv2d(xp, w.reshape(kshape).permute(3, 2, 0, 1),
+                 stride=tuple(int(s) for s in window_strides),
+                 dilation=tuple(int(d) for d in rhs_dilation),
+                 groups=int(feature_group_count))
+    return y.permute(0, 2, 3, 1)

@@ -57,8 +57,9 @@ control (and with it the ``admission_reject`` fault point), brownout,
 usage metering, profiling, TensorBoard summaries (``tensorboard_dir``),
 the HTTP gateway, sharding and XLA's persistent compilation cache
 (``compile_cache_dir``: the kernel libraries are cached under ``build/``
-already, and nothing else is compiled).  Image records (``image``, which
-needs ``cv2``) raise per record.
+already, and nothing else is compiled).  Image records (``image``:
+base64 PNG / JPEG bytes) are decoded with ``cv2`` as the JAX engine
+decodes them; where OpenCV is missing such a record fails alone.
 """
 
 from __future__ import annotations
@@ -105,7 +106,8 @@ logger = logging.getLogger(__name__)
 
 
 class QuantizedTensor(NamedTuple):
-    """A tensor kept in its compact integer dtype (int8 wire records)."""
+    """A tensor kept in its compact integer dtype (int8 wire records,
+    uint8 image records) until it reaches the device."""
 
     data: np.ndarray      # int8 / uint8
     scale: float
@@ -144,15 +146,34 @@ def _decode_tensor_record(record: Dict):
 
 
 def default_preprocess(record: Dict):
-    """Record -> tensor: binary frames (``payload``/``shm``), the base64
-    tensor record (``b64`` + ``dtype``/``shape``; int8 with a ``scale``
-    stays quantized as a ``QuantizedTensor``), or a raw ``data`` list.
-    Image records need ``cv2`` decoding, which is not ported: they raise
-    (the record is quarantined alone)."""
+    """Record -> tensor (PreProcessing.scala:1-53): binary frames
+    (``payload``/``shm``), a base64 encoded ``image`` decoded to HWC BGR
+    (f32, converted before an optional ``resize`` [h, w]; with ``u8`` it
+    stays uint8, resized as uint8, as a ``QuantizedTensor`` of scale 1.0
+    that is dequantized on the device), the base64 tensor record (``b64``
+    + ``dtype``/``shape``; int8 with a ``scale`` stays quantized as a
+    ``QuantizedTensor``), or a raw ``data`` list."""
     if "payload" in record or "shm" in record:
         return _decode_tensor_record(record)
     if "image" in record:
-        raise ValueError("image records (cv2 decoding) are not ported yet")
+        from analytics_zoo_tpu_torch.feature.image import _cv2
+        cv = _cv2()
+        buf = np.frombuffer(base64.b64decode(record["image"]), np.uint8)
+        img = cv.imdecode(buf, cv.IMREAD_COLOR)
+        if img is None:
+            raise ValueError("image record: the bytes do not decode as an "
+                             "image")
+        if record.get("u8"):
+            if "resize" in record:
+                h, w = record["resize"]
+                img = cv.resize(img, (w, h))
+            return QuantizedTensor(np.asarray(img, np.uint8), 1.0)
+        # the float path converts BEFORE resizing (float interpolation)
+        img = img.astype(np.float32)
+        if "resize" in record:
+            h, w = record["resize"]
+            img = cv.resize(img, (w, h))
+        return img
     if "b64" in record:
         raw = base64.b64decode(record["b64"])
         _wire.COPY_STATS.record("b64_decode", len(raw))

@@ -18,8 +18,9 @@ checked shapes (a missing or extra leaf raises):
   so ``dense_10`` comes before ``dense_9``).  A float ``Dense`` given a
   quantized leaf set switches to that form (``Dense.adopt_leaves``).
   The graph ``Model`` keys its tree ``{layer_name: subtree}`` too,
-  ``Convolution2D`` ``{W (kh, kw, cin, cout), b}``,
-  ``BatchNormalization`` ``{gamma, beta}``.
+  ``Convolution2D`` ``{W (kh, kw, cin, cout), b}`` (int8 ``{W_q, s_w,
+  s_x, b}``, int4 ``{W_q4, s_g, b}``, switched to as ``Dense`` is:
+  ``_ConvND.adopt_leaves``), ``BatchNormalization`` ``{gamma, beta}``.
 - the layer IR's state tree (the JAX ``model._state``): the same layout
   over ``_state_tree()``, ``BatchNormalization`` ``{mean, var}``
   (``load_jax_state``, ``export_state``).
@@ -116,7 +117,7 @@ def _load_tree(own: Dict, tree, path: str, subtree=_params_of) -> None:
 
 def _load_layer(layer: Layer, tree, path: str, subtree=_params_of) -> None:
     """A layer given a param leaf set first switches to the form it names
-    (``Dense.adopt_leaves``; a conv refuses a quantized one)."""
+    (``Dense.adopt_leaves``, ``_ConvND.adopt_leaves``)."""
     if subtree is _params_of and isinstance(tree, dict) \
             and hasattr(layer, "adopt_leaves"):
         layer.adopt_leaves(tree)

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``analytics_zoo_tpu_torch``).
 
-Runs the port's two serving paths and its training path on one NVIDIA GPU
-and checks them, phase by phase, each phase printing its own lines:
+Runs the port's serving paths (generation, predict, image classification)
+and its training paths on one NVIDIA GPU and checks them, phase by phase,
+each phase printing its own lines:
 
 1. card — the card's name and power limit (``nvidia-smi``) and the build of
    every CUDA kernel (one ``nvcc`` per source, started together): ptxas's
    registers, spills and static shared memory, the dynamic shared memory
-   of the forward, ``fused_bn``, ``w8a8``, ``w4a16`` and paged kernels,
-   and their SASS (``cuobjdump``), which must hold the tensor-core
-   products (TF32 HMMA in the flash kernels, f32 ``fused_bn`` and f32-x
-   ``w4a16``, BF16 HMMA in bf16 ``fused_bn`` and bf16-x ``w4a16``, s8
-   IMMA in ``w8a8``).
+   of the forward, ``fused_bn``, ``w8a8``, ``w4a16``, paged and
+   ``w8a8_conv2d`` kernels, and their SASS (``cuobjdump``), which must
+   hold the tensor-core products (TF32 HMMA in the flash kernels, f32
+   ``fused_bn`` and f32-x ``w4a16``, BF16 HMMA in bf16 ``fused_bn`` and
+   bf16-x ``w4a16``, s8 IMMA in ``w8a8`` and ``w8a8_conv2d``).
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, then timed on the device (CUDA graph
    replay between CUDA events) beside its plain version and, where one
@@ -113,6 +114,29 @@ and checks them, phase by phase, each phase printing its own lines:
    through the kernel and through the plain version, within a tolerance
    that a planted lost tile partial exceeds; ``Estimator.evaluate`` on a
    held-out batch (moving statistics) equal on both routes.
+7. image — ``ImageClassifier("resnet50")``'s quantized forward at a batch
+   of 16: the ``w8a8_conv2d`` kernel (``csrc/quant_conv.cu``) bitwise
+   against its plain version at ResNet-50's 11 spatial path shapes (20
+   launches a forward) and at ragged shapes, two planted faults (a
+   dropped k piece of the weight, pads shifted by one) rejected, timed at
+   each path shape and summed over a forward beside its plain version,
+   cuDNN's f32 convolution of the same shape (not the same function) and
+   the bound; the w8a8 (bitwise) and w4a16 kernels at the forward's 13
+   distinct pointwise (M, K, N) (34 launches), timed likewise (w8a8 beside
+   ``torch._int_mm`` + scale).  Then the model from ``--seed`` (weights
+   and BN state through ``InferenceModel.do_load_model``) served by
+   ``ClusterServing`` in predict mode over ``InProcQueue``: 64 PNG image
+   records (``InputQueue.enqueue_image``, half on the float path, half on
+   the ``device_uint8`` path, resized by the engine to 224 x 224), batch
+   16, every bucket warmed first, in f32, int8 (``ServingParams.quantize``
+   calibrated from a seeded ``.npy`` batch) and int4, each under a
+   profiler trace of the card: conv launches = 20 x forwards and w8a8 =
+   34 x forwards in int8, w4a16 = 34 x forwards in int4, none in f32, on
+   the card and by the wrappers; the int8 top-5 bit for bit equal to the
+   same model's through every kernel's plain version, f32 and int4 within
+   ``IMAGE_LOGP_TOL``; weight bytes, records/s, e2e p50 and the model's
+   images/s alone (readings); ``predict_image_set`` over seeded images
+   through the default preprocessing chain.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -124,9 +148,10 @@ contract line.  Run from the repository root::
 the phase starts itself.
 
 ``--profile`` adds ``torch.profiler`` readings of a decode step (eager,
-then replayed from its CUDA graph), a predict batch, a training step and
-a ResNet-50 training step.  ``--kernel-timing``
-runs only the paged, w8a8 and w4a16 timings (``kernel_timing``); a copy of
+then replayed from its CUDA graph), a predict batch, a training step, a
+ResNet-50 training step and an int8 ResNet-50 predict batch of 16.
+``--kernel-timing`` runs only the paged, w8a8, w4a16 and (in trees that
+have it) w8a8_conv2d timings (``kernel_timing``); a copy of
 this script run from the root of an earlier tree of the port times that
 tree's kernels the same way::
 
@@ -137,6 +162,7 @@ tree's kernels the same way::
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import copy
 import ctypes
@@ -160,6 +186,7 @@ from analytics_zoo_tpu_torch.common.context import ZooConf, ZooContext
 from analytics_zoo_tpu_torch.common.observability import MetricsRegistry
 from analytics_zoo_tpu_torch.estimator.estimator import Estimator
 from analytics_zoo_tpu_torch.feature.dataset import ArrayFeatureSet
+from analytics_zoo_tpu_torch.feature.image import ImageSet
 from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.inference.quantize import (_quantize_w4,
                                                         kv_pack_int8,
@@ -168,7 +195,8 @@ from analytics_zoo_tpu_torch.models.imageclassification import \
     ImageClassifier
 from analytics_zoo_tpu_torch.models.textmodels import TransformerLM
 from analytics_zoo_tpu_torch.nn.layers.attention import TransformerLayer
-from analytics_zoo_tpu_torch.nn.layers.core import Dense
+from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
+from analytics_zoo_tpu_torch.nn.layers.core import BatchNormalization, Dense
 from analytics_zoo_tpu_torch.nn.layers.pooling import GlobalAveragePooling1D
 from analytics_zoo_tpu_torch.nn import objectives
 from analytics_zoo_tpu_torch.nn.models import Sequential
@@ -180,12 +208,17 @@ from analytics_zoo_tpu_torch.ops import fused_bn as fb
 from analytics_zoo_tpu_torch.ops import paged_attention as pa
 from analytics_zoo_tpu_torch.ops import quant_matmul as qm
 from analytics_zoo_tpu_torch.serving.client import InputQueue, OutputQueue
-from analytics_zoo_tpu_torch.serving.engine import ClusterServing, ServingParams
+from analytics_zoo_tpu_torch.serving.engine import (ClusterServing,
+                                                    QuantizedTensor,
+                                                    ServingParams,
+                                                    default_postprocess,
+                                                    default_preprocess)
 from analytics_zoo_tpu_torch.serving.generate import (ContinuousBatcher,
                                                       GenerationParams,
                                                       GenRequest, commit)
 from analytics_zoo_tpu_torch.serving import tracecollect
 from analytics_zoo_tpu_torch.serving.queues import FileQueue, InProcQueue
+from analytics_zoo_tpu_torch.utils.convert import export_params, export_state
 
 # OpenAI's 124M ``gpt2`` config
 GPT2_SMALL = dict(vocab_size=50257, hidden=768, n_head=12, n_layers=12,
@@ -332,6 +365,63 @@ RESNET_FAULTS = (
      True),
 )
 
+# the image-classification path: ImageClassifier("resnet50") served in
+# predict mode, f32, int8 (W8A8) and int4 (W4A16): 64 records in batches
+# of 16
+IMAGE = dict(model_name="resnet50", num_classes=1000,
+             input_shape=(224, 224, 3))
+IMAGE_BATCH = 16
+IMAGE_RECORDS = 64
+# ResNet-50's quantized forward at 224 x 224: 20 spatial convolutions
+# (the w8a8_conv2d kernel in int8) at 11 distinct shapes, 33 pointwise
+# convolutions and the Dense head (the w8a8 / w4a16 matmul kernels)
+IMAGE_SPATIAL, IMAGE_SPATIAL_SHAPES, IMAGE_MATMULS = 20, 11, 34
+# the engine warms every bucket a batch of up to IMAGE_BATCH records pads
+# to, for f32 records and for compact uint8 ones with per-row scales
+IMAGE_WARMUP = {"max_batch": IMAGE_BATCH, "scales": "both",
+                "scale_dtypes": ["|u1"]}
+# the records: seeded 256 x 256 BGR images sent as PNG and resized to 224 x
+# 224 by the engine, half on the float path and half on the u8 path
+IMAGE_SOURCE = (256, 256, 3)
+# the head's weights are scaled so that its logits have this standard
+# deviation over the calibration batch (random weights on raw pixels
+# otherwise saturate the softmax)
+IMAGE_LOGIT_STD = 2.0
+# served f32 / int4 vs the same model through every kernel's plain
+# version, log-probabilities.  f32 runs no kernel of the port (cuDNN's
+# convolutions on both routes) and read 0 on the H100: LOGP_TOL.  int4
+# differs by the w4a16 kernel's summation order in 34 launches a forward
+# (each within W4_TOL), which read 8.057e-06 on the H100 (PERF.md section
+# 6): about 25x margin.  int8 is held bit for bit.
+IMAGE_LOGP_TOL = {"f32": LOGP_TOL, "int4": 2e-4}
+# ragged w8a8_conv2d cases: (x shape, (kh, kw, cin/g, cout), strides,
+# pads, dilation, groups, extremes, x offset in bytes): B = 1 with odd
+# H / W, cin = 3 and cout = 70 (off the 64-channel tile); 3x3 with
+# explicit symmetric pads and cout = 61 (channels off 4 bytes: byte loads
+# of w); dilation 2; groups 2 with 32 and 8 channels a group; cin = 24
+# (off 16 bytes: byte gathers of x); a strided 1x1 on an odd size; x one
+# byte into its buffer; all -128 / 127 at stage 4's K = 4608
+CONV_RAGGED = (
+    ((1, 37, 45, 3), (7, 7, 3, 70), (2, 2), ((3, 3), (3, 3)), (1, 1), 1,
+     False, 0),
+    ((2, 13, 11, 16), (3, 3, 16, 61), (1, 1), ((1, 1), (1, 1)), (1, 1), 1,
+     False, 0),
+    ((2, 17, 19, 32), (3, 3, 32, 64), (1, 1), ((2, 2), (2, 2)), (2, 2), 1,
+     False, 0),
+    ((2, 14, 14, 64), (3, 3, 32, 128), (2, 2), ((0, 1), (0, 1)), (1, 1), 2,
+     False, 0),
+    ((2, 9, 9, 16), (3, 3, 8, 24), (1, 1), ((1, 1), (1, 1)), (1, 1), 2,
+     False, 0),
+    ((3, 10, 12, 24), (5, 3, 24, 40), (2, 1), ((1, 2), (1, 1)), (1, 1), 1,
+     False, 0),
+    ((2, 15, 15, 32), (1, 1, 32, 96), (2, 2), ((0, 0), (0, 0)), (1, 1), 1,
+     False, 0),
+    ((2, 14, 14, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1)), (1, 1), 1,
+     False, 1),
+    ((16, 7, 7, 512), (3, 3, 512, 512), (1, 1), ((1, 1), (1, 1)), (1, 1), 1,
+     True, 0),
+)
+
 
 def say(*parts) -> None:
     print(*parts, flush=True)
@@ -356,7 +446,11 @@ def card_line() -> str:
     return out[0].strip()
 
 
-KERNEL_SOURCES = (pa.KERNEL, fa.KERNEL, fa.KERNEL_BWD, qm.KERNEL, fb.KERNEL)
+# the conv kernel's source by name: an earlier tree's qm has no
+# KERNEL_CONV, and --kernel-timing runs this script in such trees
+CONV_SOURCE = "quant_conv"
+KERNEL_SOURCES = (pa.KERNEL, fa.KERNEL, fa.KERNEL_BWD, qm.KERNEL, fb.KERNEL,
+                  CONV_SOURCE)
 
 
 def build_kernels() -> dict:
@@ -368,6 +462,7 @@ def build_kernels() -> dict:
     fa._kernel_fn()
     fa._bwd_kernel_fns()
     qm._kernel_fns()
+    qm._conv_kernel_fn()
     fb._kernel_fns()
     return {"wall_s": wall, "nvcc_s": dict(_build.BUILD_SECONDS),
             "ptxas": {k: _build.BUILD_LOG.get(k, "")
@@ -387,6 +482,7 @@ SASS_KERNELS = {
     qm.KERNEL: (("w8a8_kernel", SASS_S8),
                 ("w4a16_kernelIf", SASS_TF32),
                 ("w4a16_kernelI13__nv_bfloat16", SASS_BF16)),
+    CONV_SOURCE: (("w8a8_conv2d_kernel", SASS_S8),),
 }
 
 
@@ -424,15 +520,16 @@ def sass_check() -> dict:
 
 
 def smem_line() -> str:
-    """Dynamic shared memory a block of the forward, fused_bn, w8a8 and
-    w4a16 kernels, as their libraries report it, and the paged kernel's
-    table (ptxas -v shows only static shared memory)."""
+    """Dynamic shared memory a block of the forward, fused_bn, w8a8,
+    w4a16 and w8a8_conv2d kernels, as their libraries report it, and the
+    paged kernel's table (ptxas -v shows only static shared memory)."""
     flash = _build.load(fa.KERNEL).flash_attention_fwd_smem
     bn = _build.load(fb.KERNEL).fused_bn_smem
     w8 = _build.load(qm.KERNEL).w8a8_smem
     w4 = _build.load(qm.KERNEL).w4a16_smem
-    for fn in (flash, bn, w8, w4):
-        fn.argtypes = [ctypes.c_int] * (1 if fn is w8 else 2)
+    conv = _build.load(CONV_SOURCE).w8a8_conv2d_smem
+    for fn, n_args in ((flash, 2), (bn, 2), (w8, 1), (w4, 2), (conv, 0)):
+        fn.argtypes = [ctypes.c_int] * n_args
         fn.restype = ctypes.c_int
     return ", ".join(
         [f"flash[{t} D={d}] {flash(b, d)} B" for t, b in (("f32", 0),
@@ -446,7 +543,8 @@ def smem_line() -> str:
            for t, b in (("f32", 0), ("bf16", 1)) for mt in (1, 4)]
         + [f"paged[table of {n} entries, 96 (row, head) pairs] "
            f"{4 * pa.partitions(n, None, 96, pa._sm_count(0))[1]} B"
-           for n in (16, 64)])
+           for n in (16, 64)]
+        + [f"w8a8_conv2d {conv()} B"])
 
 
 # -- phase 2: kernel vs plain -------------------------------------------------
@@ -1771,6 +1869,7 @@ def sync(dev) -> None:
 
 def reset_launches() -> None:
     fa.launches = qm.launches_w8a8 = qm.launches_w4a16 = 0
+    qm.launches_conv = 0
     fa.dq_launches = fa.dkv_launches = 0
     fb.launches = 0
 
@@ -2932,6 +3031,591 @@ def profile_resnet(est, x, y) -> None:
             f"{name[:90]}")
 
 
+# -- phase 7: image classification --------------------------------------------
+
+def conv_inventory(model, batch: int) -> dict:
+    """The quantized forward's convolutions at ``batch``, in graph order:
+    ``spatial`` (x shape, (kh, kw, cin/g, cout), strides, pads, dilation,
+    groups) for the ``w8a8_conv2d`` kernel, and ``matmuls`` (M, K, N) for
+    the matmul kernels: the pointwise convolutions, then the Dense head."""
+    spatial, matmuls = [], []
+    for node in model.nodes:
+        layer, ins = node.layer, node.inputs
+        if isinstance(layer, Convolution2D):
+            shape = tuple(ins[0].shape)
+            pads = tuple(tuple(p) for p in layer._pads(shape[:-1]))
+            kshape = layer.kernel_size + (shape[-1] // layer.groups,
+                                          layer.nb_filter)
+            if qm._is_pointwise(kshape, layer.subsample, layer.dilation,
+                                layer.groups, pads):
+                matmuls.append((batch * math.prod(shape[:-1]), shape[-1],
+                                layer.nb_filter))
+            else:
+                spatial.append(((batch,) + shape, kshape, layer.subsample,
+                                pads, layer.dilation, layer.groups))
+        elif isinstance(layer, Dense):
+            shape = tuple(ins[0].shape)
+            matmuls.append((batch * math.prod(shape[:-1]), shape[-1],
+                            layer.output_dim))
+    return {"spatial": spatial, "matmuls": matmuls}
+
+
+def distinct(items) -> list:
+    """[(item, times it occurs)] in order of first occurrence."""
+    counts = {}
+    for it in items:
+        counts[it] = counts.get(it, 0) + 1
+    return list(counts.items())
+
+
+def conv_case(g, xshape, kshape, extremes=False, x_offset=0,
+              device="cuda"):
+    """x, w and scale of one w8a8_conv2d call: s8 values over all of
+    [-128, 127], or (``extremes``) only -128 and 127; ``x_offset`` puts x
+    that many bytes into its buffer."""
+    if extremes:
+        ends = np.array([-128, 127], np.int8)
+        x, w = g.choice(ends, xshape), g.choice(ends, kshape)
+    else:
+        x = g.integers(-128, 128, xshape, dtype=np.int8)
+        w = g.integers(-128, 128, kshape, dtype=np.int8)
+    s = torch.from_numpy(g.uniform(1e-4, 1e-2, kshape[-1]).astype(
+        np.float32)).to(device)
+    xt = torch.from_numpy(x).to(device)
+    if x_offset:
+        buf = torch.zeros(x.size + x_offset, dtype=torch.int8, device=device)
+        buf[x_offset:] = xt.flatten()
+        xt = buf[x_offset:].view(xshape)
+    return xt, torch.from_numpy(w).to(device), s
+
+
+def run_conv(case, geom, impl):
+    x, w, s = case
+    _, _, strides, pads, dilation, groups = geom
+    return qm.w8a8_conv2d(x, w, s, strides=strides, pads=pads,
+                          dilation=dilation, groups=groups, impl=impl)
+
+
+def conv_parity(seed: int, shapes, device="cuda") -> int:
+    """w8a8_conv2d bitwise against its plain version at every path shape
+    and every ``CONV_RAGGED`` case; returns the number of cases."""
+    g = np.random.default_rng(seed + 90)
+    cases = [(geom, False, 0) for geom in shapes] + [
+        (geom[:6], geom[6], geom[7]) for geom in CONV_RAGGED]
+    for geom, extremes, off in cases:
+        case = conv_case(g, geom[0], geom[1], extremes, off, device)
+        got = run_conv(case, geom, "cuda" if device == "cuda" else None)
+        sync(torch.device(device))
+        ref = run_conv(case, geom, "torch")
+        check(torch.equal(got, ref),
+              f"w8a8_conv2d {geom}, extremes {extremes}, x offset {off}: "
+              f"not bitwise equal to the plain version (max abs err "
+              f"{float((got - ref).abs().max()):.3e})")
+    return len(cases)
+
+
+def conv_planted(seed: int, geom, device="cuda") -> list:
+    """Two planted faults the bitwise check must reject: the kernel run
+    with one 16-deep k piece of the weight dropped, and with the pads
+    shifted by one (top and left one more, bottom and right one less)."""
+    g = np.random.default_rng(seed + 91)
+    case = conv_case(g, geom[0], geom[1], device=device)
+    ref = run_conv(case, geom, "torch")
+    x, w, s = case
+    kh, kw, cg, cout = geom[1]
+    dropped = w.clone().view(kh * kw * cg, cout)
+    dropped[16:32] = 0
+    shifted = tuple((lo + 1, hi - 1) for lo, hi in geom[3])
+    impl = "cuda" if device == "cuda" else None
+    faults = (("k 16-31 of the weight dropped",
+               run_conv((x, dropped.view(w.shape), s), geom, impl)),
+              (f"pads {geom[3]} run as {shifted}",
+               run_conv(case, geom[:3] + (shifted,) + geom[4:], impl)))
+    out = []
+    for tag, bad in faults:
+        check(not torch.equal(bad, ref),
+              f"w8a8_conv2d {geom}: the planted fault '{tag}' passes the "
+              f"bitwise check")
+        out.append(f"{tag} rejected ({int((bad != ref).sum())} outputs "
+                   f"differ)")
+    return out
+
+
+def conv_bound(geom) -> dict:
+    """x, w and the scale read once, the f32 output written once;
+    2·M·N·K operations at the int8 rate."""
+    (b, h, w, c), (kh, kw, cg, cout), strides, pads, dil, groups = geom
+    ho = (h + sum(pads[0]) - (kh - 1) * dil[0] - 1) // strides[0] + 1
+    wo = (w + sum(pads[1]) - (kw - 1) * dil[1] - 1) // strides[1] + 1
+    m, k = b * ho * wo, kh * kw * cg
+    return bound(b * h * w * c + k * cout + 4 * cout + 4 * m * cout,
+                 (2 * m * cout * k, INT8_OP_PER_S))
+
+
+def conv_timing(seed: int, geom, iters: int = 200) -> dict:
+    """The kernel at one path shape, cycling over input sets, beside its
+    plain version and cuDNN's f32 convolution of the same shape (the
+    yardstick: not the same function) on an input padded beforehand."""
+    g = np.random.default_rng(seed + 92)
+    b = conv_bound(geom)
+    sets = [conv_case(g, geom[0], geom[1]) for _ in range(n_sets(b["bytes"]))]
+    ms = cuda_ms(cycled([lambda c=c: run_conv(c, geom, "cuda")
+                         for c in sets]), iters=iters)
+    plain_ms = cuda_ms(lambda: run_conv(sets[0], geom, "torch"), iters=3,
+                       warmup=1)
+    _, _, strides, pads, dil, groups = geom
+    cudnn = []
+    for x, w, _ in sets:
+        xf = qm._pad_nhwc(x.float(), pads).permute(0, 3, 1, 2)
+        wf = w.float().permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        cudnn.append((xf, wf))
+    lib_ms = cuda_ms(cycled([
+        lambda xf=xf, wf=wf: F.conv2d(xf, wf, stride=strides, dilation=dil,
+                                      groups=groups)
+        for xf, wf in cudnn]), iters=iters)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b}
+
+
+def pointwise_parity(seed: int, matmuls) -> None:
+    """The w8a8 (bitwise) and w4a16 (W4_TOL, f32 x) matmul kernels at
+    every (M, K, N) the quantized forward gives them."""
+    g = np.random.default_rng(seed + 93)
+    for m, k, n in matmuls:
+        x, w, s = w8a8_case(g, m, k, n)
+        got = qm.w8a8_matmul(x, w, s, impl="cuda")
+        torch.cuda.synchronize()
+        check(torch.equal(got, qm.w8a8_matmul(x, w, s, impl="torch")),
+              f"w8a8 ({m}, {k}, {n}): not bitwise equal to the plain version")
+        x4, wq4, sg = w4a16_case(g, m, k, n, 64)
+        got = qm.w4a16_matmul(x4, wq4, sg, impl="cuda")
+        torch.cuda.synchronize()
+        check_close(f"w4a16 ({m}, {k}, {n})", got,
+                    qm.w4a16_matmul(x4, wq4, sg, impl="torch"), *W4_TOL)
+
+
+def conv_record(seed: int, spatial) -> dict:
+    """Timing of w8a8_conv2d at each distinct path shape and summed over
+    the forward's launches (kernel, plain, cuDNN f32 yardstick, bound)."""
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+             "bytes_ms": 0.0, "ops_ms": 0.0}
+    per = []
+    for geom, n in distinct(spatial):
+        t = conv_timing(seed, geom)
+        b = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            total[key] += n * t[key]
+        total["bytes_ms" if t["bound_by"] == "bytes" else "ops_ms"] += \
+            n * t["bound_ms"]
+        (bb, hh, ww, cc), (kh, kw, cg, cout), st, pads = geom[:4]
+        say(f"conv timing x ({bb}, {hh}, {ww}, {cc}) k {kh}x{kw}/{st[0]} "
+            f"cout {cout} pads {pads} (x{n} a forward): kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN f32 "
+            f"conv2d (not the same function) {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+            f"{t['bytes']} B, {b:.4f} ms of bytes), "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of bound")
+        per.append({"x": list(geom[0]), "k": list(geom[1]), "launches": n,
+                    **{k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}})
+    say(f"conv timing, a forward's {len(spatial)} launches: kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, cuDNN f32 "
+        f"(not the same function) {total['library_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms, "
+        f"{100 * total['bound_ms'] / total['ms']:.1f}% of bound")
+    return {"name": "w8a8_conv2d", "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/csrc/quant_conv.cu",
+            "replaces": "analytics_zoo_tpu/ops/quant_matmul.py:334 "
+                        "(w8a8_conv, beside the TPU kernels)",
+            "launches": None, "max_abs_err": 0.0, "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"]
+            else "operations",
+            "library_ms": total["library_ms"],
+            "library": "cuDNN f32 conv2d (not the same function)",
+            "per_shape": per}
+
+
+def pointwise_timing(seed: int, matmuls) -> dict:
+    """The w8a8 and w4a16 (f32 x) kernels at each distinct (M, K, N) of
+    the forward, summed over its launches, beside their bounds and, for
+    w8a8, torch._int_mm + scale (M padded to 32, N to a multiple of 8)."""
+    g = np.random.default_rng(seed + 94)
+    tot = {"w8": 0.0, "w8_bound": 0.0, "w8_lib": 0.0, "w4": 0.0,
+           "w4_bound": 0.0}
+    for (m, k, n), count in distinct(matmuls):
+        b8, b4 = w8a8_bound(m, k, n), w4a16_bound(m, k, n, -(-k // 64))
+        sets = [w8a8_case(g, m, k, n) for _ in range(n_sets(b8["bytes"]))]
+        ms8 = cuda_ms(cycled([lambda c=c: qm.w8a8_matmul(*c, impl="cuda")
+                              for c in sets]), iters=100)
+        mp, n8 = max(32, -(-m // 8) * 8), -(-n // 8) * 8
+        padded = []
+        for x, w, sc in sets:
+            xp = torch.zeros(mp, k, dtype=torch.int8, device="cuda")
+            xp[:m] = x
+            wp = torch.zeros(k, n8, dtype=torch.int8, device="cuda")
+            wp[:, :n] = w
+            padded.append((xp, wp, sc))
+        lib = cuda_ms(cycled([
+            lambda c=c: torch._int_mm(c[0], c[1])[:m, :n].float() * c[2]
+            for c in padded]), iters=100)
+        sets4 = [w4a16_case(g, m, k, n, 64)
+                 for _ in range(n_sets(b4["bytes"]))]
+        ms4 = cuda_ms(cycled([lambda c=c: qm.w4a16_matmul(*c, impl="cuda")
+                              for c in sets4]), iters=100)
+        for key, v in (("w8", ms8), ("w8_bound", b8["bound_ms"]),
+                       ("w8_lib", lib), ("w4", ms4),
+                       ("w4_bound", b4["bound_ms"])):
+            tot[key] += count * v
+        say(f"pointwise timing ({m}, {k}, {n}) x{count} a forward: w8a8 "
+            f"{ms8:.4f} ms (bound {b8['bound_ms']:.4f}, "
+            f"{100 * b8['bound_ms'] / ms8:.1f}%; torch._int_mm + scale "
+            f"{lib:.4f}), w4a16 f32 x {ms4:.4f} ms (bound "
+            f"{b4['bound_ms']:.4f}, {100 * b4['bound_ms'] / ms4:.1f}%)")
+        del sets, padded, sets4
+    say(f"pointwise timing, a forward's {len(matmuls)} launches: w8a8 "
+        f"{tot['w8']:.4f} ms (bound {tot['w8_bound']:.4f}, torch._int_mm + "
+        f"scale {tot['w8_lib']:.4f}), w4a16 {tot['w4']:.4f} ms (bound "
+        f"{tot['w4_bound']:.4f})")
+    return tot
+
+
+def image_params(seed: int, model, calib) -> tuple:
+    """(params, state) numpy trees for ``model`` (a ResNet graph) from
+    ``seed``: its initializer's weights, BatchNorm gamma / beta / moving
+    statistics drawn, and the head scaled so that its logits have
+    IMAGE_LOGIT_STD over ``calib``."""
+    model.init_weights(seed)
+    g = np.random.default_rng(seed + 110)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNormalization):
+                d = m.gamma.shape[0]
+                for t, v in ((m.gamma, g.uniform(0.5, 1.5, d)),
+                             (m.beta, g.normal(0, 0.1, d)),
+                             (m.mean, g.normal(0, 0.1, d)),
+                             (m.var, g.uniform(0.5, 2.0, d))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+    head = model.graph_layers[-1]
+    seen = []
+    hook = head.register_forward_pre_hook(
+        lambda _m, args: seen.append(args[0]))
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        model.eval()(torch.from_numpy(calib).to(dev))
+    hook.remove()
+    with torch.no_grad():
+        logits = seen[0].double() @ head.W.double()
+    params = numpy_tree(export_params(model))
+    params[head.name]["W"] = params[head.name]["W"] * np.float32(
+        IMAGE_LOGIT_STD / float(logits.std()))
+    return params, numpy_tree(export_state(model))
+
+
+def numpy_tree(tree):
+    """A tree of tensors as numpy leaves."""
+    return {k: numpy_tree(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def image_sources(seed: int, n: int) -> list:
+    """Seeded BGR uint8 images; the first holds a 255 pixel."""
+    g = np.random.default_rng(seed + 111)
+    imgs = [g.integers(0, 256, IMAGE_SOURCE, dtype=np.uint8)
+            for _ in range(n)]
+    imgs[0][0, 0] = 255
+    return imgs
+
+
+def image_records(seed: int, n: int = 0) -> list:
+    """(uri, PNG bytes, u8) of ``n`` records (IMAGE_RECORDS by default):
+    the first half on the float path, the second on the u8 path, so that
+    most batches hold one kind and the u8 ones reach the device
+    compact."""
+    import cv2
+    n = n or IMAGE_RECORDS
+    out = []
+    for i, img in enumerate(image_sources(seed, n)):
+        ok, buf = cv2.imencode(".png", img)
+        check(ok, "cv2 could not encode a PNG")
+        out.append((f"img-{i:02d}", buf.tobytes(), i >= n // 2))
+    return out
+
+
+def decoded_inputs(records) -> np.ndarray:
+    """What the engine's default_preprocess makes of each record, as the
+    f32 batch the model sees (a u8 record dequantized by its scale 1.0)."""
+    out = []
+    for _, png, u8 in records:
+        x = default_preprocess({"image": base64.b64encode(png).decode(),
+                                "resize": list(IMAGE["input_shape"][:2]),
+                                "u8": int(u8)})
+        out.append(x.data.astype(np.float32) * x.scale
+                   if isinstance(x, QuantizedTensor) else x)
+    return np.stack(out)
+
+
+def serve_images(im, records, params) -> dict:
+    """ClusterServing in predict mode over InProcQueue, warmed first; the
+    counts set to 0, then every record enqueued as an image record under a
+    profiler trace of the card."""
+    q = InProcQueue()
+    serving = ClusterServing(im, q, params)     # quantizes here
+    iq, oq = InputQueue(q), OutputQueue(q)
+    rids = [rid for rid, _, _ in records]
+    try:
+        serving.start()
+        warm = wait_warm(serving)
+        sync(im.device)
+        st0 = im.aot_stats()
+        reset_launches()
+        with _impl.card_launches(("w8a8_conv", "w8a8", "w4a16")) as card:
+            t0 = time.perf_counter()
+            for rid, png, u8 in records:
+                iq.enqueue_image(rid, png,
+                                 resize=IMAGE["input_shape"][:2],
+                                 device_uint8=u8)
+            results = oq.query_many(rids, timeout_s=600.0)
+            wall = time.perf_counter() - t0
+    finally:
+        serving.shutdown(drain_s=5.0)
+    sync(im.device)
+    st = im.aot_stats()
+    return {"rids": rids, "results": results, "wall_s": wall,
+            "forwards": sum(st["programs"].values())
+            - sum(st0["programs"].values()),
+            "programs": {k: v - st0["programs"].get(k, 0)
+                         for k, v in st["programs"].items()},
+            "warm_hits": st["hits"] - st0["hits"], "warm": warm,
+            "card": card, "wrapper": {"w8a8_conv": qm.launches_conv,
+                                      "w8a8": qm.launches_w8a8,
+                                      "w4a16": qm.launches_w4a16},
+            "e2e_p50_s": serving._e2e.percentiles((50,))["p50"],
+            "dead_lettered": serving.dead_lettered}
+
+
+def plain_probs(im, X, impl) -> np.ndarray:
+    """The model's probabilities over ``X`` in batches of IMAGE_BATCH with
+    every kernel (``impl`` None) or every plain version (``"torch"``)."""
+    set_impl(im._model, impl)
+    try:
+        return InferenceModel(max_batch=IMAGE_BATCH, device=im.device) \
+            .do_load_model(im._model).do_predict(X, batch_size=IMAGE_BATCH)
+    finally:
+        set_impl(im._model, None)
+
+
+# a forward's launches of each kernel, by precision
+IMAGE_LAUNCHES = {"f32": {},
+                  "int8": {"w8a8_conv": IMAGE_SPATIAL, "w8a8": IMAGE_MATMULS},
+                  "int4": {"w4a16": IMAGE_MATMULS}}
+
+
+def check_image(tag: str, run: dict, ref, tol) -> dict:
+    """Every record answered; int8 (``tol`` None): each top-5, classes and
+    probabilities, equal to the plain route's bit for bit; otherwise each
+    top-5 log-probability within ``tol`` of the plain route's and top-1
+    equal where the plain top-2 margin exceeds twice it.  Every forward's
+    bucket warmed; each kernel launched IMAGE_LAUNCHES a forward on the
+    card and by its wrapper, and no other."""
+    n = len(run["rids"])
+    check(run["dead_lettered"] == 0, f"image[{tag}]: records quarantined")
+    worst, compared, top1 = 0.0, 0, []
+    ref_logp = np.log(ref.astype(np.float64))
+    for i, rid in enumerate(run["rids"]):
+        r = run["results"].get(rid)
+        check(r is not None and "value" in r,
+              f"image[{tag}] {rid}: no result ({r})")
+        top = r["value"]
+        cls = [int(c) for c, _ in top]
+        check(len(top) == 5 and all(0 <= c < IMAGE["num_classes"]
+                                    for c in cls),
+              f"image[{tag}] {rid}: malformed top-5 {top}")
+        if tol is None:
+            want = default_postprocess(ref[i], 5)
+            check(top == want, f"image[{tag}] {rid}: top-5 {top} != the "
+                               f"plain route's {want}")
+        else:
+            lp = np.log(np.asarray([p for _, p in top], np.float64))
+            check(bool(np.isfinite(lp).all()),
+                  f"image[{tag}] {rid}: non-finite {top}")
+            err = float(np.abs(lp - ref_logp[i, cls]).max())
+            worst = max(worst, err)
+            check(err <= tol, f"image[{tag}] {rid}: log-prob error "
+                              f"{err:.3e} > {tol:.3e}")
+            order = np.sort(ref_logp[i])
+            if order[-1] - order[-2] > 2 * tol:
+                compared += 1
+                check(cls[0] == int(np.argmax(ref_logp[i])),
+                      f"image[{tag}] {rid}: top-1 {cls[0]} != plain "
+                      f"{int(np.argmax(ref_logp[i]))}")
+        top1.append(cls[0])
+    fw = run["forwards"]
+    check(run["warm_hits"] == fw > 0,
+          f"image[{tag}]: {run['warm_hits']} of {fw} forwards found their "
+          f"bucket warm")
+    per = IMAGE_LAUNCHES[tag]
+    for k in ("w8a8_conv", "w8a8", "w4a16"):
+        want = fw * per.get(k, 0)
+        check(run["card"][k] == run["wrapper"][k] == want,
+              f"image[{tag}]: {k} launches on the card {run['card'][k]}, "
+              f"by the wrapper {run['wrapper'][k]}, != {fw} forwards x "
+              f"{per.get(k, 0)}")
+    say(f"image[{tag}]: warm-up {run['warm']['total']} buckets in "
+        f"{run['warm']['seconds']:.3f} s; {len(run['results'])}/{n} image "
+        f"records served in {run['wall_s']:.3f} s = {n / run['wall_s']:.2f}"
+        f" records/s (reading), e2e p50 {run['e2e_p50_s'] * 1e3:.1f} ms "
+        f"(under the trace); {fw} forwards {run['programs']}, each of a "
+        f"warmed bucket; launches on the card = by the wrappers: "
+        + (", ".join(f"{k} {run['card'][k]}" for k in per) or "none")
+        + ("; top-5 classes and probabilities bitwise equal to the plain "
+           "route" if tol is None else
+           f"; top-5 log-prob max err vs plain {worst:.3e} (tolerance "
+           f"{tol:.1e}), top-1 checked on {compared}/{n}"))
+    return {"top1": top1, "run": run, "worst": worst}
+
+
+def images_per_s(im, X) -> float:
+    """The model alone over ``X`` in batches of IMAGE_BATCH (do_predict,
+    host clock around a synchronised run, after one warm pass)."""
+    im.do_predict(X[:IMAGE_BATCH], batch_size=IMAGE_BATCH)
+    sync(im.device)
+    t0 = time.perf_counter()
+    im.do_predict(X, batch_size=IMAGE_BATCH)
+    sync(im.device)
+    return len(X) / (time.perf_counter() - t0)
+
+
+def profile_image(im, X) -> None:
+    """One int8 batch of IMAGE_BATCH images of a warmed bucket under
+    ``torch.profiler``: busy share and the kernels that take the most
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    im.warm(len(X), X.shape[1:], dtype=X.dtype.str)
+    sync(im.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        im.do_predict(X)
+        sync(im.device)
+        wall = time.perf_counter() - t0
+    rows, busy = kernel_rows(prof)
+    say(f"profile[image int8]: one batch of {len(X)} images in "
+        f"{wall * 1e3:.2f} ms under the profiler, kernels {busy * 1e3:.2f} "
+        f"ms ({100 * busy / wall:.1f}% of the wall)")
+    for name, count, ms in rows[:14]:
+        say(f"profile[image int8]   {ms:9.3f} ms  {count:4d} calls  "
+            f"{name[:90]}")
+
+
+def predict_image_set_check(params, state, dev, ref_im) -> None:
+    """``ImageClassifier("resnet50").predict_image_set`` over seeded
+    images through its default preprocessing (resize 256, center crop
+    224, BGR means): top-5 ids and probabilities of every image equal to
+    the served model's own predict of the same preprocessed arrays."""
+    ic = ImageClassifier(**IMAGE, device=dev)
+    ic.set_weights(params, state)
+    imgs = [np.ascontiguousarray(a[:, :240]) for a in image_sources(7, 20)]
+    t0 = time.perf_counter()
+    ids, probs = ic.predict_image_set(ImageSet.from_arrays(imgs),
+                                      batch_size=IMAGE_BATCH, top_k=5)
+    wall = time.perf_counter() - t0
+    X = ImageSet.from_arrays(imgs).transform(ic.preprocessor) \
+        .to_feature_set().xs[0]
+    ref = ref_im.do_predict(X, batch_size=IMAGE_BATCH)
+    want = np.argsort(-ref, axis=-1)[:, :5]
+    check(ids.shape == (len(imgs), 5) and np.isfinite(probs).all(),
+          f"predict_image_set: ids {ids.shape}, probs finite "
+          f"{np.isfinite(probs).all()}")
+    check(np.array_equal(ids, want) and np.allclose(
+        probs, np.take_along_axis(ref, want, -1), rtol=0, atol=1e-6),
+        "predict_image_set: top-5 differ from the model's predict of the "
+        "same preprocessed images")
+    say(f"predict_image_set: {len(imgs)} images of {imgs[0].shape} through "
+        f"{[type(t).__name__ for t in ic.preprocessor.stages]} in "
+        f"{wall:.3f} s; top-5 ids equal to InferenceModel.do_predict of the "
+        f"same arrays")
+
+
+def image_phase(seed: int, records: dict, profile: bool) -> None:
+    """The w8a8_conv2d kernel and the matmul kernels at ResNet-50's shapes;
+    then ImageClassifier("resnet50") served over image records in f32,
+    int8 and int4, each against the plain route; predict_image_set."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    ic = ImageClassifier(**IMAGE, device=dev)
+    inv = conv_inventory(ic.model, IMAGE_BATCH)
+    spatial, matmuls = inv["spatial"], inv["matmuls"]
+    check((len(spatial), len(distinct(spatial)), len(matmuls)) ==
+          (IMAGE_SPATIAL, IMAGE_SPATIAL_SHAPES, IMAGE_MATMULS),
+          f"image: {len(spatial)} spatial convs at {len(distinct(spatial))} "
+          f"shapes and {len(matmuls)} matmuls a forward")
+    n = conv_parity(seed, [g for g, _ in distinct(spatial)])
+    say(f"conv parity: w8a8_conv2d bitwise equal to w8a8_conv_torch in {n} "
+        f"cases ({IMAGE_SPATIAL_SHAPES} path shapes of ResNet-50 at batch "
+        f"{IMAGE_BATCH}, {len(CONV_RAGGED)} ragged)")
+    say("conv planted faults: " + "; ".join(
+        conv_planted(seed, distinct(spatial)[2][0])))
+    pointwise_parity(seed, [m for m, _ in distinct(matmuls)])
+    say(f"pointwise parity: w8a8 bitwise, w4a16 within {W4_TOL} at the "
+        f"{len(distinct(matmuls))} distinct (M, K, N) of the forward")
+    records["w8a8_conv2d"] = conv_record(seed, spatial)
+    pw = pointwise_timing(seed, matmuls)
+    records["w8a8"].update(image_forward_ms=pw["w8"],
+                           image_forward_bound_ms=pw["w8_bound"],
+                           image_forward_library_ms=pw["w8_lib"])
+    records["w4a16"].update(image_forward_ms=pw["w4"],
+                            image_forward_bound_ms=pw["w4_bound"])
+
+    recs = image_records(seed)
+    X = decoded_inputs(recs)
+    params, state = image_params(seed, ic.model, X[:IMAGE_BATCH])
+    del ic
+    say(f"model: ImageClassifier({IMAGE}).model, resnet(50) with BN state "
+        f"from seed {seed}; {len(recs)} PNG image records of "
+        f"{IMAGE_SOURCE} (cv2 on this machine: float and u8 paths), "
+        f"resized by the engine to {IMAGE['input_shape']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        calib = os.path.join(tmp, "calib.npy")
+        np.save(calib, decoded_inputs(image_records(seed + 1, IMAGE_BATCH)))
+        out = {}
+        for tag, spec in (("f32", None),
+                          ("int8", {"bits": 8, "calib": calib}),
+                          ("int4", "int4")):
+            model = ImageClassifier(**IMAGE, device=dev).model
+            im = InferenceModel(device=dev).do_load_model(model, params,
+                                                          state)
+            run = serve_images(im, recs, ServingParams(
+                batch_size=IMAGE_BATCH, max_wait_ms=2.0, quantize=spec,
+                warmup=IMAGE_WARMUP))
+            ref = plain_probs(im, X, "torch")
+            tol = None if tag == "int8" else IMAGE_LOGP_TOL[tag]
+            out[tag] = check_image(tag, run, ref, tol)
+            out[tag]["bytes"] = weight_bytes(im._params)
+            rate = images_per_s(im, X)
+            say(f"image[{tag}]: weight bytes a forward {out[tag]['bytes']}"
+                + (f" ({out['f32']['bytes'] / out[tag]['bytes']:.2f}x "
+                   f"smaller than f32)" if tag != "f32" else "")
+                + f"; the model alone {rate:.1f} images/s at batch "
+                f"{IMAGE_BATCH} (reading)")
+            if tag != "f32":
+                agree = np.mean(np.asarray(out[tag]["top1"])
+                                == np.asarray(out["f32"]["top1"]))
+                say(f"image[{tag}]: top-1 agreement with the f32 path "
+                    f"{agree:.3f}")
+            if tag == "f32":
+                predict_image_set_check(params, state, dev, im)
+            if profile and tag == "int8":
+                profile_image(im, X[:IMAGE_BATCH])
+            del im, model
+            torch.cuda.empty_cache()
+    records["w8a8_conv2d"]["launches"] = out["int8"]["run"]["card"][
+        "w8a8_conv"]
+    records["w8a8"]["image_launches"] = out["int8"]["run"]["card"]["w8a8"]
+    records["w4a16"]["image_launches"] = out["int4"]["run"]["card"]["w4a16"]
+    say(f"image: phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
 # -- main ---------------------------------------------------------------------
 
 def ptxas_summary(log: str) -> str:
@@ -2949,7 +3633,8 @@ def ptxas_summary(log: str) -> str:
                 name = next((n for n in names if n.endswith("_kernel")),
                             None)
                 if name:
-                    args = re.match(r"I(.*?)E", ln[m.end() + len(name):])
+                    args = re.match(r"I(.*?)E(?=[Ev])",
+                                    ln[m.end() + len(name):])
                     entry = name + (f"<{args.group(1)}>" if args else "")
                     break
         elif "Used" in ln and "registers" in ln:
@@ -2964,11 +3649,14 @@ def ptxas_summary(log: str) -> str:
 
 def kernel_timing(seed: int) -> None:
     """The timings of the paged, w8a8 and w4a16 kernels alone, with their
-    parity at the timed shapes, through the entry points that earlier
+    parity at the timed shapes, and in trees that have it w8a8_conv2d
+    summed over a ResNet-50 forward, through the entry points that earlier
     trees of the port share: a copy of this script run from the root of
     such a tree times that tree's kernels the same way."""
+    conv = hasattr(qm, "w8a8_conv2d")       # not in earlier trees
     t0 = time.perf_counter()
-    _build.build_all((pa.KERNEL, qm.KERNEL))
+    _build.build_all((pa.KERNEL, qm.KERNEL) + ((CONV_SOURCE,) if conv
+                                               else ()))
     say(f"build: {time.perf_counter() - t0:.2f} s")
     ms = {}
     for variant in ("f32", "int8"):
@@ -2981,6 +3669,10 @@ def kernel_timing(seed: int) -> None:
     for name, dt, s in (("f32", torch.float32, seed),
                         ("bf16", torch.bfloat16, seed + 1)):
         ms[f"w4a16[{name}]"] = w4a16_timing(s, 8, 768, 50257, 64, dt)["ms"]
+    if conv:
+        ic = ImageClassifier(**IMAGE, device="cpu")
+        spatial = conv_inventory(ic.model, IMAGE_BATCH)["spatial"]
+        ms["w8a8_conv2d[forward]"] = conv_record(seed, spatial)["ms"]
     say(json.dumps({"kernel_ms": ms}))
 
 
@@ -3083,11 +3775,12 @@ def main(argv=None) -> int:
 
     train_phase(args.seed, records, args.profile)
     resnet_phase(args.seed, records, args.profile)
+    image_phase(args.seed, records, args.profile)
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (
         "f32", "int8", "flash", "w8a8", "w4a16", "flash_bwd_dq",
-        "flash_bwd_dkv", "fused_bn")]}))
+        "flash_bwd_dkv", "fused_bn", "w8a8_conv2d")]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

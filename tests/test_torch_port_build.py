@@ -14,7 +14,7 @@ import pytest
 from analytics_zoo_tpu_torch.ops import _build
 
 KERNELS = ("flash_attention", "flash_attention_bwd", "fused_bn",
-           "paged_attention", "quant_matmul")
+           "paged_attention", "quant_matmul", "quant_conv")
 
 
 @pytest.fixture
@@ -27,7 +27,8 @@ def csrc(tmp_path, monkeypatch):
 
 def test_the_shared_header_ships_and_its_users_include_it():
     assert (_build.CSRC / "mma_tf32.cuh").exists()
-    for name in ("flash_attention", "flash_attention_bwd", "fused_bn"):
+    for name in ("flash_attention", "flash_attention_bwd", "fused_bn",
+                 "quant_matmul", "quant_conv"):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "mma_tf32.cuh"' in src, name
 

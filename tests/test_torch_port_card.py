@@ -12,8 +12,9 @@ The kernels are built from ``analytics_zoo_tpu_torch/csrc/`` at their first
 launch.  Tolerances: the same f32 math in another summation order (atol
 2e-5, rtol 1e-5) for the paged and flash kernels (forward, LSE and the
 backward's dq, dk, dv); one bf16 rounding step for bf16 outputs; bitwise
-for ``w8a8`` and for two launches of the flash backward; f32 sums of up to
-768 products in another order for ``w4a16`` (atol 1e-4); for ``fused_bn``,
+for ``w8a8``, ``w8a8_conv2d`` and for two launches of the flash backward;
+f32 sums of up to 768 products in another order for ``w4a16`` (atol 1e-4,
+also at ResNet-50's 2048-deep pointwise shapes); for ``fused_bn``,
 y as f32 sums of up to 300 products of unit-scale values in another order
 (atol 2e-5, rtol 1e-5; bf16 y one rounding step, rtol 8e-3) and the sums
 over the rows to rtol 1e-5 (Σ with atol 1e-5·Σ|y|), two launches bitwise
@@ -292,6 +293,143 @@ def test_w4a16_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n,
     torch.testing.assert_close(got, tqm.w4a16_matmul(x, wq, sg,
                                                      impl="torch"),
                                rtol=1e-5, atol=1e-4)
+
+
+# w8a8_conv2d: (x shape, (kh, kw, cin/g, cout), strides, pads, dilation,
+# groups): ResNet-50's 11 spatial path shapes at 224 x 224 with the batch
+# cut to 2, then ragged cases (cout off the tile and off 4 bytes, cin = 3
+# and 24, odd sizes, dilation 2, groups 2 at 32 and 8 channels a group,
+# explicit pads)
+CONV_PATH = (
+    ((2, 224, 224, 3), (7, 7, 3, 64), (2, 2), ((2, 3), (2, 3))),
+    ((2, 56, 56, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1))),
+    ((2, 56, 56, 128), (3, 3, 128, 128), (2, 2), ((0, 1), (0, 1))),
+    ((2, 56, 56, 256), (1, 1, 256, 512), (2, 2), ((0, 0), (0, 0))),
+    ((2, 28, 28, 128), (3, 3, 128, 128), (1, 1), ((1, 1), (1, 1))),
+    ((2, 28, 28, 256), (3, 3, 256, 256), (2, 2), ((0, 1), (0, 1))),
+    ((2, 28, 28, 512), (1, 1, 512, 1024), (2, 2), ((0, 0), (0, 0))),
+    ((2, 14, 14, 256), (3, 3, 256, 256), (1, 1), ((1, 1), (1, 1))),
+    ((2, 14, 14, 512), (3, 3, 512, 512), (2, 2), ((0, 1), (0, 1))),
+    ((2, 14, 14, 1024), (1, 1, 1024, 2048), (2, 2), ((0, 0), (0, 0))),
+    ((2, 7, 7, 512), (3, 3, 512, 512), (1, 1), ((1, 1), (1, 1))),
+)
+CONV_RAGGED = (
+    ((1, 37, 45, 3), (7, 7, 3, 70), (2, 2), ((3, 3), (3, 3)), (1, 1), 1),
+    ((2, 13, 11, 16), (3, 3, 16, 61), (1, 1), ((1, 1), (1, 1)), (1, 1), 1),
+    ((2, 17, 19, 32), (3, 3, 32, 64), (1, 1), ((2, 2), (2, 2)), (2, 2), 1),
+    ((2, 14, 14, 64), (3, 3, 32, 128), (2, 2), ((0, 1), (0, 1)), (1, 1), 2),
+    ((2, 9, 9, 16), (3, 3, 8, 24), (1, 1), ((1, 1), (1, 1)), (1, 1), 2),
+    ((3, 10, 12, 24), (5, 3, 24, 40), (2, 1), ((1, 2), (1, 1)), (1, 1), 1),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", [c + ((1, 1), 1) for c in CONV_PATH]
+                         + list(CONV_RAGGED))
+@pytest.mark.parametrize("extremes", [False, True])
+def test_w8a8_conv2d_kernel_bitwise_on_card(cuda_device, geom, extremes):
+    """The s8 implicit-GEMM conv against its plain version (a float64
+    convolution of the codes), bitwise; ``extremes``: codes -128 and 127
+    only (the largest sums)."""
+    xshape, kshape, strides, pads, dil, groups = geom
+    g = np.random.default_rng(sum(xshape) + sum(kshape))
+    if extremes:
+        ends = np.array([-128, 127], np.int8)
+        x, w = g.choice(ends, xshape), g.choice(ends, kshape)
+    else:
+        x = g.integers(-128, 128, xshape).astype(np.int8)
+        w = g.integers(-128, 128, kshape).astype(np.int8)
+    s = torch.from_numpy(g.uniform(1e-4, 1e-2, kshape[-1]).astype(
+        np.float32)).to(cuda_device)
+    x = torch.from_numpy(x).to(cuda_device)
+    w = torch.from_numpy(w).to(cuda_device)
+    kw = dict(strides=strides, pads=pads, dilation=dil, groups=groups)
+    n0 = tqm.launches_conv
+    got = tqm.w8a8_conv2d(x, w, s, **kw)
+    torch.cuda.synchronize()
+    assert tqm.launches_conv == n0 + 1
+    assert torch.equal(got, tqm.w8a8_conv2d(x, w, s, impl="torch", **kw))
+
+
+@pytest.mark.gpu
+def test_w8a8_conv2d_byte_gather_route_on_card(cuda_device):
+    """x one byte into its buffer (off 16 bytes: the loader gathers bytes
+    instead of copying 16-byte pieces) and a planted off-by-one pad, which
+    the bitwise check must reject."""
+    g = np.random.default_rng(5)
+    x = torch.from_numpy(g.integers(-128, 128, (2, 14, 14, 64))
+                         .astype(np.int8)).to(cuda_device)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int8, device=cuda_device)
+    buf[1:] = x.flatten()
+    xo = buf[1:].view(x.shape)
+    w = torch.from_numpy(g.integers(-128, 128, (3, 3, 64, 64))
+                         .astype(np.int8)).to(cuda_device)
+    s = torch.full((64,), 1e-3, device=cuda_device)
+    pads = ((0, 1), (0, 1))
+    ref = tqm.w8a8_conv2d(x, w, s, strides=(2, 2), pads=pads, impl="torch")
+    assert torch.equal(tqm.w8a8_conv2d(xo, w, s, strides=(2, 2), pads=pads),
+                       ref)
+    shifted = tqm.w8a8_conv2d(x, w, s, strides=(2, 2),
+                              pads=((1, 0), (1, 0)))
+    assert shifted.shape == ref.shape and not torch.equal(shifted, ref)
+
+
+# ResNet-50's pointwise (M, K, N) at a batch of 16: the 33 1x1 stride-1
+# convolutions' distinct shapes and the head's
+POINTWISE = ((50176, 64, 64), (50176, 64, 256), (50176, 256, 64),
+             (50176, 256, 128), (12544, 128, 512), (12544, 512, 128),
+             (12544, 512, 256), (3136, 256, 1024), (3136, 1024, 256),
+             (3136, 1024, 512), (784, 512, 2048), (784, 2048, 512),
+             (16, 2048, 1000))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", POINTWISE)
+def test_matmul_kernels_at_resnet_pointwise_shapes_on_card(cuda_device, m,
+                                                           k, n):
+    """The w8a8 (bitwise) and w4a16 (f32 x, atol 1e-4, rtol 1e-5)
+    kernels, designed around M <= 64, at the large M and small N of a
+    quantized ResNet-50's pointwise convolutions."""
+    g = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(g.integers(-128, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(g.integers(-128, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy(g.uniform(1e-4, 1e-2, n).astype(np.float32))
+    x, w, s = (t.to(cuda_device) for t in (x, w, s))
+    assert torch.equal(tqm.w8a8_matmul(x, w, s),
+                       tqm.w8a8_matmul(x, w, s, impl="torch"))
+    leaves = tq._quantize_w4(
+        np.asarray(g.normal(size=(k, n)) * 0.05, np.float32), 64)
+    xf = torch.from_numpy(np.asarray(g.normal(size=(m, k)), np.float32))
+    xf = xf.to(cuda_device)
+    wq = torch.from_numpy(leaves["W_q4"]).to(cuda_device)
+    sg = torch.from_numpy(leaves["s_g"]).to(cuda_device)
+    torch.testing.assert_close(tqm.w4a16_matmul(xf, wq, sg),
+                               tqm.w4a16_matmul(xf, wq, sg, impl="torch"),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_quantized_convs_take_the_kernels_on_card(cuda_device):
+    """An int8 3x3 conv runs w8a8_conv2d and an int8 1x1 conv the w8a8
+    matmul, each once a forward, bitwise equal to their plain route."""
+    from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
+    g = np.random.default_rng(9)
+    x = torch.from_numpy(g.normal(size=(2, 12, 12, 32)).astype(np.float32))
+    x = x.to(cuda_device)
+    for k, kernel in ((3, "conv"), (1, "w8a8")):
+        conv = Convolution2D(16, k, border_mode="same",
+                             input_shape=(12, 12, 32))
+        model = Sequential([conv]).init_weights(1).to(cuda_device)
+        tq.quantize(model, x.cpu().numpy(), bits=8)
+        assert conv.bits == 8
+        before = (tqm.launches_conv, tqm.launches_w8a8)
+        got = model(x)
+        torch.cuda.synchronize()
+        after = (tqm.launches_conv, tqm.launches_w8a8)
+        assert [a - b for a, b in zip(after, before)] == \
+            ([1, 0] if kernel == "conv" else [0, 1])
+        conv.impl = "torch"
+        assert torch.equal(got, model(x))
 
 
 @pytest.mark.gpu

@@ -51,7 +51,9 @@ def test_every_module_imports_with_jax_blocked():
                 "serving.tracecollect", "ops.paged_attention",
                 "models.textmodels", "utils.convert", "estimator.estimator",
                 "nn.objectives", "nn.metrics", "nn.optimizers",
-                "common.triggers", "feature.dataset"):
+                "common.triggers", "feature.dataset", "feature.common",
+                "feature.image", "ops.quant_matmul", "nn.layers.conv",
+                "inference.quantize", "models.imageclassification"):
         assert f"analytics_zoo_tpu_torch.{mod}" in doc["modules"]
 
 

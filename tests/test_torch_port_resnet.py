@@ -168,14 +168,27 @@ def test_conv2d_matches_jax(case, hw):
 
 
 def test_conv_refuses_quantized_leaves():
-    """The W8A8 / W4A16 conv branches are not ported: a quantized leaf set
-    raises, naming the ROADMAP item."""
+    """A conv takes a well-formed quantized leaf set (int8 ``{W_q, s_w,
+    s_x, b}``: it switches form, exports those leaves and is no longer
+    fusable with BN) and refuses a malformed one or float weights once
+    quantized."""
     conv = tconv.Convolution2D(4, 1, input_shape=(4, 4, 8), name="c")
     leaves = {"W_q": np.ones((1, 1, 8, 4), np.int8),
               "s_w": np.ones(4, np.float32), "s_x": np.float32(0.1),
               "b": np.zeros(4, np.float32)}
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        load_jax_params(conv, leaves)
+    bad = tconv.Convolution2D(4, 1, input_shape=(4, 4, 8), name="d")
+    with pytest.raises(KeyError, match="s_x"):
+        load_jax_params(bad, {k: v for k, v in leaves.items()
+                              if k != "s_x"})
+    with pytest.raises(ValueError, match="W_q must be"):
+        load_jax_params(bad, dict(leaves, W_q=np.ones((1, 1, 4, 8),
+                                                       np.int8)))
+    load_jax_params(conv, leaves)
+    assert conv.bits == 8 and not conv.fusable_with_bn()
+    assert sorted(export_params(conv)) == ["W_q", "b", "s_w", "s_x"]
+    with pytest.raises(ValueError, match="float weights back"):
+        load_jax_params(conv, {"W": np.ones((1, 1, 8, 4), np.float32),
+                               "b": np.zeros(4, np.float32)})
 
 
 @pytest.mark.parametrize("padding", [(1, 1), (2, 0), ((0, 1), (2, 3))])
@@ -752,18 +765,17 @@ def test_param_and_state_trees_round_trip():
 
 def test_image_classifier_facade():
     """``ImageClassifier("resnet50").model`` is the 1000-class ResNet-50
-    (25.6 M parameters, 33 fused pairs) on the device asked for; with no
-    device and no CUDA it raises; the image features not ported raise."""
+    (25.6 M parameters, 33 fused pairs) on the device asked for, with the
+    registry's ImageNet preprocessing; with no device and no CUDA it
+    raises."""
     ic = tic.ImageClassifier("resnet50", device="cpu")
     assert isinstance(ic.model, tmodels.Model)
     assert ic.model.param_count() == 25_557_032
     assert len(ic.model.fusion_plan) == 33
     assert next(ic.model.parameters()).device.type == "cpu"
     assert ic.model.compute_output_shape(None) == (1000,)
-    with pytest.raises(NotImplementedError, match="feature/image"):
-        ic.predict_image_set(None)
-    with pytest.raises(NotImplementedError, match="feature/image"):
-        tic.ImageClassificationConfig.preprocessing("resnet50")
+    assert [type(t).__name__ for t in ic.preprocessor.stages] == [
+        "ImageResize", "ImageCenterCrop", "ImageChannelNormalize"]
     with pytest.raises(ValueError, match="VARIANT"):
         tic.ImageClassifier("wide_resnet50", device="cpu")
     if not torch.cuda.is_available():

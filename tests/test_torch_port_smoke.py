@@ -4,10 +4,13 @@ The script itself needs a CUDA card; its request mix, its bound
 arithmetic, its cross-check (token sequences against the plain-attention
 batcher, divergence accepted only at a near tie) and its predict-path
 checks (every record answered, top-5 log-probabilities against the plain
-path, launches = forwards x blocks), its training checks and its ResNet
+path, launches = forwards x blocks), its training checks, its ResNet
 phase's (fused_bn bounds, path shapes, parity checks and planted faults;
-``Estimator.fit`` of a ResNet-50 through both routes) are plain Python and
-run here at a tiny width.
+``Estimator.fit`` of a ResNet-50 through both routes) and its image phase's
+(ResNet-50's conv inventory and launch arithmetic, the conv bound, parity
+and planted faults on the plain version, image records served in f32,
+int8 and int4 and checked against the plain route, ``predict_image_set``)
+are plain Python and run here at a tiny width.
 """
 
 import copy
@@ -417,17 +420,21 @@ def test_resnet_profile_families():
 def test_sass_check_holds_kernels_of_their_sources():
     """Every kernel that ``sass_check`` holds to a tensor-core instruction
     is defined in its source, and each rule names one of the three: TF32
-    and BF16 HMMA, s8 IMMA (``w8a8``, whose source issues the s8 m16n8k32
-    mma)."""
+    and BF16 HMMA, s8 IMMA (``w8a8`` and ``w8a8_conv2d``, whose sources
+    issue the s8 m16n8k32 mma of the shared header through ``mma_s8``)."""
     for name, rules in cs.SASS_KERNELS.items():
         src = (cs._build.CSRC / f"{name}.cu").read_text()
         for key, op in rules:
             assert key.split("I")[0] + "(" in src, key
             assert op in (cs.SASS_TF32, cs.SASS_BF16, cs.SASS_S8)
-    rules = dict(cs.SASS_KERNELS[cs.qm.KERNEL])
-    assert rules["w8a8_kernel"] == cs.SASS_S8 == "IMMA.16832.S8.S8"
-    src = (cs._build.CSRC / f"{cs.qm.KERNEL}.cu").read_text()
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
+    header = (cs._build.CSRC / "mma_tf32.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in header
+    for name, kernel in ((cs.qm.KERNEL, "w8a8_kernel"),
+                         (cs.qm.KERNEL_CONV, "w8a8_conv2d_kernel")):
+        assert dict(cs.SASS_KERNELS[name])[kernel] == cs.SASS_S8 \
+            == "IMMA.16832.S8.S8"
+        src = (cs._build.CSRC / f"{name}.cu").read_text()
+        assert '#include "mma_tf32.cuh"' in src and "mma_s8(" in src
 
 
 @pytest.mark.parametrize("nbytes", [1, 1_300_000, 5_200_000, 21_700_000,
@@ -601,3 +608,185 @@ def test_resume_depth_checks_accept_the_path_and_reject_faults(tiny):
     forged["req-01"] = toks[:40] + [(toks[40] + 1) % VOCAB] + toks[41:]
     with pytest.raises(cs.SmokeFailure, match="not a near tie"):
         cs.check_resume_run(tiny, run, forged, "off", "off", 0)
+
+
+# -- phase 7: image classification ---------------------------------------------
+
+def test_image_conv_inventory_of_resnet50():
+    """ResNet-50 at 224 x 224 and batch 16: 20 spatial convolutions (the
+    w8a8_conv2d kernel's launches a forward) at 11 shapes, 33 pointwise
+    ones and the head (34 matmul launches) at 13 (M, K, N); every strided
+    conv pads SAME's (0, 1) at even sizes, the stem (2, 3)."""
+    from analytics_zoo_tpu_torch.models.imageclassification import \
+        ImageClassifier
+    ic = ImageClassifier(**cs.IMAGE, device="cpu")
+    inv = cs.conv_inventory(ic.model, cs.IMAGE_BATCH)
+    spatial, matmuls = inv["spatial"], inv["matmuls"]
+    assert len(spatial) == cs.IMAGE_SPATIAL == 20
+    assert len(cs.distinct(spatial)) == cs.IMAGE_SPATIAL_SHAPES == 11
+    assert len(matmuls) == cs.IMAGE_MATMULS == 34
+    assert len(cs.distinct(matmuls)) == 13
+    stem = spatial[0]
+    assert stem[:4] == ((16, 224, 224, 3), (7, 7, 3, 64), (2, 2),
+                        ((2, 3), (2, 3)))
+    for x, k, strides, pads, _, _ in spatial[1:]:
+        if strides == (2, 2) and k[0] == 3:
+            assert pads == ((0, 1), (0, 1))
+    assert sum(n for g, n in cs.distinct(spatial)
+               if g[1][:2] == (1, 1)) == 3          # strided projections
+    assert matmuls[-1] == (16, 2048, 1000)
+    assert matmuls[0] == (16 * 56 * 56, 64, 64)
+    # the forward's launches by precision
+    assert cs.IMAGE_LAUNCHES["int8"] == {"w8a8_conv": 20, "w8a8": 34}
+    assert cs.IMAGE_LAUNCHES["int4"] == {"w4a16": 34}
+    assert cs.IMAGE_LAUNCHES["f32"] == {}
+
+
+def test_image_conv_bound_is_bytes_then_operations():
+    """The stem's bound is its bytes (2.4 MB read, 51.4 MB of f32 output
+    written, ~16 us); stage 4's 3x3 convs are bound by operations."""
+    stem = ((16, 224, 224, 3), (7, 7, 3, 64), (2, 2), ((2, 3), (2, 3)),
+            (1, 1), 1)
+    b = cs.conv_bound(stem)
+    m = 16 * 112 * 112
+    assert b["bytes"] == 16 * 224 * 224 * 3 + 147 * 64 + 4 * 64 + 4 * m * 64
+    assert b["ops"] == 2 * m * 64 * 147 and b["bound_by"] == "bytes"
+    assert 0.015 < b["bound_ms"] < 0.017
+    deep = ((16, 7, 7, 512), (3, 3, 512, 512), (1, 1), ((1, 1), (1, 1)),
+            (1, 1), 1)
+    assert cs.conv_bound(deep)["bound_by"] == "operations"
+
+
+def test_image_conv_parity_and_planted_faults_on_cpu():
+    """The parity and planted-fault helpers on the plain version: every
+    case equal, both planted faults (a dropped k piece, shifted pads)
+    rejected by the bitwise check."""
+    shapes = [((2, 11, 9, 3), (7, 7, 3, 8), (2, 2), ((2, 3), (3, 3)),
+               (1, 1), 1),
+              ((1, 8, 8, 16), (3, 3, 16, 16), (2, 2), ((0, 1), (0, 1)),
+               (1, 1), 1)]
+    assert cs.conv_parity(0, shapes, device="cpu") == \
+        len(shapes) + len(cs.CONV_RAGGED)
+    out = cs.conv_planted(0, shapes[1], device="cpu")
+    assert len(out) == 2 and all("rejected" in o for o in out)
+
+
+@pytest.fixture
+def tiny_image(monkeypatch):
+    """The image phase at ResNet-50 32 x 32 with 10 classes: 8 records of
+    40 x 36 pixels, batch 4, the kernels' launch counts 0 (no card)."""
+    from analytics_zoo_tpu_torch.common import context
+    monkeypatch.setattr(cs, "IMAGE", dict(model_name="resnet50",
+                                          num_classes=10,
+                                          input_shape=(32, 32, 3)))
+    monkeypatch.setattr(cs, "IMAGE_SOURCE", (40, 36, 3))
+    monkeypatch.setattr(cs, "IMAGE_BATCH", 4)
+    monkeypatch.setattr(cs, "IMAGE_RECORDS", 8)
+    monkeypatch.setattr(cs, "IMAGE_WARMUP", {"max_batch": 4,
+                                             "scales": "both",
+                                             "scale_dtypes": ["|u1"]})
+    monkeypatch.setattr(cs, "IMAGE_LAUNCHES", {"f32": {}, "int8": {},
+                                               "int4": {}})
+    monkeypatch.setattr(context, "_global_ctx",
+                        context.ZooContext(context.ZooConf(device="cpu")))
+    from analytics_zoo_tpu_torch.models.imageclassification import \
+        ImageClassifier
+    ic = ImageClassifier(**cs.IMAGE, device="cpu")
+    recs = cs.image_records(0)
+    X = cs.decoded_inputs(recs)
+    params, state = cs.image_params(0, ic.model, X[:4])
+    return recs, X, params, state
+
+
+def test_image_records_and_params(tiny_image):
+    """Half the records on the float path, half on the u8 path, decoded
+    as the engine decodes them (pixel values, resized); the head scaled so
+    its logits have IMAGE_LOGIT_STD over the calibration batch."""
+    recs, X, params, state = tiny_image
+    assert [u8 for _, _, u8 in recs] == [False] * 4 + [True] * 4
+    assert X.shape == (8, 32, 32, 3) and X.dtype == np.float32
+    assert 0.0 <= X.min() and X.max() <= 255.0
+    from analytics_zoo_tpu_torch.models.imageclassification import \
+        ImageClassifier
+    model = ImageClassifier(**cs.IMAGE, device="cpu").model
+    model.set_weights(params, state)
+    seen = []
+    model.graph_layers[-1].register_forward_pre_hook(
+        lambda _m, a: seen.append(a[0]))
+    with torch.inference_mode():
+        model.eval()(torch.from_numpy(X[:4]))
+    logits = seen[0].double() @ model.graph_layers[-1].W.detach().double()
+    assert abs(float(logits.std()) - cs.IMAGE_LOGIT_STD) < 1e-3
+
+
+def test_image_serving_checks_on_cpu(tiny_image):
+    """Served over image records in f32, int8 and int4 on the CPU (every
+    wrapper takes its plain version there): each run passes its check
+    against the plain route; a one-ulp change of one int8 probability, a
+    launch count off by one and a record missing are rejected."""
+    recs, X, params, state = tiny_image
+    from analytics_zoo_tpu_torch.models.imageclassification import \
+        ImageClassifier
+    runs = {}
+    for tag, spec in (("f32", None), ("int4", "int4")):
+        model = ImageClassifier(**cs.IMAGE, device="cpu").model
+        im = InferenceModel(device="cpu").do_load_model(model, params, state)
+        run = cs.serve_images(im, recs, cs.ServingParams(
+            batch_size=4, max_wait_ms=2.0, quantize=spec,
+            warmup=cs.IMAGE_WARMUP))
+        ref = cs.plain_probs(im, X, "torch")
+        cs.check_image(tag, run, ref, cs.IMAGE_LOGP_TOL[tag])
+        runs[tag] = (run, ref)
+        assert set(run["programs"]) <= {"b4x32x32x3/<f4",
+                                         "b4x32x32x3/|u1+scales"}
+    run, ref = runs["f32"]
+    cs.check_image("int8", run, ref, None)      # bitwise: same route
+    bad = copy.deepcopy(run)
+    top = bad["results"]["img-03"]["value"]
+    top[0][1] = float(np.nextafter(np.float32(top[0][1]), np.float32(1)))
+    with pytest.raises(cs.SmokeFailure, match="img-03"):
+        cs.check_image("int8", bad, ref, None)
+    bad = copy.deepcopy(run)
+    bad["card"]["w8a8"] = 1
+    with pytest.raises(cs.SmokeFailure, match="w8a8 launches"):
+        cs.check_image("f32", bad, ref, cs.IMAGE_LOGP_TOL["f32"])
+    bad = copy.deepcopy(run)
+    del bad["results"]["img-05"]
+    with pytest.raises(cs.SmokeFailure, match="img-05"):
+        cs.check_image("f32", bad, ref, cs.IMAGE_LOGP_TOL["f32"])
+
+
+def test_predict_image_set_check_on_cpu(tiny_image, monkeypatch):
+    """The predict_image_set check through a 32 x 32 preprocessing chain
+    registered for the model's name."""
+    from analytics_zoo_tpu_torch.feature import image as timage
+    from analytics_zoo_tpu_torch.models.imageclassification import (
+        ImageClassificationConfig, ImageClassifier)
+    _, _, params, state = tiny_image
+    monkeypatch.setitem(ImageClassificationConfig._REGISTRY, "resnet50",
+                        timage.ImageResize(36, 36)
+                        >> timage.ImageCenterCrop(32, 32))
+    model = ImageClassifier(**cs.IMAGE, device="cpu").model
+    im = InferenceModel(device="cpu").do_load_model(model, params, state)
+    cs.predict_image_set_check(params, state, torch.device("cpu"), im)
+
+
+def test_ptxas_summary_names_every_template_argument():
+    """Each entry point by its kernel name and full template argument list
+    (two bool arguments, a type and an int), its registers and spills."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__53266352_"
+        "13_quant_conv_cu_b63f88ab18w8a8_conv2d_kernelILb0ELb1EEEvPKaS2_PKfP"
+        "fNS_8ConvGeomE' for 'sm_90a'",
+        "ptxas info    : Used 117 registers",
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__73ee249f_"
+        "15_quant_matmul_cu_ad31fd2012w4a16_kernelI13__nv_bfloat16Li4EEEvPKT"
+        "_PKhPKfPfiiii' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads",
+        "ptxas info    : Used 187 registers, 4224 bytes smem"])
+    assert cs.ptxas_summary(log) == (
+        "w8a8_conv2d_kernel<Lb0ELb1>: 117 regs; "
+        "w4a16_kernel<13__nv_bfloat16Li4>: 24 bytes stack frame, 24 bytes "
+        "spill stores, 24 bytes spill loads; "
+        "w4a16_kernel<13__nv_bfloat16Li4>: 187 regs, 4224 B static smem")
