@@ -30,7 +30,11 @@ f32, optional ``b``.  int8 quantizes the activation as
 with the scale ``s_x · s_w`` (a pointwise conv on the ``w8a8`` matmul
 kernel, a spatial one on the ``w8a8_conv2d`` kernel); int4 runs
 ``w4a16_conv``.  The bias is added after, then the activation, as in the
-JAX package's ``_ConvND.call``.  A float conv becomes quantized when
+JAX package's ``_ConvND.call``.  A spatial int8 conv on the card also keeps
+``W_q``'s K-major pack for the ``w8a8_conv2d`` kernel
+(``quant_matmul.pack_conv_weight``): built at its first forward (a
+warm-up's), again only when ``W_q`` is replaced or written, and held beside
+the leaves, not among them.  A float conv becomes quantized when
 ``utils/convert.load_jax_params`` loads a quantized leaf set into it.
 """
 
@@ -236,10 +240,30 @@ class _ConvND(Layer):
         else:
             xq = torch.clamp(torch.round(x.to(torch.float32) / self.s_x),
                              -127, 127).to(torch.int8)
-            y = qm.w8a8_conv(xq, self.W_q, self.s_x * self.s_w, **kw)
+            y = qm.w8a8_conv(xq, self.W_q, self.s_x * self.s_w,
+                             w_pack=self._w8_pack(xq, kw["padding"]), **kw)
         if self.bias:
             y = y + self.b
         return self.activation(y.to(dtypes.param_dtype()))
+
+    def _w8_pack(self, xq, pads):
+        """``W_q``'s pack for the kernel route of a spatial conv (None on
+        the plain route and for a pointwise conv), kept while ``W_q`` is
+        the same tensor at the same version: a new ``W_q`` or an in-place
+        write to it rebuilds the pack.  An inference tensor counts no
+        versions, so its pack is made on every call."""
+        if not xq.is_cuda or self.impl == "torch" or qm._is_pointwise(
+                self.kshape, self.subsample, self.dilation, self.groups,
+                pads):
+            return None
+        w = self.W_q
+        if w.is_inference():
+            return qm.pack_conv_weight(w, self.groups)
+        cached = getattr(self, "_pack", None)
+        if cached is None or cached[0] is not w or cached[1] != w._version:
+            cached = (w, w._version, qm.pack_conv_weight(w, self.groups))
+            self._pack = cached
+        return cached[2]
 
     def forward(self, x):
         if self.dim_ordering == "th":

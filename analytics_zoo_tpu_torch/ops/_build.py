@@ -3,8 +3,9 @@ plain C interface -> ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``build/analytics_zoo_tpu_torch/lib<name>-<hash>.so`` beside the package
-(the hash covers the source, every header ``csrc/*.cuh`` and the flags,
-so an edited source or header never loads a stale library).  No
+(the hash covers the source, every header ``csrc/*.cuh``, the flags and
+any macros defined for the build, so an edited source or header never
+loads a stale library).  No
 PyTorch headers are involved, which keeps a build to seconds.  Nothing is
 compiled at import: the CPU tests import every module on machines with no
 ``nvcc``.
@@ -21,7 +22,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple, Union
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 # name -> wall seconds of the nvcc run (absent when the library was cached)
 BUILD_SECONDS: Dict[str, float] = {}
 # name -> the compiler's stderr (ptxas register / shared-memory report)
@@ -46,53 +47,59 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
     source, of every header ``csrc/*.cuh`` (whether or not this source
-    includes it, so an edited header rebuilds every kernel) and of the
-    flags."""
+    includes it, so an edited header rebuilds every kernel), of the flags
+    and of ``defines`` (``-D`` macros: a variant of the source)."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    The output is written under a temporary name and renamed, so a
-    concurrent build never loads a half-written file."""
-    out = library_path(name)
+def build(name: str, defines: Sequence[str] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with the ``-D`` macros ``defines``)
+    unless its library is already built.  The output is written under a
+    temporary name and renamed, so a concurrent build never loads a
+    half-written file."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    BUILD_LOG[name] = proc.stderr
+    if not defines:
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = proc.stderr
     return out
 
 
-def build_all(names: Iterable[str]) -> None:
-    """Build several kernels at once: one ``nvcc`` per source, all
-    started together."""
-    names = list(names)
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        for fut in [pool.submit(build, n) for n in names]:
+def build_all(names: Iterable[Union[str, Tuple[str, Sequence[str]]]]
+              ) -> None:
+    """Build several kernels at once: one ``nvcc`` per source (a name, or
+    a name and its ``defines``), all started together."""
+    jobs = [(n, ()) if isinstance(n, str) else n for n in names]
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        for fut in [pool.submit(build, n, d) for n, d in jobs]:
             fut.result()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (with ``defines``),
+    built on first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(build(name, key[1])))
+            _libs[key] = lib
         return lib

@@ -11,12 +11,23 @@ version for CPU tensors — and for no other reason.  A CUDA tensor under
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import Optional
 
 import torch
 
 IMPLS = ("auto", "torch", "cuda")
+
+# streaming multiprocessors of the H100 SXM: the rules that size a launch
+# (paged partitions, the conv's split of K) take this where no card is
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:

@@ -23,7 +23,6 @@ Quantization contract: ``inference/quantize.kv_pack_int8`` /
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional
 
@@ -31,7 +30,9 @@ import torch
 
 from analytics_zoo_tpu_torch.inference.quantize import kv_unpack_int8
 from analytics_zoo_tpu_torch.ops import _build
-from analytics_zoo_tpu_torch.ops._impl import launched, resolve_impl
+from analytics_zoo_tpu_torch.ops._impl import (H100_SMS, launched,
+                                               resolve_impl)
+from analytics_zoo_tpu_torch.ops._impl import sm_count as _sm_count
 
 NEG_INF = -1e30
 KERNEL = "paged_attention"
@@ -43,7 +44,6 @@ KERNEL_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 PART_ENTRIES = 16
 MAX_PARTS = 8
 BLOCKS_PER_SM = 2
-H100_SMS = 132
 
 # launches of the CUDA kernel issued eagerly (one per call that took the
 # kernel route; a call under CUDA-graph capture adds 0: ``_impl.launched``)
@@ -121,11 +121,6 @@ def partitions(n_table: int, parts: Optional[int] = None, pairs: int = 1,
     parts = max(1, min(int(parts), MAX_PARTS, n_table))
     per_part = -(-n_table // parts)
     return -(-n_table // per_part), per_part
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _kernel_fns():

@@ -37,7 +37,10 @@ flattens onto the two kernels above.  A spatial ``w8a8_conv`` launches
 ``w8a8_conv2d``, the s8 implicit-GEMM kernel of ``csrc/quant_conv.cu``
 (``launches_conv`` counts it); its plain version ``w8a8_conv_torch`` is a
 float64 convolution of the codes, exact below 2**53, rounded to f32 once,
-so the two agree BITWISE.
+so the two agree BITWISE.  The kernel reads the weight K-major:
+``pack_conv_weight`` makes that pack (a quantized conv layer holds one
+beside its ``W_q``), and ``conv_config`` is the rule that picks the
+kernel's tile and its split of K over a thread-block cluster.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.ops import _build
-from analytics_zoo_tpu_torch.ops._impl import launched, resolve_impl
+from analytics_zoo_tpu_torch.ops._impl import H100_SMS, launched, resolve_impl
+from analytics_zoo_tpu_torch.ops._impl import sm_count as _sm_count
 
 KERNEL = "quant_matmul"
 KERNEL_CONV = "quant_conv"
@@ -317,18 +321,86 @@ def w8a8_conv_torch(x_q, w_q, scale, strides, pads, dilation=(1, 1),
         * scale.to(torch.float32)
 
 
+# the w8a8_conv2d kernel's tiles (csrc/quant_conv.cu: kCvBM, kCvBK,
+# kCvBNSmall / kCvBNLarge, kCvMaxSplit)
+CONV_BM, CONV_BK = 128, 64
+CONV_BNS = (64, 128)
+CONV_SPLITS = (1, 2, 4, 8)
+# the rule splits K only while each slice keeps this many k-tiles of
+# CONV_BK (a slice's ring fill and its share of the merge stay small)
+CONV_MIN_SLICE = 4
+# the s32 sum is exact for K up to this (|sum| <= 128 * 128 * K < 2**31)
+CONV_MAX_K = 131071
+
+
+def pack_conv_weight(w_q, groups: int = 1) -> torch.Tensor:
+    """The K-major pack the ``w8a8_conv2d`` kernel reads: ``w_q`` (kh, kw,
+    cin/g, cout) int8 -> (g, cout/g, Kp) int8 with K = kh·kw·cin/g in
+    (kh, kw, c) order and Kp = K rounded up to CONV_BK with zeros:
+    ``pack[grp, n, k] = w_q.reshape(K, cout)[k, grp·cout/g + n]``.  On the
+    device of ``w_q``; a derived buffer, not a parameter."""
+    kh, kw, cg, cout = (int(v) for v in w_q.shape)
+    g = int(groups)
+    if g < 1 or cout % g:
+        raise ValueError(f"groups={g} does not divide cout={cout}")
+    k = kh * kw * cg
+    kp = -(-k // CONV_BK) * CONV_BK
+    pack = torch.zeros(g, cout // g, kp, dtype=torch.int8,
+                       device=w_q.device)
+    pack[:, :, :k] = w_q.reshape(k, g, cout // g).permute(1, 2, 0)
+    return pack
+
+
+def conv_config(m: int, ng: int, k: int, groups: int = 1,
+                sms: int = H100_SMS, bn: Optional[int] = None,
+                split: Optional[int] = None):
+    """``(bn, split)`` of a ``w8a8_conv2d`` launch: tiles of CONV_BM
+    pixels x ``bn`` channels, each on a cluster of ``split`` blocks that
+    take one slice of the K tiles each.  The rule: 128 channels where a
+    group has more than 64, then K split in two while the blocks of the
+    doubled split still fit one a multiprocessor of ``sms`` and each slice
+    keeps CONV_MIN_SLICE k-tiles.  On the H100 (``chip_smoke.py
+    --kernel-timing`` times every tile and split forced) a split that
+    puts a second block on some multiprocessors cost more than its
+    shorter k loops saved (a cluster waits for its slowest block, and the
+    merge reads (split - 1) / split of each tile from the others), and
+    64-channel tiles were slower than 128 at every split.  ``bn`` /
+    ``split`` force a value (tests and ``chip_smoke.py``); any split of
+    CONV_SPLITS is legal, a slice may be empty."""
+    if bn is None:
+        bn = CONV_BNS[1] if ng > CONV_BNS[0] else CONV_BNS[0]
+    if bn not in CONV_BNS:
+        raise ValueError(f"bn must be one of {CONV_BNS}, got {bn}")
+    if split is None:
+        kt = -(-int(k) // CONV_BK)
+        tiles = -(-int(m) // CONV_BM) * -(-int(ng) // bn) * int(groups)
+        split = 1
+        while (split < CONV_SPLITS[-1] and 2 * split * tiles <= sms
+               and kt >= 2 * split * CONV_MIN_SLICE):
+            split *= 2
+    if split not in CONV_SPLITS:
+        raise ValueError(f"split must be one of {CONV_SPLITS}, got {split}")
+    return int(bn), int(split)
+
+
 def _conv_kernel_fn():
     global _conv_fn
     if _conv_fn is None:
         fn = _build.load(KERNEL_CONV).w8a8_conv2d
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _conv_fn = fn
     return _conv_fn
 
 
-def _w8a8_conv_cuda(x_q, w_q, scale, strides, pads, dilation, groups):
+def _w8a8_conv_cuda(x_q, w_q, scale, strides, pads, dilation, groups,
+                    w_pack=None, bn: Optional[int] = None,
+                    split: Optional[int] = None):
+    """The kernel's launch; ``bn`` / ``split`` force the tile's channels
+    and the cluster's split of K (tests and ``chip_smoke.py``), else
+    ``conv_config``'s rule picks them.  Without ``w_pack`` the weight is
+    packed here, on the call."""
     global launches_conv
     dev = x_q.device
     _check_cuda((("x_q", x_q), ("w_q", w_q), ("scale", scale)), dev)
@@ -337,47 +409,69 @@ def _w8a8_conv_cuda(x_q, w_q, scale, strides, pads, dilation, groups):
                         f"/ {w_q.dtype}")
     if scale.dtype != torch.float32:
         raise TypeError(f"scale must be float32, got {scale.dtype}")
-    (b, h, w, c), (kh, kw, _, cout), (ho, wo) = _conv_geometry(
+    (b, h, w, c), (kh, kw, cg, cout), (ho, wo) = _conv_geometry(
         x_q, w_q.shape, strides, pads, dilation, groups)
+    g = int(groups)
+    k = kh * kw * cg
+    if k > CONV_MAX_K:
+        raise ValueError(f"w8a8_conv2d sums K = {k} > {CONV_MAX_K} products "
+                         f"a pixel, past the exact s32 range")
+    if w_pack is None:
+        w_pack = pack_conv_weight(w_q, g)
+    kp = -(-k // CONV_BK) * CONV_BK
+    _check_cuda((("w_pack", w_pack),), dev)
+    if w_pack.dtype != torch.int8 or tuple(w_pack.shape) != \
+            (g, cout // g, kp) or w_pack.data_ptr() % 16:
+        raise ValueError(f"w_pack must be the int8 pack_conv_weight of w_q: "
+                         f"({g}, {cout // g}, {kp}) on 16 bytes, got "
+                         f"{w_pack.dtype} {tuple(w_pack.shape)}")
     out = torch.empty(b, ho, wo, cout, dtype=torch.float32, device=dev)
     if b == 0:
         return out
+    bn, split = conv_config(b * ho * wo, cout // g, k, g,
+                            _sm_count(dev.index or 0), bn, split)
     err = _conv_kernel_fn()(
-        x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        x_q.data_ptr(), w_pack.data_ptr(), scale.data_ptr(), out.data_ptr(),
         b, h, w, c, kh, kw, cout, ho, wo, int(strides[0]), int(strides[1]),
         int(pads[0][0]), int(pads[1][0]), int(dilation[0]),
-        int(dilation[1]), int(groups),
+        int(dilation[1]), g, bn, split,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"w8a8_conv2d kernel launch failed: CUDA error {err} (x "
             f"{tuple(x_q.shape)}, w {tuple(w_q.shape)}, strides "
             f"{tuple(strides)}, pads {pads}, dilation {tuple(dilation)}, "
-            f"groups {groups})")
+            f"groups {groups}, tile {bn}, split {split})")
     launches_conv += launched()
     return out
 
 
 def w8a8_conv2d(x_q, w_q, scale, *, strides, pads, dilation=(1, 1),
-                groups: int = 1, impl: Optional[str] = None):
+                groups: int = 1, impl: Optional[str] = None, w_pack=None):
     """s8 x s8 -> s32 convolution, dequantized by ``scale`` (cout,) f32:
     ``x_q`` (B, H, W, cin) int8, ``w_q`` (kh, kw, cin/groups, cout) int8,
     ``pads`` [(top, bottom), (left, right)] -> (B, Ho, Wo, cout) f32.
-    ``impl``: auto | torch | cuda (the kernel of ``csrc/quant_conv.cu``)."""
+    ``impl``: auto | torch | cuda (the kernel of ``csrc/quant_conv.cu``).
+    ``w_pack``: ``pack_conv_weight(w_q, groups)`` made beforehand (a
+    quantized conv layer keeps it); the kernel route packs on the call
+    without it, the plain route does not read it."""
     if tuple(scale.shape) != (w_q.shape[-1],):
         raise ValueError(f"scale must be (cout,) = ({w_q.shape[-1]},), got "
                          f"{tuple(scale.shape)}")
     if resolve_impl(impl, x_q) == "torch":
         return w8a8_conv_torch(x_q, w_q, scale, strides, pads, dilation,
                                groups)
-    return _w8a8_conv_cuda(x_q, w_q, scale, strides, pads, dilation, groups)
+    return _w8a8_conv_cuda(x_q, w_q, scale, strides, pads, dilation, groups,
+                           w_pack)
 
 
 def w8a8_conv(x_q, w_q, scale, *, window_strides, padding, rhs_dilation,
-              feature_group_count: int = 1, impl: Optional[str] = None):
+              feature_group_count: int = 1, impl: Optional[str] = None,
+              w_pack=None):
     """Fused-dequant int8 convolution, NHWC x (kh, kw, cin/g, cout):
     a pointwise conv is a channel matmul (``w8a8_matmul``), a spatial one
-    runs ``w8a8_conv2d``; ``padding`` is the explicit per-side pads."""
+    runs ``w8a8_conv2d`` (with ``w_pack``, the weight's pack, where the
+    caller holds one); ``padding`` is the explicit per-side pads."""
     kshape = tuple(int(s) for s in w_q.shape)
     if _is_pointwise(kshape, window_strides, rhs_dilation,
                      feature_group_count, padding):
@@ -386,7 +480,7 @@ def w8a8_conv(x_q, w_q, scale, *, window_strides, padding, rhs_dilation,
                                   scale, impl=impl))
     return w8a8_conv2d(x_q.contiguous(), w_q, scale, strides=window_strides,
                        pads=padding, dilation=rhs_dilation,
-                       groups=feature_group_count, impl=impl)
+                       groups=feature_group_count, impl=impl, w_pack=w_pack)
 
 
 def w4a16_conv(x, w_q4, s_g, kshape: Sequence[int], *, window_strides,

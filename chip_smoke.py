@@ -12,7 +12,9 @@ each phase printing its own lines:
    ``w8a8_conv2d`` kernels, and their SASS (``cuobjdump``), which must
    hold the tensor-core products (TF32 HMMA in the flash kernels, f32
    ``fused_bn`` and f32-x ``w4a16``, BF16 HMMA in bf16 ``fused_bn`` and
-   bf16-x ``w4a16``, s8 IMMA in ``w8a8`` and ``w8a8_conv2d``).
+   bf16-x ``w4a16``, s8 IMMA in ``w8a8`` and in ``w8a8_conv2d`` where it
+   builds its A tiles byte by byte, s8 IGMMA (wgmma) where it copies them),
+   and no spill in ``w8a8_conv2d``.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, then timed on the device (CUDA graph
    replay between CUDA events) beside its plain version and, where one
@@ -117,19 +119,24 @@ each phase printing its own lines:
 7. image — ``ImageClassifier("resnet50")``'s quantized forward at a batch
    of 16: the ``w8a8_conv2d`` kernel (``csrc/quant_conv.cu``) bitwise
    against its plain version at ResNet-50's 11 spatial path shapes (20
-   launches a forward) and at ragged shapes, two planted faults (a
-   dropped k piece of the weight, pads shifted by one) rejected, timed at
-   each path shape and summed over a forward beside its plain version,
-   cuDNN's f32 convolution of the same shape (not the same function) and
-   the bound; the w8a8 (bitwise) and w4a16 kernels at the forward's 13
+   launches a forward; the weight packed K-major beforehand, the rule's
+   tile and split), at ragged shapes, and at every tile config and split
+   forced at ``CONV_FORCED`` shapes; three planted faults (a dropped k
+   piece of the weight, pads shifted by one, a split whose merge leaves
+   out one block's partial: a build of the kernel with ``CV_MERGE_SKIP``)
+   rejected; timed at each path shape (with its tile and split) and
+   summed over a forward beside its plain version, cuDNN's f32
+   convolution of the same shape (not the same function) and the bound; the w8a8 (bitwise) and w4a16 kernels at the forward's 13
    distinct pointwise (M, K, N) (34 launches), timed likewise (w8a8 beside
    ``torch._int_mm`` + scale).  Then the model from ``--seed`` (weights
    and BN state through ``InferenceModel.do_load_model``) served by
    ``ClusterServing`` in predict mode over ``InProcQueue``: 64 PNG image
    records (``InputQueue.enqueue_image``, half on the float path, half on
    the ``device_uint8`` path, resized by the engine to 224 x 224), batch
-   16, every bucket warmed first, in f32, int8 (``ServingParams.quantize``
-   calibrated from a seeded ``.npy`` batch) and int4, each under a
+   16, every bucket warmed first (which packs each int8 spatial conv's
+   weight once; the packs' resident bytes are read), in f32, int8
+   (``ServingParams.quantize`` calibrated from a seeded ``.npy`` batch)
+   and int4, each under a
    profiler trace of the card: conv launches = 20 x forwards and w8a8 =
    34 x forwards in int8, w4a16 = 34 x forwards in int4, none in f32, on
    the card and by the wrappers; the int8 top-5 bit for bit equal to the
@@ -151,7 +158,10 @@ the phase starts itself.
 then replayed from its CUDA graph), a predict batch, a training step, a
 ResNet-50 training step and an int8 ResNet-50 predict batch of 16.
 ``--kernel-timing`` runs only the paged, w8a8, w4a16 and (in trees that
-have it) w8a8_conv2d timings (``kernel_timing``); a copy of
+have it) w8a8_conv2d timings, the conv at each of its 11 path shapes and
+over a forward, and (in trees with the tile and split rule) every tile
+and split forced at its deep shapes, K >= 1152 (``kernel_timing``); a
+copy of
 this script run from the root of an earlier tree of the port times that
 tree's kernels the same way::
 
@@ -423,6 +433,18 @@ CONV_RAGGED = (
 )
 
 
+# w8a8_conv2d forced to every tile config and split (conv_parity): the
+# distinct path shapes of these indices (the stem, on the RUN loader; the
+# stride-2 3x3 of stage 2; both 3x3s of stage 4) and these CONV_RAGGED
+# cases (cout 61: scalar stores; groups 2; x one byte into its buffer)
+CONV_FORCED = (0, 2, 8, 10)
+CONV_FORCED_RAGGED = (1, 3, 7)
+# the planted lost partial: the kernel split this many ways, built with
+# its merge leaving out the block this many places after each block's own
+CONV_PLANTED_SPLIT = 4
+CONV_MERGE_SKIP = ("-DCV_MERGE_SKIP=1",)
+
+
 def say(*parts) -> None:
     print(*parts, flush=True)
 
@@ -455,7 +477,8 @@ KERNEL_SOURCES = (pa.KERNEL, fa.KERNEL, fa.KERNEL_BWD, qm.KERNEL, fb.KERNEL,
 
 def build_kernels() -> dict:
     t0 = time.perf_counter()
-    _build.build_all(KERNEL_SOURCES)
+    # the conv kernel's planted merge fault too (conv_planted)
+    _build.build_all(KERNEL_SOURCES + ((CONV_SOURCE, CONV_MERGE_SKIP),))
     wall = time.perf_counter() - t0
     # load + bind now, not inside a timing
     pa._kernel_fns()
@@ -471,8 +494,11 @@ def build_kernels() -> dict:
 
 # the kernels that must run on the tensor cores, by the SASS instruction of
 # their products: f32 as 3xTF32, bf16 as bf16 mma, s8 as s8 mma (m16n8k32)
+# or, where w8a8_conv2d copies its A tiles, s8 wgmma (m64nNk32, N = 64 /
+# 128 channels a tile)
 SASS_TF32, SASS_BF16 = "HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16"
 SASS_S8 = "IMMA.16832.S8.S8"
+SASS_S8_WG = {64: "IGMMA.64x64x32.S8.S8", 128: "IGMMA.64x128x32.S8.S8"}
 SASS_KERNELS = {
     fb.KERNEL: (("fused_bn_kernelIf", SASS_TF32),
                 ("fused_bn_kernelI13__nv_bfloat16", SASS_BF16)),
@@ -482,7 +508,12 @@ SASS_KERNELS = {
     qm.KERNEL: (("w8a8_kernel", SASS_S8),
                 ("w4a16_kernelIf", SASS_TF32),
                 ("w4a16_kernelI13__nv_bfloat16", SASS_BF16)),
-    CONV_SOURCE: (("w8a8_conv2d_kernel", SASS_S8),),
+    # w8a8_conv2d_kernel<channels a tile, A route>: 0 copied (wgmma);
+    # 1 gathered from x, 2 built by runs from staged input rows (mma.sync)
+    CONV_SOURCE: tuple(
+        (f"w8a8_conv2d_kernelILi{bn}ELi{route}E",
+         SASS_S8_WG[bn] if route == 0 else SASS_S8)
+        for bn in (64, 128) for route in (0, 1, 2)),
 }
 
 
@@ -502,6 +533,7 @@ def sass_check() -> dict:
             if m:
                 fn = m.group(1)
                 counts[fn] = {SASS_TF32: 0, SASS_BF16: 0, SASS_S8: 0,
+                              **{op: 0 for op in SASS_S8_WG.values()},
                               "FFMA": 0}
             elif fn:
                 for op in counts[fn]:
@@ -528,7 +560,7 @@ def smem_line() -> str:
     w8 = _build.load(qm.KERNEL).w8a8_smem
     w4 = _build.load(qm.KERNEL).w4a16_smem
     conv = _build.load(CONV_SOURCE).w8a8_conv2d_smem
-    for fn, n_args in ((flash, 2), (bn, 2), (w8, 1), (w4, 2), (conv, 0)):
+    for fn, n_args in ((flash, 2), (bn, 2), (w8, 1), (w4, 2), (conv, 19)):
         fn.argtypes = [ctypes.c_int] * n_args
         fn.restype = ctypes.c_int
     return ", ".join(
@@ -544,7 +576,27 @@ def smem_line() -> str:
         + [f"paged[table of {n} entries, 96 (row, head) pairs] "
            f"{4 * pa.partitions(n, None, 96, pa._sm_count(0))[1]} B"
            for n in (16, 64)]
-        + [f"w8a8_conv2d {conv()} B"])
+        + [f"w8a8_conv2d[128 x {n}, {tag}] "
+           f"{conv(*conv_args(geom), n, 1, 1)} B"
+           for n in qm.CONV_BNS for tag, geom in CONV_SMEM_SHAPES])
+
+
+# w8a8_conv2d's shared memory (smem_line) at a copied A (ResNet-50's
+# stage-1 3x3) and at the stem's input rows staged for its runs
+CONV_SMEM_SHAPES = (
+    ("copied A", ((IMAGE_BATCH, 56, 56, 64), (3, 3, 64, 64), (1, 1),
+                  ((1, 1), (1, 1)), (1, 1), 1)),
+    ("the stem's staged rows", ((IMAGE_BATCH, 224, 224, 3), (7, 7, 3, 64),
+                                (2, 2), ((2, 3), (2, 3)), (1, 1), 1)))
+
+
+def conv_args(geom) -> tuple:
+    """The geometry arguments of the w8a8_conv2d entry points, B .. G."""
+    (b, h, w, c), (kh, kw, _, cout), strides, pads, dil, groups = geom
+    ho = (h + sum(pads[0]) - (kh - 1) * dil[0] - 1) // strides[0] + 1
+    wo = (w + sum(pads[1]) - (kw - 1) * dil[1] - 1) // strides[1] + 1
+    return (b, h, w, c, kh, kw, cout, ho, wo, *strides, pads[0][0],
+            pads[1][0], *dil, groups)
 
 
 # -- phase 2: kernel vs plain -------------------------------------------------
@@ -3089,48 +3141,126 @@ def conv_case(g, xshape, kshape, extremes=False, x_offset=0,
     return xt, torch.from_numpy(w).to(device), s
 
 
-def run_conv(case, geom, impl):
+def run_conv(case, geom, impl, pack=None, bn=None, split=None):
+    """One w8a8_conv2d call; ``pack``: the weight's K-major pack made
+    beforehand (the route a quantized layer takes); ``bn`` / ``split``
+    force the kernel's tile and split of K (its own launch, on the card)."""
     x, w, s = case
     _, _, strides, pads, dilation, groups = geom
+    if bn is not None or split is not None:
+        return qm._w8a8_conv_cuda(x, w, s, strides, pads, dilation, groups,
+                                  pack, bn, split)
+    kw = {} if pack is None else {"w_pack": pack}
     return qm.w8a8_conv2d(x, w, s, strides=strides, pads=pads,
-                          dilation=dilation, groups=groups, impl=impl)
+                          dilation=dilation, groups=groups, impl=impl, **kw)
+
+
+def conv_pack(case, geom):
+    """The weight's pack, in trees whose kernel reads one (None in
+    earlier trees: ``--kernel-timing`` runs there too)."""
+    if not hasattr(qm, "pack_conv_weight"):
+        return None
+    return qm.pack_conv_weight(case[1], geom[5])
+
+
+def conv_mnk(geom):
+    """(M, N a group, K) of a conv geometry."""
+    (b, h, w, c), (kh, kw, cg, cout), strides, pads, dil, groups = geom
+    ho = (h + sum(pads[0]) - (kh - 1) * dil[0] - 1) // strides[0] + 1
+    wo = (w + sum(pads[1]) - (kw - 1) * dil[1] - 1) // strides[1] + 1
+    return b * ho * wo, cout // groups, kh * kw * cg
+
+
+def conv_config_of(geom, device="cuda"):
+    """The rule's (tile channels, split) for ``geom`` on this card."""
+    m, ng, k = conv_mnk(geom)
+    return qm.conv_config(m, ng, k, geom[5], qm._sm_count(0)
+                          if device == "cuda" else qm.H100_SMS)
 
 
 def conv_parity(seed: int, shapes, device="cuda") -> int:
     """w8a8_conv2d bitwise against its plain version at every path shape
-    and every ``CONV_RAGGED`` case; returns the number of cases."""
+    (the weight packed beforehand, the rule's config) and every
+    ``CONV_RAGGED`` case (packed on the call); then, on the card, every
+    tile config and split forced at the ``CONV_FORCED`` path shapes and
+    ragged cases.  Returns the number of cases."""
     g = np.random.default_rng(seed + 90)
-    cases = [(geom, False, 0) for geom in shapes] + [
-        (geom[:6], geom[6], geom[7]) for geom in CONV_RAGGED]
-    for geom, extremes, off in cases:
+    cases = [(geom, False, 0, True) for geom in shapes] + [
+        (geom[:6], geom[6], geom[7], False) for geom in CONV_RAGGED]
+    forced = []
+    if device == "cuda":
+        picks = [(shapes[i], 0) for i in CONV_FORCED if i < len(shapes)] + [
+            (CONV_RAGGED[i][:6], CONV_RAGGED[i][7])
+            for i in CONV_FORCED_RAGGED]
+        forced = [(geom, off, bn, split) for geom, off in picks
+                  for bn in qm.CONV_BNS for split in qm.CONV_SPLITS]
+    impl = "cuda" if device == "cuda" else None
+    for geom, extremes, off, packed in cases:
         case = conv_case(g, geom[0], geom[1], extremes, off, device)
-        got = run_conv(case, geom, "cuda" if device == "cuda" else None)
+        pack = conv_pack(case, geom) if packed and device == "cuda" else None
+        got = run_conv(case, geom, impl, pack)
         sync(torch.device(device))
         ref = run_conv(case, geom, "torch")
         check(torch.equal(got, ref),
               f"w8a8_conv2d {geom}, extremes {extremes}, x offset {off}: "
               f"not bitwise equal to the plain version (max abs err "
               f"{float((got - ref).abs().max()):.3e})")
-    return len(cases)
+    refs = {}
+    for geom, off, bn, split in forced:
+        if geom not in refs:
+            case = conv_case(g, geom[0], geom[1], x_offset=off, device=device)
+            refs[geom] = (case, conv_pack(case, geom),
+                          run_conv(case, geom, "torch"))
+        case, pack, ref = refs[geom]
+        got = run_conv(case, geom, impl, pack, bn, split)
+        sync(torch.device(device))
+        check(torch.equal(got, ref),
+              f"w8a8_conv2d {geom} forced to tile {bn}, split {split}: not "
+              f"bitwise equal to the plain version (max abs err "
+              f"{float((got - ref).abs().max()):.3e})")
+    return len(cases) + len(forced)
 
 
 def conv_planted(seed: int, geom, device="cuda") -> list:
-    """Two planted faults the bitwise check must reject: the kernel run
-    with one 16-deep k piece of the weight dropped, and with the pads
-    shifted by one (top and left one more, bottom and right one less)."""
+    """Three planted faults the bitwise check must reject: the kernel run
+    with one 16-deep k piece of the weight dropped, with the pads shifted
+    by one (top and left one more, bottom and right one less), and split
+    CONV_PLANTED_SPLIT ways by a build whose merge leaves out the partial
+    of the block after each block's own (CONV_MERGE_SKIP; on the CPU,
+    which runs no kernel, the plain version with block 1's K slice of the
+    weight zeroed)."""
     g = np.random.default_rng(seed + 91)
     case = conv_case(g, geom[0], geom[1], device=device)
     ref = run_conv(case, geom, "torch")
     x, w, s = case
     kh, kw, cg, cout = geom[1]
-    dropped = w.clone().view(kh * kw * cg, cout)
+    k = kh * kw * cg
+    dropped = w.clone().view(k, cout)
     dropped[16:32] = 0
     shifted = tuple((lo + 1, hi - 1) for lo, hi in geom[3])
     impl = "cuda" if device == "cuda" else None
+    split = CONV_PLANTED_SPLIT
+    if device == "cuda":
+        real = qm._conv_kernel_fn()
+        fn = _build.load(CONV_SOURCE, CONV_MERGE_SKIP).w8a8_conv2d
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        qm._conv_fn = fn
+        try:
+            lost = run_conv(case, geom, impl, conv_pack(case, geom), None,
+                            split)
+        finally:
+            qm._conv_fn = real
+    else:
+        per = -(-(-(-k // qm.CONV_BK)) // split) * qm.CONV_BK
+        sliced = w.clone().view(k, cout)
+        sliced[per:2 * per] = 0
+        lost = run_conv((x, sliced.view(w.shape), s), geom, impl)
     faults = (("k 16-31 of the weight dropped",
                run_conv((x, dropped.view(w.shape), s), geom, impl)),
               (f"pads {geom[3]} run as {shifted}",
-               run_conv(case, geom[:3] + (shifted,) + geom[4:], impl)))
+               run_conv(case, geom[:3] + (shifted,) + geom[4:], impl)),
+              (f"split {split}, each block's merge without the next "
+               f"block's partial", lost))
     out = []
     for tag, bad in faults:
         check(not torch.equal(bad, ref),
@@ -3144,10 +3274,8 @@ def conv_planted(seed: int, geom, device="cuda") -> list:
 def conv_bound(geom) -> dict:
     """x, w and the scale read once, the f32 output written once;
     2·M·N·K operations at the int8 rate."""
-    (b, h, w, c), (kh, kw, cg, cout), strides, pads, dil, groups = geom
-    ho = (h + sum(pads[0]) - (kh - 1) * dil[0] - 1) // strides[0] + 1
-    wo = (w + sum(pads[1]) - (kw - 1) * dil[1] - 1) // strides[1] + 1
-    m, k = b * ho * wo, kh * kw * cg
+    (b, h, w, c), (_, _, _, cout) = geom[:2]
+    m, _, k = conv_mnk(geom)
     return bound(b * h * w * c + k * cout + 4 * cout + 4 * m * cout,
                  (2 * m * cout * k, INT8_OP_PER_S))
 
@@ -3159,8 +3287,9 @@ def conv_timing(seed: int, geom, iters: int = 200) -> dict:
     g = np.random.default_rng(seed + 92)
     b = conv_bound(geom)
     sets = [conv_case(g, geom[0], geom[1]) for _ in range(n_sets(b["bytes"]))]
-    ms = cuda_ms(cycled([lambda c=c: run_conv(c, geom, "cuda")
-                         for c in sets]), iters=iters)
+    packs = [conv_pack(c, geom) for c in sets]
+    ms = cuda_ms(cycled([lambda c=c, p=p: run_conv(c, geom, "cuda", p)
+                         for c, p in zip(sets, packs)]), iters=iters)
     plain_ms = cuda_ms(lambda: run_conv(sets[0], geom, "torch"), iters=3,
                        warmup=1)
     _, _, strides, pads, dil, groups = geom
@@ -3208,8 +3337,10 @@ def conv_record(seed: int, spatial) -> dict:
         total["bytes_ms" if t["bound_by"] == "bytes" else "ops_ms"] += \
             n * t["bound_ms"]
         (bb, hh, ww, cc), (kh, kw, cg, cout), st, pads = geom[:4]
+        cfg = (" tile 128 x {}, split {},".format(*conv_config_of(geom))
+               if hasattr(qm, "conv_config") else "")
         say(f"conv timing x ({bb}, {hh}, {ww}, {cc}) k {kh}x{kw}/{st[0]} "
-            f"cout {cout} pads {pads} (x{n} a forward): kernel "
+            f"cout {cout} pads {pads} (x{n} a forward):{cfg} kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN f32 "
             f"conv2d (not the same function) {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
@@ -3234,6 +3365,33 @@ def conv_record(seed: int, spatial) -> dict:
             "library_ms": total["library_ms"],
             "library": "cuDNN f32 conv2d (not the same function)",
             "per_shape": per}
+
+
+def conv_forced_timing(seed: int, spatial, min_k: int = 1152) -> dict:
+    """w8a8_conv2d with every tile and split forced, at each distinct
+    path shape of K >= ``min_k`` (the deep convs, whose tiles fill too
+    few SMs): the readings the rule (qm.conv_config) is held to.
+    Returns {shape: {"128 x bn / split": ms}}."""
+    g = np.random.default_rng(seed + 94)
+    out = {}
+    for geom, _ in distinct(spatial):
+        if conv_mnk(geom)[2] < min_k:
+            continue
+        sets = [conv_case(g, geom[0], geom[1])
+                for _ in range(n_sets(conv_bound(geom)["bytes"]))]
+        packs = [conv_pack(c, geom) for c in sets]
+        row = {f"128 x {bn} / {split}": cuda_ms(cycled([
+            lambda c=c, p=p, bn=bn, split=split: run_conv(
+                c, geom, "cuda", p, bn, split)
+            for c, p in zip(sets, packs)]))
+            for bn in qm.CONV_BNS for split in qm.CONV_SPLITS}
+        (bb, hh, ww, cc), (kh, kw, _, cout), st = geom[:3]
+        key = f"x ({bb}, {hh}, {ww}, {cc}) k {kh}x{kw}/{st[0]} cout {cout}"
+        bn, split = conv_config_of(geom)
+        say(f"conv forced {key} (rule: 128 x {bn} / {split}): "
+            + ", ".join(f"{cfg} {ms:.4f} ms" for cfg, ms in row.items()))
+        out[key] = row
+    return out
 
 
 def pointwise_timing(seed: int, matmuls) -> dict:
@@ -3592,6 +3750,15 @@ def image_phase(seed: int, records: dict, profile: bool) -> None:
             tol = None if tag == "int8" else IMAGE_LOGP_TOL[tag]
             out[tag] = check_image(tag, run, ref, tol)
             out[tag]["bytes"] = weight_bytes(im._params)
+            # the spatial int8 convs' K-major packs, held beside the leaves
+            packs = sum(m._pack[2].numel() for m in im._model.modules()
+                        if getattr(m, "_pack", None) is not None)
+            if tag == "int8":
+                check(packs > 0, "image[int8]: no conv holds a weight pack")
+                records["w8a8_conv2d"]["pack_bytes"] = packs
+                say(f"image[int8]: K-major weight packs of the "
+                    f"{IMAGE_SPATIAL} spatial convs resident beside the "
+                    f"leaves: {packs} B")
             rate = images_per_s(im, X)
             say(f"image[{tag}]: weight bytes a forward {out[tag]['bytes']}"
                 + (f" ({out['f32']['bytes'] / out[tag]['bytes']:.2f}x "
@@ -3647,10 +3814,18 @@ def ptxas_summary(log: str) -> str:
     return "; ".join(out)
 
 
+def spill_bytes(log: str) -> int:
+    """Bytes of spill stores and loads over every entry point of a ptxas
+    ``-v`` log."""
+    return sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+
+
 def kernel_timing(seed: int) -> None:
     """The timings of the paged, w8a8 and w4a16 kernels alone, with their
     parity at the timed shapes, and in trees that have it w8a8_conv2d
-    summed over a ResNet-50 forward, through the entry points that earlier
+    summed over a ResNet-50 forward (and every tile and split forced at
+    its deep shapes), through the entry points that earlier
     trees of the port share: a copy of this script run from the root of
     such a tree times that tree's kernels the same way."""
     conv = hasattr(qm, "w8a8_conv2d")       # not in earlier trees
@@ -3672,7 +3847,16 @@ def kernel_timing(seed: int) -> None:
     if conv:
         ic = ImageClassifier(**IMAGE, device="cpu")
         spatial = conv_inventory(ic.model, IMAGE_BATCH)["spatial"]
-        ms["w8a8_conv2d[forward]"] = conv_record(seed, spatial)["ms"]
+        rec = conv_record(seed, spatial)
+        ms["w8a8_conv2d[forward]"] = rec["ms"]
+        for t in rec["per_shape"]:
+            ms["w8a8_conv2d[x {} k {}]".format(
+                "x".join(map(str, t["x"])), "x".join(map(str, t["k"])))] = \
+                t["ms"]
+        if hasattr(qm, "conv_config"):        # not in earlier trees
+            for key, row in conv_forced_timing(seed, spatial).items():
+                ms.update({f"w8a8_conv2d[{key}, {cfg}]": t
+                           for cfg, t in row.items()})
     say(json.dumps({"kernel_ms": ms}))
 
 
@@ -3713,6 +3897,12 @@ def main(argv=None) -> int:
     say(f"build: {b['wall_s']:.2f} s (nvcc {b['nvcc_s']})")
     for name, log in b["ptxas"].items():
         say(f"ptxas[{name}]: {ptxas_summary(log)}")
+    conv_log = b["ptxas"][CONV_SOURCE]
+    check("registers" in conv_log and spill_bytes(conv_log) == 0,
+          f"ptxas[{CONV_SOURCE}]: w8a8_conv2d_kernel spills "
+          f"{spill_bytes(conv_log)} B (or was not built in this run)")
+    say(f"ptxas[{CONV_SOURCE}]: every w8a8_conv2d_kernel instantiation "
+        f"0 B of spills")
     say(f"smem: {smem_line()}")
     sass_check()
 

@@ -63,3 +63,21 @@ def test_a_new_header_and_an_edited_source_change_the_path(csrc):
     src = csrc / "fused_bn.cu"
     src.write_text(src.read_text() + "\n")
     assert _build.library_path("fused_bn") not in (before, added)
+
+
+def test_defined_macros_name_a_library_of_their_own(csrc, monkeypatch):
+    """A build with ``-D`` macros (a variant of the source, such as the
+    conv kernel's planted merge fault) gets a library of its own, stable
+    for the same macros; the plain build's path does not change; a
+    build job may name its macros."""
+    plain = _build.library_path("quant_conv")
+    skip = _build.library_path("quant_conv", ("-DCV_MERGE_SKIP=1",))
+    assert skip != plain and skip.name.startswith("libquant_conv-")
+    assert _build.library_path("quant_conv", ("-DCV_MERGE_SKIP=1",)) == skip
+    assert _build.library_path("quant_conv", ()) == plain
+    jobs = []
+    monkeypatch.setattr(_build, "build",
+                        lambda name, defines=(): jobs.append((name, defines)))
+    _build.build_all(["fused_bn", ("quant_conv", ("-DCV_MERGE_SKIP=1",))])
+    assert sorted(jobs) == [("fused_bn", ()),
+                            ("quant_conv", ("-DCV_MERGE_SKIP=1",))]

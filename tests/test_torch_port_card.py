@@ -12,7 +12,9 @@ The kernels are built from ``analytics_zoo_tpu_torch/csrc/`` at their first
 launch.  Tolerances: the same f32 math in another summation order (atol
 2e-5, rtol 1e-5) for the paged and flash kernels (forward, LSE and the
 backward's dq, dk, dv); one bf16 rounding step for bf16 outputs; bitwise
-for ``w8a8``, ``w8a8_conv2d`` and for two launches of the flash backward;
+for ``w8a8``, ``w8a8_conv2d`` (also at every forced tile config and split
+of K, and its K-major weight pack against the CPU's) and for two launches
+of the flash backward;
 f32 sums of up to 768 products in another order for ``w4a16`` (atol 1e-4,
 also at ResNet-50's 2048-deep pointwise shapes); for ``fused_bn``,
 y as f32 sums of up to 300 products of unit-scale values in another order
@@ -372,6 +374,106 @@ def test_w8a8_conv2d_byte_gather_route_on_card(cuda_device):
     shifted = tqm.w8a8_conv2d(x, w, s, strides=(2, 2),
                               pads=((1, 0), (1, 0)))
     assert shifted.shape == ref.shape and not torch.equal(shifted, ref)
+
+
+def _conv_case(device, xshape, kshape, seed, x_offset=0):
+    g = np.random.default_rng(seed)
+    x = torch.from_numpy(g.integers(-128, 128, xshape).astype(np.int8))
+    w = torch.from_numpy(g.integers(-128, 128, kshape).astype(np.int8))
+    s = torch.from_numpy(g.uniform(1e-4, 1e-2, kshape[-1]).astype(
+        np.float32))
+    x = x.to(device)
+    if x_offset:
+        buf = torch.zeros(x.numel() + x_offset, dtype=torch.int8,
+                          device=device)
+        buf[x_offset:] = x.flatten()
+        x = buf[x_offset:].view(xshape)
+    return x, w.to(device), s.to(device)
+
+
+# forced configs: the stem (its input rows staged, A built by runs), a
+# stage-4 3x3, cout 61 (scalar stores), groups 2, x one byte into its
+# buffer (byte-gathered A), a stem-like conv on an x three bytes in (runs
+# from rows staged off 16 bytes) and rows of 32000 bytes (a tile's rows
+# past the cap: byte gathers)
+CONV_FORCED = (
+    CONV_PATH[0] + ((1, 1), 1, 0),
+    CONV_PATH[10] + ((1, 1), 1, 0),
+    CONV_RAGGED[1] + (0,),
+    CONV_RAGGED[3] + (0,),
+    ((2, 14, 14, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1)), (1, 1), 1,
+     1),
+    ((2, 23, 21, 3), (7, 7, 3, 64), (2, 2), ((2, 3), (2, 3)), (1, 1), 1, 3),
+    ((1, 9, 4000, 8), (3, 3, 8, 8), (1, 1), ((1, 1), (1, 1)), (1, 1), 1, 0),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", tqm.CONV_SPLITS)
+@pytest.mark.parametrize("bn", tqm.CONV_BNS)
+@pytest.mark.parametrize("geom", CONV_FORCED)
+def test_w8a8_conv2d_forced_configs_bitwise_on_card(cuda_device, geom, bn,
+                                                    split):
+    """Every tile config and split of K over a cluster, forced through the
+    launch's override (a slice may be empty), bitwise the plain version."""
+    xshape, kshape, strides, pads, dil, groups, off = geom
+    x, w, s = _conv_case(cuda_device, xshape, kshape, sum(kshape), off)
+    pack = tqm.pack_conv_weight(w, groups)
+    got = tqm._w8a8_conv_cuda(x, w, s, strides, pads, dil, groups, pack,
+                              bn, split)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tqm.w8a8_conv2d(x, w, s, strides=strides,
+                                            pads=pads, dilation=dil,
+                                            groups=groups, impl="torch"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kshape,groups", [((7, 7, 3, 64), 1),
+                                           ((3, 3, 512, 512), 1),
+                                           ((3, 3, 16, 61), 1),
+                                           ((3, 3, 8, 24), 2),
+                                           ((1, 1, 1024, 2048), 1)])
+def test_w8a8_conv2d_pack_on_card_equals_cpu_pack(cuda_device, kshape,
+                                                  groups):
+    """The K-major pack made on the card equals the one made on the CPU,
+    and a launch given it equals one that packs on the call."""
+    g = np.random.default_rng(sum(kshape))
+    w = torch.from_numpy(g.integers(-128, 128, kshape).astype(np.int8))
+    on_card = tqm.pack_conv_weight(w.to(cuda_device), groups)
+    assert on_card.is_cuda and on_card.data_ptr() % 16 == 0
+    assert torch.equal(on_card.cpu(), tqm.pack_conv_weight(w, groups))
+    xshape = (2, 9, 9, kshape[2] * groups)
+    x, _, s = _conv_case(cuda_device, xshape, kshape, 3)
+    kw = dict(strides=(2, 2), pads=((1, 1), (1, 1)), groups=groups)
+    w = w.to(cuda_device)
+    assert torch.equal(tqm.w8a8_conv2d(x, w, s, w_pack=on_card, **kw),
+                       tqm.w8a8_conv2d(x, w, s, **kw))
+
+
+@pytest.mark.gpu
+def test_quantized_conv_layer_keeps_its_pack_on_card(cuda_device):
+    """A quantized 3x3 conv packs W_q at its first forward and reuses the
+    pack; rewriting W_q rebuilds it; the pack is no parameter or buffer."""
+    from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
+    g = np.random.default_rng(4)
+    x = torch.from_numpy(g.normal(size=(2, 10, 10, 24)).astype(np.float32))
+    x = x.to(cuda_device)
+    conv = Convolution2D(40, 3, border_mode="same", input_shape=(10, 10, 24))
+    model = Sequential([conv]).init_weights(2).to(cuda_device)
+    tq.quantize(model, x.cpu().numpy(), bits=8)
+    first = model(x)
+    pack = conv._pack[2]
+    assert torch.equal(pack, tqm.pack_conv_weight(conv.W_q, 1))
+    assert torch.equal(model(x), first) and conv._pack[2] is pack
+    names = {n for n, _ in model.named_parameters()} | \
+        {n for n, _ in model.named_buffers()}
+    assert not any("pack" in n for n in names)
+    with torch.no_grad():
+        conv.W_q.neg_()
+    again = model(x)
+    assert conv._pack[2] is not pack
+    conv.impl = "torch"
+    assert torch.equal(again, model(x))
 
 
 # ResNet-50's pointwise (M, K, N) at a batch of 16: the 33 1x1 stride-1

@@ -16,14 +16,17 @@ CPU.
   conv path;
 - a numpy model of the ``w8a8_conv2d`` kernel (``csrc/quant_conv.cu``,
   constants read from the source): which (image, input row, input column,
-  channel) every byte of a staged A tile reads, in both loaders (16-byte
-  pieces and byte gathers), and the transposed B tile, against
-  ``F.unfold``'s im2col; then the whole product replayed through the PTX
-  m16n8k32 fragment layouts and the epilogue's mapping, bitwise against
+  channel) every byte of a staged A tile reads, in its three loaders
+  (16-byte pieces, runs from staged input rows, byte gathers), and the B
+  tile read from the K-major pack, against ``F.unfold``'s im2col; the
+  entry point's route and staged-rows rule; then the whole product
+  replayed through the PTX m16n8k32 fragment layouts, the split of K and
+  the merge of its partials, and the epilogue's mapping, bitwise against
   the plain version, so the kernel's index maths is checked before the
   card.
 """
 
+import math
 import re
 
 import jax
@@ -265,9 +268,35 @@ def _constants():
 
 
 C = _constants()
-BM, BN, BK = C["kCvBM"], C["kCvBN"], C["kCvBK"]
-THREADS, PITCH = C["kCvThreads"], C["kCvPitch"]
+BM, BK, THREADS = C["kCvBM"], C["kCvBK"], C["kCvThreads"]
+BNS = (C["kCvBNSmall"], C["kCvBNLarge"])
+MAX_SPLIT, OUT_PAD, HALO_CAP = C["kCvMaxSplit"], C["kCvOutPad"], \
+    C["kCvHaloCap"]
 TID = np.arange(THREADS)
+LANE = np.arange(32)
+GQ, TQ = LANE >> 2, LANE & 3
+
+
+def test_kernel_constants_match_the_wrapper():
+    """The wrapper's rule and pack use the kernel's tiles; the staged rows'
+    cap is the kernel's alone."""
+    assert (tqm.CONV_BM, tqm.CONV_BK, tqm.CONV_BNS, tqm.CONV_SPLITS[-1]) \
+        == (BM, BK, BNS, MAX_SPLIT)
+    assert HALO_CAP == 65536
+    assert C["kCvStages"] >= 3 and THREADS == 256
+
+
+def swz(row, chunk):
+    """Byte offset of 16-byte chunk ``chunk`` of ``row`` in a staged tile
+    (rows of BK bytes, chunks XOR-swizzled by (row >> 1) & 3)."""
+    return row * BK + ((chunk ^ ((row >> 1) & 3)) << 4)
+
+
+def unswizzle(tile, rows):
+    """(rows, BK) logical bytes of a staged tile."""
+    r = np.arange(rows)[:, None]
+    c = np.arange(BK)[None, :]
+    return tile[swz(r, c >> 4) + (c & 15)]
 
 
 class Geom:
@@ -287,8 +316,34 @@ class Geom:
             // self.SW + 1
         self.M = self.B * self.HO * self.WO
         self.K = self.KH * self.KW * self.CG
+        self.Kp = -(-self.K // BK) * BK
         self.avec = self.CG % 16 == 0 and self.C % 16 == 0
-        self.bvec = self.NG % 4 == 0 and self.COUT % 4 == 0
+        # the RUN route (the entry point's plan): a kernel row's KW·C
+        # bytes contiguous in x, the rows a tile stages within the cap
+        self.run = self.DW == 1 and groups == 1 and \
+            16 <= self.KW * self.C <= 32 and self.KH <= 32
+        rows = halo_rows_of(self) if self.run else 0
+        self.halo_rows = rows if rows * self.W * self.C + 16 <= HALO_CAP \
+            else 0
+
+
+def halo_rows_of(g):
+    """The entry point's ``halo_rows_of``: the most rows of the (B·H, W·C)
+    view a tile's windows cover, over the last tile start on a multiple
+    of gcd(BM, HO·WO) in each output row of an image."""
+    hw = g.HO * g.WO
+    step = math.gcd(BM, hw)
+    most = 0
+    for ho in range(g.HO):
+        first = ((ho + 1) * g.WO - 1) // step * step
+        if first < ho * g.WO:
+            continue
+        last = min(first + BM - 1, g.M - 1)
+        lo = min(max(ho * g.SH - g.PT, 0), g.H)
+        hi = last // hw * g.H + min(max((last % hw) // g.WO * g.SH - g.PT
+                                        + (g.KH - 1) * g.DH, -1), g.H - 1)
+        most = max(most, hi - lo + 1)
+    return most
 
 
 def _pixel(g, m, grp):
@@ -307,80 +362,137 @@ def _tap(g, k):
     return c, tap % g.KW, tap // g.KW
 
 
-def stage_a(g, x, m0, grp, k0, avec):
-    """The A tile (BM x PITCH bytes, k at column k - k0) as ``fetch_a``
-    stages it: thread t takes piece j = t & 3 of pixels t >> 2 and
-    (t >> 2) + 32; ``avec`` copies a 16-byte piece from its first byte's
-    tap, otherwise each byte is gathered by its own (kh, kw, c)."""
-    tile = np.zeros((BM, PITCH), np.int8)
-    j, r0 = TID & 3, TID >> 2
+def tile_rows(g, m0):
+    """(gi_lo, rows) of the tile at ``m0``: the kernel's clamped first
+    and last rows of the (B·H, W·C) view its windows cover."""
+    hw = g.HO * g.WO
+    first, last = m0, min(m0 + BM, g.M) - 1
+    lo = first // hw * g.H + min(max((first % hw) // g.WO * g.SH - g.PT, 0),
+                                 g.H)
+    hi = last // hw * g.H + min(max((last % hw) // g.WO * g.SH - g.PT
+                                    + (g.KH - 1) * g.DH, -1), g.H - 1)
+    return lo, hi - lo + 1
+
+
+def halo_span(g, m0):
+    """(gi_lo, rows) the tile at ``m0`` stages: at most ``halo_rows``."""
+    lo, rows = tile_rows(g, m0)
+    return lo, min(rows, g.halo_rows)
+
+
+def stage_halo(g, x, m0, x_off):
+    """The halo as the kernel copies it: byte a of x at index a minus the
+    16-byte-aligned address of the first staged row (x ``x_off`` bytes
+    into an aligned buffer)."""
+    lo, rows = halo_span(g, m0)
+    wc = g.W * g.C
+    mis = (x_off + lo * wc) % 16
+    halo = np.zeros(max(rows, 0) * wc + 32, np.int8)
+    if rows > 0:
+        halo[mis:mis + rows * wc] = x.reshape(-1)[lo * wc:(lo + rows) * wc]
+    return halo, lo, rows, mis
+
+
+def stage_run(g, x, m0, k0, x_off=0, junk=0):
+    """The A stage as ``build16_run`` builds it (one warp a chunk, a lane
+    a pixel): each pixel's 16 bytes of k are at most two runs of KW·C
+    contiguous halo bytes, loaded as 16 bytes each (``load16u``: past the
+    staged bytes the load reads whatever lies there, here ``junk``) and
+    kept by the masks of the pixel's kernel rows and columns and k < K."""
+    halo, lo, rows, mis = stage_halo(g, x, m0, x_off)
+    guard = 48
+    g8 = np.random.default_rng(junk).integers(-128, 128, guard, np.int8)
+    mem = np.concatenate([g8, halo, g8])
+    tile = np.zeros(BM * BK, np.int8)
+    ca, ra = (TID >> 5) & 3, 32 * (TID >> 7) + (TID & 31)
+    rlen, wc = g.KW * g.C, g.W * g.C
+    for t in range(THREADS):
+        k = k0 + 16 * int(ca[t])
+        kh0, j0 = k // rlen, k % rlen
+        n1 = min(16, rlen - j0)
+        for h in (0, 1):
+            prow = int(ra[t]) + 64 * h
+            ok, img, ih0, iw0, _ = (int(np.asarray(v).reshape(-1)[0])
+                                    for v in _pixel(g, np.array([m0 + prow]),
+                                                    0))
+            hrow = img * g.H - lo
+            rowbits = sum(1 << kh for kh in range(g.KH)
+                          if ok and 0 <= ih0 + kh * g.DH < g.H
+                          and 0 <= hrow + ih0 + kh * g.DH < rows)
+            cols = [kw for kw in range(g.KW) if 0 <= iw0 + kw < g.W]
+            run = ((1 << (g.C * (cols[-1] + 1))) - (1 << (g.C * cols[0]))
+                   if cols else 0)
+            base = (hrow + ih0) * wc + iw0 * g.C + mis + guard
+            m = 0
+            if k < g.K:
+                if rowbits >> kh0 & 1:
+                    m |= (run >> j0) & ((1 << n1) - 1)
+                if rowbits >> (kh0 + 1) & 1:
+                    m |= (run << n1) & 0xFFFF & ~((1 << n1) - 1)
+                m &= (1 << min(16, g.K - k)) - 1
+            a1 = base + kh0 * g.DH * wc + j0
+            a2 = base + (kh0 + 1) * g.DH * wc - n1
+            p1 = mem[a1:a1 + 16] if m & ((1 << n1) - 1) else np.zeros(16)
+            p2 = mem[a2:a2 + 16] if m >> n1 else np.zeros(16)
+            for e in range(16):
+                if m >> e & 1:
+                    tile[swz(prow, int(ca[t])) + e] = \
+                        p1[e] if e < n1 else p2[e]
+    return tile
+
+
+def stage_a(g, x, m0, grp, k0, mode):
+    """The A stage (BM x BK bytes, swizzled) as the loaders that read x
+    write it: thread t takes chunk t & 3 of pixels t >> 2 and (t >> 2) +
+    64.  ``avec``: one 16-byte copy from the chunk's first tap;
+    ``bytes``: each byte gathered by its own (kh, kw, c)."""
+    tile = np.zeros(BM * BK, np.int8)
+    ca, ra = TID & 3, TID >> 2
     for h in (0, 1):
-        rows = r0 + 32 * h
-        ok, img, ih0, iw0, coff = _pixel(g, m0 + rows, grp)
+        prow = ra + 64 * h
+        ok, img, ih0, iw0, coff = _pixel(g, m0 + prow, grp)
         for e in range(16):
-            k = k0 + 16 * j + (0 if avec else e)
+            k = k0 + 16 * ca + (0 if mode == "avec" else e)
             c, kw, kh = _tap(g, k)
-            c = c + (e if avec else 0)
+            c = c + (e if mode == "avec" else 0)
             ih, iw = ih0 + kh * g.DH, iw0 + kw * g.DW
-            inb = ok & (k0 + 16 * j + e < g.K) & (ih >= 0) & (ih < g.H) \
+            inb = ok & (k0 + 16 * ca + e < g.K) & (ih >= 0) & (ih < g.H) \
                 & (iw >= 0) & (iw < g.W)
             val = np.where(inb, x[np.where(inb, img, 0),
                                   np.clip(ih, 0, g.H - 1),
                                   np.clip(iw, 0, g.W - 1),
                                   np.clip(coff + c, 0, g.C - 1)], 0)
-            tile[rows, 16 * j + e] = val
+            tile[swz(prow, ca) + e] = val
     return tile
 
 
-def _word(b4):
-    """Little-endian words of (..., 4) int8 bytes."""
-    u = b4.astype(np.uint8).astype(np.uint32)
-    return u[..., 0] | u[..., 1] << 8 | u[..., 2] << 16 | u[..., 3] << 24
-
-
-def _bytes(word):
-    return np.stack([(word >> (8 * i)) & 0xFF for i in range(4)],
-                    -1).astype(np.uint8).astype(np.int8)
-
-
-def _transpose4(r):
-    """``transpose4``'s PRMTs: byte c of r[j] to byte j of o[c]."""
-    def perm(a, b, sel):
-        src = np.concatenate([_bytes(a), _bytes(b)], -1)
-        idx = [(sel >> (4 * i)) & 0x7 for i in range(4)]
-        return _word(src[..., idx])
-    s0, s1 = perm(r[0], r[1], 0x5140), perm(r[0], r[1], 0x7362)
-    s2, s3 = perm(r[2], r[3], 0x5140), perm(r[2], r[3], 0x7362)
-    return [perm(s0, s2, 0x5410), perm(s0, s2, 0x7632),
-            perm(s1, s3, 0x5410), perm(s1, s3, 0x7632)]
-
-
-def stage_b(g, w, n0, grp, k0):
-    """The transposed B tile ([channel][k], BN x PITCH bytes) as
-    ``fetch_b`` reads 4 x 4 pieces and ``store_staged`` transposes
-    them."""
-    w2 = w.reshape(g.K, g.COUT)
-    tile = np.zeros((BN, PITCH), np.int8)
-    warp, lane = TID >> 5, TID & 31
-    kb = (lane >> 2) + 8 * (warp & 1)
-    nb = (lane & 3) + 4 * (warp >> 1)
-    for h in (0, 1):
-        n = n0 + 4 * (nb + 8 * h)
-        rows = []
-        for r in range(4):
-            k = k0 + 4 * kb + r
-            cols = n[:, None] + np.arange(4)
-            inb = (k < g.K)[:, None] & (cols < g.NG)
-            raw = np.where(inb, w2[np.clip(k, 0, g.K - 1)[:, None],
-                                   grp * g.NG + np.clip(cols, 0, g.NG - 1)],
-                           0)
-            rows.append(_word(raw))
-        o = _transpose4(rows)
-        for c in range(4):
-            tile[(4 * (nb + 8 * h) + c)[:, None],
-                 4 * kb[:, None] + np.arange(4)] = \
-                _bytes(o[c])
+def stage_b(g, pack, n0, grp, k0, bn):
+    """The B stage (bn rows of BK bytes, swizzled): 16-byte copies of the
+    pack's rows, piece q = t + THREADS·h is row q >> 2, chunk q & 3."""
+    tile = np.zeros(bn * BK, np.int8)
+    for h in range(bn * 4 // THREADS):
+        q = TID + THREADS * h
+        nb, cb = q >> 2, q & 3
+        inb = n0 + nb < g.NG
+        rows = pack[grp, np.clip(n0 + nb, 0, g.NG - 1)]
+        for e in range(16):
+            tile[swz(nb, cb) + e] = np.where(
+                inb, rows[TID, k0 + 16 * cb + e], 0)
     return tile
+
+
+def a_mode(g, x_off=0):
+    """The entry point's route: copies where x's pieces lie on 16 bytes,
+    runs from staged rows where they fit, else byte gathers."""
+    if g.avec and x_off % 16 == 0:
+        return "avec"
+    return "run" if g.halo_rows > 0 else "bytes"
+
+
+def stage(g, x, m0, grp, k0, mode, x_off=0):
+    if mode == "run":
+        return stage_run(g, x, m0, k0, x_off)
+    return stage_a(g, x, m0, grp, k0, mode)
 
 
 def _im2col(x, g, grp):
@@ -396,12 +508,15 @@ def _im2col(x, g, grp):
     return cols.reshape(g.M, g.K).numpy().astype(np.int8)
 
 
+def _word(b4):
+    """Little-endian words of (..., 4) int8 bytes."""
+    u = b4.astype(np.uint8).astype(np.uint32)
+    return u[..., 0] | u[..., 1] << 8 | u[..., 2] << 16 | u[..., 3] << 24
+
+
 def _s8(word, j):
     return ((word >> (8 * j)) & 0xFF).astype(np.int64) - \
         (((word >> (8 * j + 7)) & 1) << 8).astype(np.int64)
-
-
-GQ, TQ = np.arange(32) >> 2, np.arange(32) & 3
 
 
 def _mma(acc, a, b):
@@ -423,52 +538,89 @@ def _mma(acc, a, b):
     return [D[GQ + 8 * (e >> 1), 2 * TQ + (e & 1)] for e in range(4)]
 
 
-def _lds32(tile, row, col):
-    return _word(tile[row[:, None], col[:, None] + np.arange(4)])
+def ldsm4(tile, row, chunk):
+    """ldmatrix.x4 (b16): lane l addresses row l & 7 of matrix l >> 3 (16
+    bytes at ``swz(row, chunk)``); lane (g, t) receives word t of row g
+    of each matrix."""
+    words = _word(tile[swz(row, chunk)[:, None] + np.arange(16)]
+                  .reshape(32, 4, 4))
+    return [words[8 * q + GQ, TQ] for q in range(4)]
 
 
-def replay(x, w, scale, g):
-    """The kernel's output: every block's stages, fragment loads (4-byte
-    words of the staged rows), s8 mmas and epilogue, in numpy."""
+def block_partial(g, x, pack, m0, n0, grp, kts, bn, mode, x_off=0):
+    """One block's staged s32 tile (BM x (bn + OUT_PAD)) after its
+    k-tiles ``kts``: fragments by ldmatrix from the swizzled stages, s8
+    mmas, accumulators stored as the epilogue stages them."""
+    ni = bn // 16
+    acc = {(w_, i, j): [np.zeros(32, np.int64)] * 4
+           for w_ in range(8) for i in range(2) for j in range(ni)}
+    for kt in kts:
+        sa = stage(g, x, m0, grp, kt * BK, mode, x_off)
+        sb = stage_b(g, pack, n0, grp, kt * BK, bn)
+        for w_ in range(8):
+            wm, wn = w_ & 3, w_ >> 2
+            for s in range(BK // 32):
+                af = [ldsm4(sa, 32 * wm + 16 * i + (LANE & 7)
+                            + 8 * ((LANE >> 3) & 1), 2 * s + (LANE >> 4))
+                      for i in range(2)]
+                bf = []
+                for j in range(ni // 2):
+                    r = ldsm4(sb, bn // 2 * wn + 16 * j + (LANE & 7)
+                              + 8 * (LANE >> 4), 2 * s + ((LANE >> 3) & 1))
+                    bf += [r[0:2], r[2:4]]
+                for i in range(2):
+                    for j in range(ni):
+                        acc[w_, i, j] = _mma(acc[w_, i, j], af[i], bf[j])
+    st = np.zeros((BM, bn + OUT_PAD), np.int64)
+    for (w_, i, j), a in acc.items():
+        wm, wn = w_ & 3, w_ >> 2
+        for e in range(4):
+            st[32 * wm + 16 * i + GQ + 8 * (e >> 1),
+               bn // 2 * wn + 8 * j + 2 * TQ + (e & 1)] = a[e]
+    return st
+
+
+def replay(x, w, scale, g, bn=None, split=None, x_off=0, drop=None):
+    """The kernel's output: every cluster's blocks (one K slice each),
+    their partials merged as the epilogue does (block r sums rows
+    [r·BM/split, (r+1)·BM/split) over the cluster, in s32, reading the
+    others' staged tiles from distributed shared memory) and written
+    with the scale.  ``bn`` / ``split`` as forced through the wrapper
+    (default: ``conv_config``'s rule on 132 SMs); ``drop``: a rank whose
+    partial the merge leaves out (a planted fault)."""
+    bn, split = tqm.conv_config(g.M, g.NG, g.K, g.G, 132, bn, split)
+    pack = tqm.pack_conv_weight(torch.from_numpy(w), g.G).numpy()
+    mode = a_mode(g, x_off)
+    kt_all = g.Kp // BK
+    per = -(-kt_all // split)
     out = np.full((g.M, g.COUT), np.nan, np.float32)
     for grp in range(g.G):
         for m0 in range(0, g.M, BM):
-            for n0 in range(0, g.NG, BN):
-                acc = {(w_, i, jn): [np.zeros(32, np.int64)] * 4
-                       for w_ in range(4) for i in range(2)
-                       for jn in range(4)}
-                for k0 in range(0, g.K, BK):
-                    sa = stage_a(g, x, m0, grp, k0, g.avec)
-                    sb = stage_b(g, w, n0, grp, k0)
-                    for w_ in range(4):
-                        wm, wn = w_ & 1, w_ >> 1
-                        for s in range(BK // 32):
-                            col = 32 * s + 4 * TQ
-                            for i in range(2):
-                                row = 32 * wm + 16 * i + GQ
-                                af = [_lds32(sa, row, col),
-                                      _lds32(sa, row + 8, col),
-                                      _lds32(sa, row, col + 16),
-                                      _lds32(sa, row + 8, col + 16)]
-                                for jn in range(4):
-                                    nrow = 32 * wn + 8 * jn + GQ
-                                    bf = [_lds32(sb, nrow, col),
-                                          _lds32(sb, nrow, col + 16)]
-                                    acc[w_, i, jn] = _mma(acc[w_, i, jn],
-                                                          af, bf)
-                for (w_, i, jn), a in acc.items():
-                    wm, wn = w_ & 1, w_ >> 1
-                    for e in range(4):
-                        m = m0 + 32 * wm + 16 * i + GQ + 8 * (e >> 1)
-                        n = n0 + 32 * wn + 8 * jn + 2 * TQ + (e & 1)
-                        keep = (m < g.M) & (n < g.NG)
-                        col = grp * g.NG + n[keep]
-                        out[m[keep], col] = a[e][keep].astype(np.int32) \
-                            .astype(np.float32) * scale[col]
+            for n0 in range(0, g.NG, bn):
+                parts = []
+                for rank in range(split):
+                    kt0 = min(kt_all, rank * per)
+                    kts = range(kt0, min(kt_all, kt0 + per))
+                    parts.append(block_partial(g, x, pack, m0, n0, grp,
+                                               kts, bn, mode, x_off))
+                rows = BM // split
+                for rank in range(split):
+                    r = np.arange(rank * rows, (rank + 1) * rows)
+                    tot = sum(parts[(rank + q) % split][r]
+                              for q in range(split)
+                              if (rank + q) % split != drop)
+                    tot = ((tot + 2 ** 31) % 2 ** 32 - 2 ** 31)[:, :bn]
+                    m = m0 + r[:, None]
+                    n = n0 + np.arange(bn)[None, :]
+                    keep = (m < g.M) & (n < g.NG)
+                    mm, nn = np.broadcast_arrays(m, n)
+                    col = grp * g.NG + nn[keep]
+                    out[mm[keep], col] = tot[keep].astype(np.int32) \
+                        .astype(np.float32) * scale[col]
     return out.reshape(g.B, g.HO, g.WO, g.COUT)
 
 
-# geometries for the model: the stem (byte gathers, K = 147 past two
+# geometries for the model: the stem (cin = 3: the runs, K = 147 past two
 # stages), a strided 3x3 with SAME's (0, 1) pads, dilation 2 with a ragged
 # M and cout off the tile, groups 2 (16-byte pieces), a strided 1x1
 MODEL_GEOMS = (
@@ -482,41 +634,71 @@ MODEL_GEOMS = (
 
 @pytest.mark.parametrize("geom", MODEL_GEOMS)
 def test_kernel_tile_gather_matches_unfold(geom):
-    """Every staged A tile (both loaders, whatever the shape takes) is the
-    im2col block of ``F.unfold``: zero for padding, past M and past K;
-    every staged B tile is the weight block transposed."""
+    """Every staged A stage (each loader the shape can take: byte
+    gathers, 16-byte copies, runs from the staged rows on an aligned and
+    a misaligned x), unswizzled, is the im2col block of ``F.unfold``:
+    zero for padding, past M and past K; every staged B stage,
+    unswizzled, is the weight block transposed, read from the pack."""
     g = Geom(*geom)
     x, w, _ = _case(5, (geom[0], geom[1], 1, "same", 1, 1))
+    pack = tqm.pack_conv_weight(torch.from_numpy(w), g.G).numpy()
+    modes = [("bytes", 0)] + ([("avec", 0)] if g.avec else []) + \
+        ([("run", 0), ("run", 7)] if g.run else [])
+    assert g.halo_rows > 0 or not g.run
     for grp in range(g.G):
         cols = _im2col(x, g, grp)
         w2 = w.reshape(g.K, g.COUT)[:, grp * g.NG:(grp + 1) * g.NG]
         for m0 in range(0, g.M, BM):
-            for k0 in range(0, g.K, BK):
+            for k0 in range(0, g.Kp, BK):
                 want = np.zeros((BM, BK), np.int8)
                 blk = cols[m0:m0 + BM, k0:k0 + BK]
                 want[:blk.shape[0], :blk.shape[1]] = blk
-                for avec in {False, g.avec}:
-                    got = stage_a(g, x, m0, grp, k0, avec)
-                    np.testing.assert_array_equal(got[:, :BK], want)
-        for n0 in range(0, g.NG, BN):
-            for k0 in range(0, g.K, BK):
-                want = np.zeros((BN, BK), np.int8)
-                blk = w2[k0:k0 + BK, n0:n0 + BN].T
-                want[:blk.shape[0], :blk.shape[1]] = blk
-                np.testing.assert_array_equal(
-                    stage_b(g, w, n0, grp, k0)[:, :BK], want)
+                for mode, off in modes:
+                    got = stage(g, x, m0, grp, k0, mode, off)
+                    np.testing.assert_array_equal(unswizzle(got, BM), want)
+        for bn in BNS:
+            for n0 in range(0, g.NG, bn):
+                for k0 in range(0, g.Kp, BK):
+                    want = np.zeros((bn, BK), np.int8)
+                    blk = w2[k0:k0 + BK, n0:n0 + bn].T
+                    want[:blk.shape[0], :blk.shape[1]] = blk
+                    np.testing.assert_array_equal(
+                        unswizzle(stage_b(g, pack, n0, grp, k0, bn), bn),
+                        want)
 
 
 @pytest.mark.parametrize("geom", MODEL_GEOMS[:4])
 def test_kernel_replay_bitwise_vs_plain(geom):
-    """The whole kernel replayed (stages, fragment loads, mmas through the
-    PTX layouts, epilogue) equals the plain version bitwise."""
+    """The whole kernel replayed at the rule's config (stages, ldmatrix
+    fragments, mmas through the PTX layouts, the staged s32 tile, the
+    epilogue) equals the plain version bitwise."""
     g = Geom(*geom)
     x, w, scale = _case(6, (geom[0], geom[1], 1, "same", 1, 1))
     got = replay(x, w, scale, g)
     want = tqm.w8a8_conv_torch(torch.from_numpy(x), torch.from_numpy(w),
                                torch.from_numpy(scale), geom[2], geom[3],
                                geom[4], geom[5]).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+# K = 576 (9 k-tiles, so split 8 leaves three slices empty), cout 72 (off
+# both tiles), M = 2 · 6 · 6 = 72 (a ragged tile)
+SPLIT_GEOM = ((2, 6, 6, 64), (3, 3, 64, 72), (1, 1), [(1, 1), (1, 1)],
+              (1, 1), 1)
+
+
+@pytest.mark.parametrize("split", tqm.CONV_SPLITS)
+@pytest.mark.parametrize("bn", BNS)
+def test_kernel_replay_forced_split_bitwise_vs_plain(bn, split):
+    """Every tile config and split, forced as the wrapper forces them:
+    each block's K slice, the partials merged across the cluster row by
+    row, bitwise the plain version."""
+    g = Geom(*SPLIT_GEOM)
+    x, w, scale = _case(8, (SPLIT_GEOM[0], SPLIT_GEOM[1], 1, "same", 1, 1))
+    got = replay(x, w, scale, g, bn, split)
+    want = tqm.w8a8_conv_torch(torch.from_numpy(x), torch.from_numpy(w),
+                               torch.from_numpy(scale), *SPLIT_GEOM[2:]
+                               ).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -528,5 +710,157 @@ def test_kernel_model_rejects_a_shifted_pad():
     x, _, _ = _case(5, (geom[0], geom[1], 1, "same", 1, 1))
     want = _im2col(x, g, 0)[:BM, :BK]
     g.PT += 1
-    got = stage_a(g, x, 0, 0, 0, g.avec)[:want.shape[0], :BK]
+    got = unswizzle(stage(g, x, 0, 0, 0, a_mode(g)), BM)
+    assert not np.array_equal(got[:want.shape[0]], want)
+
+
+def test_kernel_model_rejects_a_dropped_slice():
+    """A merge that leaves out one block's K slice (the planted fault of
+    chip_smoke's image phase) is not the plain version."""
+    g = Geom(*SPLIT_GEOM)
+    x, w, scale = _case(8, (SPLIT_GEOM[0], SPLIT_GEOM[1], 1, "same", 1, 1))
+    want = tqm.w8a8_conv_torch(torch.from_numpy(x), torch.from_numpy(w),
+                               torch.from_numpy(scale), *SPLIT_GEOM[2:]
+                               ).numpy()
+    got = replay(x, w, scale, g, 64, 4, drop=1)
     assert not np.array_equal(got, want)
+
+
+# -- the pack, the tile and split rule, the halo rule ---------------------------
+
+@pytest.mark.parametrize("geom", MODEL_GEOMS + (SPLIT_GEOM,))
+def test_conv_pack_matches_jax_layout_w_q(geom):
+    """The K-major pack of the JAX quantizer's ``W_q`` (kh, kw, cin/g,
+    cout): pack[grp, n, k] = W_q as (K, cout) at [k, grp·cout/g + n],
+    zero from K to Kp; the port's quantizer gives the same codes."""
+    from analytics_zoo_tpu.inference import quantize as jquant
+    from analytics_zoo_tpu_torch.inference import quantize as tquant
+    g = Geom(*geom)
+    wf = np.random.default_rng(11).standard_normal(geom[1]).astype(
+        np.float32)
+    wq = np.array(jquant._quantize_w8(wf, 1.0)["W_q"])
+    np.testing.assert_array_equal(tquant._quantize_w8(wf, 1.0)["W_q"], wq)
+    pack = tqm.pack_conv_weight(torch.from_numpy(wq), g.G)
+    assert pack.dtype == torch.int8
+    assert tuple(pack.shape) == (g.G, g.NG, g.Kp) and g.Kp % BK == 0
+    w2 = wq.reshape(g.K, g.COUT)
+    for grp in range(g.G):
+        np.testing.assert_array_equal(
+            pack[grp, :, :g.K].numpy(),
+            w2[:, grp * g.NG:(grp + 1) * g.NG].T)
+    assert not pack[:, :, g.K:].any()
+
+
+def _resnet50_spatial(batch):
+    """ResNet-50's 11 distinct spatial convs at 224 x 224: (M, N, K)."""
+    shapes = [(112, 64, 147)]                     # the stem 7x7/2
+    for side, cin, stride in ((56, 64, 1), (28, 128, 2), (28, 128, 1),
+                              (14, 256, 2), (14, 256, 1), (7, 512, 2),
+                              (7, 512, 1)):
+        shapes.append((side * side, cin, 9 * cin))    # 3x3
+        if stride == 2:                               # the projection 1x1/2
+            shapes.append((side * side, 4 * cin, 2 * cin))
+    assert len(shapes) == 11
+    return [(batch * hw, n, k) for hw, n, k in shapes]
+
+
+@pytest.mark.parametrize("batch", [1, 16, 64])
+def test_conv_config_rule_at_resnet50_shapes(batch):
+    """A legal (bn, split) at every ResNet-50 path shape: 128 channels a
+    tile past 64; a split keeps its blocks within one a multiprocessor
+    and its slices at CONV_MIN_SLICE k-tiles or more, and is the largest
+    that does (so at batches 16 and 64 at least half the 132
+    multiprocessors hold a block wherever K >= 1152: stage 4's 3x3s split
+    4 ways to 112 blocks, stage 3's 2 ways to 100, stage 2's 98 tiles and
+    stage 4's 1x1/2 at 112 unsplit); forced values pass through, others
+    are refused."""
+    for m, n, k in _resnet50_spatial(batch):
+        bn, split = tqm.conv_config(m, n, k, 1, 132)
+        assert bn == (128 if n > 64 else 64) and split in tqm.CONV_SPLITS
+        kt = -(-k // BK)
+        tiles = -(-m // BM) * -(-n // bn)
+        if split > 1:
+            assert kt // split >= tqm.CONV_MIN_SLICE
+            assert tiles * split <= 132
+        assert split == MAX_SPLIT or 2 * split * tiles > 132 \
+            or kt < 2 * split * tqm.CONV_MIN_SLICE, (m, n, k, split)
+        if batch >= 16 and k >= 1152:
+            assert 2 * tiles * split >= 132, (m, n, k, bn, split)
+    assert [tqm.conv_config(m, n, k, 1, 132)[1]
+            for m, n, k in _resnet50_spatial(16)] == \
+        [1, 1, 1, 1, 1, 2, 1, 2, 4, 1, 4]
+    assert tqm.conv_config(784, 512, 4608, 1, 132, 64, 2) == (64, 2)
+    for bad in (dict(bn=96), dict(split=3), dict(split=16)):
+        with pytest.raises(ValueError):
+            tqm.conv_config(784, 512, 4608, 1, 132, **bad)
+
+
+@pytest.mark.parametrize("geom", MODEL_GEOMS + (
+    ((16, 224, 224, 3), (7, 7, 3, 64), (2, 2), [(2, 3), (2, 3)], (1, 1), 1),
+    ((3, 10, 12, 24), (5, 3, 24, 40), (2, 1), [(1, 2), (1, 1)], (1, 1), 1),
+    ((2, 3, 40, 8), (3, 3, 8, 8), (1, 1), [(2, 2), (5, 5)], (1, 1), 1)))
+def test_conv_halo_rows_cover_every_window(geom):
+    """The staged-rows rule of the entry point (``halo_rows_of``): every
+    input row an in-bounds tap of a tile's pixels reads lies in the
+    tile's rows [gi_lo, gi_lo + rows), and no tile spans more rows than
+    the rule gives; the stem of ResNet-50 at batch 16 stages exactly 9
+    rows of 672 bytes (a tile's 128 pixels cover two output rows of
+    112); rows past the cap send the conv to byte gathers."""
+    g = Geom(*geom)
+    most = halo_rows_of(g)
+    spans = []
+    for m0 in range(0, g.M, BM):
+        lo, rows = tile_rows(g, m0)
+        spans.append(rows)
+        m = np.arange(m0, min(m0 + BM, g.M))
+        _, img, ih0, _, _ = _pixel(g, m, 0)
+        ih = ih0[:, None] + g.DH * np.arange(g.KH)[None, :]
+        gi = (img[:, None] * g.H + ih)[(ih >= 0) & (ih < g.H)]
+        if gi.size:
+            assert gi.min() >= lo and gi.max() < lo + rows
+    assert 0 < max(spans) <= most
+    assert g.halo_rows == (most if g.run else 0)
+    if geom[0] == (16, 224, 224, 3):
+        assert g.halo_rows == max(spans) == 9
+        assert g.halo_rows * g.W * g.C == 6048 and a_mode(g) == "run"
+    # 4000 x 8 channels a row: 3-4 rows pass the cap, so bytes from x
+    wide = Geom((1, 9, 4000, 8), (3, 3, 8, 8), (1, 1), [(1, 1), (1, 1)],
+                (1, 1), 1)
+    assert wide.run and halo_rows_of(wide) >= 3 and wide.halo_rows == 0
+    assert a_mode(wide) == "bytes"
+
+
+def test_quantized_conv_layer_pack_follows_w_q():
+    """A quantized conv's pack (``_w8_pack``, asked as a launch on the
+    card asks it): kept while ``W_q`` is the same tensor at the same
+    version; rebuilt after an in-place write and for a new ``W_q``; made
+    anew at every call for an inference tensor, which counts no versions;
+    none on the plain route or for a CPU input."""
+    from types import SimpleNamespace
+    from analytics_zoo_tpu_torch.inference import quantize as tquant
+    from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
+    from analytics_zoo_tpu_torch.nn.models import Sequential
+    g = np.random.default_rng(4)
+    x = g.normal(size=(2, 10, 10, 24)).astype(np.float32)
+    conv = Convolution2D(40, 3, border_mode="same", input_shape=(10, 10, 24))
+    model = Sequential([conv]).init_weights(2)
+    tquant.quantize(model, x, bits=8)
+    card, host = SimpleNamespace(is_cuda=True), SimpleNamespace(is_cuda=False)
+    pads = [(1, 1), (1, 1)]
+    first = conv._w8_pack(card, pads)
+    assert torch.equal(first, tqm.pack_conv_weight(conv.W_q, 1))
+    assert conv._w8_pack(card, pads) is first
+    with torch.no_grad():
+        conv.W_q.neg_()
+    written = conv._w8_pack(card, pads)
+    assert written is not first
+    assert torch.equal(written, tqm.pack_conv_weight(conv.W_q, 1))
+    conv.W_q = conv.W_q.clone()
+    assert conv._w8_pack(card, pads) is not written
+    with torch.inference_mode():
+        conv.W_q = conv.W_q.clone()
+    one, two = conv._w8_pack(card, pads), conv._w8_pack(card, pads)
+    assert one is not two and torch.equal(one, two)
+    assert conv._w8_pack(host, pads) is None
+    conv.impl = "torch"
+    assert conv._w8_pack(card, pads) is None

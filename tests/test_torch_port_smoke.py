@@ -419,22 +419,35 @@ def test_resnet_profile_families():
 
 def test_sass_check_holds_kernels_of_their_sources():
     """Every kernel that ``sass_check`` holds to a tensor-core instruction
-    is defined in its source, and each rule names one of the three: TF32
-    and BF16 HMMA, s8 IMMA (``w8a8`` and ``w8a8_conv2d``, whose sources
-    issue the s8 m16n8k32 mma of the shared header through ``mma_s8``)."""
+    is defined in its source, and each rule names one of the four: TF32
+    and BF16 HMMA, s8 IMMA (``w8a8``, and ``w8a8_conv2d`` where it builds
+    its A tiles byte by byte: the s8 m16n8k32 mma of the shared header
+    through ``mma_s8``), s8 IGMMA (``w8a8_conv2d`` where it copies its A
+    tiles: wgmma m64nNk32 at its tiles' 64 and 128 channels)."""
+    wg = tuple(cs.SASS_S8_WG.values())
     for name, rules in cs.SASS_KERNELS.items():
         src = (cs._build.CSRC / f"{name}.cu").read_text()
         for key, op in rules:
             assert key.split("I")[0] + "(" in src, key
-            assert op in (cs.SASS_TF32, cs.SASS_BF16, cs.SASS_S8)
+            assert op in (cs.SASS_TF32, cs.SASS_BF16, cs.SASS_S8) + wg
     header = (cs._build.CSRC / "mma_tf32.cuh").read_text()
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in header
     for name, kernel in ((cs.qm.KERNEL, "w8a8_kernel"),
                          (cs.qm.KERNEL_CONV, "w8a8_conv2d_kernel")):
-        assert dict(cs.SASS_KERNELS[name])[kernel] == cs.SASS_S8 \
-            == "IMMA.16832.S8.S8"
+        rules = [op for key, op in cs.SASS_KERNELS[name] if kernel in key]
+        assert cs.SASS_S8 == "IMMA.16832.S8.S8" and cs.SASS_S8 in rules
         src = (cs._build.CSRC / f"{name}.cu").read_text()
         assert '#include "mma_tf32.cuh"' in src and "mma_s8(" in src
+    conv = dict(cs.SASS_KERNELS[cs.qm.KERNEL_CONV])
+    assert len(conv) == 6 and wg == ("IGMMA.64x64x32.S8.S8",
+                                     "IGMMA.64x128x32.S8.S8")
+    for bn in cs.qm.CONV_BNS:
+        assert conv[f"w8a8_conv2d_kernelILi{bn}ELi0E"] == cs.SASS_S8_WG[bn]
+        for route in (1, 2):
+            assert conv[f"w8a8_conv2d_kernelILi{bn}ELi{route}E"] == \
+                cs.SASS_S8
+        assert f"wgmma.mma_async.sync.aligned.m64n{bn}k32.s32.s8.s8" in \
+            (cs._build.CSRC / f"{cs.qm.KERNEL_CONV}.cu").read_text()
 
 
 @pytest.mark.parametrize("nbytes", [1, 1_300_000, 5_200_000, 21_700_000,
@@ -659,8 +672,9 @@ def test_image_conv_bound_is_bytes_then_operations():
 
 def test_image_conv_parity_and_planted_faults_on_cpu():
     """The parity and planted-fault helpers on the plain version: every
-    case equal, both planted faults (a dropped k piece, shifted pads)
-    rejected by the bitwise check."""
+    case equal, the three planted faults (a dropped k piece, shifted pads,
+    a split's merge without one block's partial) rejected by the bitwise
+    check."""
     shapes = [((2, 11, 9, 3), (7, 7, 3, 8), (2, 2), ((2, 3), (3, 3)),
                (1, 1), 1),
               ((1, 8, 8, 16), (3, 3, 16, 16), (2, 2), ((0, 1), (0, 1)),
@@ -668,7 +682,28 @@ def test_image_conv_parity_and_planted_faults_on_cpu():
     assert cs.conv_parity(0, shapes, device="cpu") == \
         len(shapes) + len(cs.CONV_RAGGED)
     out = cs.conv_planted(0, shapes[1], device="cpu")
-    assert len(out) == 2 and all("rejected" in o for o in out)
+    assert len(out) == 3 and all("rejected" in o for o in out)
+    assert "without the next block's partial" in out[2]
+
+
+def test_conv_planted_merge_fault_is_a_build_of_the_kernel():
+    """The planted lost partial is the kernel's own source built with
+    CV_MERGE_SKIP, which only the merge reads (0, the default, skips
+    none); the smem query takes the entry point's geometry."""
+    src = (cs._build.CSRC / f"{cs.qm.KERNEL_CONV}.cu").read_text()
+    assert "#ifndef CV_MERGE_SKIP\n#define CV_MERGE_SKIP 0\n" in src
+    assert src.count("CV_MERGE_SKIP") == 4
+    assert "q < split && q != CV_MERGE_SKIP" in src
+    assert cs.CONV_MERGE_SKIP == ("-DCV_MERGE_SKIP=1",)
+    assert cs._build.library_path(cs.CONV_SOURCE, cs.CONV_MERGE_SKIP) != \
+        cs._build.library_path(cs.CONV_SOURCE)
+    for _, geom in cs.CONV_SMEM_SHAPES:
+        args = cs.conv_args(geom)
+        assert len(args) == 16
+        x = torch.zeros(geom[0], dtype=torch.int8)
+        _, _, (ho, wo) = cs.qm._conv_geometry(x, geom[1], *geom[2:])
+        assert args[7:9] == (ho, wo)
+        assert args[0] * ho * wo == cs.conv_mnk(geom)[0]
 
 
 @pytest.fixture
