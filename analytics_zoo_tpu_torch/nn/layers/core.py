@@ -1,6 +1,10 @@
-"""Core layers: Dense (float, W8A8 and W4A16), Activation, Dropout,
-Flatten, Merge and BatchNormalization — the JAX package's
-``nn/layers/core.py``.
+"""Core layers — the JAX package's ``nn/layers/core.py``: Dense (float,
+W8A8 and W4A16), Activation, Dropout, Flatten, Reshape, Permute,
+RepeatVector, Squeeze, ExpandDim, Lambda, Embedding, Merge,
+BatchNormalization, InputLayer, Select, Narrow, Masking, GaussianNoise and
+GaussianDropout.  A ``dim`` of the shape layers counts the batch axis, as
+in the JAX package; each layer's ``compute_output_shape`` is its rule for
+the graph ``Model``.
 
 ``Dense`` keeps the JAX layout: ``W`` is (d_in, d_out) and applies as
 ``x @ W + b``.  Quantized, it holds the quantizer's leaves as buffers:
@@ -20,16 +24,17 @@ loads a quantized leaf set into it (``inference/quantize.py`` makes one).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.common import dtypes
 from analytics_zoo_tpu_torch.nn import activations
-from analytics_zoo_tpu_torch.nn.module import (Layer, dropout, initializer,
-                                               to_shape)
+from analytics_zoo_tpu_torch.nn.module import (Layer, dropout, generator,
+                                               initializer, to_shape)
 from analytics_zoo_tpu_torch.ops import quant_matmul as qm
 
 _QUANT_DTYPES = {"W_q": torch.int8, "s_w": torch.float32,
@@ -168,6 +173,170 @@ class Flatten(Layer):
 
     def compute_output_shape(self, input_shape):
         return (int(np.prod(to_shape(input_shape))),)
+
+
+def _axis(dim: int, rank: int) -> int:
+    """``dim`` of a batched tensor of ``rank`` axes (negative from the
+    end) as a non-negative axis; 0 is the batch axis."""
+    ax = dim if dim >= 0 else rank + dim
+    if not 0 <= ax < rank:
+        raise ValueError(f"dim {dim} is out of range for rank {rank}")
+    return ax
+
+
+class Reshape(Layer):
+    """``x.reshape((B,) + target_shape)``; one entry may be -1."""
+
+    def __init__(self, target_shape, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.target_shape = tuple(int(d) for d in target_shape)
+
+    def forward(self, x):
+        return x.reshape((x.shape[0],) + self.target_shape)
+
+    def compute_output_shape(self, input_shape):
+        if -1 not in self.target_shape:
+            return self.target_shape
+        shape = to_shape(input_shape)
+        known = int(np.prod([d for d in self.target_shape if d != -1]))
+        fill = None if None in shape else int(np.prod(shape)) // known
+        return tuple(fill if d == -1 else d for d in self.target_shape)
+
+
+class Permute(Layer):
+    """Permute the non-batch axes; ``dims`` are 1-indexed over them
+    (Keras-1)."""
+
+    def __init__(self, dims, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.dims = tuple(int(d) for d in dims)
+
+    def forward(self, x):
+        return x.permute((0,) + self.dims)
+
+    def compute_output_shape(self, input_shape):
+        shape = to_shape(input_shape)
+        return tuple(shape[d - 1] for d in self.dims)
+
+
+class RepeatVector(Layer):
+    """(B, D) -> (B, n, D)."""
+
+    def __init__(self, n: int, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.n = int(n)
+
+    def forward(self, x):
+        return x.unsqueeze(1).repeat(1, self.n, 1)
+
+    def compute_output_shape(self, input_shape):
+        return (self.n,) + to_shape(input_shape)
+
+
+class Squeeze(Layer):
+    """Drop axis ``dim``, which must have size 1 (``jnp.squeeze``)."""
+
+    def __init__(self, dim: int, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.dim = int(dim)
+
+    def forward(self, x):
+        ax = _axis(self.dim, x.ndim)
+        if x.shape[ax] != 1:
+            raise ValueError(f"{self.name}: cannot squeeze axis {ax} of "
+                             f"size {x.shape[ax]}")
+        return x.squeeze(ax)
+
+    def compute_output_shape(self, input_shape):
+        shape = to_shape(input_shape)
+        ax = _axis(self.dim, len(shape) + 1) - 1
+        return shape[:ax] + shape[ax + 1:]
+
+
+class ExpandDim(Layer):
+    """Insert a size-1 axis at ``dim`` (``jnp.expand_dims``)."""
+
+    def __init__(self, dim: int, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.dim = int(dim)
+
+    def forward(self, x):
+        return x.unsqueeze(self.dim)
+
+    def compute_output_shape(self, input_shape):
+        shape = to_shape(input_shape)
+        ax = _axis(self.dim, len(shape) + 2) - 1
+        return shape[:ax] + (1,) + shape[ax:]
+
+
+class Lambda(Layer):
+    """Wrap a tensor function (autograd Lambda, Lambda.scala:49-95): ``fn``
+    takes a tensor, or a list of them for a multi-input node.  Its output
+    shape is read from ``fn`` run on meta tensors of batch 1 (an unknown
+    axis taken as 1), as the JAX package reads it with
+    ``jax.eval_shape``."""
+
+    def __init__(self, fn: Callable, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x)
+
+    def compute_output_shape(self, input_shape):
+        def meta(shape):
+            dims = (1,) + tuple(1 if d is None else d
+                                for d in to_shape(shape))
+            return torch.empty(dims, device="meta")
+        multi = isinstance(input_shape, list)
+        y = self.fn([meta(s) for s in input_shape] if multi
+                    else meta(input_shape))
+        return tuple(y.shape[1:])
+
+
+class Embedding(Layer):
+    """Id -> vector lookup (keras/layers/Embedding.scala), with the JAX
+    layer's ``jnp.take(E, x.astype(int32), axis=0)`` semantics:
+
+    - a float id truncates toward zero (-0.5 -> 0, 3.99 -> 3), saturating
+      at the int32 range, NaN -> 0;
+    - an id in [-V, -1] wraps to the end of the table;
+    - an id >= V or < -V gives a row of NaN, and no gradient: the lookup
+      gathers a clamped id and the row is replaced after it.
+
+    No device-side assert can fire, whatever the ids.  The table ``E``
+    (input_dim, output_dim) is drawn by ``init`` (U(-0.05, 0.05) for
+    "uniform")."""
+
+    def __init__(self, input_dim: int, output_dim: int, init="uniform",
+                 input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.input_dim = int(input_dim)
+        self.output_dim = int(output_dim)
+        self.init_name = init
+        # the table's shape follows from the hyper-parameters alone
+        self.ensure_built(self._declared_input_shape)
+
+    def build(self, input_shape):
+        self.E = nn.Parameter(torch.empty(self.input_dim, self.output_dim))
+
+    def reset_parameters(self, gen):
+        self.E.copy_(initializer(self.init_name, gen, self.E.shape))
+
+    def compute_output_shape(self, input_shape):
+        return to_shape(input_shape) + (self.output_dim,)
+
+    def _tree(self) -> Dict:
+        return {"E": self.E}
+
+    def forward(self, x):
+        if x.is_floating_point():
+            x = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31)
+        ids = x.to(torch.int64)
+        ids = torch.where(ids < 0, ids + self.input_dim, ids)
+        valid = (ids >= 0) & (ids < self.input_dim)
+        rows = F.embedding(torch.where(valid, ids, 0), self.E)
+        return torch.where(valid.unsqueeze(-1), rows, float("nan"))
 
 
 class Merge(Layer):
@@ -320,3 +489,104 @@ class BatchNormalization(Layer):
         scale = (gamma * inv).to(x.dtype)
         shift = (beta - mean * gamma * inv).to(x.dtype)
         return x * scale.reshape(bshape) + shift.reshape(bshape)
+
+
+class InputLayer(Layer):
+    """Identity placeholder for ``Sequential`` (keras InputLayer)."""
+
+    _is_source = True
+
+    def __init__(self, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+
+    def forward(self, x):
+        return x
+
+
+class Select(Layer):
+    """Take index ``index`` of axis ``dim`` and drop the axis
+    (zoo keras/layers/Select.scala; ``lax.index_in_dim``)."""
+
+    def __init__(self, dim: int, index: int, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.dim, self.index = int(dim), int(index)
+
+    def forward(self, x):
+        return x.select(_axis(self.dim, x.ndim), self.index)
+
+    def compute_output_shape(self, input_shape):
+        shape = to_shape(input_shape)
+        ax = _axis(self.dim, len(shape) + 1) - 1
+        return shape[:ax] + shape[ax + 1:]
+
+
+class Narrow(Layer):
+    """``length`` entries of axis ``dim`` from ``offset`` (Narrow.scala;
+    ``lax.slice_in_dim``, a negative offset counted from the end)."""
+
+    def __init__(self, dim: int, offset: int, length: int = 1,
+                 input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.dim, self.offset, self.length = int(dim), int(offset), \
+            int(length)
+
+    def forward(self, x):
+        ax = _axis(self.dim, x.ndim)
+        start = self.offset + x.shape[ax] if self.offset < 0 \
+            else self.offset
+        return x.narrow(ax, start, self.length)
+
+    def compute_output_shape(self, input_shape):
+        shape = list(to_shape(input_shape))
+        shape[_axis(self.dim, len(shape) + 1) - 1] = self.length
+        return tuple(shape)
+
+
+class Masking(Layer):
+    """Zero the timesteps (last-axis vectors) equal to ``mask_value``
+    everywhere (keras Masking)."""
+
+    def __init__(self, mask_value=0.0, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.mask_value = mask_value
+
+    def forward(self, x):
+        keep = (x != self.mask_value).any(dim=-1, keepdim=True)
+        return torch.where(keep, x, 0.0).to(x.dtype)
+
+
+class GaussianNoise(Layer):
+    """``x + sigma·N(0, 1)`` in training mode with a seed
+    (``Layer.seed_dropout``), else the identity.  The draws come from the
+    layer's generator, so they match the JAX layer's in distribution, not
+    value by value."""
+
+    def __init__(self, sigma: float, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.sigma = float(sigma)
+
+    def forward(self, x):
+        seed = self.train_seed()
+        if seed is None:
+            return x
+        noise = torch.randn(x.shape, generator=generator(seed, x.device),
+                            device=x.device, dtype=x.dtype)
+        return x + self.sigma * noise
+
+
+class GaussianDropout(Layer):
+    """``x·(1 + sqrt(p / (1 - p))·N(0, 1))`` in training mode with a seed,
+    else the identity; drawn as ``GaussianNoise`` is."""
+
+    def __init__(self, p: float, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.p = float(p)
+
+    def forward(self, x):
+        seed = self.train_seed()
+        if seed is None or self.p <= 0:
+            return x
+        std = float(np.sqrt(self.p / (1.0 - self.p)))
+        noise = torch.randn(x.shape, generator=generator(seed, x.device),
+                            device=x.device, dtype=x.dtype)
+        return x * (1.0 + std * noise)

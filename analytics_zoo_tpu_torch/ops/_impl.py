@@ -67,6 +67,9 @@ KERNEL_NAMES = {"paged": "paged_attention_kernel",
 # the profiler's warm-up before the counted block: launches and a wait
 WARMUP_LAUNCHES = 64
 WARMUP_S = 0.1
+# the wait after the trace starts recording, before the block, and after
+# the block's work has ended, before the trace stops
+SETTLE_S = 0.2
 
 
 @contextlib.contextmanager
@@ -84,7 +87,13 @@ def card_launches(kernels=tuple(KERNEL_NAMES)):
     (and once a decode replay's 12), though the launches ran and their
     results were right.  So the profiler warms up first (its schedule's
     warm-up step, whose records are dropped, running WARMUP_LAUNCHES small
-    launches and waiting WARMUP_S) and records only the block."""
+    launches and waiting WARMUP_S) and records only the block.  Records
+    of kernels launched right after the trace began recording were still
+    lost now and then (a decode wave's traced paged launches read 1800 of
+    1824 on the H100), so the block starts SETTLE_S after recording
+    begins, and recording stops SETTLE_S after the block's work has ended
+    (``trace_probe.py`` counts lost records with and without the
+    waits)."""
     counts = {k: 0 for k in kernels}
     if not torch.cuda.is_available():
         yield counts
@@ -99,8 +108,10 @@ def card_launches(kernels=tuple(KERNEL_NAMES)):
         torch.cuda.synchronize()
         time.sleep(WARMUP_S)
         prof.step()                      # warm-up -> recording
+        time.sleep(SETTLE_S)
         yield counts
         torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue

@@ -20,7 +20,10 @@ checked shapes (a missing or extra leaf raises):
   The graph ``Model`` keys its tree ``{layer_name: subtree}`` too,
   ``Convolution2D`` ``{W (kh, kw, cin, cout), b}`` (int8 ``{W_q, s_w,
   s_x, b}``, int4 ``{W_q4, s_g, b}``, switched to as ``Dense`` is:
-  ``_ConvND.adopt_leaves``), ``BatchNormalization`` ``{gamma, beta}``.
+  ``_ConvND.adopt_leaves``), ``BatchNormalization`` ``{gamma, beta}``,
+  ``Embedding`` ``{E (input_dim, output_dim)}``; a layer without
+  parameters (``Flatten``, ``Merge``, ``Lambda``, the shape layers) has
+  the empty subtree ``{}``.
 - the layer IR's state tree (the JAX ``model._state``): the same layout
   over ``_state_tree()``, ``BatchNormalization`` ``{mean, var}``
   (``load_jax_state``, ``export_state``).

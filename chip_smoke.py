@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``analytics_zoo_tpu_torch``).
 
-Runs the port's serving paths (generation, predict, image classification)
-and its training paths on one NVIDIA GPU and checks them, phase by phase,
-each phase printing its own lines:
+Runs the port's serving paths (generation, predict, image classification,
+recommendation) and its training paths on one NVIDIA GPU and checks them,
+phase by phase, each phase printing its own lines:
 
 1. card — the card's name and power limit (``nvidia-smi``) and the build of
    every CUDA kernel (one ``nvcc`` per source, started together): ptxas's
@@ -144,6 +144,30 @@ each phase printing its own lines:
    ``IMAGE_LOGP_TOL``; weight bytes, records/s, e2e p50 and the model's
    images/s alone (readings); ``predict_image_set`` over seeded images
    through the default preprocessing chain.
+8. recommendation — the w8a8 (bitwise, each weight its own allocation
+   of exactly its bytes and again inside a buffer of 127s) and w4a16
+   kernels at the recommendation models' Dense shapes, M = 1, 8192 and
+   9000, then each distinct (K, N) timed at M = 8192 and summed over a
+   forward of each model (w8a8 beside ``torch._int_mm`` + scale).  Then
+   ``NeuralCF`` at MovieLens-1M width (6040 users, 3706 items, embeds 64,
+   MLP (128, 64, 32)) from ``--seed``, trained with ``Estimator.fit``
+   for 2 epochs on ``synthetic_ml1m``'s leave-one-out split with 4
+   negatives a positive (Adam 1e-3, batch 4096) and ranked after each
+   epoch by the NCF protocol (``evaluate_ranking``: 99 unseen negatives,
+   HR@10 / NDCG@10): the loss falls and HR@10 >= 0.50 after epoch 2.
+   The trained weights go through ``InferenceModel.do_load_model`` and
+   rank the 604,000 candidates (batch 8192) in f32, int8 (calibrated on
+   one batch of candidates, ``[(users, items)]``) and int4, each under a
+   profiler trace of the card: w8a8 = 4 x forwards in int8, w4a16 = 4 x
+   forwards in int4, neither in f32, on the card = by the wrappers; int8
+   probabilities bit for bit the plain route's, int4 within W4_TOL;
+   each HR@10 within 0.02 of f32's; ``recommend_for_user`` for 4 users
+   the top 10 of the f32 scores.  Then ``WideAndDeep`` (wide_n_deep) at
+   the Census example's columns over its surrogate (numpy, its draws and
+   label rule): 3 epochs of 16,000 rows at batch 256, the loss falling
+   and test accuracy above the majority class; int8 and int4 predict of
+   the 4000 test rows bitwise / within W4_TOL of the plain route, 5
+   launches a forward of the route's kernel on the card.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -156,7 +180,8 @@ the phase starts itself.
 
 ``--profile`` adds ``torch.profiler`` readings of a decode step (eager,
 then replayed from its CUDA graph), a predict batch, a training step, a
-ResNet-50 training step and an int8 ResNet-50 predict batch of 16.
+ResNet-50 training step, an int8 ResNet-50 predict batch of 16, and an
+NCF training step and int8 predict batch of 8192.
 ``--kernel-timing`` runs only the paged, w8a8, w4a16 and (in trees that
 have it) w8a8_conv2d timings, the conv at each of its 11 path shapes and
 over a forward, and (in trees with the tile and split rule) every tile
@@ -203,6 +228,10 @@ from analytics_zoo_tpu_torch.inference.quantize import (_quantize_w4,
                                                         weight_bytes)
 from analytics_zoo_tpu_torch.models.imageclassification import \
     ImageClassifier
+from analytics_zoo_tpu_torch.models.recommendation import (
+    ColumnFeatureInfo, NeuralCF, WideAndDeep, evaluate_ranking)
+from analytics_zoo_tpu_torch.models.recommendation.movielens import (
+    leave_one_out, synthetic_ml1m, training_arrays)
 from analytics_zoo_tpu_torch.models.textmodels import TransformerLM
 from analytics_zoo_tpu_torch.nn.layers.attention import TransformerLayer
 from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
@@ -1725,14 +1754,14 @@ def w8a8_timing(seed: int, M: int, K=768, N=50257, plain=False) -> dict:
           f"w8a8 ({M}, {K}, {N}) timing set: not bitwise equal to the plain "
           f"version")
     # _int_mm needs M > 16 and K, N multiples of 8: M padded to 32 (above,
-    # to a multiple of 8), N to a multiple of 8
-    mp, n8 = max(32, -(-M // 8) * 8), -(-N // 8) * 8
-    xp = torch.zeros(mp, K, dtype=torch.int8, device="cuda")
-    xp[:M] = x
+    # to a multiple of 8), K and N to multiples of 8 with zeros
+    mp, k8, n8 = max(32, -(-M // 8) * 8), -(-K // 8) * 8, -(-N // 8) * 8
+    xp = torch.zeros(mp, k8, dtype=torch.int8, device="cuda")
+    xp[:M, :K] = x
     padded = []
     for _, ws, ss in sets:
-        wp = torch.zeros(K, n8, dtype=torch.int8, device="cuda")
-        wp[:, :N] = ws
+        wp = torch.zeros(k8, n8, dtype=torch.int8, device="cuda")
+        wp[:K, :N] = ws
         padded.append((wp, ss))
     ms = cuda_ms(cycled([lambda c=c: qm.w8a8_matmul(*c, impl="cuda")
                          for c in sets]))
@@ -1744,7 +1773,7 @@ def w8a8_timing(seed: int, M: int, K=768, N=50257, plain=False) -> dict:
     say(f"w8a8 timing (M={M}, K={K}, N={N}, {len(sets)} input sets): kernel "
         f"{ms:.4f} ms, "
         + (f"plain {plain_ms:.4f} ms, " if plain else "")
-        + f"torch._int_mm (M padded to {mp}, N to {n8}) + scale "
+        + f"torch._int_mm (M padded to {mp}, K to {k8}, N to {n8}) + scale "
         f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
         f"{b['bytes']} B), {100 * b['bound_ms'] / ms:.1f}% of bound")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b}
@@ -3783,6 +3812,602 @@ def image_phase(seed: int, records: dict, profile: bool) -> None:
     say(f"image: phase wall {time.perf_counter() - t_phase:.2f} s")
 
 
+# -- phase 8: the recommendation zoo ------------------------------------------
+
+# NeuralCF at MovieLens-1M width (examples/ncf_train.py, RUNLOG_ncf_ml1m.md)
+# on synthetic_ml1m's surrogate at ML-1M's dimensions
+NCF = dict(user_embed=64, item_embed=64, hidden_layers=(128, 64, 32),
+           mf_embed=64)
+NCF_DATA = dict(n_users=6040, n_items=3706)
+NCF_PARAMS = 1274786
+NCF_EPOCHS = 2
+NCF_BATCH = 4096
+NCF_LR = 1e-3
+NCF_NEG = 4
+# the NCF protocol: 99 negatives the user has not seen, HR@10 / NDCG@10
+NCF_EVAL = dict(num_neg=99, k=10, seed=123)
+# after the last epoch; chance is ~0.10, and the JAX package's CPU run of
+# the same protocol read 0.4474 and 0.5942 after epochs 1 and 2
+NCF_HR_MIN = 0.50
+# the predict batch of evaluate_ranking and recommend_for_user
+RECO_BATCH = 8192
+# a quantized route's HR@10 against f32's
+RECO_HR_GAP = 0.02
+RECO_USERS = 4
+RECO_TOP = 10
+# WideAndDeep at the Census example's columns (examples/wide_deep_census.py)
+CENSUS_ROWS, CENSUS_TRAIN = 20000, 16000
+WAD_HIDDEN = (64, 32, 16)
+WAD_EPOCHS, WAD_BATCH, WAD_LR = 3, 256, 1e-3
+WAD_PREDICT_BATCH = 1024
+# the (K, N) of each model's Dense layers in graph order: NeuralCF's MLP
+# and head (96 = the MF tower's 64 + the MLP's 32), WideAndDeep's
+# unbiased wide layer (wide_dim 173), its MLP (34 = 16 indicator + 2 x 8
+# embedded + 2 continuous) and its head
+RECO_DENSE = {"ncf": ((128, 128), (128, 64), (64, 32), (96, 2)),
+              "wad": ((173, 2), (34, 64), (64, 32), (32, 16), (16, 2))}
+# rows of x in the parity cases: one, the predict bucket, a batch past it
+RECO_M = (1, 8192, 9000)
+# a forward's launches of each kernel, by route
+RECO_LAUNCHES = {"f32": {}, "int8": {"w8a8": 1}, "int4": {"w4a16": 1}}
+
+
+def reco_shapes():
+    """The distinct (K, N) of both models' Dense layers."""
+    return [kn for kn, _ in distinct(RECO_DENSE["ncf"] + RECO_DENSE["wad"])]
+
+
+def poisoned_weight(w, pad: int = 48):
+    """``w`` copied into the middle of a buffer whose other bytes are 127:
+    a read past either end of the weight that reached the products would
+    change them."""
+    buf = torch.full((w.numel() + 2 * pad,), 127, dtype=torch.int8,
+                     device=w.device)
+    buf[pad:pad + w.numel()] = w.flatten()
+    return buf[pad:pad + w.numel()].view(w.shape)
+
+
+def reco_parity(seed: int) -> float:
+    """``w8a8`` bitwise and ``w4a16`` (group 64: ragged groups at K = 96
+    and 173) within W4_TOL at every (M, K, N) of RECO_M x reco_shapes(),
+    each weight its own allocation of exactly its bytes; ``w8a8`` again
+    with the weight inside a buffer of 127s.  Returns w4a16's max error."""
+    g = np.random.default_rng(seed + 140)
+    worst = 0.0
+    for m in RECO_M:
+        for k, n in reco_shapes():
+            x, w, s = w8a8_case(g, m, k, n)
+            ref = qm.w8a8_matmul(x, w, s, impl="torch")
+            for tag, wt in (("exact", w), ("poisoned", poisoned_weight(w))):
+                got = qm.w8a8_matmul(x, wt, s, impl="cuda")
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref),
+                      f"w8a8 ({m}, {k}, {n}, {tag} weight): not bitwise "
+                      f"equal to the plain version")
+            x, wq, sg = w4a16_case(g, m, k, n, 64)
+            got = qm.w4a16_matmul(x, wq, sg, impl="cuda")
+            torch.cuda.synchronize()
+            worst = max(worst, check_close(
+                f"w4a16 ({m}, {k}, {n}, G={sg.shape[0]})", got,
+                qm.w4a16_matmul(x, wq, sg, impl="torch"), *W4_TOL))
+    return worst
+
+
+def reco_kernel_phase(seed: int) -> dict:
+    """Parity at the recommendation shapes, then each distinct (K, N)
+    timed at M = RECO_BATCH as rows 5 and 6 are, and summed over each
+    model's forward."""
+    worst = reco_parity(seed)
+    say(f"reco parity: w8a8 bitwise (each weight exact and inside 127s) "
+        f"and w4a16 within {W4_TOL} (max err {worst:.3e}) at M {RECO_M} x "
+        f"(K, N) {reco_shapes()}")
+    w8 = {kn: w8a8_timing(seed + 3, RECO_BATCH, *kn, plain=True)
+          for kn in reco_shapes()}
+    w4 = {kn: w4a16_timing(seed + 3, RECO_BATCH, *kn, 64, torch.float32)
+          for kn in reco_shapes()}
+    out = {"w4_max_abs_err": worst}
+    for model, kns in RECO_DENSE.items():
+        for name, t, keys in (("w8a8", w8, ("ms", "plain_ms", "library_ms",
+                                            "bound_ms")),
+                              ("w4a16", w4, ("ms", "plain_ms",
+                                             "bound_ms"))):
+            out[f"{name}_{model}"] = {key: sum(t[kn][key] for kn in kns)
+                                      for key in keys}
+            say(f"reco timing[{name}, {model} forward of {len(kns)} "
+                f"launches at M={RECO_BATCH}]: " + ", ".join(
+                    f"{key} {v:.4f}" for key, v in
+                    out[f"{name}_{model}"].items()))
+    out["shapes"] = {f"{k}x{n}": {"w8a8": {key: w8[(k, n)][key] for key in
+                                            ("ms", "library_ms", "bound_ms")},
+                                  "w4a16": {key: w4[(k, n)][key] for key in
+                                            ("ms", "plain_ms", "bound_ms")}}
+                     for k, n in reco_shapes()}
+    return out
+
+
+def dense_shapes(model) -> tuple:
+    """(K, N) of every ``Dense`` of a graph model, in graph order."""
+    return tuple((m.input_dim, m.output_dim) for m in model.graph_layers
+                 if isinstance(m, Dense))
+
+
+def ncf_data(seed: int) -> dict:
+    """The surrogate ratings at ML-1M's dimensions (``synthetic_ml1m``,
+    seed 7 at ``--seed`` 0: the JAX package's runs' data), the
+    leave-one-out split and each user's seen items."""
+    t0 = time.perf_counter()
+    ratings = synthetic_ml1m(**NCF_DATA, seed=7 + seed)
+    train_pos, test_pos = leave_one_out(ratings)
+    seen = {}
+    for u, i in train_pos:
+        seen.setdefault(int(u), set()).add(int(i))
+    return {"ratings": ratings, "train_pos": train_pos, "test_pos": test_pos,
+            "seen": seen, "n_items": int(ratings[:, 1].max()),
+            "n_users": int(ratings[:, 0].max()),
+            "seconds": time.perf_counter() - t0}
+
+
+def ncf_train(ncf, data: dict, seed: int) -> list:
+    """``Estimator.fit`` for NCF_EPOCHS epochs, each on its own
+    ``training_arrays(..., seed=epoch)``, with ``evaluate_ranking`` after
+    each.  Per epoch: the mean loss, HR@10, NDCG@10, the step count, the
+    training wall (host clock, synchronised) and the host's data and
+    evaluation seconds."""
+    dev = ncf.device
+    est = Estimator(ncf.model, optimizer=Adam(lr=NCF_LR),
+                    loss="sparse_categorical_crossentropy",
+                    metrics=["accuracy"], registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    out = []
+    for epoch in range(NCF_EPOCHS):
+        t0 = time.perf_counter()
+        users, items, labels = training_arrays(
+            data["train_pos"], data["n_items"], n_neg=NCF_NEG, seed=epoch)
+        t_data = time.perf_counter() - t0
+        sync(dev)
+        t0 = time.perf_counter()
+        hist = est.fit([users, items], labels, batch_size=NCF_BATCH,
+                       epochs=1, verbose=False)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m = evaluate_ranking(ncf, data["test_pos"], data["n_items"],
+                             batch_size=RECO_BATCH,
+                             exclude_pos=data["seen"], **NCF_EVAL)
+        out.append({"loss": hist.history["loss"][-1],
+                    "hr": m["hit_ratio"], "ndcg": m["ndcg"],
+                    "samples": len(labels),
+                    "steps": -(-len(labels) // NCF_BATCH), "wall_s": wall,
+                    "data_s": t_data,
+                    "eval_s": time.perf_counter() - t0})
+    out[-1]["estimator"] = est
+    return out
+
+
+def check_ncf_train(epochs: list, hr_min: float = NCF_HR_MIN) -> None:
+    """Finite losses that fall epoch by epoch, and HR@10 >= ``hr_min``
+    after the last epoch."""
+    ls = [e["loss"] for e in epochs]
+    check(all(math.isfinite(v) for v in ls) and all(
+        b < a for a, b in zip(ls, ls[1:])),
+        f"ncf train: the per-epoch loss did not fall ({ls})")
+    check(epochs[-1]["hr"] >= hr_min,
+          f"ncf train: HR@10 {epochs[-1]['hr']:.4f} < {hr_min} after "
+          f"{len(epochs)} epochs")
+    for i, e in enumerate(epochs):
+        say(f"ncf train[epoch {i + 1}]: loss {e['loss']:.4f}, HR@10 "
+            f"{e['hr']:.4f}, NDCG@10 {e['ndcg']:.4f}; {e['samples']} "
+            f"samples in {e['steps']} steps of {NCF_BATCH}, "
+            f"{e['wall_s']:.3f} s = {e['samples'] / e['wall_s']:.0f} "
+            f"samples/s, {e['wall_s'] / e['steps'] * 1e3:.3f} ms/step (host "
+            f"clock); host data {e['data_s']:.2f} s, ranking evaluation "
+            f"{e['eval_s']:.2f} s")
+
+
+class RankingRecorder:
+    """What ``evaluate_ranking`` calls: ``predict`` through an
+    InferenceModel's ``do_predict``, keeping the candidates, their
+    probabilities and the predict's host-clock wall."""
+
+    def __init__(self, im):
+        self.im = im
+        self.x = self.probs = None
+        self.wall_s = 0.0
+
+    def predict(self, x, batch_size=None):
+        t0 = time.perf_counter()
+        self.probs = self.im.do_predict(x, batch_size=batch_size)
+        self.wall_s = time.perf_counter() - t0
+        self.x = x
+        return self.probs
+
+
+def serve_ranking(im, data: dict) -> dict:
+    """The NCF protocol's candidates ranked through ``im`` (batch
+    RECO_BATCH) with the counts set to 0 just before and read just after,
+    under a profiler trace of the card; then the model alone over the
+    same candidates, untraced, for records/s."""
+    sync(im.device)
+    st0 = im.aot_stats()
+    reset_launches()
+    rec = RankingRecorder(im)
+    with _impl.card_launches(("w8a8", "w4a16")) as card:
+        m = evaluate_ranking(rec, data["test_pos"], data["n_items"],
+                             batch_size=RECO_BATCH, exclude_pos=data["seen"],
+                             **NCF_EVAL)
+        sync(im.device)
+    wrapper = {"w8a8": qm.launches_w8a8, "w4a16": qm.launches_w4a16}
+    st = im.aot_stats()
+    t0 = time.perf_counter()
+    im.do_predict(rec.x, batch_size=RECO_BATCH)
+    wall = time.perf_counter() - t0
+    return {"hr": m["hit_ratio"], "ndcg": m["ndcg"], "x": rec.x,
+            "probs": rec.probs, "traced_wall_s": rec.wall_s, "wall_s": wall,
+            "forwards": sum(st["programs"].values())
+            - sum(st0["programs"].values()), "card": card,
+            "wrapper": wrapper}
+
+
+def route_probs(im, x, impl, batch: int) -> np.ndarray:
+    """The model's probabilities over ``x`` in batches of ``batch`` with
+    every kernel (``impl`` None) or every plain version (``"torch"``)."""
+    set_impl(im._model, impl)
+    try:
+        return InferenceModel(max_batch=batch, device=im.device) \
+            .do_load_model(im._model).do_predict(x, batch_size=batch)
+    finally:
+        set_impl(im._model, None)
+
+
+def check_launches(tag: str, run: dict, n_dense: int) -> None:
+    """Each kernel launched RECO_LAUNCHES x ``n_dense`` a forward on the
+    card and by its wrapper, and no other; at least one forward."""
+    fw = run["forwards"]
+    check(fw > 0, f"{tag}: no forward ran")
+    per = RECO_LAUNCHES[tag.split("[")[1].rstrip("]")]
+    for k in ("w8a8", "w4a16"):
+        want = fw * n_dense * per.get(k, 0)
+        check(run["card"][k] == run["wrapper"][k] == want,
+              f"{tag}: {k} launches on the card {run['card'][k]}, by the "
+              f"wrapper {run['wrapper'][k]}, != {fw} forwards x {n_dense} "
+              f"x {per.get(k, 0)}")
+
+
+def check_route(tag: str, got, plain, bits: int) -> float:
+    """int8: the served probabilities bit for bit the plain route's;
+    int4: within W4_TOL of it; f32 has no kernel.  Returns the max
+    error."""
+    check(got.shape == plain.shape and bool(np.isfinite(got).all()),
+          f"{tag}: probabilities {got.shape} (plain {plain.shape}) or "
+          f"non-finite")
+    err = float(np.abs(got.astype(np.float64) - plain).max())
+    if bits == 8:
+        check(np.array_equal(got, plain),
+              f"{tag}: probabilities not bitwise equal to the plain route "
+              f"(max abs err {err:.3e})")
+    elif bits == 4:
+        check(bool(np.allclose(got, plain, atol=W4_TOL[0],
+                               rtol=W4_TOL[1])),
+              f"{tag}: probabilities off the plain route by {err:.3e} "
+              f"(atol {W4_TOL[0]}, rtol {W4_TOL[1]})")
+    return err
+
+
+def recommend_check(ncf, im, users) -> None:
+    """``recommend_for_user`` (through the zoo model's predict) returns
+    for each user the RECO_TOP items of highest f32 score through ``im``:
+    the same items, each probability within 1e-6 of ``im``'s, in
+    non-increasing order (two scores within 1e-6 of each other may swap,
+    and an item at the edge may trade places with one within 1e-6)."""
+    items = np.arange(1, ncf.item_count + 1, dtype=np.float32)[:, None]
+    recs = ncf.recommend_for_user(users, RECO_TOP, batch_size=RECO_BATCH)
+    check(len(recs) == RECO_TOP * len(users),
+          f"recommend_for_user: {len(recs)} recommendations")
+    for j, uid in enumerate(users):
+        probs = im.do_predict([np.full_like(items, float(uid)), items],
+                              batch_size=RECO_BATCH)
+        score = probs.max(-1)
+        got = recs[j * RECO_TOP:(j + 1) * RECO_TOP]
+        p = [r.probability for r in got]
+        check(all(r.user_id == uid for r in got)
+              and all(b <= a + 1e-6 for a, b in zip(p, p[1:])),
+              f"recommend_for_user({uid}): {got}")
+        edge = np.sort(score)[::-1][RECO_TOP - 1]
+        for r in got:
+            s = float(score[r.item_id - 1])
+            check(abs(r.probability - s) <= 1e-6 and s >= edge - 1e-6,
+                  f"recommend_for_user({uid}): item {r.item_id} at "
+                  f"{r.probability} (f32 score {s}, top-{RECO_TOP} edge "
+                  f"{edge})")
+    say(f"recommend_for_user({list(users)}, {RECO_TOP}): each user's top "
+        f"{RECO_TOP} of the f32 scores")
+
+
+def ncf_serve(ncf, params: dict, data: dict, dev) -> dict:
+    """The trained NCF (``params``) through InferenceModel in f32, int8
+    and int4, each ranking the protocol's candidates; the quantized routes
+    against the same model through every kernel's plain version; the
+    trained zoo model's ``recommend_for_user`` against the f32 route."""
+    out = {}
+    f32_hr = None
+    for tag, bits in (("f32", 0), ("int8", 8), ("int4", 4)):
+        model = NeuralCF(ncf.user_count, ncf.item_count, 2, **NCF,
+                         device=dev).model
+        im = InferenceModel(max_batch=RECO_BATCH, device=dev) \
+            .do_load_model(model, params)
+        if bits == 8:
+            x0 = out["f32"]["x"]
+            im.do_quantize([(x0[0][:RECO_BATCH], x0[1][:RECO_BATCH])],
+                           bits=8, force=True)
+        elif bits == 4:
+            im.do_quantize(None, bits=4, force=True, group_size=64)
+        run = serve_ranking(im, data)
+        check_launches(f"ncf[{tag}]", run, len(RECO_DENSE["ncf"]))
+        plain = route_probs(im, run["x"], "torch", RECO_BATCH) if bits \
+            else run["probs"]
+        err = check_route(f"ncf[{tag}]", run["probs"], plain, bits)
+        if f32_hr is None:
+            f32_hr = run["hr"]
+        check(abs(run["hr"] - f32_hr) <= RECO_HR_GAP,
+              f"ncf[{tag}]: HR@10 {run['hr']:.4f} is more than "
+              f"{RECO_HR_GAP} from f32's {f32_hr:.4f}")
+        run["bytes"] = weight_bytes(im._params)
+        n = len(run["probs"])
+        say(f"ncf[{tag}]: {n} candidates ({len(data['test_pos'])} users x "
+            f"{1 + NCF_EVAL['num_neg']}) in {run['forwards']} forwards of "
+            f"{RECO_BATCH}: HR@10 {run['hr']:.4f}, NDCG@10 "
+            f"{run['ndcg']:.4f}; {n / run['wall_s']:.0f} records/s "
+            f"untraced, {n / run['traced_wall_s']:.0f} under the trace "
+            f"(host clock, readings); launches on the card = by the "
+            f"wrappers: w8a8 {run['card']['w8a8']}, w4a16 "
+            f"{run['card']['w4a16']}; weight bytes {run['bytes']}"
+            + ("" if bits == 0 else "; vs the plain route "
+               + ("bitwise equal" if bits == 8 else
+                  f"max abs err {err:.3e}")))
+        if tag == "f32":
+            recommend_check(ncf, im,
+                            data["test_pos"][:RECO_USERS, 0].tolist())
+        out[tag] = run
+        del im, model
+    return out
+
+
+# the Census example's category names (examples/wide_deep_census.py), its
+# education order for the label rule and its occupation bonuses
+CENSUS_EDUCATION = ["Bachelors", "HS-grad", "11th", "Masters", "9th",
+                    "Some-college", "Assoc-acdm", "Assoc-voc", "7th-8th",
+                    "Doctorate", "Prof-school", "5th-6th", "10th", "1st-4th",
+                    "Preschool", "12th"]
+CENSUS_OCCUPATION = ["Tech-support", "Craft-repair", "Other-service", "Sales",
+                     "Exec-managerial", "Prof-specialty", "Handlers-cleaners",
+                     "Machine-op-inspct", "Adm-clerical", "Farming-fishing",
+                     "Transport-moving", "Priv-house-serv",
+                     "Protective-serv", "Armed-Forces"]
+CENSUS_WORKCLASS = ["Private", "Self-emp-not-inc", "Self-emp-inc",
+                    "Federal-gov", "Local-gov", "State-gov", "Without-pay",
+                    "Never-worked"]
+CENSUS_RELATIONSHIP = ["Wife", "Own-child", "Husband", "Not-in-family",
+                       "Other-relative", "Unmarried"]
+CENSUS_EDU_RANK = ["Preschool", "1st-4th", "5th-6th", "7th-8th", "9th",
+                   "10th", "11th", "12th", "HS-grad", "Some-college",
+                   "Assoc-voc", "Assoc-acdm", "Bachelors", "Masters",
+                   "Prof-school", "Doctorate"]
+CENSUS_OCC_BONUS = [0.2, 0.1, -0.4, 0.3, 0.9, 0.8, -0.5, -0.2, -0.1, -0.6,
+                    0.0, -0.8, 0.1, 0.2]
+
+
+def census_columns(n: int, seed: int):
+    """The Census example's surrogate (``synth_census``: its draws, in its
+    order, and its label rule) and its column engineering, in numpy: age
+    and hours bucketed by its bins, categories coded by their rank in the
+    sorted names (its codes when every name occurs), ages and hours
+    normalised.  Returns (columns, labels (n,) f32)."""
+    g = np.random.default_rng(seed)
+    age = g.integers(17, 90, n)
+    work = g.choice(len(CENSUS_WORKCLASS), n)
+    edu = g.choice(len(CENSUS_EDUCATION), n)
+    occ = g.choice(len(CENSUS_OCCUPATION), n)
+    rel = g.choice(len(CENSUS_RELATIONSHIP), n)
+    gender = g.choice(2, n)                   # ["Male", "Female"]
+    hours = np.clip(g.normal(40, 12, n), 1, 99).astype(int)
+    gain = np.where(g.random(n) < 0.08, g.integers(2000, 50000, n), 0)
+    rank = np.array([CENSUS_EDU_RANK.index(e) for e in CENSUS_EDUCATION])
+    z = (0.28 * rank[edu] + np.asarray(CENSUS_OCC_BONUS)[occ] * 1.2
+         + 0.045 * (age - 38) - 0.0009 * (age - 45) ** 2
+         + 0.03 * (hours - 40) + 0.00008 * gain - 3.2)
+    p = 1.0 / (1.0 + np.exp(-(z + g.normal(0, 0.8, n))))
+    labels = (g.random(n) < p).astype(np.float32)
+
+    def code(names, drawn):
+        order = np.argsort(np.argsort(names))   # rank of each name
+        return order[drawn]
+    cols = {"age_bucket": np.searchsorted([25, 35, 45, 55, 65], age),
+            "hours_bucket": np.searchsorted([25, 39, 41, 50], hours),
+            "gain_flag": (gain > 0).astype(np.int64),
+            "workclass_id": code(CENSUS_WORKCLASS, work),
+            "education_id": code(CENSUS_EDUCATION, edu),
+            "occupation_id": code(CENSUS_OCCUPATION, occ),
+            "relationship_id": code(CENSUS_RELATIONSHIP, rel),
+            "gender_id": code(["Male", "Female"], gender),
+            "age_norm": (age - 38.0) / 13.0,
+            "hours_norm": (hours - 40.0) / 12.0}
+    return cols, labels
+
+
+def census_info() -> ColumnFeatureInfo:
+    """The Census example's ``ColumnFeatureInfo``: wide_dim 173 (bases 6,
+    16, 14, 5, 2 and crosses 100, 30), indicators 8 + 6 + 2, two 8-wide
+    embeddings of 16 and 14 ids, two continuous columns."""
+    return ColumnFeatureInfo(
+        wide_base_cols=["age_bucket", "education_id", "occupation_id",
+                        "hours_bucket", "gain_flag"],
+        wide_base_dims=[6, len(CENSUS_EDUCATION), len(CENSUS_OCCUPATION),
+                        5, 2],
+        wide_cross_cols=["education_id_occupation_id",
+                         "age_bucket_hours_bucket"],
+        wide_cross_dims=[100, 30],
+        indicator_cols=["workclass_id", "relationship_id", "gender_id"],
+        indicator_dims=[len(CENSUS_WORKCLASS), len(CENSUS_RELATIONSHIP), 2],
+        embed_cols=["education_id", "occupation_id"],
+        embed_in_dims=[len(CENSUS_EDUCATION), len(CENSUS_OCCUPATION)],
+        embed_out_dims=[8, 8],
+        continuous_cols=["age_norm", "hours_norm"])
+
+
+def wad_phase(seed: int, dev) -> dict:
+    """WideAndDeep (wide_n_deep) at the Census columns: fit, test
+    accuracy against the majority class, then int8 and int4 predict of
+    the test rows through the kernels against the plain route."""
+    cols, y = census_columns(CENSUS_ROWS, seed + 150)
+    wad = WideAndDeep(2, census_info(), "wide_n_deep",
+                      hidden_layers=WAD_HIDDEN, device=dev)
+    wad.init_weights(seed + 1)
+    check(dense_shapes(wad.model) == RECO_DENSE["wad"],
+          f"wad: Dense shapes {dense_shapes(wad.model)}")
+    x = wad.to_model_inputs(cols)
+    perm = np.random.default_rng(seed + 151).permutation(CENSUS_ROWS)
+    tr, te = perm[:CENSUS_TRAIN], perm[CENSUS_TRAIN:]
+    xtr, xte = [a[tr] for a in x], [a[te] for a in x]
+    est = Estimator(wad.model, optimizer=Adam(lr=WAD_LR),
+                    loss="sparse_categorical_crossentropy",
+                    metrics=["accuracy"], registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    sync(dev)
+    t0 = time.perf_counter()
+    hist = est.fit(xtr, y[tr, None], batch_size=WAD_BATCH, epochs=WAD_EPOCHS,
+                   verbose=False)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    ls = hist.history["loss"]
+    check(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0],
+          f"wad: the loss did not fall ({ls})")
+    acc = est.evaluate(xte, y[te, None], batch_size=WAD_PREDICT_BATCH)[
+        "accuracy"]
+    base = max(float(y[te].mean()), 1.0 - float(y[te].mean()))
+    check(acc > base, f"wad: test accuracy {acc:.4f} not above the "
+                      f"majority class's {base:.4f}")
+    steps = WAD_EPOCHS * -(-CENSUS_TRAIN // WAD_BATCH)
+    say(f"wad: WideAndDeep(wide_n_deep, hidden {WAD_HIDDEN}) "
+        f"({wad.model.param_count()} params) on {CENSUS_TRAIN} Census "
+        f"rows: losses {[round(v, 4) for v in ls]}, {steps} steps in "
+        f"{wall:.3f} s = {wall / steps * 1e3:.3f} ms/step (host clock); "
+        f"test accuracy {acc:.4f} on {len(te)} rows, majority class "
+        f"{base:.4f}")
+    params = numpy_tree(export_params(wad.model))
+    out = {"accuracy": acc}
+    for tag, bits in (("int8", 8), ("int4", 4)):
+        model = WideAndDeep(2, census_info(), "wide_n_deep",
+                            hidden_layers=WAD_HIDDEN, device=dev).model
+        im = InferenceModel(max_batch=WAD_PREDICT_BATCH, device=dev) \
+            .do_load_model(model, params)
+        im.do_quantize([tuple(a[:WAD_PREDICT_BATCH] for a in xte)]
+                       if bits == 8 else None, bits=bits, force=True)
+        sync(dev)
+        st0 = im.aot_stats()
+        reset_launches()
+        with _impl.card_launches(("w8a8", "w4a16")) as card:
+            probs = im.do_predict(xte, batch_size=WAD_PREDICT_BATCH)
+            sync(dev)
+        st = im.aot_stats()
+        run = {"card": card, "wrapper": {"w8a8": qm.launches_w8a8,
+                                         "w4a16": qm.launches_w4a16},
+               "forwards": sum(st["programs"].values())
+               - sum(st0["programs"].values())}
+        check_launches(f"wad[{tag}]", run, len(RECO_DENSE["wad"]))
+        plain = route_probs(im, xte, "torch", WAD_PREDICT_BATCH)
+        err = check_route(f"wad[{tag}]", probs, plain, bits)
+        qacc = float((probs.argmax(-1) == y[te]).mean())
+        say(f"wad[{tag}]: {len(te)} test rows in {run['forwards']} forwards "
+            f"of {WAD_PREDICT_BATCH}: accuracy {qacc:.4f} (f32 {acc:.4f}); "
+            f"launches on the card = by the wrappers: w8a8 "
+            f"{card['w8a8']}, w4a16 {card['w4a16']}; vs the plain route "
+            + ("bitwise equal" if bits == 8 else f"max abs err {err:.3e}")
+            + f"; weight bytes {weight_bytes(im._params)}")
+        out[tag] = run
+        del im, model
+    return out
+
+
+def profile_ncf(est, data: dict, im, x) -> None:
+    """One NCF training step and one int8 predict batch under
+    ``torch.profiler``: busy share and the kernels that take the most
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    users, items, labels = training_arrays(data["train_pos"][:NCF_BATCH],
+                                           data["n_items"], n_neg=NCF_NEG)
+    batch = est._transfer(([users[:NCF_BATCH], items[:NCF_BATCH]],
+                           labels[:NCF_BATCH],
+                           np.ones(NCF_BATCH, np.float32)))
+    xb = [a[:RECO_BATCH] for a in x]
+    im.do_predict(xb)
+    for tag, fn in (("train", lambda: est._train_step(*batch[:3])),
+                    ("predict/int8", lambda: im.do_predict(xb))):
+        est.model.train(tag == "train")
+        sync(est.device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync(est.device)
+            wall = time.perf_counter() - t0
+        rows, busy = kernel_rows(prof)
+        n = NCF_BATCH if tag == "train" else RECO_BATCH
+        say(f"profile[ncf {tag}]: one batch of {n} rows in "
+            f"{wall * 1e3:.2f} ms under the profiler, kernels "
+            f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of the wall), "
+            f"{sum(r[1] for r in rows)} kernel launches")
+        for name, count, ms in rows[:10]:
+            say(f"profile[ncf {tag}]   {ms:9.3f} ms  {count:4d} calls  "
+                f"{name[:90]}")
+    est.model.eval()
+
+
+def reco_phase(seed: int, records: dict, profile: bool) -> None:
+    """Phase 8: the kernels at the recommendation shapes; NeuralCF at
+    MovieLens-1M width trained and ranked, then served in f32, int8 and
+    int4; WideAndDeep at the Census columns trained and served in int8
+    and int4."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    kt = reco_kernel_phase(seed)
+    data = ncf_data(seed)
+    ncf = NeuralCF(data["n_users"], data["n_items"], 2, **NCF, device=dev)
+    ncf.init_weights(seed)
+    check(ncf.model.param_count() == NCF_PARAMS
+          and dense_shapes(ncf.model) == RECO_DENSE["ncf"],
+          f"ncf: {ncf.model.param_count()} params, Dense shapes "
+          f"{dense_shapes(ncf.model)}")
+    say(f"model: NeuralCF({data['n_users']} users, {data['n_items']} "
+        f"items, {NCF}) ({NCF_PARAMS} params) from seed {seed}; "
+        f"synthetic_ml1m: {len(data['ratings'])} interactions, "
+        f"{len(data['train_pos'])} training positives x {1 + NCF_NEG}, "
+        f"{len(data['test_pos'])} held out (host {data['seconds']:.2f} s)")
+    epochs = ncf_train(ncf, data, seed)
+    check_ncf_train(epochs)
+    params = numpy_tree(export_params(ncf.model))
+    served = ncf_serve(ncf, params, data, dev)
+    if profile:
+        im = InferenceModel(max_batch=RECO_BATCH, device=dev).do_load_model(
+            NeuralCF(ncf.user_count, ncf.item_count, 2, **NCF,
+                     device=dev).model, params)
+        x = served["int8"]["x"]
+        im.do_quantize([(x[0][:RECO_BATCH], x[1][:RECO_BATCH])], bits=8,
+                       force=True)
+        profile_ncf(epochs[-1]["estimator"], data, im, x)
+    wad = wad_phase(seed, dev)
+    for name, bits_tag in (("w8a8", "int8"), ("w4a16", "int4")):
+        rec = records[name]
+        rec["reco_launches"] = {"ncf": served[bits_tag]["card"][name],
+                                "wad": wad[bits_tag]["card"][name]}
+        for model in RECO_DENSE:
+            for key, v in kt[f"{name}_{model}"].items():
+                rec[f"{model}_forward_{key}"] = v
+        rec["reco_shapes"] = {kn: t[name] for kn, t in kt["shapes"].items()}
+    records["w4a16"]["max_abs_err"] = max(records["w4a16"]["max_abs_err"],
+                                          kt["w4_max_abs_err"])
+    say(f"reco: phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
 # -- main ---------------------------------------------------------------------
 
 def ptxas_summary(log: str) -> str:
@@ -3966,6 +4591,7 @@ def main(argv=None) -> int:
     train_phase(args.seed, records, args.profile)
     resnet_phase(args.seed, records, args.profile)
     image_phase(args.seed, records, args.profile)
+    reco_phase(args.seed, records, args.profile)
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (

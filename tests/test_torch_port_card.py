@@ -772,3 +772,61 @@ def test_predict_warm_then_dispatch_on_card(cuda_device):
     assert card["flash_fwd"] == tfa.launches - f0 == 3 * 2
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=2e-5)
+
+
+# the recommendation zoo's Dense shapes (K, N): NeuralCF at MovieLens-1M
+# width (128x128, 128x64, 64x32, 96x2) and WideAndDeep at the Census
+# columns (173x2 unbiased wide, 34x64, 32x16, 16x2), at one row, the
+# predict bucket and a batch past it
+RECO_KN = ((128, 128), (128, 64), (64, 32), (96, 2), (173, 2), (34, 64),
+           (32, 16), (16, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8192, 9000])
+@pytest.mark.parametrize("k,n", RECO_KN)
+def test_recommendation_shapes_w8a8_and_w4a16_on_card(cuda_device, m, k, n):
+    """Each weight its own allocation of exactly its bytes: ``w8a8``
+    bitwise; ``w4a16`` (group 64, ragged groups at K = 96 and 173) within
+    its tolerance; both on f32 x."""
+    g = np.random.default_rng(m + 7 * k + n)
+    x = torch.from_numpy(g.integers(-128, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(g.integers(-128, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy(g.uniform(1e-4, 1e-2, n).astype(np.float32))
+    x, w, s = (t.to(cuda_device) for t in (x, w, s))
+    got = tqm.w8a8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tqm.w8a8_matmul(x, w, s, impl="torch"))
+    leaves = tq._quantize_w4(
+        np.asarray(g.normal(size=(k, n)) * 0.05, np.float32), 64)
+    xf = torch.from_numpy(np.asarray(g.normal(size=(m, k)), np.float32))
+    wq = torch.from_numpy(leaves["W_q4"]).to(cuda_device)
+    sg = torch.from_numpy(leaves["s_g"]).to(cuda_device)
+    xf = xf.to(cuda_device)
+    got = tqm.w4a16_matmul(xf, wq, sg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tqm.w4a16_matmul(xf, wq, sg,
+                                                     impl="torch"),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_embedding_out_of_range_ids_on_card(cuda_device):
+    """Ids past the table on either side give a row of NaN, with no
+    device-side assert: the context stays usable, and a later lookup and
+    product run."""
+    from analytics_zoo_tpu_torch.nn.layers.core import Embedding
+    emb = Embedding(10, 4).to(cuda_device)
+    ids = torch.tensor([[3.0, 10.0, -11.0, -1.0, 1e12, 9.9]],
+                       device=cuda_device)
+    out = emb(ids)
+    torch.cuda.synchronize()
+    nan_rows = torch.isnan(out).all(-1)[0].tolist()
+    assert nan_rows == [False, True, True, False, True, False]
+    assert torch.equal(out[0, 3], emb.E[9]) and torch.equal(out[0, 5],
+                                                            emb.E[9])
+    out.nan_to_num(0.0).sum().backward()
+    assert torch.isfinite(emb.E.grad).all()
+    again = emb(torch.tensor([[0.0, 2.0]], device=cuda_device))
+    assert torch.equal(again[0], emb.E[[0, 2]])
+    assert float((again @ again.transpose(1, 2)).sum()) >= 0.0

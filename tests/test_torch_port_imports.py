@@ -53,7 +53,11 @@ def test_every_module_imports_with_jax_blocked():
                 "nn.objectives", "nn.metrics", "nn.optimizers",
                 "common.triggers", "feature.dataset", "feature.common",
                 "feature.image", "ops.quant_matmul", "nn.layers.conv",
-                "inference.quantize", "models.imageclassification"):
+                "inference.quantize", "models.imageclassification",
+                "models.recommendation", "models.recommendation.neuralcf",
+                "models.recommendation.wide_and_deep",
+                "models.recommendation.recommender",
+                "models.recommendation.movielens", "nn.layers.core"):
         assert f"analytics_zoo_tpu_torch.{mod}" in doc["modules"]
 
 

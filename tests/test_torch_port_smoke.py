@@ -10,7 +10,11 @@ phase's (fused_bn bounds, path shapes, parity checks and planted faults;
 (ResNet-50's conv inventory and launch arithmetic, the conv bound, parity
 and planted faults on the plain version, image records served in f32,
 int8 and int4 and checked against the plain route, ``predict_image_set``)
-are plain Python and run here at a tiny width.
+and its recommendation phase's (the models' Dense shapes, the Census
+surrogate against the example's own generator, NeuralCF trained, ranked
+and served in f32 / int8 / int4, WideAndDeep trained and served, and the
+checks' rejection of faults) are plain Python and run here at a tiny
+width.
 """
 
 import copy
@@ -825,3 +829,149 @@ def test_ptxas_summary_names_every_template_argument():
         "w4a16_kernel<13__nv_bfloat16Li4>: 24 bytes stack frame, 24 bytes "
         "spill stores, 24 bytes spill loads; "
         "w4a16_kernel<13__nv_bfloat16Li4>: 187 regs, 4224 B static smem")
+
+
+# -- phase 8: the recommendation zoo --------------------------------------------
+
+def test_reco_dense_shapes_are_the_full_width_models():
+    """RECO_DENSE is what the models at full width hold, in graph order:
+    NeuralCF at MovieLens-1M width (1,274,786 parameters) and WideAndDeep
+    at the Census columns (wide_dim 173, deep input 34)."""
+    from analytics_zoo_tpu_torch.models.recommendation import (NeuralCF,
+                                                               WideAndDeep)
+    ncf = NeuralCF(cs.NCF_DATA["n_users"], cs.NCF_DATA["n_items"], 2,
+                   **cs.NCF, device="cpu")
+    assert ncf.model.param_count() == cs.NCF_PARAMS
+    assert cs.dense_shapes(ncf.model) == cs.RECO_DENSE["ncf"]
+    info = cs.census_info()
+    assert (info.wide_dim, info.indicator_dim) == (173, 16)
+    wad = WideAndDeep(2, info, "wide_n_deep", hidden_layers=cs.WAD_HIDDEN,
+                      device="cpu")
+    assert cs.dense_shapes(wad.model) == cs.RECO_DENSE["wad"]
+    assert len(cs.reco_shapes()) == 8 and (64, 32) in cs.reco_shapes()
+
+
+def _census_example():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(cs.__file__).parent / "examples" / \
+        "wide_deep_census.py"
+    spec = importlib.util.spec_from_file_location("wide_deep_census", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_census_columns_are_the_examples_surrogate():
+    """The numpy generator draws what the example's ``synth_census``
+    draws (pandas, same seed) and engineers its columns as the example's
+    transformers do: the same labels, buckets, category codes and
+    normalised values."""
+    import pandas as pd
+    ex = _census_example()
+    n, seed = 3000, 11
+    df = ex.synth_census(n, seed)
+    cols, y = cs.census_columns(n, seed)
+    np.testing.assert_array_equal(y, df["label"].to_numpy())
+    np.testing.assert_array_equal(cols["age_bucket"], pd.cut(
+        df["age"], bins=[0, 25, 35, 45, 55, 65, 200], labels=False))
+    np.testing.assert_array_equal(cols["hours_bucket"], pd.cut(
+        df["hours_per_week"], bins=[0, 25, 39, 41, 50, 200], labels=False))
+    np.testing.assert_array_equal(cols["gain_flag"],
+                                  (df["capital_gain"] > 0).astype(int))
+    for col in ("workclass", "education", "occupation", "relationship",
+                "gender"):
+        codes = {v: i for i, v in enumerate(sorted(df[col].unique()))}
+        np.testing.assert_array_equal(cols[f"{col}_id"],
+                                      df[col].map(codes).to_numpy())
+    np.testing.assert_allclose(cols["age_norm"], (df["age"] - 38.0) / 13.0)
+    np.testing.assert_allclose(cols["hours_norm"],
+                               (df["hours_per_week"] - 40.0) / 12.0)
+    assert 0.25 < y.mean() < 0.5
+
+
+@pytest.fixture
+def tiny_reco(monkeypatch):
+    """Phase 8 at a tiny width on the CPU: NeuralCF over 40 users x 30
+    items (embeds 8, hidden (16, 8)), WideAndDeep hidden (8, 4) over 2000
+    Census rows, small batches, the kernels' launch counts 0 (no card),
+    and the HR gap widened to 0.1 (one of 40 users is 0.025)."""
+    from analytics_zoo_tpu_torch.common import context
+    monkeypatch.setattr(cs, "NCF", dict(user_embed=8, item_embed=8,
+                                        hidden_layers=(16, 8), mf_embed=8))
+    monkeypatch.setattr(cs, "NCF_DATA", dict(n_users=40, n_items=30))
+    monkeypatch.setattr(cs, "NCF_BATCH", 128)
+    monkeypatch.setattr(cs, "NCF_LR", 1e-2)
+    monkeypatch.setattr(cs, "NCF_EVAL", dict(num_neg=20, k=10, seed=123))
+    monkeypatch.setattr(cs, "RECO_BATCH", 256)
+    monkeypatch.setattr(cs, "RECO_HR_GAP", 0.1)
+    monkeypatch.setattr(cs, "RECO_DENSE", {
+        "ncf": ((16, 16), (16, 8), (16, 2)),
+        "wad": ((173, 2), (34, 8), (8, 4), (4, 2))})
+    monkeypatch.setattr(cs, "RECO_LAUNCHES", {"f32": {}, "int8": {},
+                                              "int4": {}})
+    monkeypatch.setattr(cs, "CENSUS_ROWS", 2000)
+    monkeypatch.setattr(cs, "CENSUS_TRAIN", 1600)
+    monkeypatch.setattr(cs, "WAD_HIDDEN", (8, 4))
+    monkeypatch.setattr(cs, "WAD_BATCH", 64)
+    monkeypatch.setattr(cs, "WAD_LR", 1e-2)
+    monkeypatch.setattr(cs, "WAD_PREDICT_BATCH", 128)
+    monkeypatch.setattr(context, "_global_ctx",
+                        context.ZooContext(context.ZooConf(device="cpu")))
+
+
+def _sync_ratings(monkeypatch):
+    """synthetic_ml1m at 30 items with 12 interactions a user."""
+    real = cs.synthetic_ml1m
+    monkeypatch.setattr(cs, "synthetic_ml1m",
+                        lambda **kw: real(ratings_per_user=12, **kw))
+
+
+def test_reco_ncf_phase_on_cpu(tiny_reco, monkeypatch):
+    """Trained (the loss falls), ranked and served in f32, int8 and int4
+    on the CPU (every wrapper takes its plain version there, so each
+    route's check against the plain route passes), recommend_for_user
+    included; then a one-ulp change of one int8 probability, a launch
+    count off by one, a rising loss and an HR below its floor are
+    rejected."""
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    _sync_ratings(monkeypatch)
+    data = cs.ncf_data(0)
+    assert (data["n_users"], data["n_items"]) == (40, 30)
+    ncf = NeuralCF(40, 30, 2, **cs.NCF, device="cpu")
+    ncf.init_weights(0)
+    assert cs.dense_shapes(ncf.model) == cs.RECO_DENSE["ncf"]
+    epochs = cs.ncf_train(ncf, data, 0)
+    cs.check_ncf_train(epochs, hr_min=0.2)
+    params = cs.numpy_tree(cs.export_params(ncf.model))
+    served = cs.ncf_serve(ncf, params, data, torch.device("cpu"))
+    run = served["int8"]
+    assert run["probs"].shape == (40 * 21, 2) and run["forwards"] == 4
+    assert run["x"][0].shape == (40 * 21, 1)
+    bad = run["probs"].copy()
+    bad[3, 1] = np.nextafter(bad[3, 1], np.float32(1))
+    with pytest.raises(cs.SmokeFailure, match="bitwise"):
+        cs.check_route("ncf[int8]", bad, run["probs"], 8)
+    with pytest.raises(cs.SmokeFailure, match="plain route"):
+        cs.check_route("ncf[int4]", run["probs"] + 1e-3, run["probs"], 4)
+    monkeypatch.setattr(cs, "RECO_LAUNCHES", {"int8": {"w8a8": 1}})
+    good = dict(run, card={"w8a8": 12, "w4a16": 0},
+                wrapper={"w8a8": 12, "w4a16": 0})
+    cs.check_launches("ncf[int8]", good, 3)
+    for bad_counts in ({"w8a8": 11, "w4a16": 0}, {"w8a8": 12, "w4a16": 1}):
+        with pytest.raises(cs.SmokeFailure, match="launches"):
+            cs.check_launches("ncf[int8]", dict(good, card=bad_counts), 3)
+    rising = [dict(e) for e in epochs]
+    rising[-1]["loss"] = rising[0]["loss"] + 1.0
+    with pytest.raises(cs.SmokeFailure, match="did not fall"):
+        cs.check_ncf_train(rising, hr_min=0.0)
+    with pytest.raises(cs.SmokeFailure, match="HR@10"):
+        cs.check_ncf_train(epochs, hr_min=1.01)
+
+
+def test_reco_wide_and_deep_phase_on_cpu(tiny_reco):
+    """Trained above the majority class and served in int8 and int4 on
+    the CPU, each against the plain route."""
+    out = cs.wad_phase(0, torch.device("cpu"))
+    assert out["accuracy"] > 0.6
+    assert out["int8"]["forwards"] == out["int4"]["forwards"] == 4
