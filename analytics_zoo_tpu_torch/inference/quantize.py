@@ -265,10 +265,13 @@ def quantize(model, calib_inputs, bits: int = 8, group_size: int = 64,
 # -- introspection / accounting ------------------------------------------------
 
 def _leaf_items(params, prefix=""):
-    for k in sorted(params):
-        v = params[k]
+    """(path, leaf) over a tree of dicts and lists (a list's index is its
+    key)."""
+    items = [(k, params[k]) for k in sorted(params)] \
+        if isinstance(params, dict) else enumerate(params)
+    for k, v in items:
         path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list, tuple)):
             yield from _leaf_items(v, path)
         else:
             yield path, v

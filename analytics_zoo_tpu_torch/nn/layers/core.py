@@ -330,13 +330,22 @@ class Embedding(Layer):
         return {"E": self.E}
 
     def forward(self, x):
-        if x.is_floating_point():
-            x = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31)
-        ids = x.to(torch.int64)
-        ids = torch.where(ids < 0, ids + self.input_dim, ids)
-        valid = (ids >= 0) & (ids < self.input_dim)
-        rows = F.embedding(torch.where(valid, ids, 0), self.E)
-        return torch.where(valid.unsqueeze(-1), rows, float("nan"))
+        return lookup(self.E, x)
+
+
+def lookup(E: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Rows of the table ``E`` (V, D) at the ids ``x`` with the JAX
+    ``jnp.take(E, x.astype(int32), axis=0)`` semantics ``Embedding``
+    documents: float ids truncate (NaN -> 0), ids in [-V, -1] wrap, any
+    other id gives a row of NaN and no gradient."""
+    if x.is_floating_point():
+        x = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31)
+    ids = x.to(torch.int64)
+    n = E.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids)
+    valid = (ids >= 0) & (ids < n)
+    rows = F.embedding(torch.where(valid, ids, 0), E)
+    return torch.where(valid.unsqueeze(-1), rows, float("nan"))
 
 
 class Merge(Layer):

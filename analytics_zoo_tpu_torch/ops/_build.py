@@ -34,7 +34,8 @@ _lock = threading.Lock()
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 # name -> wall seconds of the nvcc run (absent when the library was cached)
 BUILD_SECONDS: Dict[str, float] = {}
-# name -> the compiler's stderr (ptxas register / shared-memory report)
+# name -> the compiler's stderr (ptxas register / shared-memory report):
+# this process's build, or the report kept beside a cached library
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -59,13 +60,23 @@ def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def report_path(library: Path) -> Path:
+    """Where the compiler's report of ``library``'s build is kept."""
+    return library.with_name(library.name + ".ptxas.txt")
+
+
 def build(name: str, defines: Sequence[str] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` (with the ``-D`` macros ``defines``)
     unless its library is already built.  The output is written under a
     temporary name and renamed, so a concurrent build never loads a
-    half-written file."""
+    half-written file.  The compiler's report is written beside the
+    library before it, and a library counts as built only with its
+    report, which is read back into ``BUILD_LOG``."""
     out = library_path(name, defines)
-    if out.exists():
+    report = report_path(out)
+    if out.exists() and report.exists():
+        if not defines:
+            BUILD_LOG[name] = report.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}")
@@ -76,6 +87,9 @@ def build(name: str, defines: Sequence[str] = ()) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
+    tmp_report = report.with_name(f"{tmp.name}.ptxas.txt")
+    tmp_report.write_text(proc.stderr)
+    os.replace(tmp_report, report)
     os.replace(tmp, out)
     if not defines:
         BUILD_SECONDS[name] = time.perf_counter() - t0

@@ -13,6 +13,16 @@ The token-level scheduler of the JAX package's ``serving/generate.py``
   per-slot caches; a request lands in the smallest lane that holds prompt
   + budget, is prefilled through ``init_decode`` and copied into its slot,
   and decodes through ``decode_step``.
+- **bare-state lanes** — a model whose ``init_decode`` takes no
+  ``cache_len`` (``models/seq2seq.Seq2seq``: an LSTM stack's per-layer
+  ``(h, c)``, no KV cache) has no length axis, so every request takes the
+  first lane, its budget is not clipped by the lane's capacity, and every
+  prompt bucket is served whatever the lane.  Prefill is
+  ``init_decode(prompt, lengths)`` and yields no logits: a row's first
+  decode step is fed ``start_id``, and its first token comes from the
+  first quantum.  Such a model rebuilds nothing from tokens, so it takes
+  no checkpoint and a resume restarts from token 0, loudly
+  (``resume_failed``).
 - **paged lane** (``paged=True``) — KV lives in a fixed pool of
   ``block_len``-token blocks (``serving/kvpool.BlockPool``); each slot
   holds a block table.  Admission is bounded by free blocks as well as
@@ -54,8 +64,8 @@ Every prompt is validated on the host before any of its tokens reaches
 the device: an out-of-range embedding index on CUDA is a device-side
 assert, which ends the process.
 
-Not in this slice (asking for them raises ``NotImplementedError``):
-bare-state models (ROADMAP queue 1, items 4 and 10).
+``paged=True`` needs the paged decode API (``TransformerLM``); asking for
+it with another model raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -133,8 +143,8 @@ class GenerationParams:
       the prompt, then a replay of the rest through decode), then decode
       on at the exact token position.  The prefill ladder extends to
       ``pow2(max_prompt_len + max_tokens)`` so that prefill has a bucket.
-    - ``start_id`` — accepted for config compatibility with the JAX
-      package; bare-state models are not ported yet (ROADMAP queue 1).
+    - ``start_id`` — the first decoder token of a bare-state model
+      (``Seq2seq``), whose prefill yields no logits.
     """
 
     max_active_slots: int = 8
@@ -453,7 +463,8 @@ def gather_prefix(pools, ptab, *, block_len: int, kv_quant: str):
 
 class ContinuousBatcher:
     """Token-level decode scheduler over an ``InferenceModel`` whose
-    module exposes ``init_decode``/``decode_step`` (monolithic lanes) and,
+    module exposes ``init_decode``/``decode_step`` (monolithic lanes: a
+    cache model, ``TransformerLM``, or a bare-state one, ``Seq2seq``) and,
     for ``paged=True``, the paged decode API (``TransformerLM``).
 
     ``impl`` selects the attention route handed to ``decode_paged``
@@ -475,18 +486,21 @@ class ContinuousBatcher:
         inner = getattr(model, "_model", None)
         if inner is None:
             raise ValueError("generation needs a loaded InferenceModel")
-        init = getattr(inner, "init_decode", None)
-        if init is None or not hasattr(inner, "decode_step") \
-                or "cache_len" not in inspect.signature(init).parameters:
-            raise NotImplementedError(
-                "only cache models (models/textmodels.TransformerLM) are "
-                "ported; bare-state models (recurrent stacks, Seq2seq) "
-                "wait for ROADMAP queue 1, items 4 and 10")
         missing = [m for m in self.PAGED_API if not hasattr(inner, m)]
         if gen.paged and missing:
             raise NotImplementedError(
                 "generation.paged=true needs the paged decode API "
                 f"(models/textmodels.TransformerLM); missing: {missing}")
+        init = getattr(inner, "init_decode", None)
+        if init is None or not hasattr(inner, "decode_step"):
+            raise ValueError(
+                "generation needs a model whose module implements "
+                "init_decode/decode_step (models/seq2seq.Seq2seq, "
+                "models/textmodels.TransformerLM)")
+        # cache models (fixed-length KV caches) take cache_len and their
+        # prefill yields first-token logits; bare-state models take
+        # neither and start from gen.start_id
+        self._cache_model = "cache_len" in inspect.signature(init).parameters
         self.model = model
         self.inner = inner
         self.gen = gen
@@ -494,11 +508,13 @@ class ContinuousBatcher:
         self.device = model.device
         self._vocab = int(getattr(inner, "vocab_size", 0) or 0)
         model_cap = int(getattr(inner, "max_len", 0) or 0)
-        # a lane must fit under the model's max_len AND hold at least the
-        # smallest prefill bucket
+        # a cache lane must fit under the model's max_len AND hold at
+        # least the smallest prefill bucket; a bare-state lane has no
+        # length axis
         usable = [b for b in gen.bucket_lens
-                  if not ((model_cap and b > model_cap)
-                          or b < gen.prefill_buckets[0])]
+                  if not (self._cache_model
+                          and ((model_cap and b > model_cap)
+                               or b < gen.prefill_buckets[0]))]
         if not usable:
             raise ValueError(
                 f"no usable decode lane: bucket_lens={gen.bucket_lens} "
@@ -590,10 +606,8 @@ class ContinuousBatcher:
             else:
                 # the state tree of one prefilled row, zeroed at A rows
                 pb = gen.prefill_buckets[0]
-                sub, _ = self.inner.init_decode(
-                    self._dev(np.zeros((1, pb), np.int32)),
-                    self._dev(np.ones((1,), np.int32)),
-                    cache_len=lane.bucket)
+                sub, _ = self._prefill(lane, np.zeros((1, pb), np.int32),
+                                       np.ones((1,), np.int32))
                 lane.state = _zeros_like_rows(sub, A)
         lane.buf = _QuantumBuffers(shapes, gen.decode_quantum, A,
                                    self.device)
@@ -628,8 +642,12 @@ class ContinuousBatcher:
         return logits0
 
     def _prefill(self, lane: _Lane, prompt, lengths):
-        """Monolithic prefill of an admission group into lane-capacity
-        caches: ``(state tree, first-token logits)``."""
+        """Monolithic prefill of an admission group: ``(state tree,
+        first-token logits)``, into lane-capacity caches for a cache
+        model; a bare-state model's state and no logits (None)."""
+        if not self._cache_model:
+            return self.inner.init_decode(self._dev(prompt),
+                                          self._dev(lengths)), None
         return self.inner.init_decode(self._dev(prompt), self._dev(lengths),
                                       cache_len=lane.bucket)
 
@@ -720,8 +738,10 @@ class ContinuousBatcher:
         return budget
 
     def _budget_for(self, req: GenRequest, lane: _Lane) -> int:
-        return max(1, min(self._req_budget(req),
-                          lane.bucket - len(req.prompt)))
+        budget = self._req_budget(req)
+        if self._cache_model:
+            budget = min(budget, lane.bucket - len(req.prompt))
+        return max(1, budget)
 
     def _pick_lane(self, req: GenRequest) -> Optional[_Lane]:
         """Smallest lane whose capacity holds prompt + budget AND the
@@ -729,7 +749,10 @@ class ContinuousBatcher:
         A resume prefills over prompt + resume prefix (except where it
         replays), so its prefill bucket is the concatenation's; its
         occupancy is still prompt + budget (the prefix counts against the
-        budget)."""
+        budget).  A bare-state model (no length axis) takes the first
+        lane."""
+        if not self._cache_model:
+            return self._lanes[0]
         want = len(req.prompt) + self._req_budget(req)
         pb = self._prefill_bucket(len(self._prefill_prompt(req)))
         if pb is not None:
@@ -771,9 +794,11 @@ class ContinuousBatcher:
     def _take_resume(self, req: GenRequest,
                      events: List[GenEvent]) -> None:
         """Normalize a reclaimed request's resume prefix, downgrading to
-        restart-from-0 when it cannot be replayed: a malformed or
-        out-of-vocab prefix would poison the decode state (and an
-        out-of-range id is a device-side assert on CUDA)."""
+        restart-from-0 when it cannot be replayed: a bare-state model
+        rebuilds no state from tokens at prefill (continuing would not be
+        a prefix of an uninterrupted run), and a malformed or out-of-vocab
+        prefix would poison the decode state (an out-of-range id is a
+        device-side assert on CUDA)."""
         rt = req.resume_tokens
         if not rt:
             req.resume_tokens = None
@@ -782,6 +807,10 @@ class ContinuousBatcher:
             toks = [int(t) for t in rt]
         except (TypeError, ValueError):
             self._downgrade_resume(req, "malformed resume prefix", events)
+            return
+        if not self._cache_model:
+            self._downgrade_resume(
+                req, "bare-state model cannot replay decode state", events)
             return
         if self._vocab and toks and (min(toks) < 0
                                      or max(toks) >= self._vocab):
@@ -960,7 +989,8 @@ class ContinuousBatcher:
         try:
             with torch.inference_mode():
                 sub, logits0 = self._prefill(lane, padded, lengths)
-                toks0 = logits0.argmax(dim=-1).cpu().numpy()
+                toks0 = None if logits0 is None \
+                    else logits0.argmax(dim=-1).cpu().numpy()
             self._count_exec(("prefill", bb, pb, lane.bucket))
         except Exception as e:  # noqa: BLE001 — group-level failure
             if n == 1:
@@ -985,7 +1015,12 @@ class ContinuousBatcher:
             lane.slots[slot] = info
             self.admitted += 1
             admitted += 1
-            self._first_token(lane, slot, info, int(toks0[j]), events)
+            if toks0 is None:
+                # bare state: the first decode step is fed start_id, and
+                # the first token comes from the first quantum
+                lane.tokens[slot] = self.gen.start_id
+            else:
+                self._first_token(lane, slot, info, int(toks0[j]), events)
         return admitted
 
     def _reserve(self, lane: _PagedLane, req: GenRequest):
@@ -1284,7 +1319,7 @@ class ContinuousBatcher:
             for lane in self._lanes:
                 if lane.active:
                     self._step_lane(lane, events)
-            if self.gen.checkpoint_interval > 0:
+            if self.gen.checkpoint_interval > 0 and self._cache_model:
                 self._collect_checkpoints()
             return events
 
@@ -1385,7 +1420,7 @@ class ContinuousBatcher:
             self.gen.prefill_buckets,
             [lane.bucket for lane in self._lanes],
             prefill_batches=_pow2_ladder(1, self.gen.max_active_slots),
-            cache_model=True,
+            cache_model=self._cache_model,
             paged=self._pool is not None,
             prefix_blocks=prefix_blocks)
 
@@ -1461,7 +1496,8 @@ class ContinuousBatcher:
                 logits0 = self._pshared(
                     prompt, lengths, np.zeros((bb,), np.int32),
                     np.zeros((bb, key[3]), np.int32), dest, slots)
-        logits0.argmax(dim=-1).cpu()
+        if logits0 is not None:
+            logits0.argmax(dim=-1).cpu()
 
     def _warm_decode(self, lane: _Lane) -> bool:
         """Capture the lane's quantum.  An idle lane first runs it once
@@ -1553,7 +1589,7 @@ class ContinuousBatcher:
              "resume_failed": self.resume_failed,
              "checkpoints": self.checkpoints,
              "snapshot_bytes": self.snapshot_bytes,
-             "can_resume": True,
+             "can_resume": self._cache_model,
              "captures": self.captures,
              "replays": self.replays,
              "eager_quanta": self.eager_quanta,

@@ -21,7 +21,14 @@ checked shapes (a missing or extra leaf raises):
   ``Convolution2D`` ``{W (kh, kw, cin, cout), b}`` (int8 ``{W_q, s_w,
   s_x, b}``, int4 ``{W_q4, s_g, b}``, switched to as ``Dense`` is:
   ``_ConvND.adopt_leaves``), ``BatchNormalization`` ``{gamma, beta}``,
-  ``Embedding`` ``{E (input_dim, output_dim)}``; a layer without
+  ``Embedding`` ``{E (input_dim, output_dim)}``, the recurrent layers
+  (``nn/layers/recurrent.py``) ``{Wx, Wh, b}`` (``GRU(reset_after=True)``
+  adds ``br``; ConvLSTM ``Wx`` (k…, C, 4F), ``Wh`` (k…, F, 4F)),
+  ``Bidirectional`` ``{fwd, bwd}``, ``TimeDistributed`` ``{inner}`` (its
+  state ``{inner}`` too), ``Highway`` ``{W, Wt, b, bt}``, ``Seq2seq``
+  ``{embed, encoder: [{Wx, Wh, b}, ...], decoder: [...], out: {W, b}}``
+  with ``bridge: {W}`` for a dense bridge (a list subtree is matched by
+  index, each index a key); a layer without
   parameters (``Flatten``, ``Merge``, ``Lambda``, the shape layers) has
   the empty subtree ``{}``.
 - the layer IR's state tree (the JAX ``model._state``): the same layout
@@ -93,6 +100,28 @@ def _state_of(layer: Layer) -> Dict:
     return layer._state_tree()
 
 
+def _load_value(val, leaf, path: str, subtree) -> None:
+    if isinstance(val, Layer):
+        _load_layer(val, leaf, path, subtree)
+    elif isinstance(val, dict):
+        _load_tree(val, leaf, path, subtree)
+    elif isinstance(val, (list, tuple)):
+        _load_list(val, leaf, path, subtree)
+    else:
+        _copy_leaf(val, leaf, path)
+
+
+def _load_list(own, tree, path: str, subtree) -> None:
+    """A list subtree (``Seq2seq``'s per-layer ``encoder`` / ``decoder``
+    stacks): its index is its key, as in the JAX tree's flattening."""
+    if not isinstance(tree, (list, tuple)) or len(tree) != len(own):
+        raise ValueError(f"{path}: expected a list of {len(own)} subtrees, "
+                         f"got {type(tree).__name__} of "
+                         f"{len(tree) if hasattr(tree, '__len__') else '?'}")
+    for i, (val, leaf) in enumerate(zip(own, tree)):
+        _load_value(val, leaf, f"{path}/{i}", subtree)
+
+
 def _load_tree(own: Dict, tree, path: str, subtree=_params_of) -> None:
     """Copy ``tree`` into ``own`` key by key; a sub-``Layer``'s own tree
     is ``subtree(layer)``."""
@@ -110,12 +139,7 @@ def _load_tree(own: Dict, tree, path: str, subtree=_params_of) -> None:
             if isinstance(val, Layer) and not subtree(val):
                 continue                  # a layer with no leaves here
             raise KeyError(f"{kind} tree lacks {at!r}")
-        if isinstance(val, Layer):
-            _load_layer(val, tree[key], at, subtree)
-        elif isinstance(val, dict):
-            _load_tree(val, tree[key], at, subtree)
-        else:
-            _copy_leaf(val, tree[key], at)
+        _load_value(val, tree[key], at, subtree)
 
 
 def _load_layer(layer: Layer, tree, path: str, subtree=_params_of) -> None:
@@ -155,10 +179,14 @@ def load_jax_state(module: Layer, state: Dict) -> Layer:
 
 
 def _export(layer: Layer, subtree) -> Dict:
-    def walk(own):
-        return {k: walk(subtree(v)) if isinstance(v, Layer)
-                else walk(v) if isinstance(v, dict) else v.detach()
-                for k, v in own.items()}
+    def walk(v):
+        if isinstance(v, Layer):
+            return walk(subtree(v))
+        if isinstance(v, dict):
+            return {k: walk(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [walk(x) for x in v]
+        return v.detach()
     return walk(subtree(layer))
 
 

@@ -168,6 +168,34 @@ phase by phase, each phase printing its own lines:
    and test accuracy above the majority class; int8 and int4 predict of
    the 4000 test rows bitwise / within W4_TOL of the plain route, 5
    launches a forward of the route's kernel on the card.
+9. recurrent — the w8a8 (bitwise, each weight exact and inside a buffer
+   of 127s) and w4a16 kernels at the recurrent zoo's Dense shapes (K = 20,
+   100, 40, 15; N = 37,484, 40, 20, 1) at M = 1, 1024 and 1000, each
+   timed at M = 1024 beside ``torch._int_mm`` + scale and the plain
+   version, and summed over each model's forward.  Then
+   ``SessionRecommender`` at RSC15's item count (37,483 items, embed 100,
+   GRU (40, 20), the history branch with MLP (40, 20)) from ``--seed``,
+   trained with ``Estimator.fit`` for 2 epochs of 65,536 seeded sessions
+   (each inside one of 64 item clusters, Zipf popularity within it;
+   Adam 1e-3, batch 1024) and ranked after each epoch on 8,192 held-out
+   sessions (Recall@20, MRR@20, beside the popularity baseline): the loss
+   falls and Recall@20 reaches SESSION_RECALL_MIN.  The trained weights
+   are served through ``InferenceModel`` at batch 1024 in f32, int8
+   (calibrated on 4 batches) and int4, each under a profiler trace of the
+   card: w8a8 = 4 x forwards in int8, w4a16 = 4 x forwards in int4, on the
+   card = by the wrappers; int8 probabilities bit for bit the plain
+   route's, int4 within W4_TOL, each Recall@20 within 0.02 of f32's;
+   ``recommend_for_session`` for 4 sessions.  ``AnomalyDetector`` at the
+   example's configuration over its series at nyc_taxi's 10,320 points:
+   3 epochs at batch 64, the planted anomalies flagged, int8 and int4
+   predict (1 launch a forward, int8 bitwise the plain route's).
+   ``Seq2seq`` (vocab 2048, embed 64, hidden (256,), dense bridge) served
+   by ``ClusterServing`` on bare-state lanes with warm-up (the lane's
+   quantum one CUDA graph): 64 requests of 4-24 tokens, budgets cycling
+   4-256, every one equal to its own ``Seq2seq.infer`` or parting at a
+   near tie; a bare batcher's graph route equal to its eager route; a
+   reclaimed record that carries a snapshot restarted from 0 with the
+   downgrade event.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -226,12 +254,15 @@ from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.inference.quantize import (_quantize_w4,
                                                         kv_pack_int8,
                                                         weight_bytes)
+from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
 from analytics_zoo_tpu_torch.models.imageclassification import \
     ImageClassifier
 from analytics_zoo_tpu_torch.models.recommendation import (
-    ColumnFeatureInfo, NeuralCF, WideAndDeep, evaluate_ranking)
+    ColumnFeatureInfo, NeuralCF, SessionRecommender, WideAndDeep,
+    evaluate_ranking)
 from analytics_zoo_tpu_torch.models.recommendation.movielens import (
     leave_one_out, synthetic_ml1m, training_arrays)
+from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq
 from analytics_zoo_tpu_torch.models.textmodels import TransformerLM
 from analytics_zoo_tpu_torch.nn.layers.attention import TransformerLayer
 from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
@@ -3867,15 +3898,16 @@ def poisoned_weight(w, pad: int = 48):
     return buf[pad:pad + w.numel()].view(w.shape)
 
 
-def reco_parity(seed: int) -> float:
+def reco_parity(seed: int, ms=RECO_M, shapes=None) -> float:
     """``w8a8`` bitwise and ``w4a16`` (group 64: ragged groups at K = 96
-    and 173) within W4_TOL at every (M, K, N) of RECO_M x reco_shapes(),
-    each weight its own allocation of exactly its bytes; ``w8a8`` again
-    with the weight inside a buffer of 127s.  Returns w4a16's max error."""
+    and 173) within W4_TOL at every (M, K, N) of RECO_M x reco_shapes()
+    (or ``ms`` x ``shapes``), each weight its own allocation of exactly
+    its bytes; ``w8a8`` again with the weight inside a buffer of 127s.
+    Returns w4a16's max error."""
     g = np.random.default_rng(seed + 140)
     worst = 0.0
-    for m in RECO_M:
-        for k, n in reco_shapes():
+    for m in ms:
+        for k, n in shapes or reco_shapes():
             x, w, s = w8a8_case(g, m, k, n)
             ref = qm.w8a8_matmul(x, w, s, impl="torch")
             for tag, wt in (("exact", w), ("poisoned", poisoned_weight(w))):
@@ -3926,8 +3958,10 @@ def reco_kernel_phase(seed: int) -> dict:
 
 
 def dense_shapes(model) -> tuple:
-    """(K, N) of every ``Dense`` of a graph model, in graph order."""
-    return tuple((m.input_dim, m.output_dim) for m in model.graph_layers
+    """(K, N) of every ``Dense`` of a graph model (in graph order) or of a
+    ``Sequential``."""
+    layers = getattr(model, "graph_layers", None) or model.layers_list
+    return tuple((m.input_dim, m.output_dim) for m in layers
                  if isinstance(m, Dense))
 
 
@@ -4408,6 +4442,689 @@ def reco_phase(seed: int, records: dict, profile: bool) -> None:
     say(f"reco: phase wall {time.perf_counter() - t_phase:.2f} s")
 
 
+# -- phase 9: the recurrent zoo -----------------------------------------------
+
+# SessionRecommender at GRU4Rec's RSC15 training set's item count (Hidasi
+# et al., ICLR 2016, Table 1) and SessionRecommender.scala's defaults
+SESSION = dict(item_count=37483, item_embed=100, rnn_hidden_layers=(40, 20),
+               session_length=10, include_history=True,
+               mlp_hidden_layers=(40, 20), history_length=5)
+SESSION_PARAMS = 9_096_568
+SESSION_TRAIN, SESSION_TEST = 65536, 8192
+SESSION_EPOCHS, SESSION_BATCH, SESSION_LR = 2, 1024, 1e-3
+# the surrogate's sessions: each inside one of 64 item clusters, items
+# drawn by a Zipf law of this exponent over the cluster's own ranking
+SESSION_CLUSTERS, SESSION_ZIPF = 64, 2.0
+SESSION_TOP = 20
+# Recall@20 after the last epoch.  The JAX package's CPU runs of the same
+# protocol (``session_reference.py``: the same data, model, optimizer and
+# batches) from four seeded inits read 0.5924, 0.3270, 0.3467 and 0.5955
+# (the popularity baseline 0.1938): the threshold sits below the least
+# of them
+SESSION_RECALL_MIN = 0.28
+SESSION_CALIB_BATCHES = 4
+SESSION_RECOMMEND = 4
+# a quantized route's Recall@20 against f32's
+SESSION_RECALL_GAP = 0.02
+# AnomalyDetector at the example's configuration
+# (examples/anomaly_detection.py) over NAB realKnownCause/nyc_taxi.csv's
+# length of half-hourly points
+ANOMALY = dict(feature_shape=(24, 1), hidden_layers=(8, 32, 15),
+               dropouts=(0.2, 0.2, 0.2))
+ANOMALY_POINTS, ANOMALY_PLANTED, ANOMALY_TOP = 10320, 12, 12
+ANOMALY_EPOCHS, ANOMALY_BATCH, ANOMALY_LR = 3, 64, 2e-3
+ANOMALY_PREDICT_BATCH = 256
+# Seq2seq at ``tools/serving_bench.py --model seq2seq --generate``'s own
+# geometry
+SEQ2SEQ = dict(vocab_size=2048, embed_dim=64, hidden_sizes=(256,),
+               bridge="dense")
+SEQ2SEQ_REQUESTS = 64
+SEQ2SEQ_BUDGETS = (4, 6, 8, 10, 12, 16, 24, 256)
+SEQ2SEQ_GEN = dict(paged=False, max_active_slots=8, decode_quantum=8,
+                   max_tokens=256, max_prompt_len=24, stream_interval=0,
+                   eos_id=None, start_id=1)
+# the (K, N) of each model's Dense layers in graph order:
+# SessionRecommender's session head (the GRU's 20 onto 37,484 items), its
+# history MLP (item_embed 100 -> 40 -> 20) and head; AnomalyDetector's
+# head
+RECURRENT_DENSE = {"session": ((20, 37484), (100, 40), (40, 20),
+                               (20, 37484)),
+                   "anomaly": ((15, 1),)}
+# rows of x in the parity cases: one, the batch, a batch off a multiple
+RECURRENT_M = (1, 1024, 1000)
+RECURRENT_TIMED_M = 1024
+
+
+def recurrent_shapes():
+    return [kn for kn, _ in distinct(RECURRENT_DENSE["session"]
+                                     + RECURRENT_DENSE["anomaly"])]
+
+
+def recurrent_kernel_phase(seed: int) -> dict:
+    """(a): ``w8a8`` bitwise (each weight exact and inside a buffer of
+    127s) and ``w4a16`` within W4_TOL at RECURRENT_M x the recurrent zoo's
+    (K, N); each (K, N) timed at M = RECURRENT_TIMED_M beside
+    ``torch._int_mm`` + scale (w8a8) and the plain version, and summed over
+    each model's forward."""
+    worst = reco_parity(seed + 9, RECURRENT_M, recurrent_shapes())
+    say(f"recurrent parity: w8a8 bitwise (each weight exact and inside "
+        f"127s) and w4a16 within {W4_TOL} (max err {worst:.3e}) at M "
+        f"{RECURRENT_M} x (K, N) {recurrent_shapes()}")
+    m = RECURRENT_TIMED_M
+    w8 = {kn: w8a8_timing(seed + 5, m, *kn, plain=True)
+          for kn in recurrent_shapes()}
+    w4 = {kn: w4a16_timing(seed + 5, m, *kn, 64, torch.float32)
+          for kn in recurrent_shapes()}
+    out = {"w4_max_abs_err": worst}
+    for model, kns in RECURRENT_DENSE.items():
+        for name, t, keys in (("w8a8", w8, ("ms", "plain_ms", "library_ms",
+                                            "bound_ms")),
+                              ("w4a16", w4, ("ms", "plain_ms",
+                                             "bound_ms"))):
+            out[f"{name}_{model}"] = {key: sum(t[kn][key] for kn in kns)
+                                      for key in keys}
+            say(f"recurrent timing[{name}, {model} forward of {len(kns)} "
+                f"launches at M={m}]: " + ", ".join(
+                    f"{key} {v:.4f}" for key, v in
+                    out[f"{name}_{model}"].items()))
+    out["shapes"] = {f"{k}x{n}": {"w8a8": {key: w8[(k, n)][key] for key in
+                                            ("ms", "library_ms", "bound_ms")},
+                                  "w4a16": {key: w4[(k, n)][key] for key in
+                                            ("ms", "plain_ms", "bound_ms")}}
+                     for k, n in recurrent_shapes()}
+    return out
+
+
+def session_data(seed: int) -> dict:
+    """Seeded sessions at RSC15's item count: item ids 1..item_count dealt
+    into SESSION_CLUSTERS clusters; a session, its next item (the label)
+    and its history of purchases are all drawn from one cluster, each
+    item by a Zipf law over a ranking of the cluster's items, so the next
+    item is predictable from the session (its cluster) up to the law's
+    spread.  The first SESSION_TRAIN rows train, the last SESSION_TEST
+    are held out."""
+    g = np.random.default_rng(seed + 160)
+    L, Hl = SESSION["session_length"], SESSION["history_length"]
+    n = SESSION_TRAIN + SESSION_TEST
+    members = np.array_split(g.permutation(SESSION["item_count"]) + 1,
+                             SESSION_CLUSTERS)
+    cluster = g.integers(0, SESSION_CLUSTERS, n)
+    rows = np.empty((n, L + 1 + Hl), np.int64)
+    for c, items in enumerate(members):
+        at = np.nonzero(cluster == c)[0]
+        p = 1.0 / np.arange(1, len(items) + 1) ** SESSION_ZIPF
+        rows[at] = items[g.choice(len(items), (len(at), rows.shape[1]),
+                                  p=p / p.sum())]
+    x = [rows[:, :L].astype(np.float32), rows[:, L + 1:].astype(np.float32)]
+    y = rows[:, L]
+    tr, te = slice(0, SESSION_TRAIN), slice(SESSION_TRAIN, n)
+    return {"x_train": [a[tr] for a in x], "y_train": y[tr],
+            "x_test": [a[te] for a in x], "y_test": y[te]}
+
+
+def rank_metrics(probs: np.ndarray, y: np.ndarray, k: int = SESSION_TOP):
+    """Sums of Recall@k and MRR@k over the rows: a label's rank is the
+    count of items of higher probability."""
+    p_label = probs[np.arange(len(y)), y]
+    rank = (probs > p_label[:, None]).sum(1)
+    hit = rank < k
+    return float(hit.sum()), float((hit / (rank + 1.0)).sum())
+
+
+def ranked(predict, x, y, keep: bool = False):
+    """Recall@20 and MRR@20 of ``predict`` over ``x`` in chunks of
+    SESSION_BATCH (one call each), and with ``keep`` the
+    probabilities."""
+    batch = SESSION_BATCH
+    recall = mrr = 0.0
+    kept = []
+    for i in range(0, len(y), batch):
+        probs = predict([a[i:i + batch] for a in x])
+        r, m = rank_metrics(probs, y[i:i + batch])
+        recall, mrr = recall + r, mrr + m
+        if keep:
+            kept.append(probs)
+    out = {"recall": recall / len(y), "mrr": mrr / len(y)}
+    if keep:
+        out["probs"] = kept
+    return out
+
+
+def popularity_baseline(data: dict) -> dict:
+    """The training labels' most frequent items for every session."""
+    counts = np.bincount(data["y_train"],
+                         minlength=SESSION["item_count"] + 1).astype(
+        np.float32)
+    y = data["y_test"]
+    r, m = rank_metrics(np.broadcast_to(counts, (len(y), len(counts))), y)
+    return {"recall": r / len(y), "mrr": m / len(y)}
+
+
+def session_train(sr, data: dict, seed: int) -> list:
+    """``Estimator.fit`` for SESSION_EPOCHS epochs (Adam, sparse
+    categorical cross-entropy on the softmax), Recall@20 / MRR@20 on the
+    held-out sessions after each."""
+    dev = sr.device
+    est = Estimator(sr.model, optimizer=Adam(lr=SESSION_LR),
+                    loss="sparse_categorical_crossentropy",
+                    registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    out = []
+    for _ in range(SESSION_EPOCHS):
+        sync(dev)
+        t0 = time.perf_counter()
+        hist = est.fit(data["x_train"], data["y_train"][:, None],
+                       batch_size=SESSION_BATCH, epochs=1, verbose=False)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m = ranked(lambda x: est.predict(x, batch_size=SESSION_BATCH),
+                   data["x_test"], data["y_test"])
+        out.append({"loss": hist.history["loss"][-1], **m, "wall_s": wall,
+                    "steps": -(-SESSION_TRAIN // SESSION_BATCH),
+                    "eval_s": time.perf_counter() - t0})
+    return out
+
+
+def check_session_train(epochs: list, base: dict,
+                        recall_min: float = SESSION_RECALL_MIN) -> None:
+    ls = [e["loss"] for e in epochs]
+    check(all(math.isfinite(v) for v in ls)
+          and all(b < a for a, b in zip(ls, ls[1:])),
+          f"session train: the per-epoch loss did not fall ({ls})")
+    check(epochs[-1]["recall"] >= recall_min,
+          f"session train: Recall@{SESSION_TOP} "
+          f"{epochs[-1]['recall']:.4f} < {recall_min} after "
+          f"{len(epochs)} epochs")
+    for i, e in enumerate(epochs):
+        say(f"session train[epoch {i + 1}]: loss {e['loss']:.4f}, "
+            f"Recall@{SESSION_TOP} {e['recall']:.4f}, MRR@{SESSION_TOP} "
+            f"{e['mrr']:.4f} (popularity: {base['recall']:.4f}, "
+            f"{base['mrr']:.4f}); {SESSION_TRAIN} sessions in {e['steps']} "
+            f"steps of {SESSION_BATCH}, {e['wall_s']:.3f} s = "
+            f"{SESSION_TRAIN / e['wall_s']:.0f} sessions/s, "
+            f"{e['wall_s'] / e['steps'] * 1e3:.3f} ms/step (host clock); "
+            f"evaluation {e['eval_s']:.2f} s")
+
+
+def serve_sessions(im, data: dict) -> dict:
+    """The held-out sessions through ``im`` (one ``do_predict`` a batch of
+    SESSION_BATCH) with the counts set to 0 just before and read just
+    after, under a profiler trace of the card; then again untraced, for
+    sessions/s."""
+    x, y = data["x_test"], data["y_test"]
+    sync(im.device)
+    st0 = im.aot_stats()
+    reset_launches()
+    with _impl.card_launches(("w8a8", "w4a16")) as card:
+        m = ranked(lambda xb: im.do_predict(xb, batch_size=SESSION_BATCH),
+                   x, y, keep=True)
+        sync(im.device)
+    wrapper = {"w8a8": qm.launches_w8a8, "w4a16": qm.launches_w4a16}
+    st = im.aot_stats()
+    sync(im.device)
+    t0 = time.perf_counter()
+    for i in range(0, len(y), SESSION_BATCH):
+        im.do_predict([a[i:i + SESSION_BATCH] for a in x],
+                      batch_size=SESSION_BATCH)
+    wall = time.perf_counter() - t0
+    return {**m, "wall_s": wall, "card": card, "wrapper": wrapper,
+            "forwards": sum(st["programs"].values())
+            - sum(st0["programs"].values())}
+
+
+def session_recommend_check(sr, im, x) -> None:
+    """``recommend_for_session`` (the trained zoo model's predict) gives
+    for each session the SESSION_TOP items of highest probability through
+    ``im``: each probability within 1e-6 of ``im``'s, in non-increasing
+    order, and the same items where no two probabilities lie within 1e-6
+    of each other across the cut (there, as a set)."""
+    sessions, history = x[0][:SESSION_RECOMMEND], x[1][:SESSION_RECOMMEND]
+    recs = sr.recommend_for_session(sessions, max_items=SESSION_TOP,
+                                    history=history,
+                                    batch_size=SESSION_BATCH)
+    probs = im.do_predict([sessions, history], batch_size=SESSION_BATCH)
+    check(len(recs) == SESSION_RECOMMEND
+          and all(len(r) == SESSION_TOP for r in recs),
+          f"recommend_for_session: {[len(r) for r in recs]}")
+    for j, rec in enumerate(recs):
+        p = [q for _, q in rec]
+        check(all(b <= a + 1e-6 for a, b in zip(p, p[1:])),
+              f"recommend_for_session[{j}]: {rec}")
+        edge = np.sort(probs[j])[::-1][SESSION_TOP - 1]
+        for item, q in rec:
+            s = float(probs[j, item])
+            check(abs(q - s) <= 1e-6 and s >= edge - 1e-6,
+                  f"recommend_for_session[{j}]: item {item} at {q} (served "
+                  f"{s}, top-{SESSION_TOP} edge {edge})")
+    say(f"recommend_for_session({SESSION_RECOMMEND} sessions, "
+        f"max_items={SESSION_TOP}): each session's top {SESSION_TOP} of the "
+        f"f32 probabilities served by InferenceModel")
+
+
+def session_serve(sr, params: dict, data: dict, dev) -> dict:
+    """The trained SessionRecommender (``params``) through InferenceModel
+    in f32, int8 (calibrated on SESSION_CALIB_BATCHES training batches)
+    and int4 (groups of 64); the quantized routes against the same model
+    through every kernel's plain version; each Recall@20 against f32's."""
+    out = {}
+    xtr = data["x_train"]
+    calib = [tuple(a[i * SESSION_BATCH:(i + 1) * SESSION_BATCH]
+                   for a in xtr) for i in range(SESSION_CALIB_BATCHES)]
+    n_dense = len(RECURRENT_DENSE["session"])
+    for tag, bits in (("f32", 0), ("int8", 8), ("int4", 4)):
+        model = SessionRecommender(**SESSION, device=dev).model
+        im = InferenceModel(max_batch=SESSION_BATCH, device=dev) \
+            .do_load_model(model, params)
+        if bits:
+            im.do_quantize(calib if bits == 8 else None, bits=bits,
+                           force=True, group_size=64)
+        run = serve_sessions(im, data)
+        check_launches(f"session[{tag}]", run, n_dense)
+        err = 0.0
+        if bits:
+            x = data["x_test"]
+            for j, i in enumerate(range(0, len(data["y_test"]),
+                                        SESSION_BATCH)):
+                plain = route_probs(im, [a[i:i + SESSION_BATCH] for a in x],
+                                    "torch", SESSION_BATCH)
+                err = max(err, check_route(f"session[{tag}] batch {j}",
+                                           run["probs"][j], plain, bits))
+        f32 = out.get("f32", run)["recall"]
+        check(abs(run["recall"] - f32) <= SESSION_RECALL_GAP,
+              f"session[{tag}]: Recall@{SESSION_TOP} {run['recall']:.4f} "
+              f"is more than {SESSION_RECALL_GAP} from f32's {f32:.4f}")
+        run["bytes"] = weight_bytes(im._params)
+        n = len(data["y_test"])
+        say(f"session[{tag}]: {n} held-out sessions in {run['forwards']} "
+            f"forwards of {SESSION_BATCH}: Recall@{SESSION_TOP} "
+            f"{run['recall']:.4f}, MRR@{SESSION_TOP} {run['mrr']:.4f}; "
+            f"{n / run['wall_s']:.0f} sessions served/s untraced (host "
+            f"clock, a reading); launches on the card = by the wrappers: "
+            f"w8a8 {run['card']['w8a8']}, w4a16 {run['card']['w4a16']}; "
+            f"weight bytes {run['bytes']}"
+            + ("" if bits == 0 else "; vs the plain route "
+               + ("bitwise equal" if bits == 8 else
+                  f"max abs err {err:.3e}")))
+        if tag == "f32":
+            session_recommend_check(sr, im, data["x_test"])
+        run.pop("probs")
+        out[tag] = run
+        del im, model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def session_phase(seed: int, dev) -> dict:
+    """(b): SessionRecommender at RSC15 width trained, ranked, served."""
+    t0 = time.perf_counter()
+    data = session_data(seed)
+    t_data = time.perf_counter() - t0
+    sr = SessionRecommender(**SESSION, device=dev)
+    sr.init_weights(seed)
+    check(sr.model.param_count() == SESSION_PARAMS
+          and dense_shapes(sr.model) == RECURRENT_DENSE["session"],
+          f"session: {sr.model.param_count()} params, Dense shapes "
+          f"{dense_shapes(sr.model)}")
+    base = popularity_baseline(data)
+    say(f"model: SessionRecommender({SESSION}) ({SESSION_PARAMS} params) "
+        f"from seed {seed}; {SESSION_TRAIN} training and {SESSION_TEST} "
+        f"held-out sessions in {SESSION_CLUSTERS} item clusters (host "
+        f"{t_data:.2f} s)")
+    epochs = session_train(sr, data, seed)
+    check_session_train(epochs, base)
+    params = numpy_tree(export_params(sr.model))
+    served = session_serve(sr, params, data, dev)
+    return {"epochs": epochs, "served": served}
+
+
+def synth_series(n=2000, anomaly_count=12, seed=3):
+    """``examples/anomaly_detection.py``'s series: daily and weekly
+    seasonality of half-hourly points, noise, and ``anomaly_count``
+    planted spikes; returns the series and the spikes' indices."""
+    g = np.random.default_rng(seed)
+    t = np.arange(n)
+    base = (10 + 4 * np.sin(2 * np.pi * t / 48)
+            + 2 * np.sin(2 * np.pi * t / (48 * 7))
+            + g.normal(0, 0.4, n))
+    idx = g.choice(np.arange(100, n - 100), anomaly_count, replace=False)
+    base[idx] += g.choice([-1, 1], anomaly_count) * g.uniform(5, 9,
+                                                              anomaly_count)
+    return base.astype(np.float32), np.sort(idx)
+
+
+def anomaly_phase(seed: int, dev) -> dict:
+    """(c): AnomalyDetector at the example's configuration over its
+    series at nyc_taxi's length: standardized, unrolled, fit on the first
+    70%, predicted at batch ANOMALY_PREDICT_BATCH; the top ANOMALY_TOP
+    distances flagged and held against the planted anomalies; then int8
+    and int4 predict through InferenceModel (the Dense(1) head on the
+    kernels, one launch a forward), int8 bitwise the plain route's."""
+    series, truth = synth_series(ANOMALY_POINTS, ANOMALY_PLANTED, seed + 3)
+    norm = ((series - series.mean()) / (series.std() + 1e-8))[:, None]
+    L = ANOMALY["feature_shape"][0]
+    x, y = AnomalyDetector.unroll(norm, L)
+    cut = int(0.7 * len(x))
+    ad = AnomalyDetector(**ANOMALY, device=dev)
+    ad.init_weights(seed)
+    check(dense_shapes(ad.model) == RECURRENT_DENSE["anomaly"],
+          f"anomaly: Dense shapes {dense_shapes(ad.model)}")
+    est = Estimator(ad.model, optimizer=Adam(lr=ANOMALY_LR), loss="mse",
+                    registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    sync(dev)
+    t0 = time.perf_counter()
+    hist = est.fit(x[:cut], y[:cut], batch_size=ANOMALY_BATCH,
+                   epochs=ANOMALY_EPOCHS, verbose=False)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    ls = hist.history["loss"]
+    check(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0],
+          f"anomaly: the loss did not fall ({ls})")
+    pred = np.ravel(est.predict(x, batch_size=ANOMALY_PREDICT_BATCH))
+    actual = np.ravel(y)
+    idx, _, thr = AnomalyDetector.detect_anomalies(
+        actual, pred, anomaly_fraction=ANOMALY_TOP / len(actual))
+    flagged = np.sort(np.asarray(idx) + L)
+    hits = sum(1 for a in truth if np.any(np.abs(flagged - a) <= 1))
+    steps = ANOMALY_EPOCHS * -(-cut // ANOMALY_BATCH)
+    say(f"anomaly: AnomalyDetector({ANOMALY}) "
+        f"({ad.model.param_count()} params) on {ANOMALY_POINTS} points, "
+        f"{len(x)} windows, {cut} to train: losses "
+        f"{[round(v, 4) for v in ls]}, {steps} steps in {wall:.3f} s = "
+        f"{wall / steps * 1e3:.3f} ms/step (host clock); "
+        f"{len(flagged)} flagged, planted anomalies recalled {hits}/"
+        f"{len(truth)} (threshold {thr:.4f})")
+    params = numpy_tree(export_params(ad.model))
+    out = {"recalled": hits}
+    for tag, bits in (("int8", 8), ("int4", 4)):
+        model = AnomalyDetector(**ANOMALY, device=dev).model
+        im = InferenceModel(max_batch=ANOMALY_PREDICT_BATCH, device=dev) \
+            .do_load_model(model, params)
+        im.do_quantize([x[:ANOMALY_PREDICT_BATCH]] if bits == 8 else None,
+                       bits=bits, force=True)
+        sync(dev)
+        st0 = im.aot_stats()
+        reset_launches()
+        with _impl.card_launches(("w8a8", "w4a16")) as card:
+            got = im.do_predict(x, batch_size=ANOMALY_PREDICT_BATCH)
+            sync(dev)
+        st = im.aot_stats()
+        run = {"card": card, "wrapper": {"w8a8": qm.launches_w8a8,
+                                         "w4a16": qm.launches_w4a16},
+               "forwards": sum(st["programs"].values())
+               - sum(st0["programs"].values())}
+        check_launches(f"anomaly[{tag}]", run, 1)
+        plain = route_probs(im, x, "torch", ANOMALY_PREDICT_BATCH)
+        err = check_route(f"anomaly[{tag}]", got, plain, bits)
+        qidx, _, _ = AnomalyDetector.detect_anomalies(
+            actual, np.ravel(got), anomaly_fraction=ANOMALY_TOP / len(actual))
+        qflag = np.sort(np.asarray(qidx) + L)
+        qhits = sum(1 for a in truth if np.any(np.abs(qflag - a) <= 1))
+        say(f"anomaly[{tag}]: {len(x)} windows in {run['forwards']} forwards "
+            f"of {ANOMALY_PREDICT_BATCH}: planted anomalies recalled "
+            f"{qhits}/{len(truth)} (f32 {hits}); launches on the card = by "
+            f"the wrappers: w8a8 {card['w8a8']}, w4a16 {card['w4a16']}; vs "
+            f"the plain route "
+            + ("bitwise equal" if bits == 8 else f"max abs err {err:.3e}")
+            + f"; weight bytes {weight_bytes(im._params)}")
+        out[tag] = run
+        del im, model
+    return out
+
+
+def seq2seq_requests(seed: int) -> list:
+    """SEQ2SEQ_REQUESTS prompts of 4-24 tokens, budgets cycling
+    SEQ2SEQ_BUDGETS."""
+    g = np.random.default_rng(seed + 170)
+    return [(f"s2s-{i:02d}",
+             g.integers(2, SEQ2SEQ["vocab_size"], int(g.integers(4, 25)))
+             .astype(np.int32), SEQ2SEQ_BUDGETS[i % len(SEQ2SEQ_BUDGETS)])
+            for i in range(SEQ2SEQ_REQUESTS)]
+
+
+def seq2seq_serve(im, reqs) -> dict:
+    """ClusterServing over InProcQueue in generation mode with
+    ``warmup``: the requests sent once the warm-up is ``ready``."""
+    q = InProcQueue()
+    serving = ClusterServing(im, q, ServingParams(
+        max_batch=SEQ2SEQ_GEN["max_active_slots"], max_wait_ms=2.0,
+        generation=SEQ2SEQ_GEN, warmup=True))
+    b = serving._batcher
+    oq = OutputQueue(q)
+    try:
+        serving.start()
+        warm = wait_warm(serving)
+        sync(im.device)
+        before = b.stats()
+        t0 = time.perf_counter()
+        for rid, prompt, budget in reqs:
+            enqueue_generation(q, rid, prompt, budget)
+        res = oq.query_many([r[0] for r in reqs], timeout_s=600.0)
+        wall = time.perf_counter() - t0
+    finally:
+        serving.shutdown(drain_s=5.0)
+    return {"results": res, "wall_s": wall, "warm": warm, "before": before,
+            "stats": b.stats(),
+            "ttft_p50_s": serving._m_ttft.percentiles((50,))["p50"]}
+
+
+def enqueue_generation(q, rid, prompt, budget) -> None:
+    arr = np.ascontiguousarray(np.asarray(prompt, "<f4"))
+    q.xadd({"uri": rid, "b64": base64.b64encode(arr).decode("ascii"),
+            "dtype": "<f4", "shape": list(arr.shape),
+            "gen": {"max_tokens": int(budget)}})
+
+
+@torch.inference_mode()
+def seq2seq_margin(model, prompt, tokens, d: int):
+    """(top-2 logit margin, argmax) of the step that picks token ``d``
+    after ``tokens[:d]``, on the model's plain decode from its prompt."""
+    st = model.init_decode(prompt[None].astype(np.float32))
+    tok = torch.full((1,), SEQ2SEQ_GEN["start_id"], dtype=torch.int32,
+                     device=model.device)
+    for i in range(d + 1):
+        logits, st = model.decode_step(st, tok)
+        if i < d:
+            tok = torch.tensor([tokens[i]], dtype=torch.int32,
+                               device=model.device)
+    top2 = logits[0].topk(2)
+    return float(top2.values[0] - top2.values[1]), int(top2.indices[0])
+
+
+def seq2seq_check_infer(model, reqs, got: dict, tag: str) -> None:
+    """Each request's tokens equal its own ``Seq2seq.infer`` from
+    ``start_id`` for its budget, or part from it only at a near tie."""
+    diverged = 0
+    for rid, prompt, budget in reqs:
+        want = [int(t) for t in model.infer(
+            prompt[None].astype(np.float32),
+            start_sign=SEQ2SEQ_GEN["start_id"], max_seq_len=budget)[0]]
+        toks = got[rid]
+        check(len(toks) == budget, f"{tag} {rid}: {len(toks)} tokens, "
+                                   f"budget {budget}")
+        if toks == want:
+            continue
+        d = next(i for i, (a, b) in enumerate(zip(toks, want)) if a != b)
+        margin, top = seq2seq_margin(model, prompt, toks, d)
+        say(f"{tag} {rid}: diverges from infer at token {d} (got "
+            f"{toks[d]}, infer {want[d]}), top-2 logit margin "
+            f"{margin:.3e}")
+        check(top in (toks[d], want[d]) and margin < TIE_MARGIN,
+              f"{tag} {rid}: divergence at token {d} is not a near tie "
+              f"(margin {margin:.3e}, replay {top})")
+        diverged += 1
+    say(f"{tag}: {len(reqs) - diverged}/{len(reqs)} token sequences equal "
+        f"their own Seq2seq.infer, {diverged} diverged at a near tie")
+
+
+def seq2seq_batcher(im, reqs, warm: bool) -> dict:
+    """A bare batcher, warmed (graph route) or not (eager route), over the
+    requests submitted at once: the same admissions on both routes."""
+    b = ContinuousBatcher(im, GenerationParams(**SEQ2SEQ_GEN))
+    doc = b.warm() if warm else None
+    for rid, prompt, budget in reqs:
+        check(b.submit(GenRequest(rid, prompt, max_tokens=budget)),
+              "waiting room full")
+    done = {}
+    sync(im.device)
+    t0 = time.perf_counter()
+    while len(done) < len(reqs):
+        for ev in b.step():
+            check(ev.kind not in ("shed", "quarantine"),
+                  f"seq2seq batcher {ev.kind} on {ev.rid}: {ev.error}")
+            if ev.kind == "finish":
+                done[ev.rid] = list(ev.tokens)
+    wall = time.perf_counter() - t0
+    return {"tokens": done, "wall_s": wall, "stats": b.stats(), "doc": doc}
+
+
+def seq2seq_reclaim(im, seq, tmp: str) -> dict:
+    """A record claimed by a dead owner over a FileQueue, its partial in
+    the result store and a checkpoint of it in the dead owner's spool:
+    the survivor attaches the snapshot (``gen_resume``), the batcher
+    cannot replay bare state and restarts it from 0
+    (``gen_resume_failed``)."""
+    rid, prompt, budget = seq
+    qdir = os.path.join(tmp, "q")
+    q = FileQueue(qdir)
+    enqueue_generation(q, rid, prompt, budget)
+    q.consumer = "dead"
+    check([r for r, _ in q.read_batch(8, timeout_s=1.0)] == [rid],
+          "seq2seq reclaim: the dead owner claimed nothing")
+    prefix = [1, 2, 3]
+    q.put_partial(rid, {"partial": True, "tokens": prefix,
+                        "n": len(prefix)})
+    snap = {"rid": rid, "epoch": 0, "prompt": [int(t) for t in prompt],
+            "tokens": prefix, "n": len(prefix), "tenant": None,
+            "trace_id": None, "deadline_ns": None, "max_tokens": budget,
+            "sampler": "greedy", "ts": time.monotonic()}
+    snap["crc"] = tracecollect.snapshot_checksum(snap)
+    spool = os.path.join(tmp, "dead.gensnap.jsonl")
+    tracecollect.append_snapshots(spool, [snap], source="dead")
+    q.annotate(rid, {"spool": spool, "epoch": 0, "replica": "dead"})
+    time.sleep(RESUME_LEASE_S + 0.2)
+    gen = dict(SEQ2SEQ_GEN, checkpoint_interval=8, resume=True)
+    serving = ClusterServing(im, FileQueue(qdir), ServingParams(
+        max_batch=8, max_wait_ms=2.0, generation=gen, lease_s=RESUME_LEASE_S,
+        reclaim_interval_s=0.05))
+    serving.snapshot_path = os.path.join(tmp, "survivor.gensnap.jsonl")
+    try:
+        serving.start()
+        res = OutputQueue(FileQueue(qdir)).query_many([rid], timeout_s=120.0)
+    finally:
+        serving.shutdown(drain_s=5.0)
+    events = {name: [e for e in serving.recorder.events()
+                     if e.get("event") == name
+                     and e.get("replica") == serving.replica_id]
+              for name in ("gen_resume", "gen_resume_failed")}
+    return {"tokens": res[rid]["value"]["tokens"], "events": events,
+            "stats": serving._batcher.stats()}
+
+
+def seq2seq_phase(seed: int, dev) -> None:
+    """(d): Seq2seq served by ClusterServing in generation mode on
+    bare-state lanes, warmed (each lane's quantum a CUDA graph)."""
+    model = Seq2seq(**SEQ2SEQ, device=dev)
+    model.init_weights(seed)
+    im = InferenceModel(device=dev).do_load_model(model)
+    reqs = seq2seq_requests(seed)
+    say(f"model: Seq2seq({SEQ2SEQ}) ({model.param_count()} params) from "
+        f"seed {seed}; {len(reqs)} requests, prompts 4-24 tokens, budgets "
+        f"cycling {SEQ2SEQ_BUDGETS}")
+    run = seq2seq_serve(im, reqs)
+    st, st0, warm = run["stats"], run["before"], run["warm"]
+    got = {}
+    for rid, _, budget in reqs:
+        r = run["results"].get(rid)
+        check(r is not None and "value" in r
+              and not OutputQueue.is_partial(r),
+              f"seq2seq {rid}: no terminal result ({r})")
+        got[rid] = list(r["value"]["tokens"])
+    steps = st["decode_steps"] - st0["decode_steps"]
+    replays = st["replays"] - st0["replays"]
+    eager = st["eager_quanta"] - st0["eager_quanta"]
+    check(warm["compile_stats"]["captures"] == 1 == st["captures"]
+          and eager == 0
+          and replays * SEQ2SEQ_GEN["decode_quantum"] == steps > 0,
+          f"seq2seq: captures {warm['compile_stats']} / {st['captures']}, "
+          f"{eager} eager quanta, {replays} replays for {steps} steps")
+    check(st["can_resume"] is False and st["checkpoints"] == 0,
+          f"seq2seq: bare-state stats {st}")
+    n_tok = sum(len(t) for t in got.values())
+    say(f"seq2seq[served]: warm-up {warm['total']} entries in "
+        f"{warm['seconds']:.3f} s, {warm['compile_stats']['captures']} graph "
+        f"capture; {len(got)}/{len(reqs)} terminal results, {n_tok} tokens "
+        f"in {run['wall_s']:.3f} s = {n_tok / run['wall_s']:.1f} tokens/s, "
+        f"TTFT p50 {run['ttft_p50_s'] * 1e3:.2f} ms (host clock, "
+        f"readings), {steps} decode steps in {replays} graph replays, "
+        f"eager quanta {eager}")
+    seq2seq_check_infer(model, reqs, got, "seq2seq[served]")
+    eager_run = seq2seq_batcher(im, reqs, warm=False)
+    graph_run = seq2seq_batcher(im, reqs, warm=True)
+    gs, es = graph_run["stats"], eager_run["stats"]
+    check(graph_run["tokens"] == eager_run["tokens"],
+          "seq2seq: the graph route's tokens differ from the eager route's")
+    check(gs["eager_quanta"] == 0 and gs["replays"] > 0
+          and es["replays"] == 0,
+          f"seq2seq routes: graph {gs}, eager {es}")
+    ms = {tag: r["wall_s"] / r["stats"]["decode_steps"] * 1e3
+          for tag, r in (("eager", eager_run), ("graph", graph_run))}
+    say(f"seq2seq[graph vs eager]: {len(reqs)} requests, tokens equal; "
+        f"{gs['decode_steps']} decode steps of "
+        f"{SEQ2SEQ_GEN['max_active_slots']} rows: {ms['graph']:.4f} ms a "
+        f"step on the graph route, "
+        f"{ms['eager']:.4f} on the eager route (host clock)")
+    tmp = tempfile.mkdtemp(prefix="zoo-s2s-")
+    try:
+        rec = seq2seq_reclaim(im, reqs[1], tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fails = rec["events"]["gen_resume_failed"]
+    check(len(rec["events"]["gen_resume"]) == 1 and len(fails) == 1
+          and fails[0].get("reason")
+          == "bare-state model cannot replay decode state"
+          and rec["stats"]["resume_failed"] == 1,
+          f"seq2seq reclaim: events {rec['events']}, stats {rec['stats']}")
+    check(rec["tokens"] == eager_run["tokens"][reqs[1][0]],
+          "seq2seq reclaim: the restarted record's tokens differ from the "
+          "uninterrupted run's")
+    say(f"seq2seq[reclaim]: {reqs[1][0]}'s snapshot attached (gen_resume), "
+        f"then restarted from 0 ({fails[0]['reason']!r}, wasted "
+        f"{fails[0].get('wasted')}); tokens equal the uninterrupted run's")
+    del im, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def recurrent_phase(seed: int, records: dict) -> None:
+    """Phase 9: the w8a8 / w4a16 kernels at the recurrent zoo's shapes;
+    SessionRecommender at RSC15 width trained and served in f32, int8
+    and int4; AnomalyDetector trained and served in int8 and int4;
+    Seq2seq served by ClusterServing on bare-state lanes."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    kt = recurrent_kernel_phase(seed)
+    session = session_phase(seed, dev)
+    anomaly = anomaly_phase(seed, dev)
+    seq2seq_phase(seed, dev)
+    for name, bits_tag in (("w8a8", "int8"), ("w4a16", "int4")):
+        rec = records.setdefault(name, {})
+        rec["recurrent_launches"] = {
+            "session": session["served"][bits_tag]["card"][name],
+            "anomaly": anomaly[bits_tag]["card"][name]}
+        for model in RECURRENT_DENSE:
+            for key, v in kt[f"{name}_{model}"].items():
+                rec[f"{model}_forward_{key}"] = v
+        rec["recurrent_shapes"] = {kn: t[name]
+                                   for kn, t in kt["shapes"].items()}
+    rec = records["w4a16"]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0),
+                             kt["w4_max_abs_err"])
+    say(f"recurrent: phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
 # -- main ---------------------------------------------------------------------
 
 def ptxas_summary(log: str) -> str:
@@ -4592,6 +5309,7 @@ def main(argv=None) -> int:
     resnet_phase(args.seed, records, args.profile)
     image_phase(args.seed, records, args.profile)
     reco_phase(args.seed, records, args.profile)
+    recurrent_phase(args.seed, records)
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (

@@ -81,3 +81,42 @@ def test_defined_macros_name_a_library_of_their_own(csrc, monkeypatch):
     _build.build_all(["fused_bn", ("quant_conv", ("-DCV_MERGE_SKIP=1",))])
     assert sorted(jobs) == [("fused_bn", ()),
                             ("quant_conv", ("-DCV_MERGE_SKIP=1",))]
+
+
+def test_a_cached_library_keeps_its_compiler_report(csrc, tmp_path,
+                                                    monkeypatch):
+    """The compiler's report is kept beside the library: a second build
+    finds both, runs no compiler and reads the report back, so a second
+    run of the chip smoke in one checkout still sees the register and
+    spill lines.  A library without its report is built again."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "BUILD_LOG", {})
+    monkeypatch.setattr(_build, "BUILD_SECONDS", {})
+    runs = []
+
+    class Done:
+        returncode = 0
+        stderr = "ptxas info    : Used 80 registers\n" \
+                 "    0 bytes spill stores, 0 bytes spill loads\n"
+
+    def fake_run(cmd, **kw):
+        runs.append(cmd)
+        out = cmd[cmd.index("-o") + 1]
+        with open(out, "wb") as f:
+            f.write(b"\x7fELF")
+        return Done()
+
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    lib = _build.build("fused_bn")
+    assert len(runs) == 1 and lib.exists()
+    assert _build.report_path(lib).read_text() == Done.stderr
+    _build.BUILD_LOG.clear()
+    _build.BUILD_SECONDS.clear()
+    assert _build.build("fused_bn") == lib and len(runs) == 1
+    assert _build.BUILD_LOG["fused_bn"] == Done.stderr
+    assert "fused_bn" not in _build.BUILD_SECONDS
+    _build.report_path(lib).unlink()
+    assert _build.build("fused_bn") == lib and len(runs) == 2
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted(
+        [lib.name, _build.report_path(lib).name])

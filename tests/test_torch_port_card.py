@@ -21,7 +21,8 @@ y as f32 sums of up to 300 products of unit-scale values in another order
 (atol 2e-5, rtol 1e-5; bf16 y one rounding step, rtol 8e-3) and the sums
 over the rows to rtol 1e-5 (Σ with atol 1e-5·Σ|y|), two launches bitwise
 equal.  CUDA graphs (``inference/aot.capture``): decode quanta replayed
-give the eager route's tokens (the same kernels in the same order);
+give the eager route's tokens (the same kernels in the same order), for
+``TransformerLM``'s lanes and for a ``Seq2seq`` bare-state lane;
 their kernel launches are counted on the card (``ops/_impl.
 card_launches``, a profiler trace), and the wrappers' counters, which
 count eager launches, count none for a capture or a replay.
@@ -789,6 +790,10 @@ def test_recommendation_shapes_w8a8_and_w4a16_on_card(cuda_device, m, k, n):
     """Each weight its own allocation of exactly its bytes: ``w8a8``
     bitwise; ``w4a16`` (group 64, ragged groups at K = 96 and 173) within
     its tolerance; both on f32 x."""
+    _check_matmul_kernels(cuda_device, m, k, n)
+
+
+def _check_matmul_kernels(cuda_device, m, k, n):
     g = np.random.default_rng(m + 7 * k + n)
     x = torch.from_numpy(g.integers(-128, 128, (m, k)).astype(np.int8))
     w = torch.from_numpy(g.integers(-128, 128, (k, n)).astype(np.int8))
@@ -808,6 +813,74 @@ def test_recommendation_shapes_w8a8_and_w4a16_on_card(cuda_device, m, k, n):
     torch.testing.assert_close(got, tqm.w4a16_matmul(xf, wq, sg,
                                                      impl="torch"),
                                rtol=1e-5, atol=1e-4)
+
+
+# the recurrent zoo's Dense shapes (K, N): SessionRecommender at RSC15's
+# item count (the GRU's 20 and the history MLP's 20 onto 37,484 items;
+# the MLP's 100 x 40 and 40 x 20) and AnomalyDetector's head (15 x 1), at
+# one row, the training and serving batch and a batch off a multiple
+RECURRENT_KN = ((20, 37484), (100, 40), (40, 20), (15, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 1024, 1000])
+@pytest.mark.parametrize("k,n", RECURRENT_KN)
+def test_recurrent_zoo_shapes_w8a8_and_w4a16_on_card(cuda_device, m, k, n):
+    """K = 20 and 15 give x rows off 16 bytes, N = 37,484 is not a
+    multiple of a column block, N = 1: ``w8a8`` bitwise (each weight its
+    own allocation, and again inside a buffer of 127s); ``w4a16`` (one
+    ragged group of 64 at K = 15 and 20) within atol 1e-4."""
+    _check_matmul_kernels(cuda_device, m, k, n)
+    g = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(g.integers(-128, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(g.integers(-128, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy(g.uniform(1e-4, 1e-2, n).astype(np.float32))
+    x, w, s = (t.to(cuda_device) for t in (x, w, s))
+    buf = torch.full((w.numel() + 96,), 127, dtype=torch.int8,
+                     device=cuda_device)
+    buf[48:48 + w.numel()] = w.flatten()
+    got = tqm.w8a8_matmul(x, buf[48:48 + w.numel()].view(k, n), s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tqm.w8a8_matmul(x, w, s, impl="torch"))
+
+
+def _seq2seq_model(device):
+    from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq
+    m = Seq2seq(97, embed_dim=16, hidden_sizes=(64, 32), device=device)
+    m.init_weights(3)
+    return InferenceModel(device=device).do_load_model(m)
+
+
+GEN_SEQ2SEQ = dict(paged=False, max_active_slots=4, max_tokens=10,
+                   max_prompt_len=24, decode_quantum=3, stream_interval=0,
+                   start_id=1)
+
+
+@pytest.mark.gpu
+def test_seq2seq_lane_graph_serves_the_eager_tokens_on_card(cuda_device):
+    """A ``Seq2seq`` bare-state lane after ``warm()``: its decode quantum
+    (a list of (h, c) pairs copied back in place) is captured as one CUDA
+    graph; two waves of churn replay it only, and give an eager batcher's
+    tokens.  The trace of the card shows no launch of any hand-written
+    kernel (the lane has none) and the wrappers count none."""
+    im = _seq2seq_model(cuda_device)
+    eager = tgen.ContinuousBatcher(im, tgen.GenerationParams(**GEN_SEQ2SEQ))
+    want = _serve(eager, _gen_reqs(1))
+    want2 = _serve(eager, _gen_reqs(2, tag="b"))
+    assert eager.stats()["eager_quanta"] > 0
+    b = tgen.ContinuousBatcher(im, tgen.GenerationParams(**GEN_SEQ2SEQ))
+    doc = b.warm()
+    assert doc["failed"] == 0 and b.captures == 1, doc
+    counters = (tqm.launches_w8a8, tqm.launches_w4a16, tpa.launches)
+    with _impl.card_launches() as card:
+        assert _serve(b, _gen_reqs(1)) == want
+        assert _serve(b, _gen_reqs(2, tag="b")) == want2
+    st = b.stats()
+    assert st["eager_quanta"] == 0 and st["can_resume"] is False
+    assert st["replays"] * GEN_SEQ2SEQ["decode_quantum"] \
+        == st["decode_steps"] > 0
+    assert set(card.values()) == {0}
+    assert (tqm.launches_w8a8, tqm.launches_w4a16, tpa.launches) == counters
 
 
 @pytest.mark.gpu

@@ -57,7 +57,10 @@ def test_every_module_imports_with_jax_blocked():
                 "models.recommendation", "models.recommendation.neuralcf",
                 "models.recommendation.wide_and_deep",
                 "models.recommendation.recommender",
-                "models.recommendation.movielens", "nn.layers.core"):
+                "models.recommendation.movielens", "nn.layers.core",
+                "nn.layers.recurrent", "models.seq2seq",
+                "models.anomalydetection",
+                "models.recommendation.session_recommender"):
         assert f"analytics_zoo_tpu_torch.{mod}" in doc["modules"]
 
 
@@ -116,3 +119,27 @@ def test_seeded_weights_are_reproducible():
     c = TransformerLM(**geo, seed=6, device="cpu")
     assert torch.equal(a.blocks[0].qkv.W, b.blocks[0].qkv.W)
     assert not torch.equal(a.embed, c.embed)
+
+
+def test_recurrent_entry_points_follow_the_device_rule(monkeypatch):
+    """``Seq2seq`` and the recurrent zoo models resolve ``cuda:0`` with no
+    device given, so with no CUDA they raise; ``device="cpu"`` builds on
+    the CPU."""
+    from analytics_zoo_tpu_torch.models.anomalydetection import \
+        AnomalyDetector
+    from analytics_zoo_tpu_torch.models.recommendation import \
+        SessionRecommender
+    from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    builds = (lambda **kw: Seq2seq(8, embed_dim=4, hidden_sizes=(4,), **kw),
+              lambda **kw: SessionRecommender(9, item_embed=4,
+                                              rnn_hidden_layers=(3,),
+                                              session_length=3, **kw),
+              lambda **kw: AnomalyDetector((4, 1), (3,), (0.1,), **kw))
+    for build in builds:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        m = build(device="cpu")
+        model = getattr(m, "model", m)
+        assert {p.device for p in model.parameters()} == {
+            torch.device("cpu")}

@@ -723,5 +723,9 @@ def test_multi_input_bucket_padding_pads_every_input():
 
 
 def test_session_recommender_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        trec.SessionRecommender(10)
+    """The stub that raised is gone: ``SessionRecommender`` is ported
+    (``tests/test_torch_port_session.py`` holds it against the JAX
+    package) and builds its graph on the CPU."""
+    sr = trec.SessionRecommender(10, item_embed=4, rnn_hidden_layers=(3,),
+                                 session_length=4, device="cpu")
+    assert sr.model.compute_output_shape(None) == (11,)

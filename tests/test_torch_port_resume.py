@@ -24,8 +24,9 @@ counters, reasons, events and checksums.
 - Every pool block comes back after a drain of mixed resumed and fresh
   requests.
 
-Not ported on purpose: the JAX file's bare-state test (the port raises on
-bare-state models), its usage-conservation test (metering is not ported)
+Not ported on purpose: the JAX file's bare-state test (the bare-state
+lanes are held in ``test_torch_port_seq2seq.py``), its usage-conservation
+test (metering is not ported)
 and its two-replica SIGKILL test (the load balancer and the fleet
 manager are not ported).
 """

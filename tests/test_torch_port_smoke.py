@@ -975,3 +975,171 @@ def test_reco_wide_and_deep_phase_on_cpu(tiny_reco):
     out = cs.wad_phase(0, torch.device("cpu"))
     assert out["accuracy"] > 0.6
     assert out["int8"]["forwards"] == out["int4"]["forwards"] == 4
+
+
+# -- phase 9: the recurrent zoo -----------------------------------------------
+
+def test_recurrent_dense_shapes_are_the_full_width_models():
+    """The phase's (K, N) table is the Dense inventory of the models at
+    their smoke configurations (built on the meta-free CPU at full
+    width), and the session model's parameter count is the constant the
+    phase checks."""
+    from analytics_zoo_tpu_torch.models.anomalydetection import \
+        AnomalyDetector
+    from analytics_zoo_tpu_torch.models.recommendation import \
+        SessionRecommender
+    sr = SessionRecommender(**cs.SESSION, device="cpu")
+    assert cs.dense_shapes(sr.model) == cs.RECURRENT_DENSE["session"]
+    assert sr.model.param_count() == cs.SESSION_PARAMS
+    ad = AnomalyDetector(**cs.ANOMALY, device="cpu")
+    assert cs.dense_shapes(ad.model) == cs.RECURRENT_DENSE["anomaly"]
+    assert cs.recurrent_shapes() == [(20, 37484), (100, 40), (40, 20),
+                                     (15, 1)]
+    b = cs.w8a8_bound(1024, 20, 37484)
+    assert b["bound_by"] == "bytes" and b["bytes"] > 153e6
+    reqs = cs.seq2seq_requests(0)
+    assert len(reqs) == cs.SEQ2SEQ_REQUESTS == 64
+    assert all(4 <= len(p) <= 24 for _, p, _ in reqs)
+    assert [b for _, _, b in reqs[:8]] == list(cs.SEQ2SEQ_BUDGETS)
+
+
+def test_session_data_is_predictable_from_the_session():
+    """Each session, its label and its history lie in one cluster; the
+    popularity baseline is far below what the cluster tells."""
+    data = cs.session_data(0)
+    assert data["x_train"][0].shape == (cs.SESSION_TRAIN,
+                                        cs.SESSION["session_length"])
+    assert data["x_test"][1].shape == (cs.SESSION_TEST,
+                                       cs.SESSION["history_length"])
+    assert data["y_train"].min() >= 1
+    assert data["y_train"].max() <= cs.SESSION["item_count"]
+    again = cs.session_data(0)
+    assert np.array_equal(again["y_test"], data["y_test"])
+    base = cs.popularity_baseline(data)
+    assert base["recall"] < 0.25
+    probs = np.zeros((3, 6), np.float32)
+    probs[:, 2] = 0.5
+    probs[0, 4] = 0.6
+    r, m = cs.rank_metrics(probs, np.array([2, 2, 4]), k=2)
+    assert (r, m) == (3.0, 0.5 + 1.0 + 0.5)
+
+
+@pytest.fixture
+def tiny_recurrent(monkeypatch):
+    """Phase 9 at a tiny width on the CPU: 1000 items in 16 clusters, embed
+    8, GRU (8, 4), MLP (8, 4), 4096 training sessions at batch 256; an
+    AnomalyDetector (4, 6, 3) over 600 points; the kernels' launch counts
+    0 (no card); a Seq2seq of vocab 64 serving 12 requests."""
+    from analytics_zoo_tpu_torch.common import context
+    monkeypatch.setattr(cs, "SESSION", dict(
+        item_count=1000, item_embed=8, rnn_hidden_layers=(8, 4),
+        session_length=5, include_history=True, mlp_hidden_layers=(8, 4),
+        history_length=3))
+    monkeypatch.setattr(cs, "SESSION_PARAMS", 2 * 1001 * 8 + 408 + 156
+                        + 2 * (4 * 1001 + 1001) + 72 + 36)
+    monkeypatch.setattr(cs, "SESSION_TRAIN", 4096)
+    monkeypatch.setattr(cs, "SESSION_TEST", 512)
+    monkeypatch.setattr(cs, "SESSION_BATCH", 256)
+    monkeypatch.setattr(cs, "SESSION_LR", 2e-2)
+    monkeypatch.setattr(cs, "SESSION_CLUSTERS", 16)
+    monkeypatch.setattr(cs, "SESSION_RECALL_GAP", 0.05)
+    monkeypatch.setattr(cs, "ANOMALY", dict(
+        feature_shape=(24, 1), hidden_layers=(4, 6, 3),
+        dropouts=(0.2, 0.2, 0.2)))
+    monkeypatch.setattr(cs, "ANOMALY_POINTS", 600)
+    monkeypatch.setattr(cs, "ANOMALY_PLANTED", 4)
+    monkeypatch.setattr(cs, "ANOMALY_TOP", 4)
+    monkeypatch.setattr(cs, "RECURRENT_DENSE", {
+        "session": ((4, 1001), (8, 8), (8, 4), (4, 1001)),
+        "anomaly": ((3, 1),)})
+    monkeypatch.setattr(cs, "RECO_LAUNCHES", {"f32": {}, "int8": {},
+                                              "int4": {}})
+    monkeypatch.setattr(cs, "SEQ2SEQ", dict(vocab_size=64, embed_dim=8,
+                                            hidden_sizes=(16,),
+                                            bridge="dense"))
+    monkeypatch.setattr(cs, "SEQ2SEQ_REQUESTS", 12)
+    monkeypatch.setattr(cs, "SEQ2SEQ_BUDGETS", (4, 6, 8, 20))
+    monkeypatch.setattr(cs, "SEQ2SEQ_GEN", dict(
+        cs.SEQ2SEQ_GEN, max_active_slots=4, decode_quantum=3,
+        max_tokens=20))
+    monkeypatch.setattr(cs, "RESUME_LEASE_S", 0.3)
+    monkeypatch.setattr(context, "_global_ctx",
+                        context.ZooContext(context.ZooConf(device="cpu")))
+
+
+def test_recurrent_session_phase_on_cpu(tiny_recurrent):
+    """Trained (the loss falls, Recall@20 above the popularity
+    baseline's), served in f32, int8 and int4 on the CPU (every wrapper
+    takes its plain version there, so each route's check against the
+    plain route passes), recommend_for_session included; a rising loss,
+    a recall below its floor and a launch count off by one are
+    rejected."""
+    out = cs.session_phase(0, torch.device("cpu"))
+    epochs = out["epochs"]
+    base = cs.popularity_baseline(cs.session_data(0))
+    assert epochs[-1]["recall"] > base["recall"] + 0.05
+    for tag in ("f32", "int8", "int4"):
+        assert out["served"][tag]["forwards"] == 2
+    rising = [dict(e) for e in epochs]
+    rising[-1]["loss"] = rising[0]["loss"] + 1.0
+    with pytest.raises(cs.SmokeFailure, match="did not fall"):
+        cs.check_session_train(rising, base, recall_min=0.0)
+    with pytest.raises(cs.SmokeFailure, match="Recall@20"):
+        cs.check_session_train(epochs, base, recall_min=1.01)
+    run = {"forwards": 2, "card": {"w8a8": 8, "w4a16": 0},
+           "wrapper": {"w8a8": 8, "w4a16": 0}}
+    cs.RECO_LAUNCHES["int8"] = {"w8a8": 1}
+    cs.check_launches("session[int8]", run, 4)
+    with pytest.raises(cs.SmokeFailure, match="launches"):
+        cs.check_launches("session[int8]",
+                                 dict(run, card={"w8a8": 7, "w4a16": 0}), 4)
+
+
+def test_recurrent_anomaly_phase_on_cpu(tiny_recurrent):
+    """Trained (the loss falls), planted anomalies flagged, served in
+    int8 and int4 against the plain route; the example's series copied
+    exactly."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "anomaly_example", cs.__file__.replace(
+            "chip_smoke.py", "examples/anomaly_detection.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    for args in ((), (10320, 12, 3)):
+        got, want = cs.synth_series(*args), ex.synth_series(*args)
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+    out = cs.anomaly_phase(0, torch.device("cpu"))
+    assert out["int8"]["forwards"] == out["int4"]["forwards"] == 3
+    assert out["recalled"] >= 1
+
+
+def test_recurrent_seq2seq_pieces_on_cpu(tiny_recurrent, tmp_path):
+    """The engine serves every request its budget of tokens, each equal to
+    its own ``Seq2seq.infer``; the two bare batchers agree; a reclaimed
+    record with a snapshot is restarted from 0 with the downgrade event;
+    a changed token that is not a near tie is rejected."""
+    from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq
+    model = Seq2seq(**cs.SEQ2SEQ, device="cpu")
+    model.init_weights(0)
+    im = InferenceModel(device="cpu").do_load_model(model)
+    reqs = cs.seq2seq_requests(0)
+    run = cs.seq2seq_serve(im, reqs)
+    got = {rid: run["results"][rid]["value"]["tokens"] for rid, _, _ in reqs}
+    cs.seq2seq_check_infer(model, reqs, got, "seq2seq[cpu]")
+    eager = cs.seq2seq_batcher(im, reqs, warm=False)
+    warm = cs.seq2seq_batcher(im, reqs, warm=True)
+    assert eager["tokens"] == warm["tokens"] == got
+    assert warm["doc"]["failed"] == 0
+    rec = cs.seq2seq_reclaim(im, reqs[1], str(tmp_path))
+    fails = rec["events"]["gen_resume_failed"]
+    assert [e["reason"] for e in fails] == [
+        "bare-state model cannot replay decode state"]
+    assert len(rec["events"]["gen_resume"]) == 1
+    assert rec["tokens"] == got[reqs[1][0]]
+    rid, prompt, budget = reqs[0]
+    bad = dict(got)
+    bad[rid] = list(got[rid])
+    bad[rid][1] = (bad[rid][1] + 1) % cs.SEQ2SEQ["vocab_size"]
+    with pytest.raises(cs.SmokeFailure, match="near tie"):
+        cs.seq2seq_check_infer(model, reqs[:1], bad, "seq2seq[bad]")
