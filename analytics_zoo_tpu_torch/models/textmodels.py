@@ -1,6 +1,7 @@
-"""``TransformerLM`` — the decoder-only generator the serving plane's
-continuous batcher drives, ported from the JAX package's
-``models/textmodels.py``.
+"""The JAX package's ``models/textmodels.py``: ``TransformerLM``, the
+decoder-only generator the serving plane's continuous batcher drives, and
+the tagger family (``NER``, ``SequenceTagger``, ``IntentEntity``; the
+section at the end of this module).
 
 GPT-2's architecture: pre-LN blocks (LayerNorm eps 1e-5, population
 variance), learned positions, biased ``qkv``/``proj``/``fc1``/``fc2``,
@@ -36,16 +37,23 @@ called from any thread (the mode is thread-local).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from analytics_zoo_tpu_torch.common.context import DeviceLike, resolve_device
+from analytics_zoo_tpu_torch.common.context import (DeviceLike, ZooConf,
+                                                    ZooContext, get_context,
+                                                    resolve_device)
+from analytics_zoo_tpu_torch.estimator.estimator import Estimator
 from analytics_zoo_tpu_torch.inference.quantize import kv_pack_int8
+from analytics_zoo_tpu_torch.nn.layers.core import Dense, Dropout, Embedding
+from analytics_zoo_tpu_torch.nn.layers.crf import CRF
+from analytics_zoo_tpu_torch.nn.layers.recurrent import LSTM, Bidirectional
 from analytics_zoo_tpu_torch.nn.module import Layer
+from analytics_zoo_tpu_torch.nn.optimizers import Adam
 from analytics_zoo_tpu_torch.ops.paged_attention import paged_attention
 
 NEG_INF = -1e30
@@ -428,3 +436,231 @@ class TransformerLM(Layer):
         if return_lengths:
             return out, lengths_out
         return out
+
+
+# -- the taggers (TFPark's text Keras models) ---------------------------------
+#
+# ``NER`` (pyzoo/zoo/tfpark/text/keras/ner.py), ``SequenceTagger``
+# (pos_tagging.py) and ``IntentEntity`` (intent_extraction.py), on one
+# trunk: a word embedding beside a character BiLSTM's word features, then
+# a sentence BiLSTM.  Inputs are ``[word_ids (B, T), char_ids (B, T, W)]``.
+# Param trees as the JAX package's: ``{enc: {wemb, cemb, clstm, slstm},
+# head<i>: {W, b}, crf: {transitions, start, end}}``.  No kernel runs here:
+# the recurrences are ``nn/layers/recurrent.py``'s and the heads float
+# ``Dense``s (the quantizer does not walk into a bare ``Layer``).
+
+
+class _WordCharEncoder(Layer):
+    """Word embedding + char-BiLSTM word features -> sentence BiLSTM states
+    (B, T, 2·lstm_dim).  The char BiLSTM runs over the (B·T, W) words and
+    keeps its last state; ``word_length``, when given, must be the char
+    input's width."""
+
+    def __init__(self, word_vocab_size, char_vocab_size, word_emb_dim=100,
+                 char_emb_dim=30, lstm_dim=100, dropout=0.5,
+                 word_length=None, name=None):
+        super().__init__(name=name)
+        self.word_emb = Embedding(word_vocab_size, word_emb_dim,
+                                  name=self.name + "_wemb")
+        self.char_emb = Embedding(char_vocab_size, char_emb_dim,
+                                  name=self.name + "_cemb")
+        self.char_lstm = Bidirectional(
+            LSTM(char_emb_dim, inner_activation="sigmoid"),
+            input_shape=(None, char_emb_dim), name=self.name + "_clstm")
+        self.sent_lstm = Bidirectional(
+            LSTM(lstm_dim, inner_activation="sigmoid",
+                 return_sequences=True),
+            input_shape=(None, word_emb_dim + 2 * char_emb_dim),
+            name=self.name + "_slstm")
+        self.drop = Dropout(dropout, name=self.name + "_drop")
+        self.dims = (word_emb_dim, char_emb_dim, lstm_dim)
+        self.word_length = word_length
+        self.built = True
+
+    def reset_parameters(self, gen):
+        for layer in (self.word_emb, self.char_emb, self.char_lstm,
+                      self.sent_lstm):
+            layer.reset_parameters(gen)
+
+    def _tree(self) -> Dict:
+        return {"wemb": self.word_emb, "cemb": self.char_emb,
+                "clstm": self.char_lstm, "slstm": self.sent_lstm}
+
+    def forward(self, inputs):
+        word_ids, char_ids = inputs
+        B, T = word_ids.shape[:2]
+        W = char_ids.shape[-1]
+        if self.word_length is not None and W != self.word_length:
+            raise ValueError(
+                f"char input width {W} != configured word_length "
+                f"{self.word_length}")
+        w = self.word_emb(word_ids)
+        c = self.char_emb(char_ids.reshape(B * T, W))
+        cw = self.char_lstm(c).reshape(B, T, -1)
+        h = self.drop(torch.cat([w, cw], dim=-1))
+        return self.sent_lstm(h)
+
+
+class _TaggerModel(Layer):
+    """The encoder, one ``Dense`` a head (head ``pooled_head`` fed the mean
+    of the states over every position, padding included) and, with
+    ``use_crf``, a CRF over head 0.  The CRF's potentials ride in the
+    output, broadcast over the batch, because the Estimator's loss sees
+    only ``(y_pred, y_true)``: the loss then differentiates them."""
+
+    def __init__(self, head_dims: Tuple[int, ...], use_crf: bool = True,
+                 pooled_head: Optional[int] = None, **enc_kw):
+        super().__init__()
+        self.encoder = _WordCharEncoder(name=self.name + "_enc", **enc_kw)
+        self.head_dims = tuple(head_dims)
+        lstm_out = 2 * self.encoder.dims[2]
+        self.heads = nn.ModuleList(
+            Dense(d, input_shape=(lstm_out,), name=f"{self.name}_head{i}")
+            for i, d in enumerate(self.head_dims))
+        self.use_crf = use_crf
+        self.pooled_head = pooled_head
+        self.crf = CRF(self.head_dims[0], name=self.name + "_crf") \
+            if use_crf else None
+        self.built = True
+
+    def reset_parameters(self, gen):
+        for layer in self.sublayers():
+            layer.reset_parameters(gen)
+
+    def _tree(self) -> Dict:
+        tree = {"enc": self.encoder}
+        tree.update({f"head{i}": h for i, h in enumerate(self.heads)})
+        if self.crf is not None:
+            tree["crf"] = self.crf
+        return tree
+
+    def forward(self, inputs):
+        h = self.encoder(inputs)
+        outs = [head(h.mean(dim=1) if i == self.pooled_head else h)
+                for i, head in enumerate(self.heads)]
+        if self.crf is not None:
+            B = outs[0].shape[0]
+            outs += [p.expand((B,) + tuple(p.shape)) for p in
+                     (self.crf.transitions, self.crf.start, self.crf.end)]
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+class _TextModelBase:
+    """fit / predict plumbing shared by the taggers.  An entry point: the
+    model goes to ``cuda:0`` unless ``device`` says otherwise.  With no
+    ``ctx`` the Estimator takes the global context, or where none can be
+    made (no CUDA), one on the model's device."""
+
+    def __init__(self, model: _TaggerModel, loss, optimizer=None, ctx=None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        if ctx is None:
+            try:
+                ctx = get_context()
+            except RuntimeError:
+                ctx = ZooContext(ZooConf.from_env(device=str(self.device)))
+        self.estimator = Estimator(self.model,
+                                   optimizer=optimizer or Adam(lr=1e-3),
+                                   loss=loss, ctx=ctx)
+
+    def fit(self, x, y, *, batch_size=32, epochs=1, **kw):
+        return self.estimator.fit(list(x), y, batch_size=batch_size,
+                                  epochs=epochs, **kw)
+
+    def predict(self, x, *, batch_size=32):
+        return self.estimator.predict(list(x), batch_size=batch_size)
+
+
+def _pick(logp, idx):
+    """``-logp[..., idx]`` per position (the JAX ``take_along_axis``)."""
+    return -logp.gather(-1, idx[..., None])[..., 0]
+
+
+class NER(_TextModelBase):
+    """BiLSTM + CRF named-entity tagger.  ``fit`` labels: (B, T) int tags;
+    ``predict`` returns the Viterbi tag paths (B, T)."""
+
+    def __init__(self, num_entities, word_vocab_size, char_vocab_size,
+                 word_length=12, word_emb_dim=100, char_emb_dim=30,
+                 tagger_lstm_dim=100, dropout=0.5, optimizer=None, ctx=None,
+                 device: DeviceLike = None):
+        model = _TaggerModel((num_entities,), use_crf=True,
+                             word_vocab_size=word_vocab_size,
+                             char_vocab_size=char_vocab_size,
+                             word_emb_dim=word_emb_dim,
+                             char_emb_dim=char_emb_dim,
+                             lstm_dim=tagger_lstm_dim, dropout=dropout,
+                             word_length=word_length)
+
+        def crf_loss(y_pred, y_true):
+            emissions, trans, start, end = y_pred
+            tags = y_true.to(torch.int64)
+            if tags.ndim == 3:
+                tags = tags[..., 0]
+            return model.crf.neg_log_likelihood(
+                emissions, tags, params={"transitions": trans[0],
+                                         "start": start[0], "end": end[0]})
+
+        super().__init__(model, crf_loss, optimizer, ctx, device)
+
+    def predict(self, x, *, batch_size=32):
+        emissions = super().predict(x, batch_size=batch_size)[0]
+        return self.model.crf.decode(
+            torch.as_tensor(emissions, device=self.device)).cpu().numpy()
+
+
+class SequenceTagger(_TextModelBase):
+    """Joint POS + chunk tagger: two per-token softmax heads.  ``fit``
+    labels: (B, T, 2) int [pos, chunk]."""
+
+    def __init__(self, num_pos_labels, num_chunk_labels, word_vocab_size,
+                 char_vocab_size, word_length=12, word_emb_dim=100,
+                 char_emb_dim=30, tagger_lstm_dim=100, dropout=0.5,
+                 optimizer=None, ctx=None, device: DeviceLike = None):
+        model = _TaggerModel((num_pos_labels, num_chunk_labels),
+                             use_crf=False,
+                             word_vocab_size=word_vocab_size,
+                             char_vocab_size=char_vocab_size,
+                             word_emb_dim=word_emb_dim,
+                             char_emb_dim=char_emb_dim,
+                             lstm_dim=tagger_lstm_dim, dropout=dropout,
+                             word_length=word_length)
+
+        def joint_loss(y_pred, y_true):
+            pos_logits, chunk_logits = y_pred
+            t = y_true.to(torch.int64)
+            nll_p = _pick(F.log_softmax(pos_logits, dim=-1), t[..., 0])
+            nll_c = _pick(F.log_softmax(chunk_logits, dim=-1), t[..., 1])
+            return (nll_p + nll_c).mean(dim=-1)
+
+        super().__init__(model, joint_loss, optimizer, ctx, device)
+
+
+class IntentEntity(_TextModelBase):
+    """Joint intent classification + entity extraction: a pooled intent
+    head and a per-token entity head.  ``fit`` labels: (B, 1 + T) int
+    [intent, entity tags...]."""
+
+    def __init__(self, num_intents, num_entities, word_vocab_size,
+                 char_vocab_size, word_length=12, word_emb_dim=100,
+                 char_emb_dim=30, tagger_lstm_dim=100, dropout=0.5,
+                 optimizer=None, ctx=None, device: DeviceLike = None):
+        model = _TaggerModel((num_entities, num_intents), use_crf=False,
+                             pooled_head=1,
+                             word_vocab_size=word_vocab_size,
+                             char_vocab_size=char_vocab_size,
+                             word_emb_dim=word_emb_dim,
+                             char_emb_dim=char_emb_dim,
+                             lstm_dim=tagger_lstm_dim, dropout=dropout,
+                             word_length=word_length)
+
+        def joint_loss(y_pred, y_true):
+            ent_logits, intent_logits = y_pred
+            t = y_true.to(torch.int64)
+            nll_i = _pick(F.log_softmax(intent_logits, dim=-1), t[:, 0])
+            nll_e = _pick(F.log_softmax(ent_logits, dim=-1),
+                          t[:, 1:]).mean(dim=-1)
+            return nll_i + nll_e
+
+        super().__init__(model, joint_loss, optimizer, ctx, device)

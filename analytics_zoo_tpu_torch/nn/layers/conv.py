@@ -1,6 +1,7 @@
-"""2-D convolution, zero padding and space-to-depth — the JAX package's
-``nn/layers/conv.py`` (``_ConvND`` :44, ``Convolution2D`` :149,
-``ZeroPadding2D`` :347, ``SpaceToDepth`` :461, ``stem_7x7_to_s2d`` :488).
+"""1-D and 2-D convolution, zero padding and space-to-depth — the JAX
+package's ``nn/layers/conv.py`` (``_ConvND`` :44, ``Convolution1D`` :145,
+``Convolution2D`` :149, ``AtrousConvolution1D`` :157, ``ZeroPadding2D``
+:347, ``SpaceToDepth`` :461, ``stem_7x7_to_s2d`` :488).
 
 Activations stay NHWC (``dim_ordering="tf"``, the JAX layout) and the
 weight stays ``W`` (kh, kw, cin/groups, cout), so ``load_jax_params``
@@ -13,8 +14,15 @@ outside any Pallas kernel.
 Padding is explicit, as XLA computes it: ``"same"`` pads each spatial
 axis by ``max((ceil(i/s) - 1)·s + (k - 1)·d + 1 - i, 0)`` split with the
 smaller half first, which is asymmetric at stride 2 on even sizes (the
-7×7/s2 stem on 224 pads (2, 3), a 3×3/s2 conv (0, 1)); ``F.conv2d``'s
-own ``"same"`` refuses strides and its integer padding is symmetric.
+7×7/s2 stem on 224 pads (2, 3), a 3×3/s2 conv (0, 1)) and for an even
+1-D kernel (k = 4 pads (1, 2)); ``F.conv2d``'s own ``"same"`` refuses
+strides and its integer padding is symmetric.
+
+A 1-D convolution keeps the JAX leaf shapes, ``W`` / ``W_q`` (k, cin/g,
+cout) and ``W_q4`` (ceil(k·cin/g / 2), cout), and runs as the (1, k)
+convolution of (B, 1, T, C): a view of its input and of its weight, so
+the float path is one ``F.conv2d`` and the int8 path one ``w8a8_conv2d``
+launch, at a one-row geometry.
 
 A 1×1, stride-1 conv whose only consumer is a ``BatchNormalization`` runs,
 in training, through ``fused_bn_forward``: the product and the BN
@@ -192,6 +200,21 @@ class _ConvND(Layer):
         return conv_pads(self.border_mode, sizes, self.kernel_size,
                          self.subsample, self.dilation)
 
+    def _geometry_2d(self):
+        """The weight's shape, strides and dilation of the 2-D convolution
+        this layer runs: its own, or for a 1-D layer the (1, k)
+        convolution's."""
+        one = (1,) * (2 - self.ndim)
+        return one + self.kshape, one + self.subsample, one + self.dilation
+
+    def _as_2d(self, x, pads):
+        """``x`` (B, *spatial, C) and ``pads`` as the 2-D convolution takes
+        them: as they are, or for a 1-D layer (B, 1, T, C) and the row
+        axis unpadded."""
+        if self.ndim == 2:
+            return x, list(pads)
+        return x.unsqueeze(1), [(0, 0)] + list(pads)
+
     def compute_output_shape(self, input_shape):
         sizes, _ = self._split(input_shape)
         out = tuple(_out_size(i, k, s, d, p) for i, k, s, d, p in zip(
@@ -227,65 +250,86 @@ class _ConvND(Layer):
         return (y.reshape(x.shape[:-1] + (self.nb_filter,)),
                 (stats[0], stats[1], y.shape[0]))
 
-    def _quantized(self, x):
-        """The W8A8 / W4A16 conv of NHWC ``x`` through the fused-dequant
-        entry points of ``ops/quant_matmul.py``."""
-        kw = dict(window_strides=self.subsample,
-                  padding=self._pads(x.shape[1:-1]),
-                  rhs_dilation=self.dilation,
-                  feature_group_count=self.groups, impl=self.impl)
+    def _quantized(self, x, pads):
+        """The W8A8 / W4A16 conv of NHWC ``x`` with ``pads`` (the 2-D
+        convolution of ``_as_2d``) through the fused-dequant entry points
+        of ``ops/quant_matmul.py``."""
+        kshape, strides, dilation = self._geometry_2d()
+        kw = dict(window_strides=strides, padding=pads,
+                  rhs_dilation=dilation, feature_group_count=self.groups,
+                  impl=self.impl)
         if self.bits == 4:
             y = qm.w4a16_conv(x.to(torch.float32), self.W_q4, self.s_g,
-                              self.kshape, **kw)
+                              kshape, **kw)
         else:
             xq = torch.clamp(torch.round(x.to(torch.float32) / self.s_x),
                              -127, 127).to(torch.int8)
-            y = qm.w8a8_conv(xq, self.W_q, self.s_x * self.s_w,
-                             w_pack=self._w8_pack(xq, kw["padding"]), **kw)
+            y = qm.w8a8_conv(xq, self.W_q.view(kshape), self.s_x * self.s_w,
+                             w_pack=self._w8_pack(xq, pads), **kw)
         if self.bias:
             y = y + self.b
         return self.activation(y.to(dtypes.param_dtype()))
 
     def _w8_pack(self, xq, pads):
-        """``W_q``'s pack for the kernel route of a spatial conv (None on
-        the plain route and for a pointwise conv), kept while ``W_q`` is
-        the same tensor at the same version: a new ``W_q`` or an in-place
-        write to it rebuilds the pack.  An inference tensor counts no
-        versions, so its pack is made on every call."""
+        """``W_q``'s pack (of its 2-D view) for the kernel route of a
+        spatial conv (None on the plain route and for a pointwise conv),
+        kept while ``W_q`` is the same tensor at the same version: a new
+        ``W_q`` or an in-place write to it rebuilds the pack.  An inference
+        tensor counts no versions, so its pack is made on every call.
+        ``pads``: the 2-D convolution's."""
+        kshape, strides, dilation = self._geometry_2d()
         if not xq.is_cuda or self.impl == "torch" or qm._is_pointwise(
-                self.kshape, self.subsample, self.dilation, self.groups,
-                pads):
+                kshape, strides, dilation, self.groups, pads):
             return None
         w = self.W_q
         if w.is_inference():
-            return qm.pack_conv_weight(w, self.groups)
+            return qm.pack_conv_weight(w.view(kshape), self.groups)
         cached = getattr(self, "_pack", None)
         if cached is None or cached[0] is not w or cached[1] != w._version:
-            cached = (w, w._version, qm.pack_conv_weight(w, self.groups))
+            cached = (w, w._version,
+                      qm.pack_conv_weight(w.view(kshape), self.groups))
             self._pack = cached
         return cached[2]
 
     def forward(self, x):
         if self.dim_ordering == "th":
             x = nchw_to_nhwc(x)
+        x2, pads = self._as_2d(x, self._pads(x.shape[1:-1]))
         if self.bits:
-            y = self._quantized(x)
-            return nhwc_to_nchw(y) if self.dim_ordering == "th" else y
-        xw, W = dtypes.cast_compute(x, self.W)
-        out_dt = dtypes.conv_out_dtype()
-        xw = pad_spatial(xw.to(out_dt), self._pads(x.shape[1:-1]))
-        # (kh, kw, cin, cout) -> (cout, cin, kh, kw)
-        w = W.to(out_dt).permute(3, 2, 0, 1)
-        y = nchw_to_nhwc(F.conv2d(nhwc_to_nchw(xw), w, stride=self.subsample,
-                                  dilation=self.dilation, groups=self.groups))
-        if self.bias:
-            y = y + self.b
-        y = self.activation(y)
+            y = self._quantized(x2, pads)
+        else:
+            kshape, strides, dilation = self._geometry_2d()
+            xw, W = dtypes.cast_compute(x2, self.W)
+            out_dt = dtypes.conv_out_dtype()
+            xw = pad_spatial(xw.to(out_dt), pads)
+            # (kh, kw, cin, cout) -> (cout, cin, kh, kw)
+            w = W.to(out_dt).view(kshape).permute(3, 2, 0, 1)
+            y = nchw_to_nhwc(F.conv2d(nhwc_to_nchw(xw), w, stride=strides,
+                                      dilation=dilation, groups=self.groups))
+            if self.bias:
+                y = y + self.b
+            y = self.activation(y)
+        if self.ndim == 1:
+            y = y.squeeze(1)
         return nhwc_to_nchw(y) if self.dim_ordering == "th" else y
+
+
+class Convolution1D(_ConvND):
+    """1-D convolution over (B, T, C) ("tf") or (B, C, T) ("th")."""
+
+    ndim = 1
 
 
 class Convolution2D(_ConvND):
     ndim = 2
+
+
+class AtrousConvolution1D(Convolution1D):
+    """``Convolution1D`` with its taps ``atrous_rate`` apart."""
+
+    def __init__(self, nb_filter, kernel_size, atrous_rate=1, **kwargs):
+        super().__init__(nb_filter, kernel_size, dilation=atrous_rate,
+                         **kwargs)
 
 
 class ZeroPadding2D(Layer):

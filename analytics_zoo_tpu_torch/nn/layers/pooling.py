@@ -1,6 +1,7 @@
-"""Pooling — the JAX package's ``nn/layers/pooling.py``: 2-D windowed max
-and average pooling (``_PoolND`` :23) and global pooling
-(``_GlobalPool``), 1-D and 2-D.
+"""Pooling — the JAX package's ``nn/layers/pooling.py``: 1-D and 2-D
+windowed max and average pooling (``_PoolND`` :23, ``MaxPooling1D`` :68,
+``AveragePooling1D`` :80) and global pooling (``_GlobalPool``), 1-D and
+2-D.
 
 Windowed pooling follows ``lax.reduce_window``: ``"same"`` pads with XLA's
 SAME amounts (asymmetric at stride 2: the ResNet stem's 3×3/s2 max-pool
@@ -8,7 +9,8 @@ on 112 pads (0, 1)), explicit ``padding`` ((lo, hi) per spatial axis)
 pads first; the fill is the operation's identity, -inf for max and 0 for
 average, and an average always divides by the full window (padding
 counted).  The pooling runs as ``F.max_pool2d`` / ``F.avg_pool2d`` on a
-channels-first view of the channels-last tensor after an explicit pad.
+channels-first view of the channels-last tensor after an explicit pad; a
+1-D pool as the (1, k) pool of (B, 1, T, C).
 
 Global pooling reduces the spatial axes: axes 1.. of (B, *spatial, C)
 for ``dim_ordering`` "tf", axes 2.. of (B, C, *spatial) for "th".
@@ -78,8 +80,21 @@ class _PoolND(Layer):
         pads = self._pads(tuple(x.shape[1:-1]))
         x = pad_spatial(x, pads, float("-inf") if self.op == "max" else 0.0)
         pool = F.max_pool2d if self.op == "max" else F.avg_pool2d
-        y = pool(nhwc_to_nchw(x), self.pool_size, self.strides)
-        return y if self.dim_ordering == "th" else nchw_to_nhwc(y)
+        lift = (1,) * (2 - self.ndim)
+        y = nchw_to_nhwc(pool(nhwc_to_nchw(x.reshape(
+            x.shape[:1] + lift + x.shape[1:])), lift + self.pool_size,
+            lift + self.strides))
+        if lift:
+            y = y.squeeze(1)
+        return nhwc_to_nchw(y) if self.dim_ordering == "th" else y
+
+
+class MaxPooling1D(_PoolND):
+    ndim, op = 1, "max"
+
+
+class AveragePooling1D(_PoolND):
+    ndim, op = 1, "avg"
 
 
 class MaxPooling2D(_PoolND):

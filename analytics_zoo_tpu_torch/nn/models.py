@@ -28,7 +28,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from torch import nn
 
-from analytics_zoo_tpu_torch.estimator.estimator import Estimator
+# the module, not its class: ``nn/__init__`` exports ``Model``, and the
+# estimator imports ``nn``'s submodules, so this import runs while the
+# estimator module may still be loading
+from analytics_zoo_tpu_torch.estimator import estimator as _estimator
 from analytics_zoo_tpu_torch.nn.graph import SymTensor, topo_sort
 from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
 from analytics_zoo_tpu_torch.nn.layers.core import BatchNormalization
@@ -41,13 +44,13 @@ class KerasNet(Layer):
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
-        self._estimator: Optional[Estimator] = None
+        self._estimator: Optional[_estimator.Estimator] = None
 
     def compile(self, optimizer, loss, metrics=None):
         """Configure training.  Optimizer/loss/metrics may be strings
         (Keras names) or objects."""
-        self._estimator = Estimator(self, optimizer=optimizer, loss=loss,
-                                    metrics=metrics or [])
+        self._estimator = _estimator.Estimator(
+            self, optimizer=optimizer, loss=loss, metrics=metrics or [])
         return self
 
     def fit(self, x, y=None, batch_size=32, nb_epoch=10,
@@ -64,7 +67,7 @@ class KerasNet(Layer):
         return self._estimator.evaluate(x, y, batch_size=batch_size)
 
     def predict(self, x, batch_size=128, distributed=True):
-        est = self._estimator or Estimator(self)
+        est = self._estimator or _estimator.Estimator(self)
         return est.predict(x, batch_size=batch_size)
 
     def get_weights(self):

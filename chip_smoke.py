@@ -2,8 +2,9 @@
 """Chip smoke for the PyTorch/CUDA port (``analytics_zoo_tpu_torch``).
 
 Runs the port's serving paths (generation, predict, image classification,
-recommendation) and its training paths on one NVIDIA GPU and checks them,
-phase by phase, each phase printing its own lines:
+recommendation, the recurrent and text zoos) and its training paths on
+one NVIDIA GPU and checks them, phase by phase, each phase printing its
+own lines:
 
 1. card — the card's name and power limit (``nvidia-smi``) and the build of
    every CUDA kernel (one ``nvcc`` per source, started together): ptxas's
@@ -196,6 +197,29 @@ phase by phase, each phase printing its own lines:
    near tie; a bare batcher's graph route equal to its eager route; a
    reclaimed record that carries a snapshot restarted from 0 with the
    downgrade event.
+10. text — ``w8a8_conv2d`` at the one-row geometries of a 1-D convolution
+   (the (1, k) conv of (B, 1, T, C): T 500 and 499, 200, 300 and 16
+   channels, kernels 5 and 4, valid and same, dilation 2) bitwise against
+   its plain version, timed at the classifier's (128, 1, 500, 200) x (1, 5,
+   200, 256) beside cuDNN's f32 convolution of that shape and the bound;
+   ``w8a8`` (bitwise) and ``w4a16`` at the heads' (K, N) (256, 128), (128,
+   20) and KNRM's (21, 1), timed.  Then ``TextClassifier`` at news20 width
+   (embedding 200, sequence 500, encoder 256, 20 classes, 5000 words plus
+   padding) over a seeded 20-topic corpus through ``TextSet`` (tokenize,
+   normalize, ``word2idx``, ``shape_sequence``, ``gen_sample``) with a
+   seeded table in GloVe's place: the cnn encoder trained 2 epochs of
+   8192 documents at 128 (``compile`` / ``fit``, Adam) and evaluated, the
+   lstm and gru encoders stepped; each served through ``InferenceModel``
+   in f32, int8 and int4 (int8 bitwise, int4 within W4_TOL of the plain
+   route, launches on the card = by the wrappers: conv 1 and w8a8 2 a cnn
+   forward in int8, w4a16 2 in int4), and the cnn one through
+   ``ClusterServing`` over 64 tensor records of 500 ids.  ``NER`` at the
+   reference's widths (9 BIO tags, 20,000 words, 100 characters, words of
+   12, sentences of 40) trained 2 epochs of 4096 sentences at 32 on the
+   CRF loss, its Viterbi paths scored (token accuracy, entity-span F1);
+   ``SequenceTagger`` and ``IntentEntity`` stepped; ``KNRM`` at WikiQA's
+   widths (10 / 40 tokens, embedding 300, 21 kernels) trained and ranking
+   256 held-out groups (NDCG@3, MAP) in f32, int8 and int4.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -250,6 +274,7 @@ from analytics_zoo_tpu_torch.common.observability import MetricsRegistry
 from analytics_zoo_tpu_torch.estimator.estimator import Estimator
 from analytics_zoo_tpu_torch.feature.dataset import ArrayFeatureSet
 from analytics_zoo_tpu_torch.feature.image import ImageSet
+from analytics_zoo_tpu_torch.feature.text import TextSet
 from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.inference.quantize import (_quantize_w4,
                                                         kv_pack_int8,
@@ -263,7 +288,12 @@ from analytics_zoo_tpu_torch.models.recommendation import (
 from analytics_zoo_tpu_torch.models.recommendation.movielens import (
     leave_one_out, synthetic_ml1m, training_arrays)
 from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq
-from analytics_zoo_tpu_torch.models.textmodels import TransformerLM
+from analytics_zoo_tpu_torch.models.textclassification import TextClassifier
+from analytics_zoo_tpu_torch.models.textmatching import (KNRM, evaluate_map,
+                                                         evaluate_ndcg)
+from analytics_zoo_tpu_torch.models.textmodels import (NER, IntentEntity,
+                                                       SequenceTagger,
+                                                       TransformerLM)
 from analytics_zoo_tpu_torch.nn.layers.attention import TransformerLayer
 from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
 from analytics_zoo_tpu_torch.nn.layers.core import BatchNormalization, Dense
@@ -1986,14 +2016,15 @@ def reset_launches() -> None:
     fb.launches = 0
 
 
-def serve_predict(im, X, params) -> dict:
+def serve_predict(im, X, params,
+                  kernels=("flash_fwd", "w8a8", "w4a16")) -> dict:
     """ClusterServing in predict mode over InProcQueue, started with its
     ``warmup`` spec; once the warm-up is ``ready`` the counts are set to 0
     and every record is enqueued, under a profiler trace of the card
     (``_impl.card_launches``).  Forwards are the model's executions of a
     padded batch over exactly that run, ``warm_hits`` the ones whose
-    bucket the warm-up had run; ``card`` the kernel launches the card ran,
-    ``wrapper`` those the wrappers counted."""
+    bucket the warm-up had run; ``card`` the launches of ``kernels`` the
+    card ran, ``wrapper`` those the wrappers counted."""
     q = InProcQueue()
     serving = ClusterServing(im, q, params)     # quantizes here
     iq, oq = InputQueue(q), OutputQueue(q)
@@ -2004,7 +2035,7 @@ def serve_predict(im, X, params) -> dict:
         sync(im.device)
         st0 = im.aot_stats()
         reset_launches()
-        with _impl.card_launches(("flash_fwd", "w8a8", "w4a16")) as card:
+        with _impl.card_launches(kernels) as card:
             t0 = time.perf_counter()
             for rid, x in zip(rids, X):
                 iq.enqueue_tensor(rid, x)
@@ -2014,13 +2045,13 @@ def serve_predict(im, X, params) -> dict:
         serving.shutdown(drain_s=5.0)
     sync(im.device)
     st = im.aot_stats()
+    counts = {"flash_fwd": fa.launches, "w8a8": qm.launches_w8a8,
+              "w4a16": qm.launches_w4a16, "w8a8_conv": qm.launches_conv}
     return {"rids": rids, "results": results, "wall_s": wall,
             "forwards": sum(st["programs"].values())
             - sum(st0["programs"].values()),
             "warm_hits": st["hits"] - st0["hits"], "warm": warm,
-            "card": card, "wrapper": {"flash_fwd": fa.launches,
-                                      "w8a8": qm.launches_w8a8,
-                                      "w4a16": qm.launches_w4a16},
+            "card": card, "wrapper": {k: counts[k] for k in kernels},
             "e2e_p50_s": serving._e2e.percentiles((50,))["p50"],
             "dead_lettered": serving.dead_lettered}
 
@@ -5125,6 +5156,864 @@ def recurrent_phase(seed: int, records: dict) -> None:
     say(f"recurrent: phase wall {time.perf_counter() - t_phase:.2f} s")
 
 
+# -- phase 10: the text zoo ---------------------------------------------------
+
+# TextClassifier at the JAX class defaults, which are the reference
+# example's (news20 with GloVe 6B 200d): embedding 200, sequence 500,
+# encoder 256; 20 classes; a vocabulary of 5000 words plus padding
+TEXT_CLS = dict(class_num=20, vocab_size=5001, embedding_dim=200,
+                sequence_length=500, encoder_output_dim=256)
+TEXT_CLS_PARAMS = 1_291_932
+TEXT_MAX_WORDS = 5000
+# the surrogate of 20 Newsgroups: 20 topics of TEXT_TOPIC_WORDS words
+# each; a document of TEXT_DOC_LEN tokens takes a TEXT_TOPIC_SHARE of them
+# from its topic and the rest from a Zipf law over TEXT_WORDS general
+# words, with punctuation and capitals for the tokenizer to strip
+TEXT_WORDS, TEXT_TOPIC_WORDS, TEXT_TOPIC_SHARE = 20000, 40, 0.2
+TEXT_DOC_LEN = (50, 300)
+TEXT_TRAIN, TEXT_TEST = 8192, 1024
+TEXT_EPOCHS, TEXT_BATCH, TEXT_LR = 2, 128, 1e-3
+# the lstm and gru encoders: a few steps each at the same width, then
+# served over the first TEXT_RNN_SERVE held-out documents
+TEXT_RNN_STEPS, TEXT_RNN_SERVE = 3, 128
+# held-out accuracy of the cnn encoder after 2 epochs: below the least of
+# the JAX package's CPU runs of the same protocol
+# (``tests/text_reference.py``: 1.0 from each of three seeded inits)
+TEXT_ACC_MIN = 0.9
+# a quantized route's accuracy against f32's
+TEXT_ACC_GAP = 0.02
+TEXT_CALIB_BATCHES = 2
+# ClusterServing: records of TEXT_CLS's 500 ids, batch 16, buckets warmed
+TEXT_RECORDS, TEXT_SERVE_BATCH = 64, 16
+# kernel launches a forward in each route: the cnn encoder's conv, and
+# the two Dense heads
+TEXT_LAUNCHES = {"cnn": {"f32": {}, "int8": {"w8a8_conv": 1, "w8a8": 2},
+                         "int4": {"w4a16": 2}},
+                 "lstm": {"f32": {}, "int8": {"w8a8": 2},
+                          "int4": {"w4a16": 2}},
+                 "gru": {"f32": {}, "int8": {"w8a8": 2},
+                         "int4": {"w4a16": 2}},
+                 "knrm": {"f32": {}, "int8": {"w8a8": 1},
+                          "int4": {"w4a16": 1}}}
+# the classifier's int8 conv as w8a8_conv2d runs it: the (1, 5) conv of
+# (B, 1, T, C), (x, (kh, kw, cin, cout), strides, pads, dilation, groups)
+TEXT_CONV = ((128, 1, 500, 200), (1, 5, 200, 256), (1, 1), ((0, 0), (0, 0)),
+             (1, 1), 1)
+# and beside it: an odd T under ``same``, an even kernel (pads (1, 2)),
+# 300 channels (GloVe 300d), 16 channels (the copied route), dilation 2
+TEXT_CONV_CASES = (
+    TEXT_CONV,
+    ((128, 1, 499, 200), (1, 5, 200, 256), (1, 1), ((0, 0), (2, 2)), (1, 1),
+     1),
+    ((128, 1, 500, 200), (1, 4, 200, 256), (1, 1), ((0, 0), (1, 2)), (1, 1),
+     1),
+    ((16, 1, 500, 300), (1, 5, 300, 256), (1, 1), ((0, 0), (2, 2)), (1, 1),
+     1),
+    ((16, 1, 77, 16), (1, 5, 16, 64), (1, 1), ((0, 0), (0, 0)), (1, 1), 1),
+    ((16, 1, 500, 200), (1, 5, 200, 256), (1, 1), ((0, 0), (4, 4)), (1, 2),
+     1),
+    ((3, 1, 501, 16), (1, 5, 16, 256), (1, 1), ((0, 0), (4, 4)), (1, 2), 1),
+)
+# NER at the reference's widths (pyzoo/zoo/tfpark/text/keras/ner.py, the
+# JAX defaults): CoNLL-2003's 9 BIO tags over PER / LOC / ORG / MISC;
+# 20,000 words and 100 characters; sentences padded to 40
+NER_GEO = dict(num_entities=9, word_vocab_size=20000, char_vocab_size=100,
+               word_length=12, word_emb_dim=100, char_emb_dim=30,
+               tagger_lstm_dim=100, dropout=0.5)
+NER_LEN, NER_TRAIN, NER_TEST = 40, 4096, 512
+NER_EPOCHS, NER_BATCH = 2, 32
+# the surrogate: NER_ENTITY_WORDS words a type, spans of 1-3 of them
+NER_ENTITY_WORDS, NER_SPAN_P = 200, 0.15
+NER_TAGS = ("O", "B-PER", "I-PER", "B-LOC", "I-LOC", "B-ORG", "I-ORG",
+            "B-MISC", "I-MISC")
+# entity-span F1 of the Viterbi paths after 2 epochs: below the least of
+# the JAX package's CPU runs (0.9583, 0.8745 and 0.9739 from three inits)
+NER_F1_MIN = 0.8
+# SequenceTagger (CoNLL-2000's 45 POS and 23 chunk tags) and IntentEntity
+# (SNIPS's 7 intents and 72 slot tags) on the same trunk: a few steps each
+TAGGER_POS, TAGGER_CHUNK, INTENTS, SLOTS = 45, 23, 7, 72
+TAGGER_ROWS, TAGGER_EPOCHS = 256, 2
+# KNRM at the reference QA ranker's widths (WikiQA): question 10, answer
+# 40, embedding 300, 21 kernels, sigma 0.1, exact sigma 0.001; 20,000
+# words; Adam at 1e-2, as the JAX package's own KNRM test trains it
+KNRM_GEO = dict(text1_length=10, text2_length=40, vocab_size=20000,
+                embed_size=300, kernel_num=21, sigma=0.1, exact_sigma=0.001)
+KNRM_TRAIN, KNRM_EPOCHS, KNRM_BATCH, KNRM_LR = 16384, 2, 256, 1e-2
+# held-out query groups: KNRM_CANDIDATES answers each, 1-3 relevant ones
+# sharing 2-5 tokens with the question; NDCG@3 and MAP after 2 epochs
+# below the least of the JAX package's CPU runs (PERF.md section 6)
+KNRM_GROUPS, KNRM_CANDIDATES = 256, 10
+KNRM_NDCG_MIN, KNRM_MAP_MIN = 0.85, 0.85
+KNRM_GAP = 0.02
+# the Dense (K, N) of the classifier's heads and KNRM's
+TEXT_DENSE = {"classifier": ((256, 128), (128, 20)), "knrm": ((21, 1),)}
+TEXT_M = (1, 16, 128, 1000)
+# (M, K, N) timed: the heads at the classifier's batch, KNRM's at 1024
+# candidates (its ranking forwards are buckets of 16 rows, whose few bytes
+# would take ~10^5 input sets to fill L2_FLUSH_BYTES)
+TEXT_TIMED = ((TEXT_BATCH, 256, 128), (TEXT_BATCH, 128, 20), (1024, 21, 1))
+
+
+def text_shapes():
+    return [kn for kn, _ in distinct(TEXT_DENSE["classifier"]
+                                     + TEXT_DENSE["knrm"])]
+
+
+def text_conv_bound_check(geom) -> None:
+    """The one-row conv's geometry is the classifier's: output
+    (B, 1, T - 4, 256)."""
+    m, n, k = conv_mnk(geom)
+    check((m, n, k) == (128 * 496, 256, 1000),
+          f"text conv: (M, N, K) {(m, n, k)}")
+
+
+def text_kernel_phase(seed: int) -> dict:
+    """(a): ``w8a8_conv2d`` bitwise at the one-row geometries, timed at the
+    classifier's; ``w8a8`` / ``w4a16`` at the heads' shapes."""
+    g = np.random.default_rng(seed + 200)
+    for geom in TEXT_CONV_CASES:
+        for extremes in (False, True):
+            case = conv_case(g, geom[0], geom[1], extremes)
+            got = run_conv(case, geom, "cuda", conv_pack(case, geom))
+            sync(torch.device("cuda"))
+            ref = run_conv(case, geom, "torch")
+            check(torch.equal(got, ref),
+                  f"w8a8_conv2d one-row {geom}, extremes {extremes}: not "
+                  f"bitwise equal to the plain version (max abs err "
+                  f"{float((got - ref).abs().max()):.3e})")
+    say(f"text conv parity: w8a8_conv2d bitwise equal to w8a8_conv_torch "
+        f"at {len(TEXT_CONV_CASES)} one-row geometries x (s8 over "
+        f"[-128, 127], all -128 / 127): "
+        + "; ".join(f"x {g_[0]} k {g_[1]} pads {g_[3][1]} dilation "
+                    f"{g_[4][1]} (tile 128 x {conv_config_of(g_)[0]}, "
+                    f"split {conv_config_of(g_)[1]})"
+                    for g_ in TEXT_CONV_CASES))
+    t = conv_timing(seed, TEXT_CONV)
+    smem = _build.load(CONV_SOURCE).w8a8_conv2d_smem
+    smem.argtypes = [ctypes.c_int] * 19
+    smem.restype = ctypes.c_int
+    say(f"text conv timing x {TEXT_CONV[0]} k {TEXT_CONV[1]} (the "
+        f"classifier's int8 Convolution1D at batch {TEXT_BATCH}; tile 128 x "
+        f"{conv_config_of(TEXT_CONV)[0]}, split "
+        f"{conv_config_of(TEXT_CONV)[1]}, A gathered byte by byte: rows of "
+        f"200 bytes are off 16): kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, cuDNN f32 conv of the same shape (not the "
+        f"same function) {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
+        f"{t['ops']} int8 operations), {100 * t['bound_ms'] / t['ms']:.1f}% "
+        f"of bound; dynamic shared memory "
+        f"{smem(*conv_args(TEXT_CONV), *conv_config_of(TEXT_CONV), 1)} B")
+    worst = reco_parity(seed + 11, TEXT_M, text_shapes())
+    say(f"text parity: w8a8 bitwise (each weight exact and inside 127s) "
+        f"and w4a16 within {W4_TOL} (max err {worst:.3e}) at M {TEXT_M} x "
+        f"(K, N) {text_shapes()}")
+    w8 = {mkn: w8a8_timing(seed + 7, *mkn, plain=True)
+          for mkn in TEXT_TIMED}
+    w4 = {mkn: w4a16_timing(seed + 7, *mkn, 64, torch.float32)
+          for mkn in TEXT_TIMED}
+    return {"conv": t, "w8a8": w8, "w4a16": w4, "w4_max_abs_err": worst}
+
+
+# -- the classifier ---------------------------------------------------------
+
+def text_corpus(seed: int, n: int):
+    """``n`` documents of the 20-topic surrogate and their topics.  Words
+    are strings (``w<i>``), topic words ``t<topic>x<j>``; a document's
+    tokens carry random punctuation and capitals, which ``TextSet``'s
+    tokenizer and normalizer strip."""
+    g = np.random.default_rng(seed + 300)
+    general = np.array([f"w{i}" for i in range(TEXT_WORDS)])
+    zipf = 1.0 / np.arange(1, TEXT_WORDS + 1)
+    zipf /= zipf.sum()
+    punct = np.array(["", "", "", ",", ".", "!", "?", ";"])
+    topics = g.integers(0, TEXT_CLS["class_num"], n)
+    texts = []
+    for t in topics:
+        length = int(g.integers(*TEXT_DOC_LEN))
+        own = g.random(length) < TEXT_TOPIC_SHARE
+        words = general[g.choice(TEXT_WORDS, length, p=zipf)]
+        words[own] = [f"t{t}x{j}" for j in
+                      g.integers(0, TEXT_TOPIC_WORDS, int(own.sum()))]
+        caps = g.random(length) < 0.1
+        words[caps] = np.char.upper(words[caps])
+        texts.append(" ".join(np.char.add(words, punct[g.integers(
+            0, len(punct), length)])))
+    return texts, topics
+
+
+def text_data(seed: int) -> dict:
+    """The corpus through the port's ``TextSet``: tokenize, normalize,
+    ``word2idx(max_words_num=5000)`` on the training documents (the test
+    documents indexed by the same map), ``shape_sequence(500)``,
+    ``gen_sample``; and the seeded embedding table in GloVe's place."""
+    t0 = time.perf_counter()
+    texts, topics = text_corpus(seed, TEXT_TRAIN + TEXT_TEST)
+    tr = TextSet.from_texts(texts[:TEXT_TRAIN], topics[:TEXT_TRAIN]) \
+        .tokenize().normalize().word2idx(max_words_num=TEXT_MAX_WORDS) \
+        .shape_sequence(TEXT_CLS["sequence_length"])
+    te = TextSet.from_texts(texts[TEXT_TRAIN:], topics[TEXT_TRAIN:]) \
+        .tokenize().normalize().word2idx(existing_map=tr.get_word_index()) \
+        .shape_sequence(TEXT_CLS["sequence_length"])
+    (x, y), (xt, yt) = tr.gen_sample(), te.gen_sample()
+    g = np.random.default_rng(seed + 301)
+    table = (0.3 * g.normal(size=(TEXT_CLS["vocab_size"],
+                                  TEXT_CLS["embedding_dim"]))).astype(
+        np.float32)
+    return {"x": x, "y": y, "x_test": xt, "y_test": yt, "embedding": table,
+            "words": len(tr.get_word_index()),
+            "seconds": time.perf_counter() - t0}
+
+
+def text_classifier(encoder: str, data: dict, dev, seed: int):
+    tc = TextClassifier(**TEXT_CLS, encoder=encoder,
+                        embedding_weights=data["embedding"], device=dev)
+    tc.init_weights(seed)
+    return tc
+
+
+def text_train(tc, data: dict, seed: int, steps=None) -> dict:
+    """``compile(Adam)`` / ``fit`` at TEXT_BATCH for TEXT_EPOCHS epochs
+    (or ``steps`` steps), then ``evaluate`` on the held-out documents."""
+    dev = tc.device
+    tc.model._estimator = Estimator(
+        tc.model, optimizer=Adam(lr=TEXT_LR),
+        loss="sparse_categorical_crossentropy", metrics=["accuracy"],
+        registry=MetricsRegistry(),
+        ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    n = TEXT_TRAIN if steps is None else steps * TEXT_BATCH
+    losses = []
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(TEXT_EPOCHS if steps is None else 1):
+        hist = tc.fit(data["x"][:n], data["y"][:n], batch_size=TEXT_BATCH,
+                      nb_epoch=1, verbose=False)
+        losses.append(hist.history["loss"][-1])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    n_steps = -(-n // TEXT_BATCH) * len(losses)
+    out = {"losses": losses, "wall_s": wall, "steps": n_steps}
+    if steps is None:
+        ev = tc.evaluate(data["x_test"], data["y_test"],
+                         batch_size=TEXT_BATCH)
+        out.update(accuracy=ev["accuracy"], eval_loss=ev["loss"])
+    return out
+
+
+def serve_text(im, x, y) -> dict:
+    """The held-out documents through ``im`` (one ``do_predict`` a batch of
+    TEXT_BATCH) with the counts set to 0 just before and read just after,
+    under a profiler trace of the card."""
+    sync(im.device)
+    st0 = im.aot_stats()
+    reset_launches()
+    kernels = ("w8a8", "w4a16", "w8a8_conv")
+    with _impl.card_launches(kernels) as card:
+        t0 = time.perf_counter()
+        probs = im.do_predict(x, batch_size=TEXT_BATCH)
+        sync(im.device)
+        wall = time.perf_counter() - t0
+    st = im.aot_stats()
+    return {"probs": probs, "wall_s": wall, "card": card,
+            "wrapper": {"w8a8": qm.launches_w8a8, "w4a16": qm.launches_w4a16,
+                        "w8a8_conv": qm.launches_conv},
+            "forwards": sum(st["programs"].values())
+            - sum(st0["programs"].values()),
+            "accuracy": float(np.mean(np.argmax(probs, -1)
+                                      == np.asarray(y).reshape(-1)))}
+
+
+def check_text_launches(tag: str, run: dict, per: dict) -> None:
+    """Each kernel launched ``per[kernel]`` times a forward on the card and
+    by its wrapper, and no other; at least one forward."""
+    fw = run["forwards"]
+    check(fw > 0, f"{tag}: no forward ran")
+    for k in ("w8a8", "w4a16", "w8a8_conv"):
+        want = fw * per.get(k, 0)
+        check(run["card"][k] == run["wrapper"][k] == want,
+              f"{tag}: {k} launches on the card {run['card'][k]}, by the "
+              f"wrapper {run['wrapper'][k]}, != {fw} forwards x "
+              f"{per.get(k, 0)}")
+
+
+def text_serve(encoder: str, params: dict, data: dict, dev,
+               n=None) -> dict:
+    """The trained classifier (``params``) through InferenceModel in f32,
+    int8 (calibrated on TEXT_CALIB_BATCHES TextSet batches) and int4: the
+    held-out documents (the first ``n``) served, each quantized route
+    against the plain route, each accuracy against f32's."""
+    out = {}
+    data = dict(data, x_test=data["x_test"][:n], y_test=data["y_test"][:n])
+    calib = [data["x"][i * TEXT_BATCH:(i + 1) * TEXT_BATCH]
+             for i in range(TEXT_CALIB_BATCHES)]
+    for tag, bits in (("f32", 0), ("int8", 8), ("int4", 4)):
+        model = TextClassifier(**TEXT_CLS, encoder=encoder,
+                               device=dev).model
+        im = InferenceModel(max_batch=TEXT_BATCH, device=dev) \
+            .do_load_model(model, params)
+        if bits:
+            im.do_quantize(calib if bits == 8 else None, bits=bits,
+                           force=True, group_size=64)
+        run = serve_text(im, data["x_test"], data["y_test"])
+        check_text_launches(f"text[{encoder}/{tag}]", run,
+                            TEXT_LAUNCHES[encoder][tag])
+        err = 0.0
+        if bits:
+            plain = route_probs(im, data["x_test"], "torch", TEXT_BATCH)
+            err = check_route(f"text[{encoder}/{tag}]", run["probs"], plain,
+                              bits)
+        f32 = out.get("f32", run)["accuracy"]
+        check(abs(run["accuracy"] - f32) <= TEXT_ACC_GAP,
+              f"text[{encoder}/{tag}]: accuracy {run['accuracy']:.4f} is "
+              f"more than {TEXT_ACC_GAP} from f32's {f32:.4f}")
+        run["bytes"] = weight_bytes(im._params)
+        n = len(data["y_test"])
+        say(f"text[{encoder}/{tag}]: {n} held-out documents in "
+            f"{run['forwards']} forwards of {TEXT_BATCH}: accuracy "
+            f"{run['accuracy']:.4f}; {n / run['wall_s']:.0f} documents/s "
+            f"under the trace (host clock, a reading); launches on the card "
+            f"= by the wrappers: " + ", ".join(
+                f"{k} {run['card'][k]}" for k in run["card"])
+            + f"; weight bytes {run['bytes']}"
+            + ("" if bits == 0 else "; vs the plain route "
+               + ("bitwise equal" if bits == 8 else
+                  f"max abs err {err:.3e}")))
+        run.pop("probs")
+        out[tag] = run
+        del im, model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_text_records(tag: str, run: dict, ref, bits: int) -> None:
+    """Every record answered with a top-5 of its document's probabilities:
+    int8 the plain route's top-5 bit for bit, f32 and int4 each
+    log-probability within IMAGE_LOGP_TOL of the plain route's; every
+    forward's bucket warmed; the launches as TEXT_LAUNCHES says."""
+    check(run["dead_lettered"] == 0, f"{tag}: records quarantined")
+    ref_logp = np.log(ref.astype(np.float64))
+    worst = 0.0
+    for i, rid in enumerate(run["rids"]):
+        r = run["results"].get(rid)
+        check(r is not None and "value" in r
+              and len(r["value"]) == min(5, ref.shape[-1]),
+              f"{tag} {rid}: no top-5 ({r})")
+        cls = [int(c) for c, _ in r["value"]]
+        p = np.asarray([v for _, v in r["value"]], np.float32)
+        if bits == 8:
+            want = default_postprocess(ref[i])
+            check(r["value"] == want,
+                  f"{tag} {rid}: top-5 {r['value']} not bitwise the plain "
+                  f"route's {want}")
+        err = float(np.abs(np.log(p.astype(np.float64))
+                           - ref_logp[i, cls]).max())
+        worst = max(worst, err)
+        if bits != 8:
+            tol = IMAGE_LOGP_TOL["f32" if bits == 0 else "int4"]
+            check(err <= tol, f"{tag} {rid}: log-prob error {err:.3e} > "
+                              f"{tol}")
+    fw = run["forwards"]
+    check(run["warm_hits"] == fw > 0,
+          f"{tag}: {run['warm_hits']} of {fw} forwards found their bucket "
+          f"warm")
+    check_text_launches(tag, run, TEXT_LAUNCHES["cnn"][
+        tag.split("/")[-1].rstrip("]")])
+    n = len(run["rids"])
+    say(f"{tag}: warm-up {run['warm']['total']} buckets in "
+        f"{run['warm']['seconds']:.3f} s; {len(run['results'])}/{n} records "
+        f"served in {run['wall_s']:.3f} s = {n / run['wall_s']:.2f} "
+        f"records/s, e2e p50 {run['e2e_p50_s'] * 1e3:.1f} ms (under the "
+        f"trace); {fw} forwards, each of a warmed bucket; launches on the "
+        f"card = by the wrappers: " + ", ".join(
+            f"{k} {run['card'][k]}" for k in run["card"])
+        + f"; top-5 log-prob max err vs the plain route {worst:.3e}")
+
+
+def text_records_phase(params: dict, data: dict, dev) -> dict:
+    """The cnn classifier served by ClusterServing over TEXT_RECORDS tensor
+    records of held-out ids, in f32, int8 (``quantize`` calibrated from a
+    ``.npy`` of TextSet batches) and int4."""
+    X = data["x_test"][:TEXT_RECORDS]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        calib = os.path.join(tmp, "calib.npy")
+        np.save(calib, data["x"][:TEXT_CALIB_BATCHES * TEXT_BATCH])
+        for tag, spec, bits in (("f32", None, 0),
+                                ("int8", {"bits": 8, "calib": calib}, 8),
+                                ("int4", "int4", 4)):
+            model = TextClassifier(**TEXT_CLS, device=dev).model
+            im = InferenceModel(max_batch=TEXT_SERVE_BATCH, device=dev) \
+                .do_load_model(model, params)
+            run = serve_predict(im, X, ServingParams(
+                batch_size=TEXT_SERVE_BATCH, max_wait_ms=2.0, quantize=spec,
+                warmup={"max_batch": TEXT_SERVE_BATCH, "scales": "off"}),
+                kernels=("w8a8", "w4a16", "w8a8_conv"))
+            ref = route_probs(im, X, "torch", TEXT_SERVE_BATCH)
+            check_text_records(f"text served[cnn/{tag}]", run, ref, bits)
+            out[tag] = run
+            del im, model
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def check_text_train(encoder: str, run: dict, acc_min: float) -> None:
+    ls = run["losses"]
+    check(all(math.isfinite(v) for v in ls)
+          and all(b < a for a, b in zip(ls, ls[1:])),
+          f"text[{encoder}] train: the per-epoch loss did not fall ({ls})")
+    check(run["accuracy"] >= acc_min,
+          f"text[{encoder}] train: held-out accuracy {run['accuracy']:.4f} "
+          f"< {acc_min}")
+    say(f"text[{encoder}] train: losses {[round(v, 4) for v in ls]}, "
+        f"held-out accuracy {run['accuracy']:.4f} (loss "
+        f"{run['eval_loss']:.4f}); {run['steps']} steps of {TEXT_BATCH} in "
+        f"{run['wall_s']:.3f} s = {run['wall_s'] / run['steps'] * 1e3:.3f} "
+        f"ms/step, {run['steps'] * TEXT_BATCH / run['wall_s']:.0f} "
+        f"documents/s (host clock)")
+
+
+def classifier_phase(seed: int, dev) -> dict:
+    """(b): TextClassifier at news20 width: cnn trained and evaluated,
+    lstm and gru stepped; all three served in f32 / int8 / int4; the cnn
+    one also through ClusterServing."""
+    data = text_data(seed)
+    say(f"text data: {TEXT_TRAIN} + {TEXT_TEST} documents of "
+        f"{TEXT_CLS['class_num']} topics through TextSet (tokenize, "
+        f"normalize, word2idx of {data['words']} words, shape_sequence("
+        f"{TEXT_CLS['sequence_length']})) in {data['seconds']:.2f} s (host)")
+    out = {}
+    for encoder in ("cnn", "lstm", "gru"):
+        t0 = time.perf_counter()
+        tc = text_classifier(encoder, data, dev, seed)
+        if encoder == "cnn":
+            check(tc.model.param_count() == TEXT_CLS_PARAMS
+                  and dense_shapes(tc.model) == TEXT_DENSE["classifier"],
+                  f"text: {tc.model.param_count()} params, Dense shapes "
+                  f"{dense_shapes(tc.model)}")
+            say(f"model: TextClassifier({TEXT_CLS}, encoder=cnn) "
+                f"({TEXT_CLS_PARAMS} params) from seed {seed}, a seeded "
+                f"embedding table in GloVe's place")
+            run = text_train(tc, data, seed)
+            check_text_train(encoder, run, TEXT_ACC_MIN)
+        else:
+            run = text_train(tc, data, seed, steps=TEXT_RNN_STEPS)
+            check(all(math.isfinite(v) for v in run["losses"]),
+                  f"text[{encoder}] train: loss {run['losses']}")
+            say(f"text[{encoder}] train: {run['steps']} steps of "
+                f"{TEXT_BATCH} ({TEXT_CLS['sequence_length']} Python time "
+                f"steps each way), loss {run['losses'][-1]:.4f}, "
+                f"{run['wall_s'] / run['steps'] * 1e3:.1f} ms/step (host "
+                f"clock)")
+        params = numpy_tree(export_params(tc.model))
+        run["served"] = text_serve(encoder, params, data, dev,
+                                   None if encoder == "cnn"
+                                   else TEXT_RNN_SERVE)
+        if encoder == "cnn":
+            run["records"] = text_records_phase(params, data, dev)
+        say(f"text[{encoder}]: {time.perf_counter() - t0:.2f} s, trained "
+            f"and served")
+        out[encoder] = run
+        del tc
+    return out
+
+
+# -- the taggers ------------------------------------------------------------
+
+def ner_data(seed: int, n: int, shift: int = 0) -> dict:
+    """Seeded sentences of 8-40 tokens: entity spans of 1-3 words of one
+    type (each type's NER_ENTITY_WORDS words; B- then I- tags) with
+    probability NER_SPAN_P at each position, otherwise an O word drawn
+    by a Zipf law over the rest of the vocabulary; a span is followed by
+    an O word.  Each word id has a fixed spelling of 2-12 characters."""
+    V, L = NER_GEO["word_vocab_size"], NER_LEN
+    g = np.random.default_rng(seed + 400)
+    spell_len = g.integers(2, NER_GEO["word_length"] + 1, V)
+    spell = g.integers(1, NER_GEO["char_vocab_size"],
+                       (V, NER_GEO["word_length"]))
+    spell[np.arange(NER_GEO["word_length"])[None, :] >= spell_len[:, None]] \
+        = 0
+    spell[0] = 0
+    first_o = 1 + 4 * NER_ENTITY_WORDS
+    zipf = 1.0 / np.arange(1, V - first_o + 1)
+    zipf /= zipf.sum()
+    g = np.random.default_rng(seed + 401 + shift)
+    # the draws in bulk, consumed in order: span or not, its kind, length
+    # and words, the O words
+    span_at = g.random((n, L)) < NER_SPAN_P
+    kinds = g.integers(0, 4, (n, L))
+    spans = g.integers(1, 4, (n, L))
+    members = g.integers(0, NER_ENTITY_WORDS, (n, L, 3))
+    o_words = first_o + g.choice(V - first_o, (n, L), p=zipf)
+    lengths = g.integers(8, L + 1, n)
+    words = np.zeros((n, L), np.int64)
+    tags = np.zeros((n, L), np.int64)
+    for i in range(n):
+        length, t = int(lengths[i]), 0
+        while t < length:
+            if span_at[i, t]:
+                kind = int(kinds[i, t])
+                span = min(int(spans[i, t]), length - t)
+                words[i, t:t + span] = 1 + kind * NER_ENTITY_WORDS \
+                    + members[i, t, :span]
+                tags[i, t] = 1 + 2 * kind
+                tags[i, t + 1:t + span] = 2 + 2 * kind
+                t += span
+            if t < length:
+                words[i, t] = o_words[i, t]
+            t += 1
+    return {"x": [words.astype(np.float32),
+                  spell[words].astype(np.float32)],
+            "y": tags.astype(np.float32), "lengths": (words > 0).sum(1)}
+
+
+def entity_spans(tags, length: int) -> set:
+    """(start, end, type) of every BIO span in ``tags[:length]``; an I-
+    that does not continue a span of its type starts one."""
+    spans, start, kind = set(), None, None
+    for i in range(length + 1):
+        tag = int(tags[i]) if i < length else 0
+        cont = tag > 0 and tag % 2 == 0 and kind == (tag - 1) // 2
+        if start is not None and not cont:
+            spans.add((start, i, kind))
+            start = kind = None
+        if tag > 0 and not cont:
+            start, kind = i, (tag - 1) // 2
+    return spans
+
+
+def ner_scores(pred, data: dict) -> dict:
+    """Token accuracy over the valid tokens and entity-span F1 of the
+    paths ``pred`` against the data's tags."""
+    y = data["y"].astype(np.int64)
+    valid = np.arange(y.shape[1])[None, :] < data["lengths"][:, None]
+    acc = float((pred == y)[valid].mean())
+    tp = n_pred = n_gold = 0
+    for p, t, n in zip(pred, y, data["lengths"]):
+        ps, ts = entity_spans(p, int(n)), entity_spans(t, int(n))
+        tp += len(ps & ts)
+        n_pred += len(ps)
+        n_gold += len(ts)
+    prec, rec = tp / max(n_pred, 1), tp / max(n_gold, 1)
+    return {"accuracy": acc, "precision": prec, "recall": rec,
+            "f1": 2 * prec * rec / max(prec + rec, 1e-12)}
+
+
+def ner_phase(seed: int, dev, f1_min: float = NER_F1_MIN) -> dict:
+    """(c): NER at the reference's widths trained for NER_EPOCHS epochs
+    (Adam 1e-3, batch 32, the CRF loss), then ``predict``'s Viterbi paths
+    scored on held-out sentences."""
+    train = ner_data(seed, NER_TRAIN)
+    test = ner_data(seed, NER_TEST, shift=1)
+    ner = NER(**NER_GEO, device=dev,
+              ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    ner.estimator._obs_registry = MetricsRegistry()
+    ner.model.init_weights(seed)
+    n_params = ner.model.param_count()
+    say(f"model: NER({NER_GEO}) ({n_params} params) from seed {seed}; "
+        f"{NER_TRAIN} training and {NER_TEST} held-out sentences of up to "
+        f"{NER_LEN} tokens, tags {NER_TAGS}")
+    losses = []
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(NER_EPOCHS):
+        hist = ner.fit(train["x"], train["y"], batch_size=NER_BATCH,
+                       epochs=1, verbose=False)
+        losses.append(hist.history["loss"][-1])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = ner.predict(test["x"], batch_size=NER_BATCH)
+    t_pred = time.perf_counter() - t0
+    check(pred.shape == (NER_TEST, NER_LEN) and pred.dtype == np.int32
+          and ((pred >= 0) & (pred < len(NER_TAGS))).all(),
+          f"ner: predict gave {pred.shape} {pred.dtype}")
+    s = ner_scores(pred, test)
+    check(all(math.isfinite(v) for v in losses)
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"ner train: the per-epoch loss did not fall ({losses})")
+    check(s["f1"] >= f1_min, f"ner: entity F1 {s['f1']:.4f} < {f1_min}")
+    steps = NER_EPOCHS * -(-NER_TRAIN // NER_BATCH)
+    say(f"ner train: losses {[round(v, 4) for v in losses]}; {steps} steps "
+        f"of {NER_BATCH} in {wall:.3f} s = {wall / steps * 1e3:.2f} ms/step "
+        f"(host clock); Viterbi paths of {NER_TEST} held-out sentences in "
+        f"{t_pred:.3f} s: token accuracy {s['accuracy']:.4f}, entity "
+        f"precision {s['precision']:.4f}, recall {s['recall']:.4f}, F1 "
+        f"{s['f1']:.4f} (threshold {f1_min})")
+    return {"losses": losses, **s, "ms_step": wall / steps * 1e3,
+            "params": n_params}
+
+
+def tagger_data(seed: int, kind: str) -> dict:
+    """TAGGER_ROWS NER-style sentences relabelled: SequenceTagger's POS
+    tag is the word's id mod 45 and its chunk tag the POS tag's mod 23;
+    IntentEntity's intent is the first word's id mod 7 and a word's slot
+    its id mod 72 (0 on padding)."""
+    d = ner_data(seed, TAGGER_ROWS, shift=2)
+    w = d["x"][0].astype(np.int64)
+    if kind == "pos":
+        pos = w % TAGGER_POS
+        y = np.stack([pos, pos % TAGGER_CHUNK], -1)
+    else:
+        y = np.concatenate([w[:, :1] % INTENTS, w % SLOTS], 1)
+    return {"x": d["x"], "y": y.astype(np.float32)}
+
+
+def taggers_phase(seed: int, dev) -> dict:
+    """(d): SequenceTagger and IntentEntity at the same trunk's widths,
+    trained TAGGER_EPOCHS epochs over TAGGER_ROWS sentences: the loss
+    on them falls."""
+    out = {}
+    geo = {k: v for k, v in NER_GEO.items() if k != "num_entities"}
+    for kind, build in (
+            ("pos", lambda **kw: SequenceTagger(TAGGER_POS, TAGGER_CHUNK,
+                                                **geo, **kw)),
+            ("intent", lambda **kw: IntentEntity(INTENTS, SLOTS, **geo,
+                                                 **kw))):
+        data = tagger_data(seed, kind)
+        m = build(device=dev, ctx=ZooContext(ZooConf(seed=seed,
+                                                     device=str(dev))))
+        m.estimator._obs_registry = MetricsRegistry()
+        m.model.init_weights(seed)
+        before = m.estimator.evaluate(data["x"], data["y"],
+                                      batch_size=NER_BATCH)["loss"]
+        sync(dev)
+        t0 = time.perf_counter()
+        m.fit(data["x"], data["y"], batch_size=NER_BATCH,
+              epochs=TAGGER_EPOCHS, verbose=False)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        after = m.estimator.evaluate(data["x"], data["y"],
+                                     batch_size=NER_BATCH)["loss"]
+        name = type(m).__name__
+        check(math.isfinite(after) and after < before,
+              f"{name}: the loss did not fall ({before:.4f} -> "
+              f"{after:.4f})")
+        steps = TAGGER_EPOCHS * -(-TAGGER_ROWS // NER_BATCH)
+        say(f"{name}: {steps} steps of {NER_BATCH}: loss on its "
+            f"{TAGGER_ROWS} sentences {before:.4f} -> {after:.4f}; "
+            f"{wall / steps * 1e3:.2f} ms/step (host clock)")
+        out[kind] = {"before": before, "after": after}
+    return out
+
+
+# -- KNRM ---------------------------------------------------------------------
+
+def knrm_pairs(seed: int, n: int):
+    """``n`` (question, answer, label) rows: questions of content words
+    (uniform over the vocabulary), answers of words drawn by a Zipf law
+    (the frequent ones stand for function words); half the answers
+    relevant (2-5 of the question's words placed in them), half not."""
+    Tq, Td, V = (KNRM_GEO[k] for k in ("text1_length", "text2_length",
+                                        "vocab_size"))
+    g = np.random.default_rng(seed + 500)
+    zipf = 1.0 / np.arange(1, V)
+    zipf /= zipf.sum()
+    q = g.integers(1, V, (n, Tq))
+    d = 1 + g.choice(V - 1, (n, Td), p=zipf)
+    rel = g.random(n) < 0.5
+    for i in np.nonzero(rel)[0]:
+        k = int(g.integers(2, min(6, Tq + 1)))
+        d[i, g.choice(Td, k, replace=False)] = q[i, g.choice(Tq, k,
+                                                              replace=False)]
+    return q.astype(np.float32), d.astype(np.float32), \
+        rel.astype(np.float32)[:, None]
+
+
+def knrm_groups(seed: int) -> list:
+    """KNRM_GROUPS held-out (question, answers, labels) groups of
+    KNRM_CANDIDATES answers, 1-3 of them relevant."""
+    q, d, _ = knrm_pairs(seed + 1, KNRM_GROUPS * KNRM_CANDIDATES)
+    Tq, Td = KNRM_GEO["text1_length"], KNRM_GEO["text2_length"]
+    g = np.random.default_rng(seed + 501)
+    groups = []
+    for i in range(KNRM_GROUPS):
+        qi = q[i * KNRM_CANDIDATES]
+        docs = d[i * KNRM_CANDIDATES:(i + 1) * KNRM_CANDIDATES].copy()
+        labels = np.zeros(KNRM_CANDIDATES)
+        for j in g.choice(KNRM_CANDIDATES, int(g.integers(1, 4)),
+                          replace=False):
+            k = int(g.integers(2, min(6, Tq + 1)))
+            docs[j, g.choice(Td, k, replace=False)] = qi[g.choice(
+                Tq, k, replace=False)]
+            labels[j] = 1.0
+        groups.append((qi, docs, labels))
+    return groups
+
+
+class GroupScores:
+    """What ``evaluate_ndcg`` / ``evaluate_map`` call: one group's scores
+    a ``predict``, cut in turn from one batched ``do_predict`` of every
+    group's candidates; each call's question and answers must be the
+    group's."""
+
+    def __init__(self, groups, scores):
+        self.groups, self.scores, self.calls = groups, scores, 0
+
+    def predict(self, x, batch_size=None):
+        g = self.calls % len(self.groups)
+        self.calls += 1
+        q, docs, _ = self.groups[g]
+        check(np.array_equal(x[0][0], q) and np.array_equal(x[1], docs),
+              f"knrm: ranking call {self.calls} is not group {g}'s")
+        n = len(docs)
+        return self.scores[g * n:(g + 1) * n]
+
+
+def knrm_candidates(groups):
+    """Every group's (question, answer) pairs, group by group."""
+    return [np.concatenate([np.repeat(q[None], len(d), 0)
+                            for q, d, _ in groups]),
+            np.concatenate([d for _, d, _ in groups])]
+
+
+def knrm_rank(im, groups) -> dict:
+    """Every group's candidates scored through ``im`` (batches of
+    KNRM_BATCH) with the counts set to 0 just before and read just after,
+    under a profiler trace of the card; then NDCG@3 and MAP of those
+    scores by ``evaluate_ndcg`` / ``evaluate_map``."""
+    x = knrm_candidates(groups)
+    sync(im.device)
+    st0 = im.aot_stats()
+    reset_launches()
+    with _impl.card_launches(("w8a8", "w4a16", "w8a8_conv")) as card:
+        t0 = time.perf_counter()
+        scores = im.do_predict(x, batch_size=KNRM_BATCH)
+        sync(im.device)
+        wall = time.perf_counter() - t0
+    st = im.aot_stats()
+    ranker = GroupScores(groups, scores)
+    ndcg = evaluate_ndcg(ranker, groups, k=3, batch_size=KNRM_CANDIDATES)
+    mp = evaluate_map(ranker, groups, batch_size=KNRM_CANDIDATES)
+    check(ranker.calls == 2 * len(groups), f"knrm: {ranker.calls} ranking "
+                                           f"calls for {len(groups)} groups")
+    return {"ndcg": ndcg, "map": mp, "scores": scores, "x": x,
+            "wall_s": wall, "card": card,
+            "wrapper": {"w8a8": qm.launches_w8a8, "w4a16": qm.launches_w4a16,
+                        "w8a8_conv": qm.launches_conv},
+            "forwards": sum(st["programs"].values())
+            - sum(st0["programs"].values())}
+
+
+def knrm_phase(seed: int, dev, ndcg_min: float = KNRM_NDCG_MIN,
+               map_min: float = KNRM_MAP_MIN) -> dict:
+    """(e): KNRM at WikiQA's widths trained (binary cross-entropy, Adam)
+    on seeded question-answer pairs, then ranking held-out groups in f32,
+    int8 and int4 through InferenceModel."""
+    q, d, y = knrm_pairs(seed, KNRM_TRAIN)
+    groups = knrm_groups(seed)
+    kn = KNRM(**KNRM_GEO, device=dev)
+    kn.init_weights(seed)
+    say(f"model: KNRM({KNRM_GEO}) ({kn.model.param_count()} params) from "
+        f"seed {seed}; {KNRM_TRAIN} training pairs, {KNRM_GROUPS} held-out "
+        f"groups of {KNRM_CANDIDATES} answers")
+    est = Estimator(kn.model, optimizer=Adam(lr=KNRM_LR),
+                    loss="binary_crossentropy", registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    sync(dev)
+    t0 = time.perf_counter()
+    hist = est.fit([q, d], y, batch_size=KNRM_BATCH, epochs=KNRM_EPOCHS,
+                   verbose=False)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    ls = hist.history["loss"]
+    check(all(math.isfinite(v) for v in ls)
+          and all(b < a for a, b in zip(ls, ls[1:])),
+          f"knrm train: the per-epoch loss did not fall ({ls})")
+    steps = KNRM_EPOCHS * -(-KNRM_TRAIN // KNRM_BATCH)
+    say(f"knrm train: losses {[round(v, 4) for v in ls]}; {steps} steps of "
+        f"{KNRM_BATCH} in {wall:.3f} s = {wall / steps * 1e3:.2f} ms/step "
+        f"(host clock)")
+    params = numpy_tree(export_params(kn.model))
+    calib = [(q[:KNRM_BATCH], d[:KNRM_BATCH])]
+    out = {"losses": ls}
+    for tag, bits in (("f32", 0), ("int8", 8), ("int4", 4)):
+        model = KNRM(**KNRM_GEO, device=dev).model
+        im = InferenceModel(max_batch=KNRM_BATCH, device=dev) \
+            .do_load_model(model, params)
+        if bits:
+            im.do_quantize(calib if bits == 8 else None, bits=bits,
+                           force=True, group_size=64)
+        run = knrm_rank(im, groups)
+        check_text_launches(f"knrm[{tag}]", run, TEXT_LAUNCHES["knrm"][tag])
+        err = 0.0
+        if bits:
+            plain = route_probs(im, run["x"], "torch", KNRM_BATCH)
+            err = check_route(f"knrm[{tag}]", run["scores"], plain, bits)
+        if tag == "f32":
+            check(run["ndcg"] >= ndcg_min and run["map"] >= map_min,
+                  f"knrm: NDCG@3 {run['ndcg']:.4f} (min {ndcg_min}), MAP "
+                  f"{run['map']:.4f} (min {map_min})")
+        f32 = out.get("f32", run)
+        check(abs(run["ndcg"] - f32["ndcg"]) <= KNRM_GAP
+              and abs(run["map"] - f32["map"]) <= KNRM_GAP,
+              f"knrm[{tag}]: NDCG@3 {run['ndcg']:.4f} / MAP "
+              f"{run['map']:.4f} more than {KNRM_GAP} from f32's")
+        say(f"knrm[{tag}]: {KNRM_GROUPS} groups' {len(run['scores'])} "
+            f"candidates scored in {run['forwards']} forwards of "
+            f"{KNRM_BATCH}: NDCG@3 {run['ndcg']:.4f}, MAP {run['map']:.4f}; "
+            f"{run['wall_s']:.3f} s (host clock, under the trace); launches "
+            f"on the card = by the wrappers: w8a8 "
+            f"{run['card']['w8a8']}, w4a16 {run['card']['w4a16']}; weight "
+            f"bytes {weight_bytes(im._params)}"
+            + ("" if bits == 0 else "; vs the plain route "
+               + ("bitwise equal" if bits == 8 else
+                  f"max abs err {err:.3e}")))
+        run.pop("scores")
+        run.pop("x")
+        out[tag] = run
+        del im, model
+    return out
+
+
+def text_phase(seed: int, records: dict) -> None:
+    """Phase 10: w8a8_conv2d at the one-row geometries of a 1-D conv and
+    the w8a8 / w4a16 kernels at the text heads' shapes; TextClassifier at
+    news20 width trained and served in f32, int8 and int4 (InferenceModel
+    and ClusterServing); NER trained and decoded; SequenceTagger and
+    IntentEntity stepped; KNRM trained and ranking."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    text_conv_bound_check(TEXT_CONV)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 2)
+        return out
+    kt = timed("kernels", text_kernel_phase, seed)
+    cls = timed("classifier", classifier_phase, seed, dev)
+    ner = timed("ner", ner_phase, seed, dev)
+    timed("taggers", taggers_phase, seed, dev)
+    knrm = timed("knrm", knrm_phase, seed, dev)
+    rec = records["w8a8_conv2d"]
+    rec["text_launches"] = {
+        "classifier": cls["cnn"]["served"]["int8"]["card"]["w8a8_conv"],
+        "served": cls["cnn"]["records"]["int8"]["card"]["w8a8_conv"]}
+    t = kt["conv"]
+    rec["text_conv"] = {"x": list(TEXT_CONV[0]), "k": list(TEXT_CONV[1]),
+                        **{k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")}}
+    for name, bits_tag in (("w8a8", "int8"), ("w4a16", "int4")):
+        rec = records[name]
+        rec["text_launches"] = {
+            enc: cls[enc]["served"][bits_tag]["card"][name]
+            for enc in ("cnn", "lstm", "gru")}
+        rec["text_launches"]["served"] = \
+            cls["cnn"]["records"][bits_tag]["card"][name]
+        rec["text_launches"]["knrm"] = knrm[bits_tag]["card"][name]
+        keys = ("ms", "plain_ms", "bound_ms") + (
+            ("library_ms",) if name == "w8a8" else ())
+        rec["text_shapes"] = {"x".join(map(str, mkn)): {
+            k: v[k] for k in keys} for mkn, v in kt[name].items()}
+    rec = records["w4a16"]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0),
+                             kt["w4_max_abs_err"])
+    say(f"text: phase wall {time.perf_counter() - t_phase:.2f} s ({walls} "
+        f"s; NER F1 {ner['f1']:.4f})")
+
+
 # -- main ---------------------------------------------------------------------
 
 def ptxas_summary(log: str) -> str:
@@ -5310,6 +6199,7 @@ def main(argv=None) -> int:
     image_phase(args.seed, records, args.profile)
     reco_phase(args.seed, records, args.profile)
     recurrent_phase(args.seed, records)
+    text_phase(args.seed, records)
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (

@@ -903,3 +903,94 @@ def test_embedding_out_of_range_ids_on_card(cuda_device):
     again = emb(torch.tensor([[0.0, 2.0]], device=cuda_device))
     assert torch.equal(again[0], emb.E[[0, 2]])
     assert float((again @ again.transpose(1, 2)).sum()) >= 0.0
+
+
+# the text zoo's one-row geometries of w8a8_conv2d (a Convolution1D as the
+# (1, k) conv of (B, 1, T, C)): the classifier's (T 500, 200 channels,
+# kernel 5, valid), an odd T under same, an even kernel (pads (1, 2)),
+# 300 channels, 16 channels (the copied route), dilation 2 at 200 and 16
+TEXT_CONV = (
+    ((128, 1, 500, 200), (1, 5, 200, 256), (1, 1), ((0, 0), (0, 0)), (1, 1),
+     1),
+    ((8, 1, 499, 200), (1, 5, 200, 256), (1, 1), ((0, 0), (2, 2)), (1, 1), 1),
+    ((8, 1, 500, 200), (1, 4, 200, 256), (1, 1), ((0, 0), (1, 2)), (1, 1), 1),
+    ((8, 1, 500, 300), (1, 5, 300, 256), (1, 1), ((0, 0), (2, 2)), (1, 1), 1),
+    ((8, 1, 77, 16), (1, 5, 16, 64), (1, 1), ((0, 0), (0, 0)), (1, 1), 1),
+    ((8, 1, 500, 200), (1, 5, 200, 256), (1, 1), ((0, 0), (4, 4)), (1, 2), 1),
+    ((3, 1, 501, 16), (1, 5, 16, 256), (1, 1), ((0, 0), (4, 4)), (1, 2), 1),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", TEXT_CONV)
+@pytest.mark.parametrize("extremes", [False, True])
+def test_w8a8_conv2d_one_row_geometries_on_card(cuda_device, geom,
+                                                extremes):
+    """The text zoo's 1-D convs on the s8 kernel, bitwise against its plain
+    version, with the weight packed beforehand and on the call."""
+    xshape, kshape, strides, pads, dil, groups = geom
+    g = np.random.default_rng(sum(xshape) + sum(kshape))
+    if extremes:
+        ends = np.array([-128, 127], np.int8)
+        x, w = g.choice(ends, xshape), g.choice(ends, kshape)
+    else:
+        x = g.integers(-128, 128, xshape).astype(np.int8)
+        w = g.integers(-128, 128, kshape).astype(np.int8)
+    s = torch.from_numpy(g.uniform(1e-4, 1e-2, kshape[-1]).astype(
+        np.float32)).to(cuda_device)
+    x = torch.from_numpy(x).to(cuda_device)
+    w = torch.from_numpy(w).to(cuda_device)
+    kw = dict(strides=strides, pads=pads, dilation=dil, groups=groups)
+    ref = tqm.w8a8_conv2d(x, w, s, impl="torch", **kw)
+    n0 = tqm.launches_conv
+    got = tqm.w8a8_conv2d(x, w, s, w_pack=tqm.pack_conv_weight(w, groups),
+                          **kw)
+    torch.cuda.synchronize()
+    assert tqm.launches_conv == n0 + 1
+    assert torch.equal(got, ref)
+    assert torch.equal(tqm.w8a8_conv2d(x, w, s, **kw), ref)
+
+
+# the text zoo's Dense (K, N): TextClassifier's heads (256 -> 128 -> 20)
+# and KNRM's (21 kernels -> 1; x rows of 21 bytes, off 16; int4 one
+# ragged group of 64), at one row, a batch of 128 and a batch off it
+TEXT_KN = ((256, 128), (128, 20), (21, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 16, 128, 1000])
+@pytest.mark.parametrize("k,n", TEXT_KN)
+def test_text_zoo_shapes_w8a8_and_w4a16_on_card(cuda_device, m, k, n):
+    _check_matmul_kernels(cuda_device, m, k, n)
+
+
+@pytest.mark.gpu
+def test_int8_text_classifier_launches_on_card(cuda_device):
+    """An int8 TextClassifier (cnn) forward at a narrow width runs
+    w8a8_conv2d once and w8a8 twice; the profiler trace of the card shows
+    those launches, equal to the wrappers' counts; its probabilities are
+    bitwise the plain route's."""
+    from analytics_zoo_tpu_torch.models import TextClassifier
+    tc = TextClassifier(5, 300, embedding_dim=24, sequence_length=40,
+                        encoder_output_dim=32, device=cuda_device)
+    tc.init_weights(4)
+    g = np.random.default_rng(5)
+    x = g.integers(0, 300, (16, 40)).astype(np.float32)
+    im = InferenceModel(max_batch=16, device=cuda_device).do_load_model(
+        tc.model)
+    im.do_quantize(x, bits=8, force=True)
+    im.do_predict(x)                       # packs the conv's weight
+    torch.cuda.synchronize()
+    before = (tqm.launches_conv, tqm.launches_w8a8)
+    with _impl.card_launches(("w8a8", "w8a8_conv")) as card:
+        got = im.do_predict(x)
+        torch.cuda.synchronize()
+    wrapper = (tqm.launches_conv - before[0], tqm.launches_w8a8 - before[1])
+    assert wrapper == (1, 2)
+    assert (card["w8a8_conv"], card["w8a8"]) == wrapper
+    for m in im._model.modules():
+        if hasattr(m, "impl"):
+            m.impl = "torch"
+    assert np.array_equal(got, InferenceModel(
+        max_batch=16, device=cuda_device).do_load_model(
+        im._model).do_predict(x))

@@ -7,6 +7,12 @@
   import statement.
 - Entry points run on ``cuda:0`` unless told otherwise: with no device
   given and no CUDA present they raise instead of carrying on on the CPU.
+- The package-level import surface: every name a JAX package
+  ``__init__.py`` exports imports from the same place in the port, with
+  ``jax`` blocked, unless ``NOT_PORTED`` lists it, and then it must be
+  absent (so a later port moves it off the list); a JAX package whose
+  ``__init__.py`` the port has not got at all is in
+  ``PACKAGES_NOT_PORTED``.
 """
 
 import ast
@@ -60,7 +66,9 @@ def test_every_module_imports_with_jax_blocked():
                 "models.recommendation.movielens", "nn.layers.core",
                 "nn.layers.recurrent", "models.seq2seq",
                 "models.anomalydetection",
-                "models.recommendation.session_recommender"):
+                "models.recommendation.session_recommender",
+                "nn.layers.crf", "nn.layers.pooling", "feature.text",
+                "models.textclassification", "models.textmatching"):
         assert f"analytics_zoo_tpu_torch.{mod}" in doc["modules"]
 
 
@@ -143,3 +151,150 @@ def test_recurrent_entry_points_follow_the_device_rule(monkeypatch):
         model = getattr(m, "model", m)
         assert {p.device for p in model.parameters()} == {
             torch.device("cpu")}
+
+
+def test_text_entry_points_follow_the_device_rule(monkeypatch):
+    """``TextClassifier``, ``KNRM`` and the taggers resolve ``cuda:0`` with
+    no device given, so with no CUDA they raise; ``device="cpu"`` builds
+    on the CPU."""
+    from analytics_zoo_tpu_torch.models import KNRM, TextClassifier
+    from analytics_zoo_tpu_torch.models.textmodels import (
+        NER, IntentEntity, SequenceTagger)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    geo = dict(word_vocab_size=9, char_vocab_size=5, word_length=3,
+               word_emb_dim=4, char_emb_dim=2, tagger_lstm_dim=3)
+    builds = (lambda **kw: TextClassifier(3, 9, embedding_dim=4,
+                                          sequence_length=6,
+                                          encoder_output_dim=3, **kw),
+              lambda **kw: KNRM(3, 5, 9, embed_size=4, **kw),
+              lambda **kw: NER(4, **geo, **kw),
+              lambda **kw: SequenceTagger(4, 3, **geo, **kw),
+              lambda **kw: IntentEntity(2, 4, **geo, **kw))
+    for build in builds:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        model = build(device="cpu").model
+        assert {p.device for p in model.parameters()} == {
+            torch.device("cpu")}
+
+# -- the package-level import surface ---------------------------------------
+
+JAX_PKG = REPO / "analytics_zoo_tpu"
+
+# names a JAX package __init__.py exports that the port has not ported
+# yet, by the package that exports them
+NOT_PORTED = {
+    "": {"init_nncontext", "mesh"},
+    "nn.layers": {
+        # conv.py
+        "AtrousConvolution2D", "Convolution3D", "Cropping1D", "Cropping2D",
+        "Cropping3D", "Deconvolution2D", "DepthwiseConvolution2D",
+        "LocallyConnected1D", "LocallyConnected2D", "LRN2D",
+        "ResizeBilinear", "SeparableConvolution2D", "ShareConvolution2D",
+        "UpSampling1D", "UpSampling2D", "UpSampling3D", "ZeroPadding1D",
+        "ZeroPadding3D",
+        # pooling.py
+        "AveragePooling3D", "GlobalAveragePooling3D", "GlobalMaxPooling3D",
+        "MaxPooling3D",
+        # math.py
+        "AddConstant", "BinaryThreshold", "CAdd", "CMul", "Exp", "Expand",
+        "GaussianSampler", "GetShape", "HardShrink", "HardTanh",
+        "Identity", "Log", "Max", "Mul", "MulConstant", "Negative",
+        "Power", "RReLU", "Scale", "SelectTable", "Softmax", "SoftShrink",
+        "SplitTensor", "Sqrt", "Square", "Threshold",
+        # embedding.py
+        "SparseDense", "SparseEmbedding", "WordEmbedding",
+        # moe.py
+        "MixtureOfExperts",
+        # advanced.py
+        "ELU", "LeakyReLU", "MaxoutDense", "PReLU", "SReLU",
+        "SpatialDropout1D", "SpatialDropout2D", "ThresholdedReLU",
+        "WithinChannelLRN2D"},
+}
+# JAX packages whose __init__.py exports names and whose port does not
+# exist yet
+PACKAGES_NOT_PORTED = ("automl", "nnframes", "xshard", "zouwu")
+
+
+def _jax_exports():
+    """{dotted package (relative, "" for the root): [exported names]} from
+    the JAX package's ``__init__.py`` files (read, not imported)."""
+    out = {}
+    for init in sorted(JAX_PKG.rglob("__init__.py")):
+        tree = ast.parse(init.read_text(), filename=str(init))
+        names = [a.asname or a.name for node in tree.body
+                 if isinstance(node, ast.ImportFrom)
+                 for a in node.names]
+        if names:
+            rel = init.parent.relative_to(JAX_PKG)
+            out[".".join(rel.parts)] = names
+    return out
+
+
+EXPORTS = _jax_exports()
+
+_SURFACE_PROBE = """
+import importlib, json, sys
+sys.modules["jax"] = None
+found = {}
+for pkg, names in json.loads(sys.argv[1]).items():
+    mod = "analytics_zoo_tpu_torch" + ("." + pkg if pkg else "")
+    try:
+        m = importlib.import_module(mod)
+    except ModuleNotFoundError:
+        found[pkg] = None
+        continue
+    found[pkg] = [n for n in names if hasattr(m, n)]
+print(json.dumps(found))
+"""
+
+
+@pytest.fixture(scope="module")
+def port_surface():
+    out = subprocess.run(
+        [sys.executable, "-c", _SURFACE_PROBE, json.dumps(EXPORTS)],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_jax_exports_are_read():
+    assert set(EXPORTS) == {"", "nn", "nn.layers", "models",
+                            "models.recommendation"} | set(
+        PACKAGES_NOT_PORTED)
+    assert {"ZooConf", "init_context", "dtypes"} <= set(EXPORTS[""])
+    assert {"Dense", "Convolution1D", "CRF", "MixtureOfExperts"} <= set(
+        EXPORTS["nn.layers"])
+
+
+@pytest.mark.parametrize("pkg", sorted(set(EXPORTS) - set(
+    PACKAGES_NOT_PORTED)))
+def test_port_exports_the_jax_names(pkg, port_surface):
+    names = EXPORTS[pkg]
+    todo = NOT_PORTED.get(pkg, set())
+    assert todo <= set(names), sorted(todo - set(names))
+    got = port_surface[pkg]
+    assert got is not None, f"the port has no package {pkg!r}"
+    missing = sorted(n for n in names if n not in todo and n not in got)
+    assert not missing, f"analytics_zoo_tpu_torch.{pkg} lacks {missing}"
+    ported = sorted(n for n in todo if n in got)
+    assert not ported, f"{ported} are ported now: take them off NOT_PORTED"
+
+
+@pytest.mark.parametrize("pkg", PACKAGES_NOT_PORTED)
+def test_packages_not_ported_are_absent(pkg, port_surface):
+    assert port_surface[pkg] is None, \
+        f"analytics_zoo_tpu_torch.{pkg} exists: check its exports here"
+
+
+def test_text_zoo_names_import_from_the_surface():
+    code = ("import sys; sys.modules['jax'] = None\n"
+            "from analytics_zoo_tpu_torch.nn.layers import Dense, "
+            "Convolution1D, CRF\n"
+            "from analytics_zoo_tpu_torch.models import TextClassifier, KNRM\n"
+            "from analytics_zoo_tpu_torch.nn import Sequential, Model\n"
+            "from analytics_zoo_tpu_torch import init_context, ZooConf\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

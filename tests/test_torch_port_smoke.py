@@ -13,8 +13,10 @@ int8 and int4 and checked against the plain route, ``predict_image_set``)
 and its recommendation phase's (the models' Dense shapes, the Census
 surrogate against the example's own generator, NeuralCF trained, ranked
 and served in f32 / int8 / int4, WideAndDeep trained and served, and the
-checks' rejection of faults) are plain Python and run here at a tiny
-width.
+checks' rejection of faults), its recurrent phase's and its text
+phase's (the classifier's width and one-row conv geometries, the NER
+surrogate's tags and the span F1, TextClassifier / NER / the taggers /
+KNRM trained and served) are plain Python and run here at a tiny width.
 """
 
 import copy
@@ -1143,3 +1145,181 @@ def test_recurrent_seq2seq_pieces_on_cpu(tiny_recurrent, tmp_path):
     bad[rid][1] = (bad[rid][1] + 1) % cs.SEQ2SEQ["vocab_size"]
     with pytest.raises(cs.SmokeFailure, match="near tie"):
         cs.seq2seq_check_infer(model, reqs[:1], bad, "seq2seq[bad]")
+# -- phase 10: the text zoo -------------------------------------------------
+
+# -- phase 10: the text zoo -----------------------------------------------------
+
+def test_text_classifier_width_and_heads_are_news20s():
+    """TEXT_CLS builds the 1,291,932-parameter classifier whose Dense
+    shapes are TEXT_DENSE's; KNRM's head is (21, 1)."""
+    from analytics_zoo_tpu_torch.models import KNRM, TextClassifier
+    tc = TextClassifier(**cs.TEXT_CLS, device="cpu")
+    assert tc.model.param_count() == cs.TEXT_CLS_PARAMS
+    assert cs.dense_shapes(tc.model) == cs.TEXT_DENSE["classifier"]
+    kn = KNRM(**cs.KNRM_GEO, device="cpu")
+    assert cs.dense_shapes(kn.model) == cs.TEXT_DENSE["knrm"]
+
+
+def test_text_conv_cases_are_the_layers_geometries():
+    """Each one-row case is what a ``Convolution1D`` of its kernel,
+    dilation and border mode hands ``w8a8_conv2d``: pads (0, 0) on the
+    row axis and the 1-D layer's pads on T (an even kernel pads the end
+    more); the classifier's is (M, N, K) = (63488, 256, 1000)."""
+    from analytics_zoo_tpu_torch.nn.layers import AtrousConvolution1D
+    cs.text_conv_bound_check(cs.TEXT_CONV)
+    for (b, one, t, c), (kh, k, cg, cout), st, pads, dil, g in \
+            cs.TEXT_CONV_CASES:
+        assert one == kh == 1 and st == (1, 1) and g == 1 and cg == c
+        assert pads[0] == (0, 0) and dil[0] == 1
+        mode = "valid" if pads[1] == (0, 0) else "same"
+        layer = AtrousConvolution1D(cout, k, atrous_rate=dil[1],
+                                    border_mode=mode, input_shape=(t, c))
+        assert layer._pads((t,)) == [pads[1]]
+    with pytest.raises(cs.SmokeFailure, match="text conv"):
+        cs.text_conv_bound_check(cs.TEXT_CONV_CASES[1])
+
+
+def test_ner_data_tags_follow_the_words():
+    """A word's tag is decided by its entity list and its place in a
+    span; spellings are fixed a word; padding is word 0, tag O."""
+    d = cs.ner_data(0, 256)
+    w, chars = d["x"][0].astype(int), d["x"][1].astype(int)
+    y = d["y"].astype(int)
+    n_ent = cs.NER_ENTITY_WORDS
+    ent = (w > 0) & (w <= 4 * n_ent)
+    assert ((y > 0) == ent).all()
+    kind = (w - 1) // n_ent
+    assert (((y[ent] - 1) // 2) == kind[ent]).all()
+    # an I- tag continues a span of its type
+    inside = (y > 0) & (y % 2 == 0)
+    prev = np.roll(y, 1, axis=1)
+    assert (((prev[inside] - 1) // 2) == ((y[inside] - 1) // 2)).all()
+    assert (chars[w == 0] == 0).all()
+    first = {}
+    for word, spell in zip(w.reshape(-1), chars.reshape(-1, chars.shape[-1])):
+        assert np.array_equal(first.setdefault(int(word), spell), spell)
+    assert (d["lengths"] >= 8).all() and (d["lengths"] <= cs.NER_LEN).all()
+
+
+def test_ner_scores_spans_and_f1():
+    spans = cs.entity_spans(np.array([1, 2, 0, 3, 4, 4, 2, 8, 0]), 9)
+    assert spans == {(0, 2, 0), (3, 6, 1), (6, 7, 0), (7, 8, 3)}
+    data = {"y": np.array([[1, 2, 0, 3, 0, 0]], np.float32),
+            "lengths": np.array([5])}
+    s = cs.ner_scores(np.array([[1, 2, 0, 5, 0, 7]]), data)
+    assert s["accuracy"] == 0.8
+    assert s["precision"] == s["recall"] == s["f1"] == 0.5
+
+
+@pytest.fixture
+def tiny_text(monkeypatch):
+    """Phase 10 at a tiny width on the CPU: a 4-topic corpus of 512 + 64
+    documents of 24 ids, embedding 8, encoder 8; NER / taggers with 2000
+    words, sentences of 12; KNRM of 4 / 10 tokens, embedding 8; the
+    kernels' launch counts 0 (no card)."""
+    from analytics_zoo_tpu_torch.common import context
+    monkeypatch.setattr(cs, "TEXT_CLS", dict(
+        class_num=4, vocab_size=201, embedding_dim=8, sequence_length=24,
+        encoder_output_dim=8))
+    monkeypatch.setattr(cs, "TEXT_CLS_PARAMS",
+                        201 * 8 + 5 * 8 * 8 + 8 + 8 * 128 + 128 + 128 * 4
+                        + 4)
+    monkeypatch.setattr(cs, "TEXT_DENSE", {"classifier": ((8, 128),
+                                                          (128, 4)),
+                                           "knrm": ((21, 1),)})
+    monkeypatch.setattr(cs, "TEXT_MAX_WORDS", 200)
+    monkeypatch.setattr(cs, "TEXT_WORDS", 400)
+    monkeypatch.setattr(cs, "TEXT_TOPIC_WORDS", 10)
+    monkeypatch.setattr(cs, "TEXT_TOPIC_SHARE", 0.5)
+    monkeypatch.setattr(cs, "TEXT_DOC_LEN", (10, 30))
+    monkeypatch.setattr(cs, "TEXT_TRAIN", 512)
+    monkeypatch.setattr(cs, "TEXT_TEST", 64)
+    monkeypatch.setattr(cs, "TEXT_BATCH", 32)
+    monkeypatch.setattr(cs, "TEXT_LR", 1e-2)
+    monkeypatch.setattr(cs, "TEXT_RNN_STEPS", 2)
+    monkeypatch.setattr(cs, "TEXT_ACC_MIN", 0.5)
+    monkeypatch.setattr(cs, "TEXT_ACC_GAP", 0.1)
+    monkeypatch.setattr(cs, "TEXT_RECORDS", 8)
+    monkeypatch.setattr(cs, "TEXT_SERVE_BATCH", 4)
+    monkeypatch.setattr(cs, "TEXT_LAUNCHES", {
+        k: {"f32": {}, "int8": {}, "int4": {}}
+        for k in ("cnn", "lstm", "gru", "knrm")})
+    monkeypatch.setattr(cs, "NER_GEO", dict(
+        num_entities=9, word_vocab_size=2000, char_vocab_size=20,
+        word_length=6, word_emb_dim=8, char_emb_dim=4, tagger_lstm_dim=8,
+        dropout=0.5))
+    monkeypatch.setattr(cs, "NER_LEN", 12)
+    monkeypatch.setattr(cs, "NER_TRAIN", 512)
+    monkeypatch.setattr(cs, "NER_TEST", 64)
+    monkeypatch.setattr(cs, "NER_ENTITY_WORDS", 20)
+    monkeypatch.setattr(cs, "TAGGER_ROWS", 64)
+    monkeypatch.setattr(cs, "KNRM_GEO", dict(
+        text1_length=4, text2_length=10, vocab_size=300, embed_size=8,
+        kernel_num=21, sigma=0.1, exact_sigma=0.001))
+    monkeypatch.setattr(cs, "KNRM_TRAIN", 512)
+    monkeypatch.setattr(cs, "KNRM_BATCH", 64)
+    monkeypatch.setattr(cs, "KNRM_LR", 1e-2)
+    monkeypatch.setattr(cs, "KNRM_GROUPS", 8)
+    monkeypatch.setattr(cs, "KNRM_CANDIDATES", 5)
+    monkeypatch.setattr(cs, "KNRM_GAP", 0.2)
+    monkeypatch.setattr(context, "_global_ctx",
+                        context.ZooContext(context.ZooConf(device="cpu")))
+
+
+def test_text_classifier_phase_on_cpu(tiny_text):
+    """cnn trained (the loss falls, accuracy above its floor), lstm and
+    gru stepped, each served in f32 / int8 / int4 against the plain route
+    (on the CPU every wrapper takes its plain version), the cnn one also
+    over ClusterServing records; a rising loss and an accuracy below its
+    floor are rejected."""
+    out = cs.classifier_phase(0, torch.device("cpu"))
+    assert set(out) == {"cnn", "lstm", "gru"}
+    for enc, run in out.items():
+        for tag in ("f32", "int8", "int4"):
+            assert run["served"][tag]["forwards"] == 2
+    recs = out["cnn"]["records"]
+    assert all(recs[t]["forwards"] >= 2 for t in recs)
+    bad = dict(out["cnn"], losses=[1.0, 2.0])
+    with pytest.raises(cs.SmokeFailure, match="did not fall"):
+        cs.check_text_train("cnn", bad, 0.0)
+    with pytest.raises(cs.SmokeFailure, match="accuracy"):
+        cs.check_text_train("cnn", out["cnn"], 1.01)
+    run = {"forwards": 2, "card": {"w8a8": 4, "w4a16": 0, "w8a8_conv": 2},
+           "wrapper": {"w8a8": 4, "w4a16": 0, "w8a8_conv": 2}}
+    cs.check_text_launches("text[cnn/int8]", run,
+                           {"w8a8_conv": 1, "w8a8": 2})
+    with pytest.raises(cs.SmokeFailure, match="w8a8_conv launches"):
+        cs.check_text_launches("text[cnn/int8]", dict(
+            run, card={"w8a8": 4, "w4a16": 0, "w8a8_conv": 1}),
+            {"w8a8_conv": 1, "w8a8": 2})
+
+
+def test_text_ner_and_taggers_on_cpu(tiny_text):
+    """NER trained for 2 epochs (the loss falls) and its Viterbi paths
+    scored; SequenceTagger and IntentEntity stepped, their loss falling;
+    an F1 below its floor is rejected."""
+    out = cs.ner_phase(0, torch.device("cpu"), f1_min=0.0)
+    assert 0.0 <= out["f1"] <= 1.0 and out["accuracy"] > 0.5
+    with pytest.raises(cs.SmokeFailure, match="F1"):
+        cs.ner_phase(0, torch.device("cpu"), f1_min=1.01)
+    tg = cs.taggers_phase(0, torch.device("cpu"))
+    assert all(v["after"] < v["before"] for v in tg.values())
+
+
+def test_text_knrm_phase_on_cpu(tiny_text):
+    """KNRM trained (the loss falls), every group's candidates scored in
+    f32 / int8 / int4 in batches, against the plain route, and ranked by
+    ``evaluate_ndcg`` / ``evaluate_map``; NDCG@3 / MAP below their floors
+    rejected, and a ranking call out of the groups' order too."""
+    out = cs.knrm_phase(0, torch.device("cpu"), ndcg_min=0.0, map_min=0.0)
+    for tag in ("f32", "int8", "int4"):
+        assert out[tag]["forwards"] == -(-cs.KNRM_GROUPS
+                                         * cs.KNRM_CANDIDATES
+                                         // cs.KNRM_BATCH)
+        assert 0.0 <= out[tag]["ndcg"] <= 1.0
+    with pytest.raises(cs.SmokeFailure, match="NDCG"):
+        cs.knrm_phase(0, torch.device("cpu"), ndcg_min=1.01)
+    groups = cs.knrm_groups(0)
+    ranker = cs.GroupScores(groups, np.zeros(len(groups) * 5))
+    with pytest.raises(cs.SmokeFailure, match="not group 0"):
+        ranker.predict(cs.knrm_candidates(groups[1:2]))
