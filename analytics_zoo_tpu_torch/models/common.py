@@ -47,3 +47,13 @@ class ZooModel:
 
     def set_weights(self, params, state=None):
         self.model.set_weights(params, state)
+
+    def save_weights(self, path: str):
+        self.model.save_weights(path)
+
+    def load_weights(self, path: str):
+        self.model.load_weights(path)
+        return self
+
+    def summary(self, **kw):
+        return self.model.summary(**kw)

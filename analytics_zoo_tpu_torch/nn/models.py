@@ -11,7 +11,10 @@ key their param tree ``{layer_name: subtree}`` and their state tree
 mode) the same way.  ``compile`` / ``fit`` / ``evaluate`` / ``predict`` go
 through the ``Estimator``; a port model owns its parameters and state, so
 ``fit`` trains them in place, and ``get_weights`` / ``set_weights`` read
-and write them as JAX-layout trees.
+and write them as JAX-layout trees.  ``save_weights`` / ``load_weights``
+write and read the JAX package's weights file (``{"params", "state"}``
+as one .npz, ``utils/serialization.py``), and ``summary`` prints its
+rows: name and type, output shape, parameter count.
 
 ``Model`` also carries a fusion plan, computed once at construction: each
 (``Convolution2D``, ``BatchNormalization``) node pair in which the conv is
@@ -84,6 +87,70 @@ class KerasNet(Layer):
         if state is not None:
             load_jax_state(self, state)
 
+    # -- persistence (Net.load / saveModel parity, via npz, pickle-free) ----
+    def save_weights(self, path: str):
+        """``{"params": ..., "state": ...}`` in the JAX layout
+        (``utils/convert.export_params`` / ``export_state``) as one .npz
+        (``utils/serialization.save_pytree``): the JAX package's file."""
+        from analytics_zoo_tpu_torch.utils.convert import (export_params,
+                                                           export_state)
+        from analytics_zoo_tpu_torch.utils.serialization import save_pytree
+        save_pytree(path, {"params": export_params(self),
+                           "state": export_state(self)})
+
+    def load_weights(self, path: str):
+        """Load a weights file into this model's own tree, in place (a
+        port model holds weights from construction, so there is no
+        skeleton to build).  A leaf the file lacks raises ``KeyError``."""
+        from analytics_zoo_tpu_torch.utils.convert import (export_params,
+                                                           export_state)
+        from analytics_zoo_tpu_torch.utils.serialization import load_pytree
+        tree = load_pytree(path, like={"params": export_params(self),
+                                       "state": export_state(self)})
+        self.set_weights(tree["params"], tree["state"])
+        return self
+
+    # -- introspection (summary printer, Topology.scala:686-705) -------------
+    def summary(self, input_shape=None, print_fn=print):
+        input_shape = input_shape or self._declared_input_shape
+        rows = self._summary_rows(input_shape)
+        total = sum(r[2] for r in rows)
+        width = 88
+        print_fn("_" * width)
+        print_fn(f"{'Layer (type)':<44}{'Output Shape':<26}{'Param #':<12}")
+        print_fn("=" * width)
+        for name, shape, count in rows:
+            print_fn(f"{name:<44}{str(shape):<26}{count:<12}")
+        print_fn("=" * width)
+        print_fn(f"Total params: {total:,}")
+        print_fn("_" * width)
+        return total
+
+    def _summary_rows(self, input_shape):
+        raise NotImplementedError
+
+
+def _plain_shape(shape):
+    """An output shape as the JAX package prints it: a tuple of ints, or
+    a list of them for several outputs."""
+    if isinstance(shape, list):
+        return [_plain_shape(s) for s in shape]
+    return tuple(int(d) for d in shape)
+
+
+def _leaf_count(layer: Layer) -> int:
+    """Elements in the layer's JAX-layout param tree."""
+    from analytics_zoo_tpu_torch.utils.convert import export_params
+    from analytics_zoo_tpu_torch.utils.serialization import \
+        _flatten_with_paths
+    return sum(leaf.numel() for _, leaf in
+               _flatten_with_paths(export_params(layer)))
+
+
+def _summary_row(layer: Layer, out_shape):
+    return (f"{layer.name} ({type(layer).__name__})", _plain_shape(out_shape),
+            _leaf_count(layer))
+
 
 class Sequential(KerasNet):
     """Linear stack of layers (Topology.scala:827-961)."""
@@ -129,6 +196,14 @@ class Sequential(KerasNet):
         for layer in self.layers_list:
             x = layer(x)
         return x
+
+    def _summary_rows(self, input_shape):
+        rows = []
+        shape = input_shape
+        for layer in self.layers_list:
+            shape = layer.compute_output_shape(shape)
+            rows.append(_summary_row(layer, shape))
+        return rows
 
 
 def _fusion_plan(nodes: List[SymTensor], outputs: List[SymTensor]
@@ -199,6 +274,15 @@ class Model(KerasNet):
 
     def _state_tree(self) -> Dict:
         return {layer.name: layer for layer in self.graph_layers}
+
+    def _summary_rows(self, input_shape=None):
+        """One row a layer, its output shape at its first call."""
+        first = {}
+        for n in self.nodes:
+            if n.layer is not None:
+                first.setdefault(id(n.layer), n.shape)
+        return [_summary_row(layer, first[id(layer)])
+                for layer in self.graph_layers]
 
     def forward(self, *inputs):
         xs = list(inputs[0]) if len(inputs) == 1 \

@@ -40,12 +40,14 @@ its parameters, so the port's ``Layer`` is an ``nn.Module``:
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
 import math
+import threading
 import zlib
 from collections import defaultdict
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -183,13 +185,36 @@ def generator(seed: int, device) -> torch.Generator:
     return gen
 
 
+_draw_source = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_draws(source: Callable[[int, tuple], torch.Tensor]):
+    """Inside the block (on this thread), every dropout site takes its
+    uniform draws from ``source(seed, shape)`` in place of a generator
+    seeded with its seed.  The population trainer draws its members'
+    draws outside ``torch.func.vmap``, where no generator can be used,
+    and hands each member its own slice through this."""
+    prev = getattr(_draw_source, "fn", None)
+    _draw_source.fn = source
+    try:
+        yield
+    finally:
+        _draw_source.fn = prev
+
+
 def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     """Inverted dropout: ``x / keep`` where a uniform draw from a generator
     seeded with ``seed`` is below ``keep = 1 - rate``, else 0 (the JAX
-    ``where(bernoulli(rng, keep), x / keep, 0)``)."""
+    ``where(bernoulli(rng, keep), x / keep, 0)``); the draws come from
+    ``dropout_draws``' source inside its block."""
     keep = 1.0 - rate
-    draw = torch.rand(x.shape, generator=generator(seed, x.device),
-                      device=x.device)
+    source = getattr(_draw_source, "fn", None)
+    if source is not None:
+        draw = source(seed, tuple(x.shape))
+    else:
+        draw = torch.rand(x.shape, generator=generator(seed, x.device),
+                          device=x.device)
     return torch.where(draw < keep, x / keep, 0.0).to(x.dtype)
 
 

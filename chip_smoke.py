@@ -2,9 +2,9 @@
 """Chip smoke for the PyTorch/CUDA port (``analytics_zoo_tpu_torch``).
 
 Runs the port's serving paths (generation, predict, image classification,
-recommendation, the recurrent and text zoos) and its training paths on
-one NVIDIA GPU and checks them, phase by phase, each phase printing its
-own lines:
+recommendation, the recurrent, text and time-series zoos) and its
+training paths on one NVIDIA GPU and checks them, phase by phase, each
+phase printing its own lines:
 
 1. card — the card's name and power limit (``nvidia-smi``) and the build of
    every CUDA kernel (one ``nvcc`` per source, started together): ptxas's
@@ -220,6 +220,31 @@ own lines:
    ``SequenceTagger`` and ``IntentEntity`` stepped; ``KNRM`` at WikiQA's
    widths (10 / 40 tokens, embedding 300, 21 kernels) trained and ranking
    256 held-out groups (NDCG@3, MAP) in f32, int8 and int4.
+11. forecast — the w8a8 (bitwise, each weight exact and inside a buffer
+   of 127s) and w4a16 kernels at the forecasting heads' (K, N) = (8, 1),
+   (16, 1), (32, 1) and (64, 1) at M = 1, 32, 64 and 1024, each timed at
+   1024 beside ``torch._int_mm`` + scale and the plain version.  Then
+   AutoTS (``AutoTSTrainer`` with ``LSTMGridRandomRecipe(epochs=1)``, its
+   own grid at parallelism 2) over a seeded series of nyc_taxi's 10,320
+   half-hourly points from 2014-07-01 (daily and weekly seasonality and
+   noise; 80% train, 10% validation): each trial's config, validation
+   MSE and wall; ``TSPipeline.evaluate`` on the last 10% (MSE, sMAPE)
+   beside the persistence and seasonal-naive forecasts, its MSE at most
+   FORECAST_RATIO_MAX of the better one's; ``save`` / ``load`` predicting
+   bit for bit; the same trials at parallelism 1 with identical metrics.
+   ``MTNetForecaster`` at the JAX defaults trained 2 epochs (the loss
+   falls), a ``TimeSequencePredictor`` fit with ``MTNetSmokeRecipe``,
+   ``Seq2SeqForecaster`` stepped, ``PopulationTrainer`` with 8
+   LSTMForecaster-shaped members (each member's loss falls, the best
+   member's weights in a plain model reproduce its loss).  The best
+   pipeline's model, the best member in an ``LSTMForecaster`` and MTNet
+   served through ``InferenceModel`` in f32, int8 (calibrated on one
+   batch of windows) and int4 under a profiler trace of the card: w8a8 =
+   forwards in int8, w4a16 = forwards in int4, none in f32 and none for
+   MTNet (which quantizes nothing, as in the JAX package, and equals
+   f32), on the card = by the wrappers; int8 bitwise the plain route,
+   int4 within W4_TOL; the int8 pipeline model over 64 ``ClusterServing``
+   records of windows, each equal to ``do_predict``.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -300,7 +325,7 @@ from analytics_zoo_tpu_torch.nn.layers.core import BatchNormalization, Dense
 from analytics_zoo_tpu_torch.nn.layers.pooling import GlobalAveragePooling1D
 from analytics_zoo_tpu_torch.nn import objectives
 from analytics_zoo_tpu_torch.nn.models import Sequential
-from analytics_zoo_tpu_torch.nn.module import generator
+from analytics_zoo_tpu_torch.nn.module import generator, split_seed
 from analytics_zoo_tpu_torch.nn.optimizers import SGD, Adam
 from analytics_zoo_tpu_torch.ops import _build, _impl
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
@@ -6014,6 +6039,548 @@ def text_phase(seed: int, records: dict) -> None:
         f"s; NER F1 {ner['f1']:.4f})")
 
 
+# -- phase 11: zouwu's forecasters and automl ---------------------------------
+
+# NAB realKnownCause/nyc_taxi.csv's length and cadence: 10,320 half-hourly
+# points from 2014-07-01 (the file is not in the repository: a seeded
+# surrogate with its daily and weekly seasonality stands in)
+FORECAST_POINTS = 10320
+FORECAST_START = "2014-07-01"
+FORECAST_FREQ = "30min"
+FORECAST_DAY = 48
+FORECAST_NOISE = 2500.0
+# the first 80% train, the next 10% validate, the last 10% test
+FORECAST_TRAIN, FORECAST_VAL = 0.8, 0.1
+# AutoTS: LSTMGridRandomRecipe's own grid (lstm_1_units drawn from 16-128,
+# lstm_2_units 16 / 32 / 64 x batch 32 / 64, parallelism 2) with epochs
+# cut from its default 5 to 1
+FORECAST_RECIPE = dict(epochs=1)
+FORECAST_TRIALS = 6
+# the pipeline's test MSE over the better of the persistence and the
+# seasonal-naive forecast's must not exceed this.  The JAX package's CPU
+# runs of the same protocol (``forecast_reference.py``, context seeds
+# 0-2) read 0.8416, 0.6227 and 0.7106: the limit sits above the largest
+# of them, and below 1, so the pipeline beats both
+FORECAST_RATIO_MAX = 0.95
+# MTNetForecaster at the JAX defaults, 2 epochs at batch 64
+MTNET = dict(lookback=16, long_num=3, cnn_filters=32, cnn_kernel=3,
+             uni_size=32, ar_window=4)
+MTNET_EPOCHS, MTNET_BATCH, MTNET_LR = 2, 64, 1e-3
+# the MTNetSmokeRecipe fit trains on the first six weeks (cut)
+MTNET_SMOKE_POINTS = 2016
+SEQ2SEQ_FORECAST_STEPS = 16
+# PopulationTrainer: K = 8 LSTMForecaster-shaped members (lookback 8,
+# LSTM 16 / 8, dropout 0.2), lrs log-spaced over 1e-3 to 3e-2
+POP_K, POP_LR_RANGE = 8, (1e-3, 3e-2)
+POP_EPOCHS, POP_BATCH = 2, 64
+# the best member's eval-mode MSE over the training windows in a plain
+# model against its reported final loss, relative.  The reported loss is
+# the mean of the last epoch's training-mode step losses (dropout 0.2 on,
+# the weights moving through the epoch), so the two differ by more than
+# rounding; the plain model's MSE must also fall below its MSE at the
+# member's initial weights
+POP_REPRO_RTOL = 0.75
+FORECAST_BATCH = 1024
+FORECAST_RECORDS, FORECAST_SERVE_BATCH = 64, 16
+# the (K, N) of the forecasting heads: the AutoTS grid's lstm_2_units onto
+# a horizon of 1, LSTMForecaster's default lstm_2_units 8, Seq2Seq's
+# latent 32
+FORECAST_DENSE = ((16, 1), (32, 1), (64, 1), (8, 1))
+FORECAST_M = (1, 32, 64, FORECAST_BATCH)
+
+
+def forecast_series(seed: int, n: int = 0):
+    """``n`` half-hourly points from FORECAST_START: a level of 15,000
+    (nyc_taxi's passengers a half hour), daily and weekly seasonality and
+    i.i.d. noise of FORECAST_NOISE (a learnable surrogate: a forecaster
+    can average noise that the naive forecasts carry twice), as a
+    ``datetime`` / ``value`` frame."""
+    import pandas as pd
+    n = n or FORECAST_POINTS
+    g = np.random.default_rng(seed + 170)
+    day = 2 * np.pi * np.arange(n) / FORECAST_DAY
+    value = (15000 + 7000 * np.sin(day - 2.0) + 1500 * np.sin(2 * day)
+             + 2500 * np.sin(day / 7) + g.normal(0.0, FORECAST_NOISE, n))
+    return pd.DataFrame({
+        "datetime": pd.date_range(FORECAST_START, periods=n,
+                                  freq=FORECAST_FREQ),
+        "value": value})
+
+
+def forecast_split(df):
+    """(train, validation, test): the first FORECAST_TRAIN, the next
+    FORECAST_VAL, the rest."""
+    a = int(FORECAST_TRAIN * len(df))
+    b = a + int(FORECAST_VAL * len(df))
+    return df[:a], df[a:b], df[b:]
+
+
+def naive_forecasts(df, test_start: int, lookback: int) -> dict:
+    """The persistence (the previous value) and seasonal-naive (a day
+    earlier) forecasts of the targets ``TSPipeline.evaluate`` scores over
+    the test split (rows lookback.. of it): their MSE and sMAPE."""
+    v = df["value"].to_numpy(np.float64)
+    idx = np.arange(test_start + lookback, len(v))
+    y = v[idx]
+    out = {}
+    for name, lag in (("persistence", 1), ("seasonal_naive", FORECAST_DAY)):
+        p = v[idx - lag]
+        out[name] = {"mse": float(np.mean((y - p) ** 2)),
+                     "smape": float(100 * np.mean(
+                         2 * np.abs(p - y) / (np.abs(p) + np.abs(y) + 1e-9)))}
+    return out
+
+
+def forecast_ratio(metrics: dict, naive: dict) -> float:
+    """The pipeline's MSE over the better naive forecast's."""
+    return metrics["mse"] / min(n["mse"] for n in naive.values())
+
+
+def check_forecast(tag: str, metrics: dict, naive: dict) -> float:
+    """The pipeline beats both naive forecasts, its MSE at most
+    FORECAST_RATIO_MAX of the better one's."""
+    ratio_max = FORECAST_RATIO_MAX
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"{tag}: metrics {metrics}")
+    ratio = forecast_ratio(metrics, naive)
+    check(ratio <= ratio_max,
+          f"{tag}: MSE {metrics['mse']:.1f} is {ratio:.4f} of the better "
+          f"naive forecast's ({naive}), above {ratio_max}")
+    return ratio
+
+
+def autots_run(trainer_cls, recipe_cls, train, val, parallelism=None,
+               **kw) -> dict:
+    """``trainer_cls(dt_col="datetime", target_col="value", horizon=1,
+    recipe=recipe_cls(**FORECAST_RECIPE))`` fit on ``train`` / ``val``
+    (the JAX package's classes or the port's): the pipeline, each trial's
+    config, validation MSE and training wall time, and the fit's wall."""
+    recipe = recipe_cls(**FORECAST_RECIPE)
+    if parallelism is not None:
+        recipe.parallelism = parallelism
+    trainer = trainer_cls(dt_col="datetime", target_col="value", horizon=1,
+                          recipe=recipe, **kw)
+    pred = trainer._predictor
+    walls = []
+    train_one = pred._train_one
+
+    def timed(cfg, df):
+        t0 = time.perf_counter()
+        out = train_one(cfg, df)
+        walls.append((json.dumps(cfg, sort_keys=True, default=str),
+                      time.perf_counter() - t0))
+        return out
+    pred._train_one = timed
+    t0 = time.perf_counter()
+    pipe = trainer.fit(train, val)
+    wall = time.perf_counter() - t0
+    trial_walls = dict(walls[:-1])
+    trials = [{"config": t.config, "mse": t.metric,
+               "wall_s": trial_walls.get(json.dumps(
+                   t.config, sort_keys=True, default=str))}
+              for t in pred._last_trials]
+    return {"pipeline": pipe, "trials": trials, "wall_s": wall,
+            "retrain_s": walls[-1][1]}
+
+
+def trial_steps(cfg: dict, n_rows: int) -> int:
+    return int(cfg["epochs"]) * -(-n_rows // int(cfg["batch_size"]))
+
+
+def check_grid(trials) -> None:
+    """LSTMGridRandomRecipe's grid: lstm_units 16 / 32 / 64 x batch 32 /
+    64, each with lstm_1_units drawn from 16-128."""
+    check(len(trials) == FORECAST_TRIALS
+          and sorted((t["config"]["lstm_units"], t["config"]["batch_size"])
+                     for t in trials) == sorted(
+              (u, b) for u in (16, 32, 64) for b in (32, 64))
+          and all(t["config"]["lstm_1_units"] in (16, 32, 64, 128)
+                  for t in trials),
+          f"autots: the grid's trials {[t['config'] for t in trials]}")
+
+
+def check_same_trials(two, one) -> None:
+    """The trials at parallelism 2 are those at 1: the same configs in the
+    same order and bit for bit the same validation MSEs."""
+    check([repr(t["config"]) for t in two] == [repr(t["config"])
+                                               for t in one]
+          and [t["mse"] for t in two] == [t["mse"] for t in one],
+          f"autots: trial metrics at parallelism 2 {[t['mse'] for t in two]}"
+          f" != at 1 {[t['mse'] for t in one]}")
+
+
+def forecast_shapes():
+    return list(FORECAST_DENSE)
+
+
+def forecast_kernel_phase(seed: int) -> dict:
+    """(a): ``w8a8`` bitwise (each weight exact and inside a buffer of
+    127s) and ``w4a16`` within W4_TOL at FORECAST_M x the heads' (K, N);
+    each (K, N) timed at M = FORECAST_BATCH beside ``torch._int_mm`` +
+    scale (w8a8) and the plain version."""
+    worst = reco_parity(seed + 11, FORECAST_M, forecast_shapes())
+    say(f"forecast parity: w8a8 bitwise (each weight exact and inside "
+        f"127s) and w4a16 within {W4_TOL} (max err {worst:.3e}) at M "
+        f"{FORECAST_M} x (K, N) {forecast_shapes()}")
+    m = FORECAST_BATCH
+    keys8 = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    keys4 = ("ms", "plain_ms", "bound_ms", "bound_by")
+    shapes = {}
+    for k, n in forecast_shapes():
+        w8 = w8a8_timing(seed + 7, m, k, n, plain=True)
+        w4 = w4a16_timing(seed + 7, m, k, n, 64, torch.float32)
+        shapes[f"{m}x{k}x{n}"] = {"w8a8": {key: w8[key] for key in keys8},
+                                  "w4a16": {key: w4[key] for key in keys4}}
+    return {"w4_max_abs_err": worst, "shapes": shapes}
+
+
+def autots_phase(seed: int, dev, data: dict) -> dict:
+    """(b): AutoTS over the nyc_taxi-length series: LSTMGridRandomRecipe's
+    grid at parallelism 2, each trial's config, validation MSE and wall;
+    TSPipeline.evaluate on the test split beside the persistence and
+    seasonal-naive forecasts; save / load predicting bit for bit; the same
+    trials at parallelism 1 with identical metrics."""
+    from analytics_zoo_tpu_torch.automl import LSTMGridRandomRecipe
+    from analytics_zoo_tpu_torch.zouwu import AutoTSTrainer, TSPipeline
+    train, val, test = data["train"], data["val"], data["test"]
+    runs = {}
+    for par in (2, 1):
+        run = autots_run(AutoTSTrainer, LSTMGridRandomRecipe, train, val,
+                         parallelism=par, device=dev)
+        runs[par] = run
+        rows = len(train) - 8
+        for i, t in enumerate(run["trials"]):
+            c = t["config"]
+            steps = trial_steps(c, rows)
+            say(f"autots[parallelism {par}] trial {i}: lstm_1_units "
+                f"{c['lstm_1_units']}, lstm_units {c['lstm_units']}, batch "
+                f"{c['batch_size']}, lr {c['lr']:.5f}, dropout "
+                f"{c['dropout']:.3f}, features {list(map(str, c.get('selected_features', [])))}: "
+                f"validation MSE {t['mse']:.6f}; trained in "
+                f"{t['wall_s']:.3f} s = {t['wall_s'] / steps * 1e3:.2f} "
+                f"ms/step over {steps} steps (host clock)")
+        say(f"autots[parallelism {par}]: {len(run['trials'])} trials + the "
+            f"best retrained ({run['retrain_s']:.3f} s) in "
+            f"{run['wall_s']:.3f} s")
+    two, one = runs[2]["trials"], runs[1]["trials"]
+    check_grid(two)
+    check_same_trials(two, one)
+    say(f"autots: the {len(two)} trials' validation MSEs at parallelism 2 "
+        f"equal those at 1 exactly")
+    pipe = runs[2]["pipeline"]
+    cfg = pipe._p.config
+    metrics = pipe.evaluate(test, ("mse", "smape"))
+    naive = naive_forecasts(data["df"], len(train) + len(val),
+                            int(cfg["lookback"]))
+    ratio = check_forecast("autots", metrics, naive)
+    say(f"autots: best config lstm_1_units {cfg['lstm_1_units']}, "
+        f"lstm_units {cfg['lstm_units']}, batch {cfg['batch_size']}; test "
+        f"MSE {metrics['mse']:.1f}, sMAPE {metrics['smape']:.4f}; "
+        f"persistence MSE {naive['persistence']['mse']:.1f}, sMAPE "
+        f"{naive['persistence']['smape']:.4f}; seasonal-naive MSE "
+        f"{naive['seasonal_naive']['mse']:.1f}, sMAPE "
+        f"{naive['seasonal_naive']['smape']:.4f}; ratio to the better "
+        f"{ratio:.4f} (limit {FORECAST_RATIO_MAX})")
+    path = os.path.join(data["tmp"], "pipeline")
+    pipe.save(path)
+    back = TSPipeline.load(path, device=dev)
+    want = pipe.predict(test)
+    got = back.predict(test)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"autots: the reloaded pipeline's predictions part from the "
+          f"saved one's (max abs err "
+          f"{float(np.abs(got - want).max()) if got.shape == want.shape else 'shape'})")
+    say(f"autots: TSPipeline.save / load round trip, {len(got)} "
+        f"predictions bit for bit equal")
+    return {"pipeline": pipe, "path": path, "metrics": metrics,
+            "naive": naive, "ratio": ratio,
+            "trials": [{k: v for k, v in t.items() if k != "config"}
+                       for t in two]}
+
+
+def forecasters_phase(seed: int, dev, data: dict) -> dict:
+    """(c): MTNetForecaster at the JAX defaults trained (the loss falls);
+    one TimeSequencePredictor fit with MTNetSmokeRecipe; Seq2SeqForecaster
+    stepped; PopulationTrainer with POP_K LSTMForecaster-shaped members
+    (each member's loss falls; the best member's parameters in a plain
+    model reproduce its final loss within POP_REPRO_RTOL)."""
+    from analytics_zoo_tpu_torch.automl import (
+        MTNetSmokeRecipe, PopulationTrainer, TimeSequenceFeatureTransformer,
+        TimeSequencePredictor)
+    from analytics_zoo_tpu_torch.zouwu import (
+        LSTMForecaster, MTNetForecaster, Seq2SeqForecaster)
+    train, val = data["train"], data["val"]
+    out = {}
+    ft = TimeSequenceFeatureTransformer()
+    x16, y16 = ft.fit_transform(train, lookback=MTNET["lookback"])
+    mt = MTNetForecaster(feature_dim=x16.shape[-1], **MTNET, device=dev)
+    mt.init_weights(seed)
+    mt.compile(Adam(lr=MTNET_LR), "mse")
+    sync(dev)
+    t0 = time.perf_counter()
+    ls = mt.fit(x16, y16, batch_size=MTNET_BATCH,
+                nb_epoch=MTNET_EPOCHS).history["loss"]
+    sync(dev)
+    wall = time.perf_counter() - t0
+    steps = MTNET_EPOCHS * -(-len(x16) // MTNET_BATCH)
+    check(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0],
+          f"mtnet: the loss did not fall ({ls})")
+    out["mtnet_ms_per_step"] = wall / steps * 1e3
+    say(f"mtnet: MTNetForecaster({MTNET}) ({mt.model.param_count()} params) "
+        f"on {len(x16)} windows: losses {[round(v, 6) for v in ls]}, "
+        f"{steps} steps in {wall:.3f} s = {out['mtnet_ms_per_step']:.2f} "
+        f"ms/step (host clock)")
+    out["mtnet"] = mt
+    out["mtnet_x"], _ = ft.transform(data["test"], lookback=MTNET["lookback"])
+    p = TimeSequencePredictor(recipe=MTNetSmokeRecipe(), device=dev)
+    t0 = time.perf_counter()
+    pipe = p.fit(train[:MTNET_SMOKE_POINTS], val)
+    wall = time.perf_counter() - t0
+    trial = p._last_trials[0]
+    check(pipe.config["model"] == "MTNet" and math.isfinite(trial.metric)
+          and type(pipe.model.layers_list[0]).__name__ == "MTNetLayer",
+          f"mtnet smoke: config {pipe.config}, metric {trial.metric}")
+    say(f"mtnet smoke: TimeSequencePredictor(MTNetSmokeRecipe) on the first "
+        f"{MTNET_SMOKE_POINTS} points: validation MSE {trial.metric:.6f}, "
+        f"the MTNet branch of _build_trial_model, fit in {wall:.3f} s")
+    ft8 = TimeSequenceFeatureTransformer()
+    x8, y8 = ft8.fit_transform(train, lookback=8)
+    n = SEQ2SEQ_FORECAST_STEPS * POP_BATCH
+    s2s = Seq2SeqForecaster(feature_dim=x8.shape[-1], lookback=8,
+                            device=dev)
+    s2s.init_weights(seed)
+    s2s.compile(Adam(lr=1e-3), "mse")
+    sync(dev)
+    t0 = time.perf_counter()
+    ls = s2s.fit(x8[:n], y8[:n], batch_size=POP_BATCH,
+                 nb_epoch=1).history["loss"]
+    sync(dev)
+    wall = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in ls), f"seq2seq forecaster: {ls}")
+    say(f"seq2seq forecaster: {SEQ2SEQ_FORECAST_STEPS} steps of "
+        f"{POP_BATCH}, loss {ls[-1]:.6f}, "
+        f"{wall / SEQ2SEQ_FORECAST_STEPS * 1e3:.2f} ms/step (host clock)")
+    lrs = [float(v) for v in np.geomspace(*POP_LR_RANGE, POP_K)]
+    members = LSTMForecaster(feature_dim=x8.shape[-1], lookback=8,
+                             device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    pop = PopulationTrainer(members.model).fit(
+        x8, y8, lrs, epochs=POP_EPOCHS, batch_size=POP_BATCH, seed=seed)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    losses = pop["losses"]
+    check(losses.shape == (POP_EPOCHS, POP_K) and np.isfinite(losses).all()
+          and bool((losses[-1] < losses[0]).all()),
+          f"population: a member's loss did not fall ({losses.tolist()})")
+    plain = LSTMForecaster(feature_dim=x8.shape[-1], lookback=8, device=dev)
+    plain.init_weights(split_seed(seed, pop["best_index"]))
+    start = float(np.mean((plain.predict(x8, batch_size=FORECAST_BATCH)
+                           - y8) ** 2))
+    plain.set_weights(pop["best_params"])
+    pred = plain.predict(x8, batch_size=FORECAST_BATCH)
+    repro = float(np.mean((pred - y8) ** 2))
+    final = float(pop["final_losses"][pop["best_index"]])
+    check(abs(repro - final) <= POP_REPRO_RTOL * final and repro < start,
+          f"population: the best member's MSE in a plain model {repro:.6f} "
+          f"is more than {POP_REPRO_RTOL} from its final loss {final:.6f}, "
+          f"or not below its initial weights' {start:.6f}")
+    steps = POP_EPOCHS * (len(x8) // POP_BATCH)
+    out["pop_ms_per_step"] = wall / steps * 1e3
+    say(f"population: {POP_K} LSTMForecaster members, lrs "
+        f"{[round(v, 5) for v in lrs]}, {steps} steps of {POP_BATCH} in "
+        f"{wall:.3f} s = {out['pop_ms_per_step']:.2f} ms/step for all "
+        f"{POP_K} (host clock); losses {losses.round(6).tolist()}; best "
+        f"member {pop['best_index']} (lr {pop['best_lr']:.5f}), final loss "
+        f"{final:.6f}, its weights in a plain model {repro:.6f} (eval mode; "
+        f"its initial weights {start:.6f})")
+    out["pop_params"] = pop["best_params"]
+    out["x8"] = x8
+    out["x8_test"], _ = ft8.transform(data["test"], lookback=8)
+    return out
+
+
+def serve_windows(im, x) -> dict:
+    """The windows through ``im`` (``do_predict`` at FORECAST_BATCH) with
+    the counts set to 0 just before and read just after, under a profiler
+    trace of the card."""
+    sync(im.device)
+    st0 = im.aot_stats()
+    reset_launches()
+    with _impl.card_launches(("w8a8", "w4a16")) as card:
+        t0 = time.perf_counter()
+        y = im.do_predict(x, batch_size=FORECAST_BATCH)
+        sync(im.device)
+        wall = time.perf_counter() - t0
+    st = im.aot_stats()
+    return {"y": y, "wall_s": wall, "card": card,
+            "wrapper": {"w8a8": qm.launches_w8a8, "w4a16": qm.launches_w4a16},
+            "forwards": sum(st["programs"].values())
+            - sum(st0["programs"].values())}
+
+
+def forecast_serve(name: str, build, params: dict, x, calib, n_dense: int,
+                   dev) -> dict:
+    """``build()``'s model with ``params`` through InferenceModel in f32,
+    int8 (calibrated on ``calib``) and int4: launches on the card = by the
+    wrappers = ``n_dense`` x forwards of the route's kernel; int8 bit for
+    bit and int4 within W4_TOL of the plain route; with no Dense head
+    (MTNet) every route launches nothing and predicts as f32."""
+    out = {}
+    for tag, bits in (("f32", 0), ("int8", 8), ("int4", 4)):
+        im = InferenceModel(max_batch=FORECAST_BATCH, device=dev) \
+            .do_load_model(build(), params)
+        if bits:
+            im.do_quantize([calib] if bits == 8 else None, bits=bits,
+                           force=True, group_size=64)
+        run = serve_windows(im, x)
+        check_launches(f"forecast {name}[{tag}]", run, n_dense)
+        err = 0.0
+        if bits and n_dense:
+            plain = route_probs(im, x, "torch", FORECAST_BATCH)
+            err = check_route(f"forecast {name}[{tag}]", run["y"], plain,
+                              bits)
+        elif bits:
+            check(np.array_equal(run["y"], out["f32"]["y"]),
+                  f"forecast {name}[{tag}]: quantizes nothing, yet parts "
+                  f"from f32")
+        run["bytes"] = weight_bytes(im._params)
+        say(f"forecast {name}[{tag}]: {len(x)} windows in "
+            f"{run['forwards']} forwards of {FORECAST_BATCH}, "
+            f"{len(x) / run['wall_s']:.0f} windows/s under the trace (host "
+            f"clock); launches on the card = by the wrappers: w8a8 "
+            f"{run['card']['w8a8']}, w4a16 {run['card']['w4a16']}; weight "
+            f"bytes {run['bytes']}"
+            + ("" if bits == 0 else "; vs the plain route " + (
+                "bitwise equal" if bits == 8 and n_dense else
+                f"max abs err {err:.3e}" if n_dense else
+                "(no kernel) equal to f32")))
+        out[tag] = run
+        del im
+    return out
+
+
+def forecast_records(build, params: dict, x, calib, dev, tmp: str) -> dict:
+    """The int8 model served by ClusterServing over FORECAST_RECORDS
+    tensor records of windows (``quantize`` calibrated from a ``.npy``):
+    every record's value bit for bit ``do_predict``'s."""
+    X = x[:FORECAST_RECORDS]
+    path = os.path.join(tmp, "forecast_calib.npy")
+    np.save(path, calib)
+    im = InferenceModel(max_batch=FORECAST_SERVE_BATCH, device=dev) \
+        .do_load_model(build(), params)
+    run = serve_predict(im, X, ServingParams(
+        batch_size=FORECAST_SERVE_BATCH, max_wait_ms=20.0,
+        quantize={"bits": 8, "calib": path},
+        warmup={"max_batch": FORECAST_SERVE_BATCH, "scales": "off"}),
+        kernels=("w8a8", "w4a16"))
+    ref = im.do_predict(X, batch_size=FORECAST_SERVE_BATCH)
+    check(run["dead_lettered"] == 0, "forecast served: records quarantined")
+    for i, rid in enumerate(run["rids"]):
+        r = run["results"].get(rid)
+        check(r is not None and r.get("value") == default_postprocess(ref[i]),
+              f"forecast served {rid}: {r} != do_predict's "
+              f"{default_postprocess(ref[i])}")
+    fw = run["forwards"]
+    per = RECO_LAUNCHES["int8"].get("w8a8", 0)
+    check(run["warm_hits"] == fw > 0
+          and run["card"]["w8a8"] == run["wrapper"]["w8a8"] == fw * per
+          and run["card"]["w4a16"] == run["wrapper"]["w4a16"] == 0,
+          f"forecast served: {fw} forwards ({run['warm_hits']} warm), "
+          f"launches on the card {run['card']}, by the wrappers "
+          f"{run['wrapper']}")
+    n = len(X)
+    say(f"forecast served[int8]: {n}/{n} records of "
+        f"{tuple(X.shape[1:])} windows in {run['wall_s']:.3f} s = "
+        f"{n / run['wall_s']:.2f} records/s, e2e p50 "
+        f"{run['e2e_p50_s'] * 1e3:.1f} ms (under the trace); {fw} forwards, "
+        f"each of a warmed bucket; w8a8 launches on the card = by the "
+        f"wrapper = {run['card']['w8a8']}; every value bit for bit "
+        f"do_predict's")
+    return run
+
+
+def forecast_serve_phase(dev, data: dict, auto: dict, fc: dict) -> dict:
+    """(d): the best pipeline's model, the population's best member in an
+    LSTMForecaster and the trained MTNet through InferenceModel in f32 /
+    int8 / int4 over the test windows; the int8 pipeline model through
+    ClusterServing."""
+    from analytics_zoo_tpu_torch.zouwu import (LSTMForecaster,
+                                               MTNetForecaster, TSPipeline)
+    pipe = auto["pipeline"]._p
+    lookback = int(pipe.config["lookback"])
+    x, _ = pipe.ft.transform(data["test"], lookback=lookback, horizon=1,
+                             dt_features=pipe._dt_features())
+    xtr, _ = pipe.ft.transform(data["train"], lookback=lookback, horizon=1,
+                               dt_features=pipe._dt_features())
+    params = numpy_tree(export_params(pipe.model))
+
+    def pipe_model():
+        return TSPipeline.load(auto["path"], device=dev)._p.model
+    served = {"pipeline": forecast_serve(
+        "pipeline", pipe_model, params, x, xtr[:FORECAST_BATCH], 1, dev)}
+    x8 = fc["x8"]
+    served["lstm_forecaster"] = forecast_serve(
+        "lstm_forecaster", lambda: LSTMForecaster(
+            feature_dim=x8.shape[-1], lookback=8, device=dev).model,
+        fc["pop_params"], fc["x8_test"], x8[:FORECAST_BATCH], 1, dev)
+    x16 = fc["mtnet_x"]
+    served["mtnet"] = forecast_serve(
+        "mtnet", lambda: MTNetForecaster(feature_dim=x16.shape[-1],
+                                         **MTNET, device=dev).model,
+        numpy_tree(export_params(fc["mtnet"].model)), x16,
+        x16[:FORECAST_BATCH], 0, dev)
+    served["records"] = forecast_records(pipe_model, params, x,
+                                         xtr[:FORECAST_BATCH], dev,
+                                         data["tmp"])
+    return served
+
+
+def forecast_data(seed: int, tmp: str) -> dict:
+    df = forecast_series(seed)
+    train, val, test = forecast_split(df)
+    return {"df": df, "train": train, "val": val, "test": test, "tmp": tmp}
+
+
+def forecast_phase(seed: int, records: dict) -> None:
+    """Phase 11: the w8a8 / w4a16 kernels at the forecasting heads' shapes;
+    AutoTS over a nyc_taxi-length series; MTNet, the MTNet smoke recipe,
+    Seq2Seq and the population trainer; the best pipeline's model, an
+    LSTMForecaster and MTNet served in f32 / int8 / int4 (InferenceModel)
+    and the int8 pipeline model through ClusterServing."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 2)
+        return out
+    kt = timed("kernels", forecast_kernel_phase, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = forecast_data(seed, tmp)
+        say(f"forecast data: {FORECAST_POINTS} points every "
+            f"{FORECAST_FREQ} from {FORECAST_START} (nyc_taxi's length and "
+            f"cadence), train / validation / test {len(data['train'])} / "
+            f"{len(data['val'])} / {len(data['test'])}")
+        auto = timed("autots", autots_phase, seed, dev, data)
+        fc = timed("forecasters", forecasters_phase, seed, dev, data)
+        served = timed("served", forecast_serve_phase, dev, data, auto, fc)
+    for name, bits_tag in (("w8a8", "int8"), ("w4a16", "int4")):
+        rec = records[name]
+        rec["forecast_launches"] = {
+            model: served[model][bits_tag]["card"][name]
+            for model in ("pipeline", "lstm_forecaster", "mtnet")}
+        rec["forecast_launches"]["served"] = served["records"]["card"][name]
+        rec["forecast_shapes"] = {s: t[name] for s, t in kt["shapes"].items()}
+    rec = records["w4a16"]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0),
+                             kt["w4_max_abs_err"])
+    say(f"forecast: phase wall {time.perf_counter() - t_phase:.2f} s "
+        f"({walls} s; AutoTS MSE ratio {auto['ratio']:.4f})")
+
+
 # -- main ---------------------------------------------------------------------
 
 def ptxas_summary(log: str) -> str:
@@ -6200,6 +6767,7 @@ def main(argv=None) -> int:
     reco_phase(args.seed, records, args.profile)
     recurrent_phase(args.seed, records)
     text_phase(args.seed, records)
+    forecast_phase(args.seed, records)
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (

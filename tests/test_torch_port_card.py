@@ -25,7 +25,10 @@ give the eager route's tokens (the same kernels in the same order), for
 ``TransformerLM``'s lanes and for a ``Seq2seq`` bare-state lane;
 their kernel launches are counted on the card (``ops/_impl.
 card_launches``, a profiler trace), and the wrappers' counters, which
-count eager launches, count none for a capture or a replay.
+count eager launches, count none for a capture or a replay.  The
+time-series zoo: the forecasting heads' shapes, a quantized
+``LSTMForecaster``'s one launch a forward, MTNet's none, thread-pooled
+trials equal to the loop and the population trainer under ``vmap``.
 """
 
 import threading
@@ -994,3 +997,116 @@ def test_int8_text_classifier_launches_on_card(cuda_device):
     assert np.array_equal(got, InferenceModel(
         max_batch=16, device=cuda_device).do_load_model(
         im._model).do_predict(x))
+
+
+# the forecasting heads' (K, N): the AutoTS grid's lstm_2_units (16, 32,
+# 64) and LSTMForecaster's default 8 onto a horizon of 1
+FORECAST_KN = ((8, 1), (16, 1), (32, 1), (64, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 32, 64, 1024])
+@pytest.mark.parametrize("k,n", FORECAST_KN)
+def test_forecast_head_shapes_w8a8_and_w4a16_on_card(cuda_device, m, k, n):
+    _check_matmul_kernels(cuda_device, m, k, n)
+
+
+def _forecaster_im(cuda_device, bits, cls="LSTMForecaster"):
+    from analytics_zoo_tpu_torch import zouwu
+    f = getattr(zouwu, cls)(feature_dim=3, lookback=8 if cls ==
+                            "LSTMForecaster" else 16, device=cuda_device)
+    f.init_weights(6)
+    g = np.random.default_rng(7)
+    x = g.normal(size=(96, f.lookback, 3)).astype(np.float32)
+    im = InferenceModel(max_batch=32, device=cuda_device).do_load_model(
+        f.model)
+    if bits:
+        im.do_quantize(x[:32] if bits == 8 else None, bits=bits, force=True)
+    return im, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_lstm_forecaster_launches_on_card(cuda_device, bits):
+    """An int8 (int4) LSTMForecaster forward runs w8a8 (w4a16) once, for
+    its Dense head: the profiler trace of the card shows the launches,
+    equal to the wrapper's count; int8 predictions are bitwise the plain
+    route's, int4 within atol 1e-4."""
+    im, x = _forecaster_im(cuda_device, bits)
+    name = "w8a8" if bits == 8 else "w4a16"
+    counter = "launches_w8a8" if bits == 8 else "launches_w4a16"
+    im.do_predict(x[:32])
+    torch.cuda.synchronize()
+    before = getattr(tqm, counter)
+    with _impl.card_launches((name,)) as card:
+        got = im.do_predict(x, batch_size=32)
+        torch.cuda.synchronize()
+    assert getattr(tqm, counter) - before == card[name] == 3
+    for m in im._model.modules():
+        if hasattr(m, "impl"):
+            m.impl = "torch"
+    want = InferenceModel(max_batch=32, device=cuda_device).do_load_model(
+        im._model).do_predict(x, batch_size=32)
+    if bits == 8:
+        assert np.array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_int8_mtnet_launches_nothing_on_card(cuda_device):
+    """MTNet quantizes no layer (the quantizer walks only layer lists):
+    its int8 forward launches no kernel and equals f32 bitwise."""
+    im, x = _forecaster_im(cuda_device, 0, "MTNetForecaster")
+    want = im.do_predict(x, batch_size=32)
+    im8, _ = _forecaster_im(cuda_device, 8, "MTNetForecaster")
+    with _impl.card_launches(("w8a8", "w4a16")) as card:
+        got = im8.do_predict(x, batch_size=32)
+        torch.cuda.synchronize()
+    assert card == {"w8a8": 0, "w4a16": 0}
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_thread_pooled_trials_equal_the_loop_on_card(cuda_device):
+    """Two trials trained at once on two threads of one card give the
+    validation MSEs of the sequential loop bit for bit."""
+    import pandas as pd
+
+    from analytics_zoo_tpu_torch.automl import (LSTMGridRandomRecipe,
+                                                TimeSequencePredictor)
+    from analytics_zoo_tpu_torch.common.context import init_context
+    init_context(device=str(cuda_device), seed=42)
+    t = np.arange(400)
+    df = pd.DataFrame({"datetime": pd.date_range("2014-07-01", periods=400,
+                                                 freq="30min"),
+                       "value": np.sin(2 * np.pi * t / 48) + 0.1 * np.cos(t)})
+    metrics = {}
+    for par in (2, 1):
+        recipe = LSTMGridRandomRecipe(epochs=1, lstm_1_units=(16,),
+                                      lstm_2_units=(8, 16),
+                                      batch_size=(32,), parallelism=par)
+        p = TimeSequencePredictor(recipe=recipe, device=cuda_device)
+        p.fit(df[:300], df[280:])
+        metrics[par] = [tr.metric for tr in p._last_trials]
+    assert len(metrics[2]) == 2 and metrics[2] == metrics[1]
+
+
+@pytest.mark.gpu
+def test_population_trainer_on_card(cuda_device):
+    """K members under ``torch.func.vmap`` on the card, dropout draws
+    (K, ...) a site: finite losses that fall, and the run repeats
+    exactly."""
+    from analytics_zoo_tpu_torch.automl import PopulationTrainer
+    from analytics_zoo_tpu_torch.zouwu import LSTMForecaster
+    g = np.random.default_rng(8)
+    x = g.normal(size=(256, 8, 3)).astype(np.float32)
+    y = (x[:, -1, :1] * 0.5).astype(np.float32)
+    runs = [PopulationTrainer(LSTMForecaster(
+        feature_dim=3, lookback=8, device=cuda_device).model).fit(
+        x, y, [1e-3, 3e-3, 1e-2, 3e-2], epochs=3, batch_size=64)
+        for _ in range(2)]
+    a = runs[0]["losses"]
+    assert a.shape == (3, 4) and np.isfinite(a).all()
+    assert (a[-1] < a[0]).all()
+    np.testing.assert_array_equal(a, runs[1]["losses"])

@@ -68,7 +68,11 @@ def test_every_module_imports_with_jax_blocked():
                 "models.anomalydetection",
                 "models.recommendation.session_recommender",
                 "nn.layers.crf", "nn.layers.pooling", "feature.text",
-                "models.textclassification", "models.textmatching"):
+                "models.textclassification", "models.textmatching",
+                "automl", "automl.search", "automl.feature",
+                "automl.regression", "automl.population", "zouwu",
+                "zouwu.forecast", "utils.serialization", "interop",
+                "interop.keras_import"):
         assert f"analytics_zoo_tpu_torch.{mod}" in doc["modules"]
 
 
@@ -213,7 +217,7 @@ NOT_PORTED = {
 }
 # JAX packages whose __init__.py exports names and whose port does not
 # exist yet
-PACKAGES_NOT_PORTED = ("automl", "nnframes", "xshard", "zouwu")
+PACKAGES_NOT_PORTED = ("nnframes", "xshard")
 
 
 def _jax_exports():
@@ -260,8 +264,8 @@ def port_surface():
 
 def test_jax_exports_are_read():
     assert set(EXPORTS) == {"", "nn", "nn.layers", "models",
-                            "models.recommendation"} | set(
-        PACKAGES_NOT_PORTED)
+                            "models.recommendation", "automl",
+                            "zouwu"} | set(PACKAGES_NOT_PORTED)
     assert {"ZooConf", "init_context", "dtypes"} <= set(EXPORTS[""])
     assert {"Dense", "Convolution1D", "CRF", "MixtureOfExperts"} <= set(
         EXPORTS["nn.layers"])

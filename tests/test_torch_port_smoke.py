@@ -16,7 +16,10 @@ and served in f32 / int8 / int4, WideAndDeep trained and served, and the
 checks' rejection of faults), its recurrent phase's and its text
 phase's (the classifier's width and one-row conv geometries, the NER
 surrogate's tags and the span F1, TextClassifier / NER / the taggers /
-KNRM trained and served) are plain Python and run here at a tiny width.
+KNRM trained and served) and its forecast phase's (the series' length
+and cadence, the naive forecasts, the grid and trial checks, AutoTS, the
+forecasters, the population trainer and the served routes) are plain
+Python and run here at a tiny width.
 """
 
 import copy
@@ -1323,3 +1326,111 @@ def test_text_knrm_phase_on_cpu(tiny_text):
     ranker = cs.GroupScores(groups, np.zeros(len(groups) * 5))
     with pytest.raises(cs.SmokeFailure, match="not group 0"):
         ranker.predict(cs.knrm_candidates(groups[1:2]))
+
+
+# -- phase 11: zouwu's forecasters and automl ---------------------------------
+
+def test_forecast_series_is_nyc_taxi_length_and_cadence():
+    df = cs.forecast_series(0)
+    assert len(df) == cs.FORECAST_POINTS == 10320
+    dt = df["datetime"]
+    assert str(dt.iloc[0]) == "2014-07-01 00:00:00"
+    assert set(np.diff(dt.to_numpy()).astype("timedelta64[m]").astype(
+        int)) == {30}
+    assert df["value"].equals(cs.forecast_series(0)["value"])
+    assert not df["value"].equals(cs.forecast_series(1)["value"])
+    v = df["value"].to_numpy()
+    day = np.corrcoef(v[:-48], v[48:])[0, 1]
+    half = np.corrcoef(v[:-24], v[24:])[0, 1]
+    assert day > 0.5 > half            # daily seasonality
+    train, val, test = cs.forecast_split(df)
+    assert (len(train), len(val), len(test)) == (8256, 1032, 1032)
+    assert train.index[-1] + 1 == val.index[0] and \
+        val.index[-1] + 1 == test.index[0]
+
+
+def test_naive_forecasts_and_the_forecast_check():
+    """Persistence and seasonal-naive MSE / sMAPE by hand on a crafted
+    series; the check accepts a pipeline under the limit and rejects one
+    above it (a planted fault: the MSE of the better naive forecast)."""
+    import pandas as pd
+    v = np.arange(200, dtype=np.float64) ** 1.5 + 100
+    df = pd.DataFrame({"value": v})
+    out = cs.naive_forecasts(df, 120, 8)
+    y = v[128:]
+    for name, lag in (("persistence", 1), ("seasonal_naive", 48)):
+        p = v[128 - lag:200 - lag]
+        assert out[name]["mse"] == pytest.approx(np.mean((y - p) ** 2))
+        assert out[name]["smape"] == pytest.approx(
+            100 * np.mean(2 * np.abs(p - y) / (np.abs(p) + np.abs(y))))
+    best = out["persistence"]["mse"]
+    assert cs.check_forecast("t", {"mse": 0.5 * best, "smape": 1.0},
+                             out) == pytest.approx(0.5)
+    with pytest.raises(cs.SmokeFailure, match="above"):
+        cs.check_forecast("t", {"mse": best, "smape": 1.0}, out)
+    with pytest.raises(cs.SmokeFailure, match="metrics"):
+        cs.check_forecast("t", {"mse": float("nan"), "smape": 1.0}, out)
+
+
+def test_forecast_grid_and_trial_checks():
+    trials = [{"config": {"lstm_units": u, "batch_size": b,
+                          "lstm_1_units": 32}, "mse": 0.1 * i}
+              for i, (u, b) in enumerate((u, b) for u in (16, 32, 64)
+                                         for b in (32, 64))]
+    cs.check_grid(trials)
+    cs.check_same_trials(trials, copy.deepcopy(trials))
+    with pytest.raises(cs.SmokeFailure, match="grid"):
+        cs.check_grid(trials[:5])
+    off = copy.deepcopy(trials)
+    off[3]["mse"] = np.nextafter(off[3]["mse"], 1.0)
+    with pytest.raises(cs.SmokeFailure, match="parallelism 2"):
+        cs.check_same_trials(trials, off)
+
+
+@pytest.fixture
+def tiny_forecast(monkeypatch):
+    from analytics_zoo_tpu_torch.common import context
+    monkeypatch.setattr(cs, "FORECAST_POINTS", 900)
+    monkeypatch.setattr(cs, "FORECAST_RECIPE", dict(epochs=1,
+                                                    lstm_1_units=(16,)))
+    monkeypatch.setattr(cs, "FORECAST_RATIO_MAX", 1e3)
+    monkeypatch.setattr(cs, "MTNET", dict(lookback=8, long_num=1,
+                                          cnn_filters=4, cnn_kernel=3,
+                                          uni_size=4, ar_window=2))
+    monkeypatch.setattr(cs, "MTNET_SMOKE_POINTS", 200)
+    monkeypatch.setattr(cs, "SEQ2SEQ_FORECAST_STEPS", 2)
+    monkeypatch.setattr(cs, "POP_K", 3)
+    monkeypatch.setattr(cs, "FORECAST_BATCH", 128)
+    monkeypatch.setattr(cs, "FORECAST_RECORDS", 8)
+    monkeypatch.setattr(cs, "FORECAST_SERVE_BATCH", 4)
+    monkeypatch.setattr(cs, "RECO_LAUNCHES", {"f32": {}, "int8": {},
+                                              "int4": {}})
+    monkeypatch.setattr(context, "_global_ctx",
+                        context.ZooContext(context.ZooConf(device="cpu")))
+
+
+def test_forecast_phase_on_cpu(tiny_forecast, tmp_path):
+    """AutoTS at parallelism 2 and 1 (identical trials), the save / load
+    round trip, MTNet, the MTNet smoke recipe, Seq2Seq and the population
+    trainer, then every model served in f32, int8 and int4 on the CPU
+    (every wrapper takes its plain version there, so each route's check
+    against the plain route passes; MTNet quantizes nothing) and the
+    int8 pipeline model through ClusterServing; a quantized route off the
+    plain one by a planted error is rejected."""
+    dev = torch.device("cpu")
+    data = cs.forecast_data(0, str(tmp_path))
+    assert len(data["df"]) == 900
+    auto = cs.autots_phase(0, dev, data)
+    assert len(auto["trials"]) == cs.FORECAST_TRIALS
+    fc = cs.forecasters_phase(0, dev, data)
+    served = cs.forecast_serve_phase(dev, data, auto, fc)
+    for model in ("pipeline", "lstm_forecaster", "mtnet"):
+        for tag in ("f32", "int8", "int4"):
+            assert served[model][tag]["forwards"] >= 1
+    assert served["records"]["forwards"] >= 2
+    y = served["pipeline"]["int8"]["y"]
+    cs.check_route("t[int8]", y, y.copy(), 8)
+    bad = y.copy()
+    bad[0, 0] = np.nextafter(bad[0, 0], np.float32(1e9))
+    with pytest.raises(cs.SmokeFailure, match="bitwise"):
+        cs.check_route("t[int8]", bad, y, 8)
