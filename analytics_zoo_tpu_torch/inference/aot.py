@@ -29,6 +29,7 @@ cache) have no counterpart.
 
 from __future__ import annotations
 
+import gc
 import logging
 import threading
 import time
@@ -116,13 +117,20 @@ class CapturedProgram:
     ``output`` is what the captured function returned, static tensors that
     every replay overwrites; ``replays`` counts its replays.  Callers that
     share a program between threads serialize the fill, the replay and
-    the read of ``output``."""
+    the read of ``output``.
 
-    def __init__(self, graph, inputs, output):
+    ``pool_bytes`` is the device memory the capture took from the device
+    for the graph's private pool (the growth of
+    ``torch.cuda.memory_reserved`` across the capture, from an emptied
+    cache): the segments holding the intermediate and output tensors the
+    graph's kernels write, reserved for its replays."""
+
+    def __init__(self, graph, inputs, output, pool_bytes: int = 0):
         self.graph = graph
         self.inputs = inputs
         self.output = output
         self.replays = 0
+        self.pool_bytes = int(pool_bytes)
 
     def replay(self):
         self.graph.replay()
@@ -144,13 +152,22 @@ def capture(fn: Callable, inputs: Sequence[torch.Tensor],
     if device.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
     graph = torch.cuda.CUDAGraph()
+    # what torch.cuda.graph does on entry, done first so that the reserved
+    # memory is measured from the emptied cache the capture starts from
+    torch.cuda.synchronize(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(device)
     t0 = time.perf_counter()
     with torch.cuda.device(device):
         with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
                               capture_error_mode="thread_local"):
             output = fn(*inputs)
     CAPTURE_STATS.note_capture(time.perf_counter() - t0)
-    return CapturedProgram(graph, tuple(inputs), output)
+    torch.cuda.synchronize(device)
+    return CapturedProgram(
+        graph, tuple(inputs), output,
+        pool_bytes=max(0, torch.cuda.memory_reserved(device) - reserved0))
 
 
 # -- the predict plane's manifest -------------------------------------------

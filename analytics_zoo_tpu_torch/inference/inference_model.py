@@ -37,12 +37,14 @@ import logging
 import threading
 import time
 import warnings
+import weakref
 from typing import Callable, Dict, List, Optional, Set
 
 import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.context import DeviceLike, resolve_device
+from analytics_zoo_tpu_torch.inference import aot
 from analytics_zoo_tpu_torch.models.textmodels import TransformerLM
 from analytics_zoo_tpu_torch.nn.module import Layer
 
@@ -130,11 +132,17 @@ class InferenceModel:
         # cleared whenever the program changes (re-load, quantize), which
         # bumps the epoch
         self._warmed: Set[tuple] = set()
+        # signatures first run outside the warm-up (a bucket past the
+        # warmed ladder, e.g. after a retune): each is one cold first call
+        self._cold: Set[tuple] = set()
         self._hits = 0
         self._warm_lock = threading.Lock()
         self._epoch = 0
         # manifest-style program label -> executions
         self._execs: Dict[str, int] = {}
+        # the CUDA graphs captured over this model (``capture``), held
+        # weakly: a graph's pool counts while its owner keeps it
+        self._graphs = weakref.WeakSet()
 
     # -- telemetry -------------------------------------------------------------
     def bind_registry(self, registry) -> bool:
@@ -275,9 +283,13 @@ class InferenceModel:
         """One execution of a padded batch: counted under its program
         label, and as a hit when its signature was warmed."""
         label = self.program_label(xs, sc)
+        key = self._signature(xs, sc, multi)
         with self._warm_lock:
             self._execs[label] = self._execs.get(label, 0) + 1
-            self._hits += self._signature(xs, sc, multi) in self._warmed
+            if key in self._warmed:
+                self._hits += 1
+            else:
+                self._cold.add(key)
 
     def _padded_call(self, xs: List[np.ndarray], sc, multi: bool):
         """Enqueue ONE padded bucket batch: the arrays go to the device in
@@ -293,6 +305,7 @@ class InferenceModel:
         with self._warm_lock:
             self._epoch += 1
             self._warmed.clear()
+            self._cold.clear()
             self._hits = 0
             self._execs.clear()
 
@@ -324,15 +337,41 @@ class InferenceModel:
 
     def aot_stats(self) -> Dict:
         """Warm-up evidence since the last (re-)load: the epoch, the
-        signatures warmed (``cached_programs``; ``compiles``, each warmed
-        once), the calls that found theirs warm (``hits``) and executions
-        per program label."""
+        signatures that have had their first call (``cached_programs`` and
+        ``compiles``: each one warmed, and each one first run cold, outside
+        the warm-up, as a bucket past the warmed ladder is), the calls
+        that found their signature warmed (``hits``) and executions per
+        program label."""
         with self._warm_lock:
+            seen = len(self._warmed | self._cold)
             return {"epoch": self._epoch,
-                    "cached_programs": len(self._warmed),
+                    "cached_programs": seen,
                     "hits": self._hits,
-                    "compiles": len(self._warmed),
+                    "compiles": seen,
                     "programs": dict(self._execs)}
+
+    def capture(self, fn: Callable, inputs) -> "aot.CapturedProgram":
+        """``aot.capture`` of ``fn(*inputs)`` on this model's device; the
+        graph's pool then counts in ``aot_memory_bytes`` for as long as
+        its owner holds it."""
+        program = aot.capture(fn, inputs, self.device)
+        with self._warm_lock:
+            self._graphs.add(program)
+        return program
+
+    def aot_memory_bytes(self) -> Optional[int]:
+        """Device bytes held by the memory pools of the CUDA graphs
+        captured over this model and still alive: the growth of the
+        caching allocator's reserved memory across each capture
+        (``CapturedProgram.pool_bytes``), which the graph's replays
+        reuse.  These graphs are the port's counterpart of the JAX
+        package's compiled executables.  None where no graph is alive,
+        as on the CPU, where nothing is captured."""
+        with self._warm_lock:
+            graphs = list(self._graphs)
+        if not graphs:
+            return None
+        return sum(g.pool_bytes for g in graphs)
 
     class _Pending:
         """Handle for one dispatched batch: the device work is already

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 import time
 from typing import Optional
 
@@ -64,6 +65,11 @@ KERNEL_NAMES = {"paged": "paged_attention_kernel",
                 "w8a8_conv": "w8a8_conv2d_kernel"}
 
 
+# The profiler records one session a process.  Whoever records holds this
+# lock for the session: ``card_launches`` waits for it,
+# ``ClusterServing.start_profile`` refuses while it is held.
+PROFILER_LOCK = threading.Lock()
+
 # the profiler's warm-up before the counted block: launches and a wait
 WARMUP_LAUNCHES = 64
 WARMUP_S = 0.1
@@ -93,15 +99,17 @@ def card_launches(kernels=tuple(KERNEL_NAMES)):
     1824 on the H100), so the block starts SETTLE_S after recording
     begins, and recording stops SETTLE_S after the block's work has ended
     (``trace_probe.py`` counts lost records with and without the
-    waits)."""
+    waits).  The session holds ``PROFILER_LOCK``: a block waits for a
+    ``start_profile`` trace of the same process to end."""
     counts = {k: 0 for k in kernels}
     if not torch.cuda.is_available():
         yield counts
         return
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+    with PROFILER_LOCK, profile(
+            activities=[ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         warm = torch.zeros(1, device="cuda")
         for _ in range(WARMUP_LAUNCHES):
             warm.add_(1)

@@ -31,9 +31,28 @@ for its two data planes:
   valid checkpoint of the matching epoch resumes from it; any other
   reclaim restarts from token 0, and the tokens recomputed are counted.
 - **fault injection** (``params.faults``, ``serving/faults.py``): predict
-  errors and delays, a warm-up crash, held readiness, claim stalls, a
-  crash after n generated tokens and corrupt checkpoints, each gated on
-  ``model_version``.
+  errors and delays, a warm-up crash, held readiness, claim stalls,
+  rejects at the admission gate, a crash after n generated tokens and
+  corrupt checkpoints, each gated on ``model_version``.
+- **front door** (``params.http_port``, ``serving/http.py``): the probes
+  (``/healthz``, ``/readyz``, ``/metrics``), the ingestion gateway
+  (``/v1/enqueue``, ``/v1/result/<uri>``) and ``/debug/profile``, which
+  arms one ``torch.profiler`` trace (``start_profile``).
+- **armour** (``params.admission``, ``params.brownout``): the tenant
+  admission gate the gateway consults per request (``admit_record``,
+  ``serving/admission.py``), the brownout ladder driven by the SLO burn
+  rate (``serving/brownout.py``: partials suppressed, generation budgets
+  of non-interactive traffic clamped, best-effort shed at the door), and
+  the priority-ordered claim with its shed and deadline early-drop gates.
+- **usage metering** (``params.metering``, on unless ``False``:
+  ``serving/metering.py``): records, tokens, sheds, wire bytes and device
+  seconds charged to the tenant the gateway stamped, drained by
+  ``drain_usage``.
+- **operator surface**: live ``retune`` of the data-plane knobs (applied
+  at the preprocess loop's batch boundary, shown by ``knobs()``), the
+  ``resources`` block (``inference/resources.ResourceLedger``: weights,
+  decode state and CUDA-graph pools, also the
+  ``serving_hbm_bytes{component=}`` gauges) and the ``process`` block.
 
 Kept from the JAX engine, with the same contracts:
 
@@ -52,10 +71,9 @@ Kept from the JAX engine, with the same contracts:
   wire-stamped ``trace_id``, the flight recorder, optional SLO
   attribution, and the ``health()`` / ``metrics()`` documents.
 
-Not in this slice (setting them raises ``NotImplementedError``): admission
-control (and with it the ``admission_reject`` fault point), brownout,
-usage metering, profiling, TensorBoard summaries (``tensorboard_dir``),
-the HTTP gateway, sharding and XLA's persistent compilation cache
+Not in this slice (setting them raises ``NotImplementedError``):
+TensorBoard summaries (``tensorboard_dir``), sharding (``sharding``,
+``mesh_shape``) and XLA's persistent compilation cache
 (``compile_cache_dir``: the kernel libraries are cached under ``build/``
 already, and nothing else is compiled).  Image records (``image``:
 base64 PNG / JPEG bytes) are decoded with ``cv2`` as the JAX engine
@@ -65,6 +83,7 @@ decodes them; where OpenCV is missing such a record fails alone.
 from __future__ import annotations
 
 import base64
+import contextlib
 import itertools
 import logging
 import os
@@ -94,12 +113,23 @@ from analytics_zoo_tpu_torch.common.resilience import (CircuitBreaker,
 from analytics_zoo_tpu_torch.inference import aot
 from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.inference.quantize import quantized_bits
+from analytics_zoo_tpu_torch.inference.resources import ResourceLedger
+from analytics_zoo_tpu_torch.ops import _impl
 from analytics_zoo_tpu_torch.serving import tracecollect
 from analytics_zoo_tpu_torch.serving import wire as _wire
+from analytics_zoo_tpu_torch.serving.admission import (PRIORITIES,
+                                                       AdmissionController,
+                                                       deadline_unmeetable,
+                                                       normalize_priority,
+                                                       normalize_tenant,
+                                                       pressure_level,
+                                                       shed_classes)
+from analytics_zoo_tpu_torch.serving.brownout import BrownoutLadder
 from analytics_zoo_tpu_torch.serving.faults import FaultInjector
 from analytics_zoo_tpu_torch.serving.generate import (ContinuousBatcher,
                                                       GenerationParams,
                                                       GenRequest)
+from analytics_zoo_tpu_torch.serving.metering import UsageMeter
 from analytics_zoo_tpu_torch.serving.queues import BaseQueue
 
 logger = logging.getLogger(__name__)
@@ -239,6 +269,7 @@ class _InFlight(NamedTuple):
     traces: Optional[List]
     t_read: Optional[float]
     t_dispatch: float
+    tenants: Optional[List] = None    # per-row tenant (usage attribution)
 
 
 class _LazyResult:
@@ -324,10 +355,8 @@ def apply_quantize(model, spec) -> bool:
 
 # ServingParams options of the JAX engine that this slice does not serve:
 # name -> the value that means "off".  Any other value raises.
-_NOT_PORTED = {"http_port": None, "http_host": "127.0.0.1", "gateway": True,
-               "sharding": "off", "mesh_shape": None,
-               "compile_cache_dir": None, "profiling": False,
-               "admission": None, "brownout": None, "metering": None}
+_NOT_PORTED = {"sharding": "off", "mesh_shape": None,
+               "compile_cache_dir": None}
 
 
 class ServingParams:
@@ -369,7 +398,7 @@ class ServingParams:
                  quantize=None,
                  flight_recorder: bool = True,
                  recorder_ring: Optional[int] = None,
-                 profiling: bool = False,
+                 profiling: bool = True,
                  model_version: Optional[str] = None,
                  faults=None,
                  admission=None,
@@ -395,6 +424,9 @@ class ServingParams:
         self.worker_backoff_s = worker_backoff_s
         self.breaker_threshold = breaker_threshold
         self.breaker_cooldown_s = breaker_cooldown_s
+        # the probe port (0 picks an ephemeral one; None = no HTTP server)
+        self.http_port = http_port
+        self.http_host = http_host
         self.drain_s = drain_s
         self.ready_queue_depth = ready_queue_depth
         # coalescing read: up to max_batch records (None = batch_size),
@@ -408,6 +440,9 @@ class ServingParams:
         self.inflight_batches = inflight_batches
         self.trim_interval_s = trim_interval_s
         self.tracing = bool(tracing)
+        # the ingestion gateway's /v1 routes on the probe port; off = a
+        # probe-only port
+        self.gateway = bool(gateway)
         # horizontal replicas: identity, lease, reclaim period, poison
         # parking after max_deliveries
         self.replica_id = replica_id
@@ -432,6 +467,9 @@ class ServingParams:
         self.flight_recorder = bool(flight_recorder)
         self.recorder_ring = (None if recorder_ring is None
                               else max(16, int(recorder_ring)))
+        # POST /debug/profile on the probe port (one torch.profiler trace
+        # at a time); off removes the route
+        self.profiling = bool(profiling)
         self.model_version = (None if model_version is None
                               else str(model_version))
         # ahead-of-time warm-up at start: False | True (derive the set) |
@@ -441,6 +479,25 @@ class ServingParams:
         # fault injection (serving/faults.py): strictly opt-in chaos, each
         # point gated on model_version
         self.faults = faults if isinstance(faults, dict) else None
+        # overload armour: the tenant admission gate the gateway consults
+        # (serving/admission.py: enabled, rate, burst, tenants,
+        # depth_fractions) and the brownout ladder driven by the SLO burn
+        # rate (serving/brownout.py: enter, exit_ratio, dwell_s, hold_s,
+        # batch_max_tokens; it needs serving_slo for its input).  None =
+        # off
+        self.admission = admission if isinstance(admission, dict) else None
+        self.brownout = brownout if isinstance(brownout, dict) else None
+        # usage metering (serving/metering.py): None/True = on with
+        # defaults ({tenant=,model=} series, per-interval usage deltas,
+        # per-tenant SLO views); a dict configures it ({"enabled",
+        # "max_tenants", "slo_objectives"}); False = the unlabelled
+        # records/tokens series only
+        if isinstance(metering, dict):
+            self.metering = metering
+        elif metering is None:
+            self.metering = {}
+        else:
+            self.metering = {} if metering else {"enabled": False}
 
     @classmethod
     def from_dict(cls, p: Dict) -> "ServingParams":
@@ -477,13 +534,8 @@ class ClusterServing:
         p = self.params
         # fault injection: built even when inert (describe() rides the
         # health document); a point is wired in only when armed for this
-        # replica's version.  An armed point that nothing would fire is
-        # refused rather than kept as a silent no-op.
+        # replica's version (admission_reject fires in the admission gate)
         self._faults = FaultInjector(p.faults, p.model_version)
-        if self._faults.admission_active:
-            raise NotImplementedError(
-                "faults.admission_reject needs the admission gate, which "
-                "is not ported yet (ROADMAP queue 1, item 2)")
         # quantize BEFORE any worker can dispatch: a bad spec (int8 with
         # no calibration) fails construction, not a mid-stream request
         if p.quantize and isinstance(model, InferenceModel):
@@ -537,6 +589,40 @@ class ClusterServing:
             self.recorder.resize(p.recorder_ring)
         self._event = (self._record_event if p.flight_recorder
                        else (lambda *a, **kw: None))
+        # overload armour: the brownout ladder (fed the SLO burn rate by
+        # the read loop) and the tenant admission gate the gateway consults
+        # per request; None wires nothing into the hot path
+        self._brownout = None
+        self._brownout_next = 0.0            # next ladder tick (throttled)
+        if p.brownout is not None:
+            self._brownout = BrownoutLadder(
+                p.brownout,
+                recorder=self.recorder if p.flight_recorder else None,
+                registry=self.registry, replica_id=self.replica_id)
+        self._admission = None
+        if p.admission is not None:
+            self._admission = AdmissionController(
+                p.admission, registry=self.registry,
+                queue_depth_fn=self._admission_depth,
+                max_depth=getattr(queue, "max_depth", None),
+                brownout_stage_fn=lambda: self.brownout_stage,
+                faults=self._faults)
+        # smoothed per-batch predict time: the early-drop gate's estimate
+        # (None until the first batch lands: never drop on a guess)
+        self._predict_ewma_s: Optional[float] = None
+        # the scheduler-side armour (priority-ordered claim and shed, the
+        # deadline early drop) rides the same opt-in as the config blocks
+        self._armor = p.admission is not None or p.brownout is not None
+        # on-demand profiling: one torch.profiler trace at a time, written
+        # under profile_dir (set by the engine's owner; a temporary
+        # directory otherwise)
+        self.profile_dir: Optional[str] = None
+        self._http = None                    # HealthServer when http_port set
+        # live retune: validated knob targets staged by retune() and applied
+        # at the preprocess loop's batch boundary, by the thread that owns
+        # the read batch and the preprocess pool
+        self._knob_lock = threading.Lock()
+        self._pending_knobs: Dict[str, float] = {}
         self._write_retry = RetryPolicy(max_retries=p.write_retries,
                                         base_delay_s=p.write_backoff_s)
         self._breaker = CircuitBreaker(failure_threshold=p.breaker_threshold,
@@ -554,6 +640,7 @@ class ClusterServing:
         self._staged: Optional[Queue] = None
         self._writeq: Optional[Queue] = None
         self._pre_pool = None
+        self._pre_pool_size = 0              # workers in the live pool
         self._last_trim = time.monotonic()
         # the token scheduler, built here so a model lacking the paged
         # decode API fails construction, not a mid-stream request
@@ -591,6 +678,19 @@ class ClusterServing:
         self._e2e = reg.histogram(
             "serving_e2e_seconds",
             "Per-record latency from read_batch return to result written")
+        # usage metering: the meter owns the {tenant=,model=} series
+        # (serving_records_total, serving_generated_tokens_total,
+        # serving_sheds_total, serving_device_seconds_total,
+        # serving_request_seconds), or with metering off the unlabelled
+        # records and tokens series
+        p = self.params
+        tenants = ()
+        if isinstance(p.admission, dict) \
+                and isinstance(p.admission.get("tenants"), dict):
+            tenants = tuple(p.admission["tenants"])
+        self.meter = UsageMeter(reg, model=self.model_version,
+                                cfg=p.metering, tenants_configured=tenants,
+                                slo_defaults=p.serving_slo)
         self._m_quarantined = reg.counter(
             "serving_quarantined_total", "Records dead-lettered, by stage",
             labels=("stage",))
@@ -649,12 +749,29 @@ class ClusterServing:
             fns += self._init_generation_metrics()
         self._gauge_fns = [(reg.gauge(name, help_, fn=fn), fn)
                            for name, help_, fn in fns]
+        # resource accounting: device memory by component (weights at
+        # their stored dtype, decode state, CUDA-graph pools), live gauges
+        # beside the health document's `resources` block
+        self._ledger = ResourceLedger(self.model, batcher=self._batcher)
+        hbm = reg.gauge("serving_hbm_bytes",
+                        "Device memory by component: weights (stored "
+                        "dtype), kv_state (decode state), executables "
+                        "(CUDA-graph memory pools)", labels=("component",))
+        for comp in ResourceLedger.COMPONENTS:
+            fn = (lambda c=comp: self._ledger.hbm_bytes(c))
+            child = hbm.labels(component=comp)
+            child.add_function(fn)
+            self._gauge_fns.append((child, fn))
         for name, help_, key in (
                 ("process_resident_memory_bytes",
                  "Resident set size of this serving process", "rss_bytes"),
                 ("process_cpu_seconds_total",
                  "User+system CPU seconds consumed by this process",
-                 "cpu_seconds")):
+                 "cpu_seconds"),
+                ("process_open_fds",
+                 "Open file descriptors in this process", "open_fds"),
+                ("process_threads_total",
+                 "Live threads in this process", "threads")):
             fn = (lambda k=key: float(process_stats().get(k) or 0))
             self._gauge_fns.append((reg.gauge(name, help_, fn=fn), fn))
 
@@ -666,10 +783,6 @@ class ClusterServing:
             "serving_decode_steps_total",
             "Decode steps executed by the token scheduler")
         self._m_decode_steps.inc(0)
-        self._m_tokens = reg.counter(
-            "serving_generated_tokens_total",
-            "Tokens generated by the token scheduler")
-        self._m_tokens.inc(0)
         self._m_ttft = reg.histogram(
             "serving_time_to_first_token_seconds",
             "Request admission to first generated token")
@@ -678,7 +791,6 @@ class ClusterServing:
             "Generated tokens per second over the last rate window")
         self._g_tps.set(0.0)
         self._last_steps = 0
-        self._last_tokens = 0
         self._tps_window = (time.monotonic(), 0)   # (t0, tokens0)
         # continuity counters, made at zero so deltas are exact
         self._last_resumed = 0
@@ -733,6 +845,74 @@ class ClusterServing:
     def _heartbeat_age(self) -> float:
         return time.monotonic() - self._hb_ts
 
+    # -- overload armour -------------------------------------------------------
+    def _admission_depth(self) -> Optional[int]:
+        """Queue depth for the admission gate's class caps; None (no
+        signal, admit) when the backend is unreachable — a dead backend is
+        the breaker's problem, not a reason to 429."""
+        try:
+            return int(self.queue.depth())
+        except Exception:  # noqa: BLE001 — backend down
+            return None
+
+    @property
+    def brownout_stage(self) -> int:
+        return self._brownout.stage if self._brownout is not None else 0
+
+    def admit_record(self, tenant=None, priority=None):
+        """The gateway's per-request admission consult.  Returns an
+        ``admission.Decision``, or None when no controller is configured
+        (the gateway falls through to the queue's fleet-wide 429)."""
+        if self._admission is None:
+            return None
+        d = self._admission.admit(tenant, priority)
+        if not d.admitted:
+            # rejections belong on the incident timeline next to the
+            # brownout transitions they usually accompany
+            self._event("admission_reject", reason=d.reason,
+                        tenant=d.tenant, priority=d.priority)
+        return d
+
+    def _brownout_tick(self) -> None:
+        """Feed the ladder the current SLO burn rate (at most 4 Hz: the
+        ladder's dwell and hold windows are seconds)."""
+        if self._brownout is None or self._slo is None:
+            return
+        now = time.monotonic()
+        if now < self._brownout_next:
+            return
+        self._brownout_next = now + 0.25
+        try:
+            burn = self._slo.snapshot().get("burn_rate", 0.0)
+        except Exception:  # noqa: BLE001 — ladder input, not load-bearing
+            return
+        self._brownout.observe(burn, now)
+
+    def _note_predict_time(self, seconds: float) -> None:
+        """EWMA of per-batch predict wall time (alpha 0.2) — the early
+        drop gate's service-time estimate."""
+        if seconds <= 0:
+            return
+        prev = self._predict_ewma_s
+        self._predict_ewma_s = seconds if prev is None \
+            else 0.8 * prev + 0.2 * seconds
+
+    def _pressure_level(self) -> int:
+        """Engine-side shed aggressiveness (0/1/2) from the staged-buffer
+        backlog, the queue-depth fraction and the brownout stage — see
+        ``admission.pressure_level``."""
+        staged = self._staged
+        staged_frac = 0.0
+        if staged is not None:
+            staged_frac = staged.qsize() / max(1, staged.maxsize or 1)
+        depth_frac = 0.0
+        max_depth = getattr(self.queue, "max_depth", None)
+        if max_depth:
+            depth = self._admission_depth()
+            if depth is not None:
+                depth_frac = depth / float(max_depth)
+        return pressure_level(staged_frac, depth_frac, self.brownout_stage)
+
     # -- flight recorder + tracing -------------------------------------------
     def _record_event(self, kind: str, **attrs) -> None:
         """Stamp replica identity, never raise — forensics must not be able
@@ -741,6 +921,123 @@ class ClusterServing:
             self.recorder.record(kind, replica=self.replica_id, **attrs)
         except Exception:  # noqa: BLE001 — diagnostic, not load-bearing
             pass
+
+    # -- on-demand profiling ---------------------------------------------------
+    PROFILE_MIN_S, PROFILE_MAX_S = 0.05, 300.0
+
+    def _device_work(self) -> int:
+        """Units of device work this engine has issued so far: decode
+        steps on the generation plane, padded forwards on the predict
+        plane."""
+        if self._batcher is not None:
+            return int(self._batcher.decode_steps)
+        try:
+            return int(sum(self.model.aot_stats()["programs"].values()))
+        except Exception:  # noqa: BLE001 — a model without the counters
+            return 0
+
+    def start_profile(self, seconds: float,
+                      out_dir: Optional[str] = None) -> Dict:
+        """Arm one ``torch.profiler`` trace of this process for
+        ``seconds`` (clamped to [PROFILE_MIN_S, PROFILE_MAX_S]) into a new
+        directory under ``out_dir``, ``profile_dir`` or the temporary
+        directory; the Chrome trace lands there as ``trace.json``.  ONE
+        trace at a time: a second request while one is armed, or while
+        another profiler session of the process records (the profiler
+        keeps one session a process; ``ops/_impl.card_launches`` holds
+        ``_impl.PROFILER_LOCK`` for its own, as this trace does), raises
+        ``RuntimeError`` (the gateway answers 409).
+
+        The trace runs on a daemon thread, so a probe handler never waits
+        for it; the 202 reply means "armed".  It records CPU activity and,
+        on a CUDA engine, the card's kernels: CUPTI records the device
+        across the whole process, while CPU operator events are recorded
+        on the profiling thread only, so the trace holds the card's
+        kernels and none of the workers' CPU operators.  ``profile_done``
+        (with the trace's device and CPU event counts) marks its end.  A trace that fails — it cannot start, or
+        a CUDA engine did device work inside the window and the trace
+        holds no device event — posts ``profile_error`` instead, and the
+        engine serves on."""
+        import tempfile
+        seconds = min(max(float(seconds), self.PROFILE_MIN_S),
+                      self.PROFILE_MAX_S)
+        base = out_dir or self.profile_dir or os.path.join(
+            tempfile.gettempdir(), f"serving-profile-{self.replica_id}")
+        path = os.path.join(
+            base, time.strftime("%Y%m%d-%H%M%S") + f"-{os.getpid()}")
+        if torch.autograd._profiler_enabled() \
+                or not _impl.PROFILER_LOCK.acquire(blocking=False):
+            raise RuntimeError(
+                "a profiling trace is already armed/running, or another "
+                "profiler session records in this process — one at a time")
+        try:
+            os.makedirs(path, exist_ok=True)
+        except OSError:
+            _impl.PROFILER_LOCK.release()
+            raise
+        self._event("profile_start", path=path, seconds=seconds)
+        threading.Thread(target=self._profile_run, args=(path, seconds),
+                         name="serving-profile", daemon=True).start()
+        logger.info("serving: profiling armed for %.2fs into %s",
+                    seconds, path)
+        return {"profiling": True, "path": path,
+                "seconds": seconds, "replica_id": self.replica_id}
+
+    def _profile_run(self, path: str, seconds: float) -> None:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        cuda = getattr(self.model, "device", None) is not None \
+            and torch.device(self.model.device).type == "cuda"
+        try:
+            activities = [ProfilerActivity.CPU]
+            if cuda:
+                if ProfilerActivity.CUDA not in \
+                        torch.profiler.supported_activities():
+                    raise RuntimeError("this torch build cannot trace the "
+                                       "card (no CUDA profiler activity)")
+                activities.append(ProfilerActivity.CUDA)
+            # start and stop between decode boundaries: every CUDA-graph
+            # replay runs inside a boundary, under the batcher's lock, and
+            # stopping the profiler while another thread replayed a graph
+            # deadlocked the two on the H100
+            quiet = self._batcher._device_lock \
+                if self._batcher is not None else contextlib.nullcontext()
+            work0 = self._device_work()
+            prof = profile(activities=activities)
+            with quiet:
+                prof.start()
+            try:
+                time.sleep(seconds)
+            finally:
+                with quiet:
+                    prof.stop()
+            work = self._device_work() - work0
+            trace = os.path.join(path, "trace.json")
+            prof.export_chrome_trace(trace)
+            # counted on the raw records: key_averages() would build a
+            # Python event for each of them, which for the ~10^5 kernels
+            # of a busy second holds the interpreter lock the serving
+            # workers need for many seconds
+            device = cpu = 0
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() == DeviceType.CUDA:
+                    device += 1
+                else:
+                    cpu += 1
+            if cuda and work > 0 and device == 0:
+                raise RuntimeError(
+                    f"the trace holds no device event although {work} "
+                    f"unit(s) of device work ran in its window")
+            self._event("profile_done", path=path, seconds=seconds,
+                        device_events=device, cpu_events=cpu,
+                        device_work=work)
+        except Exception as e:  # noqa: BLE001 — the trace failing must not
+            # leave the engine permanently "busy", nor take serving down
+            logger.exception("serving: profiling trace failed")
+            self._event("profile_error",
+                        error=f"{type(e).__name__}: {e}"[:200], path=path)
+        finally:
+            _impl.PROFILER_LOCK.release()
 
     _TRACE_META_CAP = 8192
 
@@ -791,17 +1088,21 @@ class ClusterServing:
                        trace_id=tid, uri=rid)
 
     def _slo_observe(self, rid, e2e_s: float,
-                     stages: Optional[Dict] = None) -> None:
-        """Feed one completed record to the SLO tracker, queue-wait folded
-        in as a stage and into the judged latency."""
+                     stages: Optional[Dict] = None,
+                     tenant: Optional[str] = None) -> float:
+        """Feed one completed record to the SLO tracker and the tenant's
+        burn view, queue-wait folded in as a stage and into the judged
+        latency.  Returns the folded e2e, which the caller charges to
+        ``serving_request_seconds`` once per (tenant, flush)."""
         qwait = self._qwait.pop(rid, None)
-        if self._slo is None:
-            return
         stages = dict(stages or {})
         if qwait is not None:
             stages["queue_wait"] = qwait
             e2e_s = float(e2e_s) + qwait
-        self._slo.observe(e2e_s, stages)
+        self.meter.slo_observe(tenant, e2e_s, stages)
+        if self._slo is not None:
+            self._slo.observe(e2e_s, stages)
+        return float(e2e_s)
 
     # -- lease lifecycle ------------------------------------------------------
     def _ack(self, rids: List[str]) -> None:
@@ -990,17 +1291,28 @@ class ClusterServing:
                            self.queue.put_result, rid, value)
 
     def _flush_results(self, pairs: List[Tuple[str, Dict]],
-                       tmap: Optional[Dict] = None) -> int:
+                       tmap: Optional[Dict] = None,
+                       tenmap: Optional[Dict] = None) -> int:
         """Write a group of results in one backend round-trip, falling back
         to per-record writes (``put_result`` is idempotent per key) when the
         batch write fails; only records that individually fail are
-        quarantined."""
+        quarantined.  Records served are charged here, the one choke point
+        both planes flush through, per tenant (``tenmap``: rid -> tenant),
+        so exactly the committed results are billed."""
         if not pairs:
             return 0
+        tenmap = tenmap or {}
         try:
             self._breaker.call(self._write_retry.call,
                                self.queue.put_results, pairs)
             self._ack([rid for rid, _ in pairs])
+            # one charge per tenant per flush, not per record
+            by_tenant: Dict[Optional[str], int] = {}
+            for rid, _ in pairs:
+                ten = tenmap.get(rid)
+                by_tenant[ten] = by_tenant.get(ten, 0) + 1
+            for ten, n in by_tenant.items():
+                self.meter.records(ten, n)
             return len(pairs)
         except Exception as e:  # noqa: BLE001 — batch path down: degrade
             if not isinstance(e, CircuitBreakerOpen):
@@ -1013,27 +1325,35 @@ class ClusterServing:
                 try:
                     self._put_result(rid, value)
                     written.append(rid)
+                    self.meter.records(tenmap.get(rid))
                 except Exception as rec_exc:  # noqa: BLE001
                     self._quarantine(rid, "put_result", rec_exc,
-                                     trace_id=(tmap or {}).get(rid))
+                                     trace_id=(tmap or {}).get(rid),
+                                     tenant=tenmap.get(rid))
             self._ack(written)
             return len(written)
 
     def _quarantine(self, rid, stage: str, exc: BaseException,
                     record: Optional[Dict] = None,
-                    trace_id: Optional[str] = None):
+                    trace_id: Optional[str] = None,
+                    tenant: Optional[str] = None):
         """Per-record fault isolation: the poisoned record gets an error
-        RESULT plus a dead-letter entry; the rest proceeds untouched."""
+        RESULT plus a dead-letter entry; the rest proceeds untouched.  The
+        loss is billed to the record's tenant."""
         self.dead_lettered += 1
         self._m_quarantined.labels(stage=stage).inc()
+        if tenant is None and record is not None:
+            tenant = record.get("tenant")
+        self.meter.sheds(tenant)
         msg = f"{stage}: {type(exc).__name__}: {exc}"
         if trace_id is None and record is not None:
             trace_id = record.get("trace_id")
         now = time.monotonic()
-        self._span(stage, now, now, trace_id=trace_id, uri=rid, error=msg)
+        self._span(stage, now, now, trace_id=trace_id, uri=rid, error=msg,
+                   attrs=({"tenant": tenant} if tenant else None))
         logger.warning("serving: quarantining record %r (%s)", rid, msg)
         self._event("quarantine", rid=str(rid), stage=stage,
-                    error=msg[:200], trace_id=trace_id)
+                    error=msg[:200], trace_id=trace_id, tenant=tenant)
         handled = False
         try:
             self._dead_breaker.call(self.queue.put_error, rid, msg,
@@ -1055,10 +1375,12 @@ class ClusterServing:
     # -- deadlines ------------------------------------------------------------
     def _shed_expired(self, rid, rec: Optional[Dict],
                       deadline_ns=None, stage: str = "read",
-                      trace_id: Optional[str] = None) -> bool:
+                      trace_id: Optional[str] = None,
+                      tenant: Optional[str] = None) -> bool:
         """True when the deadline — the record's ``deadline_ns``, or the
         one given — has passed (a ``deadline-exceeded`` marker is
-        written) or is junk (quarantined)."""
+        written, the shed billed to the tenant) or is junk
+        (quarantined)."""
         dl = deadline_ns if deadline_ns is not None \
             else (rec or {}).get("deadline_ns")
         if dl is None:
@@ -1072,22 +1394,31 @@ class ClusterServing:
             return True
         if not expired:
             return False
-        self._shed_terminal(rid, stage=stage, trace_id=trace_id)
+        if tenant is None and rec is not None \
+                and isinstance(rec.get("tenant"), str):
+            tenant = rec.get("tenant")
+        self._shed_terminal(rid, stage=stage, trace_id=trace_id,
+                            tenant=tenant)
         return True
 
     def _shed_terminal(self, rid, stage: str = "read",
                        trace_id: Optional[str] = None,
                        error: str = "deadline-exceeded: budget elapsed "
                                     "before predict",
-                       extra: Optional[Dict] = None) -> None:
+                       extra: Optional[Dict] = None,
+                       tenant: Optional[str] = None) -> None:
         """Terminal shed: error marker written (best-effort), claim
-        released, counters and span recorded.  ``extra`` rides the marker
-        (a mid-generation shed keeps its partial tokens)."""
+        released, counters and span recorded, the loss billed to the
+        tenant.  ``extra`` rides the marker (a mid-generation shed keeps
+        its partial tokens)."""
         self.shed += 1
         self._m_shed.inc()
+        self.meter.sheds(tenant)
         now = time.monotonic()
-        self._span(stage, now, now, trace_id=trace_id, uri=rid, error=error)
-        self._event("shed", rid=str(rid), stage=stage, trace_id=trace_id)
+        self._span(stage, now, now, trace_id=trace_id, uri=rid, error=error,
+                   attrs=({"tenant": tenant} if tenant else None))
+        self._event("shed", rid=str(rid), stage=stage, trace_id=trace_id,
+                    tenant=tenant)
         result = {"error": error}
         if extra:
             result.update(extra)
@@ -1099,6 +1430,43 @@ class ClusterServing:
             pass           # deadline still unblocks it
         self._redelivered.pop(rid, None)
         self._ack([rid])
+
+    def _claim_shed(self, rid, rec, to_shed) -> bool:
+        """The claim gates of an armoured deployment.  True when the record
+        left the pipeline: its priority class is being shed at the current
+        pressure level, or the deadline early drop judged it unmeetable —
+        remaining budget shorter than the estimated wait through the
+        staged backlog at the smoothed per-batch time (no estimate yet =
+        never drop)."""
+        if not isinstance(rec, dict):
+            return False
+        trace_id = rec.get("trace_id")
+        tenant = rec.get("tenant") \
+            if isinstance(rec.get("tenant"), str) else None
+        if to_shed:
+            prio = normalize_priority(rec.get("priority"))
+            if prio in to_shed:
+                self._shed_terminal(
+                    rid, stage="claim", trace_id=trace_id,
+                    error=f"shed: {prio} class dropped under overload "
+                          f"pressure", tenant=tenant)
+                return True
+        dl = rec.get("deadline_ns")
+        if dl is not None and self._predict_ewma_s:
+            try:
+                remaining_s = (int(dl) - time.time_ns()) / 1e9
+            except (TypeError, ValueError, OverflowError):
+                return False     # junk deadline: _shed_expired's business
+            backlog = sum(q.qsize() for q in (self._staged, self._writeq)
+                          if q is not None)
+            if deadline_unmeetable(remaining_s, backlog,
+                                   self._predict_ewma_s):
+                self._shed_terminal(
+                    rid, stage="claim", trace_id=trace_id,
+                    error="deadline-unmeetable: estimated queue wait "
+                          "exceeds the remaining budget", tenant=tenant)
+                return True
+        return False
 
     # -- read + preprocess ----------------------------------------------------
     def _read_coalesced(self):
@@ -1144,10 +1512,102 @@ class ClusterServing:
             return None
         if self._pre_pool is None:
             from concurrent.futures import ThreadPoolExecutor
+            self._pre_pool_size = self.params.preprocess_workers
             self._pre_pool = ThreadPoolExecutor(
-                max_workers=self.params.preprocess_workers,
+                max_workers=self._pre_pool_size,
                 thread_name_prefix="serving-pre")
         return self._pre_pool
+
+    # -- live retune -----------------------------------------------------------
+    MAX_PREPROCESS_WORKERS = 32
+
+    def retune(self, max_batch: Optional[int] = None,
+               max_wait_ms: Optional[float] = None,
+               preprocess_workers: Optional[int] = None,
+               inflight_batches: Optional[int] = None) -> Dict:
+        """Stage a live data-plane retune (an autoscaler's fast tier).
+        Values are validated and clamped HERE — ``max_batch`` to the pow-2
+        bucket ladder within [1, the model's max_batch],
+        ``inflight_batches`` to the model's concurrency contract,
+        ``preprocess_workers`` to [1, MAX_PREPROCESS_WORKERS] — and applied
+        by the preprocess worker at its next batch boundary, so a
+        mid-batch nudge never tears the pipeline.  A predict bucket past
+        the warmed ladder runs its first call cold (counted in
+        ``InferenceModel.aot_stats()["compiles"]``).  Returns the clamped
+        targets.  Safe to call before ``start()``."""
+        from analytics_zoo_tpu_torch.inference.inference_model import \
+            _pow2_floor
+        staged: Dict[str, float] = {}
+        if max_batch is not None:
+            mb = _pow2_floor(max(1, int(max_batch)))
+            cap = getattr(self.model, "max_batch", None)
+            if cap is not None:
+                mb = min(mb, int(cap))
+            staged["max_batch"] = mb
+        if max_wait_ms is not None:
+            staged["max_wait_ms"] = max(0.0, float(max_wait_ms))
+        if preprocess_workers is not None:
+            staged["preprocess_workers"] = min(
+                max(1, int(preprocess_workers)), self.MAX_PREPROCESS_WORKERS)
+        if inflight_batches is not None:
+            inflight = max(1, int(inflight_batches))
+            model_cap = getattr(self.model, "concurrent_num", None)
+            if model_cap is not None:
+                inflight = min(inflight, int(model_cap))
+            staged["inflight_batches"] = inflight
+        with self._knob_lock:
+            self._pending_knobs.update(staged)
+        return staged
+
+    def knobs(self) -> Dict:
+        """Current data-plane knob targets (pending retunes win over the
+        applied params)."""
+        p = self.params
+        doc = {"max_batch": p.max_batch or p.batch_size,
+               "max_wait_ms": p.max_wait_ms,
+               "preprocess_workers": p.preprocess_workers,
+               "inflight_batches": p.inflight_batches,
+               "max_batch_ceiling": int(getattr(self.model, "max_batch",
+                                                1024) or 1024),
+               "inflight_ceiling": int(getattr(self.model, "concurrent_num",
+                                               None) or 64)}
+        with self._knob_lock:
+            doc.update(self._pending_knobs)
+        return doc
+
+    def _apply_pending_knobs(self) -> None:
+        """Apply staged retunes on the preprocess worker between
+        micro-batches: ``max_batch``/``max_wait_ms`` are read per batch by
+        ``_read_coalesced``, the pool swap happens with no decode in
+        flight, and the write-queue resize changes ``maxsize`` under the
+        queue's own mutex."""
+        with self._knob_lock:
+            if not self._pending_knobs:
+                return
+            staged, self._pending_knobs = self._pending_knobs, {}
+        p = self.params
+        if "max_batch" in staged:
+            p.max_batch = int(staged["max_batch"])
+        if "max_wait_ms" in staged:
+            p.max_wait_ms = float(staged["max_wait_ms"])
+        if "preprocess_workers" in staged:
+            p.preprocess_workers = int(staged["preprocess_workers"])
+            if self._pre_pool is not None and \
+                    self._pre_pool_size != p.preprocess_workers:
+                # no decode in flight at the batch boundary: the old pool
+                # has nothing queued, so the swap is clean
+                self._pre_pool.shutdown(wait=False)
+                self._pre_pool = None
+        if "inflight_batches" in staged:
+            p.inflight_batches = int(staged["inflight_batches"])
+            q = self._writeq
+            if q is not None:
+                with q.mutex:
+                    q.maxsize = p.inflight_batches
+                    q.not_full.notify_all()
+        logger.info("serving: replica %s retuned %s", self.replica_id,
+                    staged)
+        self._event("retune", **{k: float(v) for k, v in staged.items()})
 
     def _read_and_preprocess(self):
         """Read one micro-batch (reclaimed orphans first) and preprocess it
@@ -1156,6 +1616,10 @@ class ClusterServing:
         was empty; [] = records were read but all shed or quarantined."""
         t0 = time.monotonic()
         self._hb_ts = t0
+        self._apply_pending_knobs()
+        # the brownout ladder's tick: the SLO burn rate in, so the stage
+        # the gateway and the scheduler consult tracks the live window
+        self._brownout_tick()
         if self._faults.claim_active:
             # claim_stall: a deterministic backlog builder — the read loop
             # stalls BEFORE claiming
@@ -1171,6 +1635,7 @@ class ClusterServing:
         if not batch:
             return None
         self._stages["read"].record(t_read - t0)
+        bytes_by_tenant: Dict[Optional[str], int] = {}
         for rid, rec in batch:
             self._inflight[rid] = t_read
             self._note_trace_ctx(rid, rec, t_read)
@@ -1178,15 +1643,37 @@ class ClusterServing:
             nbytes = rec.get("wire_bytes")
             if not (isinstance(nbytes, (int, float))
                     and 0 <= nbytes < float("inf")):
-                raw = rec.get("b64") or ""
+                raw = rec.get("b64") or rec.get("image") or ""
                 nbytes = len(raw) \
                     if isinstance(raw, (str, bytes, bytearray)) else 0
             self._m_wire_bytes.labels(
                 format=_wire_fmt_label(rec)).inc(nbytes)
+            # ingress bytes charged to the tenant the gateway stamped
+            # (records without one -> "unknown"), once per read batch
+            ten = rec.get("tenant")
+            ten = ten if isinstance(ten, str) else None
+            bytes_by_tenant[ten] = bytes_by_tenant.get(ten, 0) + nbytes
             self._span("read", t0, t_read, trace_id=rec["trace_id"],
                        uri=rid)
+        for ten, nb in bytes_by_tenant.items():
+            self.meter.wire_bytes(ten, nb)
+        # priority-ordered claim and shed (armoured deployments only):
+        # interactive records stage first; under pressure the lowest
+        # classes are shed before they spend a predict slot, and a record
+        # that can no longer make its deadline through the backlog is
+        # dropped at claim
+        if self._armor:
+            rank = {prio: i for i, prio in enumerate(PRIORITIES)}
+            batch = sorted(batch, key=lambda kv: rank[normalize_priority(
+                kv[1].get("priority") if isinstance(kv[1], dict)
+                else None)])
+            to_shed = shed_classes(self._pressure_level())
+        else:
+            to_shed = ()
         kept = [(rid, rec) for rid, rec in batch
-                if not self._shed_expired(rid, rec)]
+                if not self._shed_expired(rid, rec)
+                and not (self._armor and self._claim_shed(rid, rec,
+                                                          to_shed))]
 
         def pre_one(rec):
             p0 = time.monotonic()
@@ -1209,9 +1696,16 @@ class ClusterServing:
                 # the scheduler validates and clamps the values
                 meta = rec.get("gen")
                 meta = dict(meta) if isinstance(meta, dict) else {}
+                # the identity outlives the record dict: result documents,
+                # device-second shares and token charges read it off the
+                # meta (None for records without one; the meter folds it)
                 ten = rec.get("tenant")
-                meta["_tenant"] = ten if isinstance(ten, str) and ten \
-                    else None
+                meta["_tenant"] = normalize_tenant(ten) \
+                    if isinstance(ten, str) and ten else None
+                if self._armor:
+                    # the brownout clamp at submission needs the class
+                    meta["_priority"] = normalize_priority(
+                        rec.get("priority"))
                 if isinstance(rec.get("_resume"), dict):
                     # resume state stapled on at reclaim must reach
                     # _submit_group, like the identity
@@ -1302,13 +1796,18 @@ class ClusterServing:
                        metas=None) -> Optional[_InFlight]:
         """Deadline gate 2 + asynchronous dispatch.  Returns the in-flight
         handle for the write stage, or None when every record was shed."""
+        # per-row tenant identity hoisted at preprocess rides the metas;
+        # it must survive the gate-2 filter aligned with ids
+        tenants = [m.get("_tenant") if isinstance(m, dict) else None
+                   for m in (metas or [None] * len(ids))]
         # a record can expire while staged behind a slow predict: shed it
         # here so the batch spends no device time on it
         if deadlines is not None and any(d is not None for d in deadlines):
             keep = [i for i, (rid, dl) in enumerate(zip(ids, deadlines))
                     if not self._shed_expired(
                         rid, None, deadline_ns=dl, stage="stage_wait",
-                        trace_id=traces[i] if traces else None)]
+                        trace_id=traces[i] if traces else None,
+                        tenant=tenants[i])]
             if not keep:
                 return None
             if len(keep) < len(ids):
@@ -1318,13 +1817,15 @@ class ClusterServing:
                     scales = scales[keep]
                 if traces is not None:
                     traces = [traces[i] for i in keep]
+                tenants = [tenants[i] for i in keep]
         t0 = time.monotonic()
         if t_ready is not None:
             self._stages["stage_wait"].record(t0 - t_ready)
             for rid, tid in zip(ids, traces or [None] * len(ids)):
                 self._span("stage_wait", t_ready, t0, trace_id=tid, uri=rid)
         handle = self._dispatch_batch(tensors, scales)
-        return _InFlight(ids, tensors, scales, handle, traces, t_read, t0)
+        return _InFlight(ids, tensors, scales, handle, traces, t_read, t0,
+                         tenants)
 
     def _write_stage(self, inflight: _InFlight) -> int:
         """Block on the dispatched batch's host readback, postprocess per
@@ -1333,19 +1834,36 @@ class ClusterServing:
         batch was already tried once)."""
         ids, tensors, scales = inflight.ids, inflight.tensors, inflight.scales
         tmap = dict(zip(ids, inflight.traces or []))
+        tenmap = dict(zip(ids, inflight.tenants or []))
         try:
             chunks = [(ids, inflight.handle.result())]
         except Exception as e:  # noqa: BLE001 — device/input failure
             chunks = self._bisect_halves(ids, tensors, scales, e, tmap=tmap)
+        # the host readback of .result() waits for the device, so the wall
+        # from dispatch ends after the batch's device work
         t_done = time.monotonic()
-        self._stages["predict"].record(t_done - inflight.t_dispatch)
+        predict_wall = t_done - inflight.t_dispatch
+        self._stages["predict"].record(predict_wall)
+        self._note_predict_time(predict_wall)
+        # device seconds: the batch's wall apportioned by row count over
+        # the rows dispatched (a quarantined row still used the device,
+        # so its tenant is charged: Σ over tenants == the wall)
+        rows_by_tenant: Dict[Optional[str], int] = {}
+        for rid in ids:
+            ten = tenmap.get(rid)
+            rows_by_tenant[ten] = rows_by_tenant.get(ten, 0) + 1
+        self.meter.device_seconds(rows_by_tenant, predict_wall)
         pairs: List[Tuple[str, Dict]] = []
         for chunk_ids, probs in chunks:
             for rid, row in zip(chunk_ids, probs):
+                ten = tenmap.get(rid)
                 self._span("predict", inflight.t_dispatch, t_done,
-                           trace_id=tmap.get(rid), uri=rid)
+                           trace_id=tmap.get(rid), uri=rid,
+                           attrs=({"tenant": ten} if ten else None))
                 try:
                     value = {"value": self.postprocess(np.asarray(row))}
+                    if ten is not None:
+                        value["tenant"] = ten
                     if self.model_version is not None:
                         value["model_version"] = self.model_version
                     if tmap.get(rid) is not None:
@@ -1356,8 +1874,8 @@ class ClusterServing:
                     pairs.append((rid, value))
                 except Exception as e:  # noqa: BLE001 — per-record isolation
                     self._quarantine(rid, "postprocess", e,
-                                     trace_id=tmap.get(rid))
-        n = self._flush_results(pairs, tmap=tmap)
+                                     trace_id=tmap.get(rid), tenant=ten)
+        n = self._flush_results(pairs, tmap=tmap, tenmap=tenmap)
         now = time.monotonic()
         if pairs:
             self._stages["write"].record(now - t_done)
@@ -1367,11 +1885,16 @@ class ClusterServing:
         if n and inflight.t_read is not None:
             self._e2e.record(now - inflight.t_read, n=n)
             t_read = inflight.t_read
+            e2e_by_tenant: Dict[Optional[str], List[float]] = {}
             for rid, _ in pairs:
-                self._slo_observe(rid, now - t_read, {
+                ten = tenmap.get(rid)
+                e2e = self._slo_observe(rid, now - t_read, {
                     "pipeline": max(inflight.t_dispatch - t_read, 0.0),
                     "predict": max(t_done - inflight.t_dispatch, 0.0),
-                    "write": max(now - t_done, 0.0)})
+                    "write": max(now - t_done, 0.0)}, tenant=ten)
+                e2e_by_tenant.setdefault(ten, []).append(e2e)
+            for ten, vals in e2e_by_tenant.items():
+                self.meter.request_seconds_many(ten, vals)
         if n and self._cold_start_s is None:
             self._cold_start_s = now - self._t_construct
             self._g_cold.set(self._cold_start_s)
@@ -1456,6 +1979,15 @@ class ClusterServing:
                 mt = None if mt is None else int(mt)
             except (TypeError, ValueError):
                 mt = None
+            if self._brownout is not None:
+                # brownout stage 2: clamp the generation budget of
+                # non-interactive traffic, lower-only.  A host-side budget
+                # at admission: the request ends at a quantum's boundary
+                # like any budget, and no lane changes shape
+                clamp = self._brownout.clamp_max_tokens(
+                    meta.get("_priority", "batch"))
+                if clamp is not None:
+                    mt = clamp if mt is None else min(mt, clamp)
             resume = meta.get("_resume")
             rtoks, epoch = None, 0
             if isinstance(resume, dict):
@@ -1483,6 +2015,8 @@ class ClusterServing:
             while not self._batcher.submit(req):
                 if self._stop.is_set():
                     return
+                # a full boundary, not a bare step: tokens emitted while
+                # the waiting room blocks are still charged to tenants
                 self._gen_tick()
 
     def _gen_tick(self) -> None:
@@ -1494,18 +2028,25 @@ class ClusterServing:
         now = time.monotonic()
         if b.active or events:
             self._stages["predict"].record(now - t0)
+        rows_by_tenant: Dict[Optional[str], int] = {}
         for rid, tid, emitted, ten in b.last_boundary:
             attrs = {"tokens": emitted}
             if ten is not None:
                 attrs["tenant"] = ten
             self._span("decode", t0, now, trace_id=tid, uri=rid,
                        attrs=attrs)
+            # tokens are charged per tenant at each boundary, not at
+            # finish: a long generation bills as it burns, and a
+            # mid-flight shed stays charged
+            self.meter.tokens(ten, emitted)
+            rows_by_tenant[ten] = rows_by_tenant.get(ten, 0) + 1
+        # the boundary's wall (it ends with the host readback of the
+        # quanta's tokens, after their device work) apportioned by slot
+        # occupancy: the generation plane's device seconds
+        self.meter.device_seconds(rows_by_tenant, now - t0)
         if b.decode_steps > self._last_steps:
             self._m_decode_steps.inc(b.decode_steps - self._last_steps)
             self._last_steps = b.decode_steps
-        if b.generated_tokens > self._last_tokens:
-            self._m_tokens.inc(b.generated_tokens - self._last_tokens)
-            self._last_tokens = b.generated_tokens
         self._update_tps(now)
         # spool this boundary's checkpoints BEFORE the crash fault below,
         # so an injected mid-decode kill dies with its resume state
@@ -1592,6 +2133,11 @@ class ClusterServing:
                     self._span("prefill", now0 - ev.ttft_s, now0,
                                trace_id=ev.trace_id, uri=ev.rid)
             elif ev.kind == "partial":
+                if self._brownout is not None \
+                        and self._brownout.suppress_partials:
+                    # brownout stage 1: partials are progress cosmetics;
+                    # under SLO burn the write bandwidth goes to finals
+                    continue
                 value = {"partial": True, "tokens": ev.tokens,
                          "n": len(ev.tokens)}
                 if ev.trace_id is not None:
@@ -1629,12 +2175,12 @@ class ClusterServing:
                     extra = None
                 self._shed_terminal(ev.rid, stage="generate",
                                     trace_id=ev.trace_id, error=err,
-                                    extra=extra)
+                                    extra=extra, tenant=ev.tenant)
             elif ev.kind == "quarantine":
                 self._quarantine(ev.rid, "generate",
                                  RuntimeError(ev.error
                                               or "generation failed"),
-                                 trace_id=ev.trace_id)
+                                 trace_id=ev.trace_id, tenant=ev.tenant)
             elif ev.kind == "resume_failed":
                 # the batcher could not replay the resume prefix (malformed,
                 # out of vocab, capacity): the request restarts from 0 and
@@ -1649,7 +2195,8 @@ class ClusterServing:
             return
         t_w = time.monotonic()
         n = self._flush_results(pairs,
-                                tmap={ev.rid: ev.trace_id for ev in finals})
+                                tmap={ev.rid: ev.trace_id for ev in finals},
+                                tenmap={ev.rid: ev.tenant for ev in finals})
         now = time.monotonic()
         self._stages["write"].record(now - t_w)
         for ev in finals:
@@ -1659,7 +2206,9 @@ class ClusterServing:
                 stages = {}
                 if ev.wall_s is not None:
                     stages["decode"] = max(float(ev.wall_s), 0.0)
-                self._slo_observe(ev.rid, now - ev.t_read, stages)
+                e2e = self._slo_observe(ev.rid, now - ev.t_read, stages,
+                                        tenant=ev.tenant)
+                self.meter.request_seconds(ev.tenant, e2e)
         if n and self._cold_start_s is None:
             self._cold_start_s = now - self._t_construct
             self._g_cold.set(self._cold_start_s)
@@ -1703,6 +2252,12 @@ class ClusterServing:
             self.queue.open_admission()
         except Exception:  # noqa: BLE001 — backend down: workers report
             pass
+        # bind the probe server first: a port conflict must fail start()
+        # before any worker begins consuming the queue
+        if p.http_port is not None and self._http is None:
+            from analytics_zoo_tpu_torch.serving.http import HealthServer
+            self._http = HealthServer(self, host=p.http_host,
+                                      port=p.http_port).start()
         self._staged = Queue(maxsize=p.pipeline_depth)
         self._last_trim = time.monotonic()
         self._pre_sup = SupervisedThread(
@@ -1891,6 +2446,27 @@ class ClusterServing:
         """0 float, 8 W8A8, 4 W4A16 — what the loaded model serves with."""
         return quantized_bits(getattr(self.model, "_params", None) or {})
 
+    def _resources_doc(self) -> Dict:
+        """The health document's ``resources`` block (never raises: a
+        probe must answer even when a component read fails)."""
+        try:
+            return self._ledger.doc()
+        except Exception as e:  # noqa: BLE001
+            return {"error": f"{type(e).__name__}: {e}"}
+
+    @staticmethod
+    def _process_doc() -> Dict:
+        try:
+            return process_stats()
+        except Exception:  # noqa: BLE001
+            return {}
+
+    def drain_usage(self) -> List[Dict]:
+        """Per-interval usage deltas since the last drain, one record per
+        (tenant, model) with activity (``tracecollect.append_usage``
+        journals them)."""
+        return self.meter.drain()
+
     def health(self) -> Dict:
         """Serving health document: worker states, breaker state, record /
         dead-letter / shed counters, per-stage timing, queue health, the
@@ -1931,9 +2507,14 @@ class ClusterServing:
              "cold_start_s": (None if self._cold_start_s is None
                               else round(self._cold_start_s, 3)),
              "quantized_bits": self._quantized_bits(),
+             # device memory by component and the process's resources
+             "resources": self._resources_doc(),
+             "process": self._process_doc(),
              "recorder": self.recorder.stats(),
              "breaker": self._breaker.health(),
              "dead_letter_breaker": self._dead_breaker.health(),
+             # the live data-plane knob targets
+             "knobs": self.knobs(),
              "workers": workers,
              "stages": self.stage_metrics(),
              "queue": queue_health}
@@ -1942,6 +2523,12 @@ class ClusterServing:
             h["generation"] = self._batcher.stats()
         if self._slo is not None:
             h["slo"] = self._slo.snapshot()
+        # cumulative per-tenant usage totals
+        h["usage"] = self.meter.snapshot()
+        if self._admission is not None:
+            h["admission"] = self._admission.snapshot()
+        if self._brownout is not None:
+            h["brownout"] = self._brownout.snapshot()
         if self._faults.any_active:
             # an armed replica is visible from the outside
             h["faults"] = self._faults.describe()
@@ -1995,16 +2582,22 @@ class ClusterServing:
     @staticmethod
     def metrics_from_health(h: Dict) -> Dict:
         e2e = h["stages"]["e2e"]
-        return {"served": h["total_records"],
-                "quarantined": h["dead_lettered"],
-                "shed": h["shed"],
-                "restarts": sum(w["restart_count"]
-                                for w in h["workers"].values()),
-                "queue_depth": h["queue"].get("depth", -1),
-                "dead_letters": h["queue"].get("dead_letters", -1),
-                "breaker_trips": h["breaker"]["trip_count"],
-                "stages": h["stages"],
-                "latency_ms": {"p50": e2e["p50_ms"], "p99": e2e["p99_ms"]}}
+        doc = {"served": h["total_records"],
+               "quarantined": h["dead_lettered"],
+               "shed": h["shed"],
+               "restarts": sum(w["restart_count"]
+                               for w in h["workers"].values()),
+               "queue_depth": h["queue"].get("depth", -1),
+               "dead_letters": h["queue"].get("dead_letters", -1),
+               "breaker_trips": h["breaker"]["trip_count"],
+               "stages": h["stages"],
+               "latency_ms": {"p50": e2e["p50_ms"], "p99": e2e["p99_ms"]}}
+        if isinstance(h.get("admission"), dict):
+            doc["admitted"] = h["admission"].get("admitted", 0)
+            doc["rejected"] = h["admission"].get("rejected", 0)
+        if isinstance(h.get("brownout"), dict):
+            doc["brownout_stage"] = h["brownout"].get("stage", 0)
+        return doc
 
     def metrics(self) -> Dict:
         return self.metrics_from_health(self.health())
@@ -2044,6 +2637,9 @@ class ClusterServing:
         if self._pre_pool is not None:
             self._pre_pool.shutdown(wait=False)
             self._pre_pool = None
+        if self._http is not None:
+            self._http.stop()
+            self._http = None
         for gauge, fn in self._gauge_fns:
             gauge.remove_function(fn)
         self._gauge_fns = []

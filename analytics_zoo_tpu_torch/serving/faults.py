@@ -24,9 +24,9 @@ Config shape (``params.faults`` in config.yaml)::
         seconds: 0.5
         count: 10               # stalls injected before the point disarms
       admission_reject:         # admission gate rejects the next N
-        version: v2             # requests with reason "fault" (the port
-        count: 5                # has no admission gate yet: an engine
-        priority: best_effort   # armed with this point refuses to start)
+        version: v2             # requests with reason "fault"
+        count: 5
+        priority: best_effort   # optional: only this class is rejected
       decode_crash_after_n_tokens:   # process exits (os._exit) once the
         version: "*"                 # generation plane has produced n
         n: 12                        # tokens

@@ -1520,9 +1520,8 @@ class ContinuousBatcher:
                           if isinstance(lane, _PagedLane)
                           else ("prefill", 1, pb, lane.bucket))
         if self.device.type == "cuda":
-            lane.program = aot.capture(lambda *_: self._quantum(lane),
-                                       tuple(lane.buf.dev.values()),
-                                       self.device)
+            lane.program = self.model.capture(
+                lambda *_: self._quantum(lane), tuple(lane.buf.dev.values()))
         self._programs[key] = lane.program
         return True
 

@@ -2,7 +2,8 @@
 """Chip smoke for the PyTorch/CUDA port (``analytics_zoo_tpu_torch``).
 
 Runs the port's serving paths (generation, predict, image classification,
-recommendation, the recurrent, text and time-series zoos) and its
+recommendation, the recurrent, text and time-series zoos, the HTTP front
+door with its armour) and its
 training paths on one NVIDIA GPU and checks them, phase by phase, each
 phase printing its own lines:
 
@@ -245,6 +246,40 @@ phase printing its own lines:
    f32), on the card = by the wrappers; int8 bitwise the plain route,
    int4 within W4_TOL; the int8 pipeline model over 64 ``ClusterServing``
    records of windows, each equal to ``do_predict``.
+12. front door — GPT-2-small generation (paged f32 KV, 8 slots, partials
+   every 8 tokens, warmed) served by ``ClusterServing`` with its HTTP
+   gateway on an ephemeral port, tenant admission (``acme`` far above the
+   traffic, ``slowco`` at 2 records/s with a burst of 4), the brownout
+   ladder over a loose objective, metering on (the default) and
+   profiling: phase 3's 16 prompts fed from the queue, then over HTTP as
+   binary frames from 4 clients under both tenants, the clients in
+   another process and then on threads of this process (a ``retune``
+   under that traffic shows in ``knobs()`` and a ``retune`` event), then
+   from the queue again — tokens/s, TTFT p50 and decode boundaries of
+   each round, every token list equal to phase 3's (or parting at a near
+   tie), every partial seen a prefix; slowco past its bucket draws 429s
+   whose ``Retry-After`` is the bucket's refill time and queues nothing,
+   acme passes; ``POST /debug/profile?seconds=2`` during traffic answers
+   202, a second 409, and the trace's kernel events hold the paged
+   kernel's; a traced wave after it counts paged launches = decode steps
+   x 12; ``/healthz`` carries the ``resources``, ``process``, ``knobs``,
+   ``usage``, ``admission`` and ``brownout`` blocks, ``/readyz`` answers
+   200, the Prometheus text holds the gateway, device-seconds and
+   ``serving_hbm_bytes`` series; the ledger's weights are the stored
+   parameters' bytes, its kv_state the batcher's ``state_bytes()``, and
+   weights + kv_state + the CUDA-graph pools within
+   ``torch.cuda.memory_allocated()``; ``drain_usage()``'s device seconds
+   equal the walls the meter was charged, and each tenant's records and
+   tokens what was delivered to it (less each request's prefill token,
+   which the meter charges outside the decode boundaries, as the JAX
+   engine's does).  A second engine whose objective every record misses
+   climbs the ladder: at stage 2 batch records end at
+   ``batch_max_tokens`` (interactive ones at their budget) and no partial
+   is written.  Then phase 4's model with its int8 head takes 32 JSON
+   records over HTTP: each top-5 bit for bit ``InferenceModel.predict``'s
+   on the batch the engine formed, flash forward and w8a8 launches on the
+   card = by the wrappers; records/s, the gateway's p50 by endpoint and
+   the phase's wall.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -253,7 +288,8 @@ contract line.  Run from the repository root::
     python3 chip_smoke.py [--seed 0] [--profile]
 
 ``--resume-victim DIR`` is the continuity phase's victim process, which
-the phase starts itself.
+the phase starts itself; ``--gateway-client SPEC`` is phase 12's HTTP
+clients in a process of their own.
 
 ``--profile`` adds ``torch.profiler`` readings of a decode step (eager,
 then replayed from its CUDA graph), a predict batch, a training step, a
@@ -278,6 +314,7 @@ import base64
 import contextlib
 import copy
 import ctypes
+import faulthandler
 import hashlib
 import json
 import math
@@ -287,7 +324,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -342,6 +382,7 @@ from analytics_zoo_tpu_torch.serving.generate import (ContinuousBatcher,
                                                       GenerationParams,
                                                       GenRequest, commit)
 from analytics_zoo_tpu_torch.serving import tracecollect
+from analytics_zoo_tpu_torch.serving import wire
 from analytics_zoo_tpu_torch.serving.queues import FileQueue, InProcQueue
 from analytics_zoo_tpu_torch.utils.convert import export_params, export_state
 
@@ -6581,6 +6622,814 @@ def forecast_phase(seed: int, records: dict) -> None:
         f"({walls} s; AutoTS MSE ratio {auto['ratio']:.4f})")
 
 
+# -- phase 12: the front door: gateway, admission, brownout, metering --------
+
+# two tenants whose buckets differ: acme far above the traffic, slowco at
+# 2 records/s with a burst of 4 (the burst that step 2 drains)
+GATEWAY_ADMISSION = {"rate": 100.0, "burst": 200.0, "tenants": {
+    "acme": {"rate": 1000.0, "burst": 1000.0},
+    "slowco": {"rate": 2.0, "burst": 4.0}}}
+# a loose objective keeps the main engine's ladder at stage 0; the brownout
+# engine's tight one (1 ms, which every record misses) climbs it
+GATEWAY_SLO = {"latency_ms": 60000.0, "window_s": 30.0, "target": 0.99}
+TIGHT_SLO = {"latency_ms": 1.0, "window_s": 30.0, "target": 0.99}
+GATEWAY_BROWNOUT = {"dwell_s": 0.2, "hold_s": 60.0, "batch_max_tokens": 16}
+GATEWAY_CLIENTS = 4
+# slowco's posts in the admission burst (its bucket holds at most 4)
+SLOW_POSTS = 8
+PROFILE_S = 2.0
+# every result long-poll: short, so that streamed partials are seen
+POLL_S = 0.05
+PREDICT_CLIENTS = 4
+
+
+def http_call(url: str, data=None, headers=None, method=None,
+              timeout: float = 120.0):
+    """(status, headers, body bytes) of one HTTP request; an error status
+    is a reply too."""
+    req = urllib.request.Request(url, data=data, headers=headers or {},
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+class GatewayClient:
+    """An HTTP client of one engine's gateway: posts records, long-polls
+    results, and keeps every reply's status and ``X-Replica-Id``, the
+    partials it saw and the terminal results (thread-safe)."""
+
+    def __init__(self, url: str):
+        self.url = url
+        self.lock = threading.Lock()
+        self.replies = []                 # (endpoint, status, replica id)
+        self.results = {}
+        self.partials = {}
+
+    def _note(self, endpoint, status, headers) -> None:
+        with self.lock:
+            self.replies.append((endpoint, status,
+                                 headers.get("X-Replica-Id")))
+
+    def post_frame(self, rid, prompt, tenant, priority):
+        frame = wire.encode_tensor_frame(rid, np.asarray(prompt, "<f4"))
+        st, hd, body = http_call(
+            self.url + "/v1/enqueue", frame,
+            {"Content-Type": "application/octet-stream",
+             "X-Tenant": tenant, "X-Priority": priority})
+        self._note("enqueue", st, hd)
+        return st, hd, json.loads(body)
+
+    def post_json(self, rec, tenant="acme", priority="interactive"):
+        st, hd, body = http_call(
+            self.url + "/v1/enqueue", json.dumps(rec).encode(),
+            {"Content-Type": "application/json", "X-Tenant": tenant,
+             "X-Priority": priority})
+        self._note("enqueue", st, hd)
+        return st, hd, json.loads(body)
+
+    def fetch(self, rid, deadline_s: float = 300.0) -> dict:
+        """Long-poll ``rid`` until its terminal result, keeping every
+        partial the polls returned."""
+        t_end = time.monotonic() + deadline_s
+        while True:
+            check(time.monotonic() < t_end, f"gateway: no result for {rid}")
+            st, hd, body = http_call(
+                self.url + f"/v1/result/{rid}?timeout_s={POLL_S}")
+            self._note("result", st, hd)
+            if st == 404:
+                continue
+            check(st == 200, f"gateway: GET result {rid} -> {st} {body!r}")
+            doc = json.loads(body)
+            if doc.get("partial"):
+                with self.lock:
+                    self.partials.setdefault(rid, []).append(
+                        list(doc["tokens"]))
+                continue
+            with self.lock:
+                self.results[rid] = doc
+            return doc
+
+
+def gateway_items(waves, tag: str):
+    """Phase 3's 16 prompts as gateway posts: rid, prompt, tenant,
+    priority.  slowco posts 4 (its burst), acme 12; priorities
+    alternate."""
+    items = []
+    for i, (rid, prompt) in enumerate(p for w in waves for p in w):
+        items.append((f"{tag}-{rid}", prompt,
+                      "slowco" if i % 4 == 3 else "acme",
+                      "interactive" if i % 2 == 0 else "batch"))
+    return items
+
+
+def post_and_fetch(client, items, n_threads: int = GATEWAY_CLIENTS):
+    """Each of ``n_threads`` clients posts its share of ``items`` as binary
+    frames, then long-polls its results.  Returns the wall seconds."""
+    shares = [items[i::n_threads] for i in range(n_threads)]
+    errors = []
+
+    def run(share):
+        try:
+            for rid, prompt, tenant, prio in share:
+                st, _, doc = client.post_frame(rid, prompt, tenant, prio)
+                check(st == 200, f"gateway: enqueue {rid} -> {st} {doc}")
+            for rid, *_ in share:
+                client.fetch(rid)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(s,)) for s in shares]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "gateway: a client hung")
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def gateway_client_main(spec_path: str) -> int:
+    """``--gateway-client SPEC``: the HTTP round's clients in a process of
+    their own, so that only the gateway's handler threads share the
+    serving process's interpreter lock.  SPEC names the gateway, the items
+    and the output file, where the wall, results, partials and replies
+    land."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    client = GatewayClient(spec["url"])
+    items = [(rid, np.asarray(p, np.int32), ten, prio)
+             for rid, p, ten, prio in spec["items"]]
+    wall = post_and_fetch(client, items)
+    with open(spec["out"], "w") as f:
+        json.dump({"wall_s": wall, "results": client.results,
+                   "partials": client.partials,
+                   "replies": client.replies}, f)
+    return 0
+
+
+def http_round_process(url: str, items, tmp: str) -> dict:
+    """The HTTP round with its clients in a fresh interpreter
+    (``subprocess``, never a fork of this process, which holds a CUDA
+    context); the wall is the client's, first post to last result."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = os.path.join(tmp, "client.json")
+    out = os.path.join(tmp, "client.out.json")
+    with open(spec, "w") as f:
+        json.dump({"url": url, "out": out, "items": [
+            (rid, [int(t) for t in p], ten, prio)
+            for rid, p, ten, prio in items]}, f)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"),
+         "--gateway-client", spec], cwd=here, capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"gateway client exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def untagged(tokens: dict, tag: str) -> dict:
+    n = len(tag) + 1
+    return {rid[n:]: toks for rid, toks in tokens.items()
+            if rid.startswith(tag + "-")}
+
+
+def boundaries(serving) -> tuple:
+    """(decode boundaries, their seconds) so far: the engine's predict
+    stage timer, one sample a boundary of the generation plane."""
+    st = serving._stages["predict"]
+    return st.count, st.sum
+
+
+def boundary_line(before: tuple, after: tuple) -> str:
+    n, s = after[0] - before[0], after[1] - before[1]
+    return f"{n} boundaries of {s / max(n, 1) * 1e3:.2f} ms"
+
+
+def ttft_p50(serving, n: int) -> float:
+    """p50 of the engine's TTFT over its last ``n`` first tokens."""
+    vals = sorted(serving._m_ttft.recent()[-n:])
+    return vals[len(vals) // 2]
+
+
+def queue_round(serving, q, waves, tag: str) -> dict:
+    """The same engine fed straight from its queue: all 16 prompts
+    enqueued at once, results polled."""
+    iq, oq = InputQueue(q), OutputQueue(q)
+    rids = []
+    b0 = boundaries(serving)
+    t0 = time.perf_counter()
+    for rid, prompt in (p for w in waves for p in w):
+        rids.append(iq.enqueue_tensor(f"{tag}-{rid}",
+                                      prompt.astype(np.float32)))
+    got = oq.query_many(rids, timeout_s=300.0)
+    wall = time.perf_counter() - t0
+    tokens = {}
+    for rid in rids:
+        r = got.get(rid)
+        check(r is not None and "value" in r, f"[{tag}] {rid}: {r}")
+        tokens[rid] = list(r["value"]["tokens"])
+    n_tok = sum(len(t) for t in tokens.values())
+    return {"tokens": tokens, "wall_s": wall, "tok_s": n_tok / wall,
+            "ttft_p50_s": ttft_p50(serving, len(rids)), "results": got,
+            "boundaries": boundary_line(b0, boundaries(serving))}
+
+
+def gateway_serving(im, q, slo, admission=None, warmup=True):
+    return ClusterServing(im, q, ServingParams(
+        max_batch=N_REQUESTS, max_wait_ms=2.0,
+        generation=dict(GENERATION, kv_quant="off"), warmup=warmup,
+        http_port=0, admission=admission, brownout=GATEWAY_BROWNOUT,
+        serving_slo=slo, profiling=True))
+
+
+def wait_event(serving, kinds, timeout_s: float = 120.0) -> dict:
+    """The first flight-recorder event of ``kinds`` from this engine."""
+    t0 = time.monotonic()
+    while True:
+        evs = [e for e in serving.recorder.events()
+               if e.get("event") in kinds
+               and e.get("replica") == serving.replica_id]
+        if evs:
+            return evs[-1]
+        check(time.monotonic() - t0 < timeout_s,
+              f"gateway: no {kinds} event in {timeout_s} s")
+        time.sleep(0.05)
+
+
+def admission_step(serving, client, waves) -> dict:
+    """Step 2: slowco posts past its bucket, acme interleaved.  Every 429
+    carries ``Retry-After`` = the bucket's refill time to one token
+    ((1 - tokens) / rate, at least 0.05 s); nothing of slowco's
+    rejected records reaches the queue; acme's all pass."""
+    bucket_key = ("slowco", "interactive")
+    prompts = [p for w in waves for p in w]
+    admitted, rejected, acme = [], [], []
+    xadds = []
+    real_xadd = serving.queue.xadd
+
+    def logged_xadd(rec, *a, **kw):
+        xadds.append(rec.get("uri") if isinstance(rec, dict) else None)
+        return real_xadd(rec, *a, **kw)
+
+    serving.queue.xadd = logged_xadd
+    try:
+        for i in range(SLOW_POSTS):
+            rid, prompt = prompts[i]
+            st, hd, doc = client.post_frame(f"adm-slow-{rid}", prompt,
+                                            "slowco", "interactive")
+            if st == 200:
+                admitted.append(f"adm-slow-{rid}")
+            else:
+                b = serving._admission._buckets[bucket_key]
+                want = max(0.05, (1.0 - b.tokens) / b.rate)
+                check(st == 429 and doc["reason"] == "tenant_rate"
+                      and doc["tenant"] == "slowco",
+                      f"admission: {st} {doc}")
+                check(hd.get("Retry-After") == f"{want:.3f}",
+                      f"admission: Retry-After {hd.get('Retry-After')} != "
+                      f"the bucket's refill time {want:.3f} s")
+                rejected.append((f"adm-slow-{rid}",
+                                 float(hd["Retry-After"])))
+            st, _, doc = client.post_frame(f"adm-acme-{rid}", prompt,
+                                           "acme", "interactive")
+            check(st == 200, f"admission: acme {rid} -> {st} {doc}")
+            acme.append(f"adm-acme-{rid}")
+    finally:
+        serving.queue.xadd = real_xadd
+    check(rejected, "admission: slowco's burst drew no 429")
+    check(not set(r for r, _ in rejected) & set(xadds),
+          "admission: a rejected record reached the queue")
+    for rid in admitted + acme:
+        client.fetch(rid)
+    for rid, _ in rejected:
+        check(serving.queue.get_result(rid) is None,
+              f"admission: rejected {rid} has a result")
+    return {"admitted": len(admitted), "rejected": rejected,
+            "acme": len(acme)}
+
+
+def profile_step(serving, client, waves, tmp: str, card: bool = True) -> dict:
+    """Step 3: POST /debug/profile during a wave (202), a second POST while
+    it runs (409), the trace's device events, read from its Chrome trace
+    (on the card they must hold the paged kernel); traffic keeps flowing
+    until the trace has ended."""
+    stop = threading.Event()
+    errors = []
+    prompts = [p for w in waves for p in w][:8]
+
+    def traffic():
+        k = 0
+        try:
+            while not stop.is_set():
+                items = [(f"prof{k}-{rid}", p, "acme", "interactive")
+                         for rid, p in prompts]
+                for rid, p, ten, prio in items:
+                    st, _, doc = client.post_frame(rid, p, ten, prio)
+                    check(st == 200, f"profile traffic: {st} {doc}")
+                for rid, *_ in items:
+                    client.fetch(rid)
+                k += 1
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    serving.profile_dir = tmp
+    th = threading.Thread(target=traffic)
+    th.start()
+    try:
+        time.sleep(0.2)
+        st, hd, body = http_call(
+            serving._http.url + f"/debug/profile?seconds={PROFILE_S}",
+            b"", method="POST")
+        check(st == 202, f"profile: POST -> {st} {body!r}")
+        doc = json.loads(body)
+        st2, hd2, body2 = http_call(
+            serving._http.url + f"/debug/profile?seconds={PROFILE_S}",
+            b"", method="POST")
+        check(st2 == 409 and hd2.get("Retry-After") == "5",
+              f"profile: second POST -> {st2} {body2!r}")
+        ev = wait_event(serving, ("profile_done", "profile_error"))
+    finally:
+        stop.set()
+        th.join(600)
+    if errors:
+        raise errors[0]
+    check(ev["event"] == "profile_done", f"profile: {ev}")
+    path = os.path.join(doc["path"], "trace.json")
+    check(os.path.exists(path), f"profile: no trace at {path}")
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    paged = [e for e in kernels
+             if _impl.KERNEL_NAMES["paged"] in str(e.get("name"))]
+    cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
+    check(paged or not card, f"profile: the trace holds {len(kernels)} "
+                             f"kernel events, none of the paged kernel")
+    return {"path": path, "bytes": os.path.getsize(path),
+            "kernels": len(kernels), "paged": len(paged),
+            "cpu_ops": len(cpu_ops),
+            "cpu_threads": len({e.get("tid") for e in cpu_ops}),
+            "device_events": ev["device_events"],
+            "device_work": ev["device_work"]}
+
+
+def traced_gateway_wave(serving, client, waves) -> dict:
+    """Outside the trace window ``card_launches`` counts as in phase 3:
+    a wave over the gateway, paged launches on the card = decode steps x
+    layers."""
+    b = serving._batcher
+    items = [(f"traced-{rid}", p, "acme", "interactive")
+             for rid, p in waves[0]]
+    torch.cuda.synchronize()
+    steps0 = b.decode_steps
+    with _impl.card_launches(("paged",)) as card:
+        post_and_fetch(client, items)
+    steps = b.decode_steps - steps0
+    layers = serving.model._model.n_layers
+    check(card["paged"] == steps * layers > 0,
+          f"traced gateway wave: paged launches on the card "
+          f"{card['paged']} != decode steps {steps} x {layers}")
+    return {"launches": card["paged"], "steps": steps}
+
+
+def ledger_step(serving, card: bool = True) -> dict:
+    """Step 4: the documents over HTTP and the ledger: weights = the stored
+    parameters and buffers, kv_state = the batcher's state bytes and, on
+    the card, weights + kv_state + the CUDA-graph pools within the
+    allocator's allocated bytes."""
+    url = serving._http.url
+    st, hd, body = http_call(url + "/healthz")
+    check(st == 200, f"/healthz -> {st}")
+    h = json.loads(body)
+    want = {"resources", "process", "knobs", "usage", "admission",
+            "brownout"}
+    check(want <= set(h), f"/healthz lacks {sorted(want - set(h))}")
+    st, _, body = http_call(url + "/readyz")
+    check(st == 200, f"/readyz -> {st} {body!r}")
+    st, _, prom = http_call(url + "/metrics?format=prom")
+    prom = prom.decode()
+    for series in ('gateway_request_seconds_count{endpoint="enqueue"}',
+                   'gateway_request_seconds_count{endpoint="result"}',
+                   'serving_device_seconds_total{tenant="acme",'
+                   'model="default"}',
+                   'serving_hbm_bytes{component="weights"}',
+                   'serving_hbm_bytes{component="kv_state"}',
+                   'serving_hbm_bytes{component="executables"}'):
+        check(series in prom, f"/metrics?format=prom lacks {series}")
+    res = h["resources"]
+    module = serving.model._model
+    stored = {t.data_ptr(): t.numel() * t.element_size()
+              for t in list(module.parameters()) + list(module.buffers())}
+    check(res["weights_bytes"] == sum(stored.values()),
+          f"ledger: weights {res['weights_bytes']} != the stored "
+          f"parameters and buffers {sum(stored.values())}")
+    kv = serving._batcher.state_bytes()
+    check(res["kv_state_bytes"] == kv,
+          f"ledger: kv_state {res['kv_state_bytes']} != state_bytes {kv}")
+    code = res["executables"]["code_bytes"]
+    allocated = reserved = None
+    if card:
+        check(code is not None and code > 0,
+              f"ledger: code_bytes {code} with a captured decode graph")
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        held = res["weights_bytes"] + res["kv_state_bytes"]
+        check(held + code <= allocated,
+              f"ledger: weights + kv_state + code_bytes {held + code} > "
+              f"memory_allocated {allocated}")
+    else:
+        check(code is None, f"ledger: code_bytes {code} without a card")
+    return {"weights": res["weights_bytes"], "kv": kv, "code": code,
+            "allocated": allocated, "reserved": reserved,
+            "programs": res["executables"]["count"]}
+
+
+def usage_step(serving, walls: list, delivered: dict) -> dict:
+    """Step 5: ``drain_usage()``'s device seconds sum to the walls the
+    meter was charged; each tenant's records are its results, and its
+    tokens the tokens delivered to them less the one each request's
+    prefill emits (the reference meter charges tokens at decode
+    boundaries, and the prefill token outside them)."""
+    drained = serving.drain_usage()
+    dev_s = sum(r["device_s"] for r in drained)
+    wall_s = sum(walls)
+    check(abs(dev_s - wall_s) <= 1e-6 * (len(drained) + 1),
+          f"usage: device seconds {dev_s} != charged walls {wall_s}")
+    by_tenant = {r["tenant"]: r for r in drained}
+    for ten, lens in delivered.items():
+        r = by_tenant.get(ten)
+        check(r is not None, f"usage: no record for tenant {ten}")
+        check(r["records"] == len(lens),
+              f"usage: {ten} records {r['records']} != {len(lens)}")
+        check(r["tokens"] == sum(n - 1 for n in lens),
+              f"usage: {ten} tokens {r['tokens']} != delivered "
+              f"{sum(lens)} - {len(lens)} prefill tokens")
+    check(set(by_tenant) == set(delivered),
+          f"usage: tenants {sorted(by_tenant)} != {sorted(delivered)}")
+    return {"device_s": dev_s, "wall_s": wall_s, "tenants": by_tenant}
+
+
+class PartialLog(InProcQueue):
+    """InProcQueue that remembers the streamed partials written to it."""
+
+    def __init__(self):
+        super().__init__()
+        self.partial_rids = []
+
+    def put_partial(self, rid, value):
+        self.partial_rids.append(rid)
+        return super().put_partial(rid, value)
+
+
+def brownout_step(im, waves) -> dict:
+    """Step 6: an engine whose objective every record misses: its ladder
+    climbs; once at stage 2, batch-priority records end at
+    ``batch_max_tokens`` and interactive ones at their budget, and no
+    partial is written while the ladder suppresses them."""
+    q = PartialLog()
+    serving = gateway_serving(im, q, TIGHT_SLO)
+    try:
+        serving.start()
+        wait_warm(serving)
+        client = GatewayClient(serving._http.url)
+        first = [(f"bo1-{rid}", p, "acme", "interactive")
+                 for rid, p in waves[0]]
+        post_and_fetch(client, first)
+        before = len(q.partial_rids)
+        t0 = time.monotonic()
+        while serving.brownout_stage < 2:
+            check(time.monotonic() - t0 < 30.0,
+                  f"brownout: stage {serving.brownout_stage} after 30 s "
+                  f"({serving.health()['brownout']})")
+            time.sleep(0.05)
+        second = [(f"bo2-{rid}", p, "acme",
+                   "batch" if i % 2 else "interactive")
+                  for i, (rid, p) in enumerate(waves[1])]
+        post_and_fetch(client, second)
+        stage = serving.brownout_stage
+        doc = serving.health()["brownout"]
+    finally:
+        serving.shutdown(drain_s=5.0)
+    for rid, p, _, prio in second:
+        r = client.results[rid]["value"]
+        want = GATEWAY_BROWNOUT["batch_max_tokens"] if prio == "batch" \
+            else min(GENERATION["max_tokens"], LANE - len(p))
+        check(r["length"] == want and r["finish_reason"] == "length",
+              f"brownout: {prio} {rid} ended at {r['length']}, want {want}")
+    late = [r for r in q.partial_rids if r.startswith("bo2-")]
+    check(before > 0 and not late,
+          f"brownout: {before} partials at stage 0, {len(late)} while "
+          f"suppressed")
+    check(stage >= 2, f"brownout: stage fell to {stage}")
+    return {"partials_before": before, "stage": stage,
+            "transitions": doc["transitions"]}
+
+
+def predict_http_step(seed: int, dev, tmp: str,
+                      launches: bool = True) -> dict:
+    """Step 7: phase 4's model with its int8 head, served over the gateway
+    from JSON records; every top-5 bit for bit the one
+    ``InferenceModel.predict`` gives on the batch the engine formed; the
+    flash forward and w8a8 launches on the card = by the wrappers."""
+    model = build_predict_model(seed)
+    im = InferenceModel(device=dev).do_load_model(model)
+    X = predict_records(seed)
+    calib = os.path.join(tmp, "calib.npy")
+    np.save(calib, predict_records(seed + 1, PREDICT_BATCH))
+    q = InProcQueue()
+    serving = ClusterServing(im, q, ServingParams(
+        batch_size=PREDICT_BATCH, max_wait_ms=2.0, warmup=PREDICT_WARMUP,
+        quantize={"bits": 8, "calib": calib}, http_port=0))
+    batches = []
+    hook = im._model.register_forward_pre_hook(
+        lambda _m, args: batches.append(args[0].detach().clone()))
+    rids = [f"pred-{i:02d}" for i in range(len(X))]
+    try:
+        serving.start()
+        wait_warm(serving)
+        sync(dev)
+        batches.clear()
+        client = GatewayClient(serving._http.url)
+        st0 = im.aot_stats()
+        reset_launches()
+        errors = []
+
+        def run(share):
+            try:
+                for i in share:
+                    rec = {"uri": rids[i], "dtype": "<f4", "shape":
+                           [PREDICT["seq_len"]], "b64": base64.b64encode(
+                               X[i].astype("<f4").tobytes()).decode()}
+                    st, _, doc = client.post_json(rec)
+                    check(st == 200, f"predict: enqueue -> {st} {doc}")
+                for i in share:
+                    client.fetch(rids[i])
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        with _impl.card_launches(("flash_fwd", "w8a8")) as card:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(
+                target=run, args=(range(k, len(X), PREDICT_CLIENTS),))
+                for k in range(PREDICT_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        sync(dev)
+        st = im.aot_stats()
+        wrapper = {"flash_fwd": fa.launches, "w8a8": qm.launches_w8a8}
+    finally:
+        hook.remove()
+        serving.shutdown(drain_s=5.0)
+    check(im._model.layers_list[-1].bits == 8, "predict: head not int8")
+    fw = sum(st["programs"].values()) - sum(st0["programs"].values())
+    check(len(batches) == fw > 0,
+          f"predict: {len(batches)} forwards seen, {fw} counted")
+    for k, per in (("flash_fwd", PREDICT["n_block"]), ("w8a8", 1)):
+        per = per if launches else 0
+        check(card[k] == wrapper[k] == fw * per,
+              f"predict: {k} launches on the card {card[k]}, by the "
+              f"wrapper {wrapper[k]}, != {fw} forwards x {per}")
+    # the reference: InferenceModel.predict of each batch the engine formed
+    row_of = {X[i].tobytes(): i for i in range(len(X))}
+    seen = 0
+    for xb in batches:
+        rows = [row_of[r.tobytes()] for r in
+                xb.to(torch.float32).cpu().numpy() if r.tobytes() in row_of]
+        probs = im.predict(X[rows])
+        for j, i in enumerate(rows):
+            want = default_postprocess(probs[j], 5)
+            got = client.results[rids[i]]["value"]
+            check(got == want, f"predict: {rids[i]} top-5 {got} != "
+                               f"InferenceModel.predict {want}")
+            seen += 1
+    check(seen == len(X), f"predict: {seen} of {len(X)} records compared")
+    return {"records_s": len(X) / wall, "wall_s": wall, "forwards": fw,
+            "card": card, "e2e_p50_s":
+                serving._e2e.percentiles((50,))["p50"]}
+
+
+def gateway_generation(im, waves, ref_tokens, card: bool = True) -> dict:
+    """Steps 1-5 on one engine: the queue-fed round, the HTTP round (with a
+    retune under its traffic), admission, the profile, on the card a
+    traced wave, the documents and the ledger, then the usage drain."""
+    q = InProcQueue()
+    serving = gateway_serving(im, q, GATEWAY_SLO, GATEWAY_ADMISSION)
+    walls = []
+    real_charge = serving.meter.device_seconds
+
+    def charge(rows_by_tenant, wall_s):
+        if rows_by_tenant and wall_s > 0:
+            walls.append(wall_s)
+        return real_charge(rows_by_tenant, wall_s)
+
+    serving.meter.device_seconds = charge
+    delivered = {}
+
+    def deliver(results):
+        for r in results.values():
+            ten = r.get("tenant") or "unknown"
+            delivered.setdefault(ten, []).append(len(r["value"]["tokens"]))
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            serving.start()
+            warm = wait_warm(serving)
+            client = GatewayClient(serving._http.url)
+            # the same engine fed straight from its queue, then over HTTP
+            qa = queue_round(serving, q, waves, "qa")
+            deliver(qa["results"])
+            compare_tokens(im, waves, untagged(qa["tokens"], "qa"),
+                           ref_tokens, "off", "queue[off]",
+                           "phase 3's paged f32 run")
+            # the HTTP round, its clients in a process of their own
+            b0 = boundaries(serving)
+            ext = http_round_process(serving._http.url,
+                                     gateway_items(waves, "ext"), tmp)
+            ext_ttft = ttft_p50(serving, N_REQUESTS)
+            ext_b = boundary_line(b0, boundaries(serving))
+            deliver(ext["results"])
+            client.replies += [tuple(r) for r in ext["replies"]]
+            # the same round with the clients on threads of this process,
+            # and a retune under its traffic, once slowco's bucket has
+            # refilled its burst
+            slow = GATEWAY_ADMISSION["tenants"]["slowco"]
+            time.sleep(slow["burst"] / slow["rate"])
+            items = gateway_items(waves, "http")
+            knobs0 = serving.knobs()
+            retuned = {}
+
+            def retune_mid():
+                time.sleep(0.05)
+                retuned.update(serving.retune(max_batch=8, max_wait_ms=1.0))
+
+            rt = threading.Thread(target=retune_mid)
+            rt.start()
+            b0 = boundaries(serving)
+            wall = post_and_fetch(client, items)
+            thr_b = boundary_line(b0, boundaries(serving))
+            rt.join(60)
+            knobs = serving.knobs()
+            http_ttft = ttft_p50(serving, len(items))
+            prompts = {rid: p for rid, p, *_ in items}
+            got = {rid: list(client.results[rid]["value"]["tokens"])
+                   for rid in prompts}
+            ext_got = {rid: list(r["value"]["tokens"])
+                       for rid, r in ext["results"].items()}
+            check(untagged(ext_got, "ext") == untagged(got, "http"),
+                  "http: the two rounds' tokens differ")
+            partials = {"http-" + rid[4:]: list(parts)
+                        for rid, parts in ext["partials"].items()}
+            for rid, parts in client.partials.items():
+                partials.setdefault(rid, []).extend(parts)
+            for rid, toks in got.items():
+                want = min(GENERATION["max_tokens"],
+                           LANE - len(prompts[rid]))
+                check(len(toks) == want, f"http {rid}: {len(toks)} tokens")
+                for part in partials.get(rid, []):
+                    check(part == toks[:len(part)],
+                          f"http {rid}: a partial is not a prefix")
+            compare_tokens(im, waves, untagged(got, "http"), ref_tokens,
+                           "off", "http[off]", "phase 3's paged f32 run")
+            n_tok = sum(len(t) for t in got.values())
+            check(retuned == {"max_batch": 8, "max_wait_ms": 1.0}
+                  and knobs["max_batch"] == 8
+                  and knobs["max_wait_ms"] == 1.0,
+                  f"retune: staged {retuned}, knobs {knobs0} -> {knobs}")
+            qb = queue_round(serving, q, waves, "qb")
+            deliver(qb["results"])
+            ev = [e for e in serving.recorder.events()
+                  if e.get("event") == "retune"
+                  and e.get("replica") == serving.replica_id]
+            check(ev and ev[-1]["max_batch"] == 8.0
+                  and serving.params.max_batch == 8,
+                  f"retune: events {ev}, params.max_batch "
+                  f"{serving.params.max_batch}")
+            out["http"] = {"tok_s": n_tok / wall, "ttft_p50_s": http_ttft,
+                           "ext_tok_s": n_tok / ext["wall_s"],
+                           "ext_ttft_p50_s": ext_ttft}
+            out["queue"] = [qa, qb]
+            say(f"gateway[generation]: warm-up {warm['total']} entries in "
+                f"{warm['seconds']:.3f} s; over HTTP ({GATEWAY_CLIENTS} "
+                f"clients, binary frames, tenants acme / slowco, results "
+                f"polled every {POLL_S} s): {len(got)} records, {n_tok} "
+                f"tokens; clients in another process "
+                f"{ext['wall_s']:.3f} s = {n_tok / ext['wall_s']:.1f} "
+                f"tokens/s, TTFT p50 {ext_ttft * 1e3:.2f} ms, {ext_b}; "
+                f"clients on threads of this process {wall:.3f} s = "
+                f"{n_tok / wall:.1f} tokens/s, TTFT p50 "
+                f"{http_ttft * 1e3:.2f} ms, {thr_b}; fed from the queue: "
+                f"{qa['tok_s']:.1f} and {qb['tok_s']:.1f} tokens/s, TTFT "
+                f"p50 {qa['ttft_p50_s'] * 1e3:.2f} and "
+                f"{qb['ttft_p50_s'] * 1e3:.2f} ms, {qa['boundaries']} and "
+                f"{qb['boundaries']}; partials seen "
+                f"{sum(len(v) for v in partials.values())}, each "
+                f"a prefix; retune under traffic: "
+                f"{knobs0['max_batch']} -> {knobs['max_batch']} records a "
+                f"read, {knobs0['max_wait_ms']} -> {knobs['max_wait_ms']} "
+                f"ms, a retune event")
+            adm = admission_step(serving, client, waves)
+            say(f"gateway[admission]: slowco (2/s, burst 4) "
+                f"{adm['admitted']} admitted, {len(adm['rejected'])} "
+                f"x 429 with Retry-After "
+                f"{[ra for _, ra in adm['rejected']]} s (the bucket's "
+                f"refill time), none queued; acme {adm['acme']} of "
+                f"{adm['acme']} admitted")
+            prof = profile_step(serving, client, waves,
+                                os.path.join(tmp, "profiles"), card=card)
+            say(f"gateway[profile]: 202, then 409 while it ran; "
+                f"{prof['bytes']} B trace: {prof['kernels']} kernel events "
+                f"({prof['paged']} of the paged kernel), {prof['cpu_ops']} "
+                f"CPU op events on {prof['cpu_threads']} thread(s); the "
+                f"profiler counted {prof['device_events']} device events "
+                f"over {prof['device_work']} decode steps")
+            if card:
+                tw = traced_gateway_wave(serving, client, waves)
+                say(f"gateway[traced]: after the trace, card_launches "
+                    f"counts {tw['launches']} paged launches = "
+                    f"{tw['steps']} decode steps x "
+                    f"{im._model.n_layers}")
+            led = ledger_step(serving, card=card)
+            mem = ""
+            if card:
+                mem = (f"; their sum "
+                       f"{led['weights'] + led['kv'] + led['code']} <= "
+                       f"memory_allocated {led['allocated']} <= "
+                       f"memory_reserved {led['reserved']}")
+            say(f"gateway[ledger]: weights {led['weights']} B (= the "
+                f"stored parameters), kv_state {led['kv']} B (= "
+                f"state_bytes), CUDA-graph pools {led['code']} B"
+                f"{mem}; {led['programs']} programs")
+            lat = serving.registry.histogram(
+                "gateway_request_seconds", labels=("endpoint",))
+            p50 = {ep: lat.labels(endpoint=ep).percentiles((50,))["p50"]
+                   for ep in ("enqueue", "result")}
+            ids = {r for _, _, r in client.replies}
+            check(ids == {serving.replica_id},
+                  f"X-Replica-Id {ids} != {serving.replica_id}")
+        finally:
+            serving.shutdown(drain_s=5.0)
+    deliver(client.results)
+    use = usage_step(serving, walls, delivered)
+    say(f"gateway[usage]: device seconds {use['device_s']:.6f} = "
+        f"charged walls {use['wall_s']:.6f} over {len(walls)} charges; "
+        + "; ".join(f"{t}: {r['records']} records, {r['tokens']} "
+                    f"tokens, {r['bytes']} B, {r['device_s']:.6f} s"
+                    for t, r in sorted(use["tenants"].items()))
+        + f"; gateway p50 enqueue {p50['enqueue'] * 1e3:.2f} ms, "
+        f"result {p50['result'] * 1e3:.2f} ms; "
+        f"{len(client.replies)} replies, each with X-Replica-Id")
+    out.update(usage=use, gateway_p50_s=p50)
+    return out
+
+
+def gateway_phase(seed: int, ref_tokens=None) -> None:
+    """Phase 12: GPT-2-small generation and the int8 predict head served
+    through the front door (see the module docstring).  ``ref_tokens``:
+    phase 3's paged f32 tokens (served again here when not given)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    lm = TransformerLM(**GPT2_SMALL, seed=seed, device=dev)
+    im = InferenceModel(device=dev).do_load_model(lm)
+    waves = make_requests(seed, GPT2_SMALL["vocab_size"])
+    if ref_tokens is None:
+        run = serve(im, waves, dict(GENERATION, kv_quant="off"))
+        ref_tokens = check_served(run, waves, GPT2_SMALL["vocab_size"],
+                                  "off")
+    gateway_generation(im, waves, ref_tokens)
+    bo = brownout_step(im, waves)
+    say(f"gateway[brownout]: tight objective -> stage {bo['stage']} "
+        f"({[(t['from'], t['to']) for t in bo['transitions']]}); batch "
+        f"records end at {GATEWAY_BROWNOUT['batch_max_tokens']} tokens, "
+        f"interactive at their budget; partials {bo['partials_before']} at "
+        f"stage 0, none while suppressed")
+    del im, lm
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        pr = predict_http_step(seed, dev, tmp)
+    say(f"gateway[predict int8]: {N_RECORDS} JSON records over HTTP in "
+        f"{pr['wall_s']:.3f} s = {pr['records_s']:.2f} records/s, e2e p50 "
+        f"{pr['e2e_p50_s'] * 1e3:.1f} ms (under the trace); "
+        f"{pr['forwards']} forwards, launches on the card = by the "
+        f"wrappers: flash_fwd {pr['card']['flash_fwd']}, w8a8 "
+        f"{pr['card']['w8a8']}; every top-5 bit for bit "
+        f"InferenceModel.predict's")
+    torch.cuda.empty_cache()
+    say(f"gateway: phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
 # -- main ---------------------------------------------------------------------
 
 def ptxas_summary(log: str) -> str:
@@ -6668,6 +7517,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kernel-timing", action="store_true",
                     help="only time the paged, w8a8 and w4a16 kernels "
                          "(see kernel_timing)")
+    ap.add_argument("--gateway-client", metavar="SPEC",
+                    help="phase 12's HTTP clients in their own process "
+                         "(see gateway_client_main)")
     ap.add_argument("--resume-victim", metavar="DIR",
                     help="serve DIR/q as the continuity phase's victim "
                          "until its armed fault kills the process (see "
@@ -6675,9 +7527,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+# a hang dumps every thread's stack and exits non-zero before the run's
+# 1200 s limit, rather than being killed without a word
+WATCHDOG_S = 1150
+
+
 def main(argv=None) -> int:
     t_main = time.perf_counter()
     args = parse_args(argv)
+    if args.gateway_client:
+        return gateway_client_main(args.gateway_client)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6687,6 +7546,7 @@ def main(argv=None) -> int:
     if args.resume_victim:
         return resume_victim(args.resume_victim, args.seed)
 
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     say(f"card: {card_line()}")
     if args.kernel_timing:
         kernel_timing(args.seed)
@@ -6768,6 +7628,7 @@ def main(argv=None) -> int:
     recurrent_phase(args.seed, records)
     text_phase(args.seed, records)
     forecast_phase(args.seed, records)
+    gateway_phase(args.seed, served["off"]["timed"])
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (

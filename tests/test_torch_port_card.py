@@ -28,7 +28,12 @@ card_launches``, a profiler trace), and the wrappers' counters, which
 count eager launches, count none for a capture or a replay.  The
 time-series zoo: the forecasting heads' shapes, a quantized
 ``LSTMForecaster``'s one launch a forward, MTNet's none, thread-pooled
-trials equal to the loop and the population trainer under ``vmap``.
+trials equal to the loop and the population trainer under ``vmap``.  The
+front door: a warmed engine's HTTP gateway serving paged generation (the
+eager batcher's tokens, graph replays only, the tenant's tokens charged),
+a ``/debug/profile`` trace holding the paged kernel with
+``card_launches`` counting as before after it, and the resource ledger
+against the allocator.
 """
 
 import threading
@@ -1110,3 +1115,174 @@ def test_population_trainer_on_card(cuda_device):
     assert a.shape == (3, 4) and np.isfinite(a).all()
     assert (a[-1] < a[0]).all()
     np.testing.assert_array_equal(a, runs[1]["losses"])
+
+
+# -- the front door on the card -----------------------------------------------
+
+def _http(url, data=None, headers=None, method=None):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data, headers=headers or {},
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _gateway_engine(im, **params):
+    from analytics_zoo_tpu_torch.serving.engine import (ClusterServing,
+                                                        ServingParams)
+    from analytics_zoo_tpu_torch.serving.queues import InProcQueue
+    return ClusterServing(im, InProcQueue(), ServingParams(
+        max_batch=8, max_wait_ms=2.0, generation=GEN_CARD, warmup=True,
+        http_port=0, **params))
+
+
+def _wait_ready(s, timeout_s=120.0):
+    import time
+    t0 = time.monotonic()
+    while s.health()["warmup"]["state"] in ("pending", "warming"):
+        assert time.monotonic() - t0 < timeout_s, s.health()["warmup"]
+        time.sleep(0.02)
+    assert s.health()["warmup"]["state"] == "ready"
+
+
+def _post_and_poll(url, reqs, tenant="acme"):
+    import json
+    from analytics_zoo_tpu_torch.serving import wire
+    for rid, prompt, budget in reqs:
+        frame = wire.encode_frame(
+            {"uri": rid, "gen": {"max_tokens": budget}},
+            payload=np.asarray(prompt, "<f4"))
+        st, _, body = _http(url + "/v1/enqueue", frame,
+                            {"Content-Type": "application/octet-stream",
+                             "X-Tenant": tenant})
+        assert st == 200, body
+    out = {}
+    for rid, _, _ in reqs:
+        while rid not in out:
+            st, _, body = _http(url + f"/v1/result/{rid}?timeout_s=5")
+            doc = json.loads(body) if st == 200 else {}
+            if st == 200 and not doc.get("partial"):
+                out[rid] = doc
+    return out
+
+
+@pytest.mark.gpu
+def test_gateway_serves_paged_generation_on_card(cuda_device):
+    """Binary frames through ``/v1/enqueue`` into a warmed engine on the
+    card: every token list equals an eager batcher's, every quantum is a
+    graph replay, the paged kernel runs decode steps x 12 on the card, and
+    the tokens charged to the tenant are those delivered less each
+    request's prefill token."""
+    im = _gen_model(cuda_device)
+    reqs = _gen_reqs(4)
+    want = _serve(tgen.ContinuousBatcher(im, tgen.GenerationParams(
+        **GEN_CARD)), reqs)
+    s = _gateway_engine(im)
+    s.start()
+    try:
+        _wait_ready(s)
+        b = s._batcher
+        steps0 = b.decode_steps
+        with _impl.card_launches(("paged",)) as card:
+            got = _post_and_poll(s._http.url, reqs)
+        steps = b.decode_steps - steps0
+        usage = s.health()["usage"]["tenants"]["acme"]
+    finally:
+        s.shutdown(drain_s=5.0)
+    assert {rid: r["value"]["tokens"] for rid, r in got.items()} == want
+    assert b.stats()["eager_quanta"] == 0
+    assert card["paged"] == steps * 12 > 0
+    assert usage["records"] == len(reqs)
+    assert usage["tokens"] == sum(len(t) - 1 for t in want.values())
+
+
+@pytest.mark.gpu
+def test_profile_trace_holds_the_paged_kernel_on_card(cuda_device,
+                                                      tmp_path):
+    """``POST /debug/profile`` while traffic flows: 202, then 409 for a
+    second trace; the Chrome trace written holds the paged kernel's
+    launches; afterwards ``card_launches`` counts as before."""
+    import json
+    import time
+    im = _gen_model(cuda_device)
+    s = _gateway_engine(im)
+    s.profile_dir = str(tmp_path)
+    s.start()
+    try:
+        _wait_ready(s)
+        url = s._http.url
+        stop = threading.Event()
+
+        def traffic():
+            k = 0
+            while not stop.is_set():
+                _post_and_poll(url, _gen_reqs(5, n=4, tag=f"p{k}-"))
+                k += 1
+
+        th = threading.Thread(target=traffic)
+        th.start()
+        try:
+            st, _, body = _http(url + "/debug/profile?seconds=1", b"",
+                                method="POST")
+            assert st == 202, body
+            path = json.loads(body)["path"]
+            assert _http(url + "/debug/profile?seconds=1", b"",
+                         method="POST")[0] == 409
+            t0 = time.monotonic()
+            while not [e for e in s.recorder.events()
+                       if e.get("event") in ("profile_done",
+                                             "profile_error")
+                       and e.get("replica") == s.replica_id]:
+                assert time.monotonic() - t0 < 120
+                time.sleep(0.05)
+        finally:
+            stop.set()
+            th.join(120)
+        ev = [e for e in s.recorder.events()
+              if e.get("event", "").startswith("profile_")
+              and e.get("replica") == s.replica_id][-1]
+        assert ev["event"] == "profile_done", ev
+        with open(f"{path}/trace.json") as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        assert any(_impl.KERNEL_NAMES["paged"] in n for n in names)
+        steps0 = s._batcher.decode_steps
+        with _impl.card_launches(("paged",)) as card:
+            _post_and_poll(url, _gen_reqs(6, n=4, tag="after-"))
+        assert card["paged"] == (s._batcher.decode_steps - steps0) * 12
+    finally:
+        s.shutdown(drain_s=5.0)
+
+
+@pytest.mark.gpu
+def test_resource_ledger_against_the_allocator_on_card(cuda_device):
+    """The ledger of a warmed generation engine: weights = the bytes of
+    the model's stored parameters and buffers, kv_state = the batcher's
+    ``state_bytes()``, the CUDA-graph pools > 0; weights + kv_state within
+    ``torch.cuda.memory_allocated()``, and with the pools (segments the
+    allocator reserves for the graphs' replays) within
+    ``memory_reserved()``."""
+    im = _gen_model(cuda_device)
+    s = _gateway_engine(im)
+    s.start()
+    try:
+        _wait_ready(s)
+        _post_and_poll(s._http.url, _gen_reqs(7, n=4))
+        res = s.health()["resources"]
+        kv = s._batcher.state_bytes()
+    finally:
+        s.shutdown(drain_s=5.0)
+    module = im._model
+    stored = {t.data_ptr(): t.numel() * t.element_size()
+              for t in list(module.parameters()) + list(module.buffers())}
+    assert res["weights_bytes"] == sum(stored.values())
+    assert res["kv_state_bytes"] == kv
+    code = res["executables"]["code_bytes"]
+    assert code is not None and code > 0
+    torch.cuda.synchronize()
+    assert res["weights_bytes"] + kv <= torch.cuda.memory_allocated()
+    assert res["weights_bytes"] + kv + code <= torch.cuda.memory_reserved()

@@ -105,8 +105,13 @@ def test_engine_generation_e2e_streaming_and_quarantine():
     assert serving.dead_lettered == 1 and serving.shed == 1
     assert serving.total_records == 4
     n_tok = 4 * GEN["max_tokens"]
-    assert snap["serving_generated_tokens_total"]["values"][0][
-        "value"] == n_tok
+    assert serving._batcher.generated_tokens == n_tok
+    # metering is on by default: tokens are charged to the records' tenant
+    # ("unknown" here) at each decode boundary, which leaves out the token
+    # each request's prefill emits, as the JAX engine's meter does
+    tok = snap["serving_generated_tokens_total"]["values"]
+    assert [(v["labels"], v["value"]) for v in tok] == [
+        ({"tenant": "unknown", "model": "default"}, n_tok - 4)]
     assert snap["serving_decode_steps_total"]["values"][0]["value"] > 0
     assert snap["serving_time_to_first_token_seconds"]["values"][0][
         "count"] == 4
@@ -132,13 +137,15 @@ def test_engine_serve_once_synchronous_drive():
     serving.shutdown()
 
 
-@pytest.mark.parametrize("opt", [dict(http_port=8080, generation=GEN),
-                                 dict(admission={"rate": 1.0},
+@pytest.mark.parametrize("opt", [dict(mesh_shape=(1, 2), generation=GEN),
+                                 dict(compile_cache_dir="xla-cache",
                                       generation=GEN),
                                  dict(sharding="auto"),
-                                 dict(brownout={"enabled": True},
-                                      generation=GEN)])
+                                 dict(sharding="batch", generation=GEN)])
 def test_engine_unported_options_raise(opt):
+    """The options of the JAX engine that the port does not serve yet
+    (sharding waits for multi-GPU; XLA's compilation cache has no
+    counterpart) raise rather than being dropped."""
     with pytest.raises(NotImplementedError):
         ClusterServing(_im(), InProcQueue(), ServingParams(**opt))
 

@@ -72,7 +72,9 @@ def test_every_module_imports_with_jax_blocked():
                 "automl", "automl.search", "automl.feature",
                 "automl.regression", "automl.population", "zouwu",
                 "zouwu.forecast", "utils.serialization", "interop",
-                "interop.keras_import"):
+                "interop.keras_import", "serving.admission",
+                "serving.brownout", "serving.metering", "serving.http",
+                "inference.resources"):
         assert f"analytics_zoo_tpu_torch.{mod}" in doc["modules"]
 
 

@@ -24,11 +24,13 @@ counters, reasons, events and checksums.
 - Every pool block comes back after a drain of mixed resumed and fresh
   requests.
 
+- Usage is conserved across fresh and resumed slots: the resumed
+  tenant is charged only the tokens past its checkpoint, the fresh one
+  the full roll, as the JAX engine charges them.
+
 Not ported on purpose: the JAX file's bare-state test (the bare-state
-lanes are held in ``test_torch_port_seq2seq.py``), its usage-conservation
-test (metering is not ported)
-and its two-replica SIGKILL test (the load balancer and the fleet
-manager are not ported).
+lanes are held in ``test_torch_port_seq2seq.py``) and its two-replica
+SIGKILL test (the load balancer and the fleet manager are not ported).
 """
 
 import base64
@@ -650,17 +652,77 @@ def test_snapshot_corrupt_fault_leads_to_checksum_mismatch(
 
 
 def test_admission_reject_fault_raises_in_the_port_engine(models):
-    """The port has no admission gate yet, so an armed point that nothing
-    would fire is refused at construction; gated off, it constructs."""
-    p = teng.ServingParams(generation=GEN, faults={
-        "admission_reject": {"version": "*", "count": 1}})
-    with pytest.raises(NotImplementedError, match="admission"):
-        teng.ClusterServing(models["port"], tqueues.InProcQueue(), p)
-    s = teng.ClusterServing(models["port"], tqueues.InProcQueue(),
-                            teng.ServingParams(generation=GEN, faults={
-                                "admission_reject": {"version": "v9"}}))
-    assert "faults" not in s.health()
-    s.shutdown()
+    """An armed ``admission_reject`` point fires in the admission gate, as
+    in the JAX engine: the next ``count`` requests are rejected with
+    reason "fault" (the point shows in ``health()``), then it disarms;
+    gated off by version, it never fires."""
+    seen = {}
+    for pkg in ("jax", "port"):
+        eng = PKGS[pkg].eng
+        s = eng.ClusterServing(models[pkg], PKGS[pkg].q.InProcQueue(),
+                               eng.ServingParams(
+                                   generation=GEN, admission={},
+                                   faults={"admission_reject": {
+                                       "version": "*", "count": 2}}))
+        off = eng.ClusterServing(models[pkg], PKGS[pkg].q.InProcQueue(),
+                                 eng.ServingParams(
+                                     generation=GEN, admission={},
+                                     faults={"admission_reject": {
+                                         "version": "v9"}}))
+        seen[pkg] = ([tuple(s.admit_record("acme", "batch"))
+                      for _ in range(3)], s.health()["faults"],
+                     [e["reason"] for e in _events(s, "admission_reject")],
+                     off.admit_record("acme", "batch").admitted,
+                     "faults" in off.health())
+        s.shutdown()
+        off.shutdown()
+    assert seen["port"] == seen["jax"]
+    assert [d[:2] for d in seen["port"][0]] == [
+        (False, "fault"), (False, "fault"), (True, None)]
+    assert seen["port"][1:] == (["admission_reject"], ["fault", "fault"],
+                                True, False)
+
+
+@pytest.mark.parametrize("lane", ["mono", "paged"])
+def test_usage_conserved_across_fresh_and_resumed_slots_like_jax(
+        models, golden, lane, tmp_path):
+    """A resumed record (tenant acme, checkpoint at depth K) and a fresh
+    one (tenant zeta) served together: the same tokens and the same usage
+    as the JAX engine — the resumed tenant charged only the tokens past
+    its checkpoint, the fresh one the full roll, each less the prefill's
+    first token, which both packages charge outside the boundary deltas —
+    and no journal delta negative across the resume epoch."""
+    gen = LANES[lane]
+    prefix = golden("jax", lane)[:K]
+    seen = {}
+    for pkg in ("jax", "port"):
+        root = tmp_path / pkg
+        root.mkdir()
+        q = _queue(pkg, "inproc", root / "q")
+        _enqueue(q, "r", PROMPT, tenant="acme")
+        assert _claim_dead(q, 1) == ["r"]
+        spool = str(root / "dead.gensnap.jsonl")
+        PKGS[pkg].tc.append_snapshots(spool, [_snapshot(pkg, "r", prefix)],
+                                      source="dead")
+        q.annotate("r", {"spool": spool, "epoch": 0, "replica": "dead"})
+        _enqueue(q, "fresh", PROMPT, tenant="zeta")
+        time.sleep(0.3)                      # the dead claim goes stale
+        s = _survivor(pkg, models, q, root, gen)
+        res = _serve(pkg, s, q, ["r", "fresh"])
+        tenants = s.meter.snapshot()["tenants"]
+        drained = s.meter.drain()
+        seen[pkg] = (res["r"]["value"]["tokens"],
+                     res["fresh"]["value"]["tokens"],
+                     {t: (d["records"], d["tokens"], d["sheds"])
+                      for t, d in tenants.items()},
+                     all(r[f] >= 0 for r in drained
+                         for f in ("records", "tokens", "device_s",
+                                   "bytes", "sheds")))
+    assert seen["port"] == seen["jax"]
+    n = len(golden("port", lane))
+    assert seen["port"][2] == {"acme": (1, n - K - 1, 0),
+                               "zeta": (1, n - 1, 0)}
+    assert seen["port"][3]
 
 
 def test_engine_fault_hooks_are_wired():

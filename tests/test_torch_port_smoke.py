@@ -18,8 +18,10 @@ phase's (the classifier's width and one-row conv geometries, the NER
 surrogate's tags and the span F1, TextClassifier / NER / the taggers /
 KNRM trained and served) and its forecast phase's (the series' length
 and cadence, the naive forecasts, the grid and trial checks, AutoTS, the
-forecasters, the population trainer and the served routes) are plain
-Python and run here at a tiny width.
+forecasters, the population trainer and the served routes) and its
+front door phase's (the queue-fed and HTTP rounds, admission's 429s,
+the profile, the documents, the ledger and usage checks, the brownout
+and int8-predict steps) are plain Python and run here at a tiny width.
 """
 
 import copy
@@ -1434,3 +1436,83 @@ def test_forecast_phase_on_cpu(tiny_forecast, tmp_path):
     bad[0, 0] = np.nextafter(bad[0, 0], np.float32(1e9))
     with pytest.raises(cs.SmokeFailure, match="bitwise"):
         cs.check_route("t[int8]", bad, y, 8)
+
+
+# -- phase 12: the front door ---------------------------------------------------
+
+def test_gateway_generation_steps_on_cpu(tiny):
+    """Phase 12's generation steps at a tiny width on the CPU: the
+    queue-fed rounds, the HTTP rounds (clients in another process and on
+    threads) with a retune under traffic, admission's computed 429s, a
+    profile (202, then 409), the documents and the ledger, and usage
+    conserved, each check passing as on the card."""
+    waves = cs.make_requests(0, VOCAB)
+    ref = cs.batcher_tokens(tiny, waves, "off", "torch")
+    out = cs.gateway_generation(tiny, waves, ref, card=False)
+    assert out["http"]["tok_s"] > 0 and out["http"]["ext_tok_s"] > 0
+    use = out["usage"]
+    assert set(use["tenants"]) == {"acme", "slowco", "unknown"}
+    assert abs(use["device_s"] - use["wall_s"]) < 1e-5
+    assert set(out["gateway_p50_s"]) == {"enqueue", "result"}
+
+
+def test_gateway_brownout_step_on_cpu(tiny):
+    """The brownout engine's objective is missed by every record: the
+    ladder reaches stage 2, batch records end at ``batch_max_tokens`` and
+    no partial is written once the ladder suppresses them."""
+    bo = cs.brownout_step(tiny, cs.make_requests(0, VOCAB))
+    assert bo["stage"] >= 2 and bo["partials_before"] > 0
+    assert [t["to"] for t in bo["transitions"]][:2] == [1, 2]
+
+
+def test_gateway_predict_step_on_cpu(tiny_predict, monkeypatch, tmp_path):
+    """JSON records through the gateway into the int8 predict engine: every
+    top-5 equal to ``InferenceModel.predict`` on the batch the engine
+    formed (the plain versions here, so no launch is counted)."""
+    monkeypatch.setattr(cs, "PREDICT_WARMUP", {"max_batch": 4,
+                                               "scales": "off"})
+    monkeypatch.setattr(cs, "N_RECORDS", 8)
+    pr = cs.predict_http_step(0, torch.device("cpu"), str(tmp_path),
+                              launches=False)
+    assert pr["forwards"] >= 2 and pr["records_s"] > 0
+    assert pr["card"] == {"flash_fwd": 0, "w8a8": 0}
+
+
+class _Drained:
+    def __init__(self, records):
+        self.records = records
+
+    def drain_usage(self):
+        return list(self.records)
+
+
+def test_gateway_usage_check_rejects_faults():
+    """The usage check holds the drained device seconds to the charged
+    walls and each tenant's records and tokens to what was delivered (less
+    each request's prefill token); a fault in any of them is rejected."""
+    rec = {"tenant": "acme", "model": "default", "records": 2,
+           "tokens": 10, "device_s": 0.75, "bytes": 40, "sheds": 0}
+    good = _Drained([rec])
+    cs.usage_step(good, [0.25, 0.5], {"acme": [6, 6]})
+    with pytest.raises(cs.SmokeFailure, match="device seconds"):
+        cs.usage_step(good, [0.25, 0.51], {"acme": [6, 6]})
+    with pytest.raises(cs.SmokeFailure, match="tokens"):
+        cs.usage_step(good, [0.75], {"acme": [6, 7]})
+    with pytest.raises(cs.SmokeFailure, match="records"):
+        cs.usage_step(good, [0.75], {"acme": [6, 6, 1]})
+    with pytest.raises(cs.SmokeFailure, match="tenants"):
+        cs.usage_step(_Drained([rec, dict(rec, tenant="zeta")]), [1.5],
+                      {"acme": [6, 6]})
+
+
+def test_gateway_items_split_tenants_within_the_slow_burst():
+    """Step 1's posts: slowco's share fits its burst, priorities
+    alternate, and the rids carry the round's tag."""
+    items = cs.gateway_items(cs.make_requests(0, VOCAB), "t")
+    slow = [i for i in items if i[2] == "slowco"]
+    assert len(items) == cs.N_REQUESTS
+    assert len(slow) == cs.GATEWAY_ADMISSION["tenants"]["slowco"]["burst"]
+    assert {i[3] for i in items} == {"interactive", "batch"}
+    assert all(rid.startswith("t-req-") for rid, *_ in items)
+    assert cs.untagged({rid: [1] for rid, *_ in items}, "t").keys() == {
+        rid for w in cs.make_requests(0, VOCAB) for rid, _ in w}
