@@ -26,14 +26,20 @@ JAX package's ``inference/inference_model.py``.
   raised the median latency by 30-53% (``predict_graph_probe.py``,
   PERF.md).
 
+- ``do_load`` / ``do_load_store``: a topology builder and a ``.npz``
+  weights file or an mmap'd weight store (``inference/weightstore.py``,
+  the JAX package's format: a store written by either package loads in
+  the other).
+
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
-Sharding, the weight store and the framework bridges are not ported yet
-and raise ``NotImplementedError``.
+Sharding and the framework bridges are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 import warnings
@@ -45,7 +51,6 @@ import torch
 
 from analytics_zoo_tpu_torch.common.context import DeviceLike, resolve_device
 from analytics_zoo_tpu_torch.inference import aot
-from analytics_zoo_tpu_torch.models.textmodels import TransformerLM
 from analytics_zoo_tpu_torch.nn.module import Layer
 
 logger = logging.getLogger(__name__)
@@ -120,8 +125,10 @@ class InferenceModel:
         self.device = resolve_device(device)
         self._model: Optional[torch.nn.Module] = None
         self._params = None
+        self._state = None
         self._sem = threading.BoundedSemaphore(self.concurrent_num)
-        self.load_seconds: Optional[float] = None
+        self.load_seconds: Optional[float] = None   # last do_load* wall
+        self.load_mmap = False          # last load used the mmap store
         # predict/dispatch latency + batch-size histograms: bound lazily to
         # the serving engine's registry (or the process one); an explicit
         # registry stays pinned
@@ -175,12 +182,18 @@ class InferenceModel:
 
     # -- loaders ----------------------------------------------------------------
     def _refresh_params(self) -> None:
-        from analytics_zoo_tpu_torch.utils.convert import export_params
+        """The loaded model's params (and state) as JAX-layout trees of
+        detached tensors: what ``manager warmup`` exports to the weight
+        store, so a store always holds the JAX layout."""
+        from analytics_zoo_tpu_torch.utils.convert import (export_params,
+                                                           export_state)
         model = self._model
-        if isinstance(model, Layer) and not isinstance(model, TransformerLM):
+        if isinstance(model, Layer):
             self._params = export_params(model)
+            self._state = export_state(model)
         else:
             self._params = dict(model.named_parameters())
+            self._state = {}
 
     def do_load_model(self, model: torch.nn.Module, params=None,
                       state=None):
@@ -204,12 +217,85 @@ class InferenceModel:
         self.load_seconds = time.perf_counter() - t0
         return self
 
-    do_load = _not_ported("do_load (the weight store)")
-    do_load_store = _not_ported("do_load_store (the mmap weight store)")
-    do_load_tensorflow = _not_ported("the TensorFlow bridge")
-    do_load_onnx = _not_ported("the ONNX bridge")
-    do_load_pytorch = _not_ported("the TorchScript bridge")
-    shard = _not_ported("sharded predict (multi-GPU)")
+    def do_load(self, topology_builder: Callable[[], torch.nn.Module],
+                weights_path: str):
+        """Rebuild the topology with ``topology_builder`` and load its
+        weights: a DIRECTORY is an mmap'd weight store
+        (:meth:`do_load_store`); a file is a ``.npz`` weights file (either
+        package's), read through the model's ``init_weights()`` and
+        ``load_weights(path)``."""
+        t0 = time.perf_counter()
+        if os.path.isdir(weights_path):
+            return self.do_load_store(topology_builder, weights_path)
+        model = topology_builder()
+        model.init_weights()
+        model.load_weights(weights_path)
+        out = self.do_load_model(model)
+        self.load_seconds = time.perf_counter() - t0
+        self.load_mmap = False
+        return out
+
+    def do_load_store(self, topology_builder: Callable[[], torch.nn.Module],
+                      store_dir: str):
+        """Restore weights from an mmap'd store directory
+        (``inference/weightstore.py``): each leaf is a bare ``.npy`` mapped
+        with ``np.load(mmap_mode="r")`` — the boot touches no weight bytes
+        until the copy into the model reads them, and every replica on the
+        host maps the SAME page-cache pages.  The model moves to this
+        model's device first, so each leaf is copied once, from the mapped
+        pages into its parameter (no host copy between on the card; on the
+        CPU the parameter is a private copy the store never sees written).
+
+        Leaves are matched by key, else by position (the naturally sorted
+        order, every leaf's shape and dtype checked); a quantized store
+        (int8 / int4 leaves and scales) restores by its own paths, its
+        containers remapped onto the model's and shared leaves checked."""
+        from analytics_zoo_tpu_torch.inference import weightstore
+        from analytics_zoo_tpu_torch.inference.quantize import QUANT_LEAVES
+        from analytics_zoo_tpu_torch.utils.convert import (export_params,
+                                                           export_state,
+                                                           load_jax_params,
+                                                           load_jax_state)
+        t0 = time.perf_counter()
+        model = topology_builder().to(self.device)
+        like = {"params": export_params(model), "state": export_state(model)}
+        try:
+            tree = weightstore.load_store(store_dir, like=like)
+        except KeyError:
+            # a QUANTIZED store does not match the float model's template:
+            # restore by the stored paths.  Gated on the store holding
+            # quantized leaves — a FLOAT store that failed the keyed and
+            # positional match is corrupt or belongs to another topology,
+            # and must keep failing loudly here, not at first predict
+            manifest = weightstore.read_manifest(store_dir) or {}
+            names = {k.rsplit("/", 1)[-1]
+                     for k in (manifest.get("leaves") or {})}
+            if not names & set(QUANT_LEAVES):
+                raise
+            tree = weightstore.load_store_nested(store_dir, like=like)
+            # paramless/stateless layers' empty {} slots produce no store
+            # leaves: graft the template's containers around the restored
+            # leaves ({W_q4, s_g} may replace the template's {W})
+            tree["params"] = weightstore.graft_containers(
+                like["params"], tree.get("params", {}),
+                require_leaves=False)
+            tree["state"] = weightstore.graft_containers(
+                like["state"], tree.get("state", {}))
+        load_jax_params(model, tree["params"])
+        if tree["state"]:
+            load_jax_state(model, tree["state"])
+        out = self.do_load_model(model)
+        self.load_seconds = time.perf_counter() - t0
+        self.load_mmap = True
+        return out
+
+    do_load_tensorflow = _not_ported("the TensorFlow bridge (ROADMAP "
+                                     "queue 1, item 10)")
+    do_load_onnx = _not_ported("the ONNX bridge (ROADMAP queue 1, item 10)")
+    do_load_pytorch = _not_ported("the TorchScript bridge (ROADMAP queue 1, "
+                                  "item 10)")
+    shard = _not_ported("sharded predict (multi-GPU, ROADMAP queue 1, "
+                        "item 7)")
 
     # -- quantization -------------------------------------------------------------
     def do_quantize(self, calib_inputs, force: bool = False, bits: int = 8,

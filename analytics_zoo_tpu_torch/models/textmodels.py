@@ -134,6 +134,42 @@ class TransformerLM(Layer):
             [_Block(H, std, gen) for _ in range(self.n_layers)])
         self.to(dev)
 
+    # -- weights in the JAX layout ---------------------------------------------
+    def _tree(self) -> Dict:
+        """The parameters keyed as the JAX package's param tree: ``embed``,
+        ``pos``, ``ln_f {g, b}`` and the list ``blocks`` of ``{ln1, qkv,
+        proj, ln2, fc1, fc2}`` (``utils/convert._load_lm`` is the inverse);
+        what ``export_params`` returns, and what a weight store holds."""
+        def ln(m):
+            return {"g": m.g, "b": m.b}
+
+        def dense(m):
+            return {"W": m.W, "b": m.b}
+
+        return {"embed": self.embed, "pos": self.pos, "ln_f": ln(self.ln_f),
+                "blocks": [{"ln1": ln(b.ln1), "qkv": dense(b.qkv),
+                            "proj": dense(b.proj), "ln2": ln(b.ln2),
+                            "fc1": dense(b.fc1), "fc2": dense(b.fc2)}
+                           for b in self.blocks]}
+
+    def save_weights(self, path: str) -> None:
+        """``{"params": ..., "state": {}}`` as one .npz, the file the JAX
+        package writes for the same model (``utils/serialization``)."""
+        from analytics_zoo_tpu_torch.utils.convert import export_params
+        from analytics_zoo_tpu_torch.utils.serialization import save_pytree
+        save_pytree(path, {"params": export_params(self), "state": {}})
+
+    def load_weights(self, path: str) -> "TransformerLM":
+        """Load a weights file (either package's) in place; a leaf the
+        file lacks raises ``KeyError``."""
+        from analytics_zoo_tpu_torch.utils.convert import (export_params,
+                                                           load_jax_params)
+        from analytics_zoo_tpu_torch.utils.serialization import load_pytree
+        tree = load_pytree(path, like={"params": export_params(self),
+                                       "state": {}})
+        load_jax_params(self, tree["params"])
+        return self
+
     # -- shared pieces --------------------------------------------------------
     @property
     def device(self) -> torch.device:

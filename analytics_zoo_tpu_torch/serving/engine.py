@@ -354,9 +354,17 @@ def apply_quantize(model, spec) -> bool:
 
 
 # ServingParams options of the JAX engine that this slice does not serve:
-# name -> the value that means "off".  Any other value raises.
-_NOT_PORTED = {"sharding": "off", "mesh_shape": None,
-               "compile_cache_dir": None}
+# name -> (the values that mean "off", why).  Any other value raises.
+_NOT_PORTED = {
+    "sharding": (("off",), "multi-GPU serving, ROADMAP queue 1, item 7"),
+    "mesh_shape": ((None,), "multi-GPU serving, ROADMAP queue 1, item 7"),
+    # "off" (False once YAML has read it) is the JAX config's way to say
+    # "no cache", which is what the port has: it compiles nothing at
+    # serving time
+    "compile_cache_dir": ((None, "off", False), "XLA's persistent "
+                          "compilation cache has no counterpart: the port "
+                          "compiles nothing at serving time"),
+}
 
 
 class ServingParams:
@@ -405,10 +413,11 @@ class ServingParams:
                  brownout=None,
                  metering=None):
         given = locals()
-        for key, off in _NOT_PORTED.items():
-            if given[key] != off:
+        for key, (off, why) in _NOT_PORTED.items():
+            if given[key] not in off:
                 raise NotImplementedError(
-                    f"ServingParams.{key}={given[key]!r}: not ported yet")
+                    f"ServingParams.{key}={given[key]!r}: not ported yet "
+                    f"({why})")
         self.batch_size = batch_size
         self.top_n = top_n
         # kept for config parity; the JAX engine stores it unused too
@@ -2375,6 +2384,17 @@ class ClusterServing:
         """Warm-up progress document (health and readiness)."""
         return dict(self._warm_state)
 
+    def _load_doc(self) -> Dict:
+        """How this replica got its weights and kernels: the model's load
+        wall and whether it mapped a weight store (``InferenceModel``'s
+        ``load_seconds`` / ``load_mmap``), and the kernel libraries this
+        process compiled with ``nvcc`` (empty when every one it loaded
+        was built already, as after the manager's pre-warm)."""
+        from analytics_zoo_tpu_torch.ops import _build
+        return {"seconds": getattr(self.model, "load_seconds", None),
+                "mmap": bool(getattr(self.model, "load_mmap", False)),
+                "nvcc": sorted(_build.BUILD_SECONDS)}
+
     def _pre_loop(self):
         sup = self._pre_sup
         while not self._stop.is_set():
@@ -2504,6 +2524,7 @@ class ClusterServing:
              "dead_lettered": self.dead_lettered,
              "shed": self.shed,
              "warmup": self.warmup_state(),
+             "load": self._load_doc(),
              "cold_start_s": (None if self._cold_start_s is None
                               else round(self._cold_start_s, 3)),
              "quantized_bits": self._quantized_bits(),

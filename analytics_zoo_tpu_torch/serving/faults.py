@@ -39,8 +39,8 @@ Config shape (``params.faults`` in config.yaml)::
                                 # must detect it and restart from 0
 
 Every knob is deterministic: the same config and record sequence produce
-the same failures, so tests assert exact outcomes.  The JAX package's
-offline companion ``corrupt_store_leaf`` comes with the weight store.
+the same failures, so tests assert exact outcomes.  The offline
+companion ``corrupt_store_leaf`` damages a weight store on disk.
 """
 
 from __future__ import annotations
@@ -255,3 +255,22 @@ class FaultInjector:
             return (f"fault-injected readyz_delay "
                     f"({uptime_s:.1f}/{hold:g}s)")
         return None
+
+
+def corrupt_store_leaf(store_dir: str, leaf_index: int = 0,
+                       truncate_to: int = 0) -> str:
+    """Truncate one leaf file of a weight store IN PLACE (the manifest is
+    left intact, so only integrity verification — not a directory listing
+    — can tell).  Returns the corrupted file's path.  Test helper for the
+    "corrupt store leaf" fault: ``registry.verify`` must report it and
+    the rollout must refuse the version."""
+    import json
+    with open(os.path.join(store_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    files = sorted({m["file"] for m in manifest["leaves"].values()})
+    if not files:
+        raise ValueError(f"{store_dir!r}: store has no leaves")
+    target = os.path.join(store_dir, files[leaf_index % len(files)])
+    with open(target, "r+b") as f:
+        f.truncate(truncate_to)
+    return target

@@ -42,6 +42,7 @@ JAX is imported here.
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -66,9 +67,24 @@ def _lm_leaves(params: Dict) -> Iterator[Tuple[str, object]]:
                 yield f"blocks.{i}.{name}.{k}", leaf
 
 
+def _host_view(leaf) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor over the same memory.  The loader only
+    reads it (``copy_`` into the parameter), so a read-only leaf mapped
+    from a weight store is read once, straight into the parameter's own
+    storage: on the card, host pages to the device with no host copy
+    between; on the CPU, a private copy the store never sees written."""
+    a = np.asarray(leaf)
+    if any(s < 0 for s in a.strides):
+        a = a.copy()
+    with warnings.catch_warnings():
+        # torch warns that writes through a read-only array's tensor are
+        # undefined; this one is never written
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(a)
+
+
 def _copy_leaf(dst: torch.Tensor, leaf, path: str) -> None:
-    src = leaf if isinstance(leaf, torch.Tensor) \
-        else torch.tensor(np.asarray(leaf))
+    src = leaf if isinstance(leaf, torch.Tensor) else _host_view(leaf)
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{path}: shape {tuple(src.shape)} != "
                          f"{tuple(dst.shape)}")

@@ -3,7 +3,7 @@
 
 Runs the port's serving paths (generation, predict, image classification,
 recommendation, the recurrent, text and time-series zoos, the HTTP front
-door with its armour) and its
+door with its armour, the fleet control plane) and its
 training paths on one NVIDIA GPU and checks them, phase by phase, each
 phase printing its own lines:
 
@@ -280,6 +280,44 @@ phase printing its own lines:
    on the batch the engine formed, flash forward and w8a8 launches on the
    card = by the wrappers; records/s, the gateway's p50 by endpoint and
    the phase's wall.
+13. fleet — the control plane, run by the manager in subprocesses of
+   this script (never a fork of it) under a temporary directory, with a
+   ``file:`` queue and ephemeral ports.  (1) Phase 4's model with its
+   int8 head from a seeded ``.npz`` and a topology file: ``manager
+   warmup`` (``quantize`` calibrated on a seeded ``.npy`` batch) exports
+   the quantized store, a second ``warmup`` skips it, neither runs
+   ``nvcc``; ``InferenceModel.do_load`` here maps it (``load_mmap``) and
+   its top-5 (every probability) equals, bit for bit, the int8 predict of
+   the same model quantized here on the same batch, through 12 flash
+   forward launches and one ``w8a8`` a forward on the card = by the
+   wrappers; ``load_seconds`` from the store and from the ``.npz``.  (2)
+   Phase 3's GPT-2-small deployment (paged f32 KV, 8 slots, warmed,
+   partials and checkpoints every 8 tokens, resume on) under ``manager
+   start --replicas 2 --lb-port P --autoscale --foreground``: the
+   pre-warm exports the store, both replicas reach ``/readyz`` with the
+   store mapped, warm-up failed 0 and no ``nvcc`` of their own; each
+   replica's time to ready, its ledger and ``nvidia-smi``'s memory.  (3)
+   Phase 3's 16 prompts through the load balancer from 4 client threads:
+   every token list phase 3's (or parting at a near tie), both replicas
+   served, tokens/s and TTFT p50 (``histogram_quantile`` over the
+   fleet's merged buckets) beside phase 3's single engine; ``manager
+   metrics --all-replicas --prom`` sums the replicas' decode steps;
+   ``manager profile 0 --seconds 2`` during waves fed to the queue writes
+   a trace whose kernel events hold the paged kernel's.  (4) A wave of 48 through the
+   load balancer; the replica holding checkpointed generations is
+   SIGKILLed mid-decode: no client request fails, generations resume on
+   the survivor, every token list phase 3's (or parting at a near tie),
+   the supervisor respawns it; ``incident --list`` shows the crash's
+   bundle, an operator capture's timeline holds ``gen_checkpoint`` and
+   ``gen_resume``; the time to recover.  (5) ``scale 3``: the new replica
+   boots from the store and serves; ``scale 2``: it retires by SIGUSR1
+   while a wave's enqueues through the load balancer answer 200.  (6)
+   ``publish`` v1 and v2 (another seed's weights, a second config) while
+   the fleet scales; ``rollout v2`` moves the fleet through its canary;
+   results carry ``model_version`` v2 and four prompts' tokens equal
+   v2's own in-process tokens; ``manager stop`` leaves no process
+   behind.  (7) One replica (``start --foreground``) from the ``.npz``
+   and one from the store, started together: seconds to ``/readyz``.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -316,11 +354,14 @@ import copy
 import ctypes
 import faulthandler
 import hashlib
+import io
 import json
 import math
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -381,6 +422,7 @@ from analytics_zoo_tpu_torch.serving.engine import (ClusterServing,
 from analytics_zoo_tpu_torch.serving.generate import (ContinuousBatcher,
                                                       GenerationParams,
                                                       GenRequest, commit)
+from analytics_zoo_tpu_torch.serving import manager
 from analytics_zoo_tpu_torch.serving import tracecollect
 from analytics_zoo_tpu_torch.serving import wire
 from analytics_zoo_tpu_torch.serving.queues import FileQueue, InProcQueue
@@ -7430,6 +7472,900 @@ def gateway_phase(seed: int, ref_tokens=None) -> None:
     say(f"gateway: phase wall {time.perf_counter() - t_phase:.2f} s")
 
 
+# -- phase 13: the fleet control plane -----------------------------------------
+
+# phase 4's model under names that do not depend on what this process built
+# before it: a topology file builds the same keys in a fresh process
+FLEET_PREDICT_NAMES = ("fleet_tl", "fleet_pool", "fleet_head")
+FLEET_CLIENTS = 4
+FLEET_TIMEOUT_S = 300.0
+FLEET_PROFILE_S = 2.0
+# the crash wave: phase 3's prompts three times over, so that generations
+# are in flight with checkpoints spooled for long enough to pick a victim
+CRASH_COPIES = 3
+# a short canary dwell: the rollout's state machine, not a soak
+FLEET_ROLLOUT = {"canary_dwell_s": 2.0, "ready_timeout_s": 180.0,
+                 # the canary's own boot loads and warms v2; a pre-warm
+                 # pass of v2 first would block the supervisor ~12 s
+                 "prewarm": False}
+# the autoscaler runs (--autoscale) with dwells far past the phase, so the
+# replica counts are the ones the steps set
+FLEET_AUTOSCALER = {"min_replicas": 1, "max_replicas": 3,
+                    "dwell_up_s": 3600, "dwell_down_s": 3600,
+                    "knob_dwell_s": 3600, "heartbeat_stale_s": 3600}
+MANAGER = (sys.executable, "-m", "analytics_zoo_tpu_torch.serving.manager")
+
+
+def fleet_predict_model(seed=None) -> Sequential:
+    T = PREDICT["seq_len"]
+    tl, pool, head = FLEET_PREDICT_NAMES
+    m = Sequential([
+        TransformerLayer(**PREDICT, input_shape=(T,), name=tl),
+        GlobalAveragePooling1D(name=pool),
+        Dense(PREDICT["vocab"], activation="softmax", name=head)])
+    return m if seed is None else m.init_weights(seed)
+
+
+def predict_topology() -> str:
+    tl, pool, head = FLEET_PREDICT_NAMES
+    return (
+        "from analytics_zoo_tpu_torch.nn.layers.attention import "
+        "TransformerLayer\n"
+        "from analytics_zoo_tpu_torch.nn.layers.core import Dense\n"
+        "from analytics_zoo_tpu_torch.nn.layers.pooling import "
+        "GlobalAveragePooling1D\n"
+        "from analytics_zoo_tpu_torch.nn.models import Sequential\n\n\n"
+        "def build_model():\n"
+        f"    return Sequential([TransformerLayer(**{PREDICT!r}, "
+        f"input_shape=({PREDICT['seq_len']},), name={tl!r}), "
+        f"GlobalAveragePooling1D(name={pool!r}), "
+        f"Dense({PREDICT['vocab']}, activation='softmax', "
+        f"name={head!r})])\n")
+
+
+def lm_topology() -> str:
+    """GPT-2 small built on the host; the config's ``model.device`` moves
+    it to the card, where the store's leaves are copied in."""
+    return ("from analytics_zoo_tpu_torch.models.textmodels import "
+            "TransformerLM\n\n\n"
+            "def build_model():\n"
+            f"    return TransformerLM(**{GPT2_SMALL!r}, device='cpu')\n")
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def write_config(path: str, doc: dict) -> str:
+    """A manager config, written as JSON, which is YAML too."""
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return path
+
+
+def last_json(text: str):
+    docs = [ln for ln in (text or "").splitlines()
+            if ln.strip().startswith("{")]
+    return json.loads(docs[-1]) if docs else None
+
+
+def pid_of(path: str):
+    try:
+        with open(path) as f:
+            return int(f.read().strip())
+    except (OSError, ValueError):
+        return None
+
+
+def pid_alive(pid) -> bool:
+    if pid is None:
+        return False
+    try:
+        os.kill(pid, 0)
+    except OSError:
+        return False
+    try:                              # a zombie is not alive
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return True
+
+
+def prom_buckets(prom: str, name: str) -> dict:
+    """``{le: cumulative count}`` of the ``name`` histogram in a
+    (merged) Prometheus text, summed over its label sets."""
+    out = {}
+    for m in re.finditer(rf'^{name}_bucket{{.*?le="([^"]+)".*?}} (\S+)$',
+                         prom, re.M):
+        le = float("inf") if m.group(1) == "+Inf" else float(m.group(1))
+        out[le] = out.get(le, 0.0) + float(m.group(2))
+    return out
+
+
+def histogram_p50(after: dict, before: dict):
+    """``histogram_quantile(0.5)`` over the bucket counts ``after`` less
+    ``before`` (two ``prom_buckets`` readings): linear within the bucket,
+    as Prometheus interpolates; None with no sample."""
+    counts = {le: c - before.get(le, 0.0) for le, c in after.items()}
+    total = counts.get(float("inf"), 0.0)
+    if total <= 0:
+        return None
+    rank, lo, prev = 0.5 * total, 0.0, 0.0
+    for le in sorted(counts):
+        if counts[le] >= rank:
+            if le == float("inf"):
+                return lo
+            return lo + (le - lo) * (rank - prev) / max(counts[le] - prev,
+                                                         1e-12)
+        lo, prev = le, counts[le]
+    return lo
+
+
+def prom_value(prom: str, name: str) -> float:
+    return sum(float(m.group(1)) for m in re.finditer(
+        rf"^{name}(?:{{[^}}]*}})? (\S+)$", prom, re.M))
+
+
+class Fleet:
+    """One deployment of ``python -m analytics_zoo_tpu_torch.serving.
+    manager`` in subprocesses of this script (never a fork of it: this
+    process holds a CUDA context), under ``tmp``: the CLI actions, the
+    replica probes on ``port + i`` and the front door on ``lb_port``.
+    ``kill`` takes down the whole process group on the way out."""
+
+    def __init__(self, tmp: str, config: str, port: int, lb_port=None,
+                 pidfile="cs.pid"):
+        self.tmp = tmp
+        self.config = config
+        self.port = port
+        self.lb_port = lb_port
+        self.pidfile = os.path.join(tmp, pidfile)
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=here)
+        self.proc = None
+        self.log_path = self.pidfile + ".supervisor.log"
+        self.pids = set()
+
+    def cli_popen(self, *args, config=None):
+        """One manager action in a process of its own (those that load a
+        model: ``warmup``, ``publish``); ``cli_wait`` reads its (exit
+        code, last JSON line printed, completed process)."""
+        return subprocess.Popen(
+            list(MANAGER) + list(args) + ["-c", config or self.config,
+                                          "--pidfile", self.pidfile],
+            cwd=self.tmp, env=self.env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    @staticmethod
+    def cli_wait(proc, timeout: float = 600.0):
+        out, err = proc.communicate(timeout=timeout)
+        done = subprocess.CompletedProcess(proc.args, proc.returncode, out,
+                                           err)
+        return proc.returncode, last_json(out) or last_json(err), done
+
+    def action(self, *args):
+        """One manager action that reads files, signals processes or calls
+        the replicas over HTTP (``status``, ``scale``, ``metrics``,
+        ``profile``, ``incident``, ``versions``, ``rollout``), through
+        ``manager.main`` in this process: no interpreter to start, and no
+        fork (those actions make none).  Returns (exit code, the last JSON
+        line printed, everything printed)."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = manager.main(list(args) + ["-c", self.config,
+                                            "--pidfile", self.pidfile])
+        return rc, last_json(out.getvalue()) or last_json(err.getvalue()), \
+            out.getvalue() + err.getvalue()
+
+    def start(self, replicas: int, *extra):
+        args = ["start", "-c", self.config, "--pidfile", self.pidfile,
+                "--foreground", "--replicas", str(replicas)]
+        if self.lb_port is not None:
+            args += ["--lb-port", str(self.lb_port)]
+        self._log = open(self.log_path, "w")
+        self.t_start = time.perf_counter()
+        self.proc = subprocess.Popen(
+            list(MANAGER) + args + list(extra), cwd=self.tmp, env=self.env,
+            stdout=self._log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        return self
+
+    def log_tail(self, n: int = 3000) -> str:
+        try:
+            with open(self.log_path) as f:
+                return f.read()[-n:]
+        except OSError:
+            return ""
+
+    def url(self, i: int) -> str:
+        return f"http://127.0.0.1:{self.port + i}"
+
+    @property
+    def lb_url(self) -> str:
+        return f"http://127.0.0.1:{self.lb_port}"
+
+    def health(self, i: int):
+        try:
+            st, _, body = http_call(self.url(i) + "/healthz", timeout=10)
+        except OSError:
+            return None
+        return json.loads(body) if st == 200 else None
+
+    def ready(self, i: int) -> bool:
+        try:
+            return http_call(self.url(i) + "/readyz", timeout=5)[0] == 200
+        except OSError:
+            return False
+
+    def replica_pid(self, i: int):
+        pid = pid_of(f"{self.pidfile}.r{i}")
+        if pid is not None:
+            self.pids.add(pid)
+        return pid
+
+    def wait_ready(self, indices, t0: float, timeout_s=FLEET_TIMEOUT_S,
+                   not_pid=None) -> dict:
+        """Seconds from ``t0`` (perf_counter) to each replica's first
+        ``/readyz`` 200 (a replica other than pid ``not_pid``)."""
+        out = {}
+        while len(out) < len(indices):
+            check(self.proc is None or self.proc.poll() is None,
+                  f"fleet: the supervisor exited: {self.log_tail()}")
+            check(time.perf_counter() - t0 < timeout_s,
+                  f"fleet: replicas {sorted(set(indices) - set(out))} not "
+                  f"ready in {timeout_s} s: {self.log_tail()}")
+            for i in indices:
+                if i in out:
+                    continue
+                pid = self.replica_pid(i)
+                if pid is None or pid == not_pid:
+                    continue
+                if self.ready(i):
+                    out[i] = time.perf_counter() - t0
+            time.sleep(0.1)
+        return out
+
+    def status(self) -> dict:
+        return self.action("status")[1] or {}
+
+    def stop(self) -> None:
+        """``manager stop`` while this process reaps the supervisor; every
+        process the deployment ran is gone after it."""
+        stop = subprocess.Popen(
+            list(MANAGER) + ["stop", "--pidfile", self.pidfile],
+            cwd=self.tmp, env=self.env, stdout=subprocess.PIPE, text=True)
+        try:
+            self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            pass
+        out, _ = stop.communicate(timeout=120)
+        check(last_json(out) == {"stopped": True}, f"fleet: stop -> {out}")
+        check(self.proc.poll() is not None,
+              f"fleet: the supervisor outlived stop: {self.log_tail()}")
+        left = sorted(p for p in self.pids if pid_alive(p))
+        check(not left, f"fleet: processes {left} outlived stop")
+        self._log.close()
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            self.proc.wait(timeout=60)
+        for pid in self.pids:
+            if pid_alive(pid):
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+
+
+def fleet_store_step(seed: int, dev, tmp: str, during=None) -> dict:
+    """Step 1: phase 4's model with its int8 head from a seeded ``.npz``
+    and a topology file; ``manager warmup`` quantizes on a seeded
+    calibration batch and exports the store, a second ``warmup`` skips it;
+    this process restores it (``do_load``, ``load_mmap``) and its top-5
+    equals, bit for bit, the int8 predict of the same model quantized here
+    on the same batch, through 12 flash forward launches and one ``w8a8``
+    a forward on the card and by the wrappers.  ``during()`` runs here
+    while the first ``warmup`` does; what it returns is ``"during"``."""
+    npz = os.path.join(tmp, "predict.npz")
+    fleet_predict_model(seed).save_weights(npz)
+    topo = os.path.join(tmp, "predict_topology.py")
+    with open(topo, "w") as f:
+        f.write(predict_topology())
+    calib = os.path.join(tmp, "calib.npy")
+    np.save(calib, predict_records(seed + 1, PREDICT_BATCH))
+    cfg = write_config(os.path.join(tmp, "predict.yaml"), {
+        "model": {"path": npz, "type": "zoo", "topology": topo,
+                  "device": dev.type},
+        "data": {"src": "file:" + os.path.join(tmp, "pq")},
+        "params": {"batch_size": PREDICT_BATCH, "warmup": PREDICT_WARMUP,
+                   "quantize": {"bits": 8, "calib": calib}}})
+    fl = Fleet(tmp, cfg, 0, pidfile="predict.pid")
+    walls, docs, side = [], [], None
+    for k in range(2):
+        t0 = time.perf_counter()
+        proc = fl.cli_popen("warmup")
+        if k == 0 and during is not None:
+            side = during()
+        rc, doc, out = fl.cli_wait(proc)
+        walls.append(time.perf_counter() - t0)
+        check(rc == 0 and doc is not None,
+              f"store: warmup exited {rc}: {out.stderr[-2000:]}")
+        docs.append(doc)
+    w1, w2 = docs
+    check(w1["store_exported"] and w1["quantized_bits"] == 8
+          and not w1["load_mmap"] and w1["failed"] == 0
+          and w1["cache_dir"] is None, f"store: first warmup {w1}")
+    check(not w2["store_exported"] and w2["load_mmap"]
+          and w2["quantized_bits"] == 8 and w2["failed"] == 0,
+          f"store: second warmup {w2}")
+    check(w1["kernels_built"] == [] == w2["kernels_built"],
+          f"store: the warm-up passes ran nvcc: {w1['kernels_built']}, "
+          f"{w2['kernels_built']}")
+    store = fl.pidfile + ".weights"
+    im = InferenceModel(device=dev).do_load(fleet_predict_model, store)
+    check(im.load_mmap and im.load_seconds is not None,
+          "store: do_load did not map the store")
+    ref = InferenceModel(device=dev).do_load(fleet_predict_model, npz)
+    check(not ref.load_mmap, "store: the .npz load mapped a store")
+    ref.do_quantize(np.load(calib), force=True, bits=8)
+    X = predict_records(seed)[:PREDICT_BATCH]
+    want = ref.do_predict(X)
+    sync(dev)
+    with _impl.card_launches(("flash_fwd", "w8a8")) as card:
+        reset_launches()
+        got = im.do_predict(X)
+        sync(dev)
+    wrapper = {"flash_fwd": fa.launches, "w8a8": qm.launches_w8a8}
+    on_card = dev.type == "cuda"     # a CPU rehearsal launches no kernel
+    for k, per in (("flash_fwd", PREDICT["n_block"]), ("w8a8", 1)):
+        per = per if on_card else 0
+        check(card[k] == wrapper[k] == per,
+              f"store: {k} launches on the card {card[k]}, by the wrapper "
+              f"{wrapper[k]}, != {per} a forward")
+    top = np.argsort(-got, -1, kind="stable")[:, :5]
+    check(np.array_equal(top, np.argsort(-want, -1, kind="stable")[:, :5])
+          and np.array_equal(got, want),
+          "store: the restored int8 model's predict differs from the one "
+          "quantized here")
+    out = {"warmup_s": walls, "w1": w1, "w2": w2, "during": side,
+           "load_store_s": im.load_seconds, "load_npz_s": ref.load_seconds,
+           "store_bytes": sum(os.path.getsize(os.path.join(store, f))
+                              for f in os.listdir(store)),
+           "card": card}
+    del im, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_config(tmp: str, name: str, npz: str, topo: str, port: int,
+              dev) -> str:
+    params = {"batch_size": 4, "max_batch": N_REQUESTS, "max_wait_ms": 2.0,
+              "http_port": port, "warmup": True, "drain_s": 10,
+              "lease_s": RESUME_LEASE_S, "reclaim_interval_s": 0.5,
+              "generation": dict(GENERATION, kv_quant="off", **RESUME)}
+    return write_config(os.path.join(tmp, name), {
+        "model": {"path": npz, "type": "zoo", "topology": topo,
+                  "device": dev.type},
+        "data": {"src": "file:" + os.path.join(tmp, "q")},
+        "params": params,
+        "rollout": FLEET_ROLLOUT,
+        "autoscaler": FLEET_AUTOSCALER,
+        "incident": {"on_crash": True, "cooldown_s": 1.0}})
+
+
+def lb_round(fl: Fleet, waves, tag: str, copies: int = 1) -> dict:
+    """Phase 3's prompts (``copies`` times) through the front door from
+    ``FLEET_CLIENTS`` client threads: every one answered; returns the
+    untagged tokens, the wall and the client."""
+    client = GatewayClient(fl.lb_url)
+    items = []
+    for c in range(copies):
+        t = f"{tag}{c}" if copies > 1 else tag
+        items += [(f"{t}-{rid}", p, "acme", "interactive")
+                  for rid, p in (x for w in waves for x in w)]
+    wall = post_and_fetch(client, items, FLEET_CLIENTS)
+    tokens = {rid: list(doc["value"]["tokens"])
+              for rid, doc in client.results.items()}
+    check(len(tokens) == len(items) and all(
+        st == 200 for ep, st, _ in client.replies if ep == "enqueue"),
+          f"[{tag}] {len(tokens)}/{len(items)} answered")
+    return {"tokens": tokens, "wall_s": wall, "client": client,
+            "n_tok": sum(len(t) for t in tokens.values())}
+
+
+def fleet_profile(fl: Fleet, waves, card: bool = True) -> dict:
+    """``manager profile 0 --seconds 2`` while waves run: its trace's
+    kernel events hold the paged kernel's.  The waves go straight onto
+    the shared queue: writing the trace holds replica 0's interpreter
+    for seconds, the front door marks it out meanwhile, and its retry
+    budget is not what this step measures."""
+    stop = threading.Event()
+    errors = []
+
+    def traffic():
+        q = FileQueue(os.path.join(fl.tmp, "q"))
+        iq, oq = InputQueue(q), OutputQueue(q)
+        k = 0
+        try:
+            while not stop.is_set():
+                rids = [iq.enqueue_tensor(f"prof{k}-{rid}",
+                                          p.astype(np.float32))
+                        for rid, p in waves[0]]
+                got = oq.query_many(rids, timeout_s=FLEET_TIMEOUT_S)
+                check(all(got.get(r) is not None and "value" in got[r]
+                          for r in rids), f"fleet profile: wave {k} {got}")
+                k += 1
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    th = threading.Thread(target=traffic)
+    th.start()
+    try:
+        time.sleep(0.3)
+        rc, doc, out = fl.action("profile", "0", "--seconds",
+                              str(FLEET_PROFILE_S))
+        check(rc == 0 and doc and doc.get("path"),
+              f"fleet profile: {rc} {doc} {out[-1000:]}")
+        path = os.path.join(doc["path"], "trace.json")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            check(time.perf_counter() - t0 < 120,
+                  f"fleet profile: no trace at {path}")
+            time.sleep(0.2)
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        th.join(600)
+    if errors:
+        raise errors[0]
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    paged = [e for e in kernels
+             if _impl.KERNEL_NAMES["paged"] in str(e.get("name"))]
+    check(paged or not card, f"fleet profile: {len(kernels)} kernel "
+                             f"events, none of the paged kernel")
+    return {"path": path, "kernels": len(kernels), "paged": len(paged)}
+
+
+def fleet_crash(fl: Fleet, im, waves, ref_tokens) -> dict:
+    """Step 4: a wave through the front door; the replica that owns
+    in-flight generations with checkpoints spooled is SIGKILLed; the
+    supervisor respawns it, the front door routes around it, no client
+    request fails, and the generations it held resume elsewhere: every
+    token list equals phase 3's or parts at a near tie."""
+    base = {i: (fl.health(i) or {}).get("generation", {}) for i in (0, 1)}
+    res = {}
+    errors = []
+
+    def wave():
+        try:
+            res.update(lb_round(fl, waves, "crash", copies=CRASH_COPIES))
+            res["t_done"] = time.perf_counter()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    th = threading.Thread(target=wave)
+    th.start()
+    victim = None
+    t0 = time.perf_counter()
+    while victim is None:
+        check(time.perf_counter() - t0 < 120 and th.is_alive(),
+              "crash: no replica held a checkpointed generation")
+        for i in (0, 1):
+            g = (fl.health(i) or {}).get("generation", {})
+            if g.get("active_slots", 0) > 0 and g.get(
+                    "checkpoints", 0) > base[i].get("checkpoints", 0):
+                victim = i
+                break
+        time.sleep(0.02)
+    pid = fl.replica_pid(victim)
+    os.kill(pid, signal.SIGKILL)
+    t_kill = time.perf_counter()
+    ready = fl.wait_ready([victim], t_kill, not_pid=pid)[victim]
+    th.join(600)
+    if errors:
+        raise errors[0]
+    check("t_done" in res, "crash: the wave never finished")
+    for c in range(CRASH_COPIES):
+        compare_tokens(im, waves, untagged(res["tokens"], f"crash{c}"),
+                       ref_tokens, "off", f"fleet[crash{c}]",
+                       "phase 3 paged f32 run")
+    resumed = sum((fl.health(i) or {}).get("generation", {}).get(
+        "resumed", 0) for i in (0, 1))
+    check(resumed > 0, "crash: no generation was resumed")
+    return {"victim": victim, "pid": pid, "ready_s": ready,
+            "answered_s": res["t_done"] - t_kill, "resumed": resumed,
+            "wall_s": res["wall_s"]}
+
+
+def fleet_incident(fl: Fleet, victim: int) -> dict:
+    """The crash's bundle in ``incident --list``; an operator capture
+    after the recovery renders a timeline that holds the victim's
+    checkpoints and the resume."""
+    rc, doc, _ = fl.action("incident", "--list")
+    reasons = [b["reason"] for b in (doc or {}).get("incidents", [])]
+    check(f"replica-{victim}-crash" in reasons,
+          f"incident: no crash bundle in {reasons}")
+    time.sleep(1.5)                  # one spool drain past the recovery
+    rc, doc, _ = fl.action("incident")
+    check(rc == 0 and doc and doc.get("captured"), f"incident: {doc}")
+    rc, doc, _ = fl.action("incident", "--show", "--last", "20")
+    kinds = (doc or {}).get("events_by_kind", {})
+    check(kinds.get("gen_checkpoint", 0) > 0 and kinds.get("gen_resume", 0)
+          > 0, f"incident: the timeline holds {kinds}")
+    return {"reasons": reasons, "checkpoints": kinds["gen_checkpoint"],
+            "resumes": kinds["gen_resume"]}
+
+
+def fleet_scale(fl: Fleet, waves) -> dict:
+    """Step 5: ``scale 3`` — the new replica boots from the store (mapped,
+    no nvcc, warm-up clean) and serves; ``scale 2`` — it retires by
+    SIGUSR1 while a wave goes through the front door, every enqueue
+    answered 200, and the shared queue stays open."""
+    rc, doc, _ = fl.action("scale", "3")
+    check(rc == 0 and doc == {"replicas": 3}, f"scale 3: {doc}")
+    t0 = time.perf_counter()
+    ready = fl.wait_ready([2], t0)[2]
+    h = fl.health(2)
+    check(h["load"]["mmap"] and h["load"]["nvcc"] == []
+          and h["warmup"]["failed"] == 0,
+          f"scale 3: replica 2 load {h['load']} warm-up {h['warmup']}")
+    before = h["generation"]["finished"]
+    lb_round(fl, waves, "s3", copies=3)
+    served = fl.health(2)["generation"]["finished"] - before
+    check(served > 0, "scale 3: replica 2 served nothing")
+    pid2 = fl.replica_pid(2)
+    res, errors = {}, []
+
+    def wave():
+        try:
+            res.update(lb_round(fl, waves, "s2"))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    th = threading.Thread(target=wave)
+    th.start()
+    time.sleep(0.2)
+    rc, doc, _ = fl.action("scale", "2")
+    check(rc == 0 and doc == {"replicas": 2}, f"scale 2: {doc}")
+    th.join(600)
+    if errors:
+        raise errors[0]
+    t0 = time.perf_counter()
+    while pid_alive(pid2):
+        check(time.perf_counter() - t0 < 120,
+              "scale 2: replica 2 never retired")
+        time.sleep(0.1)
+    q = FileQueue(os.path.join(fl.tmp, "q"))
+    check(q.health().get("admission_open", True),
+          "scale 2: the retiring replica closed the shared admission")
+    return {"ready_s": ready, "served": served,
+            "drain_wave": len(res.get("tokens", {}))}
+
+
+def fleet_rollout(fl: Fleet, dev, seed: int, waves, publish) -> dict:
+    """Step 6: ``v1`` (this deployment's weights) and ``v2`` (another
+    seed's, from a second config) published; ``rollout v2`` moves the
+    fleet through its canary; results carry ``model_version`` v2 and four
+    prompts' tokens equal v2's own in-process tokens (or part at a near
+    tie)."""
+    publish.join(900)
+    check(publish.result == [0, 0], f"publish: {publish.result} "
+                                    f"{publish.docs}")
+    rc, doc, _ = fl.action("versions")
+    check(sorted(v["version"] for v in doc["versions"]) == ["v1", "v2"],
+          f"versions: {doc}")
+    t0 = time.perf_counter()
+    rc, doc, out = fl.action("rollout", "v2")
+    check(rc == 0, f"rollout: {doc} {out[-1000:]}")
+    while True:
+        st = fl.status()
+        ro = st.get("rollout") or {}
+        members = (st.get("replicas") or {}).get("members", {})
+        if ro.get("phase") == "idle" and ro.get("base") == "v2" and \
+                members and all(m.get("model_version") == "v2"
+                                and m.get("ready")
+                                for m in members.values()):
+            break
+        check(time.perf_counter() - t0 < FLEET_TIMEOUT_S,
+              f"rollout: stuck at {ro} {members}")
+        check(not ro.get("last_rollback"), f"rollout: rolled back {ro}")
+        time.sleep(0.3)
+    wall = time.perf_counter() - t0
+    for i in (0, 1):
+        fl.replica_pid(i)
+    four = [[r for r in waves[0][:4]]]
+    res = lb_round(fl, four, "v2")
+    for rid, doc in res["client"].results.items():
+        check(doc.get("model_version") == "v2",
+              f"rollout: {rid} served by {doc.get('model_version')}")
+    lm2 = TransformerLM(**GPT2_SMALL, seed=seed + 1, device=dev)
+    im2 = InferenceModel(device=dev).do_load_model(lm2)
+    want = batcher_tokens(im2, four, "off", "auto")
+    compare_tokens(im2, four, untagged(res["tokens"], "v2"), want, "off",
+                   "fleet[v2]", "v2 in process")
+    del im2, lm2
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "events": st.get("rollout", {})}
+
+
+class Publisher(threading.Thread):
+    """``manager publish v1`` and ``v2`` (the second config), each in a
+    process of its own, both at once, while the fleet serves."""
+
+    def __init__(self, fl: Fleet, cfg2: str):
+        super().__init__(daemon=True)
+        self.fl, self.cfg2 = fl, cfg2
+        self.result, self.docs = [], []
+
+    def run(self):
+        procs = [self.fl.cli_popen("publish", ver, config=cfg)
+                 for ver, cfg in (("v1", self.fl.config), ("v2", self.cfg2))]
+        for proc in procs:
+            rc, doc, out = self.fl.cli_wait(proc)
+            self.result.append(rc)
+            self.docs.append(doc or out.stderr[-1000:])
+
+
+def fleet_memory() -> str:
+    """``nvidia-smi``'s used memory of the card and of each process."""
+    try:
+        gpu = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().replace("\n", "; ")
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not read ({type(e).__name__})"
+    return f"card {gpu}; processes {apps or 'not listed'}"
+
+
+def cold_boot(tmp: str, npz: str, topo: str, store, tag: str,
+              dev) -> tuple:
+    """A single ``start --foreground`` replica from the ``.npz`` or (with
+    ``store``, linked as its pidfile's weight store) from the store:
+    seconds from the launch to ``/readyz`` 200, warm-up included."""
+    port = free_port()
+    sub = os.path.join(tmp, tag)
+    os.makedirs(sub)
+    cfg = lm_config(sub, "boot.yaml", npz, topo, port, dev)
+    fl = Fleet(sub, cfg, port, pidfile="boot.pid")
+    if store:
+        os.symlink(store, fl.pidfile + ".weights")
+    fl._log = open(fl.log_path, "w")
+    t0 = time.perf_counter()
+    fl.proc = subprocess.Popen(
+        list(MANAGER) + ["start", "-c", cfg, "--pidfile", fl.pidfile,
+                         "--foreground"], cwd=sub, env=fl.env,
+        stdout=fl._log, stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        while not fl.ready(0):
+            check(fl.proc.poll() is None and time.perf_counter() - t0
+                  < FLEET_TIMEOUT_S, f"boot[{tag}]: {fl.log_tail()}")
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        h = fl.health(0)
+        check(h["load"]["mmap"] == bool(store) and h["load"]["nvcc"] == [],
+              f"boot[{tag}]: load {h['load']}")
+        fl.pids.add(fl.proc.pid)
+        fl.stop()
+    finally:
+        fl.kill()
+    return wall, h["load"]["seconds"], h["warmup"]["seconds"]
+
+
+def fleet_phase(seed: int, ref_tokens=None, single=None,
+                dev=torch.device("cuda", 0)) -> None:
+    """Phase 13: the fleet control plane on the card (see the module
+    docstring).  ``ref_tokens``: phase 3's paged f32 tokens (served again
+    here when not given); ``single``: phase 3's single engine's tokens/s
+    and TTFT p50; ``dev``: the CPU only for a rehearsal at a small size
+    (no kernel runs, no launch is counted)."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zoo-fleet-")
+    fl = None
+    try:
+        waves = make_requests(seed, GPT2_SMALL["vocab_size"])
+        npz = os.path.join(tmp, "lm.npz")
+        npz2 = os.path.join(tmp, "lm2.npz")
+
+        def lm_weights():
+            """Phase 3's model here (for the replays of a near tie) and its
+            weights, and another seed's (v2), written as ``.npz`` files."""
+            lm = TransformerLM(**GPT2_SMALL, seed=seed, device=dev)
+            lm.save_weights(npz)
+            TransformerLM(**GPT2_SMALL, seed=seed + 1, device="cpu") \
+                .save_weights(npz2)
+            return lm
+
+        st = fleet_store_step(seed, dev, tmp, during=lm_weights)
+        lm = st["during"]
+        say(f"fleet[store]: manager warmup (int8, calibrated on a seeded "
+            f"batch) exported {st['store_bytes']} B in "
+            f"{st['warmup_s'][0]:.2f} s while this process wrote the LM's "
+            f"weights (store_exported "
+            f"{st['w1']['store_exported']}, quantized_bits "
+            f"{st['w1']['quantized_bits']}, {st['w1']['programs']} "
+            f"programs warmed, failed {st['w1']['failed']}, nvcc "
+            f"{st['w1']['kernels_built']}); a second warmup skipped it in "
+            f"{st['warmup_s'][1]:.2f} s (store_exported "
+            f"{st['w2']['store_exported']}, load_mmap "
+            f"{st['w2']['load_mmap']}); do_load here: load_mmap True, "
+            f"top-5 (and every probability) bit for bit the int8 predict "
+            f"of the model quantized here; launches on the card = by the "
+            f"wrappers: flash_fwd {st['card']['flash_fwd']}, w8a8 "
+            f"{st['card']['w8a8']} a forward; load_seconds from the store "
+            f"{st['load_store_s']:.3f} s (page cache warm), from the .npz "
+            f"{st['load_npz_s']:.3f} s")
+        im = InferenceModel(device=dev).do_load_model(lm)
+        if ref_tokens is None:
+            ref_tokens = batcher_tokens(im, waves, "off", "auto")
+        topo = os.path.join(tmp, "lm_topology.py")
+        with open(topo, "w") as f:
+            f.write(lm_topology())
+        port, lb_port = free_port(), free_port()
+        cfg = lm_config(tmp, "fleet.yaml", npz, topo, port, dev)
+        cfg2 = lm_config(tmp, "fleet_v2.yaml", npz2, topo, port, dev)
+        fl = Fleet(tmp, cfg, port, lb_port).start(2, "--autoscale")
+        ready = fl.wait_ready([0, 1], fl.t_start)
+        docs = {i: fl.health(i) for i in (0, 1)}
+        for i, h in docs.items():
+            check(h["load"]["mmap"] and h["load"]["nvcc"] == []
+                  and h["warmup"]["state"] == "ready"
+                  and h["warmup"]["failed"] == 0
+                  and dev.type in h["device"],
+                  f"fleet: replica {i} load {h['load']} warm-up "
+                  f"{h['warmup']} device {h['device']}")
+        prewarm = next((json.loads(ln) for ln in fl.log_tail(10 ** 6)
+                        .splitlines() if '"prewarm done"' in ln), None)
+        check(prewarm and prewarm["warmup"]["store_exported"]
+              and prewarm["warmup"]["failed"] == 0,
+              f"fleet: the pre-warm did not export the store "
+              f"({prewarm}): {fl.log_tail()}")
+        say(f"fleet[start]: manager start --replicas 2 --lb-port "
+            f"--autoscale; the pre-warm exported the store "
+            f"(load {prewarm['warmup']['load_seconds']:.3f} s from the "
+            f".npz, {prewarm['warmup']['programs']} programs warmed, "
+            f"failed 0); replicas ready "
+            + ", ".join(f"r{i} {ready[i]:.2f} s" for i in sorted(ready))
+            + " after the start (load_mmap true, store load "
+            + ", ".join(f"{docs[i]['load']['seconds']:.3f}"
+                        for i in (0, 1))
+            + " s, warm-up "
+            + ", ".join(f"{docs[i]['warmup']['seconds']:.3f}"
+                        for i in (0, 1))
+            + " s, warm-up failed 0, nvcc run by a replica: none)")
+        for i, h in docs.items():
+            res = h.get("resources") or {}
+            say(f"fleet[ledger r{i}]: " + json.dumps(
+                {k: res.get(k) for k in sorted(res)
+                 if not isinstance(res.get(k), dict)}))
+        say(f"fleet[memory]: {fleet_memory()}")
+        # step 3: the same tokens through the front door
+        ttft = "serving_time_to_first_token_seconds"
+        before = {}
+        for i in (0, 1):
+            for le, c in prom_buckets(replica_prom(fl, i), ttft).items():
+                before[le] = before.get(le, 0.0) + c
+        lb = lb_round(fl, waves, "lb")
+        prom1, per_replica = fleet_prom(fl)
+        compare_tokens(im, waves, untagged(lb["tokens"], "lb"), ref_tokens,
+                       "off", "fleet[lb]", "phase 3 paged f32 run")
+        finished = {i: fl.health(i)["generation"]["finished"]
+                    for i in (0, 1)}
+        check(all(v > 0 for v in finished.values()),
+              f"fleet: a replica served nothing: {finished}")
+        steps = prom_value(prom1, "serving_decode_steps_total")
+        check(steps > 0 and steps == sum(
+            prom_value(t, "serving_decode_steps_total")
+            for t in per_replica),
+              "fleet: metrics --all-replicas --prom does not sum the "
+              "replicas' decode steps")
+        p50 = histogram_p50(prom_buckets(prom1, ttft), before)
+        check(p50 is not None, "fleet: no TTFT sample in the merged text")
+        ids = sorted({r for ep, _, r in lb["client"].replies
+                      if ep == "enqueue" and r})
+        tok_s = lb["n_tok"] / lb["wall_s"]
+        one = (f"; phase 3's single engine from its queue "
+               f"{single['tokens_s']:.1f} tokens/s, TTFT p50 "
+               f"{single['ttft_p50_s'] * 1e3:.2f} ms (exact)"
+               if single else "")
+        say(f"fleet[lb]: {len(lb['tokens'])} prompts through the front "
+            f"door from {FLEET_CLIENTS} clients: {lb['n_tok']} tokens in "
+            f"{lb['wall_s']:.3f} s = {tok_s:.1f} tokens/s, TTFT p50 "
+            f"{p50 * 1e3:.1f} ms (histogram_quantile over the fleet's "
+            f"merged buckets){one}; records finished by replica "
+            f"{finished}, enqueue replies from {ids}; metrics "
+            f"--all-replicas --prom: decode steps {steps:.0f} = the "
+            f"replicas' sum")
+        pr = fleet_profile(fl, waves, dev.type == "cuda")
+        say(f"fleet[profile]: manager profile 0 --seconds "
+            f"{FLEET_PROFILE_S:g} during a wave: {pr['kernels']} kernel "
+            f"events, {pr['paged']} of the paged kernel")
+        cr = fleet_crash(fl, im, waves, ref_tokens)
+        # v1 and v2 are published while the fleet scales
+        publish = Publisher(fl, cfg2)
+        publish.start()
+        inc = fleet_incident(fl, cr["victim"])
+        say(f"fleet[crash]: SIGKILL of replica {cr['victim']} holding "
+            f"checkpointed generations mid-decode; no client request "
+            f"failed, {cr['resumed']} generation(s) resumed, every token "
+            f"list phase 3's (or parting at a near tie); recovered: "
+            f"respawn ready {cr['ready_s']:.2f} s and the wave's last "
+            f"result {cr['answered_s']:.2f} s after the kill; incident "
+            f"bundles {inc['reasons']}, the timeline holds "
+            f"{inc['checkpoints']} gen_checkpoint and {inc['resumes']} "
+            f"gen_resume events")
+        sc = fleet_scale(fl, waves)
+        say(f"fleet[scale]: scale 3 -> replica 2 ready {sc['ready_s']:.2f} "
+            f"s after the command (store mapped, no nvcc) and served "
+            f"{sc['served']} records; scale 2 -> it retired by SIGUSR1 "
+            f"while {sc['drain_wave']} prompts went through the front "
+            f"door, every enqueue 200, the shared queue open")
+        ro = fleet_rollout(fl, dev, seed, waves, publish)
+        say(f"fleet[rollout]: published v1, v2; rollout v2 through its "
+            f"canary (dwell {FLEET_ROLLOUT['canary_dwell_s']:g} s) to "
+            f"promote in {ro['wall_s']:.2f} s; results carry model_version "
+            f"v2 and four prompts' tokens equal v2's in-process tokens")
+        fl.stop()
+        fl = None
+        say("fleet[stop]: manager stop left no process behind")
+        del im, lm
+        torch.cuda.empty_cache()
+        boots, errors = {}, []
+
+        def boot(tag, store):
+            try:
+                boots[tag] = cold_boot(tmp, npz, topo, store, tag, dev)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+        threads = [threading.Thread(target=boot, args=a) for a in (
+            ("npz", None), ("store", os.path.join(tmp, "cs.pid.weights")))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(FLEET_TIMEOUT_S + 120)
+        if errors:
+            raise errors[0]
+        check(set(boots) == {"npz", "store"}, f"boot: {sorted(boots)}")
+        nb, sb = boots["npz"], boots["store"]
+        say(f"fleet[boot]: one replica (start --foreground, warm-up on; "
+            f"the two started together) ready {nb[0]:.2f} s from the .npz "
+            f"(load {nb[1]:.3f} s, warm-up {nb[2]:.3f} s), {sb[0]:.2f} s "
+            f"from the store (load {sb[1]:.3f} s, warm-up {sb[2]:.3f} s)")
+    finally:
+        if fl is not None:
+            fl.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"fleet: phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
+def replica_prom(fl: Fleet, i: int) -> str:
+    st, _, body = http_call(fl.url(i) + "/metrics?format=prom")
+    check(st == 200, f"metrics of replica {i}: {st}")
+    return body.decode()
+
+
+def fleet_prom(fl: Fleet):
+    """(``manager metrics --all-replicas --prom``, each replica's own
+    Prometheus text)."""
+    rc, _, out = fl.action("metrics", "--all-replicas", "--prom")
+    check(rc == 0, f"metrics --all-replicas --prom: {out[-1000:]}")
+    return out, [replica_prom(fl, i) for i in (0, 1)]
+
+
 # -- main ---------------------------------------------------------------------
 
 def ptxas_summary(log: str) -> str:
@@ -7585,6 +8521,11 @@ def main(argv=None) -> int:
                         trace=tag == "traced")
             served.setdefault(kv_quant, {})[tag] = check_served(
                 run, waves, GPT2_SMALL["vocab_size"], kv_quant)
+            if (kv_quant, tag) == ("off", "timed"):
+                # phase 13 sets the fleet beside this single engine
+                single = {"tokens_s": sum(
+                    len(t) for t in served["off"]["timed"].values())
+                    / run["wall_s"], "ttft_p50_s": run["ttft_p50_s"]}
         records[variant]["launches"] = run["launches"]
     for kv_quant in ("off", "int8"):
         cross_check(im, waves, served[kv_quant]["timed"], kv_quant)
@@ -7629,6 +8570,7 @@ def main(argv=None) -> int:
     text_phase(args.seed, records)
     forecast_phase(args.seed, records)
     gateway_phase(args.seed, served["off"]["timed"])
+    fleet_phase(args.seed, served["off"]["timed"], single)
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (

@@ -1286,3 +1286,139 @@ def test_resource_ledger_against_the_allocator_on_card(cuda_device):
     torch.cuda.synchronize()
     assert res["weights_bytes"] + kv <= torch.cuda.memory_allocated()
     assert res["weights_bytes"] + kv + code <= torch.cuda.memory_reserved()
+
+
+# -- the weight store and the fleet on the card ---------------------------------
+
+def _int8_head():
+    m = Sequential()
+    m.add(Dense(64, activation="relu", input_shape=(32,), name="st_a"))
+    m.add(Dense(1000, activation="softmax", name="st_b"))
+    return m
+
+
+@pytest.mark.gpu
+def test_int8_store_restores_bitwise_on_card(cuda_device, tmp_path):
+    """An int8 model exported to the mmap store and restored on the card
+    (``do_load``, ``load_mmap``) gives the exported model's top-5 bit for
+    bit, through one ``w8a8`` launch a Dense a forward."""
+    from analytics_zoo_tpu_torch.inference import weightstore
+    g = np.random.default_rng(0)
+    calib = g.normal(size=(16, 32)).astype(np.float32)
+    x = g.normal(size=(8, 32)).astype(np.float32)
+    im = InferenceModel(device=cuda_device).do_load_model(
+        _int8_head())
+    im.do_quantize(calib, force=True, bits=8)
+    store = str(tmp_path / "store")
+    weightstore.save_store(store, {"params": im._params,
+                                   "state": im._state})
+    back = InferenceModel(device=cuda_device).do_load(
+        lambda: _int8_head(), store)
+    assert back.load_mmap
+    assert {p.device for p in back._model.buffers()} == {cuda_device}
+    want = im.do_predict(x)
+    before = tqm.launches_w8a8
+    got = back.do_predict(x)
+    assert tqm.launches_w8a8 - before == 2
+    np.testing.assert_array_equal(np.argsort(-got, -1)[:, :5],
+                                  np.argsort(-want, -1)[:, :5])
+    np.testing.assert_array_equal(got, want)
+
+
+def _manager_gen_config(tmp_path, device, port):
+    import json
+    lm = TransformerLM(vocab_size=97, hidden=64, n_head=4, n_layers=12,
+                       max_len=128, seed=3, device="cpu")
+    weights = tmp_path / "lm.npz"
+    lm.save_weights(str(weights))
+    topo = tmp_path / "topology.py"
+    topo.write_text(
+        "from analytics_zoo_tpu_torch.models.textmodels import "
+        "TransformerLM\n"
+        "def build_model():\n"
+        "    return TransformerLM(vocab_size=97, hidden=64, n_head=4, "
+        "n_layers=12, max_len=128, device='cpu')\n")
+    gen = "".join(f"    {k}: {json.dumps(v)}\n" for k, v in GEN_CARD.items())
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(
+        f"model:\n  path: {weights}\n  type: zoo\n  topology: {topo}\n"
+        f"  device: {device}\n"
+        f"data:\n  src: file:{tmp_path / 'queue'}\n"
+        f"params:\n  batch_size: 4\n  http_port: {port}\n  warmup: true\n"
+        "  generation:\n" + gen)
+    return str(cfg)
+
+
+@pytest.mark.gpu
+def test_forked_replica_serves_paged_generation_on_card(cuda_device,
+                                                        tmp_path):
+    """``manager start --replicas 1`` in a subprocess (this process has
+    CUDA live and must not fork): the supervisor pre-warms (the store),
+    forks a replica that maps the store, resolves the card after the fork,
+    builds no kernel (this process built them under ``build/``) and
+    serves the eager batcher's tokens."""
+    import base64
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+    from analytics_zoo_tpu_torch.serving.queues import FileQueue
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    cfg = _manager_gen_config(tmp_path, "cuda", port)
+    im = InferenceModel(device=cuda_device).do_load(
+        lambda: TransformerLM(vocab_size=97, hidden=64, n_head=4,
+                              n_layers=12, max_len=128, device="cpu"),
+        str(tmp_path / "lm.npz"))
+    reqs = _gen_reqs(7, n=4)
+    want = _serve(tgen.ContinuousBatcher(im, tgen.GenerationParams(
+        **GEN_CARD)), reqs)                    # builds the paged kernel
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    mgr = [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.manager"]
+    pidfile = str(tmp_path / "cs.pid")
+    proc = subprocess.Popen(mgr + ["start", "-c", cfg, "--pidfile", pidfile,
+                                   "--replicas", "1", "--foreground"],
+                            cwd=str(tmp_path), env=env)
+    try:
+        t0 = time.monotonic()
+        while True:
+            assert time.monotonic() - t0 < 300
+            assert proc.poll() is None
+            try:
+                st, _, _ = _http(f"http://127.0.0.1:{port}/readyz")
+                if st == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.3)
+        q = FileQueue(str(tmp_path / "queue"))
+        for rid, prompt, budget in reqs:
+            arr = np.asarray(prompt, "<f4")
+            q.xadd({"uri": rid, "b64": base64.b64encode(arr).decode(),
+                    "dtype": "<f4", "shape": [len(prompt)],
+                    "gen": {"max_tokens": budget}})
+        got = {}
+        for rid, _, _ in reqs:
+            st, _, body = _http(f"http://127.0.0.1:{port}/v1/result/{rid}"
+                                "?timeout_s=60")
+            assert st == 200, body
+            got[rid] = json.loads(body)["value"]["tokens"]
+        st, _, body = _http(f"http://127.0.0.1:{port}/healthz")
+        health = json.loads(body)
+    finally:
+        subprocess.run(mgr + ["stop", "--pidfile", pidfile], cwd=str(tmp_path),
+                       env=env, capture_output=True)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+    assert got == want
+    assert health["load"]["mmap"] is True
+    assert health["load"]["nvcc"] == []
+    assert health["device"] and "cuda" in str(health["device"])
+    assert health["warmup"]["failed"] == 0

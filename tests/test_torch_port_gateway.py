@@ -454,8 +454,10 @@ def _keys(doc, depth=1):
 
 
 # keys of the port's health document that the JAX one has not: the device
-# the model serves on, and the generation plane's decode-state breakdown
-PORT_ONLY = {"device", "kv_state"}
+# the model serves on, the generation plane's decode-state breakdown, and
+# how the replica got its weights and kernels (load seconds, the mmap
+# store, the kernel libraries it compiled)
+PORT_ONLY = {"device", "kv_state", "load"}
 
 
 def test_health_documents_match_jax(dense):

@@ -74,8 +74,38 @@ def test_every_module_imports_with_jax_blocked():
                 "zouwu.forecast", "utils.serialization", "interop",
                 "interop.keras_import", "serving.admission",
                 "serving.brownout", "serving.metering", "serving.http",
-                "inference.resources"):
+                "inference.resources", "inference.weightstore",
+                "serving.registry", "serving.rollout", "serving.fleet",
+                "serving.incident", "serving.autoscaler", "serving.lb",
+                "serving.manager"):
         assert f"analytics_zoo_tpu_torch.{mod}" in doc["modules"]
+
+
+_HELP_BLOCKED = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv = [{module!r}, "--help"]
+runpy.run_module({module!r}, run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("module", ["analytics_zoo_tpu_torch.serving.manager",
+                                    "analytics_zoo_tpu_torch.serving.lb"])
+def test_cli_help_with_jax_blocked(module):
+    """``python -m analytics_zoo_tpu_torch.serving.manager --help`` (and
+    the load balancer's) runs where ``jax`` cannot be imported, and the
+    manager offers every action of the JAX manager."""
+    out = subprocess.run(
+        [sys.executable, "-c", _HELP_BLOCKED.format(module=module)],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout
+    if module.endswith("manager"):
+        for action in ("start", "stop", "status", "restart", "health",
+                       "replay", "metrics", "scale", "warmup", "trace",
+                       "incident", "profile", "publish", "versions",
+                       "rollout", "usage"):
+            assert action in out.stdout
 
 
 def _imported_names(path):

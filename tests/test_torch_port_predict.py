@@ -442,8 +442,8 @@ def test_multi_input_predict_matches_jax():
 
 def test_unported_inference_model_entries_raise():
     tim = InferenceModel(device="cpu")
-    for name in ("do_load", "do_load_store", "do_load_tensorflow",
-                 "do_load_onnx", "do_load_pytorch", "shard"):
+    for name in ("do_load_tensorflow", "do_load_onnx", "do_load_pytorch",
+                 "shard"):
         with pytest.raises(NotImplementedError):
             getattr(tim, name)("x")
     with pytest.raises(RuntimeError, match="load a model"):

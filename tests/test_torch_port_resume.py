@@ -28,9 +28,9 @@ counters, reasons, events and checksums.
   tenant is charged only the tokens past its checkpoint, the fresh one
   the full roll, as the JAX engine charges them.
 
-Not ported on purpose: the JAX file's bare-state test (the bare-state
-lanes are held in ``test_torch_port_seq2seq.py``) and its two-replica
-SIGKILL test (the load balancer and the fleet manager are not ported).
+Held elsewhere: the JAX file's bare-state test (the bare-state lanes are
+in ``test_torch_port_seq2seq.py``) and its two-replica SIGKILL test behind
+the load balancer (``test_torch_port_manager.py``).
 """
 
 import base64

@@ -21,7 +21,9 @@ and cadence, the naive forecasts, the grid and trial checks, AutoTS, the
 forecasters, the population trainer and the served routes) and its
 front door phase's (the queue-fed and HTTP rounds, admission's 429s,
 the profile, the documents, the ledger and usage checks, the brownout
-and int8-predict steps) are plain Python and run here at a tiny width.
+and int8-predict steps) and its fleet phase's helpers (the median of the
+fleet's merged TTFT buckets, the summed series, the topology files it
+writes) are plain Python and run here at a tiny width.
 """
 
 import copy
@@ -1516,3 +1518,69 @@ def test_gateway_items_split_tenants_within_the_slow_burst():
     assert all(rid.startswith("t-req-") for rid, *_ in items)
     assert cs.untagged({rid: [1] for rid, *_ in items}, "t").keys() == {
         rid for w in cs.make_requests(0, VOCAB) for rid, _ in w}
+
+
+# -- phase 13: the fleet's host-side helpers ------------------------------------
+
+def _prom(counts, total, sum_s, name="serving_time_to_first_token_seconds",
+          labels=""):
+    lines = [f"# TYPE {name} histogram"]
+    for le, c in counts:
+        lines.append(f'{name}_bucket{{{labels}le="{le}"}} {c}')
+    lines += [f'{name}_bucket{{{labels}le="+Inf"}} {total}',
+              f"{name}_sum {sum_s}", f"{name}_count {total}"]
+    return "\n".join(lines) + "\n"
+
+
+def test_fleet_histogram_p50_interpolates_merged_buckets():
+    """``histogram_quantile(0.5)`` over the buckets of a merged text, an
+    earlier reading subtracted, linear within the bucket as Prometheus
+    interpolates; label sets summed; none without samples."""
+    name = "serving_time_to_first_token_seconds"
+    before = cs.prom_buckets(_prom([(0.05, 2), (0.1, 2)], 2, 0.05), name)
+    after = cs.prom_buckets(
+        _prom([(0.05, 2), (0.1, 8), (0.25, 12)], 12, 1.0)
+        + _prom([(0.05, 0), (0.1, 0), (0.25, 0)], 0, 0.0,
+                labels='model="m",'), name)
+    assert after[0.1] == 8 and after[float("inf")] == 12
+    # 10 new samples: 0 below 0.05, 6 in (0.05, 0.1], 4 in (0.1, 0.25]
+    p50 = cs.histogram_p50(after, before)
+    assert p50 == pytest.approx(0.05 + 0.05 * 5 / 6)
+    assert cs.histogram_p50(before, before) is None
+    # a median past the last finite bucket reads that bucket's edge
+    tail = cs.prom_buckets(_prom([(0.05, 0)], 4, 9.0), name)
+    assert cs.histogram_p50(tail, {}) == 0.05
+
+
+def test_fleet_prom_value_sums_series_and_last_json():
+    text = ("# TYPE serving_decode_steps_total counter\n"
+            "serving_decode_steps_total 120\n"
+            'serving_decode_steps_total{replica="r1"} 84\n'
+            "serving_decode_steps_total_other 5\n")
+    assert cs.prom_value(text, "serving_decode_steps_total") == 204.0
+    assert cs.last_json("noise\n{\"a\": 1}\nmore\n{\"b\": 2}\n") == {"b": 2}
+    assert cs.last_json("no json here") is None
+
+
+def test_fleet_topologies_build_the_phase_models(tmp_path):
+    """The topology files the phase writes build, in a fresh namespace,
+    the models whose keys its ``.npz`` files hold."""
+    from analytics_zoo_tpu_torch.utils.convert import export_params
+    from analytics_zoo_tpu_torch.utils.serialization import _flatten_with_paths
+    saved = (cs.GPT2_SMALL, cs.PREDICT)
+    cs.GPT2_SMALL = dict(vocab_size=97, hidden=16, n_head=2, n_layers=1,
+                         max_len=32)
+    cs.PREDICT = dict(vocab=11, hidden_size=8, n_block=1, n_head=2,
+                      seq_len=4)
+    try:
+        for text, want in ((cs.predict_topology(),
+                            cs.fleet_predict_model(0)),
+                           (cs.lm_topology(), TransformerLM(
+                               **cs.GPT2_SMALL, device="cpu"))):
+            scope = {}
+            exec(compile(text, "topology.py", "exec"), scope)
+            got = scope["build_model"]()
+            assert [k for k, _ in _flatten_with_paths(export_params(got))] \
+                == [k for k, _ in _flatten_with_paths(export_params(want))]
+    finally:
+        cs.GPT2_SMALL, cs.PREDICT = saved
