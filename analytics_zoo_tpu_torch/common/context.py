@@ -36,13 +36,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 @dataclasses.dataclass
 class ZooConf:
-    """Typed config: the seed and the device.  Overridable from environment
-    variables prefixed ``ZOO_TPU_`` (``ZOO_TPU_SEED=7``,
-    ``ZOO_TPU_DEVICE=cpu``)."""
+    """Typed config: the seed, the device and the training loop's
+    settings.  Overridable from environment variables prefixed
+    ``ZOO_TPU_`` (``ZOO_TPU_SEED=7``, ``ZOO_TPU_DEVICE=cpu``)."""
 
     seed: int = 42
     device: Optional[str] = None
-    # a trace of the whole fit; not ported (the Estimator raises)
+    # fit()'s failure-retry loop: restores of the latest checkpoint after
+    # a failed step (bigdl.failure.retryTimes), the backoff base between
+    # them (common/resilience.RetryPolicy), and the snapshots kept
+    failure_retry_times: int = 5
+    failure_retry_backoff_s: float = 0.1
+    checkpoint_keep: int = 3
+    # a torch.profiler trace of each whole fit is written here when set
     profile_dir: str = ""
 
     @classmethod

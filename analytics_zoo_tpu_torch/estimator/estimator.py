@@ -21,15 +21,34 @@ Batches come from a ``FeatureSet`` in the JAX package's order (the same
 shuffle generator, weight-0 padding of the last batch) and are copied to
 the device from pinned memory on a worker thread (``_DevicePrefetcher``).
 
+``steps_per_call = k > 1`` groups k consecutive batches (a short final
+group keeps its size); triggers, the preemption check and ``end_trigger``
+fire once a group, as in JAX, and listeners are called for each of the
+group's steps at its end.  On the CPU, and for a model with a layer set
+to ``impl="torch"``, a group runs as k ordinary steps.  On the card it
+runs as one CUDA graph of k whole steps (``_GraphSteps``): the first
+group at new shapes runs eagerly (the warm-up a capture needs), then a
+graph is captured once for each group size and replayed for every group
+of that size, its inputs and step scalars copied in before each replay.
+
+Subsystems, as in the JAX package: checkpoints on a trigger
+(``estimator/checkpoint.py``), ``fit(resume=True)``, the failure-retry
+loop (``conf.failure_retry_times``: restore the latest snapshot and run
+the epoch again), the SIGTERM / SIGINT preemption guard, TensorBoard
+event files (``utils/tbwriter.py``), and a ``torch.profiler`` trace of a
+whole fit under ``conf.profile_dir``.
+
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: checkpointing with the failure-retry loop and the preemption guard,
-TensorBoard summaries, ``steps_per_call > 1``, ``param_plan``,
-multi-process training and ``profile_dir``.
+item: ``param_plan`` and multi-process training.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import os
 import queue
+import signal
 import threading
 import time
 from typing import Dict, List, Optional
@@ -38,18 +57,21 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.context import get_context
-from analytics_zoo_tpu_torch.common.triggers import TrainState, ZooTrigger
+from analytics_zoo_tpu_torch.common.resilience import RetryPolicy
+from analytics_zoo_tpu_torch.common.triggers import (EveryEpoch, TrainState,
+                                                     ZooTrigger)
 from analytics_zoo_tpu_torch.feature.dataset import ArrayFeatureSet, FeatureSet
 from analytics_zoo_tpu_torch.nn import metrics as metrics_lib
 from analytics_zoo_tpu_torch.nn import objectives as objectives_lib
 from analytics_zoo_tpu_torch.nn import optimizers as optimizers_lib
-from analytics_zoo_tpu_torch.nn.module import Layer, split_seed
+from analytics_zoo_tpu_torch.nn.module import (Layer, generator_hook,
+                                               split_seed)
+
+logger = logging.getLogger(__name__)
 
 # batches the infeed thread keeps ready ahead of the step (double
 # buffering, the JAX package's default)
 _INFEED_DEPTH = 2
-_CHECKPOINT = ("checkpointing, the failure-retry loop and the preemption "
-               "guard (orbax in the JAX package): ROADMAP queue 1, item 6")
 
 
 class _DevicePrefetcher:
@@ -109,6 +131,54 @@ class _DevicePrefetcher:
         self._t.join(timeout=5.0)
 
 
+class _PreemptionGuard:
+    """SIGTERM/SIGINT-aware checkpointing (the JAX ``_PreemptionGuard``).
+
+    Preemptions arrive as SIGTERM.  While a fit() with checkpointing is
+    active, the first SIGTERM/SIGINT only sets a flag; the loop notices it
+    at the next step (or group) boundary, writes a synchronous snapshot,
+    then exits with 128+SIGTERM (so a supervisor restarts with
+    resume=True) or raises KeyboardInterrupt (SIGINT keeps its meaning
+    for the caller's cleanup code).  A second signal falls through to the
+    previous disposition (force kill).  No-op off the main thread
+    (signal() is main-thread-only)."""
+
+    def __init__(self):
+        self.fired: Optional[int] = None
+        self._prev = {}
+
+    def __enter__(self):
+        if threading.current_thread() is not threading.main_thread():
+            return self
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev[sig] = signal.signal(sig, self._handle)
+            except (ValueError, OSError):  # not installable here
+                pass
+        return self
+
+    def _handle(self, signum, frame):
+        if self.fired is not None:       # second signal: previous behaviour
+            prev = self._prev.get(signum, signal.SIG_DFL)
+            signal.signal(signum, prev)
+            if callable(prev):
+                prev(signum, frame)
+            else:
+                # SIG_DFL/SIG_IGN aren't callable: re-deliver so the
+                # process dies BY the signal, which supervisors key on
+                os.kill(os.getpid(), signum)
+            return
+        self.fired = signum
+
+    def __exit__(self, *exc):
+        for sig, prev in self._prev.items():
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, OSError):
+                pass
+        return False
+
+
 class History:
     """fit() return value: per-epoch scalars (Keras History parity)."""
 
@@ -144,6 +214,149 @@ def _to_device(a, device: torch.device):
     return t.to(device)
 
 
+def _tmap(fn, *trees):
+    """``fn`` over the tensors of batch trees (a tensor, None, or a list
+    of them)."""
+    if trees[0] is None:
+        return None
+    if isinstance(trees[0], (list, tuple)):
+        return [_tmap(fn, *leaves) for leaves in zip(*trees)]
+    return fn(*trees)
+
+
+def _signature(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, (list, tuple)):
+        return tuple(_signature(t) for t in tree)
+    return tuple(tree.shape), tree.dtype
+
+
+class _DropoutSites:
+    """A generator hook (``nn/module.generator_hook``) that runs a step
+    as usual and notes, in call order, which ``(layer, index)`` seeded
+    each generator the step drew from: the dropout sites a captured step
+    must reseed.  ``sites`` is None when a generator's seed came from no
+    ``train_seed`` (the step cannot be reseeded)."""
+
+    def __init__(self):
+        self.by_seed: Dict[int, tuple] = {}
+        self.sites: Optional[list] = []
+
+    def seed(self, layer, index, seed):
+        self.by_seed[seed] = (layer, index)
+
+    def generator(self, seed, device):
+        site = self.by_seed.get(seed)
+        if site is None or self.sites is None:
+            self.sites = None
+        else:
+            self.sites.append(site)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return gen
+
+
+class _GraphGenerators:
+    """The generator hook of a capture: step i's j-th draw takes
+    ``gens[i][j]``, a generator registered with the graph."""
+
+    def __init__(self, gens):
+        self.gens, self.step, self.j = gens, 0, 0
+
+    def seed(self, layer, index, seed):
+        pass
+
+    def generator(self, seed, device):
+        gen = self.gens[self.step][self.j]
+        self.j += 1
+        return gen
+
+
+class _GraphSteps:
+    """One fit's CUDA-graph route for groups of steps.
+
+    A group at shapes not seen yet runs as eager steps, which warm up
+    what a capture cannot do (kernel libraries, cuBLAS handles, the
+    autograd engine) and note the step's dropout sites.  Later groups run
+    as one captured graph of k whole steps for each group size k: the
+    forward, the backward (flash kernels included), clipping and the
+    optimizer update, writing the parameters and the optimizer state in
+    place.  Before each replay the host copies the group's batches into
+    the graph's static inputs, writes each step's step scalars (learning
+    rate, bias corrections: ``nn/optimizers``) into a (k, n) buffer and
+    reseeds the generators registered for the dropout sites with the
+    seeds the eager steps would use, so step s draws the same masks on
+    both routes.  The k losses come out as one static (k,) tensor.  The
+    graphs share one memory pool and live as long as the fit."""
+
+    def __init__(self, est: "Estimator"):
+        self.est = est
+        self.pool = torch.cuda.graph_pool_handle()
+        self.sites: Dict = {}          # shapes -> dropout sites, or None
+        self.graphs: Dict = {}         # (k, shapes) -> program
+
+    def run(self, group) -> List[torch.Tensor]:
+        est = self.est
+        sig = _signature(group[0][:3])
+        if sig not in self.sites:
+            rec = _DropoutSites()
+            with generator_hook(rec):
+                losses = est._eager_group(group)
+            self.sites[sig] = rec.sites
+            return losses
+        sites = self.sites[sig]
+        k = len(group)
+        prog = self.graphs.get((k, sig))
+        if prog is None:
+            if sites is None or (sites and not hasattr(
+                    torch.cuda.CUDAGraph, "register_generator_state")):
+                return est._eager_group(group)
+            prog = self.graphs[(k, sig)] = self._capture(group, sites)
+        xs, ys, ws, scal, gens = prog.inputs
+        for i, (sx, sy, sw, _) in enumerate(group):
+            for dst, src in ((xs[i], sx), (ys[i], sy), (ws[i], sw)):
+                _tmap(lambda d, s: d.copy_(s), dst, src)
+        rows = [est.optimizer.step_scalars(est.opt_state) for _ in range(k)]
+        scal.copy_(torch.tensor(rows, dtype=torch.float32).reshape(
+            scal.shape))
+        if sites:
+            for i in range(k):
+                est._seed_step(est.global_step + i)
+                for gen, (layer, index) in zip(gens[i], sites):
+                    gen.manual_seed(layer.train_seed(index))
+        losses = prog.replay().clone()
+        est.global_step += k
+        return list(losses.unbind())
+
+    def _capture(self, group, sites):
+        from analytics_zoo_tpu_torch.inference import aot
+        est = self.est
+        dev = est.device
+        k = len(group)
+        xs, ys, ws = ([_tmap(torch.empty_like, b[j]) for b in group]
+                      for j in range(3))
+        scal = torch.zeros((k, est.optimizer.n_scalars),
+                           dtype=torch.float32, device=dev)
+        gens = [[torch.Generator(device=dev) for _ in sites]
+                for _ in range(k)]
+        hook = _GraphGenerators(gens)
+
+        def steps(*_):
+            losses = []
+            for i in range(k):
+                hook.step, hook.j = i, 0
+                est._seed_step(est.global_step + i)
+                losses.append(est._step_body(xs[i], ys[i], ws[i],
+                                             list(scal[i].unbind())))
+            return torch.stack(losses)
+
+        with generator_hook(hook):
+            return aot.capture(steps, (xs, ys, ws, scal, gens), dev,
+                               pool=self.pool,
+                               generators=[g for row in gens for g in row])
+
+
 class Estimator:
     """Uniform train/evaluate/predict facade over the model's device."""
 
@@ -170,6 +383,12 @@ class Estimator:
         self.global_step = 0
         self.epoch = 0
         self._listeners = []   # step-end callbacks: fn(step, loss tensor)
+        self._ckpt_mgr = None
+        self._ckpt_trigger: Optional[ZooTrigger] = None
+        self._guard: Optional[_PreemptionGuard] = None
+        self._tb_writer = None
+        self._tb_val_writer = None
+        self.profile_path: Optional[str] = None   # the last fit's trace
         self._obs_registry = registry
         self._fit_obs = None
 
@@ -215,18 +434,23 @@ class Estimator:
     def set_checkpoint(self, directory: str,
                        trigger: Optional[ZooTrigger] = None,
                        keep: Optional[int] = None):
-        raise NotImplementedError(_CHECKPOINT)
-
-    def save_checkpoint(self, wait: bool = False):
-        raise NotImplementedError(_CHECKPOINT)
-
-    def maybe_restore_checkpoint(self) -> bool:
-        raise NotImplementedError(_CHECKPOINT)
+        """Checkpoint on trigger (KerasNet.setCheckpoint parity); the
+        ``keep`` newest snapshots stay (default ``conf.checkpoint_keep``)."""
+        from analytics_zoo_tpu_torch.estimator.checkpoint import \
+            CheckpointManager
+        self._ckpt_mgr = CheckpointManager(
+            directory, keep or self.ctx.conf.checkpoint_keep)
+        self._ckpt_trigger = trigger or EveryEpoch()
+        return self
 
     def set_tensorboard(self, log_dir: str, app_name: str):
-        raise NotImplementedError(
-            "TensorBoard summaries (utils/tbwriter.py): ROADMAP queue 1, "
-            "item 6")
+        """Scalar summaries: Loss/Throughput + validation metrics
+        (KerasNet.setTensorBoard parity, Topology.scala:206-238)."""
+        from analytics_zoo_tpu_torch.utils.tbwriter import FileWriter
+        base = os.path.join(log_dir, app_name)
+        self._tb_writer = FileWriter(os.path.join(base, "train"))
+        self._tb_val_writer = FileWriter(os.path.join(base, "validation"))
+        return self
 
     # -- initialisation -------------------------------------------------------
     def _ensure_init(self):
@@ -244,6 +468,38 @@ class Estimator:
         if self.optimizer is not None:
             self.opt_state = self.optimizer.init(self.params)
 
+    # -- checkpoint save/restore ----------------------------------------------
+    def _ckpt_tree(self) -> Dict:
+        """The live training state, as the checkpoint holds it: the
+        parameters, the optimizer state (tensors and step counts), the
+        model's buffers (BN statistics), the step and the epoch."""
+        return {"params": self.params, "opt_state": self.opt_state,
+                "model_state": dict(self.model.named_buffers()),
+                "global_step": self.global_step,
+                "extra": {"epoch": self.epoch}}
+
+    def save_checkpoint(self, wait: bool = False):
+        if self._ckpt_mgr is None:
+            raise RuntimeError("call set_checkpoint(dir) first")
+        self._ensure_init()
+        tree = self._ckpt_tree()
+        self._ckpt_mgr.save(self.global_step, tree["params"],
+                            tree["opt_state"], tree["model_state"],
+                            extra=tree["extra"], wait=wait)
+
+    def maybe_restore_checkpoint(self) -> bool:
+        """Restore the latest snapshot if one exists (resume/retry path):
+        its tensors are copied into the live parameters, optimizer state
+        and buffers in place, so a captured graph keeps reading them."""
+        if self._ckpt_mgr is None or self._ckpt_mgr.latest_step() is None:
+            return False
+        self._ensure_init()
+        restored = self._ckpt_mgr.restore(self._ckpt_tree())
+        self.opt_state = restored["opt_state"]
+        self.global_step = int(restored["global_step"])
+        self.epoch = int(restored["extra"]["epoch"])
+        return True
+
     # -- steps ------------------------------------------------------------------
     def _loss_sum(self, y_pred, y, w):
         """sum(per * w) of the per-sample loss, averaged over each
@@ -251,9 +507,13 @@ class Estimator:
         per = self.loss(y_pred, y)
         return (per.reshape(per.shape[0], -1).mean(dim=-1) * w).sum()
 
-    def _train_step(self, x, y, w) -> torch.Tensor:
-        self.model.seed_dropout(split_seed(self.ctx.conf.seed,
-                                           self.global_step))
+    def _seed_step(self, step: int):
+        self.model.seed_dropout(split_seed(self.ctx.conf.seed, step))
+
+    def _step_body(self, x, y, w, scalars=None) -> torch.Tensor:
+        """Forward, backward and the in-place update of one step; the
+        optimizer's step scalars are its own (None) or the given 0-dim
+        tensors.  Nothing reads the device back."""
         for p in self.params:
             p.grad = None
         loss = self._loss_sum(self.model(x), y, w) / w.sum().clamp_min(1e-8)
@@ -261,43 +521,113 @@ class Estimator:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         with torch.no_grad():
-            updates = self.optimizer.update(grads, self.opt_state,
-                                            self.params)
+            if scalars is None:
+                updates = self.optimizer.update(grads, self.opt_state,
+                                                self.params)
+            else:
+                updates = self.optimizer.apply(grads, self.opt_state,
+                                               self.params, scalars)
             optimizers_lib.apply_updates(self.params, updates)
         for p in self.params:
             p.grad = None
         return loss.detach()
+
+    def _train_step(self, x, y, w) -> torch.Tensor:
+        self._seed_step(self.global_step)
+        return self._step_body(x, y, w)
+
+    def _eager_group(self, group) -> List[torch.Tensor]:
+        losses = []
+        for sx, sy, sw, _ in group:
+            losses.append(self._train_step(sx, sy, sw))
+            self.global_step += 1
+        return losses
+
+    def _graph_route(self) -> bool:
+        """Groups of steps run as CUDA graphs: on the card, unless a
+        layer is set to its plain version."""
+        return self.device.type == "cuda" and not any(
+            getattr(m, "impl", None) == "torch"
+            for m in self.model.modules())
 
     # -- public API -----------------------------------------------------------
     def fit(self, x, y=None, *, batch_size=32, epochs=1, validation_data=None,
             shuffle=True, verbose=True, log_every: int = 10,
             end_trigger: Optional[ZooTrigger] = None, resume: bool = False,
             steps_per_call: int = 1) -> History:
+        """``steps_per_call`` > 1 runs that many optimizer steps a group,
+        on the card as one CUDA graph (triggers and listeners then fire
+        at group granularity)."""
         if self.optimizer is None or self.loss is None:
             raise RuntimeError("Estimator needs optimizer and loss to fit")
-        if resume:
-            raise NotImplementedError(_CHECKPOINT)
-        if steps_per_call != 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 (several steps as one CUDA graph): "
-                "ROADMAP queue 1, item 6")
-        if self.ctx.conf.profile_dir:
-            raise NotImplementedError(
-                "profile_dir (a trace of the whole fit): ROADMAP queue 1, "
-                "item 6")
+        if int(steps_per_call) < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got "
+                             f"{steps_per_call}")
         data = _as_feature_set(x, y)
         self._require_data(data)
         self._ensure_init()
+        if resume:
+            self.maybe_restore_checkpoint()
         hist = History()
         np_rng = np.random.default_rng(self.ctx.conf.seed)
         tstate = TrainState(epoch=self.epoch, iteration=self.global_step)
+        profile_cm = (self._profile(self.ctx.conf.profile_dir)
+                      if self.ctx.conf.profile_dir
+                      else contextlib.nullcontext())
+        # the preemption guard only with checkpointing configured; without
+        # it, Ctrl-C keeps its normal KeyboardInterrupt semantics
+        guard_cm = (_PreemptionGuard() if self._ckpt_mgr is not None
+                    else contextlib.nullcontext())
+        graphs = (_GraphSteps(self) if steps_per_call > 1
+                  and self._graph_route() else None)
         self.model.train()
+        with profile_cm, guard_cm as guard:
+            self._guard = guard
+            try:
+                return self._fit_loop(data, batch_size, epochs,
+                                      validation_data, shuffle, verbose,
+                                      log_every, end_trigger,
+                                      int(steps_per_call), graphs, hist,
+                                      np_rng, tstate)
+            finally:
+                self._guard = None
+                self.model.eval()
+                if self._ckpt_mgr is not None:
+                    self._ckpt_mgr.wait()    # commit in-flight async saves
+
+    @contextlib.contextmanager
+    def _profile(self, out_dir: str):
+        """A ``torch.profiler`` trace of the block (the card's kernels
+        too on a CUDA model), written as a Chrome trace
+        ``fit-<time>-<pid>.json`` under ``out_dir``.  On the card the
+        session warms up and settles first (``ops/_impl.settled_trace``):
+        a trace that records at once can lose its first kernels' records.
+        It holds ``ops/_impl.PROFILER_LOCK``, the process's one profiler
+        session: while another session records, the fit raises and
+        records nothing."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from analytics_zoo_tpu_torch.ops import _impl
+        if torch.autograd._profiler_enabled() \
+                or not _impl.PROFILER_LOCK.acquire(blocking=False):
+            raise RuntimeError(
+                "profile_dir: another profiler session records in this "
+                "process — one at a time")
         try:
-            return self._fit_loop(data, batch_size, epochs, validation_data,
-                                  shuffle, verbose, log_every, end_trigger,
-                                  hist, np_rng, tstate)
+            os.makedirs(out_dir, exist_ok=True)
+            if self.device.type == "cuda":
+                session = _impl.settled_trace([ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+            else:
+                session = profile(activities=[ProfilerActivity.CPU])
+            with session as prof:
+                yield
+            self.profile_path = os.path.join(
+                out_dir, f"fit-{time.strftime('%Y%m%d-%H%M%S')}-"
+                         f"{os.getpid()}.json")
+            prof.export_chrome_trace(self.profile_path)
         finally:
-            self.model.eval()
+            _impl.PROFILER_LOCK.release()
 
     def _transfer(self, item):
         bx, by, bw = item
@@ -306,40 +636,82 @@ class Estimator:
                 _to_device(bw, dev), float(bw.sum()))
 
     def _fit_loop(self, data, batch_size, epochs, validation_data, shuffle,
-                  verbose, log_every, end_trigger, hist, np_rng,
+                  verbose, log_every, end_trigger, k, graphs, hist, np_rng,
                   tstate) -> History:
         obs = self._fit_metrics_objs()
+        conf = self.ctx.conf
+        retries_left = conf.failure_retry_times
         epoch = 0
         while epoch < epochs:
             t0 = time.time()
             losses, seen = [], 0
             t_step = time.perf_counter()
             feed = _DevicePrefetcher(
-                data.batches(batch_size, shuffle=shuffle, rng=np_rng,
-                             pad_final=True), self._transfer, _INFEED_DEPTH)
+                self._grouped(data.batches(batch_size, shuffle=shuffle,
+                                           rng=np_rng, pad_final=True), k),
+                lambda grp: [self._transfer(b) for b in grp], _INFEED_DEPTH)
             try:
-                for sx, sy, sw, wsum in feed:
-                    loss = self._train_step(sx, sy, sw)
-                    self.global_step += 1
-                    losses.append(loss)
+                for group in feed:
+                    step0 = self.global_step
+                    ls = (graphs.run(group) if graphs is not None
+                          else self._eager_group(group))
+                    n = len(ls)
+                    losses.extend(ls)
+                    wsum = sum(b[3] for b in group)
                     seen += int(wsum)
-                    # per-step wall time on the dispatch side (no device
-                    # sync), cumulative step/sample counters
+                    # per-step wall time on the dispatch side (a group
+                    # spreads its wall over its steps), cumulative
+                    # step/sample counters
                     now_step = time.perf_counter()
-                    obs["step_time"].observe(now_step - t_step)
-                    obs["steps"].inc(1)
+                    obs["step_time"].observe((now_step - t_step) / n, n=n)
+                    obs["steps"].inc(n)
                     obs["samples"].inc(wsum)
                     t_step = now_step
                     tstate.iteration = self.global_step
                     tstate.epoch_finished = False
                     if self.global_step % log_every == 0:
-                        lf = float(loss)
+                        lf = float(ls[-1])
                         tstate.loss = lf
                         obs["loss"].set(lf)
-                    for fn in self._listeners:
-                        fn(self.global_step, loss)
+                        if self._tb_writer is not None:
+                            self._tb_writer.add_scalar("Loss", lf,
+                                                       self.global_step)
+                    for i, loss in enumerate(ls):
+                        for fn in self._listeners:
+                            fn(step0 + i + 1, loss)
+                    if (self._ckpt_trigger is not None
+                            and self._ckpt_trigger(tstate)):
+                        self.save_checkpoint()
+                    guard = self._guard
+                    if guard is not None and guard.fired is not None:
+                        # preemption: synchronous snapshot first, then exit
+                        self.save_checkpoint(wait=True)
+                        if guard.fired == signal.SIGINT:
+                            raise KeyboardInterrupt
+                        raise SystemExit(128 + guard.fired)
                     if end_trigger is not None and end_trigger(tstate):
                         break
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                # failure-retry with checkpoint restore
+                # (Topology.scala:1180-1262): the backoff between attempts
+                # comes from the shared RetryPolicy; the restore copies
+                # into the live tensors, so captured graphs stay valid
+                if retries_left > 0 and self._ckpt_mgr is not None \
+                        and self._ckpt_mgr.latest_step() is not None:
+                    attempt = conf.failure_retry_times - retries_left
+                    retries_left -= 1
+                    logger.warning(
+                        "training step failed (%s: %s); restoring latest "
+                        "checkpoint and retrying (%d retries left)",
+                        type(e).__name__, e, retries_left)
+                    RetryPolicy(max_retries=conf.failure_retry_times,
+                                base_delay_s=conf.failure_retry_backoff_s
+                                ).sleep(attempt)
+                    self.maybe_restore_checkpoint()
+                    continue
+                raise
             finally:
                 feed.close()
 
@@ -357,22 +729,61 @@ class Estimator:
             if mean_loss == mean_loss:       # not NaN (empty epoch)
                 obs["loss"].set(mean_loss)
             obs["throughput"].set(throughput)
+            if self._tb_writer is not None:
+                self._write_epoch_summaries(mean_loss, throughput,
+                                            obs["step_time"])
             msg = (f"Epoch {self.epoch} ({epoch}/{epochs}) - loss "
                    f"{mean_loss:.4f} - {throughput:.0f} samples/s")
             if validation_data is not None:
                 val = self.evaluate(*self._val_tuple(validation_data),
                                     batch_size=batch_size)
                 self.model.train()
-                for k, v in val.items():
-                    hist.append("val_" + k, v)
+                for key, v in val.items():
+                    hist.append("val_" + key, v)
+                    if self._tb_val_writer is not None:
+                        self._tb_val_writer.add_scalar(key, v,
+                                                       self.global_step)
                 tstate.score = next(iter(val.values())) if val else None
-                msg += " - " + " ".join(f"val_{k} {v:.4f}"
-                                        for k, v in val.items())
+                msg += " - " + " ".join(f"val_{key} {v:.4f}"
+                                        for key, v in val.items())
+            if self._ckpt_trigger is not None and self._ckpt_trigger(tstate):
+                self.save_checkpoint()
             if verbose:
                 print(msg)
             if end_trigger is not None and end_trigger(tstate):
                 break
+        for w in (self._tb_writer, self._tb_val_writer):
+            if w is not None:
+                w.flush()
         return hist
+
+    def _write_epoch_summaries(self, mean_loss, throughput, step_time):
+        """Loss, Throughput, and the registry's step-time histogram
+        mirrored into the event file (its bucket bounds, read back with
+        ``tbwriter.read_histograms``)."""
+        w = self._tb_writer
+        w.add_scalar("Loss", mean_loss, self.global_step)
+        w.add_scalar("Throughput", throughput, self.global_step)
+        recent = step_time.recent()
+        if recent:
+            w.add_histogram("StepTime_s", recent, self.global_step,
+                            bucket_limits=step_time.buckets)
+            w.add_scalar("StepTime_ms_mean", 1e3 * sum(recent) / len(recent),
+                         self.global_step)
+
+    @staticmethod
+    def _grouped(batch_iter, k: int):
+        """Lists of k consecutive (x, y, w) batches; a final short group
+        at its own size (the JAX ``_grouped``, whose ``_stack_group``
+        stacks them for ``lax.scan``)."""
+        buf = []
+        for item in batch_iter:
+            buf.append(item)
+            if len(buf) == k:
+                yield buf
+                buf = []
+        if buf:
+            yield buf
 
     @staticmethod
     def _val_tuple(validation_data):

@@ -4,8 +4,9 @@ the JAX package's ``feature/dataset.py`` (numpy only).
 Data lives on the host as numpy (DRAM tier) or as mmap'd arrays (DISK tier), and an
 iterator yields fixed-shape batches that the Estimator copies to the device.  Partial
 final batches are padded with zero-weight rows, so eval metrics are exact and the batch
-order and padding are the JAX package's for the same shuffle generator.  The
-`NativeFeatureSet` (the C++ sample store) is not ported yet.
+order and padding are the JAX package's for the same shuffle generator.
+`NativeFeatureSet` keeps the samples in the repository's C++ sample store
+(`utils/native.py`) and gathers each batch there.
 """
 
 from __future__ import annotations
@@ -158,3 +159,60 @@ class IteratorFeatureSet(FeatureSet):
                 yield x, y, np.ones((n,), np.float32)
             else:
                 yield item
+
+
+class NativeFeatureSet(FeatureSet):
+    """FeatureSet backed by the C++ sample store (csrc/sample_store.cpp): samples
+    live in a native arena (RAM or mmap file) and minibatches are assembled by a
+    multi-threaded native gather — the PMEM + MTSampleToMiniBatch analog.
+    """
+
+    def __init__(self, x: ArrayLike, y: Optional[ArrayLike] = None,
+                 path_prefix: Optional[str] = None, n_threads: int = 4):
+        from analytics_zoo_tpu_torch.utils.native import NativeSampleStore
+        xs = _listify(x)
+        ys = _listify(y)
+        self._n = xs[0].shape[0]
+        self.x_stores = []
+        for i, a in enumerate(xs):
+            st = NativeSampleStore(
+                self._n, a.shape[1:], a.dtype,
+                path=(f"{path_prefix}.x{i}" if path_prefix else None),
+                n_threads=n_threads)
+            st.write_bulk(0, a)
+            self.x_stores.append(st)
+        self.y_stores = []
+        for i, a in enumerate(ys):
+            st = NativeSampleStore(
+                self._n, a.shape[1:], a.dtype,
+                path=(f"{path_prefix}.y{i}" if path_prefix else None),
+                n_threads=n_threads)
+            st.write_bulk(0, a)
+            self.y_stores.append(st)
+
+    def size(self) -> int:
+        return self._n
+
+    def batches(self, batch_size: int, *, shuffle=False, rng=None,
+                drop_remainder=False, pad_final=True):
+        n = self._n
+        idx = np.arange(n, dtype=np.int64)
+        if shuffle:
+            (rng or np.random.default_rng()).shuffle(idx)
+        stop = (n // batch_size) * batch_size if drop_remainder else n
+        for start in range(0, stop, batch_size):
+            sel = idx[start:start + batch_size]
+            w = np.ones((len(sel),), np.float32)
+            if len(sel) < batch_size and pad_final:
+                pad = batch_size - len(sel)
+                sel = np.concatenate([sel, np.zeros((pad,), np.int64)])
+                w = np.concatenate([w, np.zeros((pad,), np.float32)])
+            xs = [st.gather(sel) for st in self.x_stores]
+            ys = [st.gather(sel) for st in self.y_stores]
+            yield (xs[0] if len(xs) == 1 else xs,
+                   (ys[0] if len(ys) == 1 else ys) if ys else None,
+                   w)
+
+    def close(self):
+        for st in self.x_stores + self.y_stores:
+            st.close()

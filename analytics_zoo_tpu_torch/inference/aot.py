@@ -140,7 +140,8 @@ class CapturedProgram:
 
 
 def capture(fn: Callable, inputs: Sequence[torch.Tensor],
-            device: torch.device) -> CapturedProgram:
+            device: torch.device, pool=None,
+            generators: Sequence[torch.Generator] = ()) -> CapturedProgram:
     """Capture ``fn(*inputs)`` as a CUDA graph on a side stream, in the
     thread-local capture mode (another thread's CUDA calls do not break
     the capture).  ``fn`` must have run eagerly at these shapes first:
@@ -148,10 +149,18 @@ def capture(fn: Callable, inputs: Sequence[torch.Tensor],
     cannot happen inside a capture.  A capture records and does not
     execute, so the kernel wrappers' launch counters add nothing for it
     (``ops/_impl.launched``); the replays launch the kernels, and
-    ``ops/_impl.card_launches`` counts them on the card."""
+    ``ops/_impl.card_launches`` counts them on the card.
+
+    ``pool`` shares a private memory pool with graphs captured before
+    (``torch.cuda.graph_pool_handle()``; replay them one at a time).
+    ``generators`` are CUDA generators ``fn`` draws from: each is
+    registered with the graph, so a replay draws from its seed and offset
+    at that time (reseed it before a replay) instead of the capture's."""
     if device.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     # what torch.cuda.graph does on entry, done first so that the reserved
     # memory is measured from the emptied cache the capture starts from
     torch.cuda.synchronize(device)
@@ -160,7 +169,8 @@ def capture(fn: Callable, inputs: Sequence[torch.Tensor],
     reserved0 = torch.cuda.memory_reserved(device)
     t0 = time.perf_counter()
     with torch.cuda.device(device):
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
+        with torch.cuda.graph(graph, pool=pool,
+                              stream=torch.cuda.Stream(device),
                               capture_error_mode="thread_local"):
             output = fn(*inputs)
     CAPTURE_STATS.note_capture(time.perf_counter() - t0)

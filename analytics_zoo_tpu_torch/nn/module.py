@@ -151,8 +151,12 @@ class Layer(nn.Module):
         by ``index`` for a layer with several sites)."""
         if not self.training or self.dropout_seed is None:
             return None
-        return self.dropout_seed if index is None \
+        seed = self.dropout_seed if index is None \
             else split_seed(self.dropout_seed, index)
+        hook = getattr(_gen_hook, "hook", None)
+        if hook is not None:
+            hook.seed(self, index, seed)
+        return seed
 
     def seed_dropout(self, seed: Optional[int]) -> None:
         """Seed this layer's dropout and, split by position, its
@@ -179,10 +183,33 @@ def split_seed(seed: Optional[int], index: int) -> Optional[int]:
 
 
 def generator(seed: int, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (inside a
+    ``generator_hook`` block, the hook's)."""
+    hook = getattr(_gen_hook, "hook", None)
+    if hook is not None:
+        return hook.generator(seed, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
+
+
+_gen_hook = threading.local()
+
+
+@contextlib.contextmanager
+def generator_hook(hook):
+    """Inside the block (on this thread), every seed ``train_seed`` hands
+    out is first shown to ``hook.seed(layer, index, seed)``, and
+    ``generator(seed, device)`` returns ``hook.generator(seed, device)``.
+    The Estimator's CUDA-graph route finds a step's dropout sites this
+    way and hands them generators registered with the graph, reseeded
+    before each replay."""
+    prev = getattr(_gen_hook, "hook", None)
+    _gen_hook.hook = hook
+    try:
+        yield
+    finally:
+        _gen_hook.hook = prev
 
 
 _draw_source = threading.local()

@@ -20,7 +20,17 @@ differs from ``torch.optim``, optax holds:
 - Adam's bias corrections use the step count after the update.
 
 Step counts and schedules live on the host (Python ints and floats): an
-update reads nothing back from the device.
+update reads nothing back from the device.  The numbers an update takes
+from them (a learning rate, Adam's bias corrections) are its *step
+scalars*: ``step_scalars(state)`` advances the counts and returns them,
+``apply(grads, state, params, scalars)`` does the tensor work.  ``update``
+is the two in turn, with the scalars as Python floats.  A caller that
+captures several updates in one CUDA graph hands ``apply`` 0-dim device
+tensors instead, refilled with each replay's ``step_scalars`` before it
+runs: a float baked into a graph would freeze the step count.  The same
+value as a float32 tensor gives the same update: bit for bit on the CPU,
+and on the H100 to within a last f32 bit of some elements (the foreach
+kernels' Tensor-scalar and Python-scalar paths).
 """
 
 from __future__ import annotations
@@ -114,15 +124,26 @@ Tensors = List[torch.Tensor]
 
 class Transform:
     """One optax ``GradientTransformation`` over a list of tensors.
-    ``update`` may change its state and the gradients it is given in
-    place; the updates it returns never alias the state."""
+    ``apply`` may change its state and the gradients it is given in
+    place; the updates it returns never alias the state.  ``n_scalars``
+    is the length of ``step_scalars``' list."""
+
+    n_scalars = 0
 
     def init(self, params: Tensors) -> Dict:
         return {}
 
+    def step_scalars(self, state: Dict) -> List[float]:
+        """The host numbers one update reads, its step counts advanced."""
+        return []
+
+    def apply(self, grads: Tensors, state: Dict, params: Tensors,
+              scalars: Sequence) -> Tensors:
+        raise NotImplementedError
+
     def update(self, grads: Tensors, state: Dict, params: Tensors
                ) -> Tensors:
-        raise NotImplementedError
+        return self.apply(grads, state, params, self.step_scalars(state))
 
 
 def _zeros(params):
@@ -133,12 +154,22 @@ class Chain(Transform):
     def __init__(self, *transforms: Transform):
         self.transforms = transforms
 
+    @property
+    def n_scalars(self):
+        return sum(t.n_scalars for t in self.transforms)
+
     def init(self, params):
         return {"inner": [t.init(params) for t in self.transforms]}
 
-    def update(self, grads, state, params):
+    def step_scalars(self, state):
+        return [v for t, s in zip(self.transforms, state["inner"])
+                for v in t.step_scalars(s)]
+
+    def apply(self, grads, state, params, scalars):
+        i = 0
         for t, s in zip(self.transforms, state["inner"]):
-            grads = t.update(grads, s, params)
+            grads = t.apply(grads, s, params, scalars[i:i + t.n_scalars])
+            i += t.n_scalars
         return grads
 
 
@@ -147,26 +178,36 @@ class ScaleByAdam(Transform):
                  nesterov=False):
         self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
         self.nesterov = nesterov
+        self.n_scalars = 3 if nesterov else 2
 
     def init(self, params):
         return {"count": 0, "mu": _zeros(params), "nu": _zeros(params)}
 
-    def update(self, grads, state, params):
+    def step_scalars(self, state):
+        """The bias corrections at the count after this update: of mu
+        (Nesterov: of mu and of the gradient), then of nu."""
+        b1, b2 = self.b1, self.b2
+        state["count"] += 1
+        c = state["count"]
+        if self.nesterov:
+            return [(1 - b1 ** (c + 1)) / b1, (1 - b1 ** c) / (1 - b1),
+                    1 - b2 ** c]
+        return [1 - b1 ** c, 1 - b2 ** c]
+
+    def apply(self, grads, state, params, scalars):
         b1, b2 = self.b1, self.b2
         mu, nu = state["mu"], state["nu"]
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, grads, alpha=1 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
-        state["count"] += 1
-        c = state["count"]
         if self.nesterov:
-            mu_hat = torch._foreach_div(mu, (1 - b1 ** (c + 1)) / b1)
-            torch._foreach_add_(mu_hat, torch._foreach_div(
-                grads, (1 - b1 ** c) / (1 - b1)))
+            mu_hat = torch._foreach_div(mu, scalars[0])
+            torch._foreach_add_(mu_hat, torch._foreach_div(grads,
+                                                           scalars[1]))
         else:
-            mu_hat = torch._foreach_div(mu, 1 - b1 ** c)
-        den = torch._foreach_div(nu, 1 - b2 ** c)
+            mu_hat = torch._foreach_div(mu, scalars[0])
+        den = torch._foreach_div(nu, scalars[-1])
         if self.eps_root:
             torch._foreach_add_(den, self.eps_root)
         torch._foreach_sqrt_(den)
@@ -179,7 +220,7 @@ class AddDecayedWeights(Transform):
     def __init__(self, weight_decay: float):
         self.weight_decay = weight_decay
 
-    def update(self, grads, state, params):
+    def apply(self, grads, state, params, scalars):
         torch._foreach_add_(grads, params, alpha=self.weight_decay)
         return grads
 
@@ -188,16 +229,21 @@ class ScaleByLearningRate(Transform):
     """``-lr * updates``; a schedule is read at its own count before the
     increment (``optax.scale_by_schedule``)."""
 
+    n_scalars = 1
+
     def __init__(self, lr: LR):
         self.lr = lr
 
     def init(self, params):
         return {"count": 0}
 
-    def update(self, grads, state, params):
+    def step_scalars(self, state):
         lr = self.lr(state["count"]) if callable(self.lr) else self.lr
         state["count"] += 1
-        torch._foreach_mul_(grads, -float(lr))
+        return [-float(lr)]
+
+    def apply(self, grads, state, params, scalars):
+        torch._foreach_mul_(grads, scalars[0])
         return grads
 
 
@@ -211,7 +257,7 @@ class Trace(Transform):
     def init(self, params):
         return {"trace": _zeros(params)}
 
-    def update(self, grads, state, params):
+    def apply(self, grads, state, params, scalars):
         tr = state["trace"]
         torch._foreach_mul_(tr, self.decay)
         torch._foreach_add_(tr, grads)
@@ -228,7 +274,7 @@ class ScaleByRms(Transform):
         return {"nu": [torch.full_like(p, self.initial_scale)
                        for p in params]}
 
-    def update(self, grads, state, params):
+    def apply(self, grads, state, params, scalars):
         nu = state["nu"]
         torch._foreach_mul_(nu, self.decay)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - self.decay)
@@ -246,7 +292,7 @@ class ScaleByRss(Transform):
         return {"sum_of_squares": [torch.full_like(p, self.init_value)
                                    for p in params]}
 
-    def update(self, grads, state, params):
+    def apply(self, grads, state, params, scalars):
         sos = state["sum_of_squares"]
         torch._foreach_addcmul_(sos, grads, grads)
         return [torch.where(s > 0, torch.rsqrt(s + self.eps), 0.0) * g
@@ -260,7 +306,7 @@ class ScaleByAdadelta(Transform):
     def init(self, params):
         return {"e_g": _zeros(params), "e_x": _zeros(params)}
 
-    def update(self, grads, state, params):
+    def apply(self, grads, state, params, scalars):
         rho, eps = self.rho, self.eps
         e_g, e_x = state["e_g"], state["e_x"]
         torch._foreach_mul_(e_g, rho)
@@ -280,11 +326,16 @@ class ScaleByAdamax(Transform):
     def __init__(self, b1=0.9, b2=0.999, eps=1e-8):
         self.b1, self.b2, self.eps = b1, b2, eps
 
+    n_scalars = 1
+
     def init(self, params):
         return {"count": 0, "mu": _zeros(params), "nu": _zeros(params)}
 
-    def update(self, grads, state, params):
+    def step_scalars(self, state):
         state["count"] += 1
+        return [1 - self.b1 ** state["count"]]
+
+    def apply(self, grads, state, params, scalars):
         mu, nu = state["mu"], state["nu"]
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1 - self.b1)
@@ -292,7 +343,7 @@ class ScaleByAdamax(Transform):
         absg = torch._foreach_abs(grads)
         torch._foreach_add_(absg, self.eps)
         torch._foreach_maximum_(nu, absg)
-        out = torch._foreach_div(mu, 1 - self.b1 ** state["count"])
+        out = torch._foreach_div(mu, scalars[0])
         torch._foreach_div_(out, nu)
         return out
 
@@ -303,7 +354,7 @@ class Clip(Transform):
     def __init__(self, max_delta: float):
         self.max_delta = max_delta
 
-    def update(self, grads, state, params):
+    def apply(self, grads, state, params, scalars):
         torch._foreach_clamp_min_(grads, -self.max_delta)
         torch._foreach_clamp_max_(grads, self.max_delta)
         return grads
@@ -322,7 +373,7 @@ class ClipByGlobalNorm(Transform):
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
 
-    def update(self, grads, state, params):
+    def apply(self, grads, state, params, scalars):
         if not grads:
             return grads
         norm = global_norm(grads)

@@ -60,6 +60,8 @@ def launched() -> int:
 # (a substring of the demangled name)
 KERNEL_NAMES = {"paged": "paged_attention_kernel",
                 "flash_fwd": "flash_fwd_kernel",
+                "flash_bwd_dq": "flash_bwd_dq_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_kernel",
                 "w8a8": "w8a8_kernel",
                 "w4a16": "w4a16_kernel",
                 "w8a8_conv": "w8a8_conv2d_kernel"}
@@ -76,6 +78,27 @@ WARMUP_S = 0.1
 # the wait after the trace starts recording, before the block, and after
 # the block's work has ended, before the trace stops
 SETTLE_S = 0.2
+
+
+@contextlib.contextmanager
+def settled_trace(activities):
+    """A ``torch.profiler`` session over ``activities`` (``ProfilerActivity``
+    values, the card's among them) that records the block only, with the
+    warm-up and the settling waits ``card_launches`` describes; yields
+    the profiler, whose records are read after the block."""
+    from torch.profiler import profile, schedule
+    with profile(activities=list(activities),
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(WARMUP_LAUNCHES):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(WARMUP_S)
+        prof.step()                      # warm-up -> recording
+        time.sleep(SETTLE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
 
 
 @contextlib.contextmanager
@@ -106,20 +129,9 @@ def card_launches(kernels=tuple(KERNEL_NAMES)):
         yield counts
         return
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with PROFILER_LOCK, profile(
-            activities=[ProfilerActivity.CUDA],
-            schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        warm = torch.zeros(1, device="cuda")
-        for _ in range(WARMUP_LAUNCHES):
-            warm.add_(1)
-        torch.cuda.synchronize()
-        time.sleep(WARMUP_S)
-        prof.step()                      # warm-up -> recording
-        time.sleep(SETTLE_S)
+    from torch.profiler import ProfilerActivity
+    with PROFILER_LOCK, settled_trace([ProfilerActivity.CUDA]) as prof:
         yield counts
-        torch.cuda.synchronize()
-        time.sleep(SETTLE_S)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue

@@ -71,9 +71,12 @@ Kept from the JAX engine, with the same contracts:
   wire-stamped ``trace_id``, the flight recorder, optional SLO
   attribution, and the ``health()`` / ``metrics()`` documents.
 
+``tensorboard_dir`` writes the predict plane's ``Serving Throughput``
+and ``Total Records Number`` scalars after each written batch, as the
+JAX engine does (``utils/tbwriter.py``).
+
 Not in this slice (setting them raises ``NotImplementedError``):
-TensorBoard summaries (``tensorboard_dir``), sharding (``sharding``,
-``mesh_shape``) and XLA's persistent compilation cache
+sharding (``sharding``, ``mesh_shape``) and XLA's persistent compilation cache
 (``compile_cache_dir``: the kernel libraries are cached under ``build/``
 already, and nothing else is compiled).  Image records (``image``:
 base64 PNG / JPEG bytes) are decoded with ``cv2`` as the JAX engine
@@ -532,11 +535,10 @@ class ClusterServing:
                  tensorboard_dir: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None):
-        if tensorboard_dir is not None:
-            raise NotImplementedError(
-                "ClusterServing(tensorboard_dir=...): TensorBoard summaries "
-                "(utils/tbwriter.py) are not ported yet (ROADMAP queue 1, "
-                "item 6)")
+        self._tb = None
+        if tensorboard_dir:
+            from analytics_zoo_tpu_torch.utils.tbwriter import FileWriter
+            self._tb = FileWriter(tensorboard_dir)
         self.model = model
         self.queue = queue
         self.params = params or ServingParams()
@@ -1908,6 +1910,12 @@ class ClusterServing:
             self._cold_start_s = now - self._t_construct
             self._g_cold.set(self._cold_start_s)
         self.total_records += n
+        if self._tb is not None:
+            dt = max(now - inflight.t_dispatch, 1e-9)
+            self._tb.add_scalar("Serving Throughput", n / dt,
+                                self.total_records)
+            self._tb.add_scalar("Total Records Number", self.total_records,
+                                self.total_records)
         self._maybe_trim()
         return n
 
@@ -2669,3 +2677,5 @@ class ClusterServing:
             _wire.detach_all()
         except Exception:  # noqa: BLE001 — cleanup is best-effort
             pass
+        if self._tb is not None:
+            self._tb.flush()

@@ -4,7 +4,8 @@
 Runs the port's serving paths (generation, predict, image classification,
 recommendation, the recurrent, text and time-series zoos, the HTTP front
 door with its armour, the fleet control plane) and its
-training paths on one NVIDIA GPU and checks them, phase by phase, each
+training paths (with the Estimator's checkpoints, retries, preemption,
+k-step CUDA graphs, TensorBoard files and profile) on one NVIDIA GPU and checks them, phase by phase, each
 phase printing its own lines:
 
 1. card — the card's name and power limit (``nvidia-smi``) and the build of
@@ -318,6 +319,29 @@ phase printing its own lines:
    v2's own in-process tokens; ``manager stop`` leaves no process
    behind.  (7) One replica (``start --foreground``) from the ``.npz``
    and one from the store, started together: seconds to ``/readyz``.
+14. estimator — ``Estimator.fit`` of phase 5's model (GPT-2 small at
+   T = 1024, Adam, global-norm clip 1.0) from the same seeded weights:
+   80 sequences (10 steps an epoch, groups of 4, 4 and 2) for 2 epochs
+   eagerly and with ``steps_per_call=4``, where every group after the
+   first (the eager warm-up) replays a CUDA graph of k whole steps, one
+   captured a group size: each step's loss within ``TRAIN_LOSS_TOL``, the
+   weights within ``K_WEIGHT_TOL``, ms a step over the last epoch on each
+   route; one epoch of the graph route under a trace of the card: flash
+   forward, dq and dk/dv launches = 12 x 10 on the card, 12 x 4 by the
+   wrappers (the warm-up group).  Then, over one-group epochs of 32
+   sequences, an uninterrupted 16-step run as the reference; a fit whose
+   step-6 listener raises (``utils/chaos``'s ``FaultInjector``) restores
+   its last epoch's snapshot and ends on the reference's weights; a
+   victim process (this script with ``--fit-victim DIR``, started with
+   its resumer, ``--fit-victim DIR --resume``, before the reference run,
+   both waiting with their models built) sent SIGTERM after its first
+   step exits 143 leaving a snapshot, and the resumer continues to step
+   16, every loss the reference's; a fit fed from a ``NativeFeatureSet``
+   (its batches ``ArrayFeatureSet``'s) writing TensorBoard files and a
+   ``profile_dir`` trace: the event files read back, the trace holding
+   each flash kernel 12 x 8 times.  The host-bound trainings of phases
+   8-11 (NeuralCF, SessionRecommender, AnomalyDetector, NER, MTNet) run
+   through the same k-step route, ``ZOO_STEPS_PER_CALL`` steps a call.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -327,7 +351,8 @@ contract line.  Run from the repository root::
 
 ``--resume-victim DIR`` is the continuity phase's victim process, which
 the phase starts itself; ``--gateway-client SPEC`` is phase 12's HTTP
-clients in a process of their own.
+clients in a process of their own; ``--fit-victim DIR [--resume]`` is
+phase 14's preempted fit and its resumption.
 
 ``--profile`` adds ``torch.profiler`` readings of a decode step (eager,
 then replayed from its CUDA graph), a predict batch, a training step, a
@@ -377,6 +402,8 @@ import torch.nn.functional as F
 from analytics_zoo_tpu_torch.common import dtypes
 from analytics_zoo_tpu_torch.common.context import ZooConf, ZooContext
 from analytics_zoo_tpu_torch.common.observability import MetricsRegistry
+from analytics_zoo_tpu_torch.common.triggers import (MaxIteration,
+                                                     SeveralIteration)
 from analytics_zoo_tpu_torch.estimator.estimator import Estimator
 from analytics_zoo_tpu_torch.feature.dataset import ArrayFeatureSet
 from analytics_zoo_tpu_torch.feature.image import ImageSet
@@ -493,6 +520,13 @@ LOGP_TOL = 1e-5
 # a planted flash fault (softmax scale off by this factor) that the path
 # shape's parity check must reject
 PLANTED_SCALE_ERR = 1e-3
+
+# the zoo's host-bound trainings (NCF, SessionRecommender,
+# AnomalyDetector, NER, MTNet: small kernels, one Python dispatch each)
+# run this many steps a call: on the card one CUDA graph of that many
+# whole steps (the Estimator's k-step route, phase 14), which keeps the
+# script inside its time limit
+ZOO_STEPS_PER_CALL = 8
 
 # the training path: the same GPT-2-small widths at the full context, as
 # a causal LM (a Dense softmax over every position); 64 sequences of
@@ -2595,11 +2629,14 @@ def train_data(seed: int):
     return seqs[:, :-1], seqs[:, 1:]
 
 
-def build_train_model(seed: int) -> Sequential:
+def train_layers() -> Sequential:
     T = TRAIN["seq_len"]
     return Sequential([TransformerLayer(**TRAIN, input_shape=(T,)),
-                       Dense(TRAIN["vocab"], activation="softmax")]
-                      ).init_weights(seed)
+                       Dense(TRAIN["vocab"], activation="softmax")])
+
+
+def build_train_model(seed: int) -> Sequential:
+    return train_layers().init_weights(seed)
 
 
 def train_run(model, x, y, seed: int) -> dict:
@@ -2657,9 +2694,10 @@ def check_train(tag: str, run: dict, kernels: bool) -> None:
         f"{run['peak_bytes'] / 2 ** 30:.2f} GiB")
 
 
-def train_phase(seed: int, records: dict, profile: bool) -> None:
+def train_phase(seed: int, records: dict, profile: bool) -> Sequential:
     """The same seeded weights and data trained through the kernels and
-    through their plain versions; launches fill the records."""
+    through their plain versions; launches fill the records.  Returns the
+    host copy of the seeded model (phase 14 trains it again)."""
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     host = build_train_model(seed)
@@ -2711,6 +2749,7 @@ def train_phase(seed: int, records: dict, profile: bool) -> None:
               f"train: the planted fault '{tag}' passes the loss check "
               f"({gap:.3e} <= {TRAIN_LOSS_TOL})")
     torch.cuda.empty_cache()
+    return host
 
 
 def loss_gap(run: dict, ref: dict) -> float:
@@ -4140,7 +4179,8 @@ def ncf_train(ncf, data: dict, seed: int) -> list:
         sync(dev)
         t0 = time.perf_counter()
         hist = est.fit([users, items], labels, batch_size=NCF_BATCH,
-                       epochs=1, verbose=False)
+                       epochs=1, verbose=False,
+                       steps_per_call=ZOO_STEPS_PER_CALL)
         sync(dev)
         wall = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -4173,7 +4213,7 @@ def check_ncf_train(epochs: list, hr_min: float = NCF_HR_MIN) -> None:
             f"samples in {e['steps']} steps of {NCF_BATCH}, "
             f"{e['wall_s']:.3f} s = {e['samples'] / e['wall_s']:.0f} "
             f"samples/s, {e['wall_s'] / e['steps'] * 1e3:.3f} ms/step (host "
-            f"clock); host data {e['data_s']:.2f} s, ranking evaluation "
+            f"clock, {ZOO_STEPS_PER_CALL} steps a call); host data {e['data_s']:.2f} s, ranking evaluation "
             f"{e['eval_s']:.2f} s")
 
 
@@ -4753,7 +4793,8 @@ def session_train(sr, data: dict, seed: int) -> list:
         sync(dev)
         t0 = time.perf_counter()
         hist = est.fit(data["x_train"], data["y_train"][:, None],
-                       batch_size=SESSION_BATCH, epochs=1, verbose=False)
+                       batch_size=SESSION_BATCH, epochs=1, verbose=False,
+                       steps_per_call=ZOO_STEPS_PER_CALL)
         sync(dev)
         wall = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -4782,7 +4823,8 @@ def check_session_train(epochs: list, base: dict,
             f"{base['mrr']:.4f}); {SESSION_TRAIN} sessions in {e['steps']} "
             f"steps of {SESSION_BATCH}, {e['wall_s']:.3f} s = "
             f"{SESSION_TRAIN / e['wall_s']:.0f} sessions/s, "
-            f"{e['wall_s'] / e['steps'] * 1e3:.3f} ms/step (host clock); "
+            f"{e['wall_s'] / e['steps'] * 1e3:.3f} ms/step (host clock, "
+            f"{ZOO_STEPS_PER_CALL} steps a call); "
             f"evaluation {e['eval_s']:.2f} s")
 
 
@@ -4955,7 +4997,8 @@ def anomaly_phase(seed: int, dev) -> dict:
     sync(dev)
     t0 = time.perf_counter()
     hist = est.fit(x[:cut], y[:cut], batch_size=ANOMALY_BATCH,
-                   epochs=ANOMALY_EPOCHS, verbose=False)
+                   epochs=ANOMALY_EPOCHS, verbose=False,
+                   steps_per_call=ZOO_STEPS_PER_CALL)
     sync(dev)
     wall = time.perf_counter() - t0
     ls = hist.history["loss"]
@@ -4972,7 +5015,8 @@ def anomaly_phase(seed: int, dev) -> dict:
         f"({ad.model.param_count()} params) on {ANOMALY_POINTS} points, "
         f"{len(x)} windows, {cut} to train: losses "
         f"{[round(v, 4) for v in ls]}, {steps} steps in {wall:.3f} s = "
-        f"{wall / steps * 1e3:.3f} ms/step (host clock); "
+        f"{wall / steps * 1e3:.3f} ms/step (host clock, "
+        f"{ZOO_STEPS_PER_CALL} steps a call); "
         f"{len(flagged)} flagged, planted anomalies recalled {hits}/"
         f"{len(truth)} (threshold {thr:.4f})")
     params = numpy_tree(export_params(ad.model))
@@ -5826,7 +5870,8 @@ def ner_phase(seed: int, dev, f1_min: float = NER_F1_MIN) -> dict:
     t0 = time.perf_counter()
     for _ in range(NER_EPOCHS):
         hist = ner.fit(train["x"], train["y"], batch_size=NER_BATCH,
-                       epochs=1, verbose=False)
+                       epochs=1, verbose=False,
+                       steps_per_call=ZOO_STEPS_PER_CALL)
         losses.append(hist.history["loss"][-1])
     sync(dev)
     wall = time.perf_counter() - t0
@@ -5844,7 +5889,7 @@ def ner_phase(seed: int, dev, f1_min: float = NER_F1_MIN) -> dict:
     steps = NER_EPOCHS * -(-NER_TRAIN // NER_BATCH)
     say(f"ner train: losses {[round(v, 4) for v in losses]}; {steps} steps "
         f"of {NER_BATCH} in {wall:.3f} s = {wall / steps * 1e3:.2f} ms/step "
-        f"(host clock); Viterbi paths of {NER_TEST} held-out sentences in "
+        f"(host clock, {ZOO_STEPS_PER_CALL} steps a call); Viterbi paths of {NER_TEST} held-out sentences in "
         f"{t_pred:.3f} s: token accuracy {s['accuracy']:.4f}, entity "
         f"precision {s['precision']:.4f}, recall {s['recall']:.4f}, F1 "
         f"{s['f1']:.4f} (threshold {f1_min})")
@@ -6401,8 +6446,8 @@ def forecasters_phase(seed: int, dev, data: dict) -> dict:
     mt.compile(Adam(lr=MTNET_LR), "mse")
     sync(dev)
     t0 = time.perf_counter()
-    ls = mt.fit(x16, y16, batch_size=MTNET_BATCH,
-                nb_epoch=MTNET_EPOCHS).history["loss"]
+    ls = mt.fit(x16, y16, batch_size=MTNET_BATCH, nb_epoch=MTNET_EPOCHS,
+                steps_per_call=ZOO_STEPS_PER_CALL).history["loss"]
     sync(dev)
     wall = time.perf_counter() - t0
     steps = MTNET_EPOCHS * -(-len(x16) // MTNET_BATCH)
@@ -6412,7 +6457,7 @@ def forecasters_phase(seed: int, dev, data: dict) -> dict:
     say(f"mtnet: MTNetForecaster({MTNET}) ({mt.model.param_count()} params) "
         f"on {len(x16)} windows: losses {[round(v, 6) for v in ls]}, "
         f"{steps} steps in {wall:.3f} s = {out['mtnet_ms_per_step']:.2f} "
-        f"ms/step (host clock)")
+        f"ms/step (host clock, {ZOO_STEPS_PER_CALL} steps a call)")
     out["mtnet"] = mt
     out["mtnet_x"], _ = ft.transform(data["test"], lookback=MTNET["lookback"])
     p = TimeSequencePredictor(recipe=MTNetSmokeRecipe(), device=dev)
@@ -8368,6 +8413,516 @@ def fleet_prom(fl: Fleet):
 
 # -- main ---------------------------------------------------------------------
 
+# -- phase 14: the Estimator's leftovers -----------------------------------------
+
+# the k-step graph route at TRAIN's widths: K_SEQS sequences make a
+# 10-step epoch, run as groups of 4, 4 and 2; of K_EPOCHS epochs the last
+# replays only (the first group of the first is the eager warm-up)
+K_STEPS = 4
+K_SEQS = 80
+K_EPOCHS = 2
+# the preemption, retry, TensorBoard and profile runs: every epoch is the
+# same one group of K_STEPS batches (RESUME_SEQS sequences), so a fit
+# resumed or retried at a group's end sees the batches of an
+# uninterrupted one; RESUME_STEPS steps in all
+RESUME_SEQS = 32
+RESUME_STEPS = 16
+# the retry run: RETRY_EPOCHS one-group epochs, checkpointed at each
+# epoch's end; the listener of step RETRY_FAIL_AT raises once
+RETRY_EPOCHS = 2
+RETRY_FAIL_AT = 6
+# the same steps on two routes, or across processes, run the same kernels
+# in the same order: the weights agree to this (f32 parameters <= ~1)
+K_WEIGHT_TOL = 1e-5
+K_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def k_data(seed: int):
+    """``K_SEQS`` sequences of ``train_data``'s kind: its own, then the
+    next seeds' as needed."""
+    xs, ys, i = [], [], 0
+    while sum(len(a) for a in xs) < K_SEQS:
+        x, y = train_data(seed + i)
+        xs.append(x)
+        ys.append(y)
+        i += 1
+    return np.concatenate(xs)[:K_SEQS], np.concatenate(ys)[:K_SEQS]
+
+
+def resume_data(seed: int):
+    x, y = train_data(seed)
+    return x[:RESUME_SEQS], y[:RESUME_SEQS]
+
+
+def k_estimator(model, seed: int, ckpt=None, trigger=None) -> Estimator:
+    """``train_run``'s Estimator (Adam, global-norm clipping), with
+    checkpoints under ``ckpt`` on ``trigger`` (default: never, so only a
+    preemption snapshots)."""
+    dev = next(model.parameters()).device
+    est = Estimator(model, optimizer=Adam(lr=TRAIN_LR),
+                    loss="sparse_categorical_crossentropy",
+                    clip_norm=TRAIN_CLIP, registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+    if ckpt is not None:
+        est.set_checkpoint(ckpt, trigger=trigger or SeveralIteration(
+            10 ** 9))
+    return est
+
+
+def k_fit(est, data, k: int, epochs: int, marks=(), **kw) -> dict:
+    """``est.fit(data)`` at ``TRAIN_BATCH``, unshuffled, ``k`` steps a
+    call: each step's loss (device tensors kept by a listener, read after
+    the run; a step run twice keeps its last), the host clock after a
+    device sync at each step in ``marks``, and the wall."""
+    dev = est.device
+    losses, times = {}, {}
+
+    def listen(step, loss):
+        losses[step] = loss
+        if step in marks:
+            sync(dev)
+            times[step] = time.perf_counter()
+
+    est._listeners.append(listen)
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        est.fit(data, batch_size=TRAIN_BATCH, epochs=epochs, verbose=False,
+                shuffle=False, steps_per_call=k, **kw)
+        sync(dev)
+    finally:
+        est._listeners.remove(listen)
+    return {"losses": {s: float(v) for s, v in sorted(losses.items())},
+            "times": times, "wall_s": time.perf_counter() - t0}
+
+
+def losses_gap(a: dict, b: dict) -> float:
+    """Largest loss difference over the steps both runs hold."""
+    steps = sorted(set(a) & set(b))
+    check(steps, "no common steps to compare")
+    return max(abs(a[s] - b[s]) for s in steps)
+
+
+def weights_gap(a, b) -> float:
+    return max(float((u - v).abs().max()) for u, v in zip(a, b))
+
+
+def free(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def graph_vs_eager(host, seed: int, dev, card: bool = True) -> dict:
+    """The same weights and data trained ``K_EPOCHS`` epochs eagerly and
+    with ``steps_per_call=K_STEPS`` (CUDA graphs on the card): each
+    step's loss within ``TRAIN_LOSS_TOL``, the weights within
+    ``K_WEIGHT_TOL``, one capture for each group size, a replay for
+    every later group; ms a step over the last epoch (replays only on
+    the graph route).  Then one epoch through the graph route under a
+    trace of the card: each flash kernel launched ``n_block`` x steps
+    times, the wrappers counting only the eager warm-up group's."""
+    from analytics_zoo_tpu_torch.inference import aot
+    x, y = k_data(seed)
+    n = x.shape[0] // TRAIN_BATCH
+    steps = K_EPOCHS * n
+    sizes = {K_STEPS, n % K_STEPS or K_STEPS}
+    groups = -(-n // K_STEPS)
+    runs = {}
+    for tag, k in (("eager", 1), ("graph", K_STEPS)):
+        model = copy.deepcopy(host).to(dev)
+        est = k_estimator(model, seed)
+        cap0 = aot.CAPTURE_STATS.snapshot()
+        run = k_fit(est, ArrayFeatureSet(x, y), k, K_EPOCHS,
+                    marks=(n, steps))
+        cap = aot.CAPTURE_STATS.snapshot()
+        run["captures"] = cap["captures"] - cap0["captures"]
+        run["replays"] = cap["replays"] - cap0["replays"]
+        run["params"] = [p.detach().clone() for p in model.parameters()]
+        run["ms"] = (run["times"][steps] - run["times"][n]) / n * 1e3
+        check(sorted(run["losses"]) == list(range(1, steps + 1)),
+              f"estimator[{tag}]: steps {sorted(run['losses'])}")
+        runs[tag] = run
+        del model, est
+        free(dev)
+    graph, eager = runs["graph"], runs["eager"]
+    if dev.type == "cuda":
+        check(graph["captures"] == len(sizes)
+              and graph["replays"] == K_EPOCHS * groups - 1,
+              f"estimator[graph]: {graph['captures']} captures, "
+              f"{graph['replays']} replays (want {len(sizes)}, "
+              f"{K_EPOCHS * groups - 1})")
+    gap = losses_gap(graph["losses"], eager["losses"])
+    wgap = weights_gap(graph["params"], eager["params"])
+    check(gap <= TRAIN_LOSS_TOL,
+          f"estimator: graph and eager losses differ by {gap:.3e} > "
+          f"{TRAIN_LOSS_TOL}")
+    check(wgap <= K_WEIGHT_TOL,
+          f"estimator: graph and eager weights differ by {wgap:.3e} > "
+          f"{K_WEIGHT_TOL}")
+    ls = [eager["losses"][s] for s in range(1, steps + 1)]
+    check(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0],
+          f"estimator: losses {ls}")
+    say(f"estimator[graph vs eager]: {steps} steps of {TRAIN_BATCH} x "
+        f"{TRAIN['seq_len']} tokens, steps_per_call {K_STEPS} (groups of "
+        f"{sorted(sizes, reverse=True)}): {graph['captures']} captures, "
+        f"{graph['replays']} replays; loss max abs diff {gap:.3e} "
+        f"(tolerance {TRAIN_LOSS_TOL}), weights {wgap:.3e} (tolerance "
+        f"{K_WEIGHT_TOL}); loss {ls[0]:.4f} -> {ls[-1]:.4f}; epoch "
+        f"{K_EPOCHS} ms/step (host clock, synced): graph "
+        f"{graph['ms']:.2f}, eager {eager['ms']:.2f}; walls "
+        f"{graph['wall_s']:.2f} / {eager['wall_s']:.2f} s")
+    out = {"graph_ms": graph["ms"], "eager_ms": eager["ms"],
+           "loss_gap": gap, "weight_gap": wgap}
+    if not card:
+        return out
+    model = copy.deepcopy(host).to(dev)
+    est = k_estimator(model, seed)
+    reset_launches()
+    with _impl.card_launches(K_KERNELS) as counts:
+        traced = k_fit(est, ArrayFeatureSet(x, y), K_STEPS, 1)
+    del model, est
+    free(dev)
+    want = TRAIN["n_block"] * n
+    first = TRAIN["n_block"] * min(K_STEPS, n)
+    wrappers = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                "flash_bwd_dkv": fa.dkv_launches}
+    check(all(counts[k] == want for k in K_KERNELS),
+          f"estimator[traced]: launches on the card {dict(counts)}, want "
+          f"{want} each")
+    check(all(wrappers[k] == first for k in K_KERNELS),
+          f"estimator[traced]: launches by the wrappers {wrappers}, want "
+          f"{first} each (the eager warm-up group)")
+    tgap = losses_gap(traced["losses"], graph["losses"])
+    check(tgap <= TRAIN_LOSS_TOL,
+          f"estimator[traced]: losses {tgap:.3e} from the timed run's")
+    say(f"estimator[traced]: one epoch of {n} steps through the graph "
+        f"route under a trace of the card: flash forward / dq / dk/dv "
+        f"launches on the card {counts['flash_fwd']} / "
+        f"{counts['flash_bwd_dq']} / {counts['flash_bwd_dkv']} (= "
+        f"{TRAIN['n_block']} blocks x {n} steps), by the wrappers "
+        f"{wrappers['flash_fwd']} / {wrappers['flash_bwd_dq']} / "
+        f"{wrappers['flash_bwd_dkv']} (the eager warm-up group); losses "
+        f"{tgap:.3e} from the timed run's")
+    out["card"] = dict(counts)
+    return out
+
+
+def resume_reference(host, seed: int, dev) -> dict:
+    """The uninterrupted run the preemption, retry and TensorBoard steps
+    are held to: ``RESUME_STEPS`` steps of one-group epochs through the
+    graph route, with the weights after ``RETRY_EPOCHS`` epochs."""
+    x, y = resume_data(seed)
+    model = copy.deepcopy(host).to(dev)
+    est = k_estimator(model, seed)
+    kept = {}
+
+    def keep(step, loss):
+        if step == RETRY_EPOCHS * K_STEPS:
+            kept["params"] = [p.detach().clone() for p in model.parameters()]
+
+    est._listeners.append(keep)
+    run = k_fit(est, ArrayFeatureSet(x, y), K_STEPS,
+                RESUME_STEPS // K_STEPS)
+    del model, est
+    free(dev)
+    check(sorted(run["losses"]) == list(range(1, RESUME_STEPS + 1)),
+          f"estimator[reference]: steps {sorted(run['losses'])}")
+    run["params"] = kept["params"]
+    return run
+
+
+def fit_victim(tmp: str, seed: int, resume: bool = False, device=None,
+               wait_s: float = 600.0) -> int:
+    """``--fit-victim DIR``: ``resume_reference``'s fit in a fresh
+    process, checkpointing into ``DIR/ckpt`` only when preempted, printing
+    a JSON line a step; with ``--resume``, ``fit(resume=True)`` from the
+    snapshot there.  The model is built on the host first; then the
+    process prints ``ready`` and waits for ``DIR/go`` (``DIR/go-resume``)
+    before it touches the card, so its start costs the phase no time.
+    Exits 1 without a go within ``wait_s``."""
+    dev = device or torch.device("cuda", 0)
+    # a resumed fit restores every weight: the seeded draw is skipped
+    model = train_layers() if resume else build_train_model(seed)
+    go = os.path.join(tmp, "go-resume" if resume else "go")
+    say(json.dumps({"phase": "ready", "resume": resume}))
+    t0 = time.monotonic()
+    while not os.path.exists(go):
+        if time.monotonic() - t0 > wait_s:
+            say(f"fit victim: no {go} within {wait_s} s")
+            return 1
+        time.sleep(0.02)
+    model = model.to(dev)
+    x, y = resume_data(seed)
+    est = k_estimator(model, seed, ckpt=os.path.join(tmp, "ckpt"))
+    est._listeners.append(lambda step, loss: say(json.dumps(
+        {"step": step, "loss": float(loss)})))
+    say(json.dumps({"phase": "start", "resume": resume}))
+    est.fit(x, y, batch_size=TRAIN_BATCH, epochs=RESUME_STEPS,
+            verbose=False, shuffle=False, steps_per_call=K_STEPS,
+            resume=resume, end_trigger=MaxIteration(RESUME_STEPS))
+    say(json.dumps({"phase": "done", "step": est.global_step}))
+    return 0
+
+
+def step_lines(lines) -> dict:
+    docs = [json.loads(line) for line in lines
+            if line.startswith('{"step"')]
+    return {d["step"]: d["loss"] for d in docs}
+
+
+def start_fit_victims(seed: int, tmp: str, victim_cmd=None) -> dict:
+    """The preempted fit's process and the one that resumes it
+    (``--fit-victim DIR [--resume]``), started now; each builds its model
+    on the host and waits for its go file."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = victim_cmd or [sys.executable, os.path.join(here, "chip_smoke.py"),
+                         "--fit-victim", tmp, "--seed", str(seed)]
+    procs = {"t0": time.perf_counter()}
+    for tag, extra in (("victim", []), ("resumed", ["--resume"])):
+        log = open(os.path.join(tmp, f"fit-{tag}.log"), "w")
+        procs[tag] = (subprocess.Popen(cmd + extra, cwd=here,
+                                       stdout=subprocess.PIPE, stderr=log,
+                                       text=True), log)
+    return procs
+
+
+def stop_fit_victims(procs: dict) -> None:
+    for tag in ("victim", "resumed"):
+        proc, log = procs[tag]
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def read_until(proc, prefix: str, lines: list) -> None:
+    """Read ``proc``'s output into ``lines`` up to and including the
+    first line that starts with ``prefix``."""
+    for line in proc.stdout:
+        lines.append(line)
+        if line.startswith(prefix):
+            return
+    check(False, f"estimator[preempt]: the process ended (exit "
+                 f"{proc.wait()}) before a line starting {prefix!r}")
+
+
+def preemption_step(seed: int, ref: dict, tmp: str, procs: dict,
+                    timeout_s: float = 300.0) -> dict:
+    """The victim (``start_fit_victims``) is let go and gets SIGTERM once
+    its first step's loss is out: it must exit 128 + 15 leaving a whole
+    snapshot at the last step it printed; then the waiting process
+    resumes from it to ``RESUME_STEPS``; every loss either prints is the
+    reference's."""
+    from analytics_zoo_tpu_torch.estimator.checkpoint import \
+        CheckpointManager
+    victim, resumed = procs["victim"][0], procs["resumed"][0]
+    lines, lines2 = [], []
+    read_until(victim, '{"phase": "ready"', lines)
+    read_until(resumed, '{"phase": "ready"', lines2)
+    t_ready = time.perf_counter() - procs["t0"]
+    t0 = time.perf_counter()
+    open(os.path.join(tmp, "go"), "w").close()
+    read_until(victim, '{"step"', lines)
+    t_signal = time.perf_counter() - t0
+    victim.send_signal(signal.SIGTERM)
+    out, _ = victim.communicate(timeout=timeout_s)
+    lines += out.splitlines()
+    t_exit = time.perf_counter() - t0
+    open(os.path.join(tmp, "go-resume"), "w").close()
+    out2, _ = resumed.communicate(timeout=timeout_s)
+    t_resume = time.perf_counter() - t0 - t_exit
+    seen = step_lines(lines)
+    steps = CheckpointManager(os.path.join(tmp, "ckpt")).steps()
+    check(victim.returncode == 128 + signal.SIGTERM,
+          f"estimator[preempt]: the victim exited {victim.returncode}, not "
+          f"143 (log {os.path.join(tmp, 'fit-victim.log')})")
+    check(seen and steps and steps[-1] == max(seen) < RESUME_STEPS,
+          f"estimator[preempt]: snapshots {steps} after steps "
+          f"{sorted(seen)}")
+    check(resumed.returncode == 0,
+          f"estimator[preempt]: the resumed fit exited {resumed.returncode}"
+          f" (log {os.path.join(tmp, 'fit-resumed.log')})")
+    done = step_lines(out2.splitlines())
+    check(sorted(done) == list(range(steps[-1] + 1, RESUME_STEPS + 1)),
+          f"estimator[preempt]: resumed steps {sorted(done)} after the "
+          f"snapshot at {steps[-1]}")
+    gap = max(losses_gap(seen, ref["losses"]),
+              losses_gap(done, ref["losses"]))
+    check(gap <= TRAIN_LOSS_TOL,
+          f"estimator[preempt]: losses {gap:.3e} from the uninterrupted "
+          f"run's")
+    snap_bytes = sum(os.path.getsize(os.path.join(root, f))
+                     for root, _, files in os.walk(os.path.join(tmp, "ckpt"))
+                     for f in files)
+    say(f"estimator[preempt]: both processes ready (model built on the "
+        f"host) {t_ready:.2f} s after their start; the victim's step 1 "
+        f"{t_signal:.2f} s after its go, then SIGTERM: exit "
+        f"{victim.returncode} {t_exit - t_signal:.2f} s later with a "
+        f"snapshot at step {steps[-1]} ({snap_bytes} B); fit(resume=True) "
+        f"in the other process ran steps {steps[-1] + 1}-{RESUME_STEPS} in "
+        f"{t_resume:.2f} s after its go; losses of both processes "
+        f"{gap:.3e} from the uninterrupted run's (tolerance "
+        f"{TRAIN_LOSS_TOL})")
+    return {"snapshot_step": steps[-1], "gap": gap,
+            "snapshot_bytes": snap_bytes}
+
+
+def retry_step(host, seed: int, dev, ref: dict, tmp: str) -> dict:
+    """``RETRY_EPOCHS`` one-group epochs checkpointed at each epoch's
+    end; a ``FaultInjector`` raises in the listener of step
+    ``RETRY_FAIL_AT``: the fit restores the last snapshot, runs the
+    epoch again and ends on the reference's weights."""
+    from analytics_zoo_tpu_torch.common.triggers import EveryEpoch
+    from analytics_zoo_tpu_torch.utils.chaos import FaultInjector
+    x, y = resume_data(seed)
+    model = copy.deepcopy(host).to(dev)
+    est = k_estimator(model, seed, ckpt=os.path.join(tmp, "retry"),
+                      trigger=EveryEpoch())
+    inj = FaultInjector().fail_at("step", indices=[RETRY_FAIL_AT - 1])
+    est._listeners.append(lambda step, loss: inj.maybe_fail("step"))
+    run = k_fit(est, ArrayFeatureSet(x, y), K_STEPS, RETRY_EPOCHS)
+    params = [p.detach().clone() for p in model.parameters()]
+    saved = est._ckpt_mgr.steps()
+    del model, est
+    free(dev)
+    want = RETRY_EPOCHS * K_STEPS
+    check(inj.fired == [f"step#{RETRY_FAIL_AT - 1}"],
+          f"estimator[retry]: the fault fired {inj.fired}")
+    check(sorted(run["losses"]) == list(range(1, want + 1)),
+          f"estimator[retry]: steps {sorted(run['losses'])}")
+    gap = losses_gap(run["losses"], ref["losses"])
+    wgap = weights_gap(params, ref["params"])
+    check(gap <= TRAIN_LOSS_TOL and wgap <= K_WEIGHT_TOL,
+          f"estimator[retry]: losses {gap:.3e}, weights {wgap:.3e} from "
+          f"the uninterrupted run's")
+    say(f"estimator[retry]: the fault in step {RETRY_FAIL_AT}'s listener "
+        f"restored step {(RETRY_FAIL_AT - 1) // K_STEPS * K_STEPS}'s "
+        f"snapshot; {want} steps in {run['wall_s']:.2f} s, snapshots "
+        f"kept {saved}; losses {gap:.3e}, weights {wgap:.3e} from the "
+        f"uninterrupted run's")
+    return {"gap": gap, "weight_gap": wgap}
+
+
+def trace_kernels(path: str) -> dict:
+    """Kernel events of a Chrome trace by ``K_KERNELS``' names."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {k: 0 for k in K_KERNELS}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k in K_KERNELS:
+            if _impl.KERNEL_NAMES[k] in str(e.get("name")):
+                counts[k] += 1
+    return counts
+
+
+def tensorboard_step(host, seed: int, dev, ref: dict, tmp: str,
+                     card: bool = True) -> dict:
+    """Two one-group epochs fed from a ``NativeFeatureSet`` (its batches
+    those of an ``ArrayFeatureSet``, shuffled and not), with TensorBoard
+    summaries and a ``profile_dir`` trace: losses the reference's; the
+    event files read back (``Loss`` at every group and epoch end,
+    ``Throughput`` and ``StepTime_ms_mean`` an epoch, the ``StepTime_s``
+    histogram holding every step); the trace holding each flash kernel
+    ``n_block`` x steps times."""
+    from analytics_zoo_tpu_torch.feature.dataset import NativeFeatureSet
+    from analytics_zoo_tpu_torch.utils.tbwriter import (read_histograms,
+                                                         read_scalars)
+    x, y = resume_data(seed)
+    native = NativeFeatureSet(x, y)
+    try:
+        for shuffle in (False, True):
+            a = native.batches(TRAIN_BATCH, shuffle=shuffle,
+                               rng=np.random.default_rng(1))
+            b = ArrayFeatureSet(x, y).batches(
+                TRAIN_BATCH, shuffle=shuffle, rng=np.random.default_rng(1))
+            for u, v in zip(a, b):
+                check(all(np.array_equal(p, q) for p, q in zip(u, v)),
+                      "estimator[native]: a batch differs from "
+                      "ArrayFeatureSet's")
+        model = copy.deepcopy(host).to(dev)
+        est = k_estimator(model, seed)
+        est.set_tensorboard(os.path.join(tmp, "tb"), "phase14")
+        est.ctx.conf.profile_dir = os.path.join(tmp, "profile")
+        epochs = 2
+        run = k_fit(est, native, K_STEPS, epochs, log_every=K_STEPS)
+        trace = est.profile_path
+        del model, est
+        free(dev)
+    finally:
+        native.close()
+    steps = epochs * K_STEPS
+    gap = losses_gap(run["losses"], ref["losses"])
+    check(sorted(run["losses"]) == list(range(1, steps + 1))
+          and gap <= TRAIN_LOSS_TOL,
+          f"estimator[tensorboard]: steps {sorted(run['losses'])}, losses "
+          f"{gap:.3e} from the reference's")
+    logdir = os.path.join(tmp, "tb", "phase14", "train")
+    scalars, hists = read_scalars(logdir), read_histograms(logdir)
+    ends = [K_STEPS * (e + 1) for e in range(epochs)]
+    got = {t: [s for s, _ in v] for t, v in scalars.items()}
+    check(got == {"Loss": sorted(ends + ends), "Throughput": ends,
+                  "StepTime_ms_mean": ends}
+          and [(s, h["num"]) for s, h in hists["StepTime_s"]]
+          == [(s, float(s)) for s in ends],
+          f"estimator[tensorboard]: scalars {got}, histograms "
+          f"{[(s, h['num']) for s, h in hists.get('StepTime_s', [])]}")
+    t0 = time.perf_counter()
+    kernels = trace_kernels(trace)
+    want = TRAIN["n_block"] * steps if card else 0
+    check(all(kernels[k] == want for k in K_KERNELS),
+          f"estimator[profile]: the trace's kernels {kernels}, want {want}"
+          f" each")
+    say(f"estimator[tensorboard]: {steps} steps fed from a NativeFeatureSet"
+        f" (its batches ArrayFeatureSet's), losses {gap:.3e} from the "
+        f"reference's; event file {sum(len(v) for v in got.values())} "
+        f"scalars {got}, StepTime_s histograms of "
+        f"{[h['num'] for _, h in hists['StepTime_s']]} steps; profile "
+        f"{os.path.getsize(trace)} B (read in "
+        f"{time.perf_counter() - t0:.2f} s): flash forward / dq / dk/dv "
+        f"kernels {kernels['flash_fwd']} / {kernels['flash_bwd_dq']} / "
+        f"{kernels['flash_bwd_dkv']}")
+    return {"kernels": kernels}
+
+
+def estimator_phase(seed: int, records: dict, host=None) -> dict:
+    """Phase 14: the k-step graph route against eager steps, preemption,
+    failure retry, TensorBoard, profile_dir and NativeFeatureSet, all on
+    ``TRAIN``'s model from the same seeded weights (``host``, phase 5's
+    host copy, when given).  The preemption's two processes start after
+    the timed graph-vs-eager runs and build their models while the
+    reference and retry runs go on."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    host = host if host is not None else build_train_model(seed)
+    walls = {}
+    out = {"graph": graph_vs_eager(host, seed, dev)}
+    walls["graph"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="phase14-") as tmp:
+        procs = start_fit_victims(seed, tmp)
+        try:
+            t = time.perf_counter()
+            ref = resume_reference(host, seed, dev)
+            out["retry"] = retry_step(host, seed, dev, ref, tmp)
+            walls["reference+retry"] = time.perf_counter() - t
+            t = time.perf_counter()
+            out["preempt"] = preemption_step(seed, ref, tmp, procs)
+            walls["preempt"] = time.perf_counter() - t
+        finally:
+            stop_fit_victims(procs)
+        t = time.perf_counter()
+        out["tensorboard"] = tensorboard_step(host, seed, dev, ref, tmp)
+        walls["tensorboard"] = time.perf_counter() - t
+    for key, name in (("flash", "flash_fwd"),
+                      ("flash_bwd_dq", "flash_bwd_dq"),
+                      ("flash_bwd_dkv", "flash_bwd_dkv")):
+        records[key]["graph_launches"] = out["graph"]["card"][name]
+    say(f"estimator: phase wall {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()) + ")")
+    return out
+
+
 def ptxas_summary(log: str) -> str:
     """``kernel<template args>: N regs[, spills]`` for every compiled entry
     point (names taken from the mangled symbol)."""
@@ -8460,6 +9015,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="serve DIR/q as the continuity phase's victim "
                          "until its armed fault kills the process (see "
                          "resume_victim)")
+    ap.add_argument("--fit-victim", metavar="DIR",
+                    help="phase 14's preempted fit, checkpointing into "
+                         "DIR/ckpt (see fit_victim)")
+    ap.add_argument("--resume", action="store_true",
+                    help="with --fit-victim: fit(resume=True) from the "
+                         "snapshot in DIR/ckpt")
     return ap.parse_args(argv)
 
 
@@ -8481,6 +9042,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.resume_victim:
         return resume_victim(args.resume_victim, args.seed)
+    if args.fit_victim:
+        return fit_victim(args.fit_victim, args.seed, args.resume)
 
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     say(f"card: {card_line()}")
@@ -8562,7 +9125,7 @@ def main(argv=None) -> int:
     del pim, model
     torch.cuda.empty_cache()
 
-    train_phase(args.seed, records, args.profile)
+    train_host = train_phase(args.seed, records, args.profile)
     resnet_phase(args.seed, records, args.profile)
     image_phase(args.seed, records, args.profile)
     reco_phase(args.seed, records, args.profile)
@@ -8571,6 +9134,7 @@ def main(argv=None) -> int:
     forecast_phase(args.seed, records)
     gateway_phase(args.seed, served["off"]["timed"])
     fleet_phase(args.seed, served["off"]["timed"], single)
+    estimator_phase(args.seed, records, train_host)
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (

@@ -1422,3 +1422,66 @@ def test_forked_replica_serves_paged_generation_on_card(cuda_device,
     assert health["load"]["nvcc"] == []
     assert health["device"] and "cuda" in str(health["device"])
     assert health["warmup"]["failed"] == 0
+
+
+# -- the Estimator's k-step CUDA graphs ---------------------------------------
+
+def _lm_fit(device, steps_per_call, drop=0.0, seqs=40, T=64):
+    """A 2-block causal LM (flash forward and backward in every block)
+    trained one epoch of ``seqs`` sequences at batch 4 with Adam and
+    global-norm clipping: the per-step losses (device tensors read after
+    the run), the trained parameters and the launches on the card."""
+    from analytics_zoo_tpu_torch.common.context import ZooConf, ZooContext
+    from analytics_zoo_tpu_torch.common.observability import MetricsRegistry
+    from analytics_zoo_tpu_torch.estimator.estimator import Estimator
+    from analytics_zoo_tpu_torch.nn.optimizers import Adam
+    g = np.random.default_rng(7)
+    s = g.integers(0, 97, (seqs, T + 1))
+    model = Sequential([
+        TransformerLayer(vocab=97, hidden_size=64, n_block=2, n_head=2,
+                         seq_len=T, embedding_drop=drop, resid_drop=drop,
+                         input_shape=(T,)),
+        Dense(97, activation="softmax")]).init_weights(0).to(device)
+    est = Estimator(model, optimizer=Adam(lr=1e-3), clip_norm=0.5,
+                    loss="sparse_categorical_crossentropy",
+                    registry=MetricsRegistry(),
+                    ctx=ZooContext(ZooConf(seed=3, device=str(device))))
+    losses = []
+    est._listeners.append(lambda step, loss: losses.append((step, loss)))
+    cap0 = aot.CAPTURE_STATS.snapshot()
+    with _impl.card_launches(("flash_fwd", "flash_bwd_dq",
+                              "flash_bwd_dkv")) as card:
+        est.fit(s[:, :-1], s[:, 1:], batch_size=4, epochs=1, verbose=False,
+                shuffle=False, steps_per_call=steps_per_call)
+        torch.cuda.synchronize()
+    cap = aot.CAPTURE_STATS.snapshot()
+    return {"losses": [(st, float(v)) for st, v in losses],
+            "params": [p.detach().clone() for p in model.parameters()],
+            "card": dict(card), "step": est.global_step,
+            "captures": cap["captures"] - cap0["captures"],
+            "replays": cap["replays"] - cap0["replays"]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+def test_k_step_graph_matches_eager_steps_on_card(cuda_device, drop):
+    """``fit(steps_per_call=4)`` over 10 batches: the first group eager
+    (the warm-up), then one graph of 4 steps and one of 2 captured and
+    replayed once each.  Each step's loss and the trained weights equal
+    ``steps_per_call=1``'s (the same kernels in the same order; dropout
+    sites reseeded through generators registered with the graph), and
+    the card runs each flash kernel 2 blocks x 10 steps times."""
+    eager = _lm_fit(cuda_device, 1, drop)
+    graph = _lm_fit(cuda_device, 4, drop)
+    assert graph["step"] == eager["step"] == 10
+    assert graph["captures"] == 2 and graph["replays"] == 2
+    assert eager["captures"] == 0
+    assert [s for s, _ in graph["losses"]] == list(range(1, 11))
+    np.testing.assert_allclose([v for _, v in graph["losses"]],
+                               [v for _, v in eager["losses"]],
+                               rtol=0, atol=4e-6)
+    for a, b in zip(graph["params"], eager["params"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
+    for run in (eager, graph):
+        assert run["card"] == {"flash_fwd": 20, "flash_bwd_dq": 20,
+                               "flash_bwd_dkv": 20}, run["card"]

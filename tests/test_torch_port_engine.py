@@ -236,13 +236,14 @@ def test_engine_warms_then_serves(gen):
     assert len(st["lanes"]) == (1 if gen["paged"] else 2)
 
 
-def test_serving_params_positional_order_matches_jax():
+def test_serving_params_positional_order_matches_jax(tmp_path):
     """Positional arguments mean the same thing in both packages: every
     positional slot the two ``ServingParams`` and the two
     ``ClusterServing`` constructors share carries the same name, and
     ``ServingParams(4, 5, 0.05, 1000)`` trims the stream at 1000 in both.
-    A ``tensorboard_dir`` that is set raises until TensorBoard summaries
-    are ported."""
+    ``tensorboard_dir``, the sixth slot, writes the predict plane's
+    ``Serving Throughput`` and ``Total Records Number`` scalars, as the
+    JAX engine does."""
     import inspect
 
     from analytics_zoo_tpu.serving import engine as jeng
@@ -264,6 +265,23 @@ def test_serving_params_positional_order_matches_jax():
                  "filter_threshold"):
         assert getattr(t, name) == getattr(j, name), name
     assert t.stream_max_len == 1000
-    with pytest.raises(NotImplementedError, match="tensorboard"):
-        ClusterServing(_im(), InProcQueue(), ServingParams(), None, None,
-                       "tb-logs")
+    from analytics_zoo_tpu_torch.nn.layers.core import Dense
+    from analytics_zoo_tpu_torch.nn.models import Sequential
+    from analytics_zoo_tpu_torch.serving.engine import default_preprocess
+    from analytics_zoo_tpu_torch.utils.tbwriter import read_scalars
+    tb = str(tmp_path / "tb-logs")
+    im = InferenceModel(device="cpu").do_load_model(
+        Sequential([Dense(4, input_shape=(3,), activation="softmax")]))
+    q = InProcQueue()
+    serving = ClusterServing(im, q, ServingParams(), default_preprocess,
+                             None, tb)
+    try:
+        for rid in ("r0", "r1"):
+            InputQueue(q).enqueue_tensor(rid, np.ones(3, np.float32))
+        assert serving.serve_once() == 2
+    finally:
+        serving.shutdown()
+    got = read_scalars(tb)
+    assert [s for s, _ in got["Serving Throughput"]] == [2]
+    assert got["Serving Throughput"][0][1] > 0
+    assert got["Total Records Number"] == [(2, 2.0)]

@@ -362,19 +362,25 @@ def test_endpoint_histograms_match_jax(dense):
         _post_frame(url, _frame(pkg, "m-1"))
         _call(url + "/v1/result/m-1?timeout_s=15")
         _post_json(url, {"uri": "a/b"})
-        deadline = time.time() + 5
-        while time.time() < deadline:
-            prom = s.prom_metrics()
-            if 'gateway_request_bytes_count{endpoint="result"}' in prom:
-                break
-            time.sleep(0.02)
         lat = s.registry.histogram("gateway_request_seconds",
                                    labels=("endpoint",))
         nb = s.registry.histogram("gateway_request_bytes",
                                   labels=("endpoint",))
-        return {ep: (lat.labels(endpoint=ep).count,
-                     nb.labels(endpoint=ep).count)
-                for ep in ("enqueue", "result")}
+
+        def counts():
+            return {ep: (lat.labels(endpoint=ep).count,
+                         nb.labels(endpoint=ep).count)
+                    for ep in ("enqueue", "result")}
+
+        # the gateway observes a request after it has replied, so the
+        # last enqueue's samples can land after its response is read
+        deadline = time.time() + 5
+        while time.time() < deadline:
+            got = counts()
+            if min(got["enqueue"]) >= 2 and min(got["result"]) >= 1:
+                break
+            time.sleep(0.02)
+        return counts()
 
     out = _both(dense, scenario)
     assert out["port"] == out["jax"] == {"enqueue": (2, 2),

@@ -77,7 +77,8 @@ def test_every_module_imports_with_jax_blocked():
                 "inference.resources", "inference.weightstore",
                 "serving.registry", "serving.rollout", "serving.fleet",
                 "serving.incident", "serving.autoscaler", "serving.lb",
-                "serving.manager"):
+                "serving.manager", "utils.chaos", "utils.tbwriter",
+                "utils.native", "estimator.checkpoint"):
         assert f"analytics_zoo_tpu_torch.{mod}" in doc["modules"]
 
 

@@ -27,6 +27,7 @@ writes) are plain Python and run here at a tiny width.
 """
 
 import copy
+import sys
 import time
 
 import numpy as np
@@ -1584,3 +1585,62 @@ def test_fleet_topologies_build_the_phase_models(tmp_path):
                 == [k for k, _ in _flatten_with_paths(export_params(want))]
     finally:
         cs.GPT2_SMALL, cs.PREDICT = saved
+
+
+# -- phase 14: the Estimator's leftovers, rehearsed on the CPU -------------------
+
+@pytest.fixture
+def tiny_estimator(tiny_train, monkeypatch):
+    """``tiny_train``'s model with one-group epochs of 4 x 4 sequences."""
+    monkeypatch.setattr(cs, "RESUME_SEQS", cs.K_STEPS * cs.TRAIN_BATCH)
+    monkeypatch.setattr(cs, "K_SEQS", 10 * cs.TRAIN_BATCH)
+    return tiny_train[0]
+
+
+def test_estimator_graph_vs_eager_on_cpu(tiny_estimator):
+    """On the CPU both routes are eager steps: losses and weights equal,
+    the loss falls over 20 steps of groups 4, 4, 2."""
+    x, _ = cs.k_data(0)
+    assert x.shape[0] == cs.K_SEQS
+    out = cs.graph_vs_eager(tiny_estimator, 0, torch.device("cpu"),
+                            card=False)
+    assert out["loss_gap"] == 0.0 and out["weight_gap"] == 0.0
+
+
+def test_estimator_retry_tensorboard_and_preemption_on_cpu(tiny_estimator,
+                                                          tmp_path):
+    """The reference run, the retried run (ends on the reference's
+    weights), the NativeFeatureSet-fed run with TensorBoard files and a
+    profile, and a victim process (this script's ``fit_victim`` on the
+    tiny model, slowed so SIGTERM lands mid-run) that exits 143 and
+    resumes to the reference's losses."""
+    cpu = torch.device("cpu")
+    ref = cs.resume_reference(tiny_estimator, 0, cpu)
+    assert sorted(ref["losses"]) == list(range(1, cs.RESUME_STEPS + 1))
+    assert cs.retry_step(tiny_estimator, 0, cpu, ref,
+                         str(tmp_path))["weight_gap"] == 0.0
+    tb = cs.tensorboard_step(tiny_estimator, 0, cpu, ref, str(tmp_path),
+                             card=False)
+    assert tb["kernels"] == {k: 0 for k in cs.K_KERNELS}
+    code = (
+        "import sys, time, torch, chip_smoke as cs\n"
+        f"cs.TRAIN = {cs.TRAIN!r}\n"
+        f"cs.TRAIN_SEQS, cs.TRAIN_BATCH = {cs.TRAIN_SEQS}, {cs.TRAIN_BATCH}\n"
+        f"cs.TRAIN_SUBVOCAB, cs.TRAIN_LR = {cs.TRAIN_SUBVOCAB}, "
+        f"{cs.TRAIN_LR}\n"
+        f"cs.RESUME_SEQS = {cs.RESUME_SEQS}\n"
+        "torch.set_num_threads(1)\n"
+        "say = cs.say\n"
+        "cs.say = lambda *a: (say(*a), time.sleep(0.1))\n"
+        "sys.exit(cs.fit_victim(sys.argv[1], 0, '--resume' in sys.argv, "
+        "torch.device('cpu')))\n")
+    vdir = tmp_path / "victim"
+    vdir.mkdir()
+    procs = cs.start_fit_victims(0, str(vdir), victim_cmd=[
+        sys.executable, "-c", code, str(vdir)])
+    try:
+        out = cs.preemption_step(0, ref, str(vdir), procs, timeout_s=120)
+    finally:
+        cs.stop_fit_victims(procs)
+    assert 1 <= out["snapshot_step"] < cs.RESUME_STEPS
+    assert out["gap"] == 0.0
