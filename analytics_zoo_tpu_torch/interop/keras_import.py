@@ -13,10 +13,12 @@ topological walk of the keras graph (KerasHistory edges) into the graph
 DSL (``nn/graph.py``): multi-input/multi-output, shared layers and the
 merge family (Add/Subtract/Multiply/Average/Maximum/Minimum/Concatenate).
 LSTM and GRU in both ``reset_after`` modes import exactly (tf.keras's
-gate orders are the port's).  ``Conv2DTranspose``, ``DepthwiseConv2D``,
-``SeparableConv2D`` and ``UpSampling2D`` have no port yet and raise
-(ROADMAP queue 1, item 8).  TensorFlow is imported only by
-``from_tf_keras``.
+gate orders are the port's).  ``Conv2DTranspose`` (its (kh, kw, out, in)
+kernel is ``Deconvolution2D``'s ``W``), ``DepthwiseConv2D`` and
+``SeparableConv2D`` (the (kh, kw, cin, mult) depthwise kernel as (kh,
+kw, 1, cin·mult), output channel c·mult + m in both) and
+``UpSampling2D`` convert as in the JAX importer; a dilated depthwise or
+separable conv raises.  TensorFlow is imported only by ``from_tf_keras``.
 """
 
 from __future__ import annotations
@@ -36,15 +38,17 @@ from analytics_zoo_tpu_torch.nn.layers.attention import LayerNorm
 from analytics_zoo_tpu_torch.nn.models import Model, Sequential
 from analytics_zoo_tpu_torch.utils.convert import export_params, export_state
 
-# tf.keras layers the JAX importer converts and the port cannot yet: the
-# port layer each needs
-_NOT_PORTED = {"Conv2DTranspose": "Deconvolution2D",
-               "DepthwiseConv2D": "DepthwiseConvolution2D",
-               "SeparableConv2D": "SeparableConvolution2D",
-               "UpSampling2D": "UpSampling2D"}
-
 _MERGE_MODES = {"Add": "sum", "Subtract": "sub", "Multiply": "mul",
                 "Average": "ave", "Maximum": "max", "Minimum": "min"}
+
+
+def _require_unit_dilation(tl):
+    rate = getattr(tl, "dilation_rate", 1)
+    rates = rate if isinstance(rate, (tuple, list)) else (rate,)
+    if any(int(r) != 1 for r in rates):
+        raise NotImplementedError(
+            f"{type(tl).__name__} with dilation_rate={rate}: the native "
+            "depthwise/separable convs do not support dilation")
 
 
 def _act_name(act) -> Optional[str]:
@@ -90,10 +94,38 @@ def _convert_layer(tl, **kw):
         weights = {"W": tl.kernel.numpy()}
         if tl.use_bias:
             weights["b"] = tl.bias.numpy()
-    elif cls in _NOT_PORTED:
-        raise NotImplementedError(
-            f"tf.keras layer {cls}: the port has no {_NOT_PORTED[cls]} yet "
-            "(ROADMAP queue 1, item 8)")
+    elif cls == "Conv2DTranspose":
+        layer = C.Deconvolution2D(
+            tl.filters, tl.kernel_size, activation=_act_name(tl.activation),
+            border_mode=tl.padding, subsample=tl.strides, bias=tl.use_bias,
+            **kw)
+        # tf kernel layout (kh, kw, out, in) == native Deconvolution2D W
+        weights = {"W": tl.get_weights()[0]}
+        if tl.use_bias:
+            weights["b"] = tl.get_weights()[1]
+    elif cls == "DepthwiseConv2D":
+        _require_unit_dilation(tl)
+        layer = C.DepthwiseConvolution2D(
+            tl.kernel_size, depth_multiplier=tl.depth_multiplier,
+            activation=_act_name(tl.activation), subsample=tl.strides,
+            border_mode=tl.padding, bias=tl.use_bias, **kw)
+        wts = tl.get_weights()
+        kh, kw_, cin, mult = wts[0].shape
+        weights = {"depthwise": wts[0].reshape(kh, kw_, 1, cin * mult)}
+        if tl.use_bias:
+            weights["b"] = wts[1]
+    elif cls == "SeparableConv2D":
+        _require_unit_dilation(tl)
+        layer = C.SeparableConvolution2D(
+            tl.filters, tl.kernel_size, depth_multiplier=tl.depth_multiplier,
+            activation=_act_name(tl.activation), subsample=tl.strides,
+            border_mode=tl.padding, bias=tl.use_bias, **kw)
+        wts = tl.get_weights()
+        kh, kw_, cin, mult = wts[0].shape
+        weights = {"depthwise": wts[0].reshape(kh, kw_, 1, cin * mult),
+                   "pointwise": wts[1]}
+        if tl.use_bias:
+            weights["b"] = wts[2]
     elif cls == "Embedding":
         layer = K.Embedding(tl.input_dim, tl.output_dim, **kw)
         weights = {"E": tl.embeddings.numpy()}
@@ -179,6 +211,8 @@ def _convert_layer(tl, **kw):
         layer = K.Reshape(tl.target_shape, **kw)
     elif cls == "ZeroPadding2D":
         layer = C.ZeroPadding2D(tl.padding, **kw)
+    elif cls == "UpSampling2D":
+        layer = C.UpSampling2D(tl.size, **kw)
     elif cls in _MERGE_MODES:
         layer = K.Merge(mode=_MERGE_MODES[cls], **kw)
     elif cls == "Concatenate":

@@ -7,9 +7,11 @@ and runs it node by node.  A shared layer (one ``Layer`` object called
 twice) shares its parameters, as in Keras.  Output shapes come from each
 layer's ``compute_output_shape`` (the JAX package infers them with
 ``jax.eval_shape``); a layer is built for its input shape at its first
-call.  The JAX package's operator sugar (``+``, ``*``, slicing into
-``Lambda`` nodes) is not ported: ``merge`` covers what the zoo's graphs
-use.
+call.  Arithmetic on ``SymTensor``s (``+ - * /``, negation, powers,
+slicing the non-batch axes) records ``Lambda`` nodes, the JAX package's
+autograd ``Variable`` sugar (``nn/autograd.py`` builds on it); each such
+node is named after its operation with a counter (``add_0``), since the
+graph ``Model`` refuses two layers of one name.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import copy
 import itertools
 from typing import List, Optional, Sequence, Union
 
-from analytics_zoo_tpu_torch.nn.module import to_shape
+from analytics_zoo_tpu_torch.nn.module import _auto_name, to_shape
 
 _node_ids = itertools.count()
 
@@ -40,6 +42,54 @@ class SymTensor:
 
     def __repr__(self):
         return f"SymTensor({self.name}, shape={self.shape})"
+
+    # -- operator sugar (autograd Variable parity) --------------------------
+    def _binop(self, other, fn, opname):
+        from analytics_zoo_tpu_torch.nn.layers.core import Lambda
+        if isinstance(other, SymTensor):
+            return Lambda(lambda xs: fn(xs[0], xs[1]),
+                          name=_auto_name(opname))([self, other])
+        return Lambda(lambda x, c=other: fn(x, c),
+                      name=_auto_name(opname + "c"))(self)
+
+    def __add__(self, o):
+        return self._binop(o, lambda a, b: a + b, "add")
+
+    def __radd__(self, o):
+        return self._binop(o, lambda a, b: b + a, "radd")
+
+    def __sub__(self, o):
+        return self._binop(o, lambda a, b: a - b, "sub")
+
+    def __rsub__(self, o):
+        return self._binop(o, lambda a, b: b - a, "rsub")
+
+    def __mul__(self, o):
+        return self._binop(o, lambda a, b: a * b, "mul")
+
+    def __rmul__(self, o):
+        return self._binop(o, lambda a, b: b * a, "rmul")
+
+    def __truediv__(self, o):
+        return self._binop(o, lambda a, b: a / b, "div")
+
+    def __rtruediv__(self, o):
+        return self._binop(o, lambda a, b: b / a, "rdiv")
+
+    def __neg__(self):
+        from analytics_zoo_tpu_torch.nn.layers.core import Lambda
+        return Lambda(lambda x: -x, name=_auto_name("neg"))(self)
+
+    def __pow__(self, p):
+        from analytics_zoo_tpu_torch.nn.layers.core import Lambda
+        return Lambda(lambda x: x ** p, name=_auto_name("pow"))(self)
+
+    def __getitem__(self, idx):
+        """Slice the non-batch axes (autograd ``Variable.indexSelect`` /
+        ``slice``)."""
+        from analytics_zoo_tpu_torch.nn.layers.core import Lambda
+        full = (slice(None),) + (idx if isinstance(idx, tuple) else (idx,))
+        return Lambda(lambda x: x[full], name=_auto_name("slice"))(self)
 
     def __deepcopy__(self, memo):
         """Copy the node with its ancestors in topological order: the

@@ -351,14 +351,35 @@ def lookup(E: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 class Merge(Layer):
     """Multi-input merge (keras/layers/Merge): modes sum, mul, ave, sub,
     max, min, concat, dot, cos, over a list of inputs, left to right as the
-    JAX package folds them.  (The JAX ``Merge``'s branch layers, which no
-    graph of the zoo uses, are not ported.)"""
+    JAX package folds them.  ``layers``: branch layers (each declaring its
+    input shape), the i-th applied to the i-th input before the merge; the
+    param and state trees are ``{branch name: subtree}``, as in JAX."""
 
-    def __init__(self, mode="sum", concat_axis=-1, input_shape=None,
-                 name=None):
+    def __init__(self, layers=None, mode="sum", concat_axis=-1,
+                 input_shape=None, name=None):
         super().__init__(input_shape=input_shape, name=name)
         self.mode = mode
         self.concat_axis = int(concat_axis)
+        self.branches = nn.ModuleList(layers or [])
+        if len(self.branches):
+            shapes = [b._declared_input_shape for b in self.branches]
+            if any(s is None for s in shapes):
+                raise ValueError(f"{self.name}: every branch layer needs "
+                                 "input_shape=")
+            self._declared_input_shape = shapes
+            for b, s in zip(self.branches, shapes):
+                b.ensure_built(s)
+            self.built = True
+
+    def reset_parameters(self, gen):
+        for b in self.branches:
+            b.reset_parameters(gen)
+
+    def _tree(self) -> Dict:
+        return {b.name: b for b in self.branches}
+
+    def _state_tree(self) -> Dict:
+        return {b.name: b for b in self.branches}
 
     def _axis(self, rank: int) -> int:
         """``concat_axis`` of a batched tensor of ``rank`` as an index into
@@ -368,6 +389,9 @@ class Merge(Layer):
 
     def compute_output_shape(self, input_shape):
         shapes = [to_shape(s) for s in input_shape]
+        if len(self.branches):
+            shapes = [to_shape(b.compute_output_shape(s))
+                      for b, s in zip(self.branches, shapes)]
         if self.mode == "concat":
             ax = self._axis(len(shapes[0]) + 1)
             out = list(shapes[0])
@@ -412,7 +436,10 @@ class Merge(Layer):
         raise ValueError(f"unknown merge mode {self.mode!r}")
 
     def forward(self, xs):
-        return self._merge(list(xs))
+        xs = list(xs)
+        if len(self.branches):
+            xs = [b(x) for b, x in zip(self.branches, xs)]
+        return self._merge(xs)
 
 
 def merge(inputs, mode="sum", concat_axis=-1, name=None):

@@ -1,16 +1,17 @@
-"""Pooling — the JAX package's ``nn/layers/pooling.py``: 1-D and 2-D
-windowed max and average pooling (``_PoolND`` :23, ``MaxPooling1D`` :68,
-``AveragePooling1D`` :80) and global pooling (``_GlobalPool``), 1-D and
-2-D.
+"""Pooling — the JAX package's ``nn/layers/pooling.py``: 1-D, 2-D and
+3-D windowed max and average pooling (``_PoolND`` :23, ``MaxPooling3D``
+:76, ``AveragePooling3D`` :88) and global pooling (``_GlobalPool``,
+``GlobalMaxPooling3D`` :114, ``GlobalAveragePooling3D`` :126).
 
 Windowed pooling follows ``lax.reduce_window``: ``"same"`` pads with XLA's
 SAME amounts (asymmetric at stride 2: the ResNet stem's 3×3/s2 max-pool
 on 112 pads (0, 1)), explicit ``padding`` ((lo, hi) per spatial axis)
 pads first; the fill is the operation's identity, -inf for max and 0 for
 average, and an average always divides by the full window (padding
-counted).  The pooling runs as ``F.max_pool2d`` / ``F.avg_pool2d`` on a
-channels-first view of the channels-last tensor after an explicit pad; a
-1-D pool as the (1, k) pool of (B, 1, T, C).
+counted).  The pooling runs as ``F.max_pool2d`` / ``F.avg_pool2d``
+(``F.max_pool3d`` / ``F.avg_pool3d`` in 3-D) on a channels-first view of
+the channels-last tensor after an explicit pad; a 1-D pool as the (1, k)
+pool of (B, 1, T, C).
 
 Global pooling reduces the spatial axes: axes 1.. of (B, *spatial, C)
 for ``dim_ordering`` "tf", axes 2.. of (B, C, *spatial) for "th".
@@ -79,14 +80,18 @@ class _PoolND(Layer):
             x = nchw_to_nhwc(x)
         pads = self._pads(tuple(x.shape[1:-1]))
         x = pad_spatial(x, pads, float("-inf") if self.op == "max" else 0.0)
-        pool = F.max_pool2d if self.op == "max" else F.avg_pool2d
-        lift = (1,) * (2 - self.ndim)
+        pool = _POOL[(self.op, max(self.ndim, 2))]
+        lift = (1,) if self.ndim == 1 else ()
         y = nchw_to_nhwc(pool(nhwc_to_nchw(x.reshape(
             x.shape[:1] + lift + x.shape[1:])), lift + self.pool_size,
             lift + self.strides))
         if lift:
             y = y.squeeze(1)
         return nhwc_to_nchw(y) if self.dim_ordering == "th" else y
+
+
+_POOL = {("max", 2): F.max_pool2d, ("avg", 2): F.avg_pool2d,
+         ("max", 3): F.max_pool3d, ("avg", 3): F.avg_pool3d}
 
 
 class MaxPooling1D(_PoolND):
@@ -103,6 +108,14 @@ class MaxPooling2D(_PoolND):
 
 class AveragePooling2D(_PoolND):
     op = "avg"
+
+
+class MaxPooling3D(_PoolND):
+    ndim, op = 3, "max"
+
+
+class AveragePooling3D(_PoolND):
+    ndim, op = 3, "avg"
 
 
 class _GlobalPool(Layer):
@@ -141,3 +154,11 @@ class GlobalMaxPooling2D(_GlobalPool):
 
 class GlobalAveragePooling2D(_GlobalPool):
     ndim, op = 2, "avg"
+
+
+class GlobalMaxPooling3D(_GlobalPool):
+    ndim, op = 3, "max"
+
+
+class GlobalAveragePooling3D(_GlobalPool):
+    ndim, op = 3, "avg"

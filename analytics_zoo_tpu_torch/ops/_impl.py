@@ -64,7 +64,8 @@ KERNEL_NAMES = {"paged": "paged_attention_kernel",
                 "flash_bwd_dkv": "flash_bwd_dkv_kernel",
                 "w8a8": "w8a8_kernel",
                 "w4a16": "w4a16_kernel",
-                "w8a8_conv": "w8a8_conv2d_kernel"}
+                "w8a8_conv": "w8a8_conv2d_kernel",
+                "fused_bn": "fused_bn_kernel"}
 
 
 # The profiler records one session a process.  Whoever records holds this

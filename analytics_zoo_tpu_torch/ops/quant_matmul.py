@@ -41,6 +41,14 @@ so the two agree BITWISE.  The kernel reads the weight K-major:
 ``pack_conv_weight`` makes that pack (a quantized conv layer holds one
 beside its ``W_q``), and ``conv_config`` is the rule that picks the
 kernel's tile and its split of K over a thread-block cluster.
+
+A spatial 3-D int8 convolution (``w8a8_conv3d``, ``Convolution3D``) runs
+on the same kernel: its kd depth taps are gathered into the channels, so
+a (kd, kh, kw, cin) window becomes a (kh, kw, kd·cin) one and the 3-D conv
+of (B, D, H, W, C) is the 2-D conv of (B·Do, H, W, kd·C); the s32 sums
+hold the same integer products, so it too is bitwise equal to its plain
+version, a float64 ``conv3d`` of the codes.  A 3-D int4 convolution
+dequantizes and convolves in f32, as a 2-D one does.
 """
 
 from __future__ import annotations
@@ -302,8 +310,12 @@ def _conv_geometry(x, kshape, strides, pads, dilation, groups):
 
 
 def _pad_nhwc(x, pads):
-    (pt, pb), (pl, pr) = pads
-    return F.pad(x, (0, 0, int(pl), int(pr), int(pt), int(pb)))
+    """Zero-pad the spatial axes of channels-last ``x`` by ``pads``, one
+    (lo, hi) per spatial axis."""
+    flat = [0, 0]
+    for lo, hi in reversed(pads):
+        flat += [int(lo), int(hi)]
+    return F.pad(x, flat)
 
 
 def w8a8_conv_torch(x_q, w_q, scale, strides, pads, dilation=(1, 1),
@@ -465,46 +477,142 @@ def w8a8_conv2d(x_q, w_q, scale, *, strides, pads, dilation=(1, 1),
                            w_pack)
 
 
+# -- 3-D int8 convolutions on the 2-D kernel ------------------------------------
+
+def fold_depth_weight(w_q):
+    """(kd, kh, kw, cin/g, cout) -> (kh, kw, kd·cin/g, cout): the depth
+    taps gathered into the channels, tap t of channel c at t·cin/g + c."""
+    kd, kh, kw, cg, cout = (int(v) for v in w_q.shape)
+    return w_q.permute(1, 2, 0, 3, 4).reshape(kh, kw, kd * cg, cout)
+
+
+def fold_depth_input(x_q, kd: int, stride: int, pads, dilation: int,
+                     groups: int = 1):
+    """(B, D, H, W, C) -> ((B·Do, H, W, kd·C), Do): output depth o's
+    window of ``kd`` depth taps gathered into the channels, in (group,
+    tap, channel of the group) order, so that a 2-D convolution of it by
+    ``fold_depth_weight(w)`` with ``groups`` is the 3-D convolution of
+    ``x_q`` by ``w`` at depth o.  ``pads``: the depth axis's (lo, hi)."""
+    b, d, h, w, c = (int(v) for v in x_q.shape)
+    lo, hi = (int(p) for p in pads)
+    xp = F.pad(x_q, (0, 0, 0, 0, 0, 0, lo, hi))
+    do = (d + lo + hi - (kd - 1) * dilation - 1) // stride + 1
+    if do < 1:
+        raise ValueError(f"depth {d} with pads {pads} leaves no output for "
+                         f"{kd} taps")
+    taps = (torch.arange(do, device=x_q.device)[:, None] * stride
+            + torch.arange(kd, device=x_q.device)[None, :] * dilation)
+    win = xp[:, taps]                                # (B, Do, kd, H, W, C)
+    cg = c // groups
+    win = win.view(b, do, kd, h, w, groups, cg).permute(0, 1, 3, 4, 5, 2, 6)
+    return win.reshape(b * do, h, w, groups * kd * cg), do
+
+
+def w8a8_conv3d_torch(x_q, w_q, scale, strides, pads, dilation=(1, 1, 1),
+                      groups: int = 1):
+    """Plain version of the 3-D int8 convolution: a float64 ``conv3d`` of
+    the codes (exact below 2**53), as int32, rounded to f32 once and
+    multiplied by ``scale`` (cout,)."""
+    xd = _pad_nhwc(x_q.to(torch.float64), pads).permute(0, 4, 1, 2, 3)
+    wd = w_q.to(torch.float64).permute(4, 3, 0, 1, 2)
+    acc = F.conv3d(xd, wd, stride=tuple(int(s) for s in strides),
+                   dilation=tuple(int(d) for d in dilation),
+                   groups=int(groups))
+    return acc.permute(0, 2, 3, 4, 1).to(torch.int32).to(torch.float32) \
+        * scale.to(torch.float32)
+
+
+def w8a8_conv3d_folded(x_q, w_q, scale, *, strides, pads, dilation,
+                       groups: int = 1, impl: Optional[str] = None,
+                       w_pack=None):
+    """The 3-D int8 convolution as one ``w8a8_conv2d`` call: the depth taps
+    gathered into the channels (``fold_depth_input`` /
+    ``fold_depth_weight``), so a (kd, kh, kw, cin) window is a (kh, kw,
+    kd·cin) one.  Each output's s32 sum holds the same integer products,
+    so the result is bitwise the plain version's.  ``w_pack``: the pack of
+    the folded weight."""
+    kd = int(w_q.shape[0])
+    xf, do = fold_depth_input(x_q, kd, int(strides[0]), pads[0],
+                              int(dilation[0]), groups)
+    y = w8a8_conv2d(xf, fold_depth_weight(w_q), scale, strides=strides[1:],
+                    pads=list(pads[1:]), dilation=dilation[1:],
+                    groups=groups, impl=impl, w_pack=w_pack)
+    return y.view((x_q.shape[0], do) + tuple(y.shape[1:]))
+
+
+def w8a8_conv3d(x_q, w_q, scale, *, strides, pads, dilation=(1, 1, 1),
+                groups: int = 1, impl: Optional[str] = None, w_pack=None):
+    """s8 x s8 -> s32 3-D convolution, dequantized by ``scale`` (cout,):
+    ``x_q`` (B, D, H, W, cin) int8, ``w_q`` (kd, kh, kw, cin/groups, cout)
+    int8, ``pads`` one (lo, hi) per spatial axis -> (B, Do, Ho, Wo, cout)
+    f32.  The JAX package runs it as an XLA s8 convolution with s32 sums;
+    here the kernel route is ``w8a8_conv3d_folded`` on the ``w8a8_conv2d``
+    kernel, the plain route ``w8a8_conv3d_torch``."""
+    if tuple(scale.shape) != (w_q.shape[-1],):
+        raise ValueError(f"scale must be (cout,) = ({w_q.shape[-1]},), got "
+                         f"{tuple(scale.shape)}")
+    if x_q.ndim != 5 or w_q.ndim != 5:
+        raise ValueError(f"a 3-D conv takes (B, D, H, W, C) x and (kd, kh, "
+                         f"kw, cin/g, cout) weights, got {tuple(x_q.shape)} "
+                         f"and {tuple(w_q.shape)}")
+    if resolve_impl(impl, x_q) == "torch":
+        return w8a8_conv3d_torch(x_q, w_q, scale, strides, pads, dilation,
+                                 groups)
+    return w8a8_conv3d_folded(x_q, w_q, scale, strides=strides, pads=pads,
+                              dilation=dilation, groups=groups, impl="cuda",
+                              w_pack=w_pack)
+
+
 def w8a8_conv(x_q, w_q, scale, *, window_strides, padding, rhs_dilation,
               feature_group_count: int = 1, impl: Optional[str] = None,
               w_pack=None):
-    """Fused-dequant int8 convolution, NHWC x (kh, kw, cin/g, cout):
-    a pointwise conv is a channel matmul (``w8a8_matmul``), a spatial one
-    runs ``w8a8_conv2d`` (with ``w_pack``, the weight's pack, where the
-    caller holds one); ``padding`` is the explicit per-side pads."""
+    """Fused-dequant int8 convolution, channels-last x by (*k, cin/g,
+    cout): a pointwise conv is a channel matmul (``w8a8_matmul``), a
+    spatial 2-D one runs ``w8a8_conv2d`` and a 3-D one ``w8a8_conv3d``
+    (with ``w_pack``, the 2-D weight's pack, where the caller holds one);
+    ``padding`` is the explicit per-side pads."""
     kshape = tuple(int(s) for s in w_q.shape)
     if _is_pointwise(kshape, window_strides, rhs_dilation,
                      feature_group_count, padding):
         x2, unflat = _flatten_batch(x_q.contiguous())
         return unflat(w8a8_matmul(x2, w_q.reshape(kshape[-2], kshape[-1]),
                                   scale, impl=impl))
-    return w8a8_conv2d(x_q.contiguous(), w_q, scale, strides=window_strides,
-                       pads=padding, dilation=rhs_dilation,
-                       groups=feature_group_count, impl=impl, w_pack=w_pack)
+    conv = w8a8_conv3d if len(kshape) == 5 else w8a8_conv2d
+    return conv(x_q.contiguous(), w_q, scale, strides=window_strides,
+                pads=padding, dilation=rhs_dilation,
+                groups=feature_group_count, impl=impl, w_pack=w_pack)
 
 
 def w4a16_conv(x, w_q4, s_g, kshape: Sequence[int], *, window_strides,
                padding, rhs_dilation, feature_group_count: int = 1,
                impl: Optional[str] = None):
     """Weight-only int4 convolution: the kernel tensor lives nibble-packed
-    as (ceil(K/2), cout) with K = kh·kw·cin/g.  A pointwise conv runs the
-    ``w4a16_matmul`` kernel.  A spatial one unpacks and dequantizes the
-    weight group-wise and convolves in f32 with ``F.conv2d`` (cuDNN, TF32
-    off), on purpose: the JAX package also computes it outside any Pallas
-    kernel, as an XLA convolution of the dequantized weight."""
+    as (ceil(K/2), cout) with K = prod(spatial kernel)·cin/g.  A pointwise
+    conv runs the ``w4a16_matmul`` kernel.  A spatial one (2-D or 3-D)
+    unpacks and dequantizes the weight group-wise and convolves in f32
+    with ``F.conv2d`` / ``F.conv3d`` (cuDNN, TF32 off), on purpose: the JAX
+    package also computes it outside any Pallas kernel, as an XLA
+    convolution of the dequantized weight."""
     kshape = tuple(int(s) for s in kshape)
     k = int(np.prod(kshape[:-1]))
     if _is_pointwise(kshape, window_strides, rhs_dilation,
                      feature_group_count, padding):
         x2, unflat = _flatten_batch(x.contiguous())
         return unflat(w4a16_matmul(x2, w_q4, s_g, impl=impl))
-    _conv_geometry(x, kshape, window_strides, padding, rhs_dilation,
-                   feature_group_count)
+    n = len(kshape) - 2
+    if n == 2:
+        _conv_geometry(x, kshape, window_strides, padding, rhs_dilation,
+                       feature_group_count)
+    elif n != 3 or x.ndim != 5:
+        raise ValueError(f"a spatial conv takes a 2-D or 3-D geometry, got "
+                         f"x {tuple(x.shape)} and weights {kshape}")
     w = unpack_int4(w_q4, k).to(torch.float32) \
         * expand_group_scales(s_g.to(torch.float32), k)
-    xp = _pad_nhwc(x.to(torch.float32), padding).permute(0, 3, 1, 2)
-    y = F.conv2d(xp, w.reshape(kshape).permute(3, 2, 0, 1),
-                 stride=tuple(int(s) for s in window_strides),
-                 dilation=tuple(int(d) for d in rhs_dilation),
-                 groups=int(feature_group_count))
-    return y.permute(0, 2, 3, 1)
+    xp = _pad_nhwc(x.to(torch.float32), padding)
+    conv = F.conv2d if n == 2 else F.conv3d
+    y = conv(xp.permute(0, n + 1, *range(1, n + 1)),
+             w.reshape(kshape).permute(n + 1, n, *range(n)),
+             stride=tuple(int(s) for s in window_strides),
+             dilation=tuple(int(d) for d in rhs_dilation),
+             groups=int(feature_group_count))
+    return y.permute(0, *range(2, n + 2), 1)

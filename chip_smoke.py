@@ -342,6 +342,31 @@ phase printing its own lines:
    each flash kernel 12 x 8 times.  The host-bound trainings of phases
    8-11 (NeuralCF, SessionRecommender, AnomalyDetector, NER, MTNet) run
    through the same k-step route, ``ZOO_STEPS_PER_CALL`` steps a call.
+15. layers — MobileNet v1 (alpha 1.0, 224 x 224, 1000 classes, 4,231,976
+   trainable parameters) built from the port's ``keras2`` constructors
+   (``mobilenet_v1``): ``fused_bn`` against its plain version and timed
+   at the 9 distinct (M, K, N) of its 13 fused pairs at batch 128 (K = 32
+   to 1024) and summed over a step; the stem's ``w8a8_conv2d`` (cin 3,
+   3x3/2) bitwise and the 14 matmuls' ``w8a8`` (bitwise) / ``w4a16`` at
+   batch 16, timed over a forward.  Three steps of the plain route
+   (``impl="torch"``) held in lockstep with the fused route's training
+   forward (within ``MOBILENET_LOSS_TOL``); then ``Estimator.fit`` (SGD
+   0.05 momentum 0.9, f32, TF32 off) over 10 batches of 128 seeded images
+   of 100 planted classes for 2 epochs with ``steps_per_call=4`` (the
+   k-step CUDA-graph route) under a trace of the card: the loss falls,
+   fused_bn launches on the card = 13 x 20, ms/step and images/s.  The
+   trained model through ``InferenceModel.do_predict`` (64 held-out
+   records, batch 16) in f32, int8 (calibrated on one batch) and int4:
+   int8 top-5 bit for bit the plain route's, int4 within W4_TOL, launches
+   a forward on the card = by the wrappers (int8 14 ``w8a8`` + 1
+   ``w8a8_conv2d``, int4 14 ``w4a16``), records/s and each batch's p50.
+   Then every other new layer once on the card against its own CPU
+   result: ``Convolution3D`` f32 and int8 (through ``w8a8_conv2d``,
+   bitwise), ``AtrousConvolution2D`` int8, ``Deconvolution2D``,
+   ``SeparableConvolution2D``, ``LocallyConnected2D``, ``ResizeBilinear``,
+   ``LRN2D``, the 3-D pools, ``MaxoutDense``, ``SparseDense`` and
+   ``MixtureOfExperts`` at GPT-2-small width (8 experts, top 2, 8 x 1024
+   tokens); the phase's wall.
 
 The last two lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -410,6 +435,7 @@ from analytics_zoo_tpu_torch.feature.image import ImageSet
 from analytics_zoo_tpu_torch.feature.text import TextSet
 from analytics_zoo_tpu_torch.inference.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.inference.quantize import (_quantize_w4,
+                                                        _quantize_w8,
                                                         kv_pack_int8,
                                                         weight_bytes)
 from analytics_zoo_tpu_torch.models.anomalydetection import AnomalyDetector
@@ -427,10 +453,20 @@ from analytics_zoo_tpu_torch.models.textmatching import (KNRM, evaluate_map,
 from analytics_zoo_tpu_torch.models.textmodels import (NER, IntentEntity,
                                                        SequenceTagger,
                                                        TransformerLM)
+from analytics_zoo_tpu_torch.nn.layers.advanced import MaxoutDense
 from analytics_zoo_tpu_torch.nn.layers.attention import TransformerLayer
-from analytics_zoo_tpu_torch.nn.layers.conv import Convolution2D
+from analytics_zoo_tpu_torch.nn.layers.conv import (
+    AtrousConvolution2D, Convolution2D, Convolution3D, Deconvolution2D,
+    LocallyConnected2D, LRN2D, ResizeBilinear, SeparableConvolution2D)
 from analytics_zoo_tpu_torch.nn.layers.core import BatchNormalization, Dense
-from analytics_zoo_tpu_torch.nn.layers.pooling import GlobalAveragePooling1D
+from analytics_zoo_tpu_torch.nn.layers.embedding import SparseDense
+from analytics_zoo_tpu_torch.nn.layers.moe import MixtureOfExperts
+from analytics_zoo_tpu_torch.nn.layers.pooling import (
+    AveragePooling3D, GlobalAveragePooling1D, GlobalAveragePooling3D,
+    MaxPooling3D)
+from analytics_zoo_tpu_torch.nn import graph as tgraph
+from analytics_zoo_tpu_torch.nn import keras2
+from analytics_zoo_tpu_torch.nn import models as tmodels
 from analytics_zoo_tpu_torch.nn import objectives
 from analytics_zoo_tpu_torch.nn.models import Sequential
 from analytics_zoo_tpu_torch.nn.module import generator, split_seed
@@ -453,7 +489,9 @@ from analytics_zoo_tpu_torch.serving import manager
 from analytics_zoo_tpu_torch.serving import tracecollect
 from analytics_zoo_tpu_torch.serving import wire
 from analytics_zoo_tpu_torch.serving.queues import FileQueue, InProcQueue
-from analytics_zoo_tpu_torch.utils.convert import export_params, export_state
+from analytics_zoo_tpu_torch.utils.convert import (export_params,
+                                                   export_state,
+                                                   load_jax_params)
 
 # OpenAI's 124M ``gpt2`` config
 GPT2_SMALL = dict(vocab_size=50257, hidden=768, n_head=12, n_layers=12,
@@ -8923,6 +8961,553 @@ def estimator_phase(seed: int, records: dict, host=None) -> dict:
     return out
 
 
+# -- phase 15: the remaining layers; MobileNet v1 trained and served ----------
+
+# MobileNet v1 (Howard et al. 2017, arXiv:1704.04861, Table 1; the topology
+# of tf.keras.applications.MobileNet) at alpha 1.0, 224x224, 1000 classes
+MOBILENET = dict(alpha=1.0, input_shape=(224, 224, 3), classes=1000)
+MOBILENET_PARAMS = 4_231_976
+# (pointwise filters, depthwise stride) of the 13 separable blocks
+MOBILENET_BLOCKS = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1),
+                    (512, 2), (512, 1), (512, 1), (512, 1), (512, 1),
+                    (512, 1), (1024, 2), (1024, 1))
+MOBILENET_PAIRS = 13
+MOBILENET_BATCH = 128
+MOBILENET_BATCHES = 10             # an epoch; the fit runs two
+MOBILENET_EPOCHS = 2
+MOBILENET_K = 4                    # steps a CUDA graph
+MOBILENET_LR = 0.05
+MOBILENET_MOMENTUM = 0.9
+MOBILENET_CLASSES = 100            # planted classes among the 1000
+MOBILENET_LOCKSTEP = 3
+# kernel vs plain training-forward loss at the same weights: ResNet's
+MOBILENET_LOSS_TOL = RESNET_LOSS_TOL
+MOBILENET_SERVE_BATCH = 16
+MOBILENET_RECORDS = 64
+# a forward's launches of each kernel, by precision: the 13 pointwise
+# convs and the head on the matmul kernels, the stem on w8a8_conv2d
+MOBILENET_LAUNCHES = {"f32": {},
+                      "int8": {"w8a8": 14, "w8a8_conv": 1},
+                      "int4": {"w4a16": 14}}
+# the other new layers on the card against their CPU results: f32 summed
+# in another order by cuDNN / cuBLAS than by oneDNN / ATen on the CPU
+CARD_LAYER_TOL = (1e-4, 1e-4)
+# MixtureOfExperts at GPT-2-small width: D 768, H 3072, 8 experts, top 2,
+# 8 x 1024 tokens (its CPU reference takes the first sequence: each token
+# is computed alone)
+MOE = dict(num_experts=8, hidden_dim=3072, top_k=2)
+MOE_X = (8, 1024, 768)
+LAYERS_WALL_S = 60.0
+
+
+def mobilenet_v1(alpha=1.0, input_shape=(224, 224, 3), classes=1000,
+                 k2=keras2, graph=tgraph, models=tmodels):
+    """MobileNet v1 through ``k2``'s constructors (the port's ``keras2`` by
+    default; the tests pass the JAX package's): a 3x3/2 stem conv, 13
+    depthwise-3x3 + BN + ReLU6 and pointwise-1x1 + BN + ReLU6 pairs,
+    global average pooling, dropout 1e-3 and Dense(classes, softmax).
+    Widths are ``int(filters * alpha)``; every layer is named as in
+    tf.keras's MobileNet, so two packages' param trees match."""
+    def width(n):
+        return int(n * alpha)
+    x = graph.Input(tuple(input_shape), name="input")
+    h = k2.Conv2D(width(32), 3, strides=2, padding="same", use_bias=False,
+                  name="conv1")(x)
+    h = k2.BatchNormalization(name="conv1_bn")(h)
+    h = k2.Activation("relu6", name="conv1_relu")(h)
+    for i, (filters, stride) in enumerate(MOBILENET_BLOCKS, 1):
+        h = k2.DepthwiseConv2D(3, strides=stride, padding="same",
+                               use_bias=False, name=f"conv_dw_{i}")(h)
+        h = k2.BatchNormalization(name=f"conv_dw_{i}_bn")(h)
+        h = k2.Activation("relu6", name=f"conv_dw_{i}_relu")(h)
+        h = k2.Conv2D(width(filters), 1, padding="same", use_bias=False,
+                      name=f"conv_pw_{i}")(h)
+        h = k2.BatchNormalization(name=f"conv_pw_{i}_bn")(h)
+        h = k2.Activation("relu6", name=f"conv_pw_{i}_relu")(h)
+    h = k2.GlobalAveragePooling2D(name="global_pool")(h)
+    h = k2.Dropout(1e-3, name="dropout")(h)
+    y = k2.Dense(classes, activation="softmax", name="predictions")(h)
+    return models.Model(input=x, output=y,
+                        name=f"mobilenet_{alpha:.2f}_{input_shape[0]}")
+
+
+def mobilenet_data(seed: int, batches: int = MOBILENET_BATCHES):
+    """``batches`` batches of MOBILENET_BATCH 224x224x3 f32 images (and
+    one held out) of MOBILENET_CLASSES classes drawn from the 1000: each
+    class a per-channel offset ~ N(0, 1) under unit noise."""
+    g = np.random.default_rng(seed + 150)
+    shape = MOBILENET["input_shape"]
+    n = (batches + 1) * MOBILENET_BATCH
+    classes = g.choice(MOBILENET["classes"], MOBILENET_CLASSES,
+                       replace=False)
+    offsets = g.standard_normal((MOBILENET_CLASSES, 3)).astype(np.float32)
+    pick = g.integers(0, MOBILENET_CLASSES, n)
+    x = g.standard_normal((n,) + tuple(shape), dtype=np.float32)
+    x += offsets[pick][:, None, None, :]
+    y = classes[pick].astype(np.int64)
+    b = batches * MOBILENET_BATCH
+    return x[:b], y[:b], x[b:], y[b:]
+
+
+def mobilenet_estimator(model, seed: int) -> Estimator:
+    dev = next(model.parameters()).device
+    return Estimator(model, optimizer=SGD(lr=MOBILENET_LR,
+                                          momentum=MOBILENET_MOMENTUM),
+                     loss="sparse_categorical_crossentropy",
+                     metrics=["accuracy"], registry=MetricsRegistry(),
+                     ctx=ZooContext(ZooConf(seed=seed, device=str(dev))))
+
+
+def mobilenet_train(model, x, y, seed: int) -> dict:
+    """``Estimator.fit`` for MOBILENET_EPOCHS epochs with
+    ``steps_per_call=MOBILENET_K`` (on the card the first group runs
+    eagerly, every later one as a CUDA-graph replay), the counts set to 0
+    just before and read just after, under a trace of the card: each
+    step's loss, the host clock after a device sync at each epoch's last
+    step, fused_bn launches on the card and by the wrapper."""
+    dev = next(model.parameters()).device
+    est = mobilenet_estimator(model, seed)
+    losses, times = {}, {}
+
+    def listen(step, loss):
+        losses[step] = loss
+        if step % MOBILENET_BATCHES == 0:
+            sync(dev)
+            times[step] = time.perf_counter()
+    est._listeners.append(listen)
+    sync(dev)
+    reset_launches()
+    with _impl.card_launches(("fused_bn",)) as on_card:
+        t0 = time.perf_counter()
+        est.fit(x, y, batch_size=MOBILENET_BATCH, epochs=MOBILENET_EPOCHS,
+                verbose=False, steps_per_call=MOBILENET_K)
+        sync(dev)
+    marks = [t0] + [times[s] for s in sorted(times)]
+    return {"losses": [float(losses[s]) for s in sorted(losses)],
+            "walls": [b - a for a, b in zip(marks, marks[1:])],
+            "card": on_card["fused_bn"], "wrapper": fb.launches}
+
+
+def check_mobilenet_train(run: dict, card: bool = True) -> None:
+    """Finite losses, one a step; the second epoch's mean below the first
+    step's and below the first epoch's mean; fused_bn launches on the card
+    = 13 x steps (none off the card)."""
+    ls = run["losses"]
+    steps = MOBILENET_EPOCHS * MOBILENET_BATCHES
+    check(len(ls) == steps and all(math.isfinite(v) for v in ls),
+          f"mobilenet train: losses {ls}")
+    half = len(ls) // 2
+    first, second = np.mean(ls[:half]), np.mean(ls[half:])
+    check(second < first and second < ls[0],
+          f"mobilenet train: the loss did not fall ({ls})")
+    want = MOBILENET_PAIRS * steps if card else 0
+    check(run["card"] == want,
+          f"mobilenet train: fused_bn launches on the card {run['card']} "
+          f"!= {MOBILENET_PAIRS} x {steps}")
+    img = MOBILENET_BATCHES * MOBILENET_BATCH
+    last = run["walls"][-1]
+    say(f"mobilenet train: {steps} steps of {MOBILENET_BATCH} images in "
+        f"{MOBILENET_EPOCHS} epochs, {MOBILENET_K} steps a CUDA graph; the "
+        f"last epoch {last:.3f} s (host clock) = "
+        f"{last / MOBILENET_BATCHES * 1e3:.2f} ms/step, "
+        f"{img / last:.1f} images/s (first epoch {run['walls'][0]:.3f} s, "
+        f"with the eager group and the capture); losses "
+        f"{[round(v, 4) for v in ls]}; fused_bn launches on the card "
+        f"{run['card']} (= {MOBILENET_PAIRS} x {steps}), by the wrapper "
+        f"{run['wrapper']} (the eager group's)")
+
+
+def mobilenet_lockstep(host, x, y, seed: int) -> list:
+    """MOBILENET_LOCKSTEP steps of the plain route (the Estimator's own
+    step, ``impl="torch"``); before each, the training forward's loss
+    through the kernel from the same weights, BN state and dropout seed
+    (the state restored after it).  Returns (kernel, plain) loss pairs and
+    the fused launches of the kernel forwards."""
+    model = copy.deepcopy(host)
+    est = mobilenet_estimator(model, seed)
+    est._ensure_init()
+    batches = list(ArrayFeatureSet(x, y).batches(
+        MOBILENET_BATCH, shuffle=True, rng=np.random.default_rng(seed),
+        pad_final=True))[:MOBILENET_LOCKSTEP]
+    pairs = []
+    model.train()
+    reset_launches()
+    for batch in batches:
+        sx, sy, sw, _ = est._transfer(batch)
+        state = [b.clone() for b in model.buffers()]
+        set_impl(model, None)
+        est._seed_step(est.global_step)
+        with torch.no_grad():
+            lk = est._loss_sum(model(sx), sy, sw) / sw.sum()
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), state):
+                b.copy_(s)
+        set_impl(model, "torch")
+        lp = est._train_step(sx, sy, sw)
+        est.global_step += 1
+        pairs.append((float(lk), float(lp)))
+    fused = fb.launches
+    del model, est
+    return pairs, fused
+
+
+def mobilenet_kernel_phase(seed: int, model) -> dict:
+    """fused_bn at the fusion plan's shapes at batch 128 (K = 32 to 1024)
+    and the quantized forward's kernels at batch 16: the stem on
+    w8a8_conv2d (cin 3, 3x3/2, the byte-gather route), the 13 pointwise
+    convs and the head on w8a8 / w4a16; each against its plain version,
+    then timed and summed over a step's or a forward's launches."""
+    shapes = fused_bn_shapes(model, MOBILENET_BATCH)
+    check(sum(shapes.values()) == MOBILENET_PAIRS,
+          f"mobilenet: fusion plan shapes {shapes}")
+    g = np.random.default_rng(seed + 151)
+    rows, worst = [], (0.0, 0.0)
+    for (m, k, n), pairs in shapes.items():
+        x, w = fused_bn_case(g, m, k, n, torch.float32)
+        got = fb.fused_bn(x, w, impl="cuda")
+        sync(x.device)
+        ref = fb.fused_bn(x, w, impl="torch")
+        err = check_fused_bn(f"fused_bn[mobilenet ({m}, {k}, {n})]", got,
+                             ref)
+        worst = tuple(max(a, b) for a, b in zip(worst, err))
+        t = fused_bn_time(x, w, 20)
+        t["plain_ms"] = cuda_ms(lambda: fb.fused_bn(x, w, impl="torch"),
+                                iters=5, warmup=1)
+        b = fused_bn_bound(m, k, n, torch.float32)
+        rows.append(dict(shape=[m, k, n], pairs=pairs, **t,
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
+        say(f"fused_bn[mobilenet] ({m}, {k}) @ ({k}, {n}) x {pairs}: y max "
+            f"abs err {err[0]:.3e}, sums {err[1]:.3e}; kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul "
+            f"+ stats pass {t['library_ms']:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"{100 * b['bound_ms'] / t['ms']:.1f}% of bound")
+        del x, w, got, ref
+    step = {key: sum(r[key] * r["pairs"] for r in rows)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    say(f"fused_bn[mobilenet] a step's {MOBILENET_PAIRS} launches: kernel "
+        f"{step['ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, "
+        f"torch.matmul + stats {step['library_ms']:.3f} ms, bounds "
+        f"{step['bound_ms']:.3f} ms "
+        f"({100 * step['bound_ms'] / step['ms']:.1f}% of the kernel's)")
+    inv = conv_inventory(model, MOBILENET_SERVE_BATCH)
+    spatial, matmuls = inv["spatial"], inv["matmuls"]
+    check((len(spatial), len(matmuls)) == (1, 14),
+          f"mobilenet: {len(spatial)} spatial convs and {len(matmuls)} "
+          f"matmuls a quantized forward")
+    n = conv_parity(seed, [geom for geom, _ in distinct(spatial)])
+    pointwise_parity(seed, [mk for mk, _ in distinct(matmuls)])
+    say(f"mobilenet parity: w8a8_conv2d bitwise at the stem "
+        f"{spatial[0][:2]} ({n} cases with the ragged ones), w8a8 bitwise "
+        f"and w4a16 within {W4_TOL} at the {len(distinct(matmuls))} "
+        f"distinct (M, K, N) of a forward at batch {MOBILENET_SERVE_BATCH}")
+    stem = conv_record(seed, spatial)
+    pw = pointwise_timing(seed, matmuls)
+    return {"fused_bn": {"shapes": rows, "step": step,
+                         "max_abs_err": worst[0],
+                         "sums_max_rel_err": worst[1]},
+            "stem": {k: stem[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "per_shape")},
+            "pointwise": pw}
+
+
+def mobilenet_serve(im, X, tag: str) -> dict:
+    """MOBILENET_RECORDS images through ``do_predict`` in batches of
+    MOBILENET_SERVE_BATCH, after one warm batch, the counts set to 0 just
+    before and read just after, under a trace of the card: the outputs,
+    records/s, each batch's latency (host clock, synchronised) and the
+    launches on the card and by the wrappers."""
+    b = MOBILENET_SERVE_BATCH
+    im.do_predict(X[:b], batch_size=b)
+    sync(im.device)
+    reset_launches()
+    outs, lat = [], []
+    with _impl.card_launches(("w8a8_conv", "w8a8", "w4a16",
+                              "fused_bn")) as card:
+        t_all = time.perf_counter()
+        for i in range(0, len(X), b):
+            t0 = time.perf_counter()
+            outs.append(im.do_predict(X[i:i + b], batch_size=b))
+            lat.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t_all
+    return {"probs": np.concatenate(outs), "wall_s": wall,
+            "p50_s": float(np.median(lat)), "forwards": len(lat),
+            "card": dict(card),
+            "wrapper": {"w8a8_conv": qm.launches_conv,
+                        "w8a8": qm.launches_w8a8,
+                        "w4a16": qm.launches_w4a16,
+                        "fused_bn": fb.launches}}
+
+
+def check_mobilenet_serve(tag: str, run: dict, ref, card: bool = True
+                          ) -> None:
+    """Finite (N, 1000) probabilities; int8: every top-5 (classes and
+    probabilities) bit for bit the plain route's; int4: every probability
+    within W4_TOL of the plain route's; launches a forward as
+    MOBILENET_LAUNCHES says on the card and by the wrappers, no fused_bn
+    (eval mode)."""
+    p = run["probs"]
+    check(p.shape == (MOBILENET_RECORDS, MOBILENET["classes"])
+          and np.isfinite(p).all(), f"mobilenet[{tag}]: probs {p.shape}")
+    detail = ""
+    if tag == "int8":
+        for i in range(len(p)):
+            got, want = default_postprocess(p[i], 5), \
+                default_postprocess(ref[i], 5)
+            check(got == want, f"mobilenet[int8] record {i}: top-5 {got} "
+                               f"!= the plain route's {want}")
+        detail = (f"; top-5 bitwise equal to the plain route (whole rows "
+                  f"{'bitwise equal' if np.array_equal(p, ref) else 'differ'}"
+                  f")")
+    elif tag == "int4":
+        err = float(np.abs(p - ref).max())
+        check(np.allclose(p, ref, atol=W4_TOL[0], rtol=W4_TOL[1]),
+              f"mobilenet[int4]: max abs err {err:.3e} vs the plain route "
+              f"outside {W4_TOL}")
+        detail = f"; max abs err vs the plain route {err:.3e} ({W4_TOL})"
+    per = MOBILENET_LAUNCHES[tag] if card else {}
+    fw = run["forwards"]
+    for k in ("w8a8_conv", "w8a8", "w4a16", "fused_bn"):
+        want = fw * per.get(k, 0)
+        check(run["card"][k] == run["wrapper"][k] == want,
+              f"mobilenet[{tag}]: {k} launches on the card "
+              f"{run['card'][k]}, by the wrapper {run['wrapper'][k]}, != "
+              f"{fw} forwards x {per.get(k, 0)}")
+    n = len(p)
+    say(f"mobilenet[{tag}]: {n} records in {fw} forwards of "
+        f"{MOBILENET_SERVE_BATCH}: {n / run['wall_s']:.1f} records/s, e2e "
+        f"p50 {run['p50_s'] * 1e3:.2f} ms a batch (under the trace); "
+        f"launches a forward on the card = by the wrappers "
+        + (", ".join(f"{k} {v}" for k, v in per.items()) or "none")
+        + detail)
+
+
+def mobilenet_serve_phase(seed: int, host, x_eval, dev) -> dict:
+    """The trained model served in f32, int8 (calibrated on one batch of
+    the held-out images) and int4, each route against the same model's
+    plain route."""
+    X = x_eval[:MOBILENET_RECORDS]
+    calib = x_eval[MOBILENET_RECORDS:MOBILENET_RECORDS
+                   + MOBILENET_SERVE_BATCH]
+    out = {}
+    for tag, bits in (("f32", 0), ("int8", 8), ("int4", 4)):
+        im = InferenceModel(max_batch=MOBILENET_SERVE_BATCH, device=dev) \
+            .do_load_model(copy.deepcopy(host))
+        if bits:
+            im.do_quantize(calib if bits == 8 else None, force=True,
+                           bits=bits)
+        run = mobilenet_serve(im, X, tag)
+        set_impl(im._model, "torch")
+        ref = im.do_predict(X, batch_size=MOBILENET_SERVE_BATCH)
+        set_impl(im._model, None)
+        check_mobilenet_serve(tag, run, ref, dev.type == "cuda")
+        out[tag] = run
+        del im
+    for tag in ("int8", "int4"):
+        agree = np.mean(out[tag]["probs"].argmax(1)
+                        == out["f32"]["probs"].argmax(1))
+        say(f"mobilenet[{tag}]: top-1 agreement with f32 {agree:.3f}")
+    return out
+
+
+def card_layer_cases(seed: int) -> list:
+    """(tag, port layer built on the CPU with seeded weights, its input)
+    for the new layers that phase 15's model does not run; the int8 ones
+    quantized by the port's quantizer leaves."""
+    g = np.random.default_rng(seed + 152)
+
+    def x(*shape):
+        return g.standard_normal(shape, dtype=np.float32)
+
+    def quantized(layer, xin, bits=8):
+        w = layer.W.detach().numpy()
+        leaves = _quantize_w8(w, float(np.abs(xin).max())) if bits == 8 \
+            else _quantize_w4(w, 64)
+        leaves["b"] = layer.b.detach().numpy()
+        load_jax_params(layer, leaves)
+        return layer
+
+    def seeded(layer):
+        layer.init_weights(seed)
+        return layer
+    cases = []
+    xin = x(4, 8, 16, 16, 24)
+    cases.append(("Convolution3D f32", seeded(Convolution3D(
+        32, 3, border_mode="same", subsample=(1, 2, 2),
+        input_shape=(8, 16, 16, 24))), xin))
+    cases.append(("Convolution3D int8", quantized(seeded(Convolution3D(
+        32, 3, border_mode="same", subsample=(1, 2, 2),
+        input_shape=(8, 16, 16, 24))), xin), xin))
+    xin = x(8, 32, 32, 48)
+    cases.append(("AtrousConvolution2D int8", quantized(seeded(
+        AtrousConvolution2D(64, 3, atrous_rate=(2, 2), border_mode="same",
+                            input_shape=(32, 32, 48))), xin), xin))
+    cases += [
+        ("Deconvolution2D", seeded(Deconvolution2D(
+            32, 3, subsample=2, border_mode="same",
+            input_shape=(16, 16, 48))), x(8, 16, 16, 48)),
+        ("SeparableConvolution2D", seeded(SeparableConvolution2D(
+            64, 3, depth_multiplier=2, border_mode="same", subsample=2,
+            input_shape=(32, 32, 32))), x(8, 32, 32, 32)),
+        ("LocallyConnected2D", seeded(LocallyConnected2D(
+            16, 3, input_shape=(12, 12, 8))), x(8, 12, 12, 8)),
+        ("ResizeBilinear", ResizeBilinear(45, 61), x(8, 32, 40, 16)),
+        ("LRN2D", LRN2D(), x(8, 16, 16, 64)),
+        ("MaxPooling3D", MaxPooling3D(3, strides=2, border_mode="same"),
+         x(4, 8, 16, 16, 32)),
+        ("AveragePooling3D", AveragePooling3D(2), x(4, 8, 16, 16, 32)),
+        ("GlobalAveragePooling3D", GlobalAveragePooling3D(),
+         x(4, 8, 16, 16, 32)),
+        ("MaxoutDense", seeded(MaxoutDense(128, nb_feature=4,
+                                           input_shape=(256,))),
+         x(512, 256)),
+    ]
+    idx = g.integers(-1, 10000, (256, 32))
+    cases.append(("SparseDense", seeded(SparseDense(10000, 64)),
+                  [idx, x(256, 32)]))
+    return cases
+
+
+def other_layers_phase(seed: int, dev) -> dict:
+    """Each case of card_layer_cases run on the card against its own CPU
+    result (int8: bitwise, through the w8a8_conv2d kernel: one launch);
+    then MixtureOfExperts at GPT-2-small width in f32, its first sequence
+    against the CPU."""
+    def put(v, d):
+        if isinstance(v, list):
+            return [put(a, d) for a in v]
+        return torch.from_numpy(np.asarray(v)).to(d)
+    rows = {}
+    for tag, layer, xin in card_layer_cases(seed):
+        with torch.inference_mode():
+            want = layer(put(xin, "cpu"))
+            card = copy.deepcopy(layer).to(dev)
+            reset_launches()
+            got = card(put(xin, dev))
+            sync(dev)
+            launches = qm.launches_conv
+            got = got.cpu()
+        int8 = tag.endswith("int8")
+        err = float((got - want).abs().max())
+        if int8:
+            check(torch.equal(got, want) and launches == 1,
+                  f"{tag}: card vs CPU max abs err {err:.3e}, "
+                  f"w8a8_conv2d launches {launches}")
+        else:
+            check(torch.allclose(got, want, atol=CARD_LAYER_TOL[0],
+                                 rtol=CARD_LAYER_TOL[1]),
+                  f"{tag}: card vs CPU max abs err {err:.3e} outside "
+                  f"{CARD_LAYER_TOL}")
+        rows[tag] = {"shape": list(got.shape), "max_abs_err": err}
+        say(f"layer[{tag}]: output {tuple(got.shape)} on the card vs the "
+            f"CPU: max abs err {err:.3e}"
+            + (f", bitwise, {launches} w8a8_conv2d launch" if int8 else
+               f" (atol, rtol {CARD_LAYER_TOL})"))
+    moe = MixtureOfExperts(**MOE, input_shape=MOE_X[1:])
+    moe.init_weights(seed)
+    x = torch.from_numpy(np.random.default_rng(seed + 153).standard_normal(
+        MOE_X, dtype=np.float32))
+    with torch.inference_mode():
+        want = moe(x[:1])
+        card = copy.deepcopy(moe).to(dev)
+        xd = x.to(dev)
+        card(xd)
+        sync(dev)
+        t0 = time.perf_counter()
+        got = card(xd)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        aux = float(card.aux_load_balance_loss(card.gates(xd)))
+    err = float((got[:1].cpu() - want).abs().max())
+    check(got.shape == x.shape and bool(torch.isfinite(got).all())
+          and torch.allclose(got[:1].cpu(), want, atol=CARD_LAYER_TOL[0],
+                             rtol=CARD_LAYER_TOL[1]),
+          f"MixtureOfExperts: card vs CPU max abs err {err:.3e}")
+    say(f"layer[MixtureOfExperts {MOE} on {MOE_X}]: f32, {ms:.2f} ms a "
+        f"forward (host clock, synchronised); first sequence vs the CPU "
+        f"max abs err {err:.3e}; aux load-balance loss {aux:.4f}")
+    rows["MixtureOfExperts"] = {"ms": ms, "max_abs_err": err}
+    return rows
+
+
+def layers_phase(seed: int, records: dict) -> dict:
+    """Phase 15: MobileNet v1 at ImageNet width built from the port's
+    keras2 constructors, trained through fused_bn (13 fused pairs) with
+    the k-step CUDA-graph route, held in lockstep with the plain route,
+    served in f32, int8 and int4; the phase's kernel shapes; every other
+    new layer once on the card."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    walls = {}
+    t = time.perf_counter()
+    host = mobilenet_v1(**MOBILENET).to(dev)
+    host.init_weights(seed)
+    plan = len(host.fusion_plan)
+    n_params = host.param_count()
+    check(plan == MOBILENET_PAIRS and n_params == MOBILENET_PARAMS,
+          f"mobilenet: {plan} fused pairs, {n_params} parameters")
+    x, y, x_eval, _ = mobilenet_data(seed)
+    walls["build+data"] = time.perf_counter() - t
+    say(f"model: mobilenet_v1({MOBILENET}) from keras2 ({n_params} "
+        f"trainable params, {plan} fused conv+BN pairs); data {len(x)} + "
+        f"{len(x_eval)} held-out images of {MOBILENET_CLASSES} classes")
+    t = time.perf_counter()
+    kern = mobilenet_kernel_phase(seed, host)
+    walls["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pairs, fused = mobilenet_lockstep(host, x, y, seed)
+    gaps = [abs(a - b) for a, b in pairs]
+    check(all(math.isfinite(a) and math.isfinite(b) for a, b in pairs)
+          and max(gaps) <= MOBILENET_LOSS_TOL
+          and fused == MOBILENET_PAIRS * len(pairs),
+          f"mobilenet[lockstep]: kernel vs plain losses {pairs}, fused "
+          f"launches {fused}")
+    say(f"mobilenet[lockstep]: kernel vs plain training-forward loss at the "
+        f"same weights over {len(pairs)} steps, per step "
+        + ", ".join(f"{gap:.2e}" for gap in gaps)
+        + f" (tolerance {MOBILENET_LOSS_TOL}); fused launches {fused}")
+    walls["lockstep"] = time.perf_counter() - t
+    t = time.perf_counter()
+    model = copy.deepcopy(host)
+    run = mobilenet_train(model, x, y, seed)
+    check_mobilenet_train(run)
+    walls["train"] = time.perf_counter() - t
+    del x, y
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    served = mobilenet_serve_phase(seed, model.eval(), x_eval, dev)
+    walls["serve"] = time.perf_counter() - t
+    del model, host
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    layers = other_layers_phase(seed, dev)
+    walls["layers"] = time.perf_counter() - t
+    last = run["walls"][-1]
+    fbk = kern["fused_bn"]
+    records["fused_bn"]["mobilenet"] = dict(
+        fbk, launches=run["card"],
+        ms_per_step=last / MOBILENET_BATCHES * 1e3,
+        images_s=MOBILENET_BATCHES * MOBILENET_BATCH / last)
+    pw = kern["pointwise"]
+    records["w8a8"].update(
+        mobilenet_launches=served["int8"]["card"]["w8a8"],
+        mobilenet_forward_ms=pw["w8"], mobilenet_forward_bound_ms=pw[
+            "w8_bound"], mobilenet_forward_library_ms=pw["w8_lib"])
+    records["w4a16"].update(
+        mobilenet_launches=served["int4"]["card"]["w4a16"],
+        mobilenet_forward_ms=pw["w4"],
+        mobilenet_forward_bound_ms=pw["w4_bound"])
+    records["w8a8_conv2d"]["mobilenet_stem"] = dict(
+        kern["stem"], launches=served["int8"]["card"]["w8a8_conv"])
+    records["w8a8_conv2d"]["layers"] = {
+        k: v for k, v in layers.items() if k.endswith("int8")}
+    wall = time.perf_counter() - t_phase
+    say(f"layers: phase wall {wall:.2f} s (limit {LAYERS_WALL_S:.0f} s; "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()) + ")")
+    return {"served": served, "layers": layers, "wall_s": wall}
+
+
 def ptxas_summary(log: str) -> str:
     """``kernel<template args>: N regs[, spills]`` for every compiled entry
     point (names taken from the mangled symbol)."""
@@ -9135,6 +9720,7 @@ def main(argv=None) -> int:
     gateway_phase(args.seed, served["off"]["timed"])
     fleet_phase(args.seed, served["off"]["timed"], single)
     estimator_phase(args.seed, records, train_host)
+    layers_phase(args.seed, records)
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (

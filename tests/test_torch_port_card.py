@@ -1485,3 +1485,124 @@ def test_k_step_graph_matches_eager_steps_on_card(cuda_device, drop):
     for run in (eager, graph):
         assert run["card"] == {"flash_fwd": 20, "flash_bwd_dq": 20,
                                "flash_bwd_dkv": 20}, run["card"]
+
+
+# -- the remaining layers: MobileNet's shapes, dilated and 3-D int8 convs ------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(128 * 112 * 112, 32, 64),
+                                   (1000, 32, 64), (6272, 1024, 1024)])
+def test_fused_bn_kernel_mobilenet_shapes_on_card(cuda_device, m, k, n):
+    """MobileNet v1's first fused pair at batch 128, K = 32 (one f32
+    k-tile: the cp.async ring holds one stage), and its deepest: y and
+    the sums against the plain version at the tolerances above."""
+    g = np.random.default_rng(m + k + n)
+    x = torch.empty(m, k, device=cuda_device).normal_(
+        generator=torch.Generator(cuda_device).manual_seed(m))
+    w = torch.from_numpy(np.asarray(g.normal(size=(k, n)) / np.sqrt(k),
+                                    np.float32)).to(cuda_device)
+    n0 = tfb.launches
+    y, stats = tfb.fused_bn(x, w)
+    torch.cuda.synchronize()
+    assert tfb.launches == n0 + 1
+    y_ref, s_ref = tfb.fused_bn(x, w, impl="torch")
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(stats[1], s_ref[1], rtol=1e-5, atol=1e-6)
+    abs_sum = float(y_ref.abs().sum(0).max())
+    torch.testing.assert_close(stats[0], s_ref[0], rtol=1e-5,
+                               atol=1e-5 * abs_sum)
+
+
+# (x shape, kernel, strides, pads, dilation): MobileNet's stem (cin 3,
+# 3x3/2, XLA's SAME (0, 1) pads) at batch 16, and dilated convs
+CONV_SLICE = (
+    ((16, 224, 224, 3), (3, 3, 3, 32), (2, 2), ((0, 1), (0, 1)), (1, 1)),
+    ((2, 33, 30, 48), (3, 3, 48, 64), (1, 1), ((2, 2), (2, 2)), (2, 2)),
+    ((2, 20, 21, 16), (3, 3, 16, 24), (1, 1), ((3, 3), (6, 6)), (3, 6)),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", CONV_SLICE)
+def test_w8a8_conv2d_stem_and_dilated_on_card(cuda_device, geom):
+    xshape, kshape, strides, pads, dil = geom
+    g = np.random.default_rng(sum(xshape) + sum(dil))
+    x = torch.from_numpy(g.integers(-128, 128, xshape).astype(
+        np.int8)).to(cuda_device)
+    w = torch.from_numpy(g.integers(-128, 128, kshape).astype(
+        np.int8)).to(cuda_device)
+    s = torch.from_numpy(g.uniform(1e-4, 1e-2, kshape[-1]).astype(
+        np.float32)).to(cuda_device)
+    kw = dict(strides=strides, pads=pads, dilation=dil, groups=1)
+    n0 = tqm.launches_conv
+    got = tqm.w8a8_conv2d(x, w, s, **kw)
+    torch.cuda.synchronize()
+    assert tqm.launches_conv == n0 + 1
+    assert torch.equal(got, tqm.w8a8_conv2d(x, w, s, impl="torch", **kw))
+
+
+# (x shape, kernel (kd, kh, kw, cin/g, cout), strides, pads, dilation,
+# groups) of 3-D int8 convs, the depth taps gathered into the channels
+CONV3D = (
+    ((2, 8, 12, 12, 16), (3, 3, 3, 16, 32), (1, 1, 1),
+     ((1, 1), (1, 1), (1, 1)), (1, 1, 1), 1),
+    ((2, 9, 10, 11, 8), (2, 3, 1, 8, 24), (2, 1, 2),
+     ((0, 1), (1, 1), (0, 0)), (2, 1, 1), 1),
+    ((1, 6, 8, 8, 16), (3, 3, 3, 8, 16), (1, 2, 2),
+     ((1, 1), (0, 1), (0, 1)), (1, 1, 1), 2),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", CONV3D)
+def test_w8a8_conv3d_on_card(cuda_device, geom):
+    """A 3-D int8 conv launches ``w8a8_conv2d`` once (its depth taps folded
+    into the channels) and equals its plain version, a float64 conv3d of
+    the codes, bitwise; so does a quantized ``Convolution3D``."""
+    xshape, kshape, strides, pads, dil, groups = geom
+    g = np.random.default_rng(sum(xshape) + sum(kshape))
+    x = torch.from_numpy(g.integers(-128, 128, xshape).astype(
+        np.int8)).to(cuda_device)
+    w = torch.from_numpy(g.integers(-128, 128, kshape).astype(
+        np.int8)).to(cuda_device)
+    s = torch.from_numpy(g.uniform(1e-4, 1e-2, kshape[-1]).astype(
+        np.float32)).to(cuda_device)
+    kw = dict(strides=strides, pads=pads, dilation=dil, groups=groups)
+    n0 = tqm.launches_conv
+    got = tqm.w8a8_conv3d(x, w, s, **kw)
+    torch.cuda.synchronize()
+    assert tqm.launches_conv == n0 + 1
+    assert torch.equal(got, tqm.w8a8_conv3d(x, w, s, impl="torch", **kw))
+
+
+@pytest.mark.gpu
+def test_quantized_conv3d_layer_on_card(cuda_device):
+    """``Convolution3D`` quantized by the quantizer's leaves: one
+    ``w8a8_conv2d`` launch a forward, bitwise its CPU result; int4
+    through dequantize + ``F.conv3d`` within 1e-5 of its CPU result."""
+    import copy
+
+    from analytics_zoo_tpu_torch.nn.layers.conv import Convolution3D
+    from analytics_zoo_tpu_torch.utils.convert import load_jax_params
+    g = np.random.default_rng(31)
+    x = torch.from_numpy(g.normal(size=(2, 6, 10, 10, 8)).astype(
+        np.float32))
+    for bits in (8, 4):
+        conv = Convolution3D(16, 3, border_mode="same", subsample=(1, 2, 2),
+                             input_shape=(6, 10, 10, 8))
+        conv.init_weights(bits)
+        w = conv.W.detach().numpy()
+        leaves = tq._quantize_w8(w, float(x.abs().max())) if bits == 8 \
+            else tq._quantize_w4(w, 64)
+        leaves["b"] = np.zeros(16, np.float32)
+        load_jax_params(conv, leaves)
+        with torch.no_grad():
+            want = conv(x)
+            card = copy.deepcopy(conv).to(cuda_device)
+            n0 = tqm.launches_conv
+            got = card(x.to(cuda_device)).cpu()
+        if bits == 8:
+            assert tqm.launches_conv == n0 + 1
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

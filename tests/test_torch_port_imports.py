@@ -222,31 +222,6 @@ JAX_PKG = REPO / "analytics_zoo_tpu"
 # yet, by the package that exports them
 NOT_PORTED = {
     "": {"init_nncontext", "mesh"},
-    "nn.layers": {
-        # conv.py
-        "AtrousConvolution2D", "Convolution3D", "Cropping1D", "Cropping2D",
-        "Cropping3D", "Deconvolution2D", "DepthwiseConvolution2D",
-        "LocallyConnected1D", "LocallyConnected2D", "LRN2D",
-        "ResizeBilinear", "SeparableConvolution2D", "ShareConvolution2D",
-        "UpSampling1D", "UpSampling2D", "UpSampling3D", "ZeroPadding1D",
-        "ZeroPadding3D",
-        # pooling.py
-        "AveragePooling3D", "GlobalAveragePooling3D", "GlobalMaxPooling3D",
-        "MaxPooling3D",
-        # math.py
-        "AddConstant", "BinaryThreshold", "CAdd", "CMul", "Exp", "Expand",
-        "GaussianSampler", "GetShape", "HardShrink", "HardTanh",
-        "Identity", "Log", "Max", "Mul", "MulConstant", "Negative",
-        "Power", "RReLU", "Scale", "SelectTable", "Softmax", "SoftShrink",
-        "SplitTensor", "Sqrt", "Square", "Threshold",
-        # embedding.py
-        "SparseDense", "SparseEmbedding", "WordEmbedding",
-        # moe.py
-        "MixtureOfExperts",
-        # advanced.py
-        "ELU", "LeakyReLU", "MaxoutDense", "PReLU", "SReLU",
-        "SpatialDropout1D", "SpatialDropout2D", "ThresholdedReLU",
-        "WithinChannelLRN2D"},
 }
 # JAX packages whose __init__.py exports names and whose port does not
 # exist yet

@@ -10,7 +10,8 @@ in both ``reset_after`` modes, Embedding, BatchNormalization,
 LayerNormalization, the 1-D and 2-D pools and global pools, Flatten,
 Reshape, ZeroPadding2D, Activation, Dropout and the merge family
 (Add / Subtract / Multiply / Average / Maximum / Minimum / Concatenate),
-a shared layer and two inputs with two outputs.
+a shared layer and two inputs with two outputs, and Conv2DTranspose,
+DepthwiseConv2D, SeparableConv2D and UpSampling2D.
 
 - PORT_TOL = 1e-5 against the JAX import: the same weights, f32 sums in
   another order;
@@ -18,8 +19,9 @@ a shared layer and two inputs with two outputs.
   tolerance);
 - the imported param trees have the JAX import's keys and values
   exactly;
-- the layers the port has no counterpart for yet raise
-  ``NotImplementedError`` naming their ROADMAP item.
+- Conv2DTranspose, DepthwiseConv2D, SeparableConv2D and UpSampling2D
+  convert as the JAX importer converts them; a dilated depthwise conv
+  raises in both.
 """
 
 import numpy as np
@@ -151,11 +153,53 @@ def _fn_lstm(g):
     return keras.Model(inp, out), _f(g, 6, 5, 3)
 
 
+def _seq_deconv(g):
+    m = keras.Sequential([keras.Input((5, 6, 3)),
+                          keras.layers.Conv2DTranspose(4, 3, strides=2,
+                                                       padding="same",
+                                                       activation="relu"),
+                          keras.layers.Conv2DTranspose(2, (2, 3), strides=2),
+                          keras.layers.Conv2DTranspose(2, 3, use_bias=False)])
+    return m, _f(g, 2, 5, 6, 3)
+
+
+def _seq_depthwise(g):
+    m = keras.Sequential([keras.Input((8, 8, 3)),
+                          keras.layers.DepthwiseConv2D(3, strides=2,
+                                                       padding="same",
+                                                       depth_multiplier=2),
+                          keras.layers.BatchNormalization(),
+                          keras.layers.Activation("relu6"),
+                          keras.layers.DepthwiseConv2D((2, 3),
+                                                       use_bias=False)])
+    return m, _f(g, 2, 8, 8, 3)
+
+
+def _seq_separable(g):
+    m = keras.Sequential([keras.Input((7, 8, 3)),
+                          keras.layers.SeparableConv2D(5, 3, padding="same",
+                                                       depth_multiplier=2,
+                                                       activation="tanh"),
+                          keras.layers.SeparableConv2D(4, 3, strides=2,
+                                                       use_bias=False)])
+    return m, _f(g, 2, 7, 8, 3)
+
+
+def _fn_upsample(g):
+    inp = keras.Input((4, 5, 3))
+    up = keras.layers.UpSampling2D((2, 3))(inp)
+    conv = keras.layers.Conv2D(3, 3, padding="same")(up)
+    out = keras.layers.Add()([conv, keras.layers.UpSampling2D((2, 3))(inp)])
+    return keras.Model(inp, out), _f(g, 2, 4, 5, 3)
+
+
 CASES = {"seq_dense": _seq_dense, "seq_conv1d": _seq_conv1d,
          "seq_conv2d": _seq_conv2d, "seq_recurrent": _seq_recurrent,
          "seq_gru_layernorm": _seq_gru_layernorm,
          "fn_resnet_block": _fn_resnet_block, "fn_merges": _fn_merges,
-         "fn_lstm": _fn_lstm}
+         "fn_lstm": _fn_lstm, "seq_deconv": _seq_deconv,
+         "seq_depthwise": _seq_depthwise, "seq_separable": _seq_separable,
+         "fn_upsample": _fn_upsample}
 
 
 def _as_list(y):
@@ -201,14 +245,35 @@ def test_import_matches_jax_importer_and_tf(case):
 @pytest.mark.parametrize("layer", ["Conv2DTranspose", "DepthwiseConv2D",
                                    "SeparableConv2D", "UpSampling2D"])
 def test_unported_layers_raise(layer):
+    """The four layers the port once lacked convert to the JAX importer's
+    weights and outputs; with dilation the depthwise and separable convs
+    raise in both packages."""
     build = {"Conv2DTranspose": lambda: keras.layers.Conv2DTranspose(2, 3),
              "DepthwiseConv2D": lambda: keras.layers.DepthwiseConv2D(3),
              "SeparableConv2D": lambda: keras.layers.SeparableConv2D(2, 3),
              "UpSampling2D": lambda: keras.layers.UpSampling2D(2)}[layer]
+    keras.utils.set_random_seed(11)
     m = keras.Sequential([keras.Input((6, 6, 2)), build()])
-    jax_from_tf_keras(m)                  # the JAX package converts it
-    with pytest.raises(NotImplementedError, match="item 8"):
-        from_tf_keras(m, device="cpu")
+    x = _f(np.random.default_rng(12), 3, 6, 6, 2)
+    jax_model = jax_from_tf_keras(m)
+    port = from_tf_keras(m, device="cpu")
+    jp, tp = _leaves(jax_model.get_weights()), _leaves(export_params(port))
+    assert sorted(jp) == sorted(tp)
+    for k in jp:
+        np.testing.assert_array_equal(tp[k], jp[k], err_msg=k)
+    with torch.no_grad():
+        got = port(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_model.predict(x)),
+                               atol=PORT_TOL, rtol=PORT_TOL)
+    if layer in ("DepthwiseConv2D", "SeparableConv2D"):
+        cls = getattr(keras.layers, layer)
+        args = (3,) if layer == "DepthwiseConv2D" else (2, 3)
+        d = keras.Sequential([keras.Input((6, 6, 2)),
+                              cls(*args, dilation_rate=2)])
+        for convert in (jax_from_tf_keras,
+                        lambda t: from_tf_keras(t, device="cpu")):
+            with pytest.raises(NotImplementedError, match="dilation"):
+                convert(d)
 
 
 def test_interop_bridges_raise_and_device_rule(monkeypatch):
