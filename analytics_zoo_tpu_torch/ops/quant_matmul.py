@@ -322,15 +322,18 @@ def w8a8_conv_torch(x_q, w_q, scale, strides, pads, dilation=(1, 1),
                     groups: int = 1):
     """Plain version of ``w8a8_conv2d``: a float64 convolution of the int8
     codes (every partial sum an integer below 2**53, so exact in any
-    order), as int32, rounded to f32 once and multiplied by ``scale``."""
+    order), as int32, rounded to f32 once and multiplied by ``scale``.
+    The output is contiguous NHWC, as the kernel writes it: a layer after
+    it that reduces over the channels (``NormalizeScale``) then sums in
+    the same order on both routes."""
     _conv_geometry(x_q, w_q.shape, strides, pads, dilation, groups)
     xd = _pad_nhwc(x_q.to(torch.float64), pads).permute(0, 3, 1, 2)
     wd = w_q.to(torch.float64).permute(3, 2, 0, 1)
     acc = F.conv2d(xd, wd, stride=tuple(int(s) for s in strides),
                    dilation=tuple(int(d) for d in dilation),
                    groups=int(groups))
-    return acc.permute(0, 2, 3, 1).to(torch.int32).to(torch.float32) \
-        * scale.to(torch.float32)
+    return acc.permute(0, 2, 3, 1).contiguous().to(torch.int32).to(
+        torch.float32) * scale.to(torch.float32)
 
 
 # the w8a8_conv2d kernel's tiles (csrc/quant_conv.cu: kCvBM, kCvBK,

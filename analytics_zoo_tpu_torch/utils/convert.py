@@ -21,6 +21,7 @@ checked shapes (a missing or extra leaf raises):
   ``Convolution2D`` ``{W (kh, kw, cin, cout), b}`` (int8 ``{W_q, s_w,
   s_x, b}``, int4 ``{W_q4, s_g, b}``, switched to as ``Dense`` is:
   ``_ConvND.adopt_leaves``), ``BatchNormalization`` ``{gamma, beta}``,
+  SSD's ``NormalizeScale`` ``{gamma (C,)}``,
   ``Embedding`` ``{E (input_dim, output_dim)}``, the recurrent layers
   (``nn/layers/recurrent.py``) ``{Wx, Wh, b}`` (``GRU(reset_after=True)``
   adds ``br``; ConvLSTM ``Wx`` (k…, C, 4F), ``Wh`` (k…, F, 4F)),

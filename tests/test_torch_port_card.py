@@ -33,7 +33,10 @@ front door: a warmed engine's HTTP gateway serving paged generation (the
 eager batcher's tokens, graph replays only, the tenant's tokens charged),
 a ``/debug/profile`` trace holding the paged kernel with
 ``card_launches`` counting as before after it, and the resource ledger
-against the allocator.
+against the allocator.  Object detection: SSD-VGG16-300 quantized through
+``InferenceModel`` (int8 bitwise the plain route with 30 ``w8a8_conv2d`` +
+5 ``w8a8`` launches, int4 within atol 1e-4 / rtol 1e-5 with 5 ``w4a16``),
+and ``multibox_loss``'s hard-negative tie order on the card as on the CPU.
 """
 
 import threading
@@ -1606,3 +1609,70 @@ def test_quantized_conv3d_layer_on_card(cuda_device):
             assert torch.equal(got, want)
         else:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# -- object detection: SSD-VGG16-300 quantized -------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ssd_vgg_quantized_forward_on_card(cuda_device, bits):
+    """``SSDVGG(4, resolution=300)`` through ``InferenceModel`` at batch 4,
+    quantized by ``do_quantize``: int8 runs its 30 spatial convs on
+    ``w8a8_conv2d`` and its 5 pointwise ones on ``w8a8``, loc and conf
+    bitwise the plain route's; int4 runs the 5 pointwise ones on
+    ``w4a16`` (the spatial ones dequantize into f32 cuDNN), within atol
+    1e-4 / rtol 1e-5 of the plain route.  Launches a forward counted on
+    the card (a profiler trace) and by the wrappers."""
+    from analytics_zoo_tpu_torch.models.objectdetection import SSDVGG
+    ssd = SSDVGG(4, resolution=300, device=cuda_device)
+    ssd.model.init_weights(bits)
+    x = np.random.default_rng(bits).uniform(
+        0, 1, (4, 300, 300, 3)).astype(np.float32)
+    im = InferenceModel(max_batch=4, device=cuda_device).do_load_model(
+        ssd.model)
+    im.do_quantize(x[:2] if bits == 8 else None, force=True, bits=bits)
+    assert len(tq._target_layers(im._model, im._params)) == 35
+    im.do_predict(x, batch_size=4)                   # warm
+    n0 = (tqm.launches_conv, tqm.launches_w8a8, tqm.launches_w4a16)
+    with _impl.card_launches(("w8a8_conv", "w8a8", "w4a16")) as card:
+        loc, conf = im.do_predict(x, batch_size=4)
+        torch.cuda.synchronize()
+    n1 = (tqm.launches_conv, tqm.launches_w8a8, tqm.launches_w4a16)
+    want = (30, 5, 0) if bits == 8 else (0, 0, 5)
+    assert tuple(b - a for a, b in zip(n0, n1)) == want
+    assert (card["w8a8_conv"], card["w8a8"], card["w4a16"]) == want
+    for m in im._model.modules():
+        if hasattr(m, "impl"):
+            m.impl = "torch"
+    ref_loc, ref_conf = im.do_predict(x, batch_size=4)
+    assert loc.shape == (4, 8732, 4) and conf.shape == (4, 8732, 4)
+    if bits == 8:
+        assert np.array_equal(loc, ref_loc) and np.array_equal(conf, ref_conf)
+    else:
+        np.testing.assert_allclose(loc, ref_loc, atol=1e-4, rtol=1e-5)
+        np.testing.assert_allclose(conf, ref_conf, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_multibox_loss_ranks_ties_stably_on_card(cuda_device):
+    """Hard-negative mining on the card keeps the lowest-indexed of equal
+    CE negatives (a stable sort), as on the CPU: the gradients of a batch
+    whose negatives all tie equal the CPU's."""
+    from analytics_zoo_tpu_torch.models.objectdetection import multibox_loss
+    g = np.random.default_rng(5)
+    conf = np.zeros((2, 4096, 4), np.float32)
+    conf[:, ::7] = g.normal(size=conf[:, ::7].shape)
+    loc = g.normal(size=(2, 4096, 4)).astype(np.float32)
+    y = np.zeros((2, 4096, 5), np.float32)
+    y[0, [3, 100, 2000], 0] = [1, 2, 3]
+    y[1, 17, 0] = 2
+    y[..., 1:] = g.normal(size=(2, 4096, 4))
+    grads = []
+    for dev in ("cpu", cuda_device):
+        lt = torch.tensor(loc, device=dev, requires_grad=True)
+        ct = torch.tensor(conf, device=dev, requires_grad=True)
+        multibox_loss([lt, ct], torch.tensor(y, device=dev),
+                      class_num=4).sum().backward()
+        grads.append((lt.grad.cpu(), ct.grad.cpu()))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
