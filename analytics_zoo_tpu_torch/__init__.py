@@ -18,7 +18,7 @@ torch.backends.cudnn.allow_tf32 = False
 # the JAX package's public names, exported from the same places (after the
 # TF32 switch, so no import runs before it)
 from analytics_zoo_tpu_torch.common.context import (  # noqa: E402,F401
-    ZooConf, ZooContext, get_context, init_context)
+    ZooConf, ZooContext, get_context, init_context, init_nncontext, mesh)
 from analytics_zoo_tpu_torch.common import dtypes  # noqa: E402,F401
 
 __version__ = "0.1.0"

@@ -21,7 +21,9 @@ gives the metrics of the sequential loop.
 
 ``device=`` follows the port's device rule.  ``distributed=True`` is a
 no-op in one process, as in the JAX package; over a ``torch.distributed``
-world of several processes it raises (ROADMAP queue 1, item 7).
+world of several processes it dispatches the trials round-robin over
+them (``search.MultiProcessSearchEngine``), each process training its
+trials in a process-local context.
 """
 
 from __future__ import annotations
@@ -291,7 +293,9 @@ class TimeSequencePredictor:
     """Searches the recipe's space, one trial a sampled config, and
     returns the best config's pipeline.  ``distributed=True`` is a no-op
     in one process (the JAX package's, too); over several
-    ``torch.distributed`` processes it raises."""
+    ``torch.distributed`` processes the trials split round-robin over
+    them (``MultiProcessSearchEngine``), whose context must be
+    process-local (``init_context(devices=[rank])``)."""
 
     def __init__(self, dt_col: str = "datetime", target_col: str = "value",
                  extra_features_col: Optional[Sequence[str]] = None,
@@ -338,9 +342,9 @@ class TimeSequencePredictor:
         if self.distributed and torch.distributed.is_available() \
                 and torch.distributed.is_initialized() \
                 and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "distributed=True over several processes (the JAX "
-                "MultiProcessSearchEngine): ROADMAP queue 1, item 7")
+            from analytics_zoo_tpu_torch.automl.search import \
+                MultiProcessSearchEngine
+            engine = MultiProcessSearchEngine(engine)
 
         def train_fn(cfg: Dict) -> float:
             model, ft, cfg, x, y, lookback = self._train_one(cfg, input_df)

@@ -9,14 +9,16 @@ The engines are native: sequential (or thread-pooled) trials over
 sampled configs.  Space primitives mirror automl/config/recipe.py usage
 (tune.uniform/qrandint/choice...).
 
-Not ported: ``MultiProcessSearchEngine`` (trials dispatched over
-``jax.distributed`` processes; the JAX ``automl/__init__.py`` does not
-export it): ROADMAP queue 1, item 7.
+``MultiProcessSearchEngine`` dispatches trials over the processes of a
+``torch.distributed`` world (the JAX one over ``jax.distributed``'s);
+like the JAX ``automl/__init__.py``, the package does not export it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import math
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -268,3 +270,83 @@ class BayesSearchEngine(SearchEngine):
                         cfg[k] = v.sample(rng)
             self.trials.append(Trial(cfg, float(train_fn(cfg))))
         return self.trials
+
+
+class MultiProcessSearchEngine(SearchEngine):
+    """Round-robin trial dispatch over the processes of a
+    ``torch.distributed`` world (the RayTuneSearchEngine.py:133-150
+    cluster ``tune.run`` analog without Ray).
+
+    Every process derives the SAME config list from the wrapped engine's
+    ``sample_all(space)`` (shared seed); process p runs trials p, p+N,
+    p+2N, ... on its own device, and the per-trial metrics (with each
+    trial's crash flag) are exchanged with ONE ``all_gather_object`` at
+    the end, the only communication of the search.  ``train_fn`` must be
+    process-local: build the training context over this process alone
+    (``init_context(devices=[rank])``) so that no trial issues a
+    collective.  A world of one runs the wrapped engine's own loop
+    (thread-pooled by its own parallelism)."""
+
+    def __init__(self, inner: SearchEngine, mode: Optional[str] = None):
+        if not hasattr(inner, "sample_all"):
+            raise TypeError(
+                f"{type(inner).__name__} cannot pre-enumerate its configs "
+                "(no sample_all); use RandomSearchEngine or "
+                "GridRandomSearchEngine as the inner engine")
+        super().__init__(mode or inner.mode)
+        self.inner = inner
+
+    def run(self, train_fn, space):
+        import torch.distributed as dist
+
+        from analytics_zoo_tpu_torch.common import context
+        pc, pi = 1, 0
+        if dist.is_available() and dist.is_initialized():
+            pc, pi = dist.get_world_size(), dist.get_rank()
+        if pc == 1:
+            self.trials = self.inner.run(train_fn, space)
+            return self.trials
+        ctx = context._global_ctx
+        if ctx is not None and ctx.is_multi_host:
+            # a context over the world would make every trial a
+            # collective program: different configs on different
+            # processes then issue mismatched collectives and hang
+            raise RuntimeError(
+                "MultiProcessSearchEngine needs a PROCESS-LOCAL training "
+                "context: call init_context(devices=[rank]) before the "
+                f"search (the current context's mesh spans "
+                f"{ctx.process_count} processes)")
+        configs = self.inner.sample_all(space)
+        n = len(configs)
+        metrics, failed, errors = self._run_local(configs, train_fn, pi, pc)
+        gathered = [None] * pc
+        dist.all_gather_object(gathered, (metrics.tolist(),
+                                          failed.tolist()))
+        # trial i ran on process i % pc
+        metrics = np.asarray([gathered[i % pc][0][i] for i in range(n)])
+        failed = np.asarray([gathered[i % pc][1][i] for i in range(n)])
+        self.trials = [
+            Trial(c, float(m), failed=bool(f), error=errors.get(i))
+            for i, (c, m, f) in enumerate(zip(configs, metrics, failed))]
+        return self.trials
+
+    def _run_local(self, configs, train_fn, pi: int, pc: int):
+        """Run this process's slice of the config list.  A crashed trial
+        is scored as the worst metric AND flagged, and must not strand
+        the other processes in the final gather."""
+        n = len(configs)
+        worst = math.inf if self.mode == "min" else -math.inf
+        metrics = np.full((n,), np.nan, np.float64)
+        failed = np.zeros((n,), np.float64)
+        errors: Dict[int, str] = {}
+        for i in range(pi, n, pc):
+            try:
+                metrics[i] = float(train_fn(configs[i]))
+            except Exception as e:  # noqa: BLE001
+                logging.getLogger(__name__).warning(
+                    "trial %d failed (%s: %s); scored as %s",
+                    i, type(e).__name__, e, worst)
+                metrics[i] = worst
+                failed[i] = 1.0
+                errors[i] = f"{type(e).__name__}: {e}"
+        return metrics, failed, errors

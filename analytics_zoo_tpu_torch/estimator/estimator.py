@@ -38,8 +38,34 @@ the epoch again), the SIGTERM / SIGINT preemption guard, TensorBoard
 event files (``utils/tbwriter.py``), and a ``torch.profiler`` trace of a
 whole fit under ``conf.profile_dir``.
 
-Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: ``param_plan`` and multi-process training.
+Several processes (one a GPU, ``common/context.py``'s world and mesh),
+as in the JAX multi-host Estimator:
+
+- each rank feeds the rows of its ``data`` coordinate (its process-local
+  partition; ranks that share the coordinate feed the same rows):
+  ``batch_size`` is the global batch, each rank's feed batch
+  ``batch_size / data``; short partitions are padded with weight-0
+  batches up to the longest one's count, so every rank runs the same
+  steps (``_sync_batch_count``);
+- with a ``seq`` axis > 1 the token axis of the model input, and of every
+  array whose axis 1 has its length, is sharded over ``seq``
+  (``ZooContext.batch_sharding_for``) and the forward runs inside
+  ``parallel/ring_attention.sequence_sharded``;
+- ``param_plan`` (a ``parallel/sharding.ShardingPlan``) puts the model
+  into its parallel form before the first step;
+- the loss is the weighted mean over the GLOBAL batch: each rank's share
+  is ``sum(per · w) / W``, W the weights summed over ``data``, and a
+  sample's mean over its tokens counts all its ``seq`` shards; the
+  gradients (and the reported loss) are summed over ``data`` and
+  ``seq``, never averaged again.  Gradients along ``model``, ``pipe`` and
+  ``expert`` come out whole from the parallel forms' collectives, and
+  global-norm clipping sums the squares of sharded leaves over their
+  axes.
+
+``steps_per_call = k`` keeps its CUDA graph where every collective can be
+captured (NCCL).  A gloo world stages CUDA tensors through host memory,
+so its groups run eagerly, as on the CPU; ``fit_summary()["route"]``
+says which route the last fit took.
 """
 
 from __future__ import annotations
@@ -56,7 +82,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.common.context import get_context
+from analytics_zoo_tpu_torch.common.context import (DATA_AXIS, SEQ_AXIS,
+                                                    get_context)
 from analytics_zoo_tpu_torch.common.resilience import RetryPolicy
 from analytics_zoo_tpu_torch.common.triggers import (EveryEpoch, TrainState,
                                                      ZooTrigger)
@@ -314,7 +341,7 @@ class _GraphSteps:
                 return est._eager_group(group)
             prog = self.graphs[(k, sig)] = self._capture(group, sites)
         xs, ys, ws, scal, gens = prog.inputs
-        for i, (sx, sy, sw, _) in enumerate(group):
+        for i, (sx, sy, sw, *_) in enumerate(group):
             for dst, src in ((xs[i], sx), (ys[i], sy), (ws[i], sw)):
                 _tmap(lambda d, s: d.copy_(s), dst, src)
         rows = [est.optimizer.step_scalars(est.opt_state) for _ in range(k)]
@@ -364,11 +391,8 @@ class Estimator:
                  ctx=None, clip_norm: Optional[float] = None,
                  clip_value: Optional[float] = None, param_plan=None,
                  registry=None):
-        if param_plan is not None:
-            raise NotImplementedError(
-                "param_plan (a tensor-parallel layout): ROADMAP queue 1, "
-                "item 7")
         self.model = model
+        self.param_plan = param_plan
         self.ctx = ctx or get_context()
         opt = optimizers_lib.get(optimizer) if optimizer is not None \
             else None
@@ -391,6 +415,10 @@ class Estimator:
         self.profile_path: Optional[str] = None   # the last fit's trace
         self._obs_registry = registry
         self._fit_obs = None
+        self.route: Optional[str] = None   # the last fit's: graph | eager
+        # the global token length of the batch being stepped, when its
+        # tokens are sharded over seq (else None)
+        self._seq_total: Optional[int] = None
 
     @property
     def device(self) -> torch.device:
@@ -428,7 +456,7 @@ class Estimator:
                 "samples": obs["samples"].value,
                 "step_time": obs["step_time"].snapshot(),
                 "samples_per_second": obs["throughput"].value,
-                "loss": obs["loss"].value}
+                "loss": obs["loss"].value, "route": self.route}
 
     # -- configuration --------------------------------------------------------
     def set_checkpoint(self, directory: str,
@@ -456,17 +484,49 @@ class Estimator:
     def _ensure_init(self):
         """The parameter list, and the optimizer state on the parameters'
         device (the JAX ``_ensure_init``; a port model owns its
-        parameters from construction)."""
-        if torch.distributed.is_available() \
-                and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "multi-process training: ROADMAP queue 1, item 7")
+        parameters from construction).  A ``param_plan`` first puts the
+        model into its parallel form, each rank keeping its slices."""
         if self.params is not None:
             return
+        mesh = self.ctx.mesh
+        if self.param_plan is not None \
+                and getattr(self.model, "shard_layout", None) is None:
+            self.param_plan.shard(self.model, mesh)
         self.params = list(self.model.parameters())
+        # gradients and the loss are summed over the axes along which
+        # each rank's loss is its share (a world of one keeps data's)
+        self._reduce_axes = [a for a in (DATA_AXIS, SEQ_AXIS)
+                             if mesh.group(a) is not None]
         if self.optimizer is not None:
             self.opt_state = self.optimizer.init(self.params)
+            self._shard_aware_clipping()
+
+    def _shard_aware_clipping(self):
+        """Global-norm clipping over sharded leaves: a leaf split over an
+        axis adds its squares summed over that axis's ranks (replicated
+        leaves count once)."""
+        axes_of = [tuple(getattr(p, "_zoo_shard_axes", ()))
+                   for p in self.params]
+        if not any(axes_of):
+            return
+        from analytics_zoo_tpu_torch.parallel import comm
+        mesh = self.ctx.mesh
+        groups: Dict[tuple, List[int]] = {}
+        for i, axes in enumerate(axes_of):
+            groups.setdefault(axes, []).append(i)
+
+        def total_sq(sq):
+            out = None
+            for axes, idx in groups.items():
+                part = torch.stack([sq[i] for i in idx]).sum()
+                if axes:
+                    part = comm.all_reduce_(part, axes, mesh)
+                out = part if out is None else out + part
+            return out
+
+        for t in optimizers_lib.transforms(self.optimizer):
+            if isinstance(t, optimizers_lib.ClipByGlobalNorm):
+                t.reduce_sq = total_sq
 
     # -- checkpoint save/restore ----------------------------------------------
     def _ckpt_tree(self) -> Dict:
@@ -503,9 +563,51 @@ class Estimator:
     # -- steps ------------------------------------------------------------------
     def _loss_sum(self, y_pred, y, w):
         """sum(per * w) of the per-sample loss, averaged over each
-        sample's non-batch axes."""
+        sample's non-batch axes (all its ``seq`` shards' elements when
+        the batch's tokens are sharded)."""
         per = self.loss(y_pred, y)
-        return (per.reshape(per.shape[0], -1).mean(dim=-1) * w).sum()
+        mean = per.reshape(per.shape[0], -1).mean(dim=-1)
+        if self._seq_total is not None:
+            mean = mean / self.ctx.mesh.size(SEQ_AXIS)
+        return (mean * w).sum()
+
+    def _forward(self, x):
+        """The model on a batch; a seq-sharded batch runs inside
+        ``sequence_sharded``."""
+        if self._seq_total is None:
+            return self.model(x)
+        from analytics_zoo_tpu_torch.parallel.ring_attention import \
+            sequence_sharded
+        with sequence_sharded(self.ctx.mesh, self._seq_total):
+            return self.model(x)
+
+    def _global_weight(self, w) -> torch.Tensor:
+        """The weights summed over the global batch (``data``'s ranks)."""
+        wsum = w.sum()
+        if DATA_AXIS in self._reduce_axes:
+            from analytics_zoo_tpu_torch.parallel import comm
+            wsum = comm.all_reduce_(wsum.clone(), (DATA_AXIS,),
+                                    self.ctx.mesh)
+        return wsum
+
+    def _reduce_grads(self, grads, loss):
+        """Sum the gradients and the loss share over the reduce axes, in
+        one all-reduce of a flat buffer; returns the global loss."""
+        from analytics_zoo_tpu_torch.parallel import comm
+        mesh = self.ctx.mesh
+        if len({g.dtype for g in grads} | {loss.dtype}) > 1:
+            for g in grads:
+                comm.all_reduce_(g, self._reduce_axes, mesh)
+            return comm.all_reduce_(loss.detach().clone(),
+                                    self._reduce_axes, mesh)
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [loss.detach().reshape(1)])
+        comm.all_reduce_(flat, self._reduce_axes, mesh)
+        at = 0
+        for g in grads:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return flat[-1]
 
     def _seed_step(self, step: int):
         self.model.seed_dropout(split_seed(self.ctx.conf.seed, step))
@@ -516,11 +618,14 @@ class Estimator:
         tensors.  Nothing reads the device back."""
         for p in self.params:
             p.grad = None
-        loss = self._loss_sum(self.model(x), y, w) / w.sum().clamp_min(1e-8)
+        loss = self._loss_sum(self._forward(x), y, w) \
+            / self._global_weight(w).clamp_min(1e-8)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         with torch.no_grad():
+            if self._reduce_axes:
+                loss = self._reduce_grads(grads, loss)
             if scalars is None:
                 updates = self.optimizer.update(grads, self.opt_state,
                                                 self.params)
@@ -538,17 +643,21 @@ class Estimator:
 
     def _eager_group(self, group) -> List[torch.Tensor]:
         losses = []
-        for sx, sy, sw, _ in group:
+        for sx, sy, sw, *_ in group:
             losses.append(self._train_step(sx, sy, sw))
             self.global_step += 1
         return losses
 
     def _graph_route(self) -> bool:
         """Groups of steps run as CUDA graphs: on the card, unless a
-        layer is set to its plain version."""
-        return self.device.type == "cuda" and not any(
-            getattr(m, "impl", None) == "torch"
-            for m in self.model.modules())
+        layer is set to its plain version or a collective of the fit goes
+        through host memory (a gloo group)."""
+        if self.device.type != "cuda" or any(
+                getattr(m, "impl", None) == "torch"
+                for m in self.model.modules()):
+            return False
+        return not any(torch.distributed.get_backend(g) == "gloo"
+                       for g in self.ctx.mesh._groups.values())
 
     # -- public API -----------------------------------------------------------
     def fit(self, x, y=None, *, batch_size=32, epochs=1, validation_data=None,
@@ -580,6 +689,7 @@ class Estimator:
                     else contextlib.nullcontext())
         graphs = (_GraphSteps(self) if steps_per_call > 1
                   and self._graph_route() else None)
+        self.route = "graph" if graphs is not None else "eager"
         self.model.train()
         with profile_cm, guard_cm as guard:
             self._guard = guard
@@ -629,11 +739,80 @@ class Estimator:
         finally:
             _impl.PROFILER_LOCK.release()
 
+    def _feed_batch(self, batch_size: int) -> int:
+        """This rank's feed batch: the global ``batch_size`` (rounded up
+        to a multiple of the data axis) over the data axis."""
+        dp = self.ctx.data_parallel_size
+        return -(-int(batch_size) // dp)
+
+    def _seq_view(self, bx, by):
+        """This rank's token block of a host batch when the mesh shards
+        tokens over seq: every array whose axis 1 is the model input's
+        token axis (``batch_sharding_for``); returns (x, y, the global
+        token length or None)."""
+        mesh = self.ctx.mesh
+        n = mesh.size(SEQ_AXIS)
+        if n == 1:
+            return bx, by, None
+        leaves = bx if isinstance(bx, (list, tuple)) else [bx]
+        first = next((a for a in leaves if np.ndim(a) >= 2), None)
+        if first is None:
+            return bx, by, None
+        t = int(np.shape(first)[1])
+        if "seq" not in self.ctx.batch_sharding_for(np.shape(first), t):
+            return bx, by, None
+        tl, i = t // n, mesh.index(SEQ_AXIS)
+
+        def cut(a):
+            if a is None:
+                return None
+            if isinstance(a, (list, tuple)):
+                return [cut(v) for v in a]
+            return a[:, i * tl:(i + 1) * tl] if np.ndim(a) >= 2 \
+                and np.shape(a)[1] == t else a
+        x, y = cut(bx), cut(by)
+        ys = y if isinstance(y, (list, tuple)) else [y]
+        if any(v is not None and (np.ndim(v) < 2 or np.shape(v)[1] != tl)
+               for v in ys):
+            raise NotImplementedError(
+                "a sequence-sharded fit needs labels aligned with the "
+                f"tokens ((B, {t}, ...)); got label shapes "
+                f"{[np.shape(v) for v in ys if v is not None]}")
+        return x, y, t
+
     def _transfer(self, item):
         bx, by, bw = item
+        bx, by, total = self._seq_view(bx, by)
         dev = self.device
         return (_to_device(bx, dev), _to_device(by, dev),
-                _to_device(bw, dev), float(bw.sum()))
+                _to_device(bw, dev), float(bw.sum()), total)
+
+    def _global_batches(self, local_n: int, feed_bs: int) -> Optional[int]:
+        """Every rank's batch count this epoch: the longest partition's
+        (None in one process).  Runs on the caller's thread: the infeed
+        thread issues no collective."""
+        if not self.ctx.is_multi_host:
+            return None
+        from analytics_zoo_tpu_torch.parallel import comm
+        counts = comm.all_gather_object(int(local_n), mesh=self.ctx.mesh)
+        return -(-max(counts) // feed_bs)
+
+    @staticmethod
+    def _sync_batch_count(batch_iter, feed_bs: int, target: Optional[int]):
+        """Pad a short partition's batches with weight-0 copies of its
+        last batch up to ``target``, so every rank dispatches the same
+        number of collective steps (the zero weights mask them out of
+        the loss like the in-batch pad rows)."""
+        done, template = 0, None
+        for item in batch_iter:
+            template = item
+            done += 1
+            yield item
+        if target is None:
+            return
+        bx, by, _ = template
+        for _ in range(target - done):
+            yield (bx, by, np.zeros((feed_bs,), np.float32))
 
     def _fit_loop(self, data, batch_size, epochs, validation_data, shuffle,
                   verbose, log_every, end_trigger, k, graphs, hist, np_rng,
@@ -646,13 +825,17 @@ class Estimator:
             t0 = time.time()
             losses, seen = [], 0
             t_step = time.perf_counter()
+            feed_bs = self._feed_batch(batch_size)
+            target = self._global_batches(data.size(), feed_bs)
             feed = _DevicePrefetcher(
-                self._grouped(data.batches(batch_size, shuffle=shuffle,
-                                           rng=np_rng, pad_final=True), k),
+                self._grouped(self._sync_batch_count(
+                    data.batches(feed_bs, shuffle=shuffle, rng=np_rng,
+                                 pad_final=True), feed_bs, target), k),
                 lambda grp: [self._transfer(b) for b in grp], _INFEED_DEPTH)
             try:
                 for group in feed:
                     step0 = self.global_step
+                    self._seq_total = group[0][4]
                     ls = (graphs.run(group) if graphs is not None
                           else self._eager_group(group))
                     n = len(ls)
@@ -807,11 +990,15 @@ class Estimator:
         # accumulate on the device; one readback at the end
         loss_sum = torch.zeros((), device=self.device)
         w_sum = torch.zeros((), device=self.device)
-        feed = _DevicePrefetcher(data.batches(batch_size, pad_final=True),
-                                 self._transfer, _INFEED_DEPTH)
+        feed_bs = self._feed_batch(batch_size)
+        target = self._global_batches(data.size(), feed_bs)
+        feed = _DevicePrefetcher(self._sync_batch_count(
+            data.batches(feed_bs, pad_final=True), feed_bs, target),
+            self._transfer, _INFEED_DEPTH)
         try:
-            for sx, sy, sw, _ in feed:
-                y_pred = self.model(sx)
+            for sx, sy, sw, _, total in feed:
+                self._seq_total = total
+                y_pred = self._forward(sx)
                 accs = [m.update(acc, y_pred, sy, sw)
                         for m, acc in zip(self.metrics, accs)]
                 if self.loss is not None:
@@ -819,6 +1006,20 @@ class Estimator:
                 w_sum = w_sum + sw.sum()
         finally:
             feed.close()
+        if self._reduce_axes:
+            # global sums: the loss and per-token counts over data and
+            # (for sharded tokens) seq, the weights over data
+            from analytics_zoo_tpu_torch.parallel import comm
+            mesh = self.ctx.mesh
+            axes = self._reduce_axes if self._seq_total is not None \
+                else [a for a in self._reduce_axes if a == DATA_AXIS]
+            comm.all_reduce_(loss_sum, axes, mesh)
+            comm.all_reduce_(w_sum, [a for a in axes if a == DATA_AXIS],
+                             mesh)
+            for acc in accs:
+                for v in acc.values():
+                    comm.all_reduce_(v, axes, mesh)
+        self._seq_total = None
         out = {m.name: m.result(acc) for m, acc in zip(self.metrics, accs)}
         w = float(w_sum)
         if self.loss is not None and w > 0:
@@ -843,19 +1044,26 @@ class Estimator:
                 outs.append(yb[:take].cpu().numpy())
             n_left -= take
 
-        feed = _DevicePrefetcher(data.batches(batch_size, pad_final=True),
-                                 lambda b: (_to_device(b[0], self.device),
-                                            int(b[2].shape[0])),
-                                 _INFEED_DEPTH)
+        feed_bs = self._feed_batch(batch_size)
+        target = self._global_batches(data.size(), feed_bs)
+        feed = _DevicePrefetcher(self._sync_batch_count(
+            data.batches(feed_bs, pad_final=True), feed_bs, target),
+            lambda b: self._transfer(b)[::4] + (int(b[2].shape[0]),),
+            _INFEED_DEPTH)
         pending = None  # one-batch-lag readback: batch k's host copy
         try:            # waits behind batch k+1's device work
-            for sx, nb in feed:
-                yb = self.model(sx)
+            for sx, total, nb in feed:
+                self._seq_total = total
+                yb = self._forward(sx)
+                if total is not None:       # the tokens back whole
+                    from analytics_zoo_tpu_torch.parallel import comm
+                    yb = comm.all_gather(yb, SEQ_AXIS, 1, self.ctx.mesh)
                 if pending is not None:
                     readback(*pending)
                 pending = (yb, nb)
         finally:
             feed.close()
+            self._seq_total = None
         if pending is not None:
             readback(*pending)
         if isinstance(outs[0], list):

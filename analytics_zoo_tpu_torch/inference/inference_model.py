@@ -294,8 +294,8 @@ class InferenceModel:
     do_load_onnx = _not_ported("the ONNX bridge (ROADMAP queue 1, item 10)")
     do_load_pytorch = _not_ported("the TorchScript bridge (ROADMAP queue 1, "
                                   "item 10)")
-    shard = _not_ported("sharded predict (multi-GPU, ROADMAP queue 1, "
-                        "item 7)")
+    shard = _not_ported("sharded predict (multi-GPU serving, ROADMAP "
+                        "queue 1, item 7's second part)")
 
     # -- quantization -------------------------------------------------------------
     def do_quantize(self, calib_inputs, force: bool = False, bits: int = 8,

@@ -34,6 +34,12 @@ from analytics_zoo_tpu_torch.nn import activations
 from analytics_zoo_tpu_torch.nn.module import (Layer, dropout, generator,
                                                to_shape)
 from analytics_zoo_tpu_torch.ops.attention import attention_bthd
+from analytics_zoo_tpu_torch.parallel import comm
+from analytics_zoo_tpu_torch.parallel.sharding import (Layout, check_specs,
+                                                      column_axis,
+                                                      held_or_sliced,
+                                                      row_axis, take_shard,
+                                                      vocab_parallel_rows)
 
 
 def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -93,9 +99,32 @@ class _Linear(nn.Module):
         return {"W": self.W, "b": self.b}
 
 
+def _mm(x, W, b=None):
+    xw, Ww = dtypes.cast_compute(x, W)
+    y = dtypes.matmul(xw, Ww, torch.float32)
+    return y if b is None else y + b
+
+
 def _linear(p: _Linear, x):
-    xw, W = dtypes.cast_compute(x, p.W)
-    return dtypes.matmul(xw, W, torch.float32) + p.b
+    return _mm(x, p.W, p.b)
+
+
+class _Parallel:
+    """A layer's parallel form: the axis its leaves split over, the mesh,
+    and which of its leaves this rank holds a slice of."""
+
+    def __init__(self, axis: str, mesh, held):
+        self.axis, self.mesh, self.held = axis, mesh, set(held)
+        self.n = mesh.size(axis)
+
+    def leaf(self, t, rel: str, layout: Layout):
+        return held_or_sliced(t, rel in self.held, layout, self.mesh)
+
+    def take(self, layer_part, attr: str, rel: str, specs, layout: Layout):
+        if tuple(specs.get(rel, ())):
+            take_shard(layer_part, attr, layout, self.mesh)
+            return {rel: layout}
+        return {}
 
 
 class MultiHeadAttention(Layer):
@@ -117,12 +146,34 @@ class MultiHeadAttention(Layer):
         self.std = initializer_range
         # the flash kernel or its plain version (ops/_impl.resolve_impl)
         self.impl: Optional[str] = None
+        self._tp: Optional[_Parallel] = None
         self.ensure_built(input_shape)
 
     def build(self, input_shape):
         h = self.hidden_size
         self.qkv = _Linear(h, 3 * h)
         self.out = _Linear(h, h)
+
+    def shard_leaves(self, specs, mesh):
+        """Tensor-parallel form (``parallel/sharding``): ``qkv`` column-
+        parallel over heads, a rank holding its heads' q, k and v columns
+        (the columns split as three runs); ``out`` row-parallel over the
+        same heads, its sum an all-reduce.  A replicated ``qkv/b`` or
+        ``out/W`` is sliced the same way at each call."""
+        ax = column_axis(specs.get("qkv/W", ()))
+        check_specs(self, specs, {"qkv/W": {(None, ax)},
+                                  "qkv/b": {(), (ax,)},
+                                  "out/W": {(), (ax,)}, "out/b": {()}})
+        n = mesh.size(ax)
+        if self.n_head % n:
+            raise ValueError(f"{self.name}: {self.n_head} heads do not "
+                             f"split over {ax!r} ({n} ranks)")
+        held = [r for r in ("qkv/W", "qkv/b", "out/W") if tuple(specs[r])]
+        tp = self._tp = _Parallel(ax, mesh, held)
+        lays = tp.take(self.qkv, "W", "qkv/W", specs, Layout(1, ax, 3))
+        lays.update(tp.take(self.qkv, "b", "qkv/b", specs, Layout(0, ax, 3)))
+        lays.update(tp.take(self.out, "W", "out/W", specs, Layout(0, ax, 1)))
+        return lays
 
     def reset_parameters(self, gen):
         self.qkv.reset(gen, self.std)
@@ -134,7 +185,13 @@ class MultiHeadAttention(Layer):
     def attend(self, x, mask=None):
         B, T, H = x.shape
         nh, hd = self.n_head, H // self.n_head
-        qkv = _linear(self.qkv, x)                            # (B, T, 3H)
+        tp = self._tp
+        if tp is not None:                   # this rank's heads
+            nh, H = nh // tp.n, H // tp.n
+            qkv = _mm(comm.copy_to(x, tp.axis, tp.mesh), self.qkv.W,
+                      tp.leaf(self.qkv.b, "qkv/b", Layout(0, tp.axis, 3)))
+        else:
+            qkv = _linear(self.qkv, x)                        # (B, T, 3H)
         # views in the (B, T, heads, D) layout: no copy, the flash kernel
         # reads them through their strides
         q, k, v = (t.unflatten(-1, (nh, hd))
@@ -147,7 +204,12 @@ class MultiHeadAttention(Layer):
         y = attention_bthd(q, k, v, mask=mask, causal=self.causal,
                            dropout_rate=rate, dropout_rng=attn_gen,
                            impl=self.impl)
-        y = _linear(self.out, y.reshape(B, T, H))
+        if tp is not None:
+            y = comm.psum(_mm(y.reshape(B, T, H), tp.leaf(
+                self.out.W, "out/W", Layout(0, tp.axis, 1))), tp.axis,
+                tp.mesh) + self.out.b
+        else:
+            y = _linear(self.out, y.reshape(B, T, H))
         if resid_seed is not None and self.resid_drop > 0.0:
             y = dropout(y, self.resid_drop, resid_seed)
         return y
@@ -165,11 +227,27 @@ class PositionwiseFFN(Layer):
         self.i = int(intermediate_size)
         self.act = activations.get(activation)
         self.std = initializer_range
+        self._tp: Optional[_Parallel] = None
         self.ensure_built(input_shape)
 
     def build(self, input_shape):
         self.fc = _Linear(self.h, self.i)
         self.proj = _Linear(self.i, self.h)
+
+    def shard_leaves(self, specs, mesh):
+        """Tensor-parallel form: ``fc`` column-parallel, ``proj`` row-
+        parallel over the same columns (its sum an all-reduce); a
+        replicated ``fc/b`` or ``proj/W`` is sliced at each call."""
+        ax = column_axis(specs.get("fc/W", ()))
+        check_specs(self, specs, {"fc/W": {(None, ax)}, "fc/b": {(), (ax,)},
+                                  "proj/W": {(), (ax,)}, "proj/b": {()}})
+        held = [r for r in ("fc/W", "fc/b", "proj/W") if tuple(specs[r])]
+        tp = self._tp = _Parallel(ax, mesh, held)
+        lays = tp.take(self.fc, "W", "fc/W", specs, Layout(1, ax, 1))
+        lays.update(tp.take(self.fc, "b", "fc/b", specs, Layout(0, ax, 1)))
+        lays.update(tp.take(self.proj, "W", "proj/W", specs,
+                            Layout(0, ax, 1)))
+        return lays
 
     def reset_parameters(self, gen):
         self.fc.reset(gen, self.std)
@@ -179,7 +257,15 @@ class PositionwiseFFN(Layer):
         return {"fc": self.fc.tree(), "proj": self.proj.tree()}
 
     def forward(self, x):
-        return _linear(self.proj, self.act(_linear(self.fc, x)))
+        tp = self._tp
+        if tp is None:
+            return _linear(self.proj, self.act(_linear(self.fc, x)))
+        ax = tp.axis
+        h = self.act(_mm(comm.copy_to(x, ax, tp.mesh), self.fc.W,
+                         tp.leaf(self.fc.b, "fc/b", Layout(0, ax, 1))))
+        return comm.psum(_mm(h, tp.leaf(self.proj.W, "proj/W",
+                                        Layout(0, ax, 1))),
+                         ax, tp.mesh) + self.proj.b
 
 
 class TransformerBlock(Layer):
@@ -240,6 +326,7 @@ class TransformerLayer(Layer):
         self.bidirectional = bidirectional
         self.output_all_block = output_all_block
         self.std = initializer_range
+        self._tp: Optional[_Parallel] = None
         self.blocks = nn.ModuleList(
             [TransformerBlock(hidden_size, n_head, causal=not bidirectional,
                               attn_drop=attn_drop, resid_drop=resid_drop,
@@ -269,13 +356,38 @@ class TransformerLayer(Layer):
         H = self.hidden_size
         return (self.n_block, T, H) if self.output_all_block else (T, H)
 
+    def shard_leaves(self, specs, mesh):
+        """Vocab-parallel form: ``wte``'s rows split over an axis, looked
+        up where a rank holds them and summed over it."""
+        ax = row_axis(specs.get("wte", ()))
+        check_specs(self, specs, {"wte": {(ax,)}, "wpe": {()}})
+        tp = self._tp = _Parallel(ax, mesh, ["wte"])
+        return tp.take(self, "wte", "wte", specs, Layout(0, ax, 1))
+
+    def _embed(self, ids):
+        if self._tp is None:
+            return _take(self.wte, ids)
+        n = self.vocab
+        valid = (ids >= -n) & (ids < n)
+        return vocab_parallel_rows(self.wte, torch.where(ids < 0, ids + n,
+                                                         ids),
+                                   valid, self._tp.axis, self._tp.mesh)
+
     def forward(self, x):
+        from analytics_zoo_tpu_torch.parallel.ring_attention import \
+            sequence_shard
         ids = _ids(x).to(self.wte.device)
         T = ids.shape[1]
-        if T > self.seq_len:
-            raise ValueError(f"{self.name}: {T} tokens exceed seq_len="
+        # a sequence-sharded forward holds tokens [offset, offset + T)
+        shard = sequence_shard()
+        offset, total = 0, T
+        if shard is not None:
+            mesh, axis, total = shard
+            offset = mesh.index(axis) * T
+        if total > self.seq_len:
+            raise ValueError(f"{self.name}: {total} tokens exceed seq_len="
                              f"{self.seq_len}")
-        h = _take(self.wte, ids) + self.wpe[:T]
+        h = self._embed(ids) + self.wpe[offset:offset + T]
         emb_seed = self.train_seed(999)
         if emb_seed is not None and self.embedding_drop > 0.0:
             h = dropout(h, self.embedding_drop, emb_seed)

@@ -94,6 +94,8 @@ class Dense(Layer):
         self.bits = 0            # 0 float, 8 W8A8, 4 W4A16
         # quantized: the kernels or their plain versions (ops/_impl)
         self.impl: Optional[str] = None
+        # tensor-parallel form: ("column" | "row", axis, mesh, b held)
+        self._tp = None
         self._build_declared()
 
     def build(self, input_shape):
@@ -123,7 +125,54 @@ class Dense(Layer):
         adopt_quantized(self, leaves, (self.input_dim, self.output_dim),
                         self.input_dim, self.output_dim)
 
+    def shard_leaves(self, specs, mesh):
+        """Tensor-parallel form (``parallel/sharding``): ``W`` P(None, ax)
+        column-parallel (each rank its output columns, gathered over the
+        axis before the activation) or P(ax) row-parallel (each rank its
+        input rows, summed over the axis); a float layer only."""
+        from analytics_zoo_tpu_torch.parallel.sharding import (
+            Layout, check_specs, column_axis, row_axis, take_shard)
+        w = specs.get("W", ())
+        col, row = column_axis(w), row_axis(w)
+        if self.bits or (col is None and row is None):
+            raise NotImplementedError(
+                f"{self.name}: no parallel form of a "
+                f"{'quantized ' if self.bits else ''}Dense computes on "
+                f"this slice: {sorted((k, tuple(v)) for k, v in specs.items())}")
+        ax = col or row
+        check_specs(self, specs, {"W": {tuple(w)},
+                                  "b": {(), (ax,)} if col else {()}})
+        lays = {"W": Layout(1 if col else 0, ax, 1)}
+        take_shard(self, "W", lays["W"], mesh)
+        held_b = bool(self.bias and tuple(specs.get("b", ())))
+        if held_b:
+            lays["b"] = Layout(0, ax, 1)
+            take_shard(self, "b", lays["b"], mesh)
+        self._tp = ("column" if col else "row", ax, mesh, held_b)
+        return lays
+
+    def _parallel_forward(self, x):
+        from analytics_zoo_tpu_torch.parallel import comm
+        from analytics_zoo_tpu_torch.parallel.sharding import (
+            Layout, held_or_sliced)
+        kind, ax, mesh, held_b = self._tp
+        if kind == "column":
+            xw, W = dtypes.cast_compute(comm.copy_to(x, ax, mesh), self.W)
+            y = dtypes.matmul(xw, W, dtypes.param_dtype())
+            if self.bias:
+                y = y + held_or_sliced(self.b, held_b, Layout(0, ax, 1),
+                                       mesh)
+            return self.activation(comm.all_gather(y, ax, -1, mesh))
+        xs = held_or_sliced(x, False, Layout(x.ndim - 1, ax, 1), mesh)
+        xw, W = dtypes.cast_compute(xs, self.W)
+        y = comm.psum(dtypes.matmul(xw, W, dtypes.param_dtype()), ax, mesh)
+        if self.bias:
+            y = y + self.b
+        return self.activation(y)
+
     def forward(self, x):
+        if self._tp is not None:
+            return self._parallel_forward(x)
         if self.bits == 0:
             xw, W = dtypes.cast_compute(x, self.W)
             y = dtypes.matmul(xw, W, dtypes.param_dtype())
@@ -329,8 +378,35 @@ class Embedding(Layer):
     def _tree(self) -> Dict:
         return {"E": self.E}
 
+    def shard_leaves(self, specs, mesh):
+        """Vocab-parallel form: ``E``'s rows split over an axis, looked up
+        where a rank holds them and summed over it."""
+        from analytics_zoo_tpu_torch.parallel.sharding import (
+            Layout, check_specs, row_axis, take_shard)
+        ax = row_axis(specs.get("E", ()))
+        check_specs(self, specs, {"E": {(ax,)}})
+        take_shard(self, "E", Layout(0, ax, 1), mesh)
+        self._tp = (ax, mesh)
+        return {"E": Layout(0, ax, 1)}
+
     def forward(self, x):
-        return lookup(self.E, x)
+        tp = getattr(self, "_tp", None)
+        if tp is None:
+            return lookup(self.E, x)
+        from analytics_zoo_tpu_torch.parallel.sharding import \
+            vocab_parallel_rows
+        ids, valid = lookup_ids(x, self.input_dim)
+        return vocab_parallel_rows(self.E, ids, valid, *tp)
+
+
+def lookup_ids(x: torch.Tensor, n: int):
+    """``lookup``'s ids over a table of ``n`` rows: (wrapped int64 ids,
+    their validity)."""
+    if x.is_floating_point():
+        x = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31)
+    ids = x.to(torch.int64)
+    ids = torch.where(ids < 0, ids + n, ids)
+    return ids, (ids >= 0) & (ids < n)
 
 
 def lookup(E: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -338,12 +414,7 @@ def lookup(E: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     ``jnp.take(E, x.astype(int32), axis=0)`` semantics ``Embedding``
     documents: float ids truncate (NaN -> 0), ids in [-V, -1] wrap, any
     other id gives a row of NaN and no gradient."""
-    if x.is_floating_point():
-        x = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31)
-    ids = x.to(torch.int64)
-    n = E.shape[0]
-    ids = torch.where(ids < 0, ids + n, ids)
-    valid = (ids >= 0) & (ids < n)
+    ids, valid = lookup_ids(x, E.shape[0])
     rows = F.embedding(torch.where(valid, ids, 0), E)
     return torch.where(valid.unsqueeze(-1), rows, float("nan"))
 

@@ -13,9 +13,11 @@ by index, lowest first, as ``lax.top_k`` does: a stable descending sort
 threshold test would let an all-zero token, whose probabilities all tie,
 pick every expert).
 
-The JAX layer gets expert parallelism by sharding the E axis of the
-expert weights over a mesh; the port runs on one device until multi-GPU
-(ROADMAP queue 1, item 7), so ``mesh=`` raises naming that item.
+Expert parallelism comes through a sharding plan, as in JAX: a plan
+that places the expert leaves' E axis over an axis (``P("expert")``)
+puts the layer into its parallel form (``shard_leaves``), where each
+rank holds and computes its own experts for every token and the
+gate-weighted combine is a ``psum`` over the axis.
 """
 
 from __future__ import annotations
@@ -37,12 +39,8 @@ class MixtureOfExperts(Layer):
 
     def __init__(self, num_experts: int, hidden_dim: int, top_k: int = 2,
                  activation="gelu", aux_loss_weight: float = 0.01,
-                 mesh=None, input_shape=None, name=None):
+                 input_shape=None, name=None):
         super().__init__(input_shape=input_shape, name=name)
-        if mesh is not None:
-            raise NotImplementedError(
-                "MixtureOfExperts over a mesh (expert parallelism) waits "
-                "for multi-GPU (ROADMAP queue 1, item 7)")
         self.E = int(num_experts)
         self.H = int(hidden_dim)
         self.k = int(top_k)
@@ -51,6 +49,8 @@ class MixtureOfExperts(Layer):
                              "experts")
         self.act = activations.get(activation)
         self.aux_loss_weight = float(aux_loss_weight)
+        # expert-parallel form: (axis, mesh, leaves held as slices)
+        self._tp = None
         self._build_declared()
 
     def build(self, input_shape):
@@ -71,6 +71,28 @@ class MixtureOfExperts(Layer):
         return {"gate": {"W": self.gate_W},
                 "experts": {"W1": self.W1, "b1": self.b1, "W2": self.W2,
                             "b2": self.b2}}
+
+    def shard_leaves(self, specs, mesh):
+        """Expert-parallel form: the expert weights' E axis split over
+        an axis (W1 and W2 both, the biases too or replicated), the gate
+        replicated."""
+        from analytics_zoo_tpu_torch.parallel.sharding import (
+            Layout, check_specs, row_axis, take_shard)
+        ax = row_axis(specs.get("experts/W1", ()))
+        check_specs(self, specs, {"experts/W1": {(ax,)},
+                                  "experts/W2": {(ax,)},
+                                  "experts/b1": {(), (ax,)},
+                                  "experts/b2": {(), (ax,)},
+                                  "gate/W": {()}})
+        lays, held = {}, set()
+        for rel, attr in (("experts/W1", "W1"), ("experts/b1", "b1"),
+                          ("experts/W2", "W2"), ("experts/b2", "b2")):
+            if tuple(specs[rel]):
+                lays[rel] = Layout(0, ax, 1)
+                take_shard(self, attr, lays[rel], mesh)
+                held.add(attr)
+        self._tp = (ax, mesh, held)
+        return lays
 
     def gates(self, x):
         """(B, T, E) top-k softmax gate weights, zero outside the top k,
@@ -95,10 +117,30 @@ class MixtureOfExperts(Layer):
 
     def forward(self, x):
         g = self.gates(x)
-        xw, W1, W2 = dtypes.cast_compute(x, self.W1, self.W2)
+        b1, b2 = self.b1, self.b2
+        if self._tp is not None:
+            # this rank's experts: x and their gate columns enter the
+            # varying computation, the combine sums over the axis
+            from analytics_zoo_tpu_torch.parallel import comm
+            from analytics_zoo_tpu_torch.parallel.sharding import (
+                Layout, held_or_sliced)
+            ax, mesh, held = self._tp
+            lay = Layout(0, ax, 1)
+            e_l = self.W1.shape[0]
+            x_in = comm.copy_to(x, ax, mesh)
+            g = comm.copy_to(g, ax, mesh).narrow(-1, mesh.index(ax) * e_l,
+                                                 e_l)
+            b1 = held_or_sliced(b1, "b1" in held, lay, mesh)
+            b2 = held_or_sliced(b2, "b2" in held, lay, mesh)
+        else:
+            x_in = x
+        xw, W1, W2 = dtypes.cast_compute(x_in, self.W1, self.W2)
         f32 = torch.float32
         h = self.act(torch.einsum("btd,edh->bteh", xw.to(f32), W1.to(f32))
-                     + self.b1)
+                     + b1)
         y = torch.einsum("bteh,ehd->bted", h.to(xw.dtype).to(f32),
-                         W2.to(f32)) + self.b2
-        return torch.einsum("bted,bte->btd", y, g).to(x.dtype)
+                         W2.to(f32)) + b2
+        out = torch.einsum("bted,bte->btd", y, g)
+        if self._tp is not None:
+            out = comm.psum(out, self._tp[0], self._tp[1])
+        return out.to(x.dtype)

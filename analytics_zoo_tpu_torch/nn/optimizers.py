@@ -368,20 +368,34 @@ def global_norm(grads: Tensors) -> torch.Tensor:
 class ClipByGlobalNorm(Transform):
     """``g / |g| * max_norm`` for every leaf when the global norm
     ``|g| >= max_norm``, else ``g`` unchanged (``optax.clip_by_global_norm``:
-    no epsilon).  The decision stays on the device."""
+    no epsilon).  The decision stays on the device.  ``reduce_sq``, set by
+    a sharded fit, sums the leaves' squared norms across the ranks that
+    hold parts of them."""
 
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
+        self.reduce_sq: Optional[Callable] = None
 
     def apply(self, grads, state, params, scalars):
         if not grads:
             return grads
-        norm = global_norm(grads)
+        if self.reduce_sq is None:
+            norm = global_norm(grads)
+        else:
+            norm = torch.sqrt(self.reduce_sq(
+                [n * n for n in torch._foreach_norm(grads)]))
         keep = norm < self.max_norm
         torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
         torch._foreach_mul_(grads, torch.where(keep, 1.0, torch.full_like(
             norm, self.max_norm)))
         return grads
+
+
+def transforms(opt: Transform):
+    """``opt`` and every transform chained inside it."""
+    yield opt
+    for t in getattr(opt, "transforms", ()):
+        yield from transforms(t)
 
 
 @torch.no_grad()

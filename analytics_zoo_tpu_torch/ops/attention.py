@@ -25,14 +25,23 @@ Differences from the JAX module, on purpose:
   by ``chip_smoke.py`` for a later threshold.
 - A selected kernel that fails raises: there is no ``try``/``except`` that
   slides onto the plain path.
-- No sequence-parallel (ring) path: the single-GPU port has no mesh, so
-  the JAX module's ``_seq_parallel_mesh`` would always answer None; it
-  comes with the multi-GPU slice.
+
+Sequence parallelism (``_seq_parallel_mesh``, as in JAX): inside a
+forward whose token axis is sharded over the mesh's ``seq`` axis
+(``parallel/ring_attention.sequence_sharded``, which the Estimator's
+feed sets) every attention call rides the ring
+(``parallel/ring_attention.ring_attention``), the flash kernel a hop
+where the single-GPU dispatch would take it.  It warns and takes the
+gathered path only where JAX does: a mask or attention dropout (k and v
+gathered over ``seq``, the causal mask at absolute positions), or a
+token axis the ``seq`` axis does not divide (the feed then leaves the
+tokens whole, and attention runs over them on each rank).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional
 
 import torch
@@ -98,6 +107,69 @@ def _select_flash(use_flash, head_dim: int, dtype, mask,
     return bool(use_flash)
 
 
+def _seq_parallel_mesh(mask, dropping: bool):
+    """``(mesh, axis, total_len)`` of the sequence sharding this call
+    rides, ``"gathered"`` for a sharded call the ring cannot express, or
+    None."""
+    from analytics_zoo_tpu_torch.parallel.ring_attention import \
+        sequence_shard
+    state = sequence_shard()
+    if state is None:
+        from analytics_zoo_tpu_torch.common import context
+        ctx = context._global_ctx       # never made here as a side effect
+        if ctx is not None and ctx.mesh.size(context.SEQ_AXIS) > 1:
+            warnings.warn(
+                "sequence-parallel mesh active but this attention call "
+                "cannot ride the ring (T % seq != 0: the tokens are not "
+                "sharded) - attending over the whole sequence",
+                stacklevel=3)
+        return None
+    if mask is not None or dropping:
+        warnings.warn(
+            "sequence-parallel mesh active but this attention call cannot "
+            "ride the ring (mask/dropout present) - falling back to the "
+            "gathered path", stacklevel=3)
+        return ("gathered",) + state
+    return state
+
+
+def _gathered(q, k, v, state, mask, causal, scale, dropout_rate,
+              dropout_rng):
+    """Sharded (B, H, T_local, D) q/k/v with k and v gathered over the
+    sequence axis: the einsum path at absolute positions."""
+    from analytics_zoo_tpu_torch.parallel import comm
+    _, mesh, axis, _ = state
+    tq = q.shape[-2]
+    kg = comm.all_gather(k, axis, dim=-2, mesh=mesh, varying=True)
+    vg = comm.all_gather(v, axis, dim=-2, mesh=mesh, varying=True)
+    if causal:
+        q_pos = mesh.index(axis) * tq + torch.arange(tq, device=q.device)
+        keep = torch.arange(kg.shape[-2], device=q.device)[None, :] \
+            <= q_pos[:, None]
+        mask = keep if mask is None else mask.to(torch.bool) & keep
+    return _attention_torch(q, kg, vg, mask=mask, causal=False, scale=scale,
+                            dropout_rate=dropout_rate,
+                            dropout_rng=dropout_rng)
+
+
+def _sequence_parallel(q, k, v, mask, causal, scale, dropout_rate,
+                       dropout_rng, impl):
+    """(B, H, T_local, D) attention of a sequence-sharded call, or None
+    where the call is not sharded."""
+    dropping = dropout_rate > 0.0 and dropout_rng is not None
+    state = _seq_parallel_mesh(mask, dropping)
+    if state is None:
+        return None
+    if state[0] == "gathered":
+        return _gathered(q, k, v, state, mask, causal, scale, dropout_rate,
+                         dropout_rng)
+    from analytics_zoo_tpu_torch.parallel.ring_attention import \
+        ring_attention
+    mesh, axis, _ = state
+    return ring_attention(q, k, v, mesh, causal=causal, scale=scale,
+                          axis_name=axis, kernel_impl=impl)
+
+
 def attention_bthd(q, k, v, mask=None, causal: bool = False,
                    scale: Optional[float] = None,
                    use_flash: Optional[bool] = None,
@@ -108,6 +180,11 @@ def attention_bthd(q, k, v, mask=None, causal: bool = False,
     copy) and gets back a (B, T, H, D)-contiguous result.  ``impl`` picks
     the flash kernel or its plain version (``ops/_impl.resolve_impl``)."""
     dropping = dropout_rate > 0.0 and dropout_rng is not None
+    sp = _sequence_parallel(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), mask, causal, scale,
+                            dropout_rate, dropout_rng, impl)
+    if sp is not None:
+        return sp.transpose(1, 2)
     if _select_flash(use_flash, q.shape[-1], q.dtype, mask, dropping):
         out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
@@ -127,6 +204,10 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
     every call the kernel can express, else the einsum path.  Attention
     dropout always takes the einsum path."""
     dropping = dropout_rate > 0.0 and dropout_rng is not None
+    sp = _sequence_parallel(q, k, v, mask, causal, scale, dropout_rate,
+                            dropout_rng, impl)
+    if sp is not None:
+        return sp
     if _select_flash(use_flash, q.shape[-1], q.dtype, mask, dropping):
         return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                    impl=impl)

@@ -359,8 +359,10 @@ def apply_quantize(model, spec) -> bool:
 # ServingParams options of the JAX engine that this slice does not serve:
 # name -> (the values that mean "off", why).  Any other value raises.
 _NOT_PORTED = {
-    "sharding": (("off",), "multi-GPU serving, ROADMAP queue 1, item 7"),
-    "mesh_shape": ((None,), "multi-GPU serving, ROADMAP queue 1, item 7"),
+    "sharding": (("off",), "multi-GPU serving, ROADMAP queue 1, item 7's "
+                 "second part"),
+    "mesh_shape": ((None,), "multi-GPU serving, ROADMAP queue 1, item 7's "
+                   "second part"),
     # "off" (False once YAML has read it) is the JAX config's way to say
     # "no cache", which is what the port has: it compiles nothing at
     # serving time

@@ -141,7 +141,8 @@ config.yaml surface (scripts/cluster-serving/config.yaml template):
       max_step: 2
       sharding: off                     # off only: multi-GPU serving is
       mesh_shape: null                  # not ported (ROADMAP queue 1,
-                                        # item 7); other values raise
+                                        # item 7's second part); other
+                                        # values raise
 
 CLI (used by scripts/cluster-serving/*.sh):
     python -m analytics_zoo_tpu_torch.serving.manager start  [-c config.yaml]

@@ -432,9 +432,11 @@ import copy
 import ctypes
 import faulthandler
 import functools
+import gc
 import hashlib
 import io
 import json
+import logging
 import math
 import os
 import re
@@ -2700,9 +2702,13 @@ def train_data(seed: int):
 
 
 def train_layers() -> Sequential:
+    """Named, so that every process's model has the same leaf paths
+    (phase 17 holds its ranks' weights to the parent's by path)."""
     T = TRAIN["seq_len"]
-    return Sequential([TransformerLayer(**TRAIN, input_shape=(T,)),
-                       Dense(TRAIN["vocab"], activation="softmax")])
+    return Sequential([TransformerLayer(**TRAIN, input_shape=(T,),
+                                        name="gpt2"),
+                       Dense(TRAIN["vocab"], activation="softmax",
+                             name="lm_head")])
 
 
 def build_train_model(seed: int) -> Sequential:
@@ -3249,7 +3255,7 @@ def resnet_lockstep(host, x, y, x_eval, y_eval, seed: int) -> dict:
     pairs = []
     model.train()
     for batch in batches:
-        sx, sy, sw, _ = est._transfer(batch)
+        sx, sy, sw, *_ = est._transfer(batch)
         state = [b.clone() for b in model.buffers()]
         set_impl(model, None)
         with torch.no_grad():
@@ -5396,9 +5402,10 @@ TEXT_WORDS, TEXT_TOPIC_WORDS, TEXT_TOPIC_SHARE = 20000, 40, 0.2
 TEXT_DOC_LEN = (50, 300)
 TEXT_TRAIN, TEXT_TEST = 8192, 1024
 TEXT_EPOCHS, TEXT_BATCH, TEXT_LR = 2, 128, 1e-3
-# the lstm and gru encoders: a few steps each at the same width, then
-# served over the first TEXT_RNN_SERVE held-out documents
-TEXT_RNN_STEPS, TEXT_RNN_SERVE = 3, 128
+# the lstm and gru encoders: one step each at the same width (a depth
+# cut: 3 before the multi-GPU phase needed the room), then served over
+# the first TEXT_RNN_SERVE held-out documents
+TEXT_RNN_STEPS, TEXT_RNN_SERVE = 1, 128
 # held-out accuracy of the cnn encoder after 2 epochs: below the least of
 # the JAX package's CPU runs of the same protocol
 # (``tests/text_reference.py``: 1.0 from each of three seeded inits)
@@ -6255,6 +6262,8 @@ FORECAST_TRAIN, FORECAST_VAL = 0.8, 0.1
 # cut from its default 5 to 1
 FORECAST_RECIPE = dict(epochs=1)
 FORECAST_TRIALS = 6
+# the parallelism-1 repeat of the search trains the grid's first configs
+AUTOTS_REPEAT_TRIALS = 2
 # the pipeline's test MSE over the better of the persistence and the
 # seasonal-naive forecast's must not exceed this.  The JAX package's CPU
 # runs of the same protocol (``forecast_reference.py``, context seeds
@@ -6399,13 +6408,58 @@ def check_grid(trials) -> None:
 
 
 def check_same_trials(two, one) -> None:
-    """The trials at parallelism 2 are those at 1: the same configs in the
-    same order and bit for bit the same validation MSEs."""
+    """The trials at parallelism 1 are the first of those at 2: the same
+    configs in the same order and bit for bit the same validation
+    MSEs."""
+    two = two[:len(one)]
     check([repr(t["config"]) for t in two] == [repr(t["config"])
                                                for t in one]
           and [t["mse"] for t in two] == [t["mse"] for t in one],
           f"autots: trial metrics at parallelism 2 {[t['mse'] for t in two]}"
           f" != at 1 {[t['mse'] for t in one]}")
+
+
+class _TrialsDone(Exception):
+    """Ends ``autots_repeat``'s search once its trials are trained, before
+    the predictor retrains the best config."""
+
+    def __init__(self, trials):
+        super().__init__(len(trials))
+        self.trials = trials
+
+
+def autots_repeat(recipe_cls, train, val, n: int, **kw) -> dict:
+    """The first ``n`` configs of the recipe's search trained again one at
+    a time (parallelism 1) through the predictor's own trial function;
+    the search ends there, without the best config's retrain."""
+    from analytics_zoo_tpu_torch.automl.search import SearchEngine, Trial
+    from analytics_zoo_tpu_torch.zouwu import AutoTSTrainer
+
+    class FirstTrials(SearchEngine):
+        def __init__(self, inner):
+            super().__init__(inner.mode)
+            self.inner = inner
+
+        def run(self, train_fn, space):
+            raise _TrialsDone([Trial(c, float(train_fn(c))) for c in
+                               self.inner.sample_all(space)[:n]])
+
+    class Recipe(recipe_cls):
+        def engine(self):
+            return FirstTrials(super().engine())
+
+    recipe = Recipe(**FORECAST_RECIPE)
+    recipe.parallelism = 1
+    trainer = AutoTSTrainer(dt_col="datetime", target_col="value",
+                            horizon=1, recipe=recipe, **kw)
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(train, val)
+    except _TrialsDone as done:
+        return {"trials": [{"config": t.config, "mse": t.metric}
+                           for t in done.trials],
+                "wall_s": time.perf_counter() - t0}
+    raise AssertionError("autots: the repeat's search did not run")
 
 
 def forecast_shapes():
@@ -6442,31 +6496,33 @@ def autots_phase(seed: int, dev, data: dict) -> dict:
     from analytics_zoo_tpu_torch.automl import LSTMGridRandomRecipe
     from analytics_zoo_tpu_torch.zouwu import AutoTSTrainer, TSPipeline
     train, val, test = data["train"], data["val"], data["test"]
-    runs = {}
-    for par in (2, 1):
-        run = autots_run(AutoTSTrainer, LSTMGridRandomRecipe, train, val,
-                         parallelism=par, device=dev)
-        runs[par] = run
-        rows = len(train) - 8
-        for i, t in enumerate(run["trials"]):
-            c = t["config"]
-            steps = trial_steps(c, rows)
-            say(f"autots[parallelism {par}] trial {i}: lstm_1_units "
-                f"{c['lstm_1_units']}, lstm_units {c['lstm_units']}, batch "
-                f"{c['batch_size']}, lr {c['lr']:.5f}, dropout "
-                f"{c['dropout']:.3f}, features {list(map(str, c.get('selected_features', [])))}: "
-                f"validation MSE {t['mse']:.6f}; trained in "
-                f"{t['wall_s']:.3f} s = {t['wall_s'] / steps * 1e3:.2f} "
-                f"ms/step over {steps} steps (host clock)")
-        say(f"autots[parallelism {par}]: {len(run['trials'])} trials + the "
-            f"best retrained ({run['retrain_s']:.3f} s) in "
-            f"{run['wall_s']:.3f} s")
-    two, one = runs[2]["trials"], runs[1]["trials"]
+    run = autots_run(AutoTSTrainer, LSTMGridRandomRecipe, train, val,
+                     parallelism=2, device=dev)
+    rows = len(train) - 8
+    for i, t in enumerate(run["trials"]):
+        c = t["config"]
+        steps = trial_steps(c, rows)
+        say(f"autots[parallelism 2] trial {i}: lstm_1_units "
+            f"{c['lstm_1_units']}, lstm_units {c['lstm_units']}, batch "
+            f"{c['batch_size']}, lr {c['lr']:.5f}, dropout "
+            f"{c['dropout']:.3f}, features {list(map(str, c.get('selected_features', [])))}: "
+            f"validation MSE {t['mse']:.6f}; trained in "
+            f"{t['wall_s']:.3f} s = {t['wall_s'] / steps * 1e3:.2f} "
+            f"ms/step over {steps} steps (host clock)")
+    say(f"autots[parallelism 2]: {len(run['trials'])} trials + the best "
+        f"retrained ({run['retrain_s']:.3f} s) in {run['wall_s']:.3f} s")
+    two = run["trials"]
     check_grid(two)
-    check_same_trials(two, one)
-    say(f"autots: the {len(two)} trials' validation MSEs at parallelism 2 "
-        f"equal those at 1 exactly")
-    pipe = runs[2]["pipeline"]
+    # the repeat at parallelism 1 trains only the grid's first configs:
+    # its pipeline would go unused (quality and save / load are judged on
+    # the run above)
+    one = autots_repeat(LSTMGridRandomRecipe, train, val,
+                        AUTOTS_REPEAT_TRIALS, device=dev)
+    check_same_trials(two, one["trials"])
+    say(f"autots[parallelism 1]: the grid's first {AUTOTS_REPEAT_TRIALS} "
+        f"configs trained again in {one['wall_s']:.3f} s, no retrain; their "
+        f"validation MSEs equal those at parallelism 2 exactly")
+    pipe = run["pipeline"]
     cfg = pipe._p.config
     metrics = pipe.evaluate(test, ("mse", "smape"))
     naive = naive_forecasts(data["df"], len(train) + len(val),
@@ -9166,7 +9222,7 @@ def mobilenet_lockstep(host, x, y, seed: int) -> list:
     model.train()
     reset_launches()
     for batch in batches:
-        sx, sy, sw, _ = est._transfer(batch)
+        sx, sy, sw, *_ = est._transfer(batch)
         state = [b.clone() for b in model.buffers()]
         set_impl(model, None)
         est._seed_step(est.global_step)
@@ -10056,6 +10112,757 @@ def detection_phase(seed: int, records: dict) -> dict:
             "served": served, "facade": facade, "wall_s": wall}
 
 
+# -- phase 17: multi-GPU training, rehearsed by 4 ranks on one card ----------
+
+# the world: 4 processes (``--parallel-rank r``) on cuda:0 over gloo, the
+# only backend that puts several ranks on one device (NCCL refuses two
+# ranks a card); NCCL runs as a world of one in the parent
+PAR_RANKS = 4
+# each layout's fit: PAR_STEPS steps of TRAIN_BATCH sequences of phase 5's
+# data, from phase 5's seeded weights
+PAR_STEPS = 4
+# GPT-2 small's layouts over the 4 ranks: (tag, mesh axes, mesh shape,
+# param plan)
+PAR_LAYOUTS = (
+    ("data 4", ("data",), (4,), None),
+    ("seq 4", ("seq",), (4,), None),
+    ("model 4", ("model",), (4,), "megatron"),
+    ("data 2 x seq 2", ("data", "seq"), (2, 2), None),
+    ("pipe 4", ("pipe",), (4,), "pipe"))
+# the pipeline: TRAIN's blocks as 4 stages, 8 microbatches of one
+# sequence (GPipe: M + S - 1 = 11 ticks a step)
+PAR_MICRO = 8
+TRAIN_LOSS = "sparse_categorical_crossentropy"
+PIPE_LOSS = "sparse_categorical_crossentropy_from_logits"
+# ring attention at GPT-2 small's heads and full context, seq 4
+PAR_RING = (8, 12, 1024, 64)
+RING_TOL = dict(atol=2e-5, rtol=1e-5)
+# a layout against the one-rank fit from the same weights: each step's
+# loss (relative) and every weight after the steps (absolute).  Adam's
+# first step moves a weight by lr·g1 / (|g1| + eps): where the first
+# gradient g1 is within f32 rounding of 0 (|g1| < PAR_G1_FLOOR, ten times
+# eps), that step follows the rounding, which the layouts' summation
+# orders differ in, so those weights are held to one Adam step (lr)
+PAR_LOSS_RTOL = 1e-5
+PAR_WEIGHT_TOL = 1e-5
+PAR_G1_FLOOR = 1e-7
+PAR_NEAR_ZERO_TOL = TRAIN_LR
+# MixtureOfExperts at GPT-2 small's width, its E axis over expert 4
+PAR_MOE = dict(num_experts=4, hidden_dim=3072)
+PAR_MOE_TOKENS = (2, 1024)
+MOE_TOL = dict(atol=1e-5, rtol=1e-5)
+# the phase from the rendezvous to its end, and the longest a rank waits
+# for its go or a peer's collective
+PAR_WALL_S = 90.0
+PAR_TIMEOUT_S = 900.0
+
+
+def pipe_model(seed: int, pipelined: bool = True):
+    """GPT-2 small as a ``PipelinedTransformer``: TRAIN's widths and
+    blocks, PAR_RANKS stages of the blocks in order, PAR_MICRO
+    microbatches, the tied embedding head; seeded."""
+    from analytics_zoo_tpu_torch.parallel.pipeline_model import \
+        PipelinedTransformer
+    return PipelinedTransformer(
+        vocab=TRAIN["vocab"], hidden_size=TRAIN["hidden_size"],
+        n_head=TRAIN["n_head"], seq_len=TRAIN["seq_len"],
+        n_stages=PAR_RANKS, blocks_per_stage=TRAIN["n_block"] // PAR_RANKS,
+        n_micro=PAR_MICRO, pipelined=pipelined,
+        name="gpt2_pipe").init_weights(seed)
+
+
+def par_data(seed: int):
+    x, y = train_data(seed)
+    n = PAR_STEPS * TRAIN_BATCH
+    return x[:n], y[:n]
+
+
+def par_fit(model, x, y, ctx, plan=None, loss=TRAIN_LOSS, k: int = 1,
+            epochs: int = 1) -> dict:
+    """``train_run``'s Estimator (Adam, global-norm clipping) over
+    ``ctx``'s mesh with ``plan``, unshuffled, ``k`` steps a call: each
+    step's loss, the wall, ms a step on the host clock after the first (a
+    device sync after each step), and at ``k`` = 1 the first step's
+    gradients as Adam took them (clipped), by parameter ``data_ptr``."""
+    dev = ctx.device
+    est = Estimator(model, optimizer=Adam(lr=TRAIN_LR), loss=loss,
+                    clip_norm=TRAIN_CLIP, registry=MetricsRegistry(),
+                    ctx=ctx, param_plan=plan)
+    losses, marks, g1 = {}, {}, {}
+
+    def listen(step, value):
+        losses[step] = value
+        if step == 1 and k == 1:
+            # Adam's first moment after one step is (1 - b1)·g1
+            st = adam_state(est.opt_state)
+            g1.update({p.data_ptr(): m / (1 - ADAM_B1)
+                       for p, m in zip(est.params, st["mu"])})
+        sync(dev)
+        marks[step] = time.perf_counter()
+
+    est._listeners.append(listen)
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        est.fit(x, y, batch_size=TRAIN_BATCH, epochs=epochs, verbose=False,
+                shuffle=False, steps_per_call=k)
+        sync(dev)
+    finally:
+        est._listeners.remove(listen)
+    steps = sorted(marks)
+    return {"losses": [float(losses[s]) for s in steps],
+            "wall_s": time.perf_counter() - t0,
+            "ms": (marks[steps[-1]] - marks[steps[0]])
+            / max(1, len(steps) - 1) * 1e3,
+            "route": est.fit_summary()["route"], "est": est, "g1": g1}
+
+
+ADAM_B1 = 0.9
+
+
+def adam_state(state):
+    """The Adam transform's state (``mu``, ``nu``, ``count``) inside an
+    optimizer's state tree."""
+    if isinstance(state, dict):
+        if "mu" in state and "count" in state:
+            return state
+        state = list(state.values())
+    if isinstance(state, (list, tuple)):
+        for v in state:
+            found = adam_state(v)
+            if found is not None:
+                return found
+    return None
+
+
+def host_tree(model) -> dict:
+    from analytics_zoo_tpu_torch.parallel.sharding import leaf_paths
+    return {p: t.detach().cpu().clone() for p, t in leaf_paths(model)}
+
+
+def nccl_step(seed: int, dev, host, x, y, ref_losses,
+              backend: str = "nccl") -> dict:
+    """A world of one (``backend``, a ``HashStore``): the LM's fit on
+    ``data`` 1 with its all-reduces launched (counted at
+    ``torch.distributed.all_reduce``), 2 epochs eagerly, then 2 epochs at
+    ``steps_per_call=PAR_STEPS``, whose second group is one CUDA graph
+    holding the all-reduces; the group is destroyed on the way out."""
+    import torch.distributed as dist
+    from analytics_zoo_tpu_torch.inference import aot
+    calls = {"eager": 0, "captured": 0}
+    orig = dist.all_reduce
+
+    def counting(*a, **kw):
+        capturing = dev.type == "cuda" \
+            and torch.cuda.is_current_stream_capturing()
+        calls["captured" if capturing else "eager"] += 1
+        return orig(*a, **kw)
+
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    dist.all_reduce = counting
+    runs = {}
+    try:
+        ctx = ZooContext(ZooConf(seed=seed, device=str(dev)))
+        check(ctx.mesh.group("data") is dist.group.WORLD,
+              "parallel[nccl]: the data axis does not hold the world")
+        for tag, k in (("eager", 1), ("graph", PAR_STEPS)):
+            before = dict(calls)
+            cap0 = aot.CAPTURE_STATS.snapshot()
+            run = par_fit(copy.deepcopy(host).to(dev), x, y, ctx, k=k,
+                          epochs=2)
+            cap = aot.CAPTURE_STATS.snapshot()
+            run.update(calls={c: calls[c] - before[c] for c in calls},
+                       captures=cap["captures"] - cap0["captures"],
+                       replays=cap["replays"] - cap0["replays"])
+            del run["est"], run["g1"]
+            par_free(dev)
+            runs[tag] = run
+    finally:
+        dist.all_reduce = orig
+        dist.destroy_process_group()
+    eager, graph = runs["eager"], runs["graph"]
+    n = len(ref_losses)
+    check(eager["losses"][:n] == ref_losses,
+          f"parallel[nccl]: the world of one's losses "
+          f"{eager['losses'][:n]} are not the no-world fit's {ref_losses}")
+    check(eager["calls"]["eager"] > 0,
+          "parallel[nccl]: the fit launched no all-reduce")
+    check(graph["losses"] == eager["losses"],
+          f"parallel[nccl]: the graph route's losses {graph['losses']} "
+          f"are not its eager steps' {eager['losses']}")
+    if dev.type == "cuda":
+        check(graph["route"] == "graph" and graph["captures"] == 1
+              and graph["replays"] == 1 and graph["calls"]["captured"] > 0,
+              f"parallel[nccl]: route {graph['route']}, "
+              f"{graph['captures']} captures, {graph['replays']} replays, "
+              f"{graph['calls']['captured']} all-reduces captured")
+    say(f"parallel[nccl]: a {backend} world of one, data 1: {2 * n} eager "
+        f"steps with {eager['calls']['eager']} all-reduces launched, "
+        f"losses bitwise the no-world fit's over its {n} steps; "
+        f"steps_per_call {PAR_STEPS} ({graph['route']} route, "
+        f"{graph['captures']} capture, {graph['replays']} replay, "
+        f"{graph['calls']['captured']} all-reduces inside the graph, "
+        f"{graph['calls']['eager']} in the eager first group): losses "
+        f"bitwise the eager steps'; ms/step (host clock) eager "
+        f"{eager['ms']:.2f}, graph {graph['ms']:.2f}")
+    return runs
+
+
+def parallel_references(seed: int, dev, host, pipe_host, tmp: str) -> dict:
+    """The one-rank fits the layouts are held to: the LM from ``host``
+    (no world) and the pipelined LM's ``pipelined=False`` fit from
+    ``pipe_host``; each one's losses and trained weights go to ``tmp``
+    for the ranks, and ``tmp/refs`` tells them the files are whole."""
+    x, y = par_data(seed)
+    ctx = ZooContext(ZooConf(seed=seed, device=str(dev)))
+    out, walls = {}, {}
+    for tag, base, loss in (("lm", host, TRAIN_LOSS),
+                            ("pipe", pipe_host, PIPE_LOSS)):
+        t = time.perf_counter()
+        model = copy.deepcopy(base).to(dev)
+        run = par_fit(model, x, y, ctx, loss=loss)
+        torch.save({"losses": run["losses"], "tree": host_tree(model)},
+                   os.path.join(tmp, f"ref-{tag}.pt"))
+        del model, run["est"], run["g1"]
+        par_free(dev)
+        out[tag] = run
+        walls[f"reference {tag}"] = time.perf_counter() - t
+    with open(os.path.join(tmp, "refs"), "w"):
+        pass
+    for tag, run in out.items():
+        ls = run["losses"]
+        check(len(ls) == PAR_STEPS and all(math.isfinite(v) for v in ls)
+              and ls[-1] < ls[0], f"parallel[reference {tag}]: losses {ls}")
+        say(f"parallel[reference {tag}]: one rank, {PAR_STEPS} steps of "
+            f"{TRAIN_BATCH} x {TRAIN['seq_len']} tokens, losses "
+            f"{[round(v, 5) for v in ls]}; {run['ms']:.2f} ms/step (host "
+            f"clock)")
+    out["walls"] = walls
+    out["data"] = (x, y)
+    return out
+
+
+def par_free(dev) -> None:
+    """``free`` after collecting cycles: a fit's Estimator, its optimizer
+    state and a CUDA graph's pool go back to the card before the next
+    fit, in this process or beside the other ranks'."""
+    gc.collect()
+    free(dev)
+
+
+def _err(got, want) -> float:
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def _close(got, want, tol) -> bool:
+    return all(torch.allclose(a, b, **tol) for a, b in zip(got, want))
+
+
+def par_ring(mesh, dev, seed: int) -> dict:
+    """Ring attention over ``seq`` (PAR_RANKS hops) at PAR_RING, causal
+    and full: this rank's output block and the gradients of Σ(out·ct) for
+    its q, k and v blocks, on the flash body (its wrappers' launches and
+    the card's counted) and the einsum body, against the flash kernel
+    over the whole sequence; ms of the flash body's forward and
+    backward."""
+    from analytics_zoo_tpu_torch.parallel.ring_attention import \
+        ring_attention
+    B, H, T, D = PAR_RING
+    n, i = mesh.size("seq"), mesh.index("seq")
+    sl = slice(i * T // n, (i + 1) * T // n)
+    g = torch.Generator().manual_seed(seed + 170)
+    q, k, v, ct = (torch.randn(B, H, T, D, generator=g).to(dev)
+                   for _ in range(4))
+    out = {}
+    for causal in (True, False):
+        whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fa.flash_attention(*whole, causal=causal)
+        (o * ct).sum().backward()
+        ref = [o.detach()[:, :, sl]] + [t.grad[:, :, sl] for t in whole]
+        del o, whole
+        res = {}
+
+        def ring(impl):
+            blocks = [t[:, :, sl].clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            o = ring_attention(*blocks, mesh, causal=causal, impl=impl)
+            (o * ct[:, :, sl]).sum().backward()
+            return [o.detach()] + [b.grad for b in blocks]
+
+        reset_launches()
+        with _impl.card_launches(K_KERNELS) as card:
+            res["flash"] = ring("flash")
+        wrappers = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                    "flash_bwd_dkv": fa.dkv_launches}
+        res["xla"] = ring("xla")
+        sync(dev)
+        t0 = time.perf_counter()
+        ring("flash")
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        out["causal" if causal else "full"] = dict(
+            kernel_err=_err(res["flash"], ref),
+            kernel_close=_close(res["flash"], ref, RING_TOL),
+            bodies_err=_err(res["flash"], res["xla"]),
+            bodies_close=_close(res["flash"], res["xla"], RING_TOL),
+            wrappers=wrappers, card=dict(card), ms=ms)
+        del res, ref
+    return out
+
+
+class _Notes(logging.Handler):
+    """Keeps the messages of the records it is handed."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def par_layout_fit(tag: str, axes, shape, plan, dev, seed: int, host,
+                   pipe_host, x, y, refs: dict) -> dict:
+    """One layout's fit on this rank (its process-local rows of the
+    global batches) against the one-rank reference (``refs``, read from
+    the parent's files): the losses, the largest relative loss gap, the
+    largest gaps of this rank's weights from its slices of the
+    reference's (where the first step's gradient was off 0, and where it
+    was within rounding of it), ms a step, seconds in the collectives,
+    the flash wrappers' launches and the sharding plan's warnings."""
+    from analytics_zoo_tpu_torch.common.context import init_context
+    from analytics_zoo_tpu_torch.parallel import sharding as tsh
+    from analytics_zoo_tpu_torch.parallel.pipeline_model import \
+        PipelinedTransformer
+    ctx = init_context(mesh_axes=axes, mesh_shape=shape, device=str(dev),
+                       seed=seed)
+    rows = tsh.process_rows(len(x), TRAIN_BATCH, ctx)
+    pipe = plan == "pipe"
+    model = copy.deepcopy(pipe_host if pipe else host).to(dev)
+    plan_obj = (PipelinedTransformer.sharding_plan() if pipe
+                else tsh.megatron_plan() if plan == "megatron" else None)
+    notes = _Notes()
+    log = logging.getLogger(tsh.__name__)
+    log.addHandler(notes)
+    reset_launches()
+    try:
+        with comm_clock() as comm_s:
+            run = par_fit(model, x[rows], y[rows], ctx, plan_obj,
+                          loss=PIPE_LOSS if pipe else TRAIN_LOSS)
+    finally:
+        log.removeHandler(notes)
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                "flash_bwd_dkv": fa.dkv_launches}
+    ref = refs["pipe" if pipe else "lm"]
+    want = tsh.local_tree(model, ref["tree"], ctx.mesh)
+    rows_fed = int(len(rows))
+    gaps = {"off_zero": 0.0, "near_zero": 0.0}
+    held, near, worst = 0, 0, None
+    for path, t in tsh.leaf_paths(model):
+        d = (t - want[path].to(dev)).abs()
+        small = run["g1"][t.data_ptr()].abs() < PAR_G1_FLOOR
+        held += t.numel()
+        near += int(small.sum())
+        for key, part in (("off_zero", d[~small]), ("near_zero", d[small])):
+            if part.numel():
+                gaps[key] = max(gaps[key], float(part.max()))
+        if worst is None or float(d.max()) > worst["gap"]:
+            i = int(d.argmax())
+            worst = {"path": path, "gap": float(d.max()), "g1": float(
+                run["g1"][t.data_ptr()].reshape(-1)[i])}
+    lgap = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   ref["losses"]))
+    del model, run["est"], run["g1"], want
+    par_free(dev)
+    return {"losses": run["losses"], "loss_rgap": lgap, "gaps": gaps,
+            "near_zero": near, "worst": worst, "ms": run["ms"],
+            "wall_s": run["wall_s"], "comm_s": dict(comm_s),
+            "route": run["route"], "launches": launches,
+            "warnings": notes.messages, "rows": rows_fed,
+            "params_held": held, "coords": ctx.mesh.coords}
+
+
+@contextlib.contextmanager
+def comm_clock():
+    """Host seconds inside the collectives of ``parallel/comm.py`` (their
+    host staging included, and the wait for the other ranks), by kind:
+    all-reduces and point-to-point hand-offs."""
+    from analytics_zoo_tpu_torch.parallel import comm
+    spent = {"all_reduce": 0.0, "p2p": 0.0, "gather": 0.0}
+    saved = {n: getattr(comm, n) for n in ("_reduce", "all_reduce_",
+                                           "_shift", "_gather")}
+    kinds = {"_reduce": "all_reduce", "all_reduce_": "all_reduce",
+             "_shift": "p2p", "_gather": "gather"}
+
+    def timed(name):
+        fn = saved[name]
+
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[kinds[name]] += time.perf_counter() - t0
+        return call
+
+    for n in saved:
+        setattr(comm, n, timed(n))
+    try:
+        yield spent
+    finally:
+        for n, fn in saved.items():
+            setattr(comm, n, fn)
+
+
+def par_moe(dev, seed: int) -> dict:
+    """``MixtureOfExperts`` (PAR_MOE) at TRAIN's width: the one-rank
+    forward, then the layer's expert-parallel form over ``expert``
+    PAR_RANKS (its E axis placed ``P("expert")``) on the same tokens."""
+    from analytics_zoo_tpu_torch.common.context import P, init_context
+    from analytics_zoo_tpu_torch.parallel.sharding import ShardingPlan
+    ctx = init_context(mesh_axes=("expert",), mesh_shape=(PAR_RANKS,),
+                       device=str(dev), seed=seed)
+    B, T = PAR_MOE_TOKENS
+    H = TRAIN["hidden_size"]
+    layer = MixtureOfExperts(**PAR_MOE, input_shape=(T, H),
+                             name="moe").init_weights(seed).to(dev)
+    g = torch.Generator().manual_seed(seed + 171)
+    x = torch.randn(B, T, H, generator=g).to(dev)
+    with torch.no_grad():
+        want = layer(x)
+        ShardingPlan([(r"^experts/", P("expert"))]).shard(layer, ctx.mesh)
+        sync(dev)
+        t0 = time.perf_counter()
+        got = layer(x)
+        sync(dev)
+    return {"max_abs_err": float((got - want).abs().max()),
+            "close": bool(torch.allclose(got, want, **MOE_TOL)),
+            "experts_held": int(layer.W1.shape[0]),
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def parallel_worker(tmp: str, rank: int, port: int, seed: int,
+                    device=None) -> int:
+    """``--parallel-rank R``: rank R of phase 17's world.  The models are
+    built on the host and the gloo world is joined (127.0.0.1:``port``)
+    first; then the rank writes ``tmp/ready-R`` and waits for
+    ``tmp/go``, so its start costs the phase no time.  Then, on every
+    rank in one order: the ring, the layouts' fits, the MoE; one JSON
+    line (``{"parallel": ...}``) reports them.  The group is destroyed on
+    the way out, failed or not."""
+    import datetime
+
+    import torch.distributed as dist
+    from analytics_zoo_tpu_torch.common.context import init_context
+    dev = device or torch.device("cuda", 0)
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    host = build_train_model(seed)
+    pipe_host = pipe_model(seed)
+    x, y = par_data(seed)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=PAR_RANKS,
+        timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        par_warm_up(dev)
+        ready = time.perf_counter() - t0
+        with open(os.path.join(tmp, f"ready-{rank}.tmp"), "w") as f:
+            f.write(f"{ready}")
+        os.replace(os.path.join(tmp, f"ready-{rank}.tmp"),
+                   os.path.join(tmp, f"ready-{rank}"))
+        go = os.path.join(tmp, "go")
+        while not os.path.exists(go):
+            check(time.perf_counter() - t0 < PAR_TIMEOUT_S,
+                  f"parallel rank {rank}: no go within {PAR_TIMEOUT_S} s")
+            time.sleep(0.02)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        report, walls = {"rank": rank, "ready_s": ready}, {}
+        t = time.perf_counter()
+        ctx = init_context(mesh_axes=("seq",), mesh_shape=(PAR_RANKS,),
+                           device=str(dev), seed=seed)
+        report["ring"] = par_ring(ctx.mesh, dev, seed)
+        report["seq_index"] = ctx.mesh.index("seq")
+        walls["ring"] = time.perf_counter() - t
+        t = time.perf_counter()
+        report["moe"] = par_moe(dev, seed)
+        walls["moe"] = time.perf_counter() - t
+        # the parent's one-rank fits ran meanwhile
+        t = time.perf_counter()
+        while not os.path.exists(os.path.join(tmp, "refs")):
+            check(time.perf_counter() - t < PAR_TIMEOUT_S,
+                  f"parallel rank {rank}: no references within "
+                  f"{PAR_TIMEOUT_S} s")
+            time.sleep(0.02)
+        refs = {k: torch.load(os.path.join(tmp, f"ref-{k}.pt"),
+                              mmap=True, weights_only=True)
+                for k in ("lm", "pipe")}
+        walls["references wait + read"] = time.perf_counter() - t
+        report["fits"] = {}
+        for tag, axes, shape, plan in PAR_LAYOUTS:
+            t = time.perf_counter()
+            report["fits"][tag] = par_layout_fit(
+                tag, axes, shape, plan, dev, seed, host, pipe_host, x, y,
+                refs)
+            walls[f"fit {tag}"] = time.perf_counter() - t
+        del refs
+        report["walls"] = walls
+        report["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                if dev.type == "cuda" else 0)
+        say(json.dumps({"parallel": report}))
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def par_warm_up(dev) -> None:
+    """What a rank's first case would otherwise pay inside the phase: the
+    kernel libraries, cuBLAS, the profiler's first session and a staged
+    collective of the world."""
+    import torch.distributed as dist
+    q = torch.randn(1, 1, 64, 64, device=dev, requires_grad=True)
+    fa.flash_attention(q, q, q, causal=True).sum().backward()
+    (q[0, 0] @ q[0, 0]).sum().backward()
+    with _impl.card_launches(K_KERNELS):
+        q.detach().add_(1)
+    from analytics_zoo_tpu_torch.parallel import comm
+    comm._reduce(torch.ones(8, device=dev), dist.group.WORLD)
+    sync(dev)
+    dist.barrier()
+
+
+def start_parallel_workers(seed: int, tmp: str, cmd=None) -> dict:
+    """Phase 17's ranks, started now (``cmd(rank, port)`` replaces the
+    command line); each builds its models on the host, joins the world
+    and waits for ``tmp/go``.  The parent's own pipelined reference model
+    is built on a thread meanwhile."""
+    import concurrent.futures
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pipe_host = pool.submit(pipe_model, seed, False)
+    pool.shutdown(wait=False)
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs = []
+    for r in range(PAR_RANKS):
+        argv = cmd(r, port) if cmd else [
+            sys.executable, os.path.join(here, "chip_smoke.py"),
+            "--parallel-rank", str(r), "--parallel-dir", tmp,
+            "--parallel-port", str(port), "--seed", str(seed)]
+        log = open(os.path.join(tmp, f"rank-{r}.log"), "w")
+        procs.append((subprocess.Popen(argv, cwd=here, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    return {"t0": time.perf_counter(), "procs": procs, "tmp": tmp,
+            "pipe_host": pipe_host}
+
+
+def stop_parallel_workers(workers: dict) -> None:
+    workers["pipe_host"].cancel()
+    for proc, log in workers["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def rank_log(workers: dict, r: int) -> str:
+    with open(os.path.join(workers["tmp"], f"rank-{r}.log")) as f:
+        return f.read()
+
+
+def wait_ranks(workers: dict, what: str, done, timeout_s: float) -> None:
+    """Wait until ``done()``; a rank that exits first, or the timeout,
+    fails the phase with the end of the ranks' logs."""
+    t0 = time.perf_counter()
+    while not done():
+        dead = [r for r, (p, _) in enumerate(workers["procs"])
+                if p.poll() not in (None, 0)]
+        if dead or time.perf_counter() - t0 > timeout_s:
+            tails = "\n".join(f"-- rank {r}:\n{rank_log(workers, r)[-3000:]}"
+                              for r in range(PAR_RANKS))
+            check(False, f"parallel: {what}: ranks {dead} failed (or "
+                         f"{timeout_s} s passed)\n{tails}")
+        time.sleep(0.05)
+
+
+def par_expected_launches(tag: str, coords: dict) -> int:
+    """A layout's flash forward launches on one rank (and as many dq and
+    dk/dv): TRAIN's blocks a step, the causal ring's s + 1 hops at seq
+    coordinate s, a pipeline stage's blocks over M + S - 1 ticks."""
+    nb = TRAIN["n_block"]
+    if tag == "pipe 4":
+        return nb // PAR_RANKS * (PAR_MICRO + PAR_RANKS - 1) * PAR_STEPS
+    return nb * PAR_STEPS * (coords.get("seq", 0) + 1)
+
+
+def check_parallel(reports: list, refs: dict, card: bool) -> dict:
+    """Every rank's report against the contract; prints each case."""
+    for rep in reports:
+        r, s = rep["rank"], rep["seq_index"]
+        for mode, hops in (("causal", s + 1), ("full", PAR_RANKS)):
+            c = rep["ring"][mode]
+            check(c["kernel_close"] and c["bodies_close"],
+                  f"parallel[ring] rank {r} {mode}: max err vs the whole "
+                  f"kernel {c['kernel_err']:.3e}, vs the einsum body "
+                  f"{c['bodies_err']:.3e} (atol {RING_TOL['atol']}, rtol "
+                  f"{RING_TOL['rtol']})")
+            want = {k: hops if card else 0 for k in K_KERNELS}
+            check(c["wrappers"] == want and c["card"] == want,
+                  f"parallel[ring] rank {r} {mode}: launches by the "
+                  f"wrappers {c['wrappers']}, on the card {c['card']}, "
+                  f"want {hops} each")
+        cz, fl = rep["ring"]["causal"], rep["ring"]["full"]
+        say(f"parallel[ring] rank {r} (tokens {s * PAR_RING[2] // PAR_RANKS}"
+            f"-{(s + 1) * PAR_RING[2] // PAR_RANKS - 1} of {PAR_RING}): "
+            f"causal out/dq/dk/dv max err {cz['kernel_err']:.3e} vs the "
+            f"whole-sequence kernel, {cz['bodies_err']:.3e} vs the einsum "
+            f"body; launches fwd/dq/dkv by the wrappers "
+            f"{list(cz['wrappers'].values())} = on the card "
+            f"{list(cz['card'].values())}; full {fl['kernel_err']:.3e} / "
+            f"{fl['bodies_err']:.3e}, launches "
+            f"{list(fl['wrappers'].values())} = "
+            f"{list(fl['card'].values())}; forward + backward "
+            f"{cz['ms']:.2f} / {fl['ms']:.2f} ms (host clock)")
+    for tag, _, _, plan in PAR_LAYOUTS:
+        ref = refs["pipe" if plan == "pipe" else "lm"]["losses"]
+        fits = [rep["fits"][tag] for rep in reports]
+        worst = max((f["worst"] for f in fits), key=lambda w: w["gap"])
+        for rep, f in zip(reports, fits):
+            r = rep["rank"]
+            g = f["gaps"]
+            check(len(f["losses"]) == PAR_STEPS
+                  and f["loss_rgap"] <= PAR_LOSS_RTOL
+                  and g["off_zero"] <= PAR_WEIGHT_TOL
+                  and g["near_zero"] <= PAR_NEAR_ZERO_TOL,
+                  f"parallel[fit {tag}] rank {r}: losses {f['losses']} vs "
+                  f"one rank's {ref} (max relative gap "
+                  f"{f['loss_rgap']:.3e}, limit {PAR_LOSS_RTOL}), weights "
+                  f"{g['off_zero']:.3e} (limit {PAR_WEIGHT_TOL}), those "
+                  f"whose first gradient was within {PAR_G1_FLOOR} of 0 "
+                  f"{g['near_zero']:.3e} (limit {PAR_NEAR_ZERO_TOL})")
+            want = par_expected_launches(tag, f["coords"]) if card else 0
+            check(all(v == want for v in f["launches"].values()),
+                  f"parallel[fit {tag}] rank {r}: flash launches "
+                  f"{f['launches']}, want {want} each")
+            check(f["route"] == "eager",
+                  f"parallel[fit {tag}] rank {r}: route {f['route']}")
+            if plan == "megatron":
+                check(len(f["warnings"]) == 1 and "wte" in f["warnings"][0],
+                      f"parallel[fit {tag}] rank {r}: the plan's warnings "
+                      f"{f['warnings']} (want the vocabulary's one)")
+        say(f"parallel[fit {tag}]: losses {[round(v, 6) for v in ref]} "
+            f"(one rank), ranks' max relative gap "
+            f"{max(f['loss_rgap'] for f in fits):.3e} (limit "
+            f"{PAR_LOSS_RTOL}), weights "
+            f"{max(f['gaps']['off_zero'] for f in fits):.3e} (limit "
+            f"{PAR_WEIGHT_TOL}) and, of the "
+            f"{max(f['near_zero'] for f in fits)} whose first gradient was "
+            f"within {PAR_G1_FLOOR} of 0, "
+            f"{max(f['gaps']['near_zero'] for f in fits):.3e} (limit "
+            f"{PAR_NEAR_ZERO_TOL}); ms/step by rank (host clock) "
+            f"{[round(f['ms'], 1) for f in fits]}; rows fed "
+            f"{[f['rows'] for f in fits]}; parameters held "
+            f"{[f['params_held'] for f in fits]}; flash launches a rank "
+            f"{[f['launches']['flash_fwd'] for f in fits]}; in the "
+            f"collectives (host s, all-reduce / p2p / gather) "
+            f"{[[round(v, 2) for v in f['comm_s'].values()] for f in fits]}"
+            f"; the worst weight, of {worst['path']} ({worst['gap']:.3e}), "
+            f"had a first gradient of {worst['g1']:.3e}"
+            + (f"; the plan's warning: {fits[0]['warnings'][0]!r}"
+               if plan == "megatron" else ""))
+    for rep in reports:
+        m = rep["moe"]
+        check(m["close"] and m["experts_held"] == PAR_MOE["num_experts"]
+              // PAR_RANKS,
+              f"parallel[moe] rank {rep['rank']}: max err "
+              f"{m['max_abs_err']:.3e} (atol {MOE_TOL['atol']}, rtol "
+              f"{MOE_TOL['rtol']}), {m['experts_held']} experts held")
+    say(f"parallel[moe]: MixtureOfExperts({PAR_MOE}) at width "
+        f"{TRAIN['hidden_size']} on {PAR_MOE_TOKENS} tokens, one expert a "
+        f"rank over expert {PAR_RANKS}: max err vs the one-rank forward "
+        f"{max(rep['moe']['max_abs_err'] for rep in reports):.3e}; "
+        f"{[round(rep['moe']['ms'], 2) for rep in reports]} ms a forward")
+    say(f"parallel: peak device memory by rank "
+        f"{[round(rep['peak_bytes'] / 2 ** 30, 2) for rep in reports]} GiB")
+    return {tag: [rep["fits"][tag]["ms"] for rep in reports]
+            for tag, *_ in PAR_LAYOUTS}
+
+
+def parallel_phase(seed: int, records: dict, workers: dict, host,
+                   dev=None, backend: str = "nccl") -> dict:
+    """Phase 17: the references and the NCCL world of one here, then the
+    4 ranks (``start_parallel_workers``) let go: ring attention, GPT-2
+    small's fits under 5 layouts, the MoE's expert parallelism; their
+    reports checked.  Its wall counts from the rendezvous (the ranks
+    ready) to the end."""
+    dev = dev or torch.device("cuda", 0)
+    card = dev.type == "cuda"
+    tmp = workers["tmp"]
+    lead = time.perf_counter() - workers["t0"]
+    wait_ranks(workers, "ready", lambda: all(os.path.exists(os.path.join(
+        tmp, f"ready-{r}")) for r in range(PAR_RANKS)), PAR_TIMEOUT_S)
+    t_phase = time.perf_counter()
+    ready = [float(open(os.path.join(tmp, f"ready-{r}")).read())
+             for r in range(PAR_RANKS)]
+    say(f"parallel: {PAR_RANKS} ranks (chip_smoke.py --parallel-rank r) on "
+        f"{dev} over gloo, each ready (models built on the host, world "
+        f"joined) {max(ready):.2f} s after its start, started "
+        f"{lead:.2f} s before this phase")
+    par_free(dev)
+    if card:
+        free_b, total_b = torch.cuda.mem_get_info(dev)
+        say(f"parallel: this process holds "
+            f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB "
+            f"allocated, {torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} "
+            f"reserved; the card has {free_b / 2 ** 30:.2f} of "
+            f"{total_b / 2 ** 30:.2f} GiB free, the ranks' processes "
+            f"included")
+    # the ranks run the ring and the MoE while the one-rank references
+    # are made here, and their fits while the NCCL world of one runs here
+    with open(os.path.join(tmp, "go"), "w"):
+        pass
+    refs = parallel_references(seed, dev, host,
+                               workers["pipe_host"].result(), tmp)
+    walls = dict(refs["walls"])
+    t = time.perf_counter()
+    refs["nccl"] = nccl_step(seed, dev, host, *refs["data"],
+                             refs["lm"]["losses"], backend)
+    walls["nccl"] = time.perf_counter() - t
+    par_free(dev)
+    wait_ranks(workers, "the ranks' run",
+               lambda: all(p.poll() is not None for p, _ in
+                           workers["procs"]), PAR_TIMEOUT_S)
+    walls["ranks, from the go"] = time.perf_counter() - t_phase
+    reports = []
+    for r in range(PAR_RANKS):
+        line = [ln for ln in rank_log(workers, r).splitlines()
+                if ln.startswith('{"parallel"')]
+        check(len(line) == 1, f"parallel: rank {r} printed no report")
+        reports.append(json.loads(line[0])["parallel"])
+    for k, v in reports[0]["walls"].items():
+        walls[f"rank 0: {k}"] = v
+    say("parallel: walls so far " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()))
+    ms = check_parallel(reports, refs, card)
+    for name in K_KERNELS:
+        rec = records.get({"flash_fwd": "flash", "flash_bwd_dq":
+                           "flash_bwd_dq", "flash_bwd_dkv":
+                           "flash_bwd_dkv"}[name])
+        if rec is not None:
+            rec["ring_launches"] = {
+                mode: [rep["ring"][mode]["card"][name] for rep in reports]
+                for mode in ("causal", "full")}
+            rec["tensor_parallel_launches"] = [
+                rep["fits"]["model 4"]["launches"][name] for rep in reports]
+    wall = time.perf_counter() - t_phase
+    say(f"parallel: phase wall {wall:.2f} s (limit {PAR_WALL_S:.0f} s; "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()) + ")")
+    check(wall <= PAR_WALL_S or not card,
+          f"parallel: phase wall {wall:.2f} s over {PAR_WALL_S} s")
+    return {"refs": refs, "reports": reports, "ms": ms, "wall_s": wall}
+
+
 def ptxas_summary(log: str) -> str:
     """``kernel<template args>: N regs[, spills]`` for every compiled entry
     point (names taken from the mangled symbol)."""
@@ -10154,6 +10961,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true",
                     help="with --fit-victim: fit(resume=True) from the "
                          "snapshot in DIR/ckpt")
+    ap.add_argument("--parallel-rank", type=int, metavar="R",
+                    help="rank R of phase 17's world (see "
+                         "parallel_worker); with --parallel-dir and "
+                         "--parallel-port")
+    ap.add_argument("--parallel-dir", metavar="DIR",
+                    help="with --parallel-rank: the phase's directory")
+    ap.add_argument("--parallel-port", type=int, metavar="PORT",
+                    help="with --parallel-rank: rank 0's port on "
+                         "127.0.0.1")
     return ap.parse_args(argv)
 
 
@@ -10177,6 +10993,9 @@ def main(argv=None) -> int:
         return resume_victim(args.resume_victim, args.seed)
     if args.fit_victim:
         return fit_victim(args.fit_victim, args.seed, args.resume)
+    if args.parallel_rank is not None:
+        return parallel_worker(args.parallel_dir, args.parallel_rank,
+                               args.parallel_port, args.seed)
 
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     say(f"card: {card_line()}")
@@ -10268,8 +11087,17 @@ def main(argv=None) -> int:
     gateway_phase(args.seed, served["off"]["timed"])
     fleet_phase(args.seed, served["off"]["timed"], single)
     estimator_phase(args.seed, records, train_host)
-    layers_phase(args.seed, records)
-    detection_phase(args.seed, records)
+    # phase 17's ranks build their models on the host while phases 15
+    # and 16 run
+    par_tmp = tempfile.mkdtemp(prefix="parallel_")
+    workers = start_parallel_workers(args.seed, par_tmp)
+    try:
+        layers_phase(args.seed, records)
+        detection_phase(args.seed, records)
+        parallel_phase(args.seed, records, workers, train_host)
+    finally:
+        stop_parallel_workers(workers)
+        shutil.rmtree(par_tmp, ignore_errors=True)
     say(f"wall: {time.perf_counter() - t_main:.2f} s, the whole script")
 
     say(json.dumps({"kernels": [records[k] for k in (

@@ -37,6 +37,11 @@ against the allocator.  Object detection: SSD-VGG16-300 quantized through
 ``InferenceModel`` (int8 bitwise the plain route with 30 ``w8a8_conv2d`` +
 5 ``w8a8`` launches, int4 within atol 1e-4 / rtol 1e-5 with 5 ``w4a16``),
 and ``multibox_loss``'s hard-negative tie order on the card as on the CPU.
+Multi-GPU training on one card: ring attention by 4 gloo ranks on
+cuda:0 against the whole-sequence flash kernel (atol 2e-5, rtol 1e-5;
+r + 1 launches causal, 4 full), and an NCCL world of one whose fit's
+all-reduces, eager and captured in CUDA graphs, leave its losses
+bitwise.
 """
 
 import threading
@@ -1433,7 +1438,9 @@ def _lm_fit(device, steps_per_call, drop=0.0, seqs=40, T=64):
     """A 2-block causal LM (flash forward and backward in every block)
     trained one epoch of ``seqs`` sequences at batch 4 with Adam and
     global-norm clipping: the per-step losses (device tensors read after
-    the run), the trained parameters and the launches on the card."""
+    the run), the trained parameters and the launches on the card.  The
+    context is made here, inside whatever ``torch.distributed`` world the
+    caller initialised."""
     from analytics_zoo_tpu_torch.common.context import ZooConf, ZooContext
     from analytics_zoo_tpu_torch.common.observability import MetricsRegistry
     from analytics_zoo_tpu_torch.estimator.estimator import Estimator
@@ -1462,7 +1469,8 @@ def _lm_fit(device, steps_per_call, drop=0.0, seqs=40, T=64):
             "params": [p.detach().clone() for p in model.parameters()],
             "card": dict(card), "step": est.global_step,
             "captures": cap["captures"] - cap0["captures"],
-            "replays": cap["replays"] - cap0["replays"]}
+            "replays": cap["replays"] - cap0["replays"],
+            "route": est.fit_summary()["route"]}
 
 
 @pytest.mark.gpu
@@ -1488,6 +1496,107 @@ def test_k_step_graph_matches_eager_steps_on_card(cuda_device, drop):
     for run in (eager, graph):
         assert run["card"] == {"flash_fwd": 20, "flash_bwd_dq": 20,
                                "flash_bwd_dkv": 20}, run["card"]
+
+
+# -- multi-GPU training on one card: gloo ranks, an NCCL world of one ---------
+
+def _spawn_card_ranks(bundle, tmp_path, inputs, world=4, timeout_s=300):
+    """``world`` ranks of ``tests/torch_parallel_worker.py``'s ``bundle``
+    on this card, meeting through a ``FileStore`` in ``tmp_path``; their
+    outputs by rank.  Every rank is killed if one fails or time runs
+    out."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump(inputs, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "torch_parallel_worker.py"),
+         bundle, str(tmp_path), str(world), str(r)],
+        cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=timeout_s)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{err[-4000:]}"
+    outs = []
+    for r in range(world):
+        with open(tmp_path / f"out-{r}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+@pytest.mark.gpu
+def test_ring_attention_four_ranks_on_one_card(cuda_device, tmp_path):
+    """4 ranks on cuda:0 over gloo (blocks staged through host memory),
+    seq 4: each rank's output block and the gradients of Σ(out·ct) for
+    its q, k, v blocks equal the flash kernel's over the whole sequence
+    (atol 2e-5, rtol 1e-5); rank r launches r + 1 flash forwards, dq and
+    dk/dv kernels causal and 4 full, by its wrappers and on the card."""
+    g = np.random.default_rng(24)
+    B, H, T, D = 2, 4, 256, 64
+    ring = {n: g.standard_normal((B, H, T, D)).astype(np.float32)
+            for n in "qkvc"}
+    outs = _spawn_card_ranks("card", tmp_path, {"ring": ring})
+    q, k, v, ct = (torch.from_numpy(ring[n]).to(cuda_device) for n in "qkvc")
+    for causal in (False, True):
+        whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = tfa.flash_attention(*whole, causal=causal)
+        (o * ct).sum().backward()
+        want = [o.detach()] + [t.grad for t in whole]
+        for r, out in enumerate(outs):
+            got = out[f"ring/{int(causal)}"]
+            sl = slice(r * T // 4, (r + 1) * T // 4)
+            for name, w in zip(("o", "dq", "dk", "dv"), want):
+                torch.testing.assert_close(
+                    torch.from_numpy(got[name]), w[:, :, sl].cpu(),
+                    atol=2e-5, rtol=1e-5, msg=f"rank {r} {name}")
+            hops = r + 1 if causal else 4
+            assert got["wrappers"] == (hops, hops, hops), got["wrappers"]
+            assert got["card"] == {"flash_fwd": hops, "flash_bwd_dq": hops,
+                                   "flash_bwd_dkv": hops}, got["card"]
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_fit_on_card(cuda_device):
+    """An NCCL world of one: the fit's all-reduces (the weight sum and
+    the gradients over ``data``) are launched and leave its losses
+    bitwise the no-world fit's; at ``steps_per_call=4`` they are captured
+    into the CUDA graphs, and the losses stay those of its eager steps."""
+    import torch.distributed as dist
+    ref = _lm_fit(cuda_device, 1)
+    calls = {"eager": 0, "captured": 0}
+    orig = dist.all_reduce
+
+    def counting(*a, **kw):
+        calls["captured" if torch.cuda.is_current_stream_capturing()
+              else "eager"] += 1
+        return orig(*a, **kw)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    dist.all_reduce = counting
+    try:
+        eager = _lm_fit(cuda_device, 1)
+        n_eager = dict(calls)
+        graph = _lm_fit(cuda_device, 4)
+    finally:
+        dist.all_reduce = orig
+        dist.destroy_process_group()
+    assert eager["losses"] == ref["losses"]
+    assert n_eager["eager"] >= 10 and n_eager["captured"] == 0
+    assert graph["route"] == "graph" and graph["captures"] == 2
+    assert calls["captured"] > 0
+    assert graph["losses"] == eager["losses"]
 
 
 # -- the remaining layers: MobileNet's shapes, dilated and 3-D int8 convs ------

@@ -248,9 +248,6 @@ MODULES_NOT_PORTED = (
     "interop/torch_graph.py", "interop/torchnet.py",
     "nn/net.py",
     "nnframes/__init__.py", "nnframes/nn_estimator.py",
-    "parallel/__init__.py", "parallel/pipeline.py",
-    "parallel/pipeline_model.py", "parallel/ring_attention.py",
-    "parallel/sharding.py",
     "xshard/__init__.py", "xshard/shard.py",
     "utils/donation.py", "utils/jaxcompat.py",
 )
@@ -276,9 +273,7 @@ JAX_PKG = REPO / "analytics_zoo_tpu"
 
 # names a JAX package __init__.py exports that the port has not ported
 # yet, by the package that exports them
-NOT_PORTED = {
-    "": {"init_nncontext", "mesh"},
-}
+NOT_PORTED: dict = {}
 # JAX packages whose __init__.py exports names and whose port does not
 # exist yet
 PACKAGES_NOT_PORTED = ("nnframes", "xshard")

@@ -448,8 +448,33 @@ def test_moe_gate_ties_break_by_index():
 
 
 def test_moe_mesh_waits_for_multi_gpu():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """Expert parallelism comes through a sharding plan, as in JAX (whose
+    layer has no ``mesh=``): with the E axis over ``expert`` 4 each rank
+    holds one expert, and the ranks' partial outputs (the psum left to
+    this test, on a mesh with no world behind it) sum to the JAX
+    forward."""
+    from analytics_zoo_tpu_torch.common.context import Mesh, P
+    from analytics_zoo_tpu_torch.parallel.sharding import ShardingPlan
+    from analytics_zoo_tpu_torch.utils.convert import load_jax_params
+    with pytest.raises(TypeError, match="mesh"):
         tmoe.MixtureOfExperts(4, 8, mesh=object())
+    ref = tmoe.MixtureOfExperts(4, 12, top_k=2, input_shape=(5, 8),
+                                name="moe")
+    _randomize(ref, 16)
+    p = params_np(ref)
+    x = _x(17, (2, 5, 8))
+    want = np.asarray(jmoe.MixtureOfExperts(4, 12, top_k=2,
+                                            name="moe").call(p, x))
+    total = 0
+    for r in range(4):
+        tl = tmoe.MixtureOfExperts(4, 12, top_k=2, input_shape=(5, 8),
+                                   name="moe")
+        load_jax_params(tl, p)
+        ShardingPlan([(r"^experts/", P("expert"))]).shard(
+            tl, Mesh(("expert",), (4,), range(4), r))
+        assert tuple(tl.W1.shape) == (1, 8, 12)
+        total = total + to_np(tl(torch.from_numpy(x)))
+    np.testing.assert_allclose(total, want, **LAYER_TOL)
 
 
 # -- Merge with branch layers ------------------------------------------------------

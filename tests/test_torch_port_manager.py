@@ -4,7 +4,7 @@ CPU (``model.device: cpu``, ephemeral ports, tiny models).
 
 - The config surface: ``load_config`` / ``serving_params`` /
   ``detect_model_type`` / ``build_queue`` as the JAX manager's; the
-  bridges' model types raise naming ROADMAP item 10, sharding item 7; a
+  bridges' model types raise naming ROADMAP item 10, sharding item 7's second part; a
   compile cache path raises and ``off`` is accepted; ``model.device``
   picks the device (none on a CPU-only host raises).
 - ``serve_from_config`` over a JAX-written ``.npz`` and a port topology
@@ -279,7 +279,8 @@ def test_load_model_bridges_device_and_unported_params(tmp_path):
     im = manager.load_model(cfg)
     assert im.device == torch.device("cpu") and im.load_mmap is False
     for key, val in (("sharding", "auto"), ("mesh_shape", [1, 2])):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError,
+                           match="item 7's second part"):
             manager.serving_params({"params": {key: val}})
     with pytest.raises(NotImplementedError, match="compile"):
         manager.serving_params({"params": {"compile_cache_dir": "/x"}})

@@ -23,7 +23,8 @@ front door phase's (the queue-fed and HTTP rounds, admission's 429s,
 the profile, the documents, the ledger and usage checks, the brownout
 and int8-predict steps) and its fleet phase's helpers (the median of the
 fleet's merged TTFT buckets, the summed series, the topology files it
-writes) are plain Python and run here at a tiny width.
+writes) and its multi-GPU phase (4 ranks over gloo, here on the CPU) are
+plain Python and run here at a tiny width.
 """
 
 import copy
@@ -1384,6 +1385,7 @@ def test_forecast_grid_and_trial_checks():
                                          for b in (32, 64))]
     cs.check_grid(trials)
     cs.check_same_trials(trials, copy.deepcopy(trials))
+    cs.check_same_trials(trials, copy.deepcopy(trials[:2]))
     with pytest.raises(cs.SmokeFailure, match="grid"):
         cs.check_grid(trials[:5])
     off = copy.deepcopy(trials)
@@ -1415,7 +1417,8 @@ def tiny_forecast(monkeypatch):
 
 
 def test_forecast_phase_on_cpu(tiny_forecast, tmp_path):
-    """AutoTS at parallelism 2 and 1 (identical trials), the save / load
+    """AutoTS at parallelism 2 and its first configs again at 1 (identical
+    trials, no retrain), the save / load
     round trip, MTNet, the MTNet smoke recipe, Seq2Seq and the population
     trainer, then every model served in f32, int8 and int4 on the CPU
     (every wrapper takes its plain version there, so each route's check
@@ -1644,3 +1647,59 @@ def test_estimator_retry_tensorboard_and_preemption_on_cpu(tiny_estimator,
         cs.stop_fit_victims(procs)
     assert 1 <= out["snapshot_step"] < cs.RESUME_STEPS
     assert out["gap"] == 0.0
+
+
+# -- phase 17: multi-GPU training, rehearsed on the CPU ---------------------------
+
+_TINY_PARALLEL = dict(
+    TRAIN=dict(vocab=66, hidden_size=32, n_block=4, n_head=4, seq_len=32),
+    TRAIN_SUBVOCAB=16, PAR_RING=(2, 4, 64, 16),
+    PAR_MOE=dict(num_experts=4, hidden_dim=16), PAR_MOE_TOKENS=(2, 8))
+
+
+@pytest.fixture
+def tiny_parallel(monkeypatch):
+    for k, v in _TINY_PARALLEL.items():
+        monkeypatch.setattr(cs, k, v)
+
+
+def test_parallel_phase_on_cpu(tiny_parallel, tmp_path):
+    """Phase 17 at a tiny width: 4 ranks (this script's
+    ``parallel_worker`` in processes of their own, on the CPU over gloo)
+    run the ring, the 5 layouts' fits and the MoE against the references
+    and a gloo world of one made here (every wrapper takes its plain
+    version, so no launch is counted); the checks accept them and reject
+    a doctored report."""
+    sets = "; ".join(f"cs.{k} = {v!r}" for k, v in _TINY_PARALLEL.items())
+
+    def cmd(rank, port):
+        return [sys.executable, "-c",
+                "import sys, torch; import chip_smoke as cs; "
+                f"{sets}; sys.exit(cs.parallel_worker({str(tmp_path)!r}, "
+                f"{rank}, {port}, 0, device=torch.device('cpu')))"]
+
+    workers = cs.start_parallel_workers(0, str(tmp_path), cmd=cmd)
+    try:
+        out = cs.parallel_phase(0, {}, workers, cs.build_train_model(0),
+                                dev=torch.device("cpu"), backend="gloo")
+    finally:
+        cs.stop_parallel_workers(workers)
+    reports = out["reports"]
+    assert sorted(r["rank"] for r in reports) == [0, 1, 2, 3]
+    assert [r["seq_index"] for r in reports] == [0, 1, 2, 3]
+    fits = reports[0]["fits"]
+    assert [fits[t]["rows"] for t, *_ in cs.PAR_LAYOUTS] == [8, 32, 32, 16,
+                                                            32]
+    assert all(r["moe"]["experts_held"] == 1 for r in reports)
+    bad = copy.deepcopy(reports)
+    bad[2]["fits"]["seq 4"]["loss_rgap"] = 2 * cs.PAR_LOSS_RTOL
+    with pytest.raises(cs.SmokeFailure, match="fit seq 4"):
+        cs.check_parallel(bad, out["refs"], card=False)
+    bad = copy.deepcopy(reports)
+    bad[1]["ring"]["causal"]["card"]["flash_fwd"] = 1
+    with pytest.raises(cs.SmokeFailure, match="ring"):
+        cs.check_parallel(bad, out["refs"], card=False)
+    assert cs.par_expected_launches("seq 4", {"seq": 2}) == \
+        cs.TRAIN["n_block"] * cs.PAR_STEPS * 3
+    assert cs.par_expected_launches("pipe 4", {"pipe": 1}) == \
+        cs.TRAIN["n_block"] // 4 * (cs.PAR_MICRO + 3) * cs.PAR_STEPS

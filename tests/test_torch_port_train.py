@@ -406,18 +406,40 @@ def test_keras_facade_matches_jax():
 
 
 def test_unported_estimator_features_raise():
-    """What still raises: ``param_plan`` (a tensor-parallel layout,
-    ROADMAP queue 1 item 7) and a fit without an optimizer.  Item 6 is
-    ported: checkpoints, ``fit(resume=True)``, TensorBoard,
-    ``steps_per_call`` and ``profile_dir`` work
+    """What still raises: a fit without an optimizer.  ``param_plan`` is
+    ported (``tests/test_torch_port_parallel*.py`` hold its parallel
+    forms against JAX): on a mesh of one rank the plan's axes fit away,
+    no layer changes form, and the fit is the plan-less fit bit for bit.
+    Item 6 is ported too: checkpoints, ``fit(resume=True)``,
+    TensorBoard, ``steps_per_call`` and ``profile_dir`` work
     (``tests/test_torch_port_checkpoint.py``,
     ``test_torch_port_tensorboard.py``)."""
+    from analytics_zoo_tpu_torch.parallel.sharding import megatron_plan
     m = Sequential([tcore.Dense(2, input_shape=(3,))])
     est = Estimator(m, optimizer="sgd", loss="mse",
                     ctx=ZooContext(ZooConf(device="cpu")))
     x, y = np.zeros((4, 3), np.float32), np.zeros((4, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="param_plan"):
-        Estimator(m, param_plan=object())
+    g = np.random.default_rng(0)
+    xs = g.normal(size=(16, 3)).astype(np.float32)
+    ys = g.normal(size=(16, 2)).astype(np.float32)
+    runs = []
+    for plan in (None, megatron_plan()):
+        pm = Sequential([tcore.Dense(8, activation="tanh", input_shape=(3,),
+                                     name="fc1"),
+                         tcore.Dense(2, name="out")])
+        pm.init_weights(3)
+        pe = Estimator(pm, optimizer=topt.Adam(lr=1e-2), loss="mse",
+                       param_plan=plan, registry=MetricsRegistry(),
+                       ctx=ZooContext(ZooConf(device="cpu")))
+        losses = []
+        pe._listeners.append(lambda s, l: losses.append(float(l)))
+        pe.fit(xs, ys, batch_size=4, epochs=1, shuffle=False,
+               verbose=False)
+        runs.append((losses, [p.detach().clone() for p in pe.params]))
+    assert pm.shard_layout == {}
+    assert len(runs[1][0]) == 4 and runs[1][0] == runs[0][0]
+    for a, b in zip(runs[1][1], runs[0][1]):
+        assert torch.equal(a, b)
     with pytest.raises(RuntimeError, match="optimizer and loss"):
         Estimator(m, ctx=est.ctx).fit(x, y)
     with pytest.raises(RuntimeError, match="set_checkpoint"):
